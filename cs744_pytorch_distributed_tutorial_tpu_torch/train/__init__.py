@@ -1,0 +1,8 @@
+from cs744_pytorch_distributed_tutorial_tpu_torch.train.engine import Trainer
+from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import (
+    SGD,
+    TrainState,
+    make_optimizer,
+)
+
+__all__ = ["SGD", "TrainState", "Trainer", "make_optimizer"]
