@@ -1,6 +1,8 @@
 """One CLI entry point for all parts, on PyTorch.
 
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 1 --fused-optimizer
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 1 --model resnet18 \\
+        --fast-conv --fused-optimizer
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 2b \\
         --coordinator 10.0.0.1:29500 --num-processes 4 --process-id 0
 
@@ -39,6 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default=None, help="model name (default vgg11)")
     p.add_argument("--image-size", type=int, default=None)
     p.add_argument("--num-classes", type=int, default=None)
+    p.add_argument("--imagenet-stem", action="store_true", default=None,
+                   help="force the 7x7/stride-2 + maxpool ResNet stem")
     p.add_argument("--num-devices", type=int, default=None,
                    help="data-parallel world size")
     p.add_argument("--global-batch-size", type=int, default=None)
@@ -63,6 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"], default=None)
     p.add_argument("--fused-optimizer", action="store_true", default=None,
                    help="use the CUDA fused SGD kernel (ops/fused_sgd.py)")
+    p.add_argument("--fast-conv", action="store_true", default=None,
+                   help="CUDA wgrad kernel for the wide stride-1 ResNet 3x3 "
+                        "convs (ops/fused_conv.py)")
     p.add_argument("--no-augment", action="store_false", dest="augment",
                    default=None,
                    help="disable train-time crop/flip (deterministic inputs)")
@@ -106,6 +113,8 @@ _ARG_TO_FIELD = {
     "synthetic_test_size": "synthetic_test_size",
     "compute_dtype": "compute_dtype",
     "fused_optimizer": "fused_optimizer",
+    "fast_conv": "fast_conv",
+    "imagenet_stem": "imagenet_stem",
     "log_every": "log_every",
     "coordinator_address": "coordinator_address",
     "num_processes": "num_processes",

@@ -53,6 +53,10 @@ class TrainConfig:
     model: str = "vgg11"
     num_classes: int = 10
     image_size: int = 32
+    # ResNet stem selection: None = auto (CIFAR 3x3 stem at image_size
+    # <= 64, ImageNet 7x7/stride-2 + maxpool above); True/False forces.
+    # Ignored by non-ResNet models.
+    imagenet_stem: bool | None = None
     data_root: str = "./data"
     synthetic_data: bool | None = None  # None = auto (synthetic if no local CIFAR-10)
     synthetic_train_size: int = 50_000
@@ -84,6 +88,10 @@ class TrainConfig:
 
     # Route the SGD update through the CUDA fused-SGD kernel (ops/fused_sgd.py).
     fused_optimizer: bool = False
+
+    # Route the wide stride-1 3x3 ResNet convs' weight gradient through
+    # the CUDA wgrad kernel (ops/fused_conv.py); ResNet models only.
+    fast_conv: bool = False
 
     # Logging / instrumentation (the reference prints loss every 20 batches
     # and the avg per-batch time over batches 1-10: master/part1/part1.py:39-44)

@@ -1,7 +1,8 @@
 """Model zoo and registry.
 
-The VGG table and ``tiny_cnn``, the small net the fast tests run. Every
-other model of the JAX package's registry raises "not yet ported".
+The VGG table, ``tiny_cnn`` (the small net the fast tests run) and
+ResNet-18/34/50. The ViT family of the JAX package's registry raises
+"not yet ported".
 """
 
 from __future__ import annotations
@@ -10,6 +11,12 @@ from typing import Any, Callable
 
 from torch import nn
 
+from cs744_pytorch_distributed_tutorial_tpu_torch.models.resnet import (
+    ResNet,
+    resnet18,
+    resnet34,
+    resnet50,
+)
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.vgg import (
     VGG,
     VGG_CFGS,
@@ -35,13 +42,14 @@ MODEL_REGISTRY: dict[str, Callable[..., nn.Module]] = {
     "vgg13": vgg13,
     "vgg16": vgg16,
     "vgg19": vgg19,
+    "resnet18": resnet18,
+    "resnet34": resnet34,
+    "resnet50": resnet50,
     "tiny_cnn": tiny_cnn,
 }
 
 # In the JAX package's registry, still to port.
-_NOT_YET_PORTED = (
-    "resnet18", "resnet34", "resnet50", "vit_tiny", "vit_small", "vit_wide_p8",
-)
+_NOT_YET_PORTED = ("vit_tiny", "vit_small", "vit_wide_p8")
 
 
 def get_model(name: str, **kw: Any) -> nn.Module:
@@ -59,10 +67,14 @@ def get_model(name: str, **kw: Any) -> nn.Module:
 __all__ = [
     "MODEL_CFGS",
     "MODEL_REGISTRY",
+    "ResNet",
     "TINY_CNN_CFG",
     "VGG",
     "VGG_CFGS",
     "get_model",
+    "resnet18",
+    "resnet34",
+    "resnet50",
     "tiny_cnn",
     "vgg11",
     "vgg13",

@@ -5,7 +5,8 @@ on first use, into ``build/torch_kernels/`` at the root of the checkout,
 named by a hash of the source and the flags so an edited source
 rebuilds. The library has a plain C interface and is loaded with
 ``ctypes``; no PyTorch headers are compiled, so a build takes seconds.
-A failed build raises.
+A failed build raises. Each source builds under its own lock, so
+``build_all`` runs one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
@@ -27,7 +29,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 # Seconds each library took to build in this process (0.0 when cached).
 build_seconds: dict[str, float] = {}
@@ -50,6 +53,8 @@ def _nvcc() -> str:
 def load_library(source_name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<source_name>``."""
     with _lock:
+        lock = _locks.setdefault(source_name, threading.Lock())
+    with lock:
         lib = _loaded.get(source_name)
         if lib is not None:
             return lib
@@ -76,3 +81,9 @@ def load_library(source_name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _loaded[source_name] = lib
         return lib
+
+
+def build_all(source_names: list[str]) -> list[ctypes.CDLL]:
+    """Build and load several sources, one ``nvcc`` each, all at once."""
+    with ThreadPoolExecutor(max_workers=len(source_names)) as pool:
+        return list(pool.map(load_library, source_names))

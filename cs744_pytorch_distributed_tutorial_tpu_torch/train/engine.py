@@ -119,12 +119,23 @@ class Trainer:
         self.compute_dtype = resolve_dtype(cfg.compute_dtype)
         self.tx = make_optimizer(cfg)
 
+        model_kw: dict[str, Any] = {}
+        if cfg.model.startswith("resnet"):
+            use_imagenet_stem = (
+                cfg.image_size > 64
+                if cfg.imagenet_stem is None
+                else cfg.imagenet_stem
+            )
+            model_kw.update(cifar_stem=not use_imagenet_stem, fast_conv=cfg.fast_conv)
+        elif cfg.fast_conv:
+            raise ValueError(
+                f"fast_conv routes ResNet 3x3 convs; {cfg.model!r} has none"
+            )
+        else:
+            model_kw["image_size"] = cfg.image_size
         gen = torch.Generator().manual_seed(cfg.seed)
         self.model = get_model(
-            cfg.model,
-            num_classes=cfg.num_classes,
-            image_size=cfg.image_size,
-            generator=gen,
+            cfg.model, num_classes=cfg.num_classes, generator=gen, **model_kw
         ).to(self.device)
         self.params = list(self.model.parameters())
         # part3: DDP averages the gradients inside backward(); its

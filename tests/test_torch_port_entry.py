@@ -83,7 +83,8 @@ def test_multi_rank_part_needs_a_coordinator():
         (dict(lr_schedule="cosine"), NotImplementedError),
         (dict(grad_clip_norm=1.0), NotImplementedError),
         (dict(accum_steps=2), NotImplementedError),
-        (dict(model="resnet18"), NotImplementedError),
+        (dict(model="vit_tiny"), NotImplementedError),
+        (dict(model="vgg11", fast_conv=True), ValueError),  # no ResNet 3x3 convs
         (dict(sync="zero1"), NotImplementedError),
         (dict(sync="allreduce"), ValueError),  # no process group
         (dict(num_devices=2), ValueError),
@@ -100,7 +101,8 @@ def test_build_directory_is_ignored_by_git():
 
     assert _build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
     assert "build/" in (REPO / ".gitignore").read_text().split()
-    assert os.path.exists(_build.CSRC_DIR / "fused_sgd.cu")
+    for source in ("fused_sgd.cu", "fused_conv.cu"):
+        assert os.path.exists(_build.CSRC_DIR / source)
 
 
 def test_bfloat16_autocast_trains_on_cpu():
