@@ -6,12 +6,20 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.data.cifar10 import (
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.data.loader import BatchLoader
 from cs744_pytorch_distributed_tutorial_tpu_torch.data.sampler import ShardedSampler
+from cs744_pytorch_distributed_tutorial_tpu_torch.data.text import (
+    BYTE_VOCAB,
+    byte_corpus,
+    synthetic_tokens,
+)
 
 __all__ = [
+    "BYTE_VOCAB",
     "BatchLoader",
     "CIFAR10Dataset",
     "ShardedSampler",
+    "byte_corpus",
     "load_cifar10",
     "synthetic_cifar10",
     "synthetic_images",
+    "synthetic_tokens",
 ]

@@ -34,6 +34,20 @@ the global average pool, so the Dense rows need no permutation. The
 block class name comes from ``arch``; the number of blocks and which
 have a projection (``Conv_2`` in a BasicBlock, ``Conv_3`` in a
 bottleneck) come from the tree, so cut-down stage tables convert too.
+
+The transformer LM (``models/transformer.py``), flax ``params`` only:
+
+    flax                                  port state_dict
+    tok_embed/embedding, pos_embed/...    tok_embed.weight, pos_embed.weight
+    block_i/ln1, ln2 {scale, bias}        blocks.i.ln1.{weight, bias}, ...
+    block_i/attn/{q,k,v,attn_out}/...     blocks.i.attn.q.{weight, bias}, ...
+    block_i/{mlp_in,mlp_gate,mlp_out}     blocks.i.mlp_in.{weight, bias}, ...
+    block_i/mlp_out_bias                  blocks.i.mlp_out_bias
+    ln_f {scale, bias}                    ln_f.{weight, bias}
+    lm_head/kernel                        lm_head.weight
+
+with Dense kernels ``[in, out]`` transposed into ``Linear.weight [out,
+in]``; norm scales and embeddings copied as they are.
 """
 
 from __future__ import annotations
@@ -214,3 +228,67 @@ def _resnet_jax_from_state_dict(state_dict: Mapping[str, Any], block: str) -> di
         else:
             raise ValueError(f"unexpected ResNet state_dict key {key!r}")
     return {"params": params, "batch_stats": stats}
+
+
+# The port's LM module names whose ``weight`` is a flax norm ``scale`` or
+# an ``Embed`` table (every other ``weight`` is a Dense kernel).
+_LM_SCALES = ("ln1", "ln2", "ln_f")
+_LM_EMBEDS = ("tok_embed", "pos_embed")
+
+
+def _flatten(tree: Mapping, prefix: tuple = ()):
+    for name, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            yield from _flatten(leaf, prefix + (name,))
+        else:
+            yield prefix + (name,), leaf
+
+
+def lm_params_from_jax(params: Mapping[str, Any], cfg: Any = None) -> dict[str, torch.Tensor]:
+    """A flax ``TransformerLM`` ``params`` tree -> the port's
+    ``state_dict``. With ``cfg`` (anything with ``num_layers``), the
+    tree's block count is checked against it."""
+    out: dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params):
+        scope = [f"blocks.{p[len('block_'):]}" if p.startswith("block_") else p
+                 for p in path[:-1]]
+        name = path[-1]
+        if name == "kernel":
+            out[".".join(scope + ["weight"])] = _tensor(_np(leaf).T)
+        elif name in ("scale", "embedding"):
+            out[".".join(scope + ["weight"])] = _tensor(leaf)
+        elif name in ("bias", "mlp_out_bias"):
+            out[".".join(scope + [name])] = _tensor(leaf)
+        else:
+            raise ValueError(f"unexpected LM param {'/'.join(path)!r}")
+    if cfg is not None:
+        blocks = {k.split(".")[1] for k in out if k.startswith("blocks.")}
+        if len(blocks) != cfg.num_layers:
+            raise ValueError(f"params hold {len(blocks)} blocks, cfg.num_layers is {cfg.num_layers}")
+    return out
+
+
+def jax_lm_params_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """The reverse: the port LM's ``state_dict`` -> a flax ``params``
+    tree of numpy arrays."""
+    params: dict = {}
+    for key, value in state_dict.items():
+        *scope, name = key.split(".")
+        if scope[:1] == ["blocks"]:
+            scope = [f"block_{scope[1]}", *scope[2:]]
+        node = params
+        for part in scope:
+            node = node.setdefault(part, {})
+        if name == "weight":
+            module = scope[-1]
+            if module in _LM_SCALES:
+                node["scale"] = _np(value)
+            elif module in _LM_EMBEDS:
+                node["embedding"] = _np(value)
+            else:
+                node["kernel"] = np.ascontiguousarray(_np(value).T)
+        elif name in ("bias", "mlp_out_bias"):
+            node[name] = _np(value)
+        else:
+            raise ValueError(f"unexpected LM state_dict key {key!r}")
+    return params

@@ -1,0 +1,223 @@
+"""LM training engine on one device, ported from the JAX package's
+``train/lm.py`` at a data, sequence and tensor axis of size 1.
+
+A step: the model's forward on [B, T] token ids (``models/
+transformer.py``; bf16 compute when ``compute_dtype="bfloat16"``, by
+explicit casts inside each module, fp32 parameters, fp32 logits), the
+mean cross-entropy (the JAX ``_smoothed_xent``, label smoothing
+included), ``backward()``, and the optimizer update (``adamw`` with
+optax semantics or ``sgd``; ``train/state.py::make_lm_optimizer``). The
+step returns ``{loss, grad_norm, param_norm}`` as 0-d tensors on the
+device: the global L2 norms of the gradient and of the updated
+parameters.
+
+``fit`` follows the JAX batch plan (batch k starts at sequence
+``(k * B) % max(N - B + 1, 1)``) and stops on a non-finite loss.
+Options of later slices raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from cs744_pytorch_distributed_tutorial_tpu_torch.config import resolve_device, resolve_dtype
+from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import (
+    ATTENTION_IMPLS,
+    TransformerLM,
+)
+from cs744_pytorch_distributed_tutorial_tpu_torch.train.engine import _smoothed_xent
+from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import make_lm_optimizer
+
+
+class NonFiniteLossError(RuntimeError):
+    def __init__(self, step: int, loss: float):
+        super().__init__(f"non-finite loss {loss} at step {step}")
+        self.step, self.loss = step, loss
+
+
+@dataclasses.dataclass
+class LMConfig:
+    """Model dims and training recipe, with the JAX package's names and
+    defaults, plus ``device``."""
+
+    vocab_size: int = 1024
+    num_layers: int = 2
+    num_heads: int = 8
+    d_model: int = 128
+    d_ff: int = 512
+    max_seq_len: int = 2048
+    attention_impl: str = "ring"  # ring | ulysses | ulysses_flash | dense | flash
+    compute_dtype: str = "float32"
+    tie_embeddings: bool = False
+    norm: str = "layernorm"
+    mlp: str = "gelu"
+    use_rope: bool = False
+    num_kv_heads: int | None = None
+
+    global_batch_size: int = 8
+    seq_len: int = 256
+    learning_rate: float = 1e-3
+    seed: int = 0
+    optimizer: str = "adamw"  # "adamw" | "sgd"
+    lr_schedule: str = "constant"
+    warmup_steps: int = 0
+    momentum: float = 0.9  # adamw b1; sgd momentum
+    weight_decay: float = 1e-4
+    label_smoothing: float = 0.0
+    halt_on_nonfinite: bool = True
+
+    # Options of later slices, accepted only at their "off" value.
+    data_parallel: int = 1
+    seq_parallel: int = 1
+    tensor_parallel: int = 1
+    moe_experts: int = 0
+    grad_clip_norm: float | None = None
+    grad_compress: str = "none"
+    sync_overlap: str = "off"
+    remat: bool = False
+    zero1: bool = False
+    fsdp: bool = False
+    scan_layers: bool = False
+    fused_xent: bool = False
+    dropout_rate: float = 0.0
+    accum_steps: int = 1
+    checkpoint_dir: str | None = None
+    snapshot_every: int = 0
+    step_timeout_s: float | None = None
+    metrics_dir: str | None = None
+    profile_dir: str | None = None
+
+    # "cuda" (default) or "cpu".
+    device: str = "cuda"
+
+    def replace(self, **kw: Any) -> "LMConfig":
+        return dataclasses.replace(self, **kw)
+
+
+_LATER_FIELDS = (
+    "data_parallel", "seq_parallel", "tensor_parallel", "moe_experts", "grad_clip_norm",
+    "grad_compress", "sync_overlap", "remat", "zero1", "fsdp", "scan_layers", "fused_xent",
+    "dropout_rate", "accum_steps", "checkpoint_dir", "snapshot_every", "step_timeout_s",
+    "metrics_dir", "profile_dir",
+)
+
+
+def _check_config(cfg: LMConfig) -> None:
+    off = LMConfig()
+    for name in _LATER_FIELDS:
+        if getattr(cfg, name) != getattr(off, name):
+            raise NotImplementedError(f"{name}={getattr(cfg, name)!r} is not yet ported")
+    if cfg.attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(
+            f"unknown attention_impl {cfg.attention_impl!r}; choose from {ATTENTION_IMPLS}"
+        )
+    if cfg.seq_len > cfg.max_seq_len:
+        raise ValueError(f"seq_len {cfg.seq_len} exceeds max_seq_len {cfg.max_seq_len}")
+    if not 0.0 <= cfg.label_smoothing < 1.0:
+        raise ValueError(f"label_smoothing must be in [0, 1), got {cfg.label_smoothing}")
+
+
+def _global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of every element's square, in fp32."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+class LMTrainer:
+    """``TransformerLM`` training on one device: ``init``, ``split_batch``,
+    ``train_step``, ``eval_step``, ``evaluate`` and ``fit``."""
+
+    def __init__(self, cfg: LMConfig):
+        _check_config(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(cfg.device)
+        self.dtype = resolve_dtype(cfg.compute_dtype)
+        self.model: TransformerLM | None = None
+        self.optimizer = None
+
+    def init(self, seed: int | None = None, state_dict: dict | None = None):
+        """Build the model (parameters from ``seed``, default
+        ``cfg.seed``, or loaded from ``state_dict``) and its optimizer;
+        returns ``(model, optimizer)``."""
+        cfg = self.cfg
+        gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+        self.model = TransformerLM(
+            vocab_size=cfg.vocab_size, num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+            d_model=cfg.d_model, d_ff=cfg.d_ff, max_seq_len=cfg.max_seq_len,
+            dtype=self.dtype, attention_impl=cfg.attention_impl,
+            tie_embeddings=cfg.tie_embeddings, use_rope=cfg.use_rope,
+            num_kv_heads=cfg.num_kv_heads, norm=cfg.norm, mlp=cfg.mlp, generator=gen,
+        ).to(self.device)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        self.optimizer = make_lm_optimizer(self.cfg, list(self.model.parameters()))
+        return self.model, self.optimizer
+
+    def split_batch(self, tokens) -> tuple[torch.Tensor, torch.Tensor]:
+        """[B, seq_len + 1] tokens -> (inputs [:, :-1], targets [:, 1:]) as
+        int64 tensors on the device."""
+        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
+        tokens = tokens.to(self.device, non_blocking=True)
+        return tokens[:, :-1], tokens[:, 1:]
+
+    def _loss(self, inputs: torch.Tensor, targets: torch.Tensor, smoothing: float):
+        logits = self.model(inputs)
+        v = logits.shape[-1]
+        return _smoothed_xent(logits.reshape(-1, v), targets.reshape(-1), smoothing)
+
+    def train_step(self, inputs: torch.Tensor, targets: torch.Tensor) -> dict[str, torch.Tensor]:
+        params = list(self.model.parameters())
+        for p in params:
+            p.grad = None
+        loss = self._loss(inputs, targets, self.cfg.label_smoothing)
+        loss.backward()
+        grad_norm = _global_norm([p.grad for p in params])
+        self.optimizer.step()
+        with torch.no_grad():
+            param_norm = _global_norm(params)
+        return {"loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm}
+
+    @torch.no_grad()
+    def eval_step(self, inputs: torch.Tensor, targets: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Plain mean cross-entropy (no label smoothing)."""
+        return {"loss": self._loss(inputs, targets, 0.0)}
+
+    def evaluate(self, tokens) -> dict[str, float]:
+        """Mean next-token cross-entropy and perplexity over ``tokens``
+        [N, seq_len + 1], in batches of ``global_batch_size``; a ragged
+        tail is dropped."""
+        b = self.cfg.global_batch_size
+        n_batches = len(tokens) // b
+        if n_batches == 0:
+            raise ValueError(f"need at least global_batch_size={b} sequences, got {len(tokens)}")
+        total = 0.0
+        for i in range(n_batches):
+            x, y = self.split_batch(tokens[i * b : (i + 1) * b])
+            total += float(self.eval_step(x, y)["loss"])
+        mean_loss = total / n_batches
+        return {"loss": mean_loss, "perplexity": math.exp(mean_loss)}
+
+    def fit(self, tokens, steps: int):
+        """Train ``steps`` steps from a fresh ``init()`` over batches of
+        ``tokens`` [N, seq_len + 1]; returns ``(model, optimizer,
+        losses)``. ``self.history`` holds every step's metrics."""
+        cfg = self.cfg
+        model, optimizer = self.init()
+        losses: list[float] = []
+        self.history: dict[str, list[float]] = {"loss": losses}
+        n, b = len(tokens), cfg.global_batch_size
+        for step in range(steps):
+            lo = (step * b) % max(n - b + 1, 1)
+            x, y = self.split_batch(tokens[lo : lo + b])
+            m = self.train_step(x, y)
+            loss = float(m["loss"])
+            if cfg.halt_on_nonfinite and not math.isfinite(loss):
+                raise NonFiniteLossError(step, loss)
+            losses.append(loss)
+            for key in ("grad_norm", "param_norm"):
+                self.history.setdefault(key, []).append(float(m[key]))
+        return model, optimizer, losses

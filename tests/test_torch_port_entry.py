@@ -101,7 +101,7 @@ def test_build_directory_is_ignored_by_git():
 
     assert _build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
     assert "build/" in (REPO / ".gitignore").read_text().split()
-    for source in ("fused_sgd.cu", "fused_conv.cu"):
+    for source in ("fused_sgd.cu", "fused_conv.cu", "flash_attention.cu"):
         assert os.path.exists(_build.CSRC_DIR / source)
 
 
