@@ -39,7 +39,30 @@ no result):
    every launch count zeroed just before and read just after;
 10. its throughput (``LMTrainer.train_step``, tokens/s and MFU) with flash
     and with dense attention, a flash-vs-dense trajectory (2 layers at full
-    width, fp32, TF32 off), and a profile of one flash step.
+    width, fp32, TF32 off), and a profile of one flash step;
+11. paged attention: the decode kernel against its plain version (the
+    gather path) at the serving shape (16 slots, 12 query heads over 4 KV
+    heads, D 64, page 16, ragged depths up to 511) in fp32, bf16 and int8
+    (under an fp32 and a bf16 query), and at a ragged one (page 8, group
+    1, D 128, a slot at depth 0), every page a slot does not hold live
+    written with NaN; then its times (bf16, and int8 pages under a bf16
+    query, the variants serving runs) beside its bound, the gather path's
+    and a gather plus ``scaled_dot_product_attention``'s;
+12. the int8 weight matmul against its plain version at the GPT-2-small
+    head's decode ([16, 768] x [768, 50304]) and prompt-pass ([2048, 768])
+    shapes in bf16 and fp32, then its times beside its bound, the plain
+    version's and ``torch.matmul`` on the widened weight;
+13. generation through ``lm_cli --generate 128``: GPT-2-small width with 4
+    KV heads, batch 16, prompt 128, greedy, bf16, ``--int8-decode head``
+    (one int8 matmul launch a model call), then in bf16 alone (the share
+    of greedy tokens the int8 head keeps) and with ``--int8-kv-cache``;
+14. serving through ``serve_cli``: the same model, 16 slots over a
+    513-page pool of 16 rows (32 pages a slot), 64 Poisson requests at 64
+    rps, prompts and outputs 64-256 tokens, the paged kernel (12 launches
+    a decode step); the same trace through the kernel and gather engines
+    (the share of greedy tokens that agree); a pool-pressure run (97
+    pages, int8 KV pages and the int8 head) that must preempt; and a
+    profile of 20 decode steps.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -91,6 +114,29 @@ LM_WIDTH = dict(num_layers=12, d_model=768, num_heads=12, d_ff=3072, vocab_size=
                 max_seq_len=1024, seq_len=1024)
 LM_PARAMS, LM_TENSORS = 162_286_080, 148
 LM_TIMED_STEPS = 10
+
+# The inference slice: the JAX package's GPT-2-small decode shape
+# (benchmarks/bench_generate.py), 4 KV heads (GQA, group 3).
+DECODE_WIDTH = dict(num_layers=12, d_model=768, num_heads=12, num_kv_heads=4, d_ff=3072,
+                    vocab_size=50304, max_seq_len=1024)
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 16, 128, 128
+SERVE_GEOMETRY = dict(num_slots=16, page_size=16, num_pages=513, max_pages_per_slot=32)
+PRESSURE_PAGES = 97  # 96 allocatable pages for 16 slots of up to 32 pages
+PROFILE_PROMPT, PROFILE_BUDGET = 128, 64
+SERVE_TRACE = dict(num_requests=64, rate_rps=64.0, prompt_len=(64, 256), output_len=(64, 256),
+                   seed=0)
+# Paged attention: (B, Hq, Hkv, D, page_size, pages a slot). The serving
+# shape first.
+PAGED_SERVE = (16, 12, 4, 64, 16, 32)
+PAGED_CASES = [PAGED_SERVE, (5, 2, 2, 128, 8, 7)]
+# name: (pool dtype, q dtype). int8_bf16q is the variant serving runs:
+# bf16 compute over int8 pages, the output in bf16.
+PAGED_VARIANTS = {"float32": (torch.float32, torch.float32),
+                  "bfloat16": (torch.bfloat16, torch.bfloat16),
+                  "int8": (torch.int8, torch.float32),
+                  "int8_bf16q": (torch.int8, torch.bfloat16)}
+PAGED_FP32_TOL = 2e-5  # max abs err of fp32 outputs
+INT8_SHAPES = {"decode": (GEN_BATCH, 768, 50304), "prefill": (GEN_BATCH * GEN_PROMPT, 768, 50304)}
 
 
 def card_line() -> str:
@@ -159,6 +205,59 @@ def device_busy_ms(fn, reps: int = 10, match: str | None = None) -> float | None
         if match is None or match in e.name
     )
     return total_us / reps / 1e3 if total_us else None
+
+
+def summarize_profile(prof, steps: int, label: str, groups: dict[str, tuple[str, ...]]) -> dict:
+    """Where ``steps`` steps' device time went in a torch.profiler trace:
+    kernel time a step (busy), first kernel start to last kernel end
+    (span), idle share 1 - busy / span, the ms a step of each group of
+    kernels (those whose name holds one of its strings) and the top 12
+    kernels. Empty when the profiler recorded no device activity."""
+    kernels = device_kernels(prof)
+    if not kernels:
+        print(f"{label}: torch.profiler recorded no device activity")
+        return {}
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "steps": steps,
+        "device_busy_ms_per_step": busy / steps / 1e3,
+        "span_ms_per_step": span / steps / 1e3,
+        "idle_share": 1.0 - busy / span,
+        "kernels_per_step": len(kernels) / steps,
+        **{f"{group}_ms_per_step": sum(v for k, v in by_name.items() if any(s in k for s in keys))
+           / steps / 1e3 for group, keys in groups.items()},
+        "top_kernels_ms_per_step": {k[:90]: v / steps / 1e3 for k, v in top},
+    }
+
+
+def kernel_modules():
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_sgd as K
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import paged_attention as PA
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
+
+    return {"fused_sgd": K, "conv3x3_wgrad": C, "flash": A, "paged_attention": PA,
+            "int8_matmul": QT}
+
+
+def counted(fn):
+    """``fn()`` with every kernel's launch count zeroed just before and
+    read just after: (result, counts)."""
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.reset_launch_count()
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {name: mod.launch_count() for name, mod in mods.items()}
+    counts["paged_attention_int8"] = mods["paged_attention"].launch_count("int8")
+    return out, counts
 
 
 def run_cli(argv: list[str], main=None) -> dict:
@@ -412,13 +511,10 @@ def counted_run(argv: list[str]) -> tuple[dict, dict]:
     """Run the CLI with every launch count zeroed just before and read
     just after."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
-    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_sgd as K
 
-    K.reset_launch_count()
-    C.reset_launch_count()
-    summary = run_cli(argv)
+    summary, counts = counted(lambda: run_cli(argv))
     counts = {
-        "fused_sgd": K.launch_count(),
+        "fused_sgd": counts["fused_sgd"],
         "conv3x3_wgrad_s1": C.launch_count(stride=1),
         "conv3x3_wgrad_s2": C.launch_count(stride=2),
         "conv3x3_wgrad_bf16": C.launch_count(dtype=torch.bfloat16),
@@ -549,33 +645,12 @@ def profile_phase(model: str, **cfg_kw) -> dict:
             tr.train_step(x, y)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    kernels = device_kernels(prof)
-    if not kernels:
-        print(f"profile {model}: torch.profiler recorded no device activity")
-        return {}
-    busy = sum(e.time_range.elapsed_us() for e in kernels)
-    span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     steps = len(batches) - 3
-
-    def ms_of(*keys):
-        return sum(v for k, v in by_name.items() if any(s in k for s in keys)) / steps / 1e3
-
-    out = {
-        "model": model, **cfg_kw,
-        "steps": steps,
-        "device_busy_ms_per_step": busy / steps / 1e3,
-        "span_ms_per_step": span / steps / 1e3,
-        "wall_ms_per_step_profiled": wall / steps * 1e3,
-        "idle_share": 1.0 - busy / span,
-        "kernels_per_step": len(kernels) / steps,
-        "fused_sgd_ms_per_step": ms_of("fused_sgd"),
-        "wgrad_kernel_ms_per_step": ms_of("wgrad_kernel", "sum_splits_kernel"),
-        "top_kernels_ms_per_step": {k[:90]: v / steps / 1e3 for k, v in top},
-    }
+    summary = summarize_profile(prof, steps, f"profile {model}", {
+        "fused_sgd": ("fused_sgd",), "wgrad_kernel": ("wgrad_kernel", "sum_splits_kernel")})
+    if not summary:
+        return {}
+    out = {"model": model, **cfg_kw, **summary, "wall_ms_per_step_profiled": wall / steps * 1e3}
     print(json.dumps({"step_profile": out}))
     return out
 
@@ -723,25 +798,19 @@ def lm_config(**kw):
 def lm_main_path_phase() -> dict:
     from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
-    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
-    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_sgd as K
 
     argv = [arg for key, value in LM_WIDTH.items()
             for arg in (f"--{key.replace('_', '-')}", str(value))]
     argv += ["--global-batch-size", "16", "--use-rope", "--attention-impl", "flash",
              "--compute-dtype", "bfloat16", "--optimizer", "adamw", "--steps", str(LM_STEPS),
              "--num-seqs", "400", "--eval-frac", "0.04", "--json", "--device", "cuda"]
-    for module in (A, C, K):
-        module.reset_launch_count()
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    summary = run_cli(argv, main=lm_cli.main)
-    torch.cuda.synchronize()
+    summary, all_counts = counted(lambda: run_cli(argv, main=lm_cli.main))
     wall = time.perf_counter() - t0
     counts = {name: A.launch_count(name) for name in A.KERNELS}
     bf16 = A.launch_count(dtype=torch.bfloat16)
-    if K.launch_count() or C.launch_count():
-        raise RuntimeError("the LM path launched a CIFAR kernel")
+    if any(n for name, n in all_counts.items() if name != "flash"):
+        raise RuntimeError(f"the LM path launched another kernel than flash: {all_counts}")
     layers = LM_WIDTH["num_layers"]
     # 24 training forwards and one eval forward (400 sequences: 16 held out,
     # one eval batch; 384 train, 24 distinct batches) per layer.
@@ -824,29 +893,13 @@ def lm_profile(tr, batches) -> dict:
         for i in range(steps):
             tr.train_step(*batches[i % len(batches)])
         torch.cuda.synchronize()
-    kernels = device_kernels(prof)
-    if not kernels:
-        print("profile LM: torch.profiler recorded no device activity")
+    names = ("fwd", "dq", "dkv")
+    out = summarize_profile(prof, steps, "profile LM",
+                            {f"flash_{n}": (f"flash_{n}_kernel",) for n in names})
+    if not out:
         return {}
-    busy = sum(e.time_range.elapsed_us() for e in kernels)
-    span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    flash = {name: sum(v for k, v in by_name.items() if f"flash_{name}_kernel" in k) / steps / 1e3
-             for name in ("fwd", "dq", "dkv")}
-    out = {
-        "steps": steps,
-        "device_busy_ms_per_step": busy / steps / 1e3,
-        "span_ms_per_step": span / steps / 1e3,
-        "idle_share": 1.0 - busy / span,
-        "kernels_per_step": len(kernels) / steps,
-        "flash_ms_per_step": flash,
-        "flash_share_of_busy": sum(flash.values()) / (busy / steps / 1e3),
-        "top_kernels_ms_per_step": {
-            k[:90]: v / steps / 1e3 for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        },
-    }
+    flash_ms = sum(out[f"flash_{n}_ms_per_step"] for n in names)
+    out["flash_share_of_busy"] = flash_ms / out["device_busy_ms_per_step"]
     print(json.dumps({"lm_step_profile": out}))
     return out
 
@@ -890,6 +943,445 @@ def lm_trajectory_phase() -> None:
           f"{grad_norms['dense']}; max abs parameter gap after 4 steps {gap}")
 
 
+# ------------------------------------------------------------ paged attention
+def paged_inputs(gen: torch.Generator, case: tuple, variant: str) -> dict:
+    """Pools, a shuffled table, ragged depths (slot 0 at depth 0), and every
+    page a slot does not hold live: NaN in the float pools, or in the scale
+    pools of int8 ones; the plain version is given the values before."""
+    dtype, q_dtype = PAGED_VARIANTS[variant]
+    b, hq, hkv, d, ps, ppr = case
+    dev = gen.device
+    num_pages = b * ppr + 1
+    table = (1 + torch.randperm(num_pages - 1, generator=gen, device=dev)).view(b, ppr)
+    table = table.to(torch.int32)
+    pos = torch.randint(0, ppr * ps, (b,), generator=gen, device=dev)
+    pos = pos.to(torch.int32)
+    pos[0] = 0
+    live = torch.arange(ppr, device=dev)[None, :] <= (pos // ps)[:, None].long()
+    dead = table[~live].long()
+    shape = (num_pages, ps, hkv, d)
+    q = randn(gen, b, 1, hq, d, dtype=q_dtype)
+    if dtype == torch.int8:
+        kp, vp = (torch.randint(-127, 128, shape, generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+        ks, vs = (torch.rand(shape[:3], generator=gen, device=dev) / 127 + 0.5 / 127
+                  for _ in range(2))
+        plain = dict(key_pages=kp, value_pages=vp, key_scale_pages=ks.clone(),
+                     value_scale_pages=vs.clone())
+        ks[dead], vs[dead] = float("nan"), float("nan")
+        kernel = dict(key_pages=kp, value_pages=vp, key_scale_pages=ks, value_scale_pages=vs)
+    else:
+        kp, vp = (randn(gen, *shape, dtype=dtype) for _ in range(2))
+        plain = dict(key_pages=kp.clone(), value_pages=vp.clone())
+        kp[dead], vp[dead] = float("nan"), float("nan")
+        kernel = dict(key_pages=kp, value_pages=vp)
+    return {"q": q, "table": table, "pos": pos, "kernel": kernel, "plain": plain}
+
+
+def paged_phase(dev: torch.device) -> dict:
+    """The kernel against the gather path, then its times at the serving
+    shape in bf16 and int8 pages with bf16 q (the serving path's
+    variants).
+
+    fp32 outputs must lie within 2e-5 of the plain version's. A bf16
+    output may differ by one bf16 ulp of the plain value (2^-7 of it),
+    since both round their fp32 result, plus 2^-8 S, S = sum_i p_i |v_i|
+    (the plain version over |V|): with float pools both sides round each
+    probability to bf16 before PV, to within 2^-8 of it, the kernel
+    exp(s - running max) and the plain version the normalised p, so the
+    two sums differ by a few parts in 2^-8 S (1e-6 is added for outputs
+    of 0). At depths of 100-511 S is about 0.8, and one key dropped or
+    counted twice moves some output of its slot by more than that limit."""
+    import torch.nn.functional as F
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import paged_attention as PA
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.ring_attention import gather_pages
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err, worst = {}, {}
+    for case in PAGED_CASES:
+        for variant in PAGED_VARIANTS:
+            x = paged_inputs(gen, case, variant)
+            q, table, pos = x["q"], x["table"], x["pos"]
+            kern, plain = x["kernel"], x["plain"]
+            got = PA.paged_attention(q, kern.pop("key_pages"), kern.pop("value_pages"), table,
+                                     pos, **kern)
+            kp, vp = plain.pop("key_pages"), plain.pop("value_pages")
+            want = PA.paged_attention_plain(q, kp, vp, table, pos, **plain)
+            torch.cuda.synchronize()
+            e = float((got.float() - want.float()).abs().max())
+            if want.dtype == torch.float32:
+                limit = torch.full_like(want, PAGED_FP32_TOL)
+            else:
+                wide = (lambda t: t) if kp.dtype == torch.int8 else torch.Tensor.float
+                spread = PA.paged_attention_plain(q.float(), wide(kp), wide(vp).abs(), table,
+                                                  pos, **plain)
+                limit = 2**-7 * want.float().abs() + 2**-8 * spread + 1e-6
+            ratio = float(((got.float() - want.float()).abs() / limit).max())
+            if got.dtype != want.dtype or not (math.isfinite(e) and ratio <= 1.0):
+                raise RuntimeError(f"paged attention kernel disagrees with its plain version at "
+                                   f"{case} {variant}: max abs err {e}, {ratio} of the limit, "
+                                   f"dtype {got.dtype}")
+            err[variant] = max(err.get(variant, 0.0), e)
+            worst[variant] = max(worst.get(variant, 0.0), ratio)
+    print(f"paged attention: {len(PAGED_CASES)} shapes x {tuple(PAGED_VARIANTS)} (pool/q) agree "
+          f"with the gather path, dead pages NaN; max abs err {err}; largest share of the limit "
+          f"{worst} (limit: {PAGED_FP32_TOL} fp32; 2^-7 |plain| + 2^-8 sum p|v| + 1e-6 bf16)")
+
+    bw, fp32_flops = card_rates(torch.cuda.get_device_name(0))
+    b, hq, hkv, d, ps, ppr = PAGED_SERVE
+    timed = {}
+    for variant in ("bfloat16", "int8_bf16q"):
+        x = paged_inputs(gen, PAGED_SERVE, variant)
+        q, table, pos = x["q"], x["table"], x["pos"]
+        kw = x["plain"]
+        kp, vp = kw["key_pages"], kw["value_pages"]
+        scales = {k: v for k, v in kw.items() if "scale" in k}
+        keys = int((pos.long() + 1).sum())  # live rows read, summed over slots
+        elt = kp.element_size()
+        nbytes = (2.0 * keys * hkv * d * elt + (8.0 * keys * hkv if scales else 0.0)
+                  + 2 * q.numel() * q.element_size() + 4.0 * (table.numel() + b))
+        flop = 4.0 * keys * hq * d
+        bytes_ms, ops_ms = nbytes / bw * 1e3, flop / fp32_flops * 1e3
+        t = {
+            "ms": median_ms(lambda: PA.paged_attention(q, kp, vp, table, pos, **scales)),
+            "device_ms": device_busy_ms(lambda: PA.paged_attention(q, kp, vp, table, pos,
+                                                                   **scales),
+                                        match="paged_decode_kernel"),
+            "plain_ms": median_ms(lambda: PA.paged_attention_plain(q, kp, vp, table, pos,
+                                                                   **scales)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "live_rows": keys, "mbytes": nbytes / 1e6, "max_pos": int(pos.max()),
+        }
+        if not scales:
+            rep = hq // hkv
+            mask = (torch.arange(ppr * ps, device=dev)[None, :] <= pos[:, None])[:, None, None]
+
+            def library():
+                k = gather_pages(kp, table).transpose(1, 2).repeat_interleave(rep, dim=1)
+                v = gather_pages(vp, table).transpose(1, 2).repeat_interleave(rep, dim=1)
+                return F.scaled_dot_product_attention(q.transpose(1, 2), k, v, attn_mask=mask)
+
+            t["library_ms"] = median_ms(library)
+            t["library_device_ms"] = device_busy_ms(library)
+        timed[variant] = t
+        print(f"paged attention at {PAGED_SERVE} {variant}, {keys} live rows (depths up to "
+              f"{t['max_pos']}), {nbytes / 1e6:.3f} MB: kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']} ms), plain {t['plain_ms']:.4f} ms"
+              + (f", gather + SDPA {t['library_ms']:.4f} ms (device {t['library_device_ms']} ms)"
+                 if "library_ms" in t else "")
+              + f", bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    main_t = timed["bfloat16"]
+    return {
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/paged_attention.py:74",
+        "tpu_kernel": "ops/paged_attention.py::_decode_kernel",
+        "launches": None,  # filled in from the serving path's run
+        "max_abs_err": max(err.values()),
+        "max_abs_err_by_variant": err,
+        "share_of_limit_by_variant": worst,
+        **{k: main_t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": main_t["library_ms"],
+        "library_device_ms": main_t["library_device_ms"],
+        "library": "gather_pages + repeat_interleave + scaled_dot_product_attention (per-slot mask)",
+        "shape": list(PAGED_SERVE), "dtype": "bfloat16",
+        "int8_bf16q": timed["int8_bf16q"],
+    }
+
+
+# ---------------------------------------------------------- int8 weight matmul
+def int8_matmul_phase(dev: torch.device) -> dict:
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bw, fp32_flops = card_rates(torch.cuda.get_device_name(0))
+    err, rel, timed = 0.0, 0.0, {}
+    for label, (m, k, n) in INT8_SHAPES.items():
+        q, scale = QT.quantize_int8(randn(gen, k, n))
+        x32 = randn(gen, m, k)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            got, want = QT.int8_matmul(x, q, scale), QT.int8_matmul_plain(x, q, scale)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            top = float(want.float().abs().max())
+            if dtype == torch.float32:
+                ok = float(diff.max()) <= 1e-5 * top
+            else:
+                ok = bool((diff <= 2**-7 * want.float().abs() + 1e-5 * top).all())
+            if got.dtype != dtype or not ok:
+                raise RuntimeError(f"int8_matmul kernel disagrees with its plain version at "
+                                   f"{label} [{m},{k}]x[{k},{n}] {dtype}: max abs err "
+                                   f"{float(diff.max())}, max|plain| {top}")
+            err = max(err, float(diff.max()))
+            rel = max(rel, float(diff.max()) / top)
+            del got, want, diff
+        xb = x32.bfloat16()
+        nbytes = k * n + 2.0 * m * k + 2.0 * m * n + 4.0 * n
+        flop = 2.0 * m * k * n
+        bytes_ms, ops_ms = nbytes / bw * 1e3, flop / BF16_FLOPS * 1e3
+        t = {
+            "shape": [m, k, n], "dtype": "bfloat16",
+            "ms": median_ms(lambda: QT.int8_matmul(xb, q, scale)),
+            "device_ms": device_busy_ms(lambda: QT.int8_matmul(xb, q, scale),
+                                        match="int8_matmul_kernel"),
+            "fp32_ms": median_ms(lambda: QT.int8_matmul(x32, q, scale)),
+            "plain_ms": median_ms(lambda: QT.int8_matmul_plain(xb, q, scale), reps=10),
+            "library_ms": median_ms(lambda: torch.matmul(xb, q.to(xb.dtype)) * scale),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "fp32_ffma_bound_ms": flop / fp32_flops * 1e3,
+            "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
+        }
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        timed[label] = t
+        print(f"int8_matmul {label} [{m},{k}]x[{k},{n}] bf16: {flop / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB; kernel {t['ms']:.4f} ms (device {t['device_ms']} ms; "
+              f"fp32 x {t['fp32_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, torch.matmul on the "
+              f"widened weight {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; {100 * t['bound_share']:.2f} % of it), FP32 FFMA floor "
+              f"{t['fp32_ffma_bound_ms']:.4f} ms")
+        del q, scale, x32, xb
+    print(f"int8_matmul: {len(INT8_SHAPES)} shapes x (fp32, bf16) agree with the plain version, "
+          f"max abs err {err}, / max|plain| {rel:.3e} (tolerance 1e-5 x max|plain| fp32; 1 bf16 "
+          f"ulp + 1e-5 x max|plain| bf16)")
+    d = timed["decode"]
+    return {
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/quant.py:101",
+        "tpu_kernel": "ops/quant.py::_kernel",
+        "launches": None,  # filled in from the generation path's run
+        "max_abs_err": err,
+        "max_rel_err": rel,
+        **{k: d[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "fp32_ffma_bound_ms")},
+        "library": "torch.matmul(x, q.to(x.dtype)) * scale",
+        "shape": d["shape"], "dtype": "bfloat16",
+        "prefill": timed["prefill"],
+    }
+
+
+# ---------------------------------------------------------------- generation
+def width_argv(**extra) -> list[str]:
+    dims = {**DECODE_WIDTH, **extra}
+    return [arg for key, value in dims.items() for arg in (f"--{key.replace('_', '-')}",
+                                                          str(value))]
+
+
+def generation_phase() -> int:
+    """``lm_cli --generate`` at full width: int8 head (the main path), bf16,
+    and int8 head with an int8 KV cache. Returns the int8 launches of the
+    main path."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
+
+    base = width_argv() + [
+        "--use-rope", "--compute-dtype", "bfloat16", "--steps", "0", "--seq-len",
+        str(GEN_PROMPT), "--num-seqs", str(GEN_BATCH), "--generate", str(GEN_NEW),
+        "--prompt-len", str(GEN_PROMPT), "--generate-batch", str(GEN_BATCH),
+        "--temperature", "0", "--json", "--device", "cuda"]
+    runs = {}
+    for label, flags in (("int8 head", ["--int8-decode", "head"]), ("bf16", []),
+                         ("int8 head + int8 KV cache", ["--int8-decode", "head",
+                                                        "--int8-kv-cache"])):
+        summary, counts = counted(lambda: run_cli(base + flags, main=lm_cli.main))
+        g = summary["generation"]
+        toks = torch.tensor(g["tokens"])
+        vocab = DECODE_WIDTH["vocab_size"]
+        if toks.shape != (GEN_BATCH, GEN_NEW) or not bool(((toks >= 0) & (toks < vocab)).all()):
+            raise RuntimeError(f"generation {label}: tokens of shape {tuple(toks.shape)} "
+                               f"out of range")
+        want_int8 = GEN_NEW if flags else 0  # one launch a model call: prefill + 127 steps
+        if counts["int8_matmul"] != want_int8 or counts["paged_attention"] or counts["flash"]:
+            raise RuntimeError(f"generation {label}: launches {counts}, expected "
+                               f"{want_int8} int8_matmul and no other")
+        runs[label] = (toks, counts)
+        print(f"generation {label}: batch {GEN_BATCH}, prompt {GEN_PROMPT}, {GEN_NEW} new "
+              f"tokens: {g['tokens_per_s']:.1f} tokens/s, prefill {g['prefill_ms']:.2f} ms, "
+              f"{g['decode_ms_per_step']:.3f} ms a decode step; launches {counts}")
+    base_toks = runs["bf16"][0]
+    for label in ("int8 head", "int8 head + int8 KV cache"):
+        share = float((runs[label][0] == base_toks).float().mean())
+        print(f"generation: {label} keeps {100 * share:.2f} % of the bf16 run's greedy tokens")
+    return runs["int8 head"][1]["int8_matmul"]
+
+
+# ------------------------------------------------------------------- serving
+def serve_argv(**geometry) -> list[str]:
+    tr = SERVE_TRACE
+    return width_argv() + [
+        "--use-rope", "--compute-dtype", "bfloat16",
+        *[a for k, v in {**SERVE_GEOMETRY, **geometry}.items()
+          for a in (f"--{k.replace('_', '-')}", str(v))],
+        "--requests", str(tr["num_requests"]), "--rate", str(tr["rate_rps"]),
+        "--prompt-len", *map(str, tr["prompt_len"]), "--output-len", *map(str, tr["output_len"]),
+        "--seed", str(tr["seed"]), "--device", "cuda"]
+
+
+def serve_summary(text: str) -> dict:
+    recs = [json.loads(line) for line in text.strip().splitlines() if line.startswith("{")]
+    return next(r for r in recs if r.get("kind") == "serve_summary")
+
+
+def serving_phase() -> int:
+    """``serve_cli`` at full width (the main path); returns its paged
+    launches."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import serve_cli
+
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            return serve_cli.main(serve_argv())
+
+    t0 = time.perf_counter()
+    rc, counts = counted(run)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"serve_cli returned {rc}")
+    s = serve_summary(buf.getvalue())
+    n = SERVE_TRACE["num_requests"]
+    if s["completed"] != n or s["requests"] != n or s["paged_attention_impl"] != "kernel":
+        raise RuntimeError(f"serving: {s}")
+    want = DECODE_WIDTH["num_layers"] * s["decode_steps_all"]
+    if counts["paged_attention"] != want or counts["int8_matmul"] or counts["flash"]:
+        raise RuntimeError(f"serving: launches {counts}, expected {want} paged (12 x "
+                           f"{s['decode_steps_all']} decode steps) and no other")
+    print(f"serving (kernel, bf16): {n} requests, {s['total_output_tokens']} tokens in "
+          f"{s['makespan_s']} s: {s['tokens_per_sec']} tokens/s, TTFT p50 {s['ttft_p50_ms']} ms "
+          f"p99 {s['ttft_p99_ms']} ms, ITL p50 {s['itl_p50_ms']} ms p99 {s['itl_p99_ms']} ms, "
+          f"{s['decode_ms_per_step']:.3f} ms a decode step (host wall), {s['decode_steps']} "
+          f"decode steps ({s['decode_steps_all']} with warm-up), slot occupancy "
+          f"{s['slot_occupancy']:.3f}, page high water {s['page_high_water']} of "
+          f"{s['pages_allocatable']}, {s['preemptions']} preemptions; {wall:.1f} s wall with "
+          f"model build; launches {counts}")
+    return counts["paged_attention"]
+
+
+def serve_tokens(model, impl: str, trace, cfg_kw: dict) -> tuple[list, dict]:
+    """Every request of ``trace`` submitted at once and run to the end."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.serve import (
+        Request,
+        ServeConfig,
+        ServingEngine,
+    )
+
+    eng = ServingEngine(model, ServeConfig(**cfg_kw, paged_attention_impl=impl), device="cuda")
+    reqs = [eng.submit(Request(prompt=p, max_new_tokens=int(n)))
+            for p, n in zip(trace.prompts, trace.max_new_tokens)]
+    eng.run()
+    return [list(r.prompt[r.orig_prompt_len:]) + r.generated for r in reqs], eng.stats()
+
+
+def decode_model(**kw):
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMConfig, LMTrainer
+
+    cfg = LMConfig(**DECODE_WIDTH, use_rope=True, compute_dtype="bfloat16", seq_len=128,
+                   device="cuda")
+    tr = LMTrainer(cfg)
+    if kw.get("quant"):
+        params = tr.quantize_for_decode(tr.gather_for_decode(), "head")
+        model = tr.quantized_decode_model("head", kv_cache=True, params=params)
+    else:
+        model = tr.decode_model()
+    del tr
+    torch.cuda.empty_cache()
+    return model
+
+
+def serving_checks_phase() -> None:
+    """Kernel vs gather engines on the trace; the pool-pressure run; a
+    profile of 20 decode steps."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.serve import (
+        ServeConfig,
+        ServingEngine,
+        make_poisson_workload,
+        run_poisson,
+    )
+
+    trace = make_poisson_workload(vocab_size=DECODE_WIDTH["vocab_size"], **SERVE_TRACE)
+    model = decode_model()
+    kernel_out, ks = serve_tokens(model, "kernel", trace, SERVE_GEOMETRY)
+    gather_out, gs = serve_tokens(model, "gather", trace, SERVE_GEOMETRY)
+    same = sum(a == b for k, g in zip(kernel_out, gather_out) for a, b in zip(k, g))
+    total = sum(len(k) for k in kernel_out)
+    first = [next((i for i, (a, b) in enumerate(zip(k, g)) if a != b), None)
+             for k, g in zip(kernel_out, gather_out)]
+    diverged = [i for i in first if i is not None]
+    print(f"serving kernel vs gather engine (trace submitted at once): {same} of {total} greedy "
+          f"tokens agree ({100 * same / total:.2f} %); {len(diverged)} of {len(first)} requests "
+          f"diverge, the first at output index {min(diverged) if diverged else None}; decode "
+          f"ms a step (host wall): kernel {ks['decode_ms_per_step']:.3f}, gather "
+          f"{gs['decode_ms_per_step']:.3f}")
+    decode_profile(model)
+    del model
+    torch.cuda.empty_cache()
+
+    qmodel = decode_model(quant=True)
+    cfg = ServeConfig(**{**SERVE_GEOMETRY, "num_pages": PRESSURE_PAGES})
+    eng = ServingEngine(qmodel, cfg, device="cuda")
+    s, counts = counted(lambda: run_poisson(eng, trace))
+    layers = DECODE_WIDTH["num_layers"]
+    n = SERVE_TRACE["num_requests"]
+    if s["completed"] != n or s["preemptions"] <= 0:
+        raise RuntimeError(f"pool-pressure run: {s}")
+    want = {"paged_attention": layers * s["decode_steps_all"],
+            "int8_matmul": s["decode_steps_all"] + s["prefills_all"]}
+    if (counts["paged_attention"] != want["paged_attention"]
+            or counts["int8_matmul"] != want["int8_matmul"]
+            or counts["paged_attention_int8"] != want["paged_attention"]):
+        raise RuntimeError(f"pool-pressure run: launches {counts}, expected {want}")
+    print(f"serving pool pressure ({PRESSURE_PAGES - 1} pages, int8 KV pages, int8 head): "
+          f"{n} requests completed, {s['preemptions']} preemptions, page high water "
+          f"{s['page_high_water']}, {s['tokens_per_sec']} tokens/s, TTFT p99 "
+          f"{s['ttft_p99_ms']} ms, ITL p99 {s['itl_p99_ms']} ms, {s['decode_ms_per_step']:.3f} "
+          f"ms a decode step; launches {counts} ({s['prefills_all']} prefills, "
+          f"{s['decode_steps_all']} decode steps)")
+    del qmodel, eng
+    torch.cuda.empty_cache()
+
+
+def decode_profile(model) -> dict:
+    """20 decode steps of the kernel engine with all 16 slots active
+    (prompts 128, budgets 64: none retires), traced with torch.profiler;
+    idle share as in ``profile_phase``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.serve import (
+        Request,
+        ServeConfig,
+        ServingEngine,
+    )
+
+    eng = ServingEngine(model, ServeConfig(**SERVE_GEOMETRY), device="cuda")
+    gen = torch.Generator().manual_seed(9)
+    for _ in range(SERVE_GEOMETRY["num_slots"]):
+        prompt = torch.randint(1, DECODE_WIDTH["vocab_size"], (PROFILE_PROMPT,), generator=gen)
+        eng.submit(Request(prompt=prompt.numpy(), max_new_tokens=PROFILE_BUDGET))
+    for _ in range(3):  # admission, then warm steps
+        eng.step()
+    torch.cuda.synchronize()
+    steps = 20
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = summarize_profile(prof, steps, "decode profile", {"paged": ("paged_decode_kernel",)})
+    if not out:
+        return {}
+    out.update(active_slots=SERVE_GEOMETRY["num_slots"],
+               wall_ms_per_step_profiled=wall / steps * 1e3,
+               paged_share_of_busy=out["paged_ms_per_step"] / out["device_busy_ms_per_step"])
+    print(json.dumps({"decode_profile": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -899,6 +1391,8 @@ def main() -> int:
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_sgd as K
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import paged_attention as PA
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -914,11 +1408,10 @@ def main() -> int:
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
-    sources = [K.SOURCE, C.SOURCE, A.SOURCE]
+    sources = [K.SOURCE, C.SOURCE, A.SOURCE, PA.SOURCE, QT.SOURCE]
     _build.build_all(sources)
-    K.load_kernel()
-    C.load_kernel()
-    A.load_kernel()
+    for module in (K, C, A, PA, QT):
+        module.load_kernel()
     print("built " + ", ".join(f"{s} in {_build.build_seconds[s]:.2f} s" for s in sources)
           + f", in parallel (wall {time.perf_counter() - t0:.2f} s)")
 
@@ -950,6 +1443,13 @@ def main() -> int:
     records += flash_records
     lm_throughput_phase()
     lm_trajectory_phase()
+
+    paged_record = paged_phase(dev)
+    int8_record = int8_matmul_phase(dev)
+    int8_record["launches"] = generation_phase()
+    paged_record["launches"] = serving_phase()
+    records += [paged_record, int8_record]
+    serving_checks_phase()
 
     print(json.dumps({"kernels": records}))
     print(card_line())

@@ -6,13 +6,23 @@
         --global-batch-size 16 --use-rope --attention-impl flash \\
         --compute-dtype bfloat16 --steps 24 --eval-frac 0.04 --json
 
+Then, with ``--generate N``, sample N tokens after a prompt (greedy at
+``--temperature 0``), with ``--int8-decode [head|all]`` through the int8
+weight-matmul kernel and with ``--int8-kv-cache`` over an int8 cache:
+
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.lm_cli ... \
+        --steps 0 --generate 128 --prompt-len 128 --generate-batch 16 \
+        --temperature 0 --int8-decode head --json
+
 The flags are the JAX package's (``lm_cli.py``), with its names and
 defaults, for the options the port runs, plus ``--device`` (``cuda``,
-the default, or ``cpu``). Other flags and choices of the JAX CLI (the
-lion optimizer, cosine schedules) are not accepted;
-``--fused-xent`` and ``--generate`` exit with "not yet ported". The
-stdout lines and the ``--json`` summary keys are the JAX CLI's
-(``sample`` is null: generation is not ported).
+the default, or ``cpu``) and ``--generate-batch`` (prompts are the
+leading training sequences' prefixes; the JAX CLI takes one). Other
+flags and choices of the JAX CLI (the lion optimizer, cosine schedules)
+are not accepted; ``--fused-xent``, ``--beam`` and ``--speculative-k``
+exit with "not yet ported". The stdout lines and the ``--json`` summary
+keys are the JAX CLI's, plus ``generation`` (batch, times and every
+row's tokens) when generating.
 """
 
 from __future__ import annotations
@@ -20,6 +30,8 @@ from __future__ import annotations
 import argparse
 import json
 import math
+
+import numpy as np
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import ATTENTION_IMPLS
 
@@ -75,7 +87,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval-frac", type=float, default=0.0,
                    help="hold out this fraction of sequences and report "
                         "final loss/perplexity on them")
-    p.add_argument("--generate", type=int, default=0, metavar="N", help="not yet ported")
+    # generation
+    p.add_argument("--generate", type=int, default=0, metavar="N",
+                   help="after training, sample N tokens")
+    p.add_argument("--prompt", default=None,
+                   help="generation prompt (bytes with --text-file, else token ids); "
+                        "default: the first training sequence's prefix")
+    p.add_argument("--prompt-len", type=int, default=16)
+    p.add_argument("--generate-batch", type=int, default=1, metavar="B",
+                   help="generate for the first B training sequences' prefixes")
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--top-k", type=int, default=None)
+    p.add_argument("--top-p", type=float, default=None)
+    p.add_argument("--int8-decode", nargs="?", const="head", default=None,
+                   choices=["head", "all"], metavar="SCOPE",
+                   help="generate with int8 weights (the int8 matmul kernel): 'head' "
+                        "(default) quantizes lm_head only, 'all' every projection")
+    p.add_argument("--int8-kv-cache", action="store_true",
+                   help="store the decode KV cache int8 with per-row scales")
+    p.add_argument("--beam", type=int, default=0, metavar="K", help="not yet ported")
+    p.add_argument("--speculative-k", type=int, default=0, metavar="K",
+                   help="not yet ported")
     p.add_argument("--json", action="store_true")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
@@ -97,9 +129,59 @@ def _split_eval(eval_frac: float, tokens, batch_size: int):
     return tokens[:n_eval], tokens[n_eval:]
 
 
+def _generate(args, trainer, tokens):
+    """Sample ``--generate`` tokens with the trainer's weights; prints the
+    first row and returns ``(sample, generation record)``."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.infer import make_generator
+
+    if args.prompt is not None and args.text_file:
+        prompt = np.frombuffer(args.prompt.encode("utf-8"), dtype=np.uint8)[None, :]
+    elif args.prompt is not None:
+        prompt = np.asarray([[int(t) for t in args.prompt.split()]])
+    else:
+        if args.generate_batch > len(tokens):
+            raise SystemExit(f"--generate-batch {args.generate_batch} exceeds the "
+                             f"{len(tokens)} training sequences")
+        prompt = np.asarray(tokens[: args.generate_batch, : args.prompt_len])
+    if args.int8_decode is not None:
+        model = trainer.quantized_decode_model(args.int8_decode, kv_cache=args.int8_kv_cache)
+    else:
+        model = trainer.decode_model(kv_cache=args.int8_kv_cache)
+    generate = make_generator(model, max_new_tokens=args.generate, temperature=args.temperature,
+                              top_k=args.top_k, top_p=args.top_p, device=args.device)
+    gen = None
+    if args.temperature != 0.0:
+        import torch
+
+        gen = torch.Generator(device=trainer.device).manual_seed(args.seed)
+    out = generate(prompt.astype(np.int64), gen).cpu().numpy()
+    ids = out[0].tolist()
+    if args.text_file:
+        sample = bytes(ids).decode("utf-8", errors="replace")
+        print(f"sample: {sample!r}")
+    else:
+        sample = ids
+        print(f"sample ids: {ids}")
+    t = generate.timing
+    new_tokens = out.size
+    total_s = t["prefill_s"] + t["decode_s"]
+    generation = {
+        "batch": int(out.shape[0]), "prompt_len": int(prompt.shape[1]),
+        "new_tokens": args.generate, "int8_decode": args.int8_decode,
+        "int8_kv_cache": args.int8_kv_cache, "prefill_ms": t["prefill_s"] * 1e3,
+        "decode_ms_per_step": t["decode_s"] * 1e3 / max(1, t["decode_steps"]),
+        "tokens_per_s": new_tokens / total_s, "tokens": out.tolist(),
+    }
+    print(f"generated {new_tokens} tokens in {total_s:.3f} s ({generation['tokens_per_s']:.1f} "
+          f"tokens/s): prefill {generation['prefill_ms']:.2f} ms, "
+          f"{generation['decode_ms_per_step']:.3f} ms a decode step")
+    return sample, generation
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, on in (("--fused-xent", args.fused_xent), ("--generate", args.generate)):
+    for flag, on in (("--fused-xent", args.fused_xent), ("--beam", args.beam),
+                     ("--speculative-k", args.speculative_k)):
         if on:
             raise SystemExit(f"{flag} is not yet ported to the PyTorch/CUDA package")
 
@@ -157,6 +239,10 @@ def main(argv: list[str] | None = None) -> int:
         print(f"eval loss:  {eval_metrics['loss']:f}  "
               f"perplexity:  {eval_metrics['perplexity']:f}")
 
+    sample, generation = None, None
+    if args.generate > 0:
+        sample, generation = _generate(args, trainer, tokens)
+
     if args.json:
         print(json.dumps({
             "vocab_size": vocab,
@@ -167,7 +253,8 @@ def main(argv: list[str] | None = None) -> int:
             "finite": bool(math.isfinite(losses[-1])) if losses else None,
             "steps_run": len(losses),
             "eval": eval_metrics,
-            "sample": None,
+            "sample": sample,
+            **({"generation": generation} if generation is not None else {}),
         }))
     return 0
 

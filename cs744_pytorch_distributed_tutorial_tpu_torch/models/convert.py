@@ -247,14 +247,23 @@ def _flatten(tree: Mapping, prefix: tuple = ()):
 def lm_params_from_jax(params: Mapping[str, Any], cfg: Any = None) -> dict[str, torch.Tensor]:
     """A flax ``TransformerLM`` ``params`` tree -> the port's
     ``state_dict``. With ``cfg`` (anything with ``num_layers``), the
-    tree's block count is checked against it."""
+    tree's block count is checked against it. A quantized tree (the JAX
+    ``quantize_lm_params``: ``qkernel`` int8 [K, N] and ``scale`` [N] in
+    a ``QuantDense``) gives ``QuantLinear``'s ``qweight`` [K, N] and
+    ``scale`` as they are."""
     out: dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(params):
+    flat = list(_flatten(params))
+    quant_scopes = {path[:-1] for path, _ in flat if path[-1] == "qkernel"}
+    for path, leaf in flat:
         scope = [f"blocks.{p[len('block_'):]}" if p.startswith("block_") else p
                  for p in path[:-1]]
         name = path[-1]
         if name == "kernel":
             out[".".join(scope + ["weight"])] = _tensor(_np(leaf).T)
+        elif name == "qkernel":
+            out[".".join(scope + ["qweight"])] = _tensor(leaf)
+        elif name == "scale" and path[:-1] in quant_scopes:
+            out[".".join(scope + ["scale"])] = _tensor(leaf)
         elif name in ("scale", "embedding"):
             out[".".join(scope + ["weight"])] = _tensor(leaf)
         elif name in ("bias", "mlp_out_bias"):
@@ -270,7 +279,8 @@ def lm_params_from_jax(params: Mapping[str, Any], cfg: Any = None) -> dict[str, 
 
 def jax_lm_params_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
     """The reverse: the port LM's ``state_dict`` -> a flax ``params``
-    tree of numpy arrays."""
+    tree of numpy arrays (a ``QuantLinear``'s ``qweight``/``scale`` to
+    ``qkernel``/``scale``)."""
     params: dict = {}
     for key, value in state_dict.items():
         *scope, name = key.split(".")
@@ -287,7 +297,9 @@ def jax_lm_params_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
                 node["embedding"] = _np(value)
             else:
                 node["kernel"] = np.ascontiguousarray(_np(value).T)
-        elif name in ("bias", "mlp_out_bias"):
+        elif name == "qweight":
+            node["qkernel"] = _np(value)
+        elif name in ("bias", "mlp_out_bias", "scale"):
             node[name] = _np(value)
         else:
             raise ValueError(f"unexpected LM state_dict key {key!r}")

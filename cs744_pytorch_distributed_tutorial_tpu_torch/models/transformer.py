@@ -23,13 +23,25 @@ version on CPU tensors). With no sequence axis, ``ring``/``ulysses`` run
 dense and ``ring_flash``/``ulysses_flash`` run flash, as the JAX model
 does at a sequence axis of size 1.
 
-Options of later slices (MoE, sequence/tensor axes, decode and paged
-modes, int8 weights or KV cache, remat, scan_layers, dropout) raise
-``NotImplementedError``.
+Inference, the JAX model's ``mode``s: ``prefill`` (the causal pass over a
+prompt, writing its K/V rows to a dense cache), ``decode`` (t tokens at
+position ``decode_pos``, attending over the cache) and ``paged_decode``
+(one token a slot at per-slot positions [B], its K/V scattered into page
+pools through ``page_table``; attention by the ``gather`` reference or
+the ``kernel`` of ``ops/paged_attention.py``). The flax ``cache`` and
+``pages`` collections become explicit ``KVCache`` objects, one a layer
+(``init_cache``, ``init_pages``), updated in place. ``quant_dense``
+routes the ``quant_modules`` projections to ``ops/quant.py::
+QuantLinear`` (int8 weights, the int8 matmul kernel); ``quant_kv_cache``
+stores K/V rows int8 with fp32 row scales.
+
+Options of later slices (MoE, sequence/tensor axes, remat, scan_layers,
+dropout) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -41,7 +53,18 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.models.vgg import _lecun_norma
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.flash_attention import (
     flash_attention,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_plain,
+)
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import (
+    QUANT_MODULES,
+    QuantLinear,
+    decode_attention_quant,
+    quantize_kv,
+)
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.ring_attention import (
+    decode_attention,
     dense_attention,
     repeat_kv,
 )
@@ -52,26 +75,73 @@ NORM_IMPLS = ("layernorm", "rmsnorm")
 MLP_IMPLS = ("gelu", "swiglu")
 ROPE_BASE = 10000.0  # the JAX model's rope_base default
 NORM_EPS = 1e-6  # the JAX model's norm_eps default (flax's)
+MODES = ("train", "prefill", "decode", "paged_decode")
+PAGED_IMPLS = ("gather", "kernel")
+
+
+@dataclasses.dataclass
+class KVCache:
+    """One layer's keys and values: the rows [B, L, Hkv, D] of a dense
+    cache (modes ``prefill``/``decode``) or a page pool [num_pages,
+    page_size, Hkv, D] (``paged_decode``). Under ``quant_kv_cache`` the
+    rows are int8 with fp32 scales [.., Hkv] (``ops/quant.py::
+    quantize_kv``), else in the compute dtype."""
+
+    key: torch.Tensor
+    value: torch.Tensor
+    key_scale: torch.Tensor | None = None
+    value_scale: torch.Tensor | None = None
+
+    def put(self, index, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write K/V rows [..., Hkv, D] at ``index`` (over the first two
+        dimensions) in place, quantizing them for an int8 cache."""
+        if self.key_scale is None:
+            self.key[index] = k
+            self.value[index] = v
+            return
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        self.key[index], self.key_scale[index] = kq, ks
+        self.value[index], self.value_scale[index] = vq, vs
+
+
+def _positions(t: int, pos, device) -> torch.Tensor:
+    """Positions of a block's t tokens: ``pos + arange(t)``, [t] for a
+    scalar ``pos`` (0 when None), [B, t] for per-slot depths [B]."""
+    rows = torch.arange(t, device=device)
+    if pos is None:
+        return rows
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        return pos.to(device=device, dtype=torch.long)[:, None] + rows
+    return rows + pos
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """Rotary position embedding on [B, T, H, D] (D even): dimension i
     pairs with i + D/2, rotated by ``positions * ROPE_BASE**(-i/(D/2))``,
-    in fp32, cast back to ``x.dtype``."""
+    in fp32, cast back to ``x.dtype``. ``positions`` is [T], shared by
+    the batch, or [B, T] (per-slot depths)."""
     d = x.shape[-1]
     if d % 2:
         raise ValueError(f"RoPE needs an even head_dim, got {d}")
     half = d // 2
     freqs = ROPE_BASE ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
-    angles = positions.to(torch.float32)[:, None] * freqs  # [T, half]
-    sin = torch.sin(angles)[None, :, None, :]
-    cos = torch.cos(angles)[None, :, None, :]
+    angles = positions.to(torch.float32)[..., None] * freqs  # [(B,) T, half]
+    sin = torch.sin(angles)[..., None, :]
+    cos = torch.cos(angles)[..., None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=dtype)``: input, kernel and bias in ``dtype``."""
+def _linear(in_features: int, out_features: int, bias: bool, quant: bool) -> nn.Module:
+    """``nn.Linear``, or ``QuantLinear`` for a quantized projection."""
+    return (QuantLinear if quant else nn.Linear)(in_features, out_features, bias=bias)
+
+
+def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)``: input, kernel and bias in ``dtype``
+    (the JAX ``QuantDense`` for a ``QuantLinear``)."""
+    if isinstance(layer, QuantLinear):
+        return layer(x, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -101,7 +171,8 @@ class Attention(nn.Module):
     """Multi-head causal self-attention over [B, T, d_model]."""
 
     def __init__(self, d_model: int, num_heads: int, *, num_kv_heads: int | None = None,
-                 impl: str = "dense", rope: bool = False, attn_bias: bool = False):
+                 impl: str = "dense", rope: bool = False, attn_bias: bool = False,
+                 quant_modules: tuple = ()):
         super().__init__()
         if impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention impl {impl!r}; choose from {ATTENTION_IMPLS}")
@@ -114,48 +185,75 @@ class Attention(nn.Module):
         self.head_dim = d_model // num_heads
         self.impl, self.rope = impl, rope
         hd = self.head_dim
-        self.q = nn.Linear(d_model, num_heads * hd, bias=attn_bias)
-        self.k = nn.Linear(d_model, kv * hd, bias=attn_bias)
-        self.v = nn.Linear(d_model, kv * hd, bias=attn_bias)
-        self.attn_out = nn.Linear(num_heads * hd, d_model, bias=attn_bias)
+        self.q = _linear(d_model, num_heads * hd, attn_bias, "q" in quant_modules)
+        self.k = _linear(d_model, kv * hd, attn_bias, "k" in quant_modules)
+        self.v = _linear(d_model, kv * hd, attn_bias, "v" in quant_modules)
+        self.attn_out = _linear(num_heads * hd, d_model, attn_bias, "attn_out" in quant_modules)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, mode: str = "train", pos=None,
+                kv: KVCache | None = None, page_table: torch.Tensor | None = None,
+                paged_impl: str = "gather") -> torch.Tensor:
         b, t, d_model = x.shape
         hd = self.head_dim
         q = _dense(self.q, x, dtype).reshape(b, t, self.num_heads, hd)
         k = _dense(self.k, x, dtype).reshape(b, t, self.kv_heads, hd)
         v = _dense(self.v, x, dtype).reshape(b, t, self.kv_heads, hd)
         if self.rope:
-            positions = torch.arange(t, device=x.device)
+            positions = _positions(t, pos if mode in ("decode", "paged_decode") else None,
+                                   x.device)
             q = apply_rope(q, positions)
             k = apply_rope(k, positions)
-        rep = self.num_heads // self.kv_heads
-        k, v = repeat_kv(k, rep), repeat_kv(v, rep)
-        if self.impl in FLASH_IMPLS:
-            out = flash_attention(q, k, v, causal=True)
+        if mode == "decode":
+            # t tokens at positions pos..pos+t-1 over the whole cache, each
+            # row masked to its own prefix; the cache stays at KV width.
+            kv.put((slice(None), slice(pos, pos + t)), k, v)
+            if kv.key_scale is None:
+                out = decode_attention(q, kv.key, kv.value, pos)
+            else:
+                out = decode_attention_quant(q, kv.key, kv.value, kv.key_scale,
+                                             kv.value_scale, pos)
+        elif mode == "paged_decode":
+            # The new token's K/V go to (page_table[b, pos // page_size],
+            # pos % page_size); parked slots all write trash page 0.
+            page_size = kv.key.shape[1]
+            slot_page = page_table.gather(1, (pos // page_size).long()[:, None])[:, 0].long()
+            kv.put((slot_page, (pos % page_size).long()), k[:, 0], v[:, 0])
+            attend = paged_attention if paged_impl == "kernel" else paged_attention_plain
+            out = attend(q, kv.key, kv.value, page_table, pos,
+                         key_scale_pages=kv.key_scale, value_scale_pages=kv.value_scale)
         else:
-            out = dense_attention(q, k, v, causal=True)
+            if mode == "prefill":
+                # The prompt's rows go to the cache; attention is the causal
+                # pass over the fresh full-precision k/v.
+                kv.put((slice(None), slice(0, t)), k, v)
+            rep = self.num_heads // self.kv_heads
+            k, v = repeat_kv(k, rep), repeat_kv(v, rep)
+            if self.impl in FLASH_IMPLS:
+                out = flash_attention(q, k, v, causal=True)
+            else:
+                out = dense_attention(q, k, v, causal=True)
         out = out.reshape(b, t, self.num_heads * hd).to(dtype)
         return _dense(self.attn_out, out, dtype)
 
 
 class Block(nn.Module):
     def __init__(self, d_model: int, num_heads: int, d_ff: int, *, norm: str = "layernorm",
-                 mlp: str = "gelu", **attn_kw):
+                 mlp: str = "gelu", quant_modules: tuple = (), **attn_kw):
         super().__init__()
         if mlp not in MLP_IMPLS:
             raise ValueError(f"unknown mlp {mlp!r}; choose from {MLP_IMPLS}")
         self.mlp = mlp
         self.ln1 = Norm(d_model, norm)
-        self.attn = Attention(d_model, num_heads, **attn_kw)
+        self.attn = Attention(d_model, num_heads, quant_modules=quant_modules, **attn_kw)
         self.ln2 = Norm(d_model, norm)
-        self.mlp_in = nn.Linear(d_model, d_ff)
-        self.mlp_gate = nn.Linear(d_model, d_ff, bias=False) if mlp == "swiglu" else None
-        self.mlp_out = nn.Linear(d_ff, d_model, bias=False)
+        self.mlp_in = _linear(d_model, d_ff, True, "mlp_in" in quant_modules)
+        self.mlp_gate = (_linear(d_model, d_ff, False, "mlp_gate" in quant_modules)
+                         if mlp == "swiglu" else None)
+        self.mlp_out = _linear(d_ff, d_model, False, "mlp_out" in quant_modules)
         self.mlp_out_bias = nn.Parameter(torch.zeros(d_model))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x, dtype), dtype)
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, **attn_kw) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x, dtype), dtype, **attn_kw)
         h = self.ln2(x, dtype)
         up = _dense(self.mlp_in, h, dtype)
         if self.mlp == "swiglu":
@@ -170,8 +268,7 @@ class Block(nn.Module):
 # that means "off".
 _NOT_YET_PORTED = {
     "num_experts": 0, "seq_axis_size": 1, "tensor_axis_size": 1, "remat": False,
-    "scan_layers": False, "dropout_rate": 0.0, "quant_dense": False,
-    "quant_kv_cache": False,
+    "scan_layers": False, "dropout_rate": 0.0,
 }
 
 
@@ -179,14 +276,18 @@ class TransformerLM(nn.Module):
     """GPT-style causal LM: ``forward(tokens [B, T]) -> fp32 logits
     [B, T, vocab]``. Parameters are drawn from ``generator`` with the
     flax defaults' distributions: lecun-normal (truncated) kernels, zero
-    biases, embeddings N(0, 1/d_model), unit norm scales."""
+    biases, embeddings N(0, 1/d_model), unit norm scales; a
+    ``QuantLinear`` is built zero with scale 1 and filled by
+    ``ops/quant.py::quantize_lm_params``."""
 
     def __init__(self, vocab_size: int = 1024, num_layers: int = 4, num_heads: int = 8,
                  d_model: int = 256, d_ff: int = 1024, max_seq_len: int = 2048,
                  dtype: torch.dtype | str = torch.float32, attention_impl: str = "ring",
                  tie_embeddings: bool = False, use_rope: bool = False,
                  num_kv_heads: int | None = None, norm: str = "layernorm", mlp: str = "gelu",
-                 attn_bias: bool = False, generator: torch.Generator | None = None,
+                 attn_bias: bool = False, quant_dense: bool = False,
+                 quant_modules: tuple = tuple(sorted(QUANT_MODULES)),
+                 quant_kv_cache: bool = False, generator: torch.Generator | None = None,
                  **later):
         super().__init__()
         for name, value in later.items():
@@ -194,18 +295,24 @@ class TransformerLM(nn.Module):
                 raise TypeError(f"TransformerLM got an unexpected option {name!r}")
             if value != _NOT_YET_PORTED[name]:
                 raise NotImplementedError(f"{name}={value!r} is not yet ported")
+        unknown = set(quant_modules) - QUANT_MODULES
+        if unknown:
+            raise ValueError(f"unknown quant modules {sorted(unknown)}")
+        quant = tuple(quant_modules) if quant_dense else ()
         self.dtype = resolve_dtype(dtype) if isinstance(dtype, str) else dtype
         self.use_rope, self.tie_embeddings = use_rope, tie_embeddings
-        self.max_seq_len = max_seq_len
+        self.max_seq_len, self.vocab_size = max_seq_len, vocab_size
+        self.quant_kv_cache = quant_kv_cache
         self.tok_embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = None if use_rope else nn.Embedding(max_seq_len, d_model)
         self.blocks = nn.ModuleList(
             Block(d_model, num_heads, d_ff, norm=norm, mlp=mlp, num_kv_heads=num_kv_heads,
-                  impl=attention_impl, rope=use_rope, attn_bias=attn_bias)
+                  impl=attention_impl, rope=use_rope, attn_bias=attn_bias, quant_modules=quant)
             for _ in range(num_layers)
         )
         self.ln_f = Norm(d_model, norm)
-        self.lm_head = None if tie_embeddings else nn.Linear(d_model, vocab_size, bias=False)
+        self.lm_head = (None if tie_embeddings
+                        else _linear(d_model, vocab_size, False, "lm_head" in quant))
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -220,17 +327,86 @@ class TransformerLM(nn.Module):
             elif isinstance(m, nn.Embedding):
                 m.weight.normal_(0.0, 1.0 / math.sqrt(m.embedding_dim), generator=generator)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    @torch.no_grad()
+    def cast_for_decode_(self) -> "TransformerLM":
+        """Hold every float weight that ``forward`` casts to the compute
+        dtype already in it (projection weights and biases, embeddings,
+        ``mlp_out_bias``); norm parameters stay fp32, as their statistics.
+        The logits do not change; a decode step then reads each weight once
+        instead of casting it anew. The model no longer trains. Returns
+        self."""
+        for m in self.modules():
+            if isinstance(m, (nn.Linear, nn.Embedding)):
+                m.to(self.dtype)
+            elif isinstance(m, QuantLinear) and m.bias is not None:
+                m.bias = m.bias.to(self.dtype)
+            elif isinstance(m, Block):
+                m.mlp_out_bias.data = m.mlp_out_bias.data.to(self.dtype)
+        return self
+
+    def _kv(self, n0: int, n1: int, device) -> list[KVCache]:
+        attn = self.blocks[0].attn
+        shape = (n0, n1, attn.kv_heads, attn.head_dim)
+        device = self.tok_embed.weight.device if device is None else device
+        dtype = torch.int8 if self.quant_kv_cache else self.dtype
+        caches = []
+        for _ in self.blocks:
+            c = KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                        torch.zeros(shape, dtype=dtype, device=device))
+            if self.quant_kv_cache:
+                c.key_scale = torch.ones(shape[:3], device=device)
+                c.value_scale = torch.ones(shape[:3], device=device)
+            caches.append(c)
+        return caches
+
+    def init_cache(self, batch: int, length: int | None = None, device=None) -> list[KVCache]:
+        """A dense cache a layer for modes ``prefill``/``decode``: [batch,
+        length (default max_seq_len), Hkv, D] rows, zero (scales one)."""
+        return self._kv(batch, self.max_seq_len if length is None else length, device)
+
+    def init_pages(self, num_pages: int, page_size: int, device=None) -> list[KVCache]:
+        """Page pools a layer for mode ``paged_decode``: [num_pages,
+        page_size, Hkv, D], zero (scales one)."""
+        return self._kv(num_pages, page_size, device)
+
+    def forward(self, tokens: torch.Tensor, mode: str = "train", *, decode_pos=None,
+                page_table: torch.Tensor | None = None, cache: list[KVCache] | None = None,
+                paged_attention_impl: str = "gather") -> torch.Tensor:
+        """fp32 logits [B, T, vocab]. ``prefill`` writes the prompt's K/V to
+        ``cache`` (``init_cache``); ``decode`` takes T tokens at position
+        ``decode_pos`` (an int) over ``cache``; ``paged_decode`` one token a
+        slot at depths ``decode_pos`` [B] over the pools in ``cache``
+        (``init_pages``) through ``page_table`` [B, P]."""
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
         dtype = self.dtype
         t = tokens.shape[1]
-        if t > self.max_seq_len:
+        attn_kw = {}
+        if mode != "train":
+            if cache is None or len(cache) != len(self.blocks):
+                raise ValueError(f"mode={mode!r} needs a cache of one KVCache a layer")
+            if (mode == "paged_decode") != (page_table is not None):
+                raise ValueError("page_table goes with mode='paged_decode', and it needs one")
+            if (mode in ("decode", "paged_decode")) != (decode_pos is not None):
+                raise ValueError(f"decode_pos goes with the decode modes, got mode={mode!r}")
+            if mode == "paged_decode" and t != 1:
+                raise ValueError(f"paged decode steps one token at a time, got t={t}")
+            if paged_attention_impl not in PAGED_IMPLS:
+                raise ValueError(f"paged_attention_impl must be one of {PAGED_IMPLS}, "
+                                 f"got {paged_attention_impl!r}")
+            attn_kw = dict(mode=mode, pos=decode_pos, page_table=page_table,
+                           paged_impl=paged_attention_impl)
+        if mode == "decode" and decode_pos + t > cache[0].key.shape[1]:
+            raise ValueError(f"decode at {decode_pos} + {t} tokens overruns the cache")
+        if mode in ("train", "prefill") and t > self.max_seq_len:
             raise ValueError(f"sequence of {t} tokens exceeds max_seq_len {self.max_seq_len}")
         x = F.embedding(tokens, self.tok_embed.weight).to(dtype)
         if self.pos_embed is not None:
-            positions = torch.arange(t, device=tokens.device)
+            positions = _positions(t, decode_pos, tokens.device)
             x = x + F.embedding(positions, self.pos_embed.weight).to(dtype)
-        for block in self.blocks:
-            x = block(x, dtype)
+        for i, block in enumerate(self.blocks):
+            x = block(x, dtype, kv=cache[i] if cache is not None else None, **attn_kw)
         x = self.ln_f(x, dtype)
-        head = self.tok_embed.weight if self.tie_embeddings else self.lm_head.weight
-        return F.linear(x, head.to(dtype)).float()
+        if self.tie_embeddings:
+            return F.linear(x, self.tok_embed.weight.to(dtype)).float()
+        return _dense(self.lm_head, x, dtype).float()

@@ -1,0 +1,162 @@
+"""Paged-attention decode: the CUDA kernel of the serving engine's decode
+step, its wrapper and its plain version.
+
+Port of the JAX package's ``ops/paged_attention.py::paged_attention``
+(the Pallas kernel ``_decode_kernel``), with its signature and checks.
+One decode step of ``q`` [B, 1, Hq, D] against per-layer pools
+[num_pages, page_size, Hkv, D] through ``page_table`` [B, P] and the
+slots' depths ``pos`` [B]; Hq a multiple of Hkv (GQA). With
+``key_scale_pages``/``value_scale_pages`` [num_pages, page_size, Hkv] the
+pools are int8 and dequantized inside (k_scale on the scores after the
+dot, v_scale folded into the probabilities), the output in q's dtype;
+float pools give the pool dtype. ``pages_per_slot`` narrows the table to
+its first N pages. Page indices must lie in [0, num_pages): the kernel
+clamps one outside into the pool, the plain version's gather raises.
+
+``csrc/paged_attention.cu`` holds the kernel (its source note says how
+it is laid out): it reads each slot's live rows only, straight from the
+pools, with an online softmax in fp32. The plain version is the gather
+path (``parallel/ring_attention.py::paged_decode_attention`` and
+``ops/quant.py::paged_decode_attention_quant``), which reads every page
+of the table; the two agree to within the online softmax's rounding.
+
+The wrapper takes the kernel for CUDA tensors (or raises) and the plain
+version for CPU tensors only. Each launch adds one to
+``launch_count(variant)``, the variant being the pools' dtype name
+(``float32``, ``bfloat16`` or ``int8``).
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import torch
+
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import paged_decode_attention_quant
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.ring_attention import (
+    paged_decode_attention,
+)
+
+SOURCE = "paged_attention.cu"
+HEAD_DIMS = (32, 64, 128)
+MAX_GROUP = 16  # query heads a KV head (the kernel's register budget)
+
+_KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_launches: collections.Counter = collections.Counter()  # variant -> count
+_kernel_fn = None
+
+
+def launch_count(variant: str | None = None) -> int:
+    """Kernel launches since the last ``reset_launch_count()``: all of
+    them, or those of one variant (``float32``, ``bfloat16``, ``int8``)."""
+    return sum(n for v, n in _launches.items() if variant is None or v == variant)
+
+
+def reset_launch_count() -> None:
+    _launches.clear()
+
+
+def load_kernel():
+    """Build (first call) and load the kernel; returns its C entry point."""
+    global _kernel_fn
+    if _kernel_fn is None:
+        fn = load_library(SOURCE).paged_attention
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        fn.argtypes = [p] * 8 + [i64] * 10 + [p]
+        fn.restype = ctypes.c_int
+        _kernel_fn = fn
+    return _kernel_fn
+
+
+def paged_attention_plain(q, key_pages, value_pages, page_table, pos, *, key_scale_pages=None,
+                          value_scale_pages=None, pages_per_slot=None) -> torch.Tensor:
+    """The kernel's function by the gather path, over the same arguments."""
+    if pages_per_slot is not None:
+        page_table = page_table[:, :pages_per_slot]
+    if key_scale_pages is not None:
+        return paged_decode_attention_quant(q, key_pages, value_pages, key_scale_pages,
+                                            value_scale_pages, page_table, pos)
+    return paged_decode_attention(q, key_pages, value_pages, page_table, pos)
+
+
+def _check(q, key_pages, value_pages, page_table, pos, ks, vs) -> None:
+    b, t, hq, d = q.shape
+    if t != 1:
+        raise ValueError(f"paged decode steps one token at a time, got t={t}")
+    if key_pages.dim() != 4 or value_pages.shape != key_pages.shape or key_pages.shape[3] != d:
+        raise ValueError(
+            f"pools must be [num_pages, page_size, Hkv, {d}], got {tuple(key_pages.shape)} "
+            f"and {tuple(value_pages.shape)}"
+        )
+    hkv = key_pages.shape[2]
+    if hq % hkv:
+        raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    if (ks is None) != (vs is None):
+        raise ValueError("pass both scale pools or neither")
+    if ks is not None and (ks.shape != key_pages.shape[:3] or vs.shape != ks.shape):
+        raise ValueError(f"scale pools must be {tuple(key_pages.shape[:3])}")
+    if page_table.dim() != 2 or page_table.shape[0] != b or pos.shape != (b,):
+        raise ValueError(
+            f"expected page_table [{b}, P] and pos [{b}], got {tuple(page_table.shape)} "
+            f"and {tuple(pos.shape)}"
+        )
+    devices = {x.device for x in (q, key_pages, value_pages, page_table, pos, ks, vs)
+               if x is not None}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"paged attention: unsupported device {q.device}")
+
+
+def paged_attention(q: torch.Tensor, key_pages: torch.Tensor, value_pages: torch.Tensor,
+                    page_table: torch.Tensor, pos: torch.Tensor, *,
+                    key_scale_pages: torch.Tensor | None = None,
+                    value_scale_pages: torch.Tensor | None = None,
+                    pages_per_slot: int | None = None) -> torch.Tensor:
+    """One decode step of ``q`` [B, 1, Hq, D] against the paged pools,
+    reading only each slot's live rows on the card."""
+    ks, vs = key_scale_pages, value_scale_pages
+    _check(q, key_pages, value_pages, page_table, pos, ks, vs)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, key_pages, value_pages, page_table, pos,
+                                     key_scale_pages=ks, value_scale_pages=vs,
+                                     pages_per_slot=pages_per_slot)
+    b, _, hq, d = q.shape
+    num_pages, page_size, hkv, _ = key_pages.shape
+    quant = ks is not None
+    kv_dtype = key_pages.dtype
+    if quant != (kv_dtype == torch.int8) or value_pages.dtype != kv_dtype:
+        raise TypeError(f"int8 pools go with scale pools, float pools without; got "
+                        f"{kv_dtype}/{value_pages.dtype} pools, scales {quant}")
+    if kv_dtype not in _KV_KIND or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"unsupported dtypes: q {q.dtype}, pools {kv_dtype}")
+    if not quant and q.dtype != kv_dtype:
+        raise TypeError(f"q ({q.dtype}) and float pools ({kv_dtype}) must share a dtype")
+    if d not in HEAD_DIMS or hq // hkv > MAX_GROUP:
+        raise ValueError(f"paged attention kernel takes head_dim in {HEAD_DIMS} and at most "
+                         f"{MAX_GROUP} query heads a KV head, got D {d}, group {hq // hkv}")
+    n_pages = page_table.shape[1] if pages_per_slot is None else min(pages_per_slot,
+                                                                     page_table.shape[1])
+    if n_pages < 1 or b > 65535:
+        raise ValueError(f"paged attention: {n_pages} pages a slot, {b} slots")
+    q = q.contiguous()
+    key_pages, value_pages = key_pages.contiguous(), value_pages.contiguous()
+    table = page_table.to(torch.int32).contiguous()
+    pos32 = pos.to(torch.int32).contiguous()
+    if quant:
+        ks, vs = ks.float().contiguous(), vs.float().contiguous()
+    out = torch.empty(q.shape, dtype=q.dtype if quant else kv_dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = load_kernel()(
+        q.data_ptr(), key_pages.data_ptr(), value_pages.data_ptr(),
+        ks.data_ptr() if quant else None, vs.data_ptr() if quant else None,
+        table.data_ptr(), pos32.data_ptr(), out.data_ptr(),
+        b, hkv, hq // hkv, d, page_size, num_pages, table.shape[1], n_pages, _KV_KIND[kv_dtype],
+        int(q.dtype == torch.bfloat16), stream,
+    )
+    _launches[str(kv_dtype).removeprefix("torch.")] += 1
+    if err:
+        raise RuntimeError(f"paged attention launch failed: CUDA error {err}")
+    return out

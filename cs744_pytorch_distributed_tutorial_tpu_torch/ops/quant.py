@@ -1,0 +1,225 @@
+"""Weight-only int8 for the decode path: the int8 weight-matmul kernel,
+its wrapper and plain version, the ``QuantLinear`` module, the int8 KV
+cache's decode attention, and the conversion of a ``TransformerLM``
+``state_dict``.
+
+Port of the JAX package's ``ops/quant.py``. Symmetric
+per-output-channel quantization: ``q = round(w / s)`` with
+``s = max|w| / 127`` per column of a [K, N] kernel, clipped to
+[-127, 127]; an all-zero column gets scale 1. ``torch.round`` rounds
+half to even, as ``jnp.round`` does, so the codes are the JAX package's
+bit for bit.
+
+``int8_matmul(x [..., K], q int8 [K, N], scale [N])`` is
+``x @ widen(q)`` summed in fp32, then times the per-channel scale, cast
+to x's dtype. Its kernel (``csrc/int8_matmul.cu``, which replaces the
+TPU kernel ``ops/quant.py::_kernel``) reads the weight as int8 and
+widens it in shared memory: half the bytes of a bf16 weight, a quarter
+of fp32. The wrapper launches the kernel for CUDA tensors (or raises)
+and takes the plain version for CPU tensors only; each launch adds one
+to ``launch_count(dtype)``.
+
+``quantize_chunked``/``dequantize_chunked`` (the int8 gradient wire)
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+from collections.abc import Mapping
+
+import torch
+from torch import nn
+
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.ring_attention import (
+    _MASK,
+    decode_mask,
+    gather_pages,
+)
+
+SOURCE = "int8_matmul.cu"
+
+# Every TransformerLM projection whose weight can quantize (embeddings
+# and norms stay float), and the JAX decode default: the head only.
+QUANT_MODULES = frozenset({"q", "k", "v", "attn_out", "mlp_in", "mlp_gate", "mlp_out", "lm_head"})
+QUANT_HEAD_ONLY = ("lm_head",)
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_launches: collections.Counter = collections.Counter()  # x dtype -> count
+_kernel_fn = None
+
+
+def launch_count(dtype: torch.dtype | None = None) -> int:
+    """Kernel launches since the last ``reset_launch_count()``: all of
+    them, or those on activations of one dtype."""
+    return sum(n for d, n in _launches.items() if dtype is None or d == dtype)
+
+
+def reset_launch_count() -> None:
+    _launches.clear()
+
+
+def load_kernel():
+    """Build (first call) and load the kernel; returns its C entry point."""
+    global _kernel_fn
+    if _kernel_fn is None:
+        fn = load_library(SOURCE).int8_matmul
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        # x, q, scale, out, M, K, N, bf16, stream
+        fn.argtypes = [p, p, p, p, i64, i64, i64, i64, p]
+        fn.restype = ctypes.c_int
+        _kernel_fn = fn
+    return _kernel_fn
+
+
+def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[K, N] kernel -> (q int8 [K, N], scale fp32 [N]), q * scale ~= w."""
+    if w.dim() != 2:
+        raise ValueError(f"quantize_int8 expects a [K, N] kernel, got shape {tuple(w.shape)}")
+    w32 = w.float()
+    amax = w32.abs().amax(dim=0)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(w32 / scale[None, :]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (the JAX ``int8_matmul_ref``):
+    ``x @ q`` with the products of x's values and the widened codes summed
+    in fp32, times ``scale``, cast to x's dtype."""
+    acc = x.float() @ q.float()
+    return (acc * scale.float()).to(x.dtype)
+
+
+def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
+    if q.dim() != 2 or q.dtype != torch.int8:
+        raise ValueError(f"expected q int8 [K, N], got {q.dtype} {tuple(q.shape)}")
+    if scale.shape != (q.shape[1],):
+        raise ValueError(f"expected scale [{q.shape[1]}], got {tuple(scale.shape)}")
+    if x.shape[-1] != q.shape[0]:
+        raise ValueError(f"x K dim {x.shape[-1]} != q K dim {q.shape[0]}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if len({x.device, q.device, scale.device}) != 1:
+        raise ValueError(f"inputs on several devices: {x.device}, {q.device}, {scale.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8_matmul: unsupported device {x.device}")
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ dequant(q [K, N], scale [N]) -> [..., N]`` in x's
+    dtype, reading the weight as int8 on the card. Any M, K and N."""
+    _check(x, q, scale)
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, q, scale)
+    *lead, k = x.shape
+    n = q.shape[1]
+    x2 = x.reshape(-1, k).contiguous()
+    q, scale = q.contiguous(), scale.float().contiguous()
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if m and n:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = load_kernel()(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                            m, k, n, int(x.dtype == torch.bfloat16), stream)
+        _launches[x.dtype] += 1
+        if err:
+            raise RuntimeError(f"int8_matmul launch failed: CUDA error {err}")
+    return out.reshape(*lead, n)
+
+
+class QuantLinear(nn.Module):
+    """``nn.Linear`` with an int8 weight: ``qweight`` int8 [in, out] (the
+    JAX ``qkernel`` layout), ``scale`` fp32 [out] and an optional fp32
+    ``bias``, all buffers (decode only: nothing here trains). Filled by
+    ``quantize_lm_params``; built zero with scale 1."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.register_buffer("qweight", torch.zeros(in_features, out_features, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features))
+        self.register_buffer("bias", torch.zeros(out_features) if bias else None)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The JAX ``QuantDense(dtype=dtype)``: ``int8_matmul`` on x in
+        ``dtype``, then the bias in ``dtype``."""
+        y = int8_matmul(x.to(dtype), self.qweight, self.scale)
+        return y if self.bias is None else y + self.bias.to(dtype)
+
+
+def resolve_quant_modules(scope: str) -> tuple[str, ...]:
+    """The int8-decode scope name -> module names: ``head`` is the head
+    only, ``all`` every projection."""
+    if scope == "head":
+        return QUANT_HEAD_ONLY
+    if scope == "all":
+        return tuple(sorted(QUANT_MODULES))
+    raise ValueError(f"unknown int8-decode scope {scope!r}; choose 'head' or 'all'")
+
+
+def quantize_lm_params(state_dict: Mapping[str, torch.Tensor],
+                       modules=QUANT_MODULES) -> dict[str, torch.Tensor]:
+    """A ``TransformerLM`` ``state_dict`` -> the one a ``quant_dense``
+    model with the same ``quant_modules`` loads: each listed projection's
+    ``weight`` [out, in] becomes ``qweight`` [in, out] int8 and ``scale``
+    [out] (``quantize_int8`` of the transposed weight, as the JAX kernel
+    [K, N]); everything else passes through. With tied embeddings there
+    is no ``lm_head``: the head stays the float embedding."""
+    modules = frozenset(modules)
+    unknown = modules - QUANT_MODULES
+    if unknown:
+        raise ValueError(f"unknown quant modules {sorted(unknown)}")
+    out: dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        prefix, _, name = key.rpartition(".")
+        if name == "weight" and prefix.rpartition(".")[2] in modules:
+            out[f"{prefix}.qweight"], out[f"{prefix}.scale"] = quantize_int8(value.detach().t())
+        else:
+            out[key] = value
+    return out
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(..., head) row quantization of K or V rows [..., H, D] ->
+    (q int8 [..., H, D], scale fp32 [..., H]), q * scale ~= x."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def decode_attention_quant(q: torch.Tensor, cached_k: torch.Tensor, cached_v: torch.Tensor,
+                           k_scale: torch.Tensor, v_scale: torch.Tensor, pos) -> torch.Tensor:
+    """``decode_attention`` over an int8 cache [B, L, Hkv, D] with row
+    scales [B, L, Hkv]: q and the codes in fp32, ``k_scale`` on the scores
+    after the dot, ``v_scale`` folded into the probabilities before the
+    product with V. Returns q's dtype."""
+    b, t, hq, d = q.shape
+    hkv = cached_k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    qg = q.reshape(b, t, hkv, hq // hkv, d).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, cached_k.float()) * d**-0.5
+    scores = scores * k_scale.transpose(1, 2)[:, :, None, None, :]
+    scores = scores.masked_fill(~decode_mask(cached_k.shape[1], t, pos, q.device), _MASK)
+    probs = torch.softmax(scores, dim=-1)
+    pv = probs * v_scale.transpose(1, 2)[:, :, None, None, :]
+    out = torch.einsum("bhgqk,bkhd->bqhgd", pv, cached_v.float())
+    return out.reshape(b, t, hq, d).to(q.dtype)
+
+
+def paged_decode_attention_quant(q, key_pages, value_pages, key_scale_pages, value_scale_pages,
+                                 page_table, pos) -> torch.Tensor:
+    """``decode_attention_quant`` against int8 pools [num_pages,
+    page_size, Hkv, D] with scale pools [num_pages, page_size, Hkv]:
+    gather the four pools, then the int8 decode step (the plain version
+    of the int8 variant of ``ops/paged_attention.py::paged_attention``)."""
+    return decode_attention_quant(
+        q, gather_pages(key_pages, page_table), gather_pages(value_pages, page_table),
+        gather_pages(key_scale_pages, page_table), gather_pages(value_scale_pages, page_table),
+        pos,
+    )

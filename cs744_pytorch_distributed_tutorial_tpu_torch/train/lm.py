@@ -13,7 +13,14 @@ parameters.
 
 ``fit`` follows the JAX batch plan (batch k starts at sequence
 ``(k * B) % max(N - B + 1, 1)``) and stops on a non-finite loss.
-Options of later slices raise ``NotImplementedError``.
+
+For generation and serving, ``decode_model`` and
+``quantized_decode_model`` build a decode copy of the model (dense
+attention for the prompt pass, the float weights already in the compute
+dtype, int8 projections and/or an int8 KV cache on request) from the
+trainer's weights or from a ``state_dict``; ``quantize_for_decode``
+makes the int8 ``state_dict`` and ``gather_for_decode`` is the identity
+on one device. Options of later slices raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,6 +36,10 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.config import resolve_device, 
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import (
     ATTENTION_IMPLS,
     TransformerLM,
+)
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import (
+    quantize_lm_params,
+    resolve_quant_modules,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.engine import _smoothed_xent
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import make_lm_optimizer
@@ -146,16 +157,84 @@ class LMTrainer:
         cfg = self.cfg
         gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
         self.model = TransformerLM(
-            vocab_size=cfg.vocab_size, num_layers=cfg.num_layers, num_heads=cfg.num_heads,
-            d_model=cfg.d_model, d_ff=cfg.d_ff, max_seq_len=cfg.max_seq_len,
-            dtype=self.dtype, attention_impl=cfg.attention_impl,
-            tie_embeddings=cfg.tie_embeddings, use_rope=cfg.use_rope,
-            num_kv_heads=cfg.num_kv_heads, norm=cfg.norm, mlp=cfg.mlp, generator=gen,
+            **self._model_kw(), attention_impl=cfg.attention_impl, generator=gen,
         ).to(self.device)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.optimizer = make_lm_optimizer(self.cfg, list(self.model.parameters()))
         return self.model, self.optimizer
+
+    def _model_kw(self) -> dict:
+        cfg = self.cfg
+        return dict(
+            vocab_size=cfg.vocab_size, num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+            d_model=cfg.d_model, d_ff=cfg.d_ff, max_seq_len=cfg.max_seq_len, dtype=self.dtype,
+            tie_embeddings=cfg.tie_embeddings, use_rope=cfg.use_rope,
+            num_kv_heads=cfg.num_kv_heads, norm=cfg.norm, mlp=cfg.mlp,
+        )
+
+    def gather_for_decode(self, params: dict | None = None) -> dict:
+        """The full weights for a decode copy: ``params``, or the trainer's
+        model's ``state_dict`` (built by ``init()`` if there is none yet).
+        One device holds them whole, so nothing is gathered."""
+        if params is not None:
+            return params
+        if self.model is None:
+            self.init()
+        return self.model.state_dict()
+
+    def _decode_copy(self, params: dict, **options) -> TransformerLM:
+        """A ``TransformerLM`` with dense attention for the prompt pass,
+        built without an init and loaded with copies of ``params`` on the
+        trainer's device, its float weights cast to the compute dtype."""
+        with torch.device("meta"):
+            model = TransformerLM(**self._model_kw(), attention_impl="dense", **options)
+        model.load_state_dict(
+            {k: v.detach().to(self.device, copy=True) for k, v in params.items()}, assign=True)
+        return model.cast_for_decode_()
+
+    def decode_model(self, params: dict | None = None, *, kv_cache: bool = False) -> TransformerLM:
+        """The decode copy for ``infer/generate.py`` and ``serve/`` (the
+        JAX ``decode_model``; with ``kv_cache=True`` its
+        ``clone(quant_kv_cache=True)``), holding ``params`` (a float
+        ``state_dict``, default the trainer's weights)::
+
+            trainer.fit(tokens, steps)
+            generate = make_generator(trainer.decode_model(), max_new_tokens=64,
+                                      temperature=0.8)
+            out = generate(prompt)
+        """
+        return self._decode_copy(self.gather_for_decode(params), quant_kv_cache=kv_cache)
+
+    def quantized_decode_model(self, modules: str = "head", kv_cache: bool = False,
+                               params: dict | None = None) -> TransformerLM:
+        """``decode_model`` with int8 projections (``ops/quant.py``): scope
+        ``head`` (default) quantizes ``lm_head`` only, ``all`` every
+        projection; ``kv_cache=True`` also stores the KV cache int8.
+        ``params`` is a ``quantize_for_decode(..., modules)`` ``state_dict``
+        (default: the trainer's weights, quantized). With tied embeddings
+        there is no ``lm_head``, so scope ``head`` gives the KV-only model
+        when ``kv_cache`` is set and raises otherwise, as in JAX."""
+        if self.cfg.tie_embeddings and modules == "head":
+            if kv_cache:
+                return self.decode_model(params, kv_cache=True)
+            raise ValueError(
+                "int8-decode scope 'head' is a no-op with tied embeddings (no lm_head "
+                "exists; the embedding head stays float): use modules='all', or "
+                "kv_cache=True, which needs no weight scope"
+            )
+        if params is None:
+            params = self.quantize_for_decode(self.gather_for_decode(), modules)
+        return self._decode_copy(params, quant_dense=True,
+                                 quant_modules=resolve_quant_modules(modules),
+                                 quant_kv_cache=kv_cache)
+
+    @staticmethod
+    def quantize_for_decode(params: dict, modules: str = "head") -> dict:
+        """A float ``state_dict`` -> the int8 one a
+        ``quantized_decode_model(modules)`` loads (``ops/quant.py::
+        quantize_lm_params``)."""
+        return quantize_lm_params(params, resolve_quant_modules(modules))
 
     def split_batch(self, tokens) -> tuple[torch.Tensor, torch.Tensor]:
         """[B, seq_len + 1] tokens -> (inputs [:, :-1], targets [:, 1:]) as

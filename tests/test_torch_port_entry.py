@@ -1,5 +1,7 @@
 """The port's boundaries: it imports no JAX, its entry points need a GPU
-unless asked for the CPU, and its CLI runs parts 1 and 2b on the CPU."""
+unless asked for the CPU, its options of later slices raise, its CLI runs
+parts 1 and 2b on the CPU, and ``lm_cli --generate`` and ``serve_cli``
+run on the CPU at tiny sizes."""
 
 import ast
 import json
@@ -10,8 +12,11 @@ import pathlib
 import pytest
 import torch
 
-from cs744_pytorch_distributed_tutorial_tpu_torch import cli
+from cs744_pytorch_distributed_tutorial_tpu_torch import cli, lm_cli, serve_cli
 from cs744_pytorch_distributed_tutorial_tpu_torch.config import TrainConfig
+from cs744_pytorch_distributed_tutorial_tpu_torch.infer import make_generator
+from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import TransformerLM
+from cs744_pytorch_distributed_tutorial_tpu_torch.serve import ServeConfig, ServingEngine
 from cs744_pytorch_distributed_tutorial_tpu_torch.train import Trainer
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -54,6 +59,89 @@ def test_cli_without_gpu_raises():
     _no_gpu()
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["--part", "1", "--model", "tiny_cnn", "--synthetic-data"])
+
+
+TINY_LM = dict(vocab_size=64, num_layers=1, num_heads=2, d_model=16, d_ff=32, max_seq_len=32)
+LM_FLAGS = ["--num-layers", "2", "--d-model", "32", "--num-heads", "4", "--num-kv-heads", "2",
+            "--d-ff", "64", "--vocab-size", "128", "--max-seq-len", "64", "--use-rope"]
+SERVE_FLAGS = [*LM_FLAGS, "--requests", "6", "--rate", "50", "--prompt-len", "3", "12",
+               "--output-len", "2", "9", "--num-slots", "3", "--page-size", "4",
+               "--num-pages", "20", "--max-pages-per-slot", "6"]
+
+
+@pytest.mark.parametrize("entry", ["make_generator", "ServingEngine", "serve_cli",
+                                   "lm_cli --generate"])
+def test_inference_entry_points_without_gpu_raise(entry):
+    _no_gpu()
+    model = TransformerLM(**TINY_LM)
+    calls = {
+        "make_generator": lambda: make_generator(model, max_new_tokens=2),
+        "ServingEngine": lambda: ServingEngine(model, ServeConfig()),
+        "serve_cli": lambda: serve_cli.main(SERVE_FLAGS),
+        "lm_cli --generate": lambda: lm_cli.main([*LM_FLAGS, "--steps", "0", "--generate", "4",
+                                                  "--seq-len", "16", "--num-seqs", "8"]),
+    }
+    with pytest.raises(RuntimeError, match="cuda"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [["--trace-dir", "t"], ["--window-every", "0.5"], ["--deadline-s", "3"],
+     ["--max-queue-s", "1"], ["--max-queue-depth", "4"], ["--shed-policy", "degrade"],
+     ["--chaos", "4:decode_nan"], ["--step-timeout-s", "2"], ["--max-restarts", "3"]],
+)
+def test_serve_cli_unported_flags_exit(argv):
+    with pytest.raises(SystemExit, match="not yet ported"):
+        serve_cli.main([*SERVE_FLAGS, "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("flag", ["--beam", "--speculative-k"])
+def test_lm_cli_unported_decoders_exit(flag):
+    with pytest.raises(SystemExit, match="not yet ported"):
+        lm_cli.main([*LM_FLAGS, "--generate", "4", flag, "2", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("option", ["guard", "tracer", "mesh", "snapshot", "resume",
+                                    "make_flight_recorder", "generator_mesh"])
+def test_unported_serving_options_raise(option):
+    model = TransformerLM(**TINY_LM)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        if option in ("guard", "tracer", "mesh"):
+            ServingEngine(model, ServeConfig(), device="cpu", **{option: object()})
+        elif option == "generator_mesh":
+            make_generator(model, max_new_tokens=2, device="cpu", mesh=object())
+        else:
+            engine = ServingEngine(model, ServeConfig(), device="cpu")
+            getattr(engine, option)(*([None] if option == "resume" else []))
+
+
+def test_lm_cli_generates_on_cpu(capsys):
+    """Train 2 steps, then 6 greedy tokens for 3 prompts with the int8
+    head and an int8 KV cache (the kernels' plain versions)."""
+    argv = [*LM_FLAGS, "--seq-len", "16", "--global-batch-size", "4", "--steps", "2",
+            "--num-seqs", "12", "--generate", "6", "--prompt-len", "5", "--generate-batch", "3",
+            "--temperature", "0", "--int8-decode", "--int8-kv-cache", "--json", "--device", "cpu"]
+    assert lm_cli.main(argv) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    gen = summary["generation"]
+    assert gen["batch"] == 3 and gen["int8_decode"] == "head" and gen["int8_kv_cache"]
+    assert len(gen["tokens"]) == 3 and summary["sample"] == gen["tokens"][0]
+    assert all(len(row) == 6 and all(0 <= t < 128 for t in row) for row in gen["tokens"])
+
+
+def test_serve_cli_runs_on_cpu(capsys):
+    """Parity (engine vs make_generator), the Poisson replay and the
+    baseline comparison on the CPU."""
+    assert serve_cli.main([*SERVE_FLAGS, "--device", "cpu", "--parity-check",
+                           "--compare-baseline"]) == 0
+    records = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
+    parity = [r for r in records if r.get("event") == "parity"]
+    summary = [r for r in records if r.get("kind") == "serve_summary"]
+    assert parity[0]["parity_ok"] and parity[0]["requests"] == 6
+    assert [r["engine"] for r in summary] == ["continuous", "batch"]
+    assert summary[0]["completed"] == 6 and summary[0]["paged_attention_impl"] == "kernel"
+    assert any(r.get("event") == "comparison" for r in records)
 
 
 SMALL = ["--model", "tiny_cnn", "--synthetic-data", "--synthetic-train-size", "96",
@@ -101,7 +189,8 @@ def test_build_directory_is_ignored_by_git():
 
     assert _build.BUILD_DIR.relative_to(REPO).parts[0] == "build"
     assert "build/" in (REPO / ".gitignore").read_text().split()
-    for source in ("fused_sgd.cu", "fused_conv.cu", "flash_attention.cu"):
+    for source in ("fused_sgd.cu", "fused_conv.cu", "flash_attention.cu", "paged_attention.cu",
+                   "int8_matmul.cu"):
         assert os.path.exists(_build.CSRC_DIR / source)
 
 

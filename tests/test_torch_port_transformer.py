@@ -160,7 +160,7 @@ def test_init_distributions_follow_flax_defaults():
 @pytest.mark.parametrize(
     "option",
     [dict(num_experts=4), dict(remat=True), dict(scan_layers=True), dict(dropout_rate=0.1),
-     dict(tensor_axis_size=2), dict(quant_dense=True)],
+     dict(tensor_axis_size=2), dict(seq_axis_size=2)],
 )
 def test_later_options_raise(option):
     with pytest.raises(NotImplementedError, match="not yet ported"):
