@@ -33,14 +33,22 @@ no result):
    non-causal and ragged shapes, fp32 and bf16), then their times at the
    path's shape in bf16 beside their bounds, the plain versions' and
    ``scaled_dot_product_attention``'s forward and backward;
-9. the LM main path through the port's ``lm_cli``: GPT-2-small at full
-   width (12 layers, d 768, 12 heads, vocab 50304, T 1024, batch 16, RoPE,
-   bf16, AdamW, ``--attention-impl flash``), 24 steps and one eval batch,
-   every launch count zeroed just before and read just after;
-10. its throughput (``LMTrainer.train_step``, tokens/s and MFU) with flash
-    and with dense attention, a flash-vs-dense trajectory (2 layers at full
-    width, fp32, TF32 off), and a profile of one flash step;
-11. paged attention: the decode kernel against its plain version (the
+9. fused cross-entropy: the forward and backward kernels against their
+   plain versions at the LM path's logits ([16384, 50304] fp32), in bf16
+   and at a ragged shape ([37, 50257]), then their times beside their
+   bounds, the plain versions' and ``F.cross_entropy``'s forward and
+   backward;
+10. the LM main path through the port's ``lm_cli``: GPT-2-small at full
+    width (12 layers, d 768, 12 heads, vocab 50304, T 1024, batch 16, RoPE,
+    bf16, AdamW, ``--attention-impl flash --fused-xent``), 24 steps and one
+    eval batch (plain CE, as the JAX eval), every launch count zeroed just
+    before and read just after;
+11. its throughput (``LMTrainer.train_step``, tokens/s and MFU) with flash
+    and the fused cross-entropy, flash alone and dense attention,
+    flash-vs-dense and fused-vs-plain cross-entropy trajectories (2 layers
+    at full width, fp32, TF32 off), and a profile of one step with and
+    one without the fused cross-entropy;
+12. paged attention: the decode kernel against its plain version (the
     gather path) at the serving shape (16 slots, 12 query heads over 4 KV
     heads, D 64, page 16, ragged depths up to 511) in fp32, bf16 and int8
     (under an fp32 and a bf16 query), and at a ragged one (page 8, group
@@ -48,21 +56,34 @@ no result):
     written with NaN; then its times (bf16, and int8 pages under a bf16
     query, the variants serving runs) beside its bound, the gather path's
     and a gather plus ``scaled_dot_product_attention``'s;
-12. the int8 weight matmul against its plain version at the GPT-2-small
+13. the int8 weight matmul against its plain version at the GPT-2-small
     head's decode ([16, 768] x [768, 50304]) and prompt-pass ([2048, 768])
     shapes in bf16 and fp32, then its times beside its bound, the plain
     version's and ``torch.matmul`` on the widened weight;
-13. generation through ``lm_cli --generate 128``: GPT-2-small width with 4
+14. generation through ``lm_cli --generate 128``: GPT-2-small width with 4
     KV heads, batch 16, prompt 128, greedy, bf16, ``--int8-decode head``
     (one int8 matmul launch a model call), then in bf16 alone (the share
     of greedy tokens the int8 head keeps) and with ``--int8-kv-cache``;
-14. serving through ``serve_cli``: the same model, 16 slots over a
+15. serving through ``serve_cli``: the same model, 16 slots over a
     513-page pool of 16 rows (32 pages a slot), 64 Poisson requests at 64
     rps, prompts and outputs 64-256 tokens, the paged kernel (12 launches
     a decode step); the same trace through the kernel and gather engines
     (the share of greedy tokens that agree); a pool-pressure run (97
     pages, int8 KV pages and the int8 head) that must preempt; and a
-    profile of 20 decode steps.
+    profile of 20 decode steps;
+16. the fused grouped matmul (dropless MoE's expert FFN) against its plain
+    version at the MoE path's prefill (M 4096) and decode (M 32) shapes,
+    with group sizes from a real router's top-2 on random tokens, and at a
+    ragged shape with empty groups, both activations, bf16 and fp32; its
+    times beside its bound, the plain version's and ``torch._grouped_mm``
+    plus bias and gelu; one MoE layer's forward under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
+17. MoE generation through ``lm_cli --generate 128``: the JAX package's
+    MoE LM (``benchmarks/bench_vit_moe.py``: 6 layers, d 512, 8 heads, d_ff
+    1024, 8 experts top-2, dropless, vocab 50304, RoPE, bf16), batch 16,
+    prompt 128, greedy, 2 grouped-matmul launches a layer a model call;
+    prefill + 8 decode steps against the full forward; a profile of 5
+    decode steps.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -138,6 +159,23 @@ PAGED_VARIANTS = {"float32": (torch.float32, torch.float32),
 PAGED_FP32_TOL = 2e-5  # max abs err of fp32 outputs
 INT8_SHAPES = {"decode": (GEN_BATCH, 768, 50304), "prefill": (GEN_BATCH * GEN_PROMPT, 768, 50304)}
 
+# Fused cross-entropy: (N, V, dtype). The LM path's logits first (B 16 x T
+# 1024 rows, fp32: the model returns fp32 logits).
+XENT_PATH = (16 * 1024, 50304)
+XENT_CASES = [(*XENT_PATH, torch.float32), (*XENT_PATH, torch.bfloat16),
+              (37, 50257, torch.float32), (37, 50257, torch.bfloat16)]
+XENT_TOL = 1e-5  # loss and lse: x max(1, |plain lse|) a row
+
+# The MoE LM of the JAX package's benchmarks/bench_vit_moe.py (bench_moe:
+# 6 layers, d 512, 8 heads, vocab 50304, d_ff 1024, E 8, top-2, RoPE, bf16),
+# dropless, max_seq_len 512; generation at batch 16, prompt 128, 128 new.
+MOE_WIDTH = dict(num_layers=6, d_model=512, num_heads=8, d_ff=1024, vocab_size=50304,
+                 max_seq_len=512)
+MOE_EXPERTS, MOE_TOP_K = 8, 2
+MOE_DECODE_STEPS = 8  # prefill + this many decode steps vs the full forward
+MOE_LOGIT_RTOL = 2e-2  # rms(decode - full) / rms(full), bf16
+GMM_RAGGED = (1000, 100, 70, [0, 300, 0, 250, 0, 0, 450, 0])  # M, K, N, group sizes
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -186,25 +224,30 @@ def device_kernels(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def device_busy_ms(fn, reps: int = 10, match: str | None = None) -> float | None:
+def device_busy_ms(fn, reps: int = 10, match: str | None = None,
+                   attempts: int = 3) -> float | None:
     """Kernel time on the card per call of ``fn`` (the sum of its kernels'
     durations from a torch.profiler trace, only those whose name holds
     ``match`` if given), without the host's launch gaps; None when the
-    profiler records no device activity."""
+    profiler records no device activity in ``attempts`` traces (a trace
+    now and then comes back empty)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        e.time_range.elapsed_us()
-        for e in device_kernels(prof)
-        if match is None or match in e.name
-    )
-    return total_us / reps / 1e3 if total_us else None
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(
+            e.time_range.elapsed_us()
+            for e in device_kernels(prof)
+            if match is None or match in e.name
+        )
+        if total_us:
+            return total_us / reps / 1e3
+    return None
 
 
 def summarize_profile(prof, steps: int, label: str, groups: dict[str, tuple[str, ...]]) -> dict:
@@ -239,11 +282,19 @@ def kernel_modules():
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_sgd as K
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_xent as FX
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import paged_attention as PA
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
 
     return {"fused_sgd": K, "conv3x3_wgrad": C, "flash": A, "paged_attention": PA,
-            "int8_matmul": QT}
+            "int8_matmul": QT, "fused_xent": FX, "gmm_fused": G}
+
+
+def others(counts: dict, *allowed: str) -> dict:
+    """The launch counts of ``counted`` other than ``allowed`` that are
+    not zero."""
+    return {k: n for k, n in counts.items() if n and k not in allowed}
 
 
 def counted(fn):
@@ -778,6 +829,124 @@ def flash_phase(dev: torch.device) -> list[dict]:
     return records
 
 
+# ------------------------------------------------------ fused cross-entropy
+def fused_xent_phase(dev: torch.device) -> list[dict]:
+    """Both kernels against their plain versions (the backward given the
+    plain lse, so each kernel is checked on its own), then their times at
+    the LM path's shape.
+
+    Loss and lse must lie within 1e-5 x max(1, |plain lse|) of the plain
+    version's in each row (both sum in fp32, in another order). Each fp32
+    gradient entry within ``fp32_grad_limit`` of its plain value (8 ulp of
+    the entry, plus a few ulp of p at the label's column: the same expf of
+    the same inputs); each bf16 gradient entry within one bf16 ulp of its
+    plain value (both round the same fp32 value once)."""
+    import torch.nn.functional as F
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_xent as FX
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for n, v, dtype in XENT_CASES:
+        x = (4 * randn(gen, n, v)).to(dtype)
+        labels = torch.randint(0, v, (n,), generator=gen, device=dev)
+        g = torch.rand((n,), generator=gen, device=dev)
+        loss, lse = FX.fused_xent_fwd(x, labels)
+        want_loss, want_lse = FX.fused_xent_fwd_plain(x, labels)
+        torch.cuda.synchronize()
+        limit = XENT_TOL * want_lse.abs().clamp_min(1.0)
+        e_fwd = max(float((loss - want_loss).abs().max()), float((lse - want_lse).abs().max()))
+        share = max(float(((loss - want_loss).abs() / limit).max()),
+                    float(((lse - want_lse).abs() / limit).max()))
+        del loss, lse, want_loss, limit
+        d = FX.fused_xent_bwd(x, labels, want_lse, g)
+        want_d = FX.fused_xent_bwd_plain(x, labels, want_lse, g)
+        torch.cuda.synchronize()
+        diff = (d.float() - want_d.float()).abs()
+        if dtype == torch.float32:
+            dshare = float((diff / FX.fp32_grad_limit(want_d, labels, g)).max())
+        else:
+            wf = want_d.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+            dshare = float((diff / torch.exp2(torch.floor(torch.log2(wf)) - 7)).max())
+        case = f"[{n}, {v}] {dtype}"
+        if d.dtype != dtype or not (math.isfinite(share) and share <= 1.0):
+            raise RuntimeError(f"fused_xent fwd kernel disagrees with its plain version at {case}: "
+                               f"max abs err {e_fwd}, {share} of the limit")
+        if not (math.isfinite(dshare) and dshare <= 1.0):
+            raise RuntimeError(f"fused_xent bwd kernel disagrees with its plain version at {case}: "
+                               f"max abs err {float(diff.max())}, {dshare} of the limit")
+        err["fwd"], err["bwd"] = max(err["fwd"], e_fwd), max(err["bwd"], float(diff.max()))
+        worst["fwd"], worst["bwd"] = max(worst["fwd"], share), max(worst["bwd"], dshare)
+        print(f"fused_xent {case}: loss/lse max abs err {e_fwd} ({share:.3f} of the limit), "
+              f"gradient max abs err {float(diff.max())} ({dshare:.3f} of the limit)")
+        del x, d, want_d, diff, want_lse
+        torch.cuda.empty_cache()
+    print(f"fused_xent: {len(XENT_CASES)} cases agree with the plain versions; largest share of "
+          f"the limit: fwd {worst['fwd']:.3f}, bwd {worst['bwd']:.3f} (limits: loss and lse "
+          f"{XENT_TOL} x max(1, |lse|); gradient per entry: 2^-20 x |plain| + 2^-22 x g at the "
+          f"label fp32, one ulp bf16)")
+
+    # Times at the path's shape, fp32 (and the kernels on bf16 logits).
+    n, v = XENT_PATH
+    x = 4 * randn(gen, n, v)
+    xb = x.bfloat16()
+    labels = torch.randint(0, v, (n,), generator=gen, device=dev)
+    g = torch.full((n,), 1.0 / n, device=dev)  # the mean's gradient
+    _, lse = FX.fused_xent_fwd(x, labels)
+    _, lse_b = FX.fused_xent_fwd(xb, labels)
+    xl = x.detach().requires_grad_()
+    lib_loss = F.cross_entropy(xl, labels, reduction="none")
+    calls = {
+        "fwd": (lambda: FX.fused_xent_fwd(x, labels), lambda: FX.fused_xent_fwd_plain(x, labels),
+                lambda: FX.fused_xent_fwd(xb, labels),
+                lambda: F.cross_entropy(x, labels, reduction="none")),
+        "bwd": (lambda: FX.fused_xent_bwd(x, labels, lse, g),
+                lambda: FX.fused_xent_bwd_plain(x, labels, lse, g),
+                lambda: FX.fused_xent_bwd(xb, labels, lse_b, g),
+                lambda: torch.autograd.grad(lib_loss, xl, g, retain_graph=True)),
+    }
+    bw, fp32_flops = card_rates(torch.cuda.get_device_name(0))
+    records = []
+    for name, (kernel, plain, kernel_bf16, library) in calls.items():
+        passes = 1 if name == "fwd" else 2  # the logits read; and the gradient written
+        nbytes = passes * 4.0 * n * v + 16.0 * n  # + labels (int64), two fp32 row vectors
+        flop = 4.0 * n * v  # max, subtract, exp, add (fwd); subtract, exp, onehot, scale (bwd)
+        bytes_ms, ops_ms = nbytes / bw * 1e3, flop / fp32_flops * 1e3
+        rec = {
+            "name": f"fused_xent_{name}",
+            "route": "cuda",
+            "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/fused_xent.cu",
+            "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/fused_xent.py:"
+                        + ("48" if name == "fwd" else "79"),
+            "tpu_kernel": "ops/fused_xent.py::" + ("_kernel" if name == "fwd" else "_bwd_kernel"),
+            "launches": None,  # filled in from the main path's run
+            "max_abs_err": err[name],
+            "share_of_limit": worst[name],
+            "ms": median_ms(kernel),
+            "device_ms": device_busy_ms(kernel, match=f"xent_{name}_kernel"),
+            "bf16_ms": median_ms(kernel_bf16),
+            "plain_ms": median_ms(plain, reps=10, warmup=2),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": median_ms(library),
+            "library_device_ms": device_busy_ms(library),
+            "library": ("F.cross_entropy(reduction='none') forward" if name == "fwd" else
+                        "F.cross_entropy(reduction='none') backward"),
+            "shape": [n, v], "dtype": "float32", "mbytes": nbytes / 1e6,
+        }
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        records.append(rec)
+        print(f"fused_xent {name} at [{n}, {v}] fp32: {nbytes / 1e6:.1f} MB; kernel "
+              f"{rec['ms']:.4f} ms (device {rec['device_ms']} ms; bf16 logits {rec['bf16_ms']:.4f} "
+              f"ms), plain {rec['plain_ms']:.4f} ms, {rec['library']} {rec['library_ms']:.4f} ms "
+              f"(device {rec['library_device_ms']} ms), bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}; {100 * rec['bound_share']:.2f} % of it)")
+    del x, xb, xl, lib_loss, calls
+    torch.cuda.empty_cache()
+    return records
+
+
 # ------------------------------------------------------------- the LM path
 def lm_flops_per_token(layers: int, d: int, d_ff: int, t: int, vocab: int) -> float:
     """Training FLOPs a token, as benchmarks/bench_lm_gpt2.py counts them:
@@ -796,27 +965,37 @@ def lm_config(**kw):
 
 
 def lm_main_path_phase() -> dict:
+    """Returns the launches of each flash and fused cross-entropy kernel."""
     from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_xent as FX
 
     argv = [arg for key, value in LM_WIDTH.items()
             for arg in (f"--{key.replace('_', '-')}", str(value))]
     argv += ["--global-batch-size", "16", "--use-rope", "--attention-impl", "flash",
-             "--compute-dtype", "bfloat16", "--optimizer", "adamw", "--steps", str(LM_STEPS),
-             "--num-seqs", "400", "--eval-frac", "0.04", "--json", "--device", "cuda"]
+             "--fused-xent", "--compute-dtype", "bfloat16", "--optimizer", "adamw", "--steps",
+             str(LM_STEPS), "--num-seqs", "400", "--eval-frac", "0.04", "--json", "--device",
+             "cuda"]
     t0 = time.perf_counter()
     summary, all_counts = counted(lambda: run_cli(argv, main=lm_cli.main))
     wall = time.perf_counter() - t0
     counts = {name: A.launch_count(name) for name in A.KERNELS}
+    xent = {name: FX.launch_count(name, torch.float32) for name in FX.KERNELS}
     bf16 = A.launch_count(dtype=torch.bfloat16)
-    if any(n for name, n in all_counts.items() if name != "flash"):
-        raise RuntimeError(f"the LM path launched another kernel than flash: {all_counts}")
+    if others(all_counts, "flash", "fused_xent"):
+        raise RuntimeError(f"the LM path launched another kernel than flash and fused_xent: "
+                           f"{all_counts}")
     layers = LM_WIDTH["num_layers"]
     # 24 training forwards and one eval forward (400 sequences: 16 held out,
-    # one eval batch; 384 train, 24 distinct batches) per layer.
+    # one eval batch; 384 train, 24 distinct batches) per layer; one fused
+    # cross-entropy forward and backward a training step on the fp32
+    # logits (the eval takes plain CE, as the JAX package's).
     expect = {"fwd": layers * (LM_STEPS + 1), "dq": layers * LM_STEPS, "dkv": layers * LM_STEPS}
     if counts != expect or bf16 != sum(expect.values()):
         raise RuntimeError(f"LM path flash launches {counts} (bf16 {bf16}), expected {expect}")
+    if xent != {"fwd": LM_STEPS, "bwd": LM_STEPS} or all_counts["fused_xent"] != 2 * LM_STEPS:
+        raise RuntimeError(f"LM path fused_xent launches {xent} (all dtypes "
+                           f"{all_counts['fused_xent']}), expected {LM_STEPS} each, fp32")
     if summary["steps_run"] != LM_STEPS or not summary["finite"]:
         raise RuntimeError(f"LM path: {summary}")
     first, final = summary["first_loss"], summary["final_loss"]
@@ -826,8 +1005,9 @@ def lm_main_path_phase() -> dict:
         raise RuntimeError(f"LM path eval loss not finite: {summary['eval']}")
     print(f"LM main path: {LM_STEPS} steps + eval in {wall:.1f} s wall (model build and "
           f"first-step set-up included), loss {first} -> {final}, eval {summary['eval']}, "
-          f"flash launches {counts}")
-    return counts
+          f"flash launches {counts}, fused_xent launches {xent}")
+    return {**{f"flash_{k}": n for k, n in counts.items()},
+            **{f"fused_xent_{k}": n for k, n in xent.items()}}
 
 
 def _timed_steps(tr, batches, steps: int) -> float:
@@ -844,8 +1024,9 @@ def _timed_steps(tr, batches, steps: int) -> float:
 
 def lm_throughput_phase() -> dict:
     """``LMTrainer.train_step`` at the main path's config, 3 warm-up steps
-    then LM_TIMED_STEPS timed, with flash and with dense attention; then a
-    profile of 3 flash steps on pre-staged batches."""
+    then LM_TIMED_STEPS timed, with flash and the fused cross-entropy (the
+    main path), flash alone and dense attention; then a profile of 3 steps
+    on pre-staged batches with and without the fused cross-entropy."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
     from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
 
@@ -855,8 +1036,10 @@ def lm_throughput_phase() -> dict:
                                t, LM_WIDTH["vocab_size"])
     peak = BF16_FLOPS
     out: dict = {"flops_per_token": flops}
-    for impl in ("flash", "dense"):
-        tr = LMTrainer(lm_config(attention_impl=impl))
+    for impl, kw in (("flash+fused_xent", dict(attention_impl="flash", fused_xent=True)),
+                     ("flash", dict(attention_impl="flash")),
+                     ("dense", dict(attention_impl="dense"))):
+        tr = LMTrainer(lm_config(**kw))
         model, _ = tr.init()
         params = list(model.parameters())
         n = sum(p.numel() for p in params)
@@ -873,17 +1056,18 @@ def lm_throughput_phase() -> dict:
               f"{100 * out[impl]['mfu']:.2f} % of {peak / 1e12:.0f} TFLOP/s bf16 "
               f"({flops / 1e9:.4f} GFLOP/token), peak memory {out[impl]['peak_memory_gb']:.2f} GB, "
               f"{n} parameters in {len(params)} tensors")
-        if impl == "flash":
-            out["profile"] = lm_profile(tr, batches)
+        if impl != "dense":
+            out[f"profile_{impl}"] = lm_profile(tr, batches, impl)
         del tr, model, params, batches
         torch.cuda.empty_cache()
     return out
 
 
-def lm_profile(tr, batches) -> dict:
+def lm_profile(tr, batches, label: str) -> dict:
     """Where a flash step's device time goes: 3 steps on batches already
     on the card, traced with torch.profiler (idle share as in
-    ``profile_phase``)."""
+    ``profile_phase``); the cross-entropy's kernels apart, fused or the
+    library's (``cunn_SoftMax{Forward,Backward}`` and ``nll_loss``)."""
     from torch.profiler import ProfilerActivity, profile
 
     steps = 3
@@ -894,53 +1078,63 @@ def lm_profile(tr, batches) -> dict:
             tr.train_step(*batches[i % len(batches)])
         torch.cuda.synchronize()
     names = ("fwd", "dq", "dkv")
-    out = summarize_profile(prof, steps, "profile LM",
-                            {f"flash_{n}": (f"flash_{n}_kernel",) for n in names})
+    groups = {f"flash_{n}": (f"flash_{n}_kernel",) for n in names}
+    groups["cross_entropy"] = ("xent_fwd_kernel", "xent_bwd_kernel", "SoftMax", "nll_loss")
+    out = summarize_profile(prof, steps, f"profile LM {label}", groups)
     if not out:
         return {}
     flash_ms = sum(out[f"flash_{n}_ms_per_step"] for n in names)
     out["flash_share_of_busy"] = flash_ms / out["device_busy_ms_per_step"]
-    print(json.dumps({"lm_step_profile": out}))
+    out["cross_entropy_share_of_busy"] = (out["cross_entropy_ms_per_step"]
+                                          / out["device_busy_ms_per_step"])
+    print(json.dumps({"lm_step_profile": {"config": label, **out}}))
     return out
 
 
 def lm_trajectory_phase() -> None:
-    """Flash kernels vs dense attention: 2 layers at full width, batch 4,
-    T 1024, fp32 with TF32 off (set in main), 4 AdamW steps from the same
-    init on the same batches: losses within rtol 1e-4, the first step's
-    gradient norm (same weights, so a wrong dq, dk or dv shows here
-    before Adam's step sizes hide it) within rtol 1e-5, and every
-    parameter within 1e-3 after the 4 steps (3.97e-4 measured on an
-    H100 SXM)."""
+    """Two pairs of runs: flash kernels vs dense attention, and the fused
+    cross-entropy kernels vs the library's cross-entropy (both with flash).
+    2 layers at full width, batch 4, T 1024, fp32 with TF32 off (set in
+    main), 4 AdamW steps from the same init on the same batches: losses
+    within rtol 1e-4, the first step's gradient norm (same weights, so a
+    wrong gradient kernel shows here before Adam's step sizes hide it)
+    within rtol 1e-5, and every parameter within 1e-3 after the 4 steps
+    (3.97e-4 measured for flash vs dense on an H100 SXM)."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
     from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
 
     toks = synthetic_tokens(16, LM_WIDTH["seq_len"], LM_WIDTH["vocab_size"], seed=3)
-    losses, grad_norms, params = {}, {}, {}
-    for impl in ("flash", "dense"):
-        tr = LMTrainer(lm_config(num_layers=2, global_batch_size=4, compute_dtype="float32",
-                                 attention_impl=impl))
-        model, _ = tr.init()
-        steps = [tr.train_step(*tr.split_batch(toks[4 * s : 4 * s + 4])) for s in range(4)]
-        losses[impl] = [float(m["loss"]) for m in steps]
-        grad_norms[impl] = [float(m["grad_norm"]) for m in steps]
-        params[impl] = [p.detach() for p in model.parameters()]
-        del tr, model
-    for a, b in zip(losses["flash"], losses["dense"]):
-        if not (math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
-            raise RuntimeError(f"LM flash vs dense trajectories differ: {losses}")
-    g_flash, g_dense = grad_norms["flash"][0], grad_norms["dense"][0]
-    if not abs(g_flash - g_dense) <= 1e-5 * abs(g_dense):
-        raise RuntimeError(f"LM flash vs dense first-step gradient norms differ: "
-                           f"{g_flash} vs {g_dense}")
-    gap = max(float((a - b).abs().max()) for a, b in zip(params["flash"], params["dense"]))
-    del params
-    torch.cuda.empty_cache()
-    if not gap <= 1e-3:
-        raise RuntimeError(f"LM flash vs dense parameters differ by {gap} after 4 steps")
-    print(f"trajectory LM (2 layers, full width, fp32): flash {losses['flash']} "
-          f"dense {losses['dense']}; grad norms flash {grad_norms['flash']} dense "
-          f"{grad_norms['dense']}; max abs parameter gap after 4 steps {gap}")
+    for label, pair in (
+        ("flash vs dense", {"flash": dict(attention_impl="flash"),
+                            "dense": dict(attention_impl="dense")}),
+        ("fused_xent vs plain CE", {"fused_xent": dict(attention_impl="flash", fused_xent=True),
+                                    "plain CE": dict(attention_impl="flash")}),
+    ):
+        losses, grad_norms, params = {}, {}, {}
+        for name, kw in pair.items():
+            tr = LMTrainer(lm_config(num_layers=2, global_batch_size=4, compute_dtype="float32",
+                                     **kw))
+            model, _ = tr.init()
+            steps = [tr.train_step(*tr.split_batch(toks[4 * s : 4 * s + 4])) for s in range(4)]
+            losses[name] = [float(m["loss"]) for m in steps]
+            grad_norms[name] = [float(m["grad_norm"]) for m in steps]
+            params[name] = [p.detach() for p in model.parameters()]
+            del tr, model
+        a_name, b_name = pair
+        for a, b in zip(losses[a_name], losses[b_name]):
+            if not (math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+                raise RuntimeError(f"LM {label} trajectories differ: {losses}")
+        g_a, g_b = grad_norms[a_name][0], grad_norms[b_name][0]
+        if not abs(g_a - g_b) <= 1e-5 * abs(g_b):
+            raise RuntimeError(f"LM {label} first-step gradient norms differ: {g_a} vs {g_b}")
+        gap = max(float((a - b).abs().max()) for a, b in zip(params[a_name], params[b_name]))
+        del params
+        torch.cuda.empty_cache()
+        if not gap <= 1e-3:
+            raise RuntimeError(f"LM {label} parameters differ by {gap} after 4 steps")
+        print(f"trajectory LM {label} (2 layers, full width, fp32): {a_name} {losses[a_name]} "
+              f"{b_name} {losses[b_name]}; grad norms {a_name} {grad_norms[a_name]} {b_name} "
+              f"{grad_norms[b_name]}; max abs parameter gap after 4 steps {gap}")
 
 
 # ------------------------------------------------------------ paged attention
@@ -1196,7 +1390,7 @@ def generation_phase() -> int:
             raise RuntimeError(f"generation {label}: tokens of shape {tuple(toks.shape)} "
                                f"out of range")
         want_int8 = GEN_NEW if flags else 0  # one launch a model call: prefill + 127 steps
-        if counts["int8_matmul"] != want_int8 or counts["paged_attention"] or counts["flash"]:
+        if counts["int8_matmul"] != want_int8 or others(counts, "int8_matmul"):
             raise RuntimeError(f"generation {label}: launches {counts}, expected "
                                f"{want_int8} int8_matmul and no other")
         runs[label] = (toks, counts)
@@ -1248,7 +1442,8 @@ def serving_phase() -> int:
     if s["completed"] != n or s["requests"] != n or s["paged_attention_impl"] != "kernel":
         raise RuntimeError(f"serving: {s}")
     want = DECODE_WIDTH["num_layers"] * s["decode_steps_all"]
-    if counts["paged_attention"] != want or counts["int8_matmul"] or counts["flash"]:
+    if counts["paged_attention"] != want or others(counts, "paged_attention",
+                                                    "paged_attention_int8"):
         raise RuntimeError(f"serving: launches {counts}, expected {want} paged (12 x "
                            f"{s['decode_steps_all']} decode steps) and no other")
     print(f"serving (kernel, bf16): {n} requests, {s['total_output_tokens']} tokens in "
@@ -1382,6 +1577,281 @@ def decode_profile(model) -> dict:
     return out
 
 
+# ----------------------------------------------------------- grouped matmul
+def moe_layer(dev: torch.device):
+    """One MoE layer of the MoE LM's width, flax's init from seed 7, biases
+    drawn non-zero (so the epilogue's bias shows), on the card."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.models.moe import MoEFFN
+
+    layer = MoEFFN(MOE_WIDTH["d_model"], MOE_EXPERTS, MOE_WIDTH["d_ff"], top_k=MOE_TOP_K,
+                   dispatch_impl="dropless")
+    gen = torch.Generator().manual_seed(7)
+    layer.reset_parameters(gen)
+    with torch.no_grad():
+        layer.b_in.copy_(0.1 * torch.randn(layer.b_in.shape, generator=gen))
+        layer.b_out.copy_(0.1 * torch.randn(layer.b_out.shape, generator=gen))
+    return layer.requires_grad_(False).to(dev)
+
+
+def gmm_library(lhs, rhs, bias, group_sizes, act: str):
+    """``torch._grouped_mm`` plus the per-row bias and gelu, or None with
+    the reason when the op does not run on this card's PyTorch. Row offsets
+    and row groups are made beforehand (routing information)."""
+    import torch.nn.functional as F
+
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    if grouped_mm is None or lhs.dtype != torch.bfloat16:
+        return None, "torch._grouped_mm takes bf16 only" if grouped_mm else "no torch._grouped_mm"
+    offs = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+    rows = torch.repeat_interleave(torch.arange(len(group_sizes), device=lhs.device),
+                                   group_sizes.long(), output_size=lhs.shape[0])
+    row_bias = bias[rows]
+    for b in (rhs, rhs.transpose(1, 2).contiguous().transpose(1, 2)):  # row-, column-major
+
+        def call(b=b):
+            y = grouped_mm(lhs, b, offs=offs).float() + row_bias
+            return (F.gelu(y, approximate="tanh") if act == "gelu" else y).to(lhs.dtype)
+
+        try:
+            call()
+            torch.cuda.synchronize()
+            return call, None
+        except (RuntimeError, NotImplementedError, TypeError, ValueError) as exc:
+            reason = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+    return None, reason
+
+
+def gmm_phase(dev: torch.device) -> dict:
+    """The kernel against its plain version at the MoE path's shapes (group
+    sizes from the router's top-2 on random tokens) and a ragged one, both
+    activations, bf16 and fp32: fp32 within 1e-5 x max|plain| (the sums in
+    another order), bf16 within one ulp of each plain value plus 1e-5 x
+    max|plain|. Then the times of the main path's bf16 calls, and one MoE
+    layer's forward with host synchronisation made an error."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.models.moe import MoEFFN
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    layer = moe_layer(dev)
+    d, e = MOE_WIDTH["d_model"], MOE_EXPERTS
+    cases = {}
+    with torch.no_grad():
+        for label, rows in (("prefill", GEN_BATCH * GEN_PROMPT), ("decode", GEN_BATCH)):
+            tokens = randn(gen, rows, d, dtype=torch.bfloat16)
+            _, _, idx = layer.route(tokens)
+            _, sizes, tok_ids = MoEFFN.group_by_expert(idx, e)
+            xs = tokens[tok_ids]
+            w_in, w_out = layer.w_in.bfloat16(), layer.w_out.bfloat16()
+            h = G.grouped_matmul_fused_plain(xs, w_in, layer.b_in, sizes, activation="gelu")
+            cases[f"{label} w_in gelu"] = (xs, w_in, layer.b_in, sizes, "gelu")
+            cases[f"{label} w_out"] = (h, w_out, layer.b_out, sizes, "none")
+            print(f"gmm {label}: {rows} tokens, top-2 group sizes {sizes.tolist()}")
+        m, k, n, ragged = GMM_RAGGED
+        args = (randn(gen, m, k), randn(gen, len(ragged), k, n) / k**0.5,
+                randn(gen, len(ragged), n), torch.tensor(ragged, device=dev))
+        cases["ragged gelu"] = (*args, "gelu")
+        cases["ragged"] = (*args, "none")
+
+    err, worst = 0.0, 0.0
+    for label, (lhs, rhs, bias, sizes, act) in cases.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            a, b = lhs.to(dtype), rhs.to(dtype)
+            got = G.grouped_matmul_fused(a, b, bias, sizes, activation=act)
+            want = G.grouped_matmul_fused_plain(a, b, bias, sizes, activation=act)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            top = float(want.float().abs().max())
+            if dtype == torch.float32:
+                share = float(diff.max()) / (1e-5 * top)
+            else:
+                share = float((diff / (2**-7 * want.float().abs() + 1e-5 * top)).max())
+            if got.dtype != dtype or not (math.isfinite(share) and share <= 1.0):
+                raise RuntimeError(f"gmm_fused kernel disagrees with its plain version at "
+                                   f"{label} {dtype} {list(a.shape)}x{list(b.shape)}: max abs "
+                                   f"err {float(diff.max())}, {share} of the limit")
+            err, worst = max(err, float(diff.max())), max(worst, share)
+            print(f"gmm_fused {label} {dtype} [{a.shape[0]}, {a.shape[1]}] x "
+                  f"{list(b.shape)}: max abs err {float(diff.max())} ({share:.3f} of the limit)")
+    print(f"gmm_fused: {len(cases)} cases x (bf16, fp32) agree with the plain version, max abs "
+          f"err {err}, largest share of the limit {worst:.3f} (limit: 1e-5 x max|plain| fp32; "
+          f"one bf16 ulp + 1e-5 x max|plain| bf16)")
+
+    bw, fp32_flops = card_rates(torch.cuda.get_device_name(0))
+    timed = {}
+    for label in ("prefill w_in gelu", "prefill w_out", "decode w_in gelu", "decode w_out"):
+        lhs, rhs, bias, sizes, act = cases[label]
+        (mm, kk), nn_ = lhs.shape, rhs.shape[2]
+        hit = int((sizes > 0).sum())  # experts with rows: their weights are read
+        nbytes = 2.0 * mm * kk + 2.0 * hit * kk * nn_ + 4.0 * hit * nn_ + 4.0 * e + 2.0 * mm * nn_
+        flop = 2.0 * mm * kk * nn_
+        bytes_ms, ops_ms = nbytes / bw * 1e3, flop / BF16_FLOPS * 1e3
+        library, reason = gmm_library(lhs, rhs, bias, sizes, act)
+        kernel = lambda: G.grouped_matmul_fused(lhs, rhs, bias, sizes, activation=act)  # noqa: E731
+        t = {
+            "shape": [mm, kk, nn_], "groups_hit": hit, "activation": act, "dtype": "bfloat16",
+            "ms": median_ms(kernel),
+            "device_ms": device_busy_ms(kernel, match="gmm_fused_kernel"),
+            "fp32_ms": median_ms(lambda: G.grouped_matmul_fused(
+                lhs.float(), rhs.float(), bias, sizes, activation=act)),
+            "plain_ms": median_ms(lambda: G.grouped_matmul_fused_plain(
+                lhs, rhs, bias, sizes, activation=act), reps=10),
+            "library_ms": median_ms(library) if library else None,
+            "library_device_ms": device_busy_ms(library) if library else None,
+            "library": ("torch._grouped_mm + row bias + gelu" if library
+                        else f"not run: {reason}"),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "fp32_ffma_bound_ms": flop / fp32_flops * 1e3,
+            "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
+        }
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        timed[label] = t
+        print(f"gmm_fused {label} [{mm}, {kk}] x [{e}, {kk}, {nn_}] bf16 ({hit} experts hit): "
+              f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; kernel {t['ms']:.4f} ms (device "
+              f"{t['device_ms']} ms; fp32 {t['fp32_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+              f"{t['library']} {t['library_ms']} ms (device {t['library_device_ms']} ms), bound "
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {100 * t['bound_share']:.2f} % of it), "
+              f"FP32 FFMA floor {t['fp32_ffma_bound_ms']:.4f} ms")
+
+    # One MoE layer's forward with every host synchronisation an error.
+    for label, t in (("prefill", GEN_PROMPT), ("decode", 1)):
+        x = randn(gen, GEN_BATCH, t, d, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                y = layer(x, torch.bfloat16)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if y.shape != x.shape or not bool(torch.isfinite(y).all()):
+            raise RuntimeError(f"MoE layer {label}: output {tuple(y.shape)} not finite")
+        print(f"MoE layer forward at {label} ([{GEN_BATCH}, {t}, {d}] bf16) ran under "
+              f"torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
+
+    def layer_total(key, phase):
+        vals = [timed[f"{phase} w_in gelu"][key], timed[f"{phase} w_out"][key]]
+        return None if None in vals else sum(vals)
+
+    return {
+        "name": "gmm_fused",
+        "route": "cuda",
+        "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/gmm.cu",
+        "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/gmm.py:278",
+        "tpu_kernel": "ops/gmm.py::_gmm_fused_kernel (forward, without with_z)",
+        "launches": None,  # filled in from the MoE generation path's run
+        "max_abs_err": err,
+        "share_of_limit": worst,
+        **{key: layer_total(key, "decode") for key in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "fp32_ffma_bound_ms")},
+        "bound_by": "bytes" if all(timed[f"decode {c}"]["bound_by"] == "bytes"
+                                   for c in ("w_in gelu", "w_out")) else "operations",
+        "library": timed["decode w_in gelu"]["library"],
+        "work": "one MoE layer's two calls at a decode step (16 tokens, top-2)",
+        "prefill_layer": {key: layer_total(key, "prefill") for key in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "fp32_ffma_bound_ms")},
+        "calls": timed,
+    }
+
+
+# ------------------------------------------------------------ MoE generation
+def moe_generation_phase() -> int:
+    """``lm_cli --generate 128`` on the MoE LM (the main path); returns its
+    gmm_fused launches. Then prefill + MOE_DECODE_STEPS decode steps
+    against the full forward, and a profile of 5 decode steps."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
+
+    moe_flags = ["--moe-experts", str(MOE_EXPERTS), "--moe-top-k", str(MOE_TOP_K),
+                 "--moe-dispatch", "dropless"]
+    argv = [a for key, value in MOE_WIDTH.items() for a in (f"--{key.replace('_', '-')}",
+                                                            str(value))]
+    argv += moe_flags + [
+        "--use-rope", "--compute-dtype", "bfloat16", "--steps", "0", "--seq-len",
+        str(GEN_PROMPT), "--num-seqs", str(GEN_BATCH), "--generate", str(GEN_NEW),
+        "--prompt-len", str(GEN_PROMPT), "--generate-batch", str(GEN_BATCH),
+        "--temperature", "0", "--json", "--device", "cuda"]
+    t0 = time.perf_counter()
+    summary, counts = counted(lambda: run_cli(argv, main=lm_cli.main))
+    wall = time.perf_counter() - t0
+    g = summary["generation"]
+    toks = torch.tensor(g["tokens"])
+    vocab = MOE_WIDTH["vocab_size"]
+    if toks.shape != (GEN_BATCH, GEN_NEW) or not bool(((toks >= 0) & (toks < vocab)).all()):
+        raise RuntimeError(f"MoE generation: tokens of shape {tuple(toks.shape)} out of range")
+    want = 2 * MOE_WIDTH["num_layers"] * GEN_NEW  # w_in and w_out a layer, a model call
+    if counts["gmm_fused"] != want or others(counts, "gmm_fused"):
+        raise RuntimeError(f"MoE generation: launches {counts}, expected {want} gmm_fused "
+                           f"and no other")
+    print(f"MoE generation: batch {GEN_BATCH}, prompt {GEN_PROMPT}, {GEN_NEW} new tokens: "
+          f"{g['tokens_per_s']:.1f} tokens/s, prefill {g['prefill_ms']:.2f} ms, "
+          f"{g['decode_ms_per_step']:.3f} ms a decode step; {wall:.1f} s wall with model build; "
+          f"launches {counts}")
+    moe_decode_checks()
+    return counts["gmm_fused"]
+
+
+def moe_decode_checks() -> None:
+    """Prefill 128 tokens + MOE_DECODE_STEPS decode steps against the full
+    forward over the same 136 tokens: the bf16 logits' relative RMS error
+    within MOE_LOGIT_RTOL (a router near-tie that flips one token's experts
+    between the two passes moves that token's logits by far more than bf16
+    rounding, so the limit is on the RMS, and the largest error and the
+    share of positions with the same argmax are printed beside it); then
+    a profile of 5 decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMConfig, LMTrainer
+
+    cfg = LMConfig(**MOE_WIDTH, use_rope=True, compute_dtype="bfloat16", seq_len=GEN_PROMPT,
+                   moe_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K, moe_dispatch="dropless",
+                   device="cuda")
+    model = LMTrainer(cfg).decode_model()
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(10)
+    t_all = GEN_PROMPT + MOE_DECODE_STEPS
+    tokens = torch.randint(0, MOE_WIDTH["vocab_size"], (GEN_BATCH, t_all), generator=gen,
+                           device=dev)
+    with torch.no_grad():
+        full = model(tokens)
+        cache = model.init_cache(GEN_BATCH)
+        steps = [model(tokens[:, :GEN_PROMPT], "prefill", cache=cache)]
+        for pos in range(GEN_PROMPT, t_all):
+            steps.append(model(tokens[:, pos : pos + 1], "decode", decode_pos=pos, cache=cache))
+        got = torch.cat(steps, dim=1)
+        diff = got - full
+        rel = float(diff.square().mean().sqrt() / full.square().mean().sqrt())
+        same = float((got.argmax(-1) == full.argmax(-1)).float().mean())
+        worst = float(diff.abs().max())
+    if not (math.isfinite(rel) and rel <= MOE_LOGIT_RTOL):
+        raise RuntimeError(f"MoE prefill + decode logits differ from the full forward: relative "
+                           f"RMS {rel} (limit {MOE_LOGIT_RTOL}), max abs {worst}")
+    print(f"MoE prefill {GEN_PROMPT} + {MOE_DECODE_STEPS} decode steps vs the full forward "
+          f"(bf16): relative RMS error {rel:.3e} ({rel / MOE_LOGIT_RTOL:.3f} of the limit "
+          f"{MOE_LOGIT_RTOL}), max abs error {worst}, same argmax at {100 * same:.2f} % of "
+          f"positions")
+    del full, got, diff, steps
+
+    steps = 5
+    pos = t_all
+    last = tokens[:, -1:]
+    with torch.no_grad():
+        model(last, "decode", decode_pos=pos, cache=cache)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(steps):
+                model(last, "decode", decode_pos=pos + 1 + i, cache=cache)
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = summarize_profile(prof, steps, "MoE decode profile", {"gmm": ("gmm_fused_kernel",)})
+    if out:
+        out.update(wall_ms_per_step_profiled=wall / steps * 1e3,
+                   gmm_share_of_busy=out["gmm_ms_per_step"] / out["device_busy_ms_per_step"])
+        print(json.dumps({"moe_decode_profile": out}))
+    del model, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1391,6 +1861,8 @@ def main() -> int:
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_sgd as K
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_xent as FX
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import paged_attention as PA
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
 
@@ -1408,9 +1880,10 @@ def main() -> int:
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
-    sources = [K.SOURCE, C.SOURCE, A.SOURCE, PA.SOURCE, QT.SOURCE]
+    modules = (K, C, A, PA, QT, FX, G)
+    sources = [module.SOURCE for module in modules]
     _build.build_all(sources)
-    for module in (K, C, A, PA, QT):
+    for module in modules:
         module.load_kernel()
     print("built " + ", ".join(f"{s} in {_build.build_seconds[s]:.2f} s" for s in sources)
           + f", in parallel (wall {time.perf_counter() - t0:.2f} s)")
@@ -1436,11 +1909,11 @@ def main() -> int:
     profile_phase("resnet18", fast_conv=True)
     profile_phase("resnet18", fast_conv=False)
 
-    flash_records = flash_phase(dev)
-    flash_counts = lm_main_path_phase()
-    for rec in flash_records:
-        rec["launches"] = flash_counts[rec["name"].removeprefix("flash_")]
-    records += flash_records
+    lm_records = flash_phase(dev) + fused_xent_phase(dev)
+    lm_counts = lm_main_path_phase()
+    for rec in lm_records:
+        rec["launches"] = lm_counts[rec["name"]]
+    records += lm_records
     lm_throughput_phase()
     lm_trajectory_phase()
 
@@ -1450,6 +1923,10 @@ def main() -> int:
     paged_record["launches"] = serving_phase()
     records += [paged_record, int8_record]
     serving_checks_phase()
+
+    gmm_record = gmm_phase(dev)
+    gmm_record["launches"] = moe_generation_phase()
+    records.append(gmm_record)
 
     print(json.dumps({"kernels": records}))
     print(card_line())

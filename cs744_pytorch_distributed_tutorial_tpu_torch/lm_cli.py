@@ -14,13 +14,23 @@ weight-matmul kernel and with ``--int8-kv-cache`` over an int8 cache:
         --steps 0 --generate 128 --prompt-len 128 --generate-batch 16 \
         --temperature 0 --int8-decode head --json
 
+``--fused-xent`` trains through the fused cross-entropy kernels. The
+dropless MoE LM generates (its training is a later slice):
+
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.lm_cli \
+        --num-layers 6 --d-model 512 --num-heads 8 --d-ff 1024 \
+        --vocab-size 50304 --max-seq-len 512 --use-rope \
+        --moe-experts 8 --moe-top-k 2 --moe-dispatch dropless \
+        --compute-dtype bfloat16 --steps 0 --seq-len 128 --num-seqs 16 \
+        --generate 128 --prompt-len 128 --generate-batch 16 --temperature 0 --json
+
 The flags are the JAX package's (``lm_cli.py``), with its names and
 defaults, for the options the port runs, plus ``--device`` (``cuda``,
 the default, or ``cpu``) and ``--generate-batch`` (prompts are the
 leading training sequences' prefixes; the JAX CLI takes one). Other
 flags and choices of the JAX CLI (the lion optimizer, cosine schedules)
-are not accepted; ``--fused-xent``, ``--beam`` and ``--speculative-k``
-exit with "not yet ported". The stdout lines and the ``--json`` summary
+are not accepted; ``--moe-expert-parallel``, ``--beam`` and
+``--speculative-k`` exit with "not yet ported". The stdout lines and the ``--json`` summary
 keys are the JAX CLI's, plus ``generation`` (batch, times and every
 row's tokens) when generating.
 """
@@ -62,7 +72,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--norm", default="layernorm", choices=["layernorm", "rmsnorm"])
     p.add_argument("--mlp", default="gelu", choices=["gelu", "swiglu"])
     p.add_argument("--use-rope", action="store_true")
-    p.add_argument("--fused-xent", action="store_true", help="not yet ported")
+    p.add_argument("--fused-xent", action="store_true",
+                   help="fused softmax cross-entropy (the CUDA kernels of ops/fused_xent.py)")
+    # MoE
+    p.add_argument("--moe-experts", type=int, default=0)
+    p.add_argument("--moe-top-k", type=int, default=2)
+    p.add_argument("--moe-groups", type=int, default=1,
+                   help="token groups for MoE routing/capacity (dropless takes 1)")
+    p.add_argument("--moe-dispatch", choices=("einsum", "scatter", "dropless"),
+                   default="scatter",
+                   help="token movement; only dropless (no capacity: the grouped-matmul "
+                        "kernel) is ported")
+    p.add_argument("--moe-gmm-impl", choices=("auto", "ragged", "pallas"), default="auto",
+                   help="grouped-matmul backend for --moe-dispatch dropless: auto and pallas "
+                        "take the CUDA kernel (ragged is not yet ported)")
+    p.add_argument("--moe-expert-parallel", action="store_true", help="not yet ported")
     # optimization
     p.add_argument("--global-batch-size", type=int, default=8)
     p.add_argument("--seq-len", type=int, default=256)
@@ -180,8 +204,8 @@ def _generate(args, trainer, tokens):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, on in (("--fused-xent", args.fused_xent), ("--beam", args.beam),
-                     ("--speculative-k", args.speculative_k)):
+    for flag, on in (("--moe-expert-parallel", args.moe_expert_parallel),
+                     ("--beam", args.beam), ("--speculative-k", args.speculative_k)):
         if on:
             raise SystemExit(f"{flag} is not yet ported to the PyTorch/CUDA package")
 
@@ -214,6 +238,12 @@ def main(argv: list[str] | None = None) -> int:
         use_rope=args.use_rope,
         norm=args.norm,
         mlp=args.mlp,
+        fused_xent=args.fused_xent,
+        moe_experts=args.moe_experts,
+        moe_top_k=args.moe_top_k,
+        moe_groups=args.moe_groups,
+        moe_dispatch=args.moe_dispatch,
+        moe_gmm_impl=args.moe_gmm_impl,
         global_batch_size=args.global_batch_size,
         seq_len=args.seq_len,
         learning_rate=args.lr,

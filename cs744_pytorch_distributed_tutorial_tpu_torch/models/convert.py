@@ -45,9 +45,13 @@ The transformer LM (``models/transformer.py``), flax ``params`` only:
     block_i/mlp_out_bias                  blocks.i.mlp_out_bias
     ln_f {scale, bias}                    ln_f.{weight, bias}
     lm_head/kernel                        lm_head.weight
+    block_i/moe/router/kernel             blocks.i.moe.router.weight
+    block_i/moe/{w_in,b_in,w_out,b_out}   blocks.i.moe.{w_in, b_in, w_out, b_out}
 
-with Dense kernels ``[in, out]`` transposed into ``Linear.weight [out,
-in]``; norm scales and embeddings copied as they are.
+with Dense kernels ``[in, out]`` (the MoE router's too) transposed into
+``Linear.weight [out, in]``; norm scales, embeddings and the MoE expert
+tensors (``[E, K, N]`` kernels, ``[E, N]`` biases: the layout the
+grouped-matmul kernel reads) copied as they are.
 """
 
 from __future__ import annotations
@@ -234,6 +238,8 @@ def _resnet_jax_from_state_dict(state_dict: Mapping[str, Any], block: str) -> di
 # an ``Embed`` table (every other ``weight`` is a Dense kernel).
 _LM_SCALES = ("ln1", "ln2", "ln_f")
 _LM_EMBEDS = ("tok_embed", "pos_embed")
+# Parameters copied as they are under their own name: the MoE experts'.
+_LM_AS_IS = ("mlp_out_bias", "w_in", "b_in", "w_out", "b_out")
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()):
@@ -266,7 +272,7 @@ def lm_params_from_jax(params: Mapping[str, Any], cfg: Any = None) -> dict[str, 
             out[".".join(scope + ["scale"])] = _tensor(leaf)
         elif name in ("scale", "embedding"):
             out[".".join(scope + ["weight"])] = _tensor(leaf)
-        elif name in ("bias", "mlp_out_bias"):
+        elif name == "bias" or name in _LM_AS_IS:
             out[".".join(scope + [name])] = _tensor(leaf)
         else:
             raise ValueError(f"unexpected LM param {'/'.join(path)!r}")
@@ -299,7 +305,7 @@ def jax_lm_params_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
                 node["kernel"] = np.ascontiguousarray(_np(value).T)
         elif name == "qweight":
             node["qkernel"] = _np(value)
-        elif name in ("bias", "mlp_out_bias", "scale"):
+        elif name in ("bias", "scale") or name in _LM_AS_IS:
             node[name] = _np(value)
         else:
             raise ValueError(f"unexpected LM state_dict key {key!r}")

@@ -35,8 +35,12 @@ routes the ``quant_modules`` projections to ``ops/quant.py::
 QuantLinear`` (int8 weights, the int8 matmul kernel); ``quant_kv_cache``
 stores K/V rows int8 with fp32 row scales.
 
-Options of later slices (MoE, sequence/tensor axes, remat, scan_layers,
-dropout) raise ``NotImplementedError``.
+``num_experts > 0`` replaces each block's dense MLP with the dropless
+``models/moe.py::MoEFFN`` (``moe_dispatch="dropless"``; the block adds its
+output to the residual, with no ``mlp_out_bias``), in every mode. Options
+of later slices (the capacity dispatches ``scatter``/``einsum``,
+sequence/tensor axes, remat, scan_layers, dropout) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.config import resolve_dtype
+from cs744_pytorch_distributed_tutorial_tpu_torch.models.moe import MoEFFN
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.vgg import _lecun_normal_
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -238,14 +243,23 @@ class Attention(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, d_model: int, num_heads: int, d_ff: int, *, norm: str = "layernorm",
-                 mlp: str = "gelu", quant_modules: tuple = (), **attn_kw):
+                 mlp: str = "gelu", quant_modules: tuple = (), moe: dict | None = None,
+                 **attn_kw):
         super().__init__()
         if mlp not in MLP_IMPLS:
             raise ValueError(f"unknown mlp {mlp!r}; choose from {MLP_IMPLS}")
+        if moe is not None and mlp != "gelu":
+            raise ValueError(
+                f"mlp={mlp!r} does not compose with MoE (num_experts={moe['num_experts']}): "
+                "the routed MoEFFN replaces the dense MLP; drop --mlp swiglu or the experts")
         self.mlp = mlp
         self.ln1 = Norm(d_model, norm)
         self.attn = Attention(d_model, num_heads, quant_modules=quant_modules, **attn_kw)
         self.ln2 = Norm(d_model, norm)
+        if moe is not None:
+            self.moe = MoEFFN(d_model, d_ff=d_ff, **moe)
+            return
+        self.moe = None
         self.mlp_in = _linear(d_model, d_ff, True, "mlp_in" in quant_modules)
         self.mlp_gate = (_linear(d_model, d_ff, False, "mlp_gate" in quant_modules)
                          if mlp == "swiglu" else None)
@@ -255,6 +269,8 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype, **attn_kw) -> torch.Tensor:
         x = x + self.attn(self.ln1(x, dtype), dtype, **attn_kw)
         h = self.ln2(x, dtype)
+        if self.moe is not None:
+            return x + self.moe(h, dtype)
         up = _dense(self.mlp_in, h, dtype)
         if self.mlp == "swiglu":
             h = F.silu(_dense(self.mlp_gate, h, dtype)) * up
@@ -264,11 +280,20 @@ class Block(nn.Module):
         return x + h + self.mlp_out_bias.to(dtype)
 
 
+def _modules_outside_moe(module: nn.Module):
+    """``module.modules()`` in the same order, but an ``MoEFFN`` is yielded
+    without its insides: it inits and casts its own parameters."""
+    yield module
+    if not isinstance(module, MoEFFN):
+        for child in module.children():
+            yield from _modules_outside_moe(child)
+
+
 # Options of the JAX model that later slices port: name -> the value
 # that means "off".
 _NOT_YET_PORTED = {
-    "num_experts": 0, "seq_axis_size": 1, "tensor_axis_size": 1, "remat": False,
-    "scan_layers": False, "dropout_rate": 0.0,
+    "seq_axis_size": 1, "tensor_axis_size": 1, "remat": False, "scan_layers": False,
+    "dropout_rate": 0.0,
 }
 
 
@@ -287,8 +312,10 @@ class TransformerLM(nn.Module):
                  num_kv_heads: int | None = None, norm: str = "layernorm", mlp: str = "gelu",
                  attn_bias: bool = False, quant_dense: bool = False,
                  quant_modules: tuple = tuple(sorted(QUANT_MODULES)),
-                 quant_kv_cache: bool = False, generator: torch.Generator | None = None,
-                 **later):
+                 quant_kv_cache: bool = False, num_experts: int = 0, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25, moe_num_groups: int = 1,
+                 moe_dispatch: str = "scatter", moe_gmm_impl: str = "auto",
+                 generator: torch.Generator | None = None, **later):
         super().__init__()
         for name, value in later.items():
             if name not in _NOT_YET_PORTED:
@@ -305,9 +332,15 @@ class TransformerLM(nn.Module):
         self.quant_kv_cache = quant_kv_cache
         self.tok_embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = None if use_rope else nn.Embedding(max_seq_len, d_model)
+        moe = None
+        if num_experts > 0:
+            moe = dict(num_experts=num_experts, top_k=moe_top_k,
+                       capacity_factor=moe_capacity_factor, num_groups=moe_num_groups,
+                       dispatch_impl=moe_dispatch, gmm_impl=moe_gmm_impl)
         self.blocks = nn.ModuleList(
             Block(d_model, num_heads, d_ff, norm=norm, mlp=mlp, num_kv_heads=num_kv_heads,
-                  impl=attention_impl, rope=use_rope, attn_bias=attn_bias, quant_modules=quant)
+                  impl=attention_impl, rope=use_rope, attn_bias=attn_bias, quant_modules=quant,
+                  moe=moe)
             for _ in range(num_layers)
         )
         self.ln_f = Norm(d_model, norm)
@@ -319,8 +352,10 @@ class TransformerLM(nn.Module):
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
+        for m in _modules_outside_moe(self):
+            if isinstance(m, MoEFFN):
+                m.reset_parameters(generator)
+            elif isinstance(m, nn.Linear):
                 _lecun_normal_(m.weight, m.in_features, generator)
                 if m.bias is not None:
                     m.bias.zero_()
@@ -331,16 +366,20 @@ class TransformerLM(nn.Module):
     def cast_for_decode_(self) -> "TransformerLM":
         """Hold every float weight that ``forward`` casts to the compute
         dtype already in it (projection weights and biases, embeddings,
-        ``mlp_out_bias``); norm parameters stay fp32, as their statistics.
-        The logits do not change; a decode step then reads each weight once
-        instead of casting it anew. The model no longer trains. Returns
-        self."""
-        for m in self.modules():
-            if isinstance(m, (nn.Linear, nn.Embedding)):
+        ``mlp_out_bias``, the expert kernels ``w_in``/``w_out``); norm
+        parameters stay fp32, as their statistics, and so do an MoE
+        layer's router (a bf16 router flips top-k choices) and its
+        ``b_in``/``b_out`` (the kernel adds an fp32 bias). The logits do
+        not change; a decode step then reads each weight once instead of
+        casting it anew. The model no longer trains. Returns self."""
+        for m in _modules_outside_moe(self):
+            if isinstance(m, MoEFFN):
+                m.cast_for_decode_(self.dtype)
+            elif isinstance(m, (nn.Linear, nn.Embedding)):
                 m.to(self.dtype)
             elif isinstance(m, QuantLinear) and m.bias is not None:
                 m.bias = m.bias.to(self.dtype)
-            elif isinstance(m, Block):
+            elif isinstance(m, Block) and m.moe is None:
                 m.mlp_out_bias.data = m.mlp_out_bias.data.to(self.dtype)
         return self
 

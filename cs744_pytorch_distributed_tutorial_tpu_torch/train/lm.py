@@ -5,7 +5,9 @@ A step: the model's forward on [B, T] token ids (``models/
 transformer.py``; bf16 compute when ``compute_dtype="bfloat16"``, by
 explicit casts inside each module, fp32 parameters, fp32 logits), the
 mean cross-entropy (the JAX ``_smoothed_xent``, label smoothing
-included), ``backward()``, and the optimizer update (``adamw`` with
+included; with ``fused_xent`` the CUDA kernels of ``ops/fused_xent.py``,
+which compute plain CE, so label smoothing then raises), ``backward()``,
+and the optimizer update (``adamw`` with
 optax semantics or ``sgd``; ``train/state.py::make_lm_optimizer``). The
 step returns ``{loss, grad_norm, param_norm}`` as 0-d tensors on the
 device: the global L2 norms of the gradient and of the updated
@@ -20,7 +22,13 @@ attention for the prompt pass, the float weights already in the compute
 dtype, int8 projections and/or an int8 KV cache on request) from the
 trainer's weights or from a ``state_dict``; ``quantize_for_decode``
 makes the int8 ``state_dict`` and ``gather_for_decode`` is the identity
-on one device. Options of later slices raise ``NotImplementedError``.
+on one device.
+
+With ``moe_experts > 0`` and ``moe_dispatch="dropless"`` the trainer
+builds, initialises, evaluates and makes decode copies of the MoE model;
+its ``train_step`` and ``fit`` with steps raise ``NotImplementedError``
+(the grouped-matmul backward is a later slice). Options of later slices
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import (
     ATTENTION_IMPLS,
     TransformerLM,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops.fused_xent import fused_cross_entropy
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import (
     quantize_lm_params,
     resolve_quant_modules,
@@ -70,6 +79,18 @@ class LMConfig:
     use_rope: bool = False
     num_kv_heads: int | None = None
 
+    # MoE (models/moe.py): moe_experts > 0 swaps each block's dense FFN
+    # for a routed expert mixture. Only moe_dispatch="dropless" is ported.
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_groups: int = 1
+    moe_dispatch: str = "scatter"  # einsum | scatter | dropless
+    moe_gmm_impl: str = "auto"  # auto | ragged | pallas
+    # The CUDA fused softmax-CE (ops/fused_xent.py): one pass over the
+    # logits, no [N, V] log-softmax. Incompatible with label smoothing.
+    fused_xent: bool = False
+
     global_batch_size: int = 8
     seq_len: int = 256
     learning_rate: float = 1e-3
@@ -86,7 +107,8 @@ class LMConfig:
     data_parallel: int = 1
     seq_parallel: int = 1
     tensor_parallel: int = 1
-    moe_experts: int = 0
+    moe_expert_parallel: bool = False
+    moe_aux_coef: float = 0.01  # the aux loss enters the loss with MoE training
     grad_clip_norm: float | None = None
     grad_compress: str = "none"
     sync_overlap: str = "off"
@@ -94,7 +116,6 @@ class LMConfig:
     zero1: bool = False
     fsdp: bool = False
     scan_layers: bool = False
-    fused_xent: bool = False
     dropout_rate: float = 0.0
     accum_steps: int = 1
     checkpoint_dir: str | None = None
@@ -111,8 +132,8 @@ class LMConfig:
 
 
 _LATER_FIELDS = (
-    "data_parallel", "seq_parallel", "tensor_parallel", "moe_experts", "grad_clip_norm",
-    "grad_compress", "sync_overlap", "remat", "zero1", "fsdp", "scan_layers", "fused_xent",
+    "data_parallel", "seq_parallel", "tensor_parallel", "moe_expert_parallel", "moe_aux_coef",
+    "grad_clip_norm", "grad_compress", "sync_overlap", "remat", "zero1", "fsdp", "scan_layers",
     "dropout_rate", "accum_steps", "checkpoint_dir", "snapshot_every", "step_timeout_s",
     "metrics_dir", "profile_dir",
 )
@@ -131,6 +152,13 @@ def _check_config(cfg: LMConfig) -> None:
         raise ValueError(f"seq_len {cfg.seq_len} exceeds max_seq_len {cfg.max_seq_len}")
     if not 0.0 <= cfg.label_smoothing < 1.0:
         raise ValueError(f"label_smoothing must be in [0, 1), got {cfg.label_smoothing}")
+    if cfg.label_smoothing and cfg.fused_xent:
+        raise ValueError("label_smoothing is incompatible with fused_xent: the fused kernel "
+                         "computes plain CE")
+    if cfg.moe_experts > 0 and cfg.moe_dispatch != "dropless":
+        raise NotImplementedError(
+            f"moe_dispatch={cfg.moe_dispatch!r} (capacity slots; 'scatter' is the default) "
+            "is not yet ported; use moe_dispatch='dropless'")
 
 
 def _global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -171,6 +199,9 @@ class LMTrainer:
             d_model=cfg.d_model, d_ff=cfg.d_ff, max_seq_len=cfg.max_seq_len, dtype=self.dtype,
             tie_embeddings=cfg.tie_embeddings, use_rope=cfg.use_rope,
             num_kv_heads=cfg.num_kv_heads, norm=cfg.norm, mlp=cfg.mlp,
+            num_experts=cfg.moe_experts, moe_top_k=cfg.moe_top_k,
+            moe_capacity_factor=cfg.moe_capacity_factor, moe_num_groups=cfg.moe_groups,
+            moe_dispatch=cfg.moe_dispatch, moe_gmm_impl=cfg.moe_gmm_impl,
         )
 
     def gather_for_decode(self, params: dict | None = None) -> dict:
@@ -243,16 +274,26 @@ class LMTrainer:
         tokens = tokens.to(self.device, non_blocking=True)
         return tokens[:, :-1], tokens[:, 1:]
 
-    def _loss(self, inputs: torch.Tensor, targets: torch.Tensor, smoothing: float):
+    def _loss(self, inputs: torch.Tensor, targets: torch.Tensor, smoothing: float,
+              fused: bool = False):
         logits = self.model(inputs)
         v = logits.shape[-1]
+        if fused:
+            return fused_cross_entropy(logits.reshape(-1, v), targets.reshape(-1)).mean()
         return _smoothed_xent(logits.reshape(-1, v), targets.reshape(-1), smoothing)
 
+    def _check_trainable(self) -> None:
+        if self.cfg.moe_experts > 0:
+            raise NotImplementedError(
+                "training the MoE LM (the grouped-matmul backward and the aux loss in the "
+                "objective) is not yet ported; it builds, evaluates and generates")
+
     def train_step(self, inputs: torch.Tensor, targets: torch.Tensor) -> dict[str, torch.Tensor]:
+        self._check_trainable()
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
-        loss = self._loss(inputs, targets, self.cfg.label_smoothing)
+        loss = self._loss(inputs, targets, self.cfg.label_smoothing, fused=self.cfg.fused_xent)
         loss.backward()
         grad_norm = _global_norm([p.grad for p in params])
         self.optimizer.step()
@@ -262,7 +303,8 @@ class LMTrainer:
 
     @torch.no_grad()
     def eval_step(self, inputs: torch.Tensor, targets: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Plain mean cross-entropy (no label smoothing)."""
+        """Plain mean cross-entropy (no label smoothing, and not the fused
+        kernel, as the JAX ``local_eval``)."""
         return {"loss": self._loss(inputs, targets, 0.0)}
 
     def evaluate(self, tokens) -> dict[str, float]:
@@ -285,6 +327,8 @@ class LMTrainer:
         ``tokens`` [N, seq_len + 1]; returns ``(model, optimizer,
         losses)``. ``self.history`` holds every step's metrics."""
         cfg = self.cfg
+        if steps > 0:
+            self._check_trainable()
         model, optimizer = self.init()
         losses: list[float] = []
         self.history: dict[str, list[float]] = {"loss": losses}

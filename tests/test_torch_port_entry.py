@@ -70,7 +70,8 @@ SERVE_FLAGS = [*LM_FLAGS, "--requests", "6", "--rate", "50", "--prompt-len", "3"
 
 
 @pytest.mark.parametrize("entry", ["make_generator", "ServingEngine", "serve_cli",
-                                   "lm_cli --generate"])
+                                   "lm_cli --generate", "lm_cli --generate (MoE)",
+                                   "lm_cli --fused-xent"])
 def test_inference_entry_points_without_gpu_raise(entry):
     _no_gpu()
     model = TransformerLM(**TINY_LM)
@@ -80,6 +81,11 @@ def test_inference_entry_points_without_gpu_raise(entry):
         "serve_cli": lambda: serve_cli.main(SERVE_FLAGS),
         "lm_cli --generate": lambda: lm_cli.main([*LM_FLAGS, "--steps", "0", "--generate", "4",
                                                   "--seq-len", "16", "--num-seqs", "8"]),
+        "lm_cli --generate (MoE)": lambda: lm_cli.main(
+            [*LM_FLAGS, "--moe-experts", "4", "--moe-dispatch", "dropless", "--steps", "0",
+             "--generate", "4", "--seq-len", "16", "--num-seqs", "8"]),
+        "lm_cli --fused-xent": lambda: lm_cli.main([*LM_FLAGS, "--fused-xent", "--steps", "1",
+                                                    "--seq-len", "16", "--num-seqs", "8"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

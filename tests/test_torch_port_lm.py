@@ -162,7 +162,7 @@ def test_cli_without_gpu_raises():
         LMTrainer(LMConfig(**SMALL))
 
 
-@pytest.mark.parametrize("flag", [["--fused-xent"], ["--generate", "8", "--beam", "2"]])
+@pytest.mark.parametrize("flag", [["--moe-expert-parallel"], ["--generate", "8", "--beam", "2"]])
 def test_cli_flags_of_later_slices_say_not_yet_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported"):
         lm_cli.main([*CLI_SMALL, *flag])
@@ -181,9 +181,10 @@ def test_cli_rejects_flags_it_does_not_have(flag):
 
 @pytest.mark.parametrize(
     "override",
-    [dict(fused_xent=True), dict(moe_experts=4), dict(seq_parallel=2), dict(zero1=True),
+    # moe_experts=4 raises under the default dispatch, "scatter" (capacity slots).
+    [dict(remat=True), dict(moe_experts=4), dict(seq_parallel=2), dict(zero1=True),
      dict(accum_steps=2), dict(grad_compress="int8"), dict(checkpoint_dir="ckpt"),
-     dict(optimizer="lion"), dict(lr_schedule="cosine")],
+     dict(optimizer="lion"), dict(lr_schedule="cosine"), dict(moe_aux_coef=0.1)],
 )
 def test_config_options_of_later_slices_raise(override):
     with pytest.raises(NotImplementedError, match="not yet ported"):
