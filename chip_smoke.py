@@ -83,7 +83,25 @@ no result):
     1024, 8 experts top-2, dropless, vocab 50304, RoPE, bf16), batch 16,
     prompt 128, greedy, 2 grouped-matmul launches a layer a model call;
     prefill + 8 decode steps against the full forward; a profile of 5
-    decode steps.
+    decode steps;
+18. the grouped matmul's backward kernels against their plain versions at
+    the MoE training path's shapes (lhs [32768, 512] against [8, 512,
+    1024], and [32768, 1024] against [8, 1024, 512]; ragged group sizes
+    with an empty group and router-drawn ones), fp32 and bf16, every call
+    under ``torch.cuda.set_sync_debug_mode("error")``: ``gmm`` (dlhs, rhs
+    read transposed in place), ``tgmm`` (drhs), ``colsum`` (dbias) and the
+    forward's ``z``; then their times at the path's bf16 calls beside their
+    bounds, the plain versions' and one PyTorch call's;
+19. MoE training through ``lm_cli``: the JAX package's
+    ``moe_e8_top2_dropless_pallas`` (``benchmarks/bench_vit_moe.py``) at
+    full width, batch 32 x T 512, flash, bf16, AdamW, 8 steps and one eval
+    batch, every launch count exact (a step: 12 ``gmm_fused`` of which the
+    6 ``w_in`` calls write ``z``, 12 ``gmm``, 12 ``tgmm``, 12 ``colsum``
+    and 18 flash); its throughput, one step under
+    ``set_sync_debug_mode("error")`` and a profile of 2 steps; a
+    kernel-vs-plain trajectory (2 layers at full width, batch 8, fp32, 4
+    steps); and 3 steps with the capacity-slot ``scatter`` dispatch (no
+    grouped-matmul kernel).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -175,6 +193,12 @@ MOE_EXPERTS, MOE_TOP_K = 8, 2
 MOE_DECODE_STEPS = 8  # prefill + this many decode steps vs the full forward
 MOE_LOGIT_RTOL = 2e-2  # rms(decode - full) / rms(full), bf16
 GMM_RAGGED = (1000, 100, 70, [0, 300, 0, 250, 0, 0, 450, 0])  # M, K, N, group sizes
+# MoE training (the JAX bench's moe_e8_top2_dropless_pallas): batch 32 x T 512,
+# 32768 routed rows a layer. Ragged group sizes for the backward's kernels: an
+# empty group, boundaries off the 64-row tiles, summing to 32768.
+MOE_TRAIN_BATCH, MOE_TRAIN_STEPS, MOE_TIMED_STEPS = 32, 8, 5
+GMM_TRAIN_RAGGED = [4100, 0, 5000, 3333, 6000, 4444, 5555, 4336]
+MOE_TRAJ_STEPS, MOE_TRAJ_LR = 4, 1e-3
 
 
 def card_line() -> str:
@@ -1738,7 +1762,8 @@ def gmm_phase(dev: torch.device) -> dict:
         "route": "cuda",
         "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/gmm.cu",
         "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/gmm.py:278",
-        "tpu_kernel": "ops/gmm.py::_gmm_fused_kernel (forward, without with_z)",
+        "tpu_kernel": "ops/gmm.py::_gmm_fused_kernel (the undifferentiated forward, without "
+                      "with_z; with it: the gmm_fused_with_z record)",
         "launches": None,  # filled in from the MoE generation path's run
         "max_abs_err": err,
         "share_of_limit": worst,
@@ -1760,6 +1785,7 @@ def moe_generation_phase() -> int:
     gmm_fused launches. Then prefill + MOE_DECODE_STEPS decode steps
     against the full forward, and a profile of 5 decode steps."""
     from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
 
     moe_flags = ["--moe-experts", str(MOE_EXPERTS), "--moe-top-k", str(MOE_TOP_K),
                  "--moe-dispatch", "dropless"]
@@ -1779,9 +1805,11 @@ def moe_generation_phase() -> int:
     if toks.shape != (GEN_BATCH, GEN_NEW) or not bool(((toks >= 0) & (toks < vocab)).all()):
         raise RuntimeError(f"MoE generation: tokens of shape {tuple(toks.shape)} out of range")
     want = 2 * MOE_WIDTH["num_layers"] * GEN_NEW  # w_in and w_out a layer, a model call
-    if counts["gmm_fused"] != want or others(counts, "gmm_fused"):
-        raise RuntimeError(f"MoE generation: launches {counts}, expected {want} gmm_fused "
-                           f"and no other")
+    per_kernel = {k: G.launch_count(k) for k in G.KERNELS}
+    if (counts["gmm_fused"] != want or per_kernel["fused"] != want
+            or others(counts, "gmm_fused")):
+        raise RuntimeError(f"MoE generation: launches {counts}, grouped-matmul kernels "
+                           f"{per_kernel}; expected {want} gmm_fused without z and no other")
     print(f"MoE generation: batch {GEN_BATCH}, prompt {GEN_PROMPT}, {GEN_NEW} new tokens: "
           f"{g['tokens_per_s']:.1f} tokens/s, prefill {g['prefill_ms']:.2f} ms, "
           f"{g['decode_ms_per_step']:.3f} ms a decode step; {wall:.1f} s wall with model build; "
@@ -1850,6 +1878,446 @@ def moe_decode_checks() -> None:
         print(json.dumps({"moe_decode_profile": out}))
     del model, cache
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ grouped-matmul backward
+def quiet(fn):
+    """``fn()`` with every host synchronisation an error."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def gmm_bwd_library(name: str, lhs, rhs, dout, group_sizes):
+    """One PyTorch call computing the same function as a backward kernel,
+    or None with the reason: ``torch._grouped_mm`` on bf16 copies of the
+    fp32 operands for ``gmm`` (dout @ rhs^T) and ``tgmm`` (lhs^T @ dout by
+    row groups), ``torch.segment_reduce`` for ``colsum``. Operands are
+    made beforehand."""
+    offs = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+    if name == "colsum":
+        lengths = group_sizes.long()
+        calls = [lambda: torch.segment_reduce(dout, "sum", lengths=lengths, axis=0, unsafe=True)]
+        label = "torch.segment_reduce(dout, 'sum', lengths) (fp32)"
+    else:
+        grouped_mm = getattr(torch, "_grouped_mm", None)
+        if grouped_mm is None:
+            return None, "no torch._grouped_mm", None
+        d16 = dout.bfloat16()
+        if name == "gmm":
+            w = rhs.bfloat16()
+            calls = [lambda b=b: grouped_mm(d16, b, offs=offs)
+                     for b in (w.transpose(1, 2), w.transpose(1, 2).contiguous())]
+            label = "torch._grouped_mm(dout bf16, rhs^T bf16, offs)"
+        else:
+            a = lhs.bfloat16()
+            calls = [lambda a_t=a_t: grouped_mm(a_t, d16, offs=offs)
+                     for a_t in (a.t(), a.t().contiguous())]
+            label = "torch._grouped_mm(lhs^T bf16, dout bf16, offs) -> [E, K, N]"
+    reason = None
+    for call in calls:
+        try:
+            call()
+            torch.cuda.synchronize()
+            return call, None, label
+        except (RuntimeError, NotImplementedError, TypeError, ValueError) as exc:
+            reason = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+    return None, reason, label
+
+
+def gmm_backward_phase(dev: torch.device) -> list[dict]:
+    """The backward's kernels and the forward's ``z`` against their plain
+    versions at the MoE training path's shapes, fp32 and bf16, with the
+    ragged and the router's group sizes, each kernel call under
+    ``set_sync_debug_mode("error")``: fp32 outputs (gmm, tgmm, colsum, and
+    z in fp32) within 1e-5 x max|plain| (sums in another order; widened
+    bf16 products are exact), bf16 z within one ulp of each plain value
+    plus 1e-5 x max|plain|. Two tgmm runs are bitwise equal. Then the
+    times of the path's bf16 calls: returns one record each for gmm,
+    tgmm, colsum and the forward with ``z``."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.models.moe import MoEFFN
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    d, f, e = MOE_WIDTH["d_model"], MOE_WIDTH["d_ff"], MOE_EXPERTS
+    m = MOE_TRAIN_BATCH * MOE_WIDTH["max_seq_len"] * MOE_TOP_K  # routed rows a layer
+    layer = moe_layer(dev)
+    with torch.no_grad():
+        tokens = randn(gen, m // MOE_TOP_K, d, dtype=torch.bfloat16)
+        _, _, idx = layer.route(tokens)
+        _, routed, _ = MoEFFN.group_by_expert(idx, e)
+    del layer, tokens, idx
+    print(f"gmm backward: {m} routed rows, ragged group sizes {GMM_TRAIN_RAGGED}, router's "
+          f"{routed.tolist()}")
+    sizes = {"ragged": torch.tensor(GMM_TRAIN_RAGGED, device=dev), "router": routed}
+    shapes = {"w_in": (d, f), "w_out": (f, d)}  # the forward product's (K, N)
+    names = ("gmm", "tgmm", "colsum", "fused_z")
+    err, worst = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+
+    def check(name, got, want, dtype, label):
+        diff = (got.float() - want.float()).abs()
+        top = float(want.float().abs().max())
+        if dtype == torch.float32:
+            share = float(diff.max()) / (1e-5 * top)
+        else:
+            share = float((diff / (2**-7 * want.float().abs() + 1e-5 * top)).max())
+        if got.dtype != want.dtype or got.shape != want.shape or not (
+                math.isfinite(share) and share <= 1.0):
+            raise RuntimeError(f"{name} kernel disagrees with its plain version at {label}: "
+                               f"max abs err {float(diff.max())}, {share} of the limit")
+        err[name], worst[name] = max(err[name], float(diff.max())), max(worst[name], share)
+        print(f"{name} {label}: max abs err {float(diff.max())} ({share:.3f} of the limit)")
+
+    operands = {}
+    for wname, (k, n) in shapes.items():
+        lhs = randn(gen, m, k)
+        rhs = randn(gen, e, k, n) / k**0.5
+        bias = randn(gen, e, n)
+        dout = randn(gen, m, n)
+        operands[wname] = (lhs, rhs, bias, dout)
+        for s_label, gs in sizes.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                a, w = lhs.to(dtype), rhs.to(dtype)
+                label = f"{wname} {s_label} {str(dtype)[6:]} [{m}, {k}] x [{e}, {k}, {n}]"
+                check("gmm", quiet(lambda: G.gmm(dout, w, gs, trans_rhs=True)),
+                      G.grouped_matmul_plain(dout, w, gs, trans_rhs=True), torch.float32, label)
+                dw = quiet(lambda: G.tgmm(a, dout, gs))
+                check("tgmm", dw, G.tgmm_plain(a, dout, gs), torch.float32, label)
+                if not torch.equal(dw, G.tgmm(a, dout, gs)):
+                    raise RuntimeError(f"tgmm is not bitwise repeatable at {label}")
+                check("colsum", quiet(lambda: G.segment_sum_rows(dout, gs)),
+                      G.segment_sum_rows_plain(dout, gs), torch.float32, label)
+                _, z = quiet(lambda: G._fused(a, w, bias, gs, "gelu", None, True))
+                _, z_plain = G.grouped_matmul_fused_plain(a, w, bias, gs, activation="gelu",
+                                                          with_z=True)
+                check("fused_z", z, z_plain, dtype, label)
+                del dw, z, z_plain
+        torch.cuda.empty_cache()
+    print("gmm backward kernels agree with their plain versions, no host synchronisation; "
+          + ", ".join(f"{k} max abs err {err[k]} ({worst[k]:.3f} of the limit)" for k in names))
+
+    # Times at the path's bf16 calls, router group sizes: per layer, gmm and
+    # tgmm and colsum once for w_in and once for w_out, the forward with z
+    # once (w_in; w_out's forward has no activation and writes no z).
+    bw, fp32_flops = card_rates(torch.cuda.get_device_name(0))
+    gs = routed
+    timed: dict[str, dict] = {name: {} for name in names}
+    for wname, (k, n) in shapes.items():
+        lhs, rhs, bias, dout = operands[wname]
+        a, w = lhs.bfloat16(), rhs.bfloat16()
+        calls = {
+            # name: (kernel, plain, bytes, flop, peak)
+            "gmm": (lambda: G.gmm(dout, w, gs, trans_rhs=True),
+                    lambda: G.grouped_matmul_plain(dout, w, gs, trans_rhs=True),
+                    4.0 * m * n + 2.0 * e * k * n + 4.0 * e + 4.0 * m * k,
+                    2.0 * m * k * n, fp32_flops),
+            "tgmm": (lambda: G.tgmm(a, dout, gs), lambda: G.tgmm_plain(a, dout, gs),
+                     2.0 * m * k + 4.0 * m * n + 4.0 * e + 4.0 * e * k * n,
+                     2.0 * m * k * n, fp32_flops),
+            "colsum": (lambda: G.segment_sum_rows(dout, gs),
+                       lambda: G.segment_sum_rows_plain(dout, gs),
+                       4.0 * m * n + 4.0 * e + 4.0 * e * n, 1.0 * m * n, fp32_flops),
+        }
+        if wname == "w_in":
+            calls["fused_z"] = (
+                lambda: G._fused(a, w, bias, gs, "gelu", None, True),
+                lambda: G.grouped_matmul_fused_plain(a, w, bias, gs, activation="gelu",
+                                                     with_z=True),
+                2.0 * m * k + 2.0 * e * k * n + 4.0 * e * n + 4.0 * e + 2 * 2.0 * m * n,
+                2.0 * m * k * n, BF16_FLOPS)
+        for name, (kernel, plain, nbytes, flop, peak) in calls.items():
+            if name == "fused_z":
+                library, reason = gmm_library(a, w, bias, gs, "gelu")
+                lib_label = "torch._grouped_mm + row bias + gelu (bf16, no z)"
+            else:
+                library, reason, lib_label = gmm_bwd_library(name, a, w, dout, gs)
+            bytes_ms, ops_ms = nbytes / bw * 1e3, flop / peak * 1e3
+            match = {"gmm": "gmm_fused_kernel", "fused_z": "gmm_fused_kernel"}.get(
+                name, f"{name}_kernel")
+            t = {
+                "ms": median_ms(kernel),
+                "device_ms": device_busy_ms(kernel, match=match),
+                "plain_ms": median_ms(plain, reps=3, warmup=1),
+                "library_ms": median_ms(library) if library else None,
+                "library_device_ms": device_busy_ms(library) if library else None,
+                "library": lib_label if library else f"not run: {reason}",
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
+            }
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+            timed[name][wname] = t
+            print(f"{name} {wname} [{m}, {k}] x [{e}, {k}, {n}] bf16 path call: "
+                  f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; kernel {t['ms']:.4f} ms "
+                  f"(device {t['device_ms']} ms), plain {t['plain_ms']:.4f} ms, {t['library']} "
+                  f"{t['library_ms']} ms (device {t['library_device_ms']} ms), bound "
+                  f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {100 * t['bound_share']:.2f} % of "
+                  f"it)")
+    del operands
+    torch.cuda.empty_cache()
+
+    replaces = {"gmm": ("105", "_gmm_kernel (dlhs = gmm(dout, rhs^T))"),
+                "tgmm": ("124", "_tgmm_kernel (drhs)"),
+                "colsum": ("124", "_tgmm_kernel on an all-ones lhs (_segment_sum_rows: dbias)"),
+                "fused_z": ("278", "_gmm_fused_kernel with with_z (the differentiated gelu "
+                                   "forward)")}
+    records = []
+    for name in names:
+        calls = timed[name]
+
+        def total(key, calls=calls):
+            vals = [c[key] for c in calls.values()]
+            return None if None in vals else sum(vals)
+
+        line, what = replaces[name]
+        records.append({
+            "name": "gmm_fused_with_z" if name == "fused_z" else name,
+            "kernel": name,
+            "route": "cuda",
+            "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/gmm.cu",
+            "replaces": f"cs744_pytorch_distributed_tutorial_tpu/ops/gmm.py:{line}",
+            "tpu_kernel": f"ops/gmm.py::{what}",
+            "launches": None,  # filled in from the MoE training path's run
+            "max_abs_err": err[name],
+            "share_of_limit": worst[name],
+            **{key: total(key) for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                           "library_ms", "library_device_ms")},
+            "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in calls.values())
+            else "operations",
+            "library": next(iter(calls.values()))["library"],
+            "work": ("one MoE layer's calls of a training step (32 x 512 tokens, top-2, bf16 "
+                     "compute): " + " and ".join(calls)),
+            "calls": calls,
+        })
+    return records
+
+
+# ------------------------------------------------------------- MoE training
+def moe_train_argv(dispatch: str, steps: int) -> list[str]:
+    """``lm_cli`` flags of the MoE training path: ``steps`` steps over
+    distinct batches of 32 and one held-out eval batch."""
+    argv = [a for key, value in MOE_WIDTH.items() for a in (f"--{key.replace('_', '-')}",
+                                                            str(value))]
+    return argv + [
+        "--seq-len", str(MOE_WIDTH["max_seq_len"]), "--use-rope", "--attention-impl", "flash",
+        "--compute-dtype", "bfloat16", "--optimizer", "adamw", "--moe-experts",
+        str(MOE_EXPERTS), "--moe-top-k", str(MOE_TOP_K), "--moe-dispatch", dispatch,
+        "--global-batch-size", str(MOE_TRAIN_BATCH), "--steps", str(steps), "--num-seqs",
+        str(MOE_TRAIN_BATCH * (steps + 1)), "--eval-frac", str(1 / (steps + 2)), "--json",
+        "--device", "cuda"]
+
+
+def moe_train_path_phase() -> dict:
+    """``lm_cli`` trains the MoE LM (the main path); returns the launches
+    of each grouped-matmul kernel. A step's forward makes 12 gmm_fused
+    launches (6 w_in with z, 6 w_out without), its backward 12 gmm, 12
+    tgmm and 12 colsum (the bias gradient has a launch of its own), and
+    flash 6 forward, 6 dq and 6 dk/dv; the eval batch 12 gmm_fused without
+    z and 6 flash forwards."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
+
+    steps, layers = MOE_TRAIN_STEPS, MOE_WIDTH["num_layers"]
+    t0 = time.perf_counter()
+    summary, all_counts = counted(lambda: run_cli(moe_train_argv("dropless", steps),
+                                                  main=lm_cli.main))
+    wall = time.perf_counter() - t0
+    gmm = {k: G.launch_count(k) for k in G.KERNELS}
+    flash = {k: A.launch_count(k) for k in A.KERNELS}
+    want_gmm = {"fused": layers * (steps + 2), "fused_z": layers * steps,
+                "gmm": 2 * layers * steps, "tgmm": 2 * layers * steps,
+                "colsum": 2 * layers * steps}
+    want_flash = {"fwd": layers * (steps + 1), "dq": layers * steps, "dkv": layers * steps}
+    if gmm != want_gmm or G.launch_count(dtype=torch.bfloat16) != sum(
+            want_gmm[k] for k in ("fused", "fused_z", "tgmm")) or others(
+            all_counts, "gmm_fused", "flash"):
+        raise RuntimeError(f"MoE training path: grouped-matmul launches {gmm} (bf16 lhs "
+                           f"{G.launch_count(dtype=torch.bfloat16)}), all {all_counts}; "
+                           f"expected {want_gmm} and no kernel but gmm and flash")
+    if flash != want_flash:
+        raise RuntimeError(f"MoE training path: flash launches {flash}, expected {want_flash}")
+    moe = summary.get("moe") or {}
+    if summary["steps_run"] != steps or not summary["finite"] or not math.isfinite(
+            summary["eval"]["loss"]):
+        raise RuntimeError(f"MoE training path: {summary}")
+    if not (all(math.isfinite(x) for x in moe.get("moe_aux", [math.nan]))
+            and moe.get("moe_drop") == [0.0] * steps):
+        raise RuntimeError(f"MoE training path: moe metrics {moe}")
+    print(f"MoE training path: {steps} steps + eval in {wall:.1f} s wall (model build and "
+          f"first-step set-up included), loss {summary['first_loss']} -> "
+          f"{summary['final_loss']}, eval {summary['eval']}, moe_aux {moe['moe_aux']}, moe_drop "
+          f"{moe['moe_drop']}, moe_load_entropy {moe['moe_load_entropy']}; gmm launches "
+          f"{gmm}, flash launches {flash}")
+    return gmm
+
+
+def moe_config(**kw):
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMConfig
+
+    base = dict(MOE_WIDTH, seq_len=MOE_WIDTH["max_seq_len"], use_rope=True,
+                attention_impl="flash", compute_dtype="bfloat16", optimizer="adamw",
+                global_batch_size=MOE_TRAIN_BATCH, moe_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K,
+                moe_dispatch="dropless", device="cuda")
+    return LMConfig(**{**base, **kw})
+
+
+def moe_train_throughput_phase() -> dict:
+    """``LMTrainer.train_step`` on the MoE training path's config: 2
+    warm-up steps, MOE_TIMED_STEPS timed with CUDA events; one step with
+    host synchronisation an error; a profile of 2 steps (the grouped
+    matmuls' share of the device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+
+    b, t = MOE_TRAIN_BATCH, MOE_WIDTH["max_seq_len"]
+    d, f, layers, vocab = (MOE_WIDTH[k] for k in ("d_model", "d_ff", "num_layers",
+                                                   "vocab_size"))
+    tr = LMTrainer(moe_config())
+    tr.init()
+    toks = synthetic_tokens(2 * b, t, vocab, seed=2)
+    batches = [tr.split_batch(toks[i * b : (i + 1) * b]) for i in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    _timed_steps(tr, batches, 2)
+    ms = _timed_steps(tr, batches, MOE_TIMED_STEPS)
+    tok_s = b * t / (ms / 1e3)
+    # Active parameters a token: attention, top-2 of the experts, the router.
+    moe_flops = 3.0 * layers * 2.0 * MOE_TOP_K * 2.0 * d * f
+    flops = (lm_flops_per_token(layers, d, MOE_TOP_K * f, t, vocab)
+             + 3.0 * layers * 2.0 * d * MOE_EXPERTS)
+    out = {"ms_per_step": ms, "tokens_per_s": tok_s, "flops_per_token": flops,
+           "moe_flops_per_token": moe_flops, "mfu": tok_s * flops / BF16_FLOPS,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"MoE training throughput: {ms:.3f} ms/step, {tok_s:.1f} tokens/s, "
+          f"{flops / 1e9:.4f} GFLOP a token of which the experts {moe_flops / 1e9:.4f} (active "
+          f"parameters), MFU {100 * out['mfu']:.2f} % of {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16, "
+          f"peak memory {out['peak_memory_gb']:.2f} GB")
+    torch.cuda.synchronize()
+    m = quiet(lambda: tr.train_step(*batches[0]))
+    torch.cuda.synchronize()
+    print(f"MoE training step under set_sync_debug_mode('error'): no host synchronisation "
+          f"(loss {float(m['loss'])})")
+
+    steps = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            tr.train_step(*batches[i % 2])
+        torch.cuda.synchronize()
+    groups = {"gmm": ("gmm_fused_kernel", "tgmm_kernel", "colsum_kernel"),
+              "gmm_forward": ("gmm_fused_kernel<__nv_bfloat16",),
+              "tgmm": ("tgmm_kernel",), "colsum": ("colsum_kernel",),
+              "flash": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")}
+    prof_out = summarize_profile(prof, steps, "MoE training profile", groups)
+    if prof_out:
+        prof_out["gmm_share_of_busy"] = (prof_out["gmm_ms_per_step"]
+                                         / prof_out["device_busy_ms_per_step"])
+        print(json.dumps({"moe_train_profile": prof_out}))
+    out["profile"] = prof_out
+    del tr, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def plain_grouped_matmuls():
+    """The grouped-matmul autograd Functions through the plain versions on
+    CUDA tensors (the module functions they call, patched for the block),
+    for a kernel-vs-plain trajectory."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
+
+    saved = {name: getattr(G, name) for name in ("_fused", "gmm", "tgmm", "segment_sum_rows")}
+
+    def fused(lhs, rhs, bias, group_sizes, activation, out_dtype, with_z):
+        res = G.grouped_matmul_fused_plain(lhs, rhs, bias, group_sizes, activation=activation,
+                                           out_dtype=out_dtype, with_z=with_z)
+        return res if with_z else (res, None)
+
+    G._fused, G.tgmm, G.segment_sum_rows = fused, G.tgmm_plain, G.segment_sum_rows_plain
+    G.gmm = lambda lhs, rhs, gs, *, trans_rhs=False: G.grouped_matmul_plain(
+        lhs, rhs, gs, trans_rhs=trans_rhs)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(G, name, fn)
+
+
+def moe_train_trajectory_phase() -> None:
+    """The grouped-matmul kernels against their plain versions over
+    MOE_TRAJ_STEPS AdamW steps (lr 1e-3) of the MoE LM at full width and 2
+    layers, batch 8 x T 512, fp32 (TF32 off), from one init on the same
+    batches: losses and moe_aux within rtol 1e-4, the first step's
+    gradient norm (same weights) within rtol 1e-5, and the parameters
+    within 2 x lr (an element whose gradient sits at fp32 rounding level
+    may take an Adam step of the other sign), 1e-7 on average."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+
+    b, t = 8, MOE_WIDTH["max_seq_len"]
+    toks = synthetic_tokens(b * MOE_TRAJ_STEPS, t, MOE_WIDTH["vocab_size"], seed=4)
+    runs = {}
+    for name in ("kernel", "plain"):
+        tr = LMTrainer(moe_config(num_layers=2, global_batch_size=b, compute_dtype="float32",
+                                  learning_rate=MOE_TRAJ_LR))
+        model, _ = tr.init()
+        G.reset_launch_count()
+        ctx = plain_grouped_matmuls() if name == "plain" else contextlib.nullcontext()
+        with ctx:
+            steps = [tr.train_step(*tr.split_batch(toks[b * s : b * (s + 1)]))
+                     for s in range(MOE_TRAJ_STEPS)]
+        torch.cuda.synchronize()
+        launches = G.launch_count()
+        if (launches == 0) != (name == "plain") or G.launch_count(dtype=torch.bfloat16):
+            raise RuntimeError(f"MoE trajectory {name}: {launches} grouped-matmul launches")
+        runs[name] = ({k: [float(m[k]) for m in steps] for k in steps[0]},
+                      [p.detach() for p in model.parameters()])
+        del tr, model
+    (hk, pk), (hp, pp) = runs["kernel"], runs["plain"]
+    for key in ("loss", "moe_aux"):
+        for a, c in zip(hk[key], hp[key]):
+            if not (math.isfinite(a) and abs(a - c) <= 1e-4 * abs(c)):
+                raise RuntimeError(f"MoE trajectory {key} differ: kernel {hk[key]} plain "
+                                   f"{hp[key]}")
+    g_k, g_p = hk["grad_norm"][0], hp["grad_norm"][0]
+    if not abs(g_k - g_p) <= 1e-5 * abs(g_p):
+        raise RuntimeError(f"MoE trajectory first-step gradient norms differ: {g_k} vs {g_p}")
+    gaps = torch.cat([(a - c).abs().flatten() for a, c in zip(pk, pp)])
+    gap, mean_gap = float(gaps.max()), float(gaps.mean())
+    del runs, pk, pp, gaps
+    torch.cuda.empty_cache()
+    if not (gap <= 2 * MOE_TRAJ_LR and mean_gap <= 1e-7):
+        raise RuntimeError(f"MoE trajectory parameters differ by {gap} (mean {mean_gap}) "
+                           f"after {MOE_TRAJ_STEPS} steps")
+    print(f"trajectory MoE grouped-matmul kernels vs plain (2 layers, full width, batch {b}, "
+          f"fp32): losses kernel {hk['loss']} plain {hp['loss']}; moe_aux kernel "
+          f"{hk['moe_aux']} plain {hp['moe_aux']}; grad norms kernel {hk['grad_norm']} plain "
+          f"{hp['grad_norm']}; parameter gap after {MOE_TRAJ_STEPS} steps max {gap} mean "
+          f"{mean_gap}")
+
+
+def moe_scatter_phase() -> None:
+    """3 steps of the MoE LM through ``lm_cli`` with the capacity-slot
+    ``scatter`` dispatch (the JAX default; batched products, no
+    grouped-matmul kernel): finite losses, moe_drop in [0, 1)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
+
+    steps = 3
+    t0 = time.perf_counter()
+    summary, counts = counted(lambda: run_cli(moe_train_argv("scatter", steps),
+                                              main=lm_cli.main))
+    wall = time.perf_counter() - t0
+    drops = summary["moe"]["moe_drop"]
+    if (summary["steps_run"] != steps or not summary["finite"] or counts["gmm_fused"]
+            or others(counts, "flash") or not all(0.0 <= x < 1.0 for x in drops)):
+        raise RuntimeError(f"MoE scatter run: {summary}, launches {counts}")
+    print(f"MoE scatter dispatch: {steps} steps + eval in {wall:.1f} s wall, loss "
+          f"{summary['first_loss']} -> {summary['final_loss']}, eval {summary['eval']}, "
+          f"moe_drop {drops}, moe_aux {summary['moe']['moe_aux']}; launches {counts}")
 
 
 def main() -> int:
@@ -1927,6 +2395,15 @@ def main() -> int:
     gmm_record = gmm_phase(dev)
     gmm_record["launches"] = moe_generation_phase()
     records.append(gmm_record)
+
+    bwd_records = gmm_backward_phase(dev)
+    train_counts = moe_train_path_phase()
+    for rec in bwd_records:
+        rec["launches"] = train_counts[rec.pop("kernel")]
+    records += bwd_records
+    moe_train_throughput_phase()
+    moe_train_trajectory_phase()
+    moe_scatter_phase()
 
     print(json.dumps({"kernels": records}))
     print(card_line())

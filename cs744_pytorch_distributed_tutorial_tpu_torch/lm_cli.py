@@ -14,8 +14,17 @@ weight-matmul kernel and with ``--int8-kv-cache`` over an int8 cache:
         --steps 0 --generate 128 --prompt-len 128 --generate-batch 16 \
         --temperature 0 --int8-decode head --json
 
-``--fused-xent`` trains through the fused cross-entropy kernels. The
-dropless MoE LM generates (its training is a later slice):
+``--fused-xent`` trains through the fused cross-entropy kernels. The MoE
+LM trains (``--moe-dispatch dropless`` through the grouped-matmul kernels,
+forward and backward; ``scatter``, the default, and ``einsum`` through
+capacity slots) and generates:
+
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.lm_cli \
+        --num-layers 6 --d-model 512 --num-heads 8 --d-ff 1024 \
+        --vocab-size 50304 --max-seq-len 512 --seq-len 512 --use-rope \
+        --attention-impl flash --moe-experts 8 --moe-top-k 2 \
+        --moe-dispatch dropless --compute-dtype bfloat16 \
+        --global-batch-size 32 --steps 24 --num-seqs 800 --eval-frac 0.04 --json
 
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.lm_cli \
         --num-layers 6 --d-model 512 --num-heads 8 --d-ff 1024 \
@@ -32,7 +41,9 @@ flags and choices of the JAX CLI (the lion optimizer, cosine schedules)
 are not accepted; ``--moe-expert-parallel``, ``--beam`` and
 ``--speculative-k`` exit with "not yet ported". The stdout lines and the ``--json`` summary
 keys are the JAX CLI's, plus ``generation`` (batch, times and every
-row's tokens) when generating.
+row's tokens) when generating and, for an MoE run with steps, ``moe``:
+every step's ``moe_aux``, ``moe_drop`` and ``moe_load_entropy`` (the
+per-step MoE fields the JAX trainer's telemetry records).
 """
 
 from __future__ import annotations
@@ -78,14 +89,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--moe-experts", type=int, default=0)
     p.add_argument("--moe-top-k", type=int, default=2)
     p.add_argument("--moe-groups", type=int, default=1,
-                   help="token groups for MoE routing/capacity (dropless takes 1)")
+                   help="token groups for MoE routing/capacity (0 = ~1024 tokens a group; "
+                        "dropless takes 1)")
     p.add_argument("--moe-dispatch", choices=("einsum", "scatter", "dropless"),
                    default="scatter",
-                   help="token movement; only dropless (no capacity: the grouped-matmul "
-                        "kernel) is ported")
+                   help="token movement: capacity slots (einsum, scatter) or dropless (no "
+                        "capacity: the grouped-matmul kernels)")
     p.add_argument("--moe-gmm-impl", choices=("auto", "ragged", "pallas"), default="auto",
                    help="grouped-matmul backend for --moe-dispatch dropless: auto and pallas "
-                        "take the CUDA kernel (ragged is not yet ported)")
+                        "take the CUDA kernels (ragged is not yet ported)")
     p.add_argument("--moe-expert-parallel", action="store_true", help="not yet ported")
     # optimization
     p.add_argument("--global-batch-size", type=int, default=8)
@@ -260,6 +272,8 @@ def main(argv: list[str] | None = None) -> int:
 
     trainer = LMTrainer(cfg)
     _, _, losses = trainer.fit(tokens, steps=args.steps)
+    moe = ({key: trainer.history[key] for key in ("moe_aux", "moe_drop", "moe_load_entropy")}
+           if args.moe_experts > 0 and losses else None)
     for i, loss in enumerate(losses):
         if i % args.log_every == 0 or i == len(losses) - 1:
             print(f"{i} loss:  {loss:f}")
@@ -285,6 +299,7 @@ def main(argv: list[str] | None = None) -> int:
             "eval": eval_metrics,
             "sample": sample,
             **({"generation": generation} if generation is not None else {}),
+            **({"moe": moe} if moe is not None else {}),
         }))
     return 0
 

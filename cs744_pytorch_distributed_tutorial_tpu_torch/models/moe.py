@@ -1,30 +1,48 @@
-"""Mixture-of-Experts FFN, the dropless path of the JAX package's
-``models/moe.py::MoEFFN``.
+"""Mixture-of-Experts FFN, the JAX package's ``models/moe.py::MoEFFN`` on
+one device (no ``expert_axis``).
 
 Called on ``x [B, T, d]`` in the compute dtype; returns the combined
-expert outputs [B, T, d] (the caller adds them to the residual stream).
+expert outputs [B, T, d] (the caller adds them to the residual stream;
+a dropped route rides the residual alone).
 
 - **Router, in fp32** (parameters and arithmetic): ``nn.Linear(d, E,
   bias=False)`` on the tokens cast to fp32, softmax, ``topk``, and for
   k > 1 the chosen gates renormalised to sum to 1. A bf16 router, or a
   TF32 product, would flip top-k choices, so ``cast_for_decode_`` leaves
   it alone and the port computes fp32 products in full fp32.
-- **Switch aux loss and load entropy** (JAX ``:188-211``) over all
-  tokens: ``aux = E * sum_e f_e * P_e`` with ``f_e`` the share of
-  tokens whose first choice is e and ``P_e`` the mean router
-  probability; the normalised entropy of ``f``. Kept as the attributes
-  ``aux_loss`` and ``load_entropy`` after each call made with grad
-  enabled, for the trainer of a later slice; a no-grad call (prefill,
-  decode, serving) skips their dozen small launches and leaves them
+- **Statistics for the trainer** (JAX ``:188-211``, ``:288``, ``:311``),
+  kept as attributes after each call made with grad enabled: the Switch
+  aux loss over all tokens, ``aux = E * sum_e f_e * P_e`` with ``f_e`` the
+  share of tokens whose first choice is e and ``P_e`` the mean router
+  probability (``aux_loss``); the normalised entropy of ``f``
+  (``load_entropy``); the share of routes dropped for capacity
+  (``drop_rate``, 0 for dropless). A no-grad call (prefill, decode,
+  serving, eval) skips their dozen small launches and leaves them
   ``None``.
-- **Dropless dispatch**: the (token, choice) pairs sorted by expert
-  (``argsort(stable=True)``, so within an expert the pairs keep batch
-  order), the per-expert counts on the device (a ``scatter_add_`` into
-  ``zeros(E)``: ``torch.bincount`` sizes its output from a ``max()`` on
-  the host and would synchronise), the token rows gathered, two fused
-  grouped matmuls (``ops/gmm.py``: gelu on ``w_in`` with ``b_in``, then
-  ``w_out`` with ``b_out``), and the gate-weighted rows added back to
-  their tokens in the compute dtype. Nothing here waits for the host.
+- **Dropless dispatch** (``dispatch_impl="dropless"``): the (token,
+  choice) pairs sorted by expert (``argsort(stable=True)``, so within an
+  expert the pairs keep batch order), the per-expert counts on the device
+  (a ``scatter_add_`` into ``zeros(E)``: ``torch.bincount`` sizes its
+  output from a ``max()`` on the host and would synchronise), the token
+  rows gathered, two fused grouped matmuls (``ops/gmm.py``: gelu on
+  ``w_in`` with ``b_in``, then ``w_out`` with ``b_out``; their backward
+  the ``gmm``/``tgmm``/``colsum`` kernels), and the gate-weighted rows
+  added back to their tokens in the compute dtype. Nothing here waits for
+  the host.
+- **Capacity slots** (``scatter``, the JAX default, and ``einsum``): the
+  tokens in ``num_groups`` groups (0: about 1024 tokens a group; the
+  largest divisor of B*T at most the request), ``capacity = max(1,
+  ceil(k * n * capacity_factor / E))`` slots an expert a group, slot
+  positions from a k-major cumsum (every token's first choice ranks
+  before any second choice, so top-1 routes drop last), routes past the
+  capacity dropped. ``scatter`` adds each kept route's token into its
+  slot of a [G, E, C, d] buffer (a dropped route goes to a spare slot
+  that is cut away) and gathers each route's slot output back, weighted
+  by ``gate * keep``; ``einsum`` builds the one-hot dispatch and combine
+  tensors [G, N, E, C] and contracts them. The expert FFN is a batched
+  product ``[E, G*C, d] @ w_in`` plus ``b_in``, gelu, ``@ w_out`` plus
+  ``b_out``, all in the compute dtype, as JAX computes it outside any
+  kernel.
 - **Experts** ``w_in [E, d, F]``, ``b_in [E, F]``, ``w_out [E, F, d]``,
   ``b_out [E, d]``: the kernels read ``[E, K, N]`` as it is; the biases
   stay fp32, since the kernel adds an fp32 bias.
@@ -39,15 +57,15 @@ counts E as a receptive field, so its fan_in is E * d (std 0.015625 for
 ``(8, 512, 1024)``, not 512**-0.5); ``reset_parameters`` draws from the
 same truncated normal.
 
-``dispatch_impl`` ``scatter`` (the JAX default) and ``einsum`` (capacity
-slots) and ``gmm_impl="ragged"`` are not ported yet; ``auto`` and
-``pallas`` take the CUDA kernel on CUDA tensors and its plain version on
-CPU tensors.
+``expert_axis`` (expert parallelism) and ``gmm_impl="ragged"`` are not
+ported yet; ``auto`` and ``pallas`` take the CUDA kernels on CUDA tensors
+and their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.vgg import _lecun_normal_
@@ -58,6 +76,7 @@ DISPATCH_IMPLS = ("einsum", "scatter", "dropless")
 GMM_IMPLS = ("auto", "ragged", "pallas")
 # The JAX defaults of the capacity knobs, which dropless must keep.
 CAPACITY_FACTOR, NUM_GROUPS = 1.25, 1
+TOKENS_PER_GROUP = 1024  # num_groups=0 picks about this many tokens a group
 
 
 class MoEFFN(nn.Module):
@@ -72,25 +91,29 @@ class MoEFFN(nn.Module):
         if dispatch_impl not in DISPATCH_IMPLS:
             raise ValueError(f"unknown dispatch_impl {dispatch_impl!r}; "
                              "choose 'einsum', 'scatter' or 'dropless'")
-        if dispatch_impl != "dropless":
-            raise NotImplementedError(
-                f"MoE dispatch_impl={dispatch_impl!r} (capacity slots; 'scatter' is the "
-                "JAX default) is not yet ported; use 'dropless'")
-        if expert_axis is not None:
+        dropless = dispatch_impl == "dropless"
+        if dropless and expert_axis is not None:
             raise ValueError(
                 "dispatch_impl='dropless' does not compose with expert_axis: EP's "
                 "all_to_all needs static per-destination counts (capacity slots)")
-        if capacity_factor != CAPACITY_FACTOR or num_groups != NUM_GROUPS:
+        if expert_axis is not None:
+            raise NotImplementedError(
+                f"MoE expert_axis={expert_axis!r} (expert parallelism) is not yet ported")
+        if dropless and (capacity_factor != CAPACITY_FACTOR or num_groups != NUM_GROUPS):
             raise ValueError(
                 "dispatch_impl='dropless' ignores capacity_factor and num_groups (got "
                 f"capacity_factor={capacity_factor}, num_groups={num_groups}); leave them "
                 f"at the defaults ({CAPACITY_FACTOR}, {NUM_GROUPS})")
+        if num_groups < 0:
+            raise ValueError(f"num_groups must be >= 0, got {num_groups}")
         if gmm_impl not in GMM_IMPLS:
             raise ValueError(f"unknown gmm_impl {gmm_impl!r}; choose from {GMM_IMPLS}")
-        if gmm_impl == "ragged":
+        if dropless and gmm_impl == "ragged":
             raise NotImplementedError("MoE gmm_impl='ragged' (lax.ragged_dot) is not yet "
-                                      "ported; 'auto' and 'pallas' take the CUDA kernel")
+                                      "ported; 'auto' and 'pallas' take the CUDA kernels")
         self.num_experts, self.top_k, self.d_ff = e, k, d_ff
+        self.dispatch_impl = dispatch_impl
+        self.capacity_factor, self.num_groups = capacity_factor, num_groups
         self.router = nn.Linear(d_model, e, bias=False)
         self.w_in = nn.Parameter(torch.empty(e, d_model, d_ff))
         self.b_in = nn.Parameter(torch.zeros(e, d_ff))
@@ -98,6 +121,7 @@ class MoEFFN(nn.Module):
         self.b_out = nn.Parameter(torch.zeros(e, d_model))
         self.aux_loss: torch.Tensor | None = None
         self.load_entropy: torch.Tensor | None = None
+        self.drop_rate: torch.Tensor | None = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -140,6 +164,18 @@ class MoEFFN(nn.Module):
         group_sizes.scatter_add_(0, expert_flat, torch.ones_like(expert_flat, dtype=torch.int32))
         return order, group_sizes, order // k
 
+    def capacity_groups(self, n_tokens: int) -> tuple[int, int]:
+        """``(groups, capacity)`` for ``n_tokens`` tokens, as JAX derives
+        them: the requested groups (0: about TOKENS_PER_GROUP tokens a
+        group) cut to the largest divisor of ``n_tokens``, then the slots
+        an expert has in each group."""
+        g = self.num_groups or max(1, n_tokens // TOKENS_PER_GROUP)
+        g = min(g, n_tokens)
+        while n_tokens % g:
+            g -= 1
+        n = n_tokens // g
+        return g, max(1, int(-(-(self.top_k * n * self.capacity_factor) // self.num_experts)))
+
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         b, t, d = x.shape
         e, n = self.num_experts, b * t
@@ -149,14 +185,27 @@ class MoEFFN(nn.Module):
         # Switch aux loss and load entropy over all tokens, for a trainer
         # only. The first-choice counts come from a scatter-add (F.one_hot
         # checks its input's range on the host).
-        self.aux_loss = self.load_entropy = None
-        if torch.is_grad_enabled():
+        stats = torch.is_grad_enabled()
+        self.aux_loss = self.load_entropy = self.drop_rate = None
+        if stats:
             top1 = torch.zeros(e, device=x.device).scatter_add_(
                 0, topk_idx[:, 0], torch.ones(n, device=x.device)) / n
             self.aux_loss = e * (top1 * gates.mean(0)).sum()
             self.load_entropy = expert_load_entropy(top1)
 
-        order, group_sizes, tok_ids = self.group_by_expert(topk_idx, e)
+        if self.dispatch_impl == "dropless":
+            y = self._dropless(tokens, topk_gate, topk_idx, dtype)
+            if stats:
+                self.drop_rate = torch.zeros((), device=x.device)
+        else:
+            y, keep = self._capacity(tokens, topk_gate, topk_idx, dtype)
+            if stats:
+                self.drop_rate = 1.0 - keep.mean()
+        return y.reshape(b, t, d).to(dtype)
+
+    def _dropless(self, tokens, topk_gate, topk_idx, dtype):
+        n, d = tokens.shape
+        order, group_sizes, tok_ids = self.group_by_expert(topk_idx, self.num_experts)
         xs = tokens[tok_ids].to(dtype)
         h = grouped_matmul_fused(xs, self.w_in.to(dtype), self.b_in, group_sizes,
                                  activation="gelu")
@@ -165,6 +214,50 @@ class MoEFFN(nn.Module):
         # With top-2 each token row receives two addends onto zero, and
         # a + b rounds the same in either order, so index_add_'s atomics
         # stay deterministic in bf16. With top_k > 2 the order would show.
-        y = torch.zeros((n, d), dtype=out.dtype, device=x.device)
+        y = torch.zeros((n, d), dtype=out.dtype, device=tokens.device)
         y.index_add_(0, tok_ids, out * gate_flat[:, None])
-        return y.reshape(b, t, d).to(dtype)
+        return y
+
+    def _capacity(self, tokens, topk_gate, topk_idx, dtype):
+        """The capacity-slot dispatch (``scatter`` or ``einsum``): ``(y [n,
+        d] in dtype, keep [G, N, K])``."""
+        n_tokens, d = tokens.shape
+        e, k = self.num_experts, self.top_k
+        g, cap = self.capacity_groups(n_tokens)
+        n, dev = n_tokens // g, tokens.device
+        idx = topk_idx.reshape(g, n, k)
+        gate = topk_gate.reshape(g, n, k)
+        onehot = torch.zeros((g, n, k, e), device=dev).scatter_(-1, idx[..., None], 1.0)
+        flat = onehot.transpose(1, 2).reshape(g, k * n, e)  # k-major priority
+        pos = (torch.cumsum(flat, dim=1) - 1.0).reshape(g, k, n, e).transpose(1, 2)
+        pos_k = (pos * onehot).sum(-1)  # [G, N, K] slot of each route
+        keep = (pos_k < cap).float()
+        xg = tokens.to(dtype).reshape(g, n, d)
+        if self.dispatch_impl == "scatter":
+            # Each kept route owns one slot; a dropped one goes to the spare
+            # slot C, cut away below.
+            pos_i = pos_k.long()
+            g_ar = torch.arange(g, device=dev)[:, None, None].expand(g, n, k)
+            slot = torch.where(keep > 0, pos_i, cap)
+            buf = torch.zeros((g, e, cap + 1, d), dtype=dtype, device=dev).index_put(
+                (g_ar, idx, slot), xg[:, :, None, :].expand(g, n, k, d), accumulate=True)
+            expert_in = buf[:, :, :cap].transpose(0, 1).reshape(e, g * cap, d)
+        else:
+            routed = onehot * keep[..., None]  # [G, N, K, E]
+            slots = (pos_k.long()[..., None] == torch.arange(cap, device=dev)).float()
+            dispatch = torch.einsum("gnke,gnkc->gnec", routed, slots)
+            combine = torch.einsum("gnk,gnke,gnkc->gnec", gate, routed, slots)
+            expert_in = torch.einsum("gnec,gnd->egcd", dispatch.to(dtype), xg).reshape(
+                e, g * cap, d)
+
+        h = torch.bmm(expert_in, self.w_in.to(dtype)) + self.b_in[:, None, :].to(dtype)
+        h = F.gelu(h, approximate="tanh")
+        out = torch.bmm(h, self.w_out.to(dtype)) + self.b_out[:, None, :].to(dtype)
+        out = out.reshape(e, g, cap, d)
+
+        if self.dispatch_impl == "scatter":
+            picked = out.transpose(0, 1)[g_ar, idx, pos_i.clamp(0, cap - 1)]  # [G, N, K, d]
+            y = (picked * (gate * keep).to(dtype)[..., None]).sum(2)
+        else:
+            y = torch.einsum("gnec,egcd->gnd", combine.to(dtype), out)
+        return y.reshape(n_tokens, d), keep

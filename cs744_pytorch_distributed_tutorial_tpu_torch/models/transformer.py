@@ -35,11 +35,11 @@ routes the ``quant_modules`` projections to ``ops/quant.py::
 QuantLinear`` (int8 weights, the int8 matmul kernel); ``quant_kv_cache``
 stores K/V rows int8 with fp32 row scales.
 
-``num_experts > 0`` replaces each block's dense MLP with the dropless
-``models/moe.py::MoEFFN`` (``moe_dispatch="dropless"``; the block adds its
-output to the residual, with no ``mlp_out_bias``), in every mode. Options
-of later slices (the capacity dispatches ``scatter``/``einsum``,
-sequence/tensor axes, remat, scan_layers, dropout) raise
+``num_experts > 0`` replaces each block's dense MLP with
+``models/moe.py::MoEFFN`` (``moe_dispatch`` ``scatter``, ``einsum`` or
+``dropless``; the block adds its output to the residual, with no
+``mlp_out_bias``), in every mode. Options of later slices
+(sequence/tensor axes, remat, scan_layers, dropout) raise
 ``NotImplementedError``.
 """
 

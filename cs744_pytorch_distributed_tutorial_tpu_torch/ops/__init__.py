@@ -4,8 +4,9 @@ and plain PyTorch versions: ``fused_sgd`` (the SGD update),
 (the attention forward, dq and dk/dv), ``fused_xent`` (the fused
 cross-entropy forward and backward), ``paged_attention`` (the serving
 engine's decode attention), ``quant`` (the int8 weight matmul) and
-``gmm`` (the grouped matmul with a bias and gelu epilogue of dropless
-MoE)."""
+``gmm`` (dropless MoE's grouped matmuls: the forward with a bias and
+gelu epilogue, and the backward's ``gmm``, ``tgmm`` and bias column
+sums)."""
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops import (
     flash_attention,

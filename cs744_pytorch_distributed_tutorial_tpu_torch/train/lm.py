@@ -13,8 +13,17 @@ step returns ``{loss, grad_norm, param_norm}`` as 0-d tensors on the
 device: the global L2 norms of the gradient and of the updated
 parameters.
 
+With ``moe_experts > 0`` each block's FFN is a routed ``MoEFFN``
+(``models/moe.py``; dispatch ``scatter``, the JAX default, ``einsum`` or
+``dropless``, the grouped-matmul kernels), the objective is ``ce +
+moe_aux_coef * sum of the layers' Switch aux losses`` (JAX
+``train/lm.py:1009-1021``; ``loss`` is that total) and the step also
+returns ``moe_aux`` (the sum over layers), ``moe_drop`` and
+``moe_load_entropy`` (each the mean over layers).
+
 ``fit`` follows the JAX batch plan (batch k starts at sequence
-``(k * B) % max(N - B + 1, 1)``) and stops on a non-finite loss.
+``(k * B) % max(N - B + 1, 1)``), records every step metric in
+``history`` and stops on a non-finite loss.
 
 For generation and serving, ``decode_model`` and
 ``quantized_decode_model`` build a decode copy of the model (dense
@@ -24,11 +33,7 @@ trainer's weights or from a ``state_dict``; ``quantize_for_decode``
 makes the int8 ``state_dict`` and ``gather_for_decode`` is the identity
 on one device.
 
-With ``moe_experts > 0`` and ``moe_dispatch="dropless"`` the trainer
-builds, initialises, evaluates and makes decode copies of the MoE model;
-its ``train_step`` and ``fit`` with steps raise ``NotImplementedError``
-(the grouped-matmul backward is a later slice). Options of later slices
-raise ``NotImplementedError``.
+Options of later slices raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,13 +85,14 @@ class LMConfig:
     num_kv_heads: int | None = None
 
     # MoE (models/moe.py): moe_experts > 0 swaps each block's dense FFN
-    # for a routed expert mixture. Only moe_dispatch="dropless" is ported.
+    # for a routed expert mixture; moe_aux_coef weighs its aux loss.
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     moe_groups: int = 1
     moe_dispatch: str = "scatter"  # einsum | scatter | dropless
     moe_gmm_impl: str = "auto"  # auto | ragged | pallas
+    moe_aux_coef: float = 0.01
     # The CUDA fused softmax-CE (ops/fused_xent.py): one pass over the
     # logits, no [N, V] log-softmax. Incompatible with label smoothing.
     fused_xent: bool = False
@@ -108,7 +114,6 @@ class LMConfig:
     seq_parallel: int = 1
     tensor_parallel: int = 1
     moe_expert_parallel: bool = False
-    moe_aux_coef: float = 0.01  # the aux loss enters the loss with MoE training
     grad_clip_norm: float | None = None
     grad_compress: str = "none"
     sync_overlap: str = "off"
@@ -132,10 +137,10 @@ class LMConfig:
 
 
 _LATER_FIELDS = (
-    "data_parallel", "seq_parallel", "tensor_parallel", "moe_expert_parallel", "moe_aux_coef",
-    "grad_clip_norm", "grad_compress", "sync_overlap", "remat", "zero1", "fsdp", "scan_layers",
-    "dropout_rate", "accum_steps", "checkpoint_dir", "snapshot_every", "step_timeout_s",
-    "metrics_dir", "profile_dir",
+    "data_parallel", "seq_parallel", "tensor_parallel", "moe_expert_parallel", "grad_clip_norm",
+    "grad_compress", "sync_overlap", "remat", "zero1", "fsdp", "scan_layers", "dropout_rate",
+    "accum_steps", "checkpoint_dir", "snapshot_every", "step_timeout_s", "metrics_dir",
+    "profile_dir",
 )
 
 
@@ -155,10 +160,6 @@ def _check_config(cfg: LMConfig) -> None:
     if cfg.label_smoothing and cfg.fused_xent:
         raise ValueError("label_smoothing is incompatible with fused_xent: the fused kernel "
                          "computes plain CE")
-    if cfg.moe_experts > 0 and cfg.moe_dispatch != "dropless":
-        raise NotImplementedError(
-            f"moe_dispatch={cfg.moe_dispatch!r} (capacity slots; 'scatter' is the default) "
-            "is not yet ported; use moe_dispatch='dropless'")
 
 
 def _global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -282,24 +283,33 @@ class LMTrainer:
             return fused_cross_entropy(logits.reshape(-1, v), targets.reshape(-1)).mean()
         return _smoothed_xent(logits.reshape(-1, v), targets.reshape(-1), smoothing)
 
-    def _check_trainable(self) -> None:
-        if self.cfg.moe_experts > 0:
-            raise NotImplementedError(
-                "training the MoE LM (the grouped-matmul backward and the aux loss in the "
-                "objective) is not yet ported; it builds, evaluates and generates")
+    def _moe_stats(self) -> dict[str, torch.Tensor]:
+        """The MoE layers' statistics of the last forward made with grad:
+        ``moe_aux`` summed over layers, ``moe_drop`` and
+        ``moe_load_entropy`` averaged (JAX ``moe_aux_loss`` and
+        ``sown_scalar_mean``)."""
+        layers = [b.moe for b in self.model.blocks]
+        return {
+            "moe_aux": torch.stack([m.aux_loss for m in layers]).sum(),
+            "moe_drop": torch.stack([m.drop_rate for m in layers]).mean(),
+            "moe_load_entropy": torch.stack([m.load_entropy for m in layers]).mean(),
+        }
 
     def train_step(self, inputs: torch.Tensor, targets: torch.Tensor) -> dict[str, torch.Tensor]:
-        self._check_trainable()
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
         loss = self._loss(inputs, targets, self.cfg.label_smoothing, fused=self.cfg.fused_xent)
+        moe = self._moe_stats() if self.cfg.moe_experts > 0 else {}
+        if moe:
+            loss = loss + self.cfg.moe_aux_coef * moe["moe_aux"]
         loss.backward()
         grad_norm = _global_norm([p.grad for p in params])
         self.optimizer.step()
         with torch.no_grad():
             param_norm = _global_norm(params)
-        return {"loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm}
+        return {"loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm,
+                **{k: v.detach() for k, v in moe.items()}}
 
     @torch.no_grad()
     def eval_step(self, inputs: torch.Tensor, targets: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -327,8 +337,6 @@ class LMTrainer:
         ``tokens`` [N, seq_len + 1]; returns ``(model, optimizer,
         losses)``. ``self.history`` holds every step's metrics."""
         cfg = self.cfg
-        if steps > 0:
-            self._check_trainable()
         model, optimizer = self.init()
         losses: list[float] = []
         self.history: dict[str, list[float]] = {"loss": losses}
@@ -341,6 +349,7 @@ class LMTrainer:
             if cfg.halt_on_nonfinite and not math.isfinite(loss):
                 raise NonFiniteLossError(step, loss)
             losses.append(loss)
-            for key in ("grad_norm", "param_norm"):
-                self.history.setdefault(key, []).append(float(m[key]))
+            for key, value in m.items():
+                if key != "loss":
+                    self.history.setdefault(key, []).append(float(value))
         return model, optimizer, losses

@@ -1,19 +1,29 @@
-"""The port's fused grouped matmul against the JAX package's Pallas kernel.
+"""The port's grouped matmuls against the JAX package's Pallas kernels.
 
-The same numpy inputs go through the JAX ``grouped_matmul_fused``
-(``_gmm_fused_kernel`` in interpret mode, 8 x 8 tiles) and the port's
-(its plain version on CPU tensors), with both activations, fp32 and
-bf16, and group sizes that cover an empty group, a group spanning several
-row tiles, boundaries off the tile edges, one group, rows past
-``sum(group_sizes)`` (they belong to the last group) and the decode case
-(M = 2 B rows of top-2 pairs, B <= 16).
+The same numpy inputs go through the JAX functions (``_gmm_fused_kernel``,
+``_gmm_kernel`` and ``_tgmm_kernel`` in interpret mode, 8 x 8 tiles) and
+the port's (their plain versions on CPU tensors), with both activations,
+fp32 and bf16, and group sizes that cover an empty group, a group
+spanning several row tiles, boundaries off the tile edges, one group,
+rows past ``sum(group_sizes)`` (they belong to the last group; the last
+group's weight and bias gradients are zero when its size is 0, as JAX
+zeroes them) and the decode case (M = 2 B rows of top-2 pairs, B <= 16):
+
+- ``grouped_matmul_fused``: the forward, its ``z`` (``_gmm_fused_fwd_impl
+  (with_z=True)``), and ``jax.vjp``'s ``dlhs``, ``drhs`` and ``dbias``
+  against the port's autograd;
+- ``grouped_matmul(impl="pallas")``: forward and ``dlhs``, ``drhs``.
 
 Tolerances: fp32 within 1e-5 (rtol and atol; the sums run in another
 order). bf16 within one bf16 ulp of the JAX value (2**-7 relative: both
 round the fp32 result once) plus 1e-5 x max|JAX| (the fp32 reorder term,
 which may move a value across a rounding boundary); the products of bf16
-inputs are exact in fp32 on both sides. The ``cuda``-marked test holds
-the CUDA kernel against its plain version on the card.
+inputs are exact in fp32 on both sides. ``dbias`` stays fp32 in a bf16
+call; it sums ``dh * gelu'(z)`` over ``z`` in bf16, so it is held within
+1e-5 x max|JAX| plus one bf16 ulp of the largest ``|dh|`` term summed
+into it (a ``z`` whose fp32 sum rounds to the neighbouring bf16 value
+moves that term by up to gelu''s slope times one ulp). The ``cuda``-marked
+tests hold the CUDA kernels against their plain versions on the card.
 """
 
 import importlib
@@ -106,6 +116,169 @@ def test_grouped_matmul_fused_plain_is_differentiable_on_cpu():
     assert lhs.grad is not None and torch.isfinite(lhs.grad).all()
 
 
+def _grads_close(got: torch.Tensor, want, dtype: str) -> None:
+    assert got.dtype == getattr(torch, dtype), got.dtype
+    _check_close(got.float().numpy(), np.asarray(want, np.float32), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("activation", ["none", "gelu"])
+@pytest.mark.parametrize("case", sorted(GROUPS))
+def test_grouped_matmul_fused_grads_match_jax(case, activation, dtype):
+    """``jax.vjp`` of the JAX ``grouped_matmul_fused`` (its custom_vjp:
+    the fused kernel with ``z``, then ``_gmm_kernel`` for dlhs and
+    ``_tgmm_kernel`` for drhs and dbias) against the port's backward."""
+    import jax
+    import jax.numpy as jnp
+
+    m, sizes = GROUPS[case]
+    lhs, rhs, bias, gs = _inputs(m, sizes, seed=m + len(sizes))
+    dh = np.random.default_rng(m).standard_normal((m, N)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    fn = lambda a, b, c: _jg().grouped_matmul_fused(  # noqa: E731
+        a, b, c, jnp.asarray(gs), activation=activation, block_m=8, block_n=8, interpret=True)
+    _, vjp = jax.vjp(fn, jnp.asarray(lhs, jd), jnp.asarray(rhs, jd), jnp.asarray(bias))
+    want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(dh, jd))]
+    lt = torch.from_numpy(lhs).to(td).requires_grad_()
+    rt = torch.from_numpy(rhs).to(td).requires_grad_()
+    bt = torch.from_numpy(bias).requires_grad_()
+    G.reset_launch_count()
+    G.grouped_matmul_fused(lt, rt, bt, torch.from_numpy(gs),
+                           activation=activation).backward(torch.from_numpy(dh).to(td))
+    assert G.launch_count() == 0
+    _grads_close(lt.grad, want[0], dtype)
+    _grads_close(rt.grad, want[1], dtype)
+    assert bt.grad.dtype == torch.float32
+    tol = 1e-5 * np.abs(want[2]).max() + (2**-8 * np.abs(dh).max() if dtype == "bfloat16" else 0)
+    np.testing.assert_allclose(bt.grad.numpy(), want[2], rtol=1e-5, atol=tol)
+    # JAX gives a group whose size is 0 zero weight and bias gradients.
+    for g in np.flatnonzero(gs == 0):
+        assert not rt.grad[g].any() and not bt.grad[g].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GROUPS))
+def test_grouped_matmul_fused_z_matches_jax(case, dtype):
+    """The pre-activation ``z`` of ``_gmm_fused_fwd_impl(with_z=True)``, in
+    the output dtype, against the plain version's; the gelu output beside
+    it comes from the unrounded fp32 value."""
+    import jax.numpy as jnp
+
+    m, sizes = GROUPS[case]
+    lhs, rhs, bias, gs = _inputs(m, sizes, seed=2 * m + len(sizes))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    h, z = _jg()._gmm_fused_fwd_impl(jnp.asarray(lhs, jd), jnp.asarray(rhs, jd),
+                                     jnp.asarray(bias), jnp.asarray(gs), "gelu", jnp.dtype(jd),
+                                     8, 8, True, with_z=True)
+    got_h, got_z = G.grouped_matmul_fused_plain(
+        torch.from_numpy(lhs).to(td), torch.from_numpy(rhs).to(td), torch.from_numpy(bias),
+        torch.from_numpy(gs), activation="gelu", with_z=True)
+    assert got_z.dtype == got_h.dtype == td and got_z.shape == (m, N)
+    _check_close(got_z.float().numpy(), np.asarray(z.astype(jnp.float32)), dtype)
+    _check_close(got_h.float().numpy(), np.asarray(h.astype(jnp.float32)), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GROUPS))
+def test_grouped_matmul_matches_jax(case, dtype):
+    """``grouped_matmul(impl="pallas")`` (``_gmm_kernel``, no epilogue):
+    the forward rounded to lhs's dtype, and ``jax.vjp``'s dlhs and drhs."""
+    import jax
+    import jax.numpy as jnp
+
+    m, sizes = GROUPS[case]
+    lhs, rhs, _, gs = _inputs(m, sizes, seed=3 * m + len(sizes))
+    dout = np.random.default_rng(m + 1).standard_normal((m, N)).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    fn = lambda a, b: _jg().grouped_matmul(  # noqa: E731
+        a, b, jnp.asarray(gs), impl="pallas", block_m=8, block_n=8, interpret=True)
+    out, vjp = jax.vjp(fn, jnp.asarray(lhs, jd), jnp.asarray(rhs, jd))
+    dl, dr = vjp(jnp.asarray(dout, jd))
+    lt = torch.from_numpy(lhs).to(td).requires_grad_()
+    rt = torch.from_numpy(rhs).to(td).requires_grad_()
+    got = G.grouped_matmul(lt, rt, torch.from_numpy(gs))
+    got.backward(torch.from_numpy(dout).to(td))
+    _grads_close(got.detach(), np.asarray(out.astype(jnp.float32)), dtype)
+    _grads_close(lt.grad, np.asarray(dl.astype(jnp.float32)), dtype)
+    _grads_close(rt.grad, np.asarray(dr.astype(jnp.float32)), dtype)
+
+
+def test_tgmm_plain_sums_rows_in_order_and_zeroes_empty_groups():
+    """``tgmm_plain`` and ``segment_sum_rows_plain`` against float64 sums
+    (within 1e-6 relative); a group of size 0, and the last group's rows
+    past the sum when its size is 0, give zeros."""
+    rng = np.random.default_rng(9)
+    m, sizes = 30, [7, 0, 12, 0]
+    lhs = torch.from_numpy(rng.standard_normal((m, 5)).astype(np.float32))
+    dout = torch.from_numpy(rng.standard_normal((m, 6)).astype(np.float32))
+    gs = torch.tensor(sizes)
+    dw, db = G.tgmm_plain(lhs, dout, gs), G.segment_sum_rows_plain(dout, gs)
+    assert dw.shape == (4, 5, 6) and db.shape == (4, 6)
+    lo = 0
+    for g, size in enumerate(sizes):
+        want = lhs[lo : lo + size].double().t() @ dout[lo : lo + size].double()
+        torch.testing.assert_close(dw[g].double(), want, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(db[g].double(), dout[lo : lo + size].double().sum(0),
+                                   rtol=1e-6, atol=1e-6)
+        lo += size
+    assert not dw[[1, 3]].any() and not db[[1, 3]].any()  # rows 19..29 are past the sum
+
+
+@pytest.mark.parametrize("grad", [True, False])
+@pytest.mark.parametrize("activation", ["gelu", "none"])
+def test_z_is_written_only_on_the_differentiated_gelu_path(monkeypatch, activation, grad):
+    """The forward asks for ``z`` only for gelu under grad with an input
+    that requires grad: a no-grad call (decode, serving) keeps today's
+    launch, as the JAX undifferentiated primal emits no ``z``."""
+    seen = []
+    real = G._fused
+
+    def spy(*args):
+        seen.append(args[-1])
+        return real(*args)
+
+    monkeypatch.setattr(G, "_fused", spy)
+    lhs, rhs, bias, gs = (torch.from_numpy(a) for a in _inputs(12, [4, 8], seed=5))
+    rhs.requires_grad_()
+    with torch.set_grad_enabled(grad):
+        G.grouped_matmul_fused(lhs, rhs, bias, gs, activation=activation)
+    assert seen == [grad and activation == "gelu"]
+
+
+@pytest.mark.parametrize(
+    "call",
+    [lambda e: G.gmm(torch.zeros(8, 4), torch.zeros(e, 6, 4), torch.zeros(e).long(),
+                     trans_rhs=True),
+     lambda e: G.tgmm(torch.zeros(8, 4), torch.zeros(8, 6), torch.zeros(e).long()),
+     lambda e: G.segment_sum_rows(torch.zeros(8, 6), torch.zeros(e).long()),
+     lambda e: G.grouped_matmul(torch.zeros(8, 4), torch.zeros(e, 4, 6),
+                                torch.zeros(e).long())],
+    ids=["gmm", "tgmm", "segment_sum_rows", "grouped_matmul"],
+)
+def test_new_entry_points_state_the_group_limit(call):
+    with pytest.raises(ValueError, match=f"1 to {G.MAX_GROUPS} groups, got {G.MAX_GROUPS + 1}"):
+        call(G.MAX_GROUPS + 1)
+
+
+@pytest.mark.parametrize(
+    "call,err,match",
+    [(lambda: G.grouped_matmul(torch.zeros(8, 4), torch.zeros(2, 4, 6), torch.tensor([3, 5]),
+                               impl="ragged"), NotImplementedError, "not yet ported"),
+     (lambda: G.grouped_matmul(torch.zeros(8, 4), torch.zeros(2, 4, 6), torch.tensor([3, 5]),
+                               impl="dense"), ValueError, "unknown grouped_matmul impl"),
+     (lambda: G.gmm(torch.zeros(8, 4).bfloat16(), torch.zeros(2, 6, 4), torch.tensor([3, 5]),
+                    trans_rhs=True), TypeError, "fp32 lhs under a transposed rhs"),
+     (lambda: G.tgmm(torch.zeros(8, 4), torch.zeros(8, 6).bfloat16(), torch.tensor([3, 5])),
+      TypeError, "fp32 dout"),
+     (lambda: G.tgmm(torch.zeros(8, 4), torch.zeros(7, 6), torch.tensor([3, 5])), ValueError,
+      "tgmm shapes")],
+    ids=["ragged", "unknown_impl", "gmm_dtype", "tgmm_dtype", "tgmm_shapes"],
+)
+def test_grouped_matmul_rejects(call, err, match):
+    with pytest.raises(err, match=match):
+        call()
+
+
 @pytest.mark.parametrize(
     "change,err",
     [("lhs_3d", ValueError), ("k_mismatch", ValueError), ("group_sizes", ValueError),
@@ -142,8 +315,7 @@ def test_gmm_fused_kernel_matches_plain_on_card():
     at the MoE path's prefill and decode shapes and ragged ones (empty
     groups, rows past the sum), both activations, fp32 and bf16 in and
     out: fp32 within 1e-5 x max|plain|, bf16 within one ulp plus 1e-5 x
-    max|plain|. The call never synchronises with the host, and the
-    backward raises "not yet ported"."""
+    max|plain|. The call never synchronises with the host."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -179,9 +351,86 @@ def test_gmm_fused_kernel_matches_plain_on_card():
                 else:
                     tol = 2**-7 * want.float().abs() + 1e-5 * top
                     assert bool((err <= tol).all()), (m, k, n, act)
-    assert G.launch_count() == launches
-    lhs = torch.randn((8, 16), device=dev, requires_grad=True)
-    out = G.grouped_matmul_fused(lhs, torch.randn((2, 16, 4), device=dev), torch.zeros(2, 4,
-                                 device=dev), torch.tensor([3, 5], device=dev))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        out.sum().backward()
+    assert G.launch_count() == G.launch_count("fused") == launches
+
+
+def _card_within(got, want, dtype, label):
+    """fp32 within 1e-5 x max|plain|; bf16 within one ulp of each plain
+    value plus 1e-5 x max|plain|."""
+    assert got.dtype == want.dtype and got.shape == want.shape, label
+    err = (got.float() - want.float()).abs()
+    top = float(want.float().abs().max())
+    lim = 1e-5 * top if dtype == torch.float32 else 2**-7 * want.float().abs() + 1e-5 * top
+    share = float((err / lim).max())
+    assert share <= 1.0, (label, share, float(err.max()), top)
+
+
+@pytest.mark.cuda
+def test_gmm_backward_kernels_match_plain_on_card():
+    """The backward's kernels against their plain versions on the same
+    CUDA tensors: ``gmm`` (dlhs: an fp32 dout under rhs^T read in place,
+    fp32 and bf16 rhs; and as stored, grouped_matmul's forward), ``tgmm``
+    (drhs, fp32 and bf16 lhs) and ``colsum`` (dbias), all fp32 outputs
+    within 1e-5 x max|plain| (sums in another order; the products of
+    widened bf16 are exact); ``z`` of the differentiated gelu forward
+    within one ulp in bf16; then a full backward through the kernels
+    against the plain versions composed by hand from the kernel's ``z``
+    (a ``z`` one ulp apart would move ``dz`` by more than a bf16 ulp of a
+    small gradient). Groups include empty
+    ones, rows past the sum and boundaries off the tiles; no call
+    synchronises with the host, and two tgmm runs are bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [(4096, 512, 1024, [600, 420, 512, 0, 700, 380, 900, 584]),
+             (77, 33, 45, [0, 30, 0, 20]), (100, 64, 70, [10, 20, 0]), (5, 8, 3, [1])]
+
+    def quiet(fn, *args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    G.reset_launch_count()
+    for m, k, n, sizes in cases:
+        e = len(sizes)
+        gs = torch.tensor(sizes, device=dev)
+        lhs = torch.randn((m, k), generator=gen, device=dev)
+        rhs = torch.randn((e, k, n), generator=gen, device=dev) / k**0.5
+        bias = torch.randn((e, n), generator=gen, device=dev)
+        dout = torch.randn((m, n), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            a, w = lhs.to(dtype), rhs.to(dtype)
+            _card_within(quiet(G.gmm, dout, w, gs, trans_rhs=True),
+                         G.grouped_matmul_plain(dout, w, gs, trans_rhs=True),
+                         torch.float32, ("gmm^T", m, dtype))
+            _card_within(quiet(G.gmm, a, w, gs), G.grouped_matmul_plain(a, w, gs),
+                         torch.float32, ("gmm", m, dtype))
+            dw = quiet(G.tgmm, a, dout, gs)
+            _card_within(dw, G.tgmm_plain(a, dout, gs), torch.float32, ("tgmm", m, dtype))
+            assert torch.equal(dw, G.tgmm(a, dout, gs))
+            _card_within(quiet(G.segment_sum_rows, dout, gs),
+                         G.segment_sum_rows_plain(dout, gs), torch.float32, ("colsum", m))
+            _, z = quiet(G._fused, a, w, bias, gs, "gelu", None, True)
+            _, z_plain = G.grouped_matmul_fused_plain(a, w, bias, gs, activation="gelu",
+                                                      with_z=True)
+            _card_within(z, z_plain, dtype, ("z", m, dtype))
+
+            lt, rt, bt = (t.clone().requires_grad_() for t in (a, w, bias))
+            out = quiet(G.grouped_matmul_fused, lt, rt, bt, gs, activation="gelu")
+            quiet(out.backward, dout.to(dtype))
+            dz = torch.ops.aten.gelu_backward(dout.to(dtype).float(), z.float(),
+                                              approximate="tanh")
+            _card_within(lt.grad, G.grouped_matmul_plain(dz, w, gs, trans_rhs=True).to(dtype),
+                         dtype, ("dlhs", m, dtype))
+            _card_within(rt.grad, G.tgmm_plain(a, dz, gs).to(dtype), dtype, ("drhs", m, dtype))
+            _card_within(bt.grad, G.segment_sum_rows_plain(dz, gs), torch.float32,
+                         ("dbias", m, dtype))
+    torch.cuda.synchronize()
+    per_kernel = {k: G.launch_count(k) for k in G.KERNELS}
+    runs = 2 * len(cases)
+    assert per_kernel == {"fused": 0, "fused_z": 2 * runs, "gmm": 3 * runs, "tgmm": 3 * runs,
+                          "colsum": 2 * runs}, per_kernel

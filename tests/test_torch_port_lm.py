@@ -181,10 +181,10 @@ def test_cli_rejects_flags_it_does_not_have(flag):
 
 @pytest.mark.parametrize(
     "override",
-    # moe_experts=4 raises under the default dispatch, "scatter" (capacity slots).
-    [dict(remat=True), dict(moe_experts=4), dict(seq_parallel=2), dict(zero1=True),
-     dict(accum_steps=2), dict(grad_compress="int8"), dict(checkpoint_dir="ckpt"),
-     dict(optimizer="lion"), dict(lr_schedule="cosine"), dict(moe_aux_coef=0.1)],
+    [dict(remat=True), dict(moe_experts=4, moe_expert_parallel=True), dict(seq_parallel=2),
+     dict(zero1=True), dict(accum_steps=2), dict(grad_compress="int8"),
+     dict(checkpoint_dir="ckpt"), dict(optimizer="lion"), dict(lr_schedule="cosine"),
+     dict(grad_clip_norm=1.0)],
 )
 def test_config_options_of_later_slices_raise(override):
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -20,6 +20,9 @@ both:
 - the converter round trip, the JAX ``quantize_lm_params`` on a MoE tree,
   the flax init's fan_in of E * d on a 3-D expert kernel, the fp32 router
   and expert biases of a decode copy, and the rejections.
+
+Training the MoE (gradients, the capacity-slot dispatches, the trainer)
+is held in ``test_torch_port_moe_train.py``.
 """
 
 import json
@@ -241,8 +244,9 @@ def _build(**kw):
 
 @pytest.mark.parametrize(
     "make,err,match",
-    [(_build(moe_dispatch="scatter"), NotImplementedError, "not yet ported"),
-     (_build(moe_dispatch="einsum"), NotImplementedError, "not yet ported"),
+    [(_build(moe_dispatch="scatter", moe_num_groups=-1), ValueError, "num_groups must be >= 0"),
+     (lambda: MoEFFN(8, 4, 16, dispatch_impl="scatter", expert_axis="data"),
+      NotImplementedError, "not yet ported"),
      (_build(moe_dispatch="sparse"), ValueError, "unknown dispatch_impl"),
      (_build(moe_capacity_factor=2.0), ValueError, "ignores capacity_factor"),
      (_build(moe_num_groups=4), ValueError, "ignores capacity_factor"),
@@ -257,27 +261,6 @@ def _build(**kw):
 def test_moe_rejections(make, err, match):
     with pytest.raises(err, match=match):
         make()
-
-
-MOE_CFG = dict(vocab_size=VOCAB, num_layers=1, num_heads=2, d_model=32, d_ff=64, max_seq_len=32,
-               seq_len=16, global_batch_size=2, moe_experts=4, moe_dispatch="dropless",
-               device="cpu")
-
-
-@pytest.mark.parametrize("call", ["train_step", "fit"])
-def test_moe_training_is_not_yet_ported(call):
-    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
-
-    tr = LMTrainer(LMConfig(**MOE_CFG))
-    toks = synthetic_tokens(4, 16, VOCAB, seed=0)
-    tr.init()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        if call == "fit":
-            tr.fit(toks, steps=1)
-        else:
-            tr.train_step(*tr.split_batch(toks[:2]))
-    _, _, losses = tr.fit(toks, steps=0)  # builds, and evaluates, without a step
-    assert losses == [] and np.isfinite(tr.evaluate(toks)["loss"])
 
 
 MOE_FLAGS = ["--num-layers", "2", "--d-model", "32", "--num-heads", "4", "--d-ff", "64",
