@@ -88,20 +88,27 @@ no result):
     the MoE training path's shapes (lhs [32768, 512] against [8, 512,
     1024], and [32768, 1024] against [8, 1024, 512]; ragged group sizes
     with an empty group and router-drawn ones), fp32 and bf16, every call
-    under ``torch.cuda.set_sync_debug_mode("error")``: ``gmm`` (dlhs, rhs
-    read transposed in place), ``tgmm`` (drhs), ``colsum`` (dbias) and the
-    forward's ``z``; then their times at the path's bf16 calls beside their
-    bounds, the plain versions' and one PyTorch call's;
+    under ``torch.cuda.set_sync_debug_mode("error")`` with its launches
+    exact: fp32 operands take the FFMA ``gmm`` (dlhs, rhs read transposed
+    in place) and ``tgmm`` (drhs); bf16 ones the tensor-core ``gmm_tc`` and
+    ``tgmm_tc`` (an fp32 dout in three bf16 pieces from ``split``, a bf16
+    one in one), and the FFMA kernels on the same operands; ``split``
+    bitwise against its plain version; ``colsum`` (dbias) and the forward's
+    ``z``; then the path's four calls on both routes in turn, split and
+    colsum, beside their bounds, the plain versions' and one PyTorch
+    call's times;
 19. MoE training through ``lm_cli``: the JAX package's
     ``moe_e8_top2_dropless_pallas`` (``benchmarks/bench_vit_moe.py``) at
     full width, batch 32 x T 512, flash, bf16, AdamW, 8 steps and one eval
     batch, every launch count exact (a step: 12 ``gmm_fused`` of which the
-    6 ``w_in`` calls write ``z``, 12 ``gmm``, 12 ``tgmm``, 12 ``colsum``
-    and 18 flash); its throughput, one step under
-    ``set_sync_debug_mode("error")`` and a profile of 2 steps; a
-    kernel-vs-plain trajectory (2 layers at full width, batch 8, fp32, 4
-    steps); and 3 steps with the capacity-slot ``scatter`` dispatch (no
-    grouped-matmul kernel).
+    6 ``w_in`` calls write ``z``, 12 ``gmm_tc``, 12 ``tgmm_tc``, 6
+    ``split``, 12 ``colsum``, no FFMA ``gmm`` or ``tgmm``, and 18 flash);
+    its throughput, one step under ``set_sync_debug_mode("error")`` and a
+    profile of 2 steps; a kernel-vs-plain trajectory (2 layers at full
+    width, batch 8, fp32, 4 steps); the tensor-core route against the FFMA
+    route (the same, in bf16, with the plain versions as a yardstick); and
+    3 steps with the capacity-slot ``scatter`` dispatch (no grouped-matmul
+    kernel).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1929,14 +1936,22 @@ def gmm_bwd_library(name: str, lhs, rhs, dout, group_sizes):
 
 def gmm_backward_phase(dev: torch.device) -> list[dict]:
     """The backward's kernels and the forward's ``z`` against their plain
-    versions at the MoE training path's shapes, fp32 and bf16, with the
-    ragged and the router's group sizes, each kernel call under
-    ``set_sync_debug_mode("error")``: fp32 outputs (gmm, tgmm, colsum, and
-    z in fp32) within 1e-5 x max|plain| (sums in another order; widened
-    bf16 products are exact), bf16 z within one ulp of each plain value
-    plus 1e-5 x max|plain|. Two tgmm runs are bitwise equal. Then the
-    times of the path's bf16 calls: returns one record each for gmm,
-    tgmm, colsum and the forward with ``z``."""
+    versions at the MoE training path's shapes, fp32 and bf16 operands,
+    with the ragged and the router's group sizes, each kernel call under
+    ``set_sync_debug_mode("error")`` and each call's launches exact (the
+    route rule's choice): fp32 operands take the FFMA ``gmm``/``tgmm``;
+    bf16 ones take ``gmm_tc``/``tgmm_tc`` with an fp32 dout in three pieces
+    (``split``) and a bf16 dout in one, and the FFMA kernels on the same
+    operands through the module's private launchers. fp32 outputs (gmm,
+    tgmm, gmm_tc, tgmm_tc, colsum, and z in fp32) within 1e-5 x max|plain|
+    (sums in another order; every product is exact: widened bf16, or a
+    bf16 piece times a bf16 value), bf16 z within one ulp of each plain
+    value plus 1e-5 x max|plain|, split bitwise equal to its plain version.
+    Two runs of tgmm and of tgmm_tc are bitwise equal. Then the times of
+    the path's four calls (gmm and tgmm for w_in and w_out) on both routes
+    in turn, split and colsum: returns one record each for gmm, tgmm (the
+    FFMA route), gmm_tc, tgmm_tc, split, colsum and the forward with
+    ``z``."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.models.moe import MoEFFN
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
 
@@ -1953,7 +1968,7 @@ def gmm_backward_phase(dev: torch.device) -> list[dict]:
           f"{routed.tolist()}")
     sizes = {"ragged": torch.tensor(GMM_TRAIN_RAGGED, device=dev), "router": routed}
     shapes = {"w_in": (d, f), "w_out": (f, d)}  # the forward product's (K, N)
-    names = ("gmm", "tgmm", "colsum", "fused_z")
+    names = ("gmm", "tgmm", "gmm_tc", "tgmm_tc", "split", "colsum", "fused_z")
     err, worst = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
 
     def check(name, got, want, dtype, label):
@@ -1970,120 +1985,220 @@ def gmm_backward_phase(dev: torch.device) -> list[dict]:
         err[name], worst[name] = max(err[name], float(diff.max())), max(worst[name], share)
         print(f"{name} {label}: max abs err {float(diff.max())} ({share:.3f} of the limit)")
 
+    def via(launches: dict, fn):
+        """``fn()`` with host synchronisation an error; its grouped-matmul
+        launches must be exactly ``launches``."""
+        G.reset_launch_count()
+        out = quiet(fn)
+        got = {k: G.launch_count(k) for k in G.KERNELS if G.launch_count(k)}
+        if got != launches:
+            raise RuntimeError(f"grouped-matmul route: launches {got}, expected {launches}")
+        return out
+
+    def ffma_gmm(dout, w, gs):  # the FFMA route through the module's private launcher
+        out = torch.empty((dout.shape[0], w.shape[1]), device=dev)
+        G._gmm_ffma(dout, w, G._sizes(gs), out, True)
+        return out
+
+    def ffma_tgmm(a, dout, gs):
+        out = torch.empty((gs.shape[0], a.shape[1], dout.shape[1]), device=dev)
+        G._tgmm_ffma(a, dout, G._sizes(gs), out)
+        return out
+
+    def repeats(label, dw, fn):
+        if not torch.equal(dw, fn()):
+            raise RuntimeError(f"{label} is not bitwise repeatable")
+
     operands = {}
     for wname, (k, n) in shapes.items():
         lhs = randn(gen, m, k)
         rhs = randn(gen, e, k, n) / k**0.5
         bias = randn(gen, e, n)
         dout = randn(gen, m, n)
+        d16 = dout.bfloat16()
         operands[wname] = (lhs, rhs, bias, dout)
+        split = via({"split": 1}, lambda: G.split_bf16(dout))
+        if not torch.equal(split.view(torch.int16), G.split_bf16_plain(dout).view(torch.int16)):
+            raise RuntimeError(f"split differs from its plain version at {wname} [{m}, {n}]")
+        print(f"split {wname} [{m}, {n}]: bitwise equal to its plain version")
         for s_label, gs in sizes.items():
             for dtype in (torch.float32, torch.bfloat16):
                 a, w = lhs.to(dtype), rhs.to(dtype)
                 label = f"{wname} {s_label} {str(dtype)[6:]} [{m}, {k}] x [{e}, {k}, {n}]"
-                check("gmm", quiet(lambda: G.gmm(dout, w, gs, trans_rhs=True)),
-                      G.grouped_matmul_plain(dout, w, gs, trans_rhs=True), torch.float32, label)
-                dw = quiet(lambda: G.tgmm(a, dout, gs))
-                check("tgmm", dw, G.tgmm_plain(a, dout, gs), torch.float32, label)
-                if not torch.equal(dw, G.tgmm(a, dout, gs)):
-                    raise RuntimeError(f"tgmm is not bitwise repeatable at {label}")
-                check("colsum", quiet(lambda: G.segment_sum_rows(dout, gs)),
+                want_g = G.grouped_matmul_plain(dout, w, gs, trans_rhs=True)
+                want_t = G.tgmm_plain(a, dout, gs)
+                if dtype == torch.float32:
+                    check("gmm", via({"gmm": 1}, lambda: G.gmm(dout, w, gs, trans_rhs=True)),
+                          want_g, dtype, label)
+                    dw = via({"tgmm": 1}, lambda: G.tgmm(a, dout, gs))
+                    check("tgmm", dw, want_t, dtype, label)
+                    repeats(f"tgmm at {label}", dw, lambda: G.tgmm(a, dout, gs))
+                else:
+                    check("gmm_tc", via({"gmm_tc": 1, "split": 1},
+                                        lambda: G.gmm(dout, w, gs, trans_rhs=True)),
+                          want_g, torch.float32, label + " dout fp32 (3 pieces)")
+                    dw = via({"tgmm_tc": 1}, lambda: G.tgmm(a, dout, gs, split=split))
+                    check("tgmm_tc", dw, want_t, torch.float32, label + " dout fp32 (3 pieces)")
+                    repeats(f"tgmm_tc at {label}", dw, lambda: G.tgmm(a, dout, gs, split=split))
+                    check("gmm", via({"gmm": 1}, lambda: ffma_gmm(dout, w, gs)), want_g,
+                          torch.float32, label + " (FFMA route)")
+                    dw = via({"tgmm": 1}, lambda: ffma_tgmm(a, dout, gs))
+                    check("tgmm", dw, want_t, torch.float32, label + " (FFMA route)")
+                    repeats(f"tgmm at {label}", dw, lambda: ffma_tgmm(a, dout, gs))
+                    check("gmm_tc", via({"gmm_tc": 1}, lambda: G.gmm(d16, w, gs, trans_rhs=True)),
+                          G.grouped_matmul_plain(d16, w, gs, trans_rhs=True), torch.float32,
+                          label + " dout bf16 (1 piece)")
+                    dw = via({"tgmm_tc": 1}, lambda: G.tgmm(a, d16, gs))
+                    check("tgmm_tc", dw, G.tgmm_plain(a, d16, gs), torch.float32,
+                          label + " dout bf16 (1 piece)")
+                    repeats(f"tgmm_tc at {label} (1 piece)", dw, lambda: G.tgmm(a, d16, gs))
+                check("colsum", via({"colsum": 1}, lambda: G.segment_sum_rows(dout, gs)),
                       G.segment_sum_rows_plain(dout, gs), torch.float32, label)
-                _, z = quiet(lambda: G._fused(a, w, bias, gs, "gelu", None, True))
+                _, z = via({"fused_z": 1}, lambda: G._fused(a, w, bias, gs, "gelu", None, True))
                 _, z_plain = G.grouped_matmul_fused_plain(a, w, bias, gs, activation="gelu",
                                                           with_z=True)
                 check("fused_z", z, z_plain, dtype, label)
-                del dw, z, z_plain
+                del dw, z, z_plain, want_g, want_t
+        del split, d16
         torch.cuda.empty_cache()
-    print("gmm backward kernels agree with their plain versions, no host synchronisation; "
-          + ", ".join(f"{k} max abs err {err[k]} ({worst[k]:.3f} of the limit)" for k in names))
+    print("gmm backward kernels agree with their plain versions on both routes, no host "
+          "synchronisation; " + ", ".join(f"{k} max abs err {err[k]} ({worst[k]:.3f} of the "
+                                          f"limit)" for k in names))
 
-    # Times at the path's bf16 calls, router group sizes: per layer, gmm and
-    # tgmm and colsum once for w_in and once for w_out, the forward with z
-    # once (w_in; w_out's forward has no activation and writes no z).
+    # Times of the path's bf16 calls, router group sizes: per layer, gmm,
+    # tgmm and colsum once for w_in and once for w_out, split once (w_in's
+    # fp32 dz, whose pieces both of w_in's calls read; w_out's gradient
+    # arrives in bf16, one piece), the forward with z once (w_in). gmm and
+    # tgmm on both routes, in turn: tensor cores, FFMA, FFMA, tensor cores.
     bw, fp32_flops = card_rates(torch.cuda.get_device_name(0))
     gs = routed
+    gs32 = G._sizes(gs)
     timed: dict[str, dict] = {name: {} for name in names}
     for wname, (k, n) in shapes.items():
         lhs, rhs, bias, dout = operands[wname]
         a, w = lhs.bfloat16(), rhs.bfloat16()
+        pieces = 3 if wname == "w_in" else 1
+        dp = dout if pieces == 3 else dout.bfloat16()  # dout as the path hands it over
+        dw32 = dp.float()  # the FFMA route widens it
+        sp = G.split_bf16(dp) if pieces == 3 else None
+        out_g = torch.empty((m, k), device=dev)
+        out_t = torch.empty((e, k, n), device=dev)
+        dbytes = dp.element_size() * m * n
+        flop = 2.0 * m * k * n
+        g_bytes = dbytes + 2.0 * e * k * n + 4.0 * e + 4.0 * m * k
+        t_bytes = 2.0 * m * k + dbytes + 4.0 * e + 4.0 * e * k * n
+        plain_g = median_ms(lambda: G.grouped_matmul_plain(dp, w, gs, trans_rhs=True), reps=3,
+                            warmup=1)
+        plain_t = median_ms(lambda: G.tgmm_plain(a, dp, gs), reps=3, warmup=1)
         calls = {
-            # name: (kernel, plain, bytes, flop, peak)
-            "gmm": (lambda: G.gmm(dout, w, gs, trans_rhs=True),
-                    lambda: G.grouped_matmul_plain(dout, w, gs, trans_rhs=True),
-                    4.0 * m * n + 2.0 * e * k * n + 4.0 * e + 4.0 * m * k,
-                    2.0 * m * k * n, fp32_flops),
-            "tgmm": (lambda: G.tgmm(a, dout, gs), lambda: G.tgmm_plain(a, dout, gs),
-                     2.0 * m * k + 4.0 * m * n + 4.0 * e + 4.0 * e * k * n,
-                     2.0 * m * k * n, fp32_flops),
-            "colsum": (lambda: G.segment_sum_rows(dout, gs),
-                       lambda: G.segment_sum_rows_plain(dout, gs),
-                       4.0 * m * n + 4.0 * e + 4.0 * e * n, 1.0 * m * n, fp32_flops),
+            # name: (kernel, plain ms, bytes, flop, peak, library function, pieces)
+            "gmm_tc": (lambda: G.gmm(dp, w, gs, trans_rhs=True, split=sp), plain_g, g_bytes, flop,
+                       BF16_FLOPS, "gmm", pieces),
+            "gmm": (lambda: G._gmm_ffma(dw32, w, gs32, out_g, True), plain_g, g_bytes, flop,
+                    fp32_flops, "gmm", None),
+            "tgmm_tc": (lambda: G.tgmm(a, dp, gs, split=sp), plain_t, t_bytes, flop, BF16_FLOPS,
+                        "tgmm", pieces),
+            "tgmm": (lambda: G._tgmm_ffma(a, dw32, gs32, out_t), plain_t, t_bytes, flop,
+                     fp32_flops, "tgmm", None),
+            "colsum": (lambda: G.segment_sum_rows(dw32, gs),
+                       median_ms(lambda: G.segment_sum_rows_plain(dw32, gs), reps=3, warmup=1),
+                       4.0 * m * n + 4.0 * e + 4.0 * e * n, 1.0 * m * n, fp32_flops, "colsum",
+                       None),
         }
         if wname == "w_in":
+            calls["split"] = (lambda: G.split_bf16(dout),
+                              median_ms(lambda: G.split_bf16_plain(dout), reps=3, warmup=1),
+                              10.0 * m * n, 2.0 * m * n, fp32_flops, None, None)
             calls["fused_z"] = (
                 lambda: G._fused(a, w, bias, gs, "gelu", None, True),
-                lambda: G.grouped_matmul_fused_plain(a, w, bias, gs, activation="gelu",
-                                                     with_z=True),
+                median_ms(lambda: G.grouped_matmul_fused_plain(a, w, bias, gs, activation="gelu",
+                                                               with_z=True), reps=3, warmup=1),
                 2.0 * m * k + 2.0 * e * k * n + 4.0 * e * n + 4.0 * e + 2 * 2.0 * m * n,
-                2.0 * m * k * n, BF16_FLOPS)
-        for name, (kernel, plain, nbytes, flop, peak) in calls.items():
-            if name == "fused_z":
-                library, reason = gmm_library(a, w, bias, gs, "gelu")
-                lib_label = "torch._grouped_mm + row bias + gelu (bf16, no z)"
-            else:
-                library, reason, lib_label = gmm_bwd_library(name, a, w, dout, gs)
-            bytes_ms, ops_ms = nbytes / bw * 1e3, flop / peak * 1e3
-            match = {"gmm": "gmm_fused_kernel", "fused_z": "gmm_fused_kernel"}.get(
-                name, f"{name}_kernel")
+                flop, BF16_FLOPS, "fused_z", None)
+        libs = {}
+        for lib_name in ("gmm", "tgmm", "colsum"):
+            libs[lib_name] = gmm_bwd_library(lib_name, a, w, dp, gs)
+        fz_lib, fz_reason = gmm_library(a, w, bias, gs, "gelu")
+        libs["fused_z"] = (fz_lib, fz_reason, "torch._grouped_mm + row bias + gelu (bf16, no z)")
+        libs[None] = (None, "no single PyTorch call makes the pieces", None)
+        route_ms = {}
+        for name in ("gmm_tc", "gmm", "tgmm_tc", "tgmm"):  # in turn, then again reversed
+            route_ms[name] = [median_ms(calls[name][0])]
+        for name in ("tgmm", "tgmm_tc", "gmm", "gmm_tc"):
+            route_ms[name].append(median_ms(calls[name][0]))
+        for name, (kernel, plain_ms, nbytes, flop_, peak, lib_name, npieces) in calls.items():
+            library, reason, lib_label = libs[lib_name]
+            bytes_ms, ops_ms = nbytes / bw * 1e3, flop_ / peak * 1e3
+            kname = {"gmm": "gmm_fused_kernel", "fused_z": "gmm_fused_kernel",
+                     "gmm_tc": "::gmm_tc_kernel", "tgmm_tc": "::tgmm_tc_kernel"}.get(
+                         name, f"{name}_kernel")
             t = {
-                "ms": median_ms(kernel),
-                "device_ms": device_busy_ms(kernel, match=match),
-                "plain_ms": median_ms(plain, reps=3, warmup=1),
+                "ms": (statistics.mean(route_ms[name]) if name in route_ms
+                       else median_ms(kernel)),
+                "device_ms": device_busy_ms(kernel, match=kname),
+                "plain_ms": plain_ms,
                 "library_ms": median_ms(library) if library else None,
                 "library_device_ms": device_busy_ms(library) if library else None,
                 "library": lib_label if library else f"not run: {reason}",
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
+                "gflop": flop_ / 1e9, "mbytes": nbytes / 1e6,
             }
+            if name in route_ms:
+                t["ms_runs"] = route_ms[name]
+            if npieces:
+                t["pieces"] = npieces
+                t["pass_floor_ms"] = npieces * flop_ / BF16_FLOPS * 1e3
             t["bound_share"] = t["bound_ms"] / t["ms"]
             timed[name][wname] = t
-            print(f"{name} {wname} [{m}, {k}] x [{e}, {k}, {n}] bf16 path call: "
-                  f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; kernel {t['ms']:.4f} ms "
-                  f"(device {t['device_ms']} ms), plain {t['plain_ms']:.4f} ms, {t['library']} "
+            floor = (f", {npieces}-pass floor {t['pass_floor_ms']:.5f} ms" if npieces else "")
+            shape = f"[{m}, {n}]" if name == "split" else f"[{m}, {k}] x [{e}, {k}, {n}]"
+            print(f"{name} {wname} {shape} path call: {flop_ / 1e9:.3f} "
+                  f"GFLOP, {nbytes / 1e6:.2f} MB; kernel {t['ms']:.4f} ms (device "
+                  f"{t['device_ms']} ms), plain {t['plain_ms']:.4f} ms, {t['library']} "
                   f"{t['library_ms']} ms (device {t['library_device_ms']} ms), bound "
                   f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {100 * t['bound_share']:.2f} % of "
-                  f"it)")
+                  f"it){floor}")
+        for fn_name in ("gmm", "tgmm"):
+            tc, ffma = timed[f"{fn_name}_tc"][wname]["ms"], timed[fn_name][wname]["ms"]
+            print(f"{fn_name} {wname} path call: tensor cores {tc:.4f} ms, FFMA {ffma:.4f} ms "
+                  f"({ffma / tc:.2f}x; {'faster' if tc < ffma else 'NOT faster'} on tensor cores)")
+        del sp, out_g, out_t, dw32, dp
     del operands
     torch.cuda.empty_cache()
 
-    replaces = {"gmm": ("105", "_gmm_kernel (dlhs = gmm(dout, rhs^T))"),
-                "tgmm": ("124", "_tgmm_kernel (drhs)"),
-                "colsum": ("124", "_tgmm_kernel on an all-ones lhs (_segment_sum_rows: dbias)"),
-                "fused_z": ("278", "_gmm_fused_kernel with with_z (the differentiated gelu "
-                                   "forward)")}
+    src = "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/"
+    replaces = {"gmm": ("105", "gmm.cu", "_gmm_kernel (dlhs = gmm(dout, rhs^T)), FFMA route"),
+                "tgmm": ("124", "gmm.cu", "_tgmm_kernel (drhs), FFMA route"),
+                "gmm_tc": ("105", "gmm_tc.cu", "_gmm_kernel (dlhs), tensor-core route"),
+                "tgmm_tc": ("124", "gmm_tc.cu", "_tgmm_kernel (drhs), tensor-core route"),
+                "split": ("105", "gmm_tc.cu", "part of the _gmm_kernel/_tgmm_kernel port: the "
+                                              "fp32 dout as three bf16 pieces"),
+                "colsum": ("124", "gmm.cu", "_tgmm_kernel on an all-ones lhs (_segment_sum_rows: "
+                                            "dbias)"),
+                "fused_z": ("278", "gmm.cu", "_gmm_fused_kernel with with_z (the differentiated "
+                                             "gelu forward)")}
     records = []
     for name in names:
         calls = timed[name]
 
         def total(key, calls=calls):
-            vals = [c[key] for c in calls.values()]
+            vals = [c.get(key) for c in calls.values()]
             return None if None in vals else sum(vals)
 
-        line, what = replaces[name]
+        line, source, what = replaces[name]
         records.append({
             "name": "gmm_fused_with_z" if name == "fused_z" else name,
             "kernel": name,
             "route": "cuda",
-            "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/gmm.cu",
+            "source": src + source,
             "replaces": f"cs744_pytorch_distributed_tutorial_tpu/ops/gmm.py:{line}",
             "tpu_kernel": f"ops/gmm.py::{what}",
             "launches": None,  # filled in from the MoE training path's run
             "max_abs_err": err[name],
             "share_of_limit": worst[name],
             **{key: total(key) for key in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                           "library_ms", "library_device_ms")},
+                                           "library_ms", "library_device_ms", "pass_floor_ms")},
             "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in calls.values())
             else "operations",
             "library": next(iter(calls.values()))["library"],
@@ -2112,10 +2227,12 @@ def moe_train_argv(dispatch: str, steps: int) -> list[str]:
 def moe_train_path_phase() -> dict:
     """``lm_cli`` trains the MoE LM (the main path); returns the launches
     of each grouped-matmul kernel. A step's forward makes 12 gmm_fused
-    launches (6 w_in with z, 6 w_out without), its backward 12 gmm, 12
-    tgmm and 12 colsum (the bias gradient has a launch of its own), and
-    flash 6 forward, 6 dq and 6 dk/dv; the eval batch 12 gmm_fused without
-    z and 6 flash forwards."""
+    launches (6 w_in with z, 6 w_out without), its backward 12 gmm_tc and
+    12 tgmm_tc (w_in's fp32 dz in three pieces, split once a layer: 6
+    split; w_out's bf16 gradient in one), no FFMA gmm or tgmm, and 12
+    colsum (the bias gradient has a launch of its own); flash 6 forward, 6
+    dq and 6 dk/dv; the eval batch 12 gmm_fused without z and 6 flash
+    forwards."""
     from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
@@ -2127,16 +2244,18 @@ def moe_train_path_phase() -> dict:
     wall = time.perf_counter() - t0
     gmm = {k: G.launch_count(k) for k in G.KERNELS}
     flash = {k: A.launch_count(k) for k in A.KERNELS}
-    want_gmm = {"fused": layers * (steps + 2), "fused_z": layers * steps,
-                "gmm": 2 * layers * steps, "tgmm": 2 * layers * steps,
-                "colsum": 2 * layers * steps}
-    want_flash = {"fwd": layers * (steps + 1), "dq": layers * steps, "dkv": layers * steps}
-    if gmm != want_gmm or G.launch_count(dtype=torch.bfloat16) != sum(
-            want_gmm[k] for k in ("fused", "fused_z", "tgmm")) or others(
+    want_gmm = {"fused": layers * (steps + 2), "fused_z": layers * steps, "gmm": 0, "tgmm": 0,
+                "colsum": 2 * layers * steps, "gmm_tc": 2 * layers * steps,
+                "tgmm_tc": 2 * layers * steps, "split": layers * steps}
+    # gmm_tc counts under its dout's dtype: fp32 (w_in, 3 pieces), bf16 (w_out, 1 piece).
+    pieces = {str(dt)[6:]: G.launch_count("gmm_tc", dt) for dt in (torch.float32, torch.bfloat16)}
+    if gmm != want_gmm or pieces != {"float32": layers * steps, "bfloat16": layers * steps} or (
+            G.launch_count("tgmm_tc", torch.bfloat16) != 2 * layers * steps) or others(
             all_counts, "gmm_fused", "flash"):
-        raise RuntimeError(f"MoE training path: grouped-matmul launches {gmm} (bf16 lhs "
-                           f"{G.launch_count(dtype=torch.bfloat16)}), all {all_counts}; "
-                           f"expected {want_gmm} and no kernel but gmm and flash")
+        raise RuntimeError(f"MoE training path: grouped-matmul launches {gmm} (gmm_tc by dout "
+                           f"dtype {pieces}), all {all_counts}; expected {want_gmm} and no "
+                           f"kernel but gmm and flash")
+    want_flash = {"fwd": layers * (steps + 1), "dq": layers * steps, "dkv": layers * steps}
     if flash != want_flash:
         raise RuntimeError(f"MoE training path: flash launches {flash}, expected {want_flash}")
     moe = summary.get("moe") or {}
@@ -2150,7 +2269,7 @@ def moe_train_path_phase() -> dict:
           f"first-step set-up included), loss {summary['first_loss']} -> "
           f"{summary['final_loss']}, eval {summary['eval']}, moe_aux {moe['moe_aux']}, moe_drop "
           f"{moe['moe_drop']}, moe_load_entropy {moe['moe_load_entropy']}; gmm launches "
-          f"{gmm}, flash launches {flash}")
+          f"{gmm} (gmm_tc by dout dtype {pieces}), flash launches {flash}")
     return gmm
 
 
@@ -2207,8 +2326,11 @@ def moe_train_throughput_phase() -> dict:
         for i in range(steps):
             tr.train_step(*batches[i % 2])
         torch.cuda.synchronize()
-    groups = {"gmm": ("gmm_fused_kernel", "tgmm_kernel", "colsum_kernel"),
+    groups = {"gmm": ("gmm_fused_kernel", "tgmm_kernel", "colsum_kernel", "gmm_tc_kernel",
+                      "split_kernel"),
               "gmm_forward": ("gmm_fused_kernel<__nv_bfloat16",),
+              "gmm_tc": ("::gmm_tc_kernel",), "tgmm_tc": ("::tgmm_tc_kernel",),
+              "split": ("split_kernel",), "gmm_ffma": ("gmm_fused_kernel<float",),
               "tgmm": ("tgmm_kernel",), "colsum": ("colsum_kernel",),
               "flash": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")}
     prof_out = summarize_profile(prof, steps, "MoE training profile", groups)
@@ -2229,16 +2351,18 @@ def plain_grouped_matmuls():
     for a kernel-vs-plain trajectory."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
 
-    saved = {name: getattr(G, name) for name in ("_fused", "gmm", "tgmm", "segment_sum_rows")}
+    saved = {name: getattr(G, name)
+             for name in ("_fused", "gmm", "tgmm", "segment_sum_rows", "split_bf16")}
 
     def fused(lhs, rhs, bias, group_sizes, activation, out_dtype, with_z):
         res = G.grouped_matmul_fused_plain(lhs, rhs, bias, group_sizes, activation=activation,
                                            out_dtype=out_dtype, with_z=with_z)
         return res if with_z else (res, None)
 
-    G._fused, G.tgmm, G.segment_sum_rows = fused, G.tgmm_plain, G.segment_sum_rows_plain
-    G.gmm = lambda lhs, rhs, gs, *, trans_rhs=False: G.grouped_matmul_plain(
+    G._fused, G.segment_sum_rows, G.split_bf16 = fused, G.segment_sum_rows_plain, G.split_bf16_plain
+    G.gmm = lambda lhs, rhs, gs, *, trans_rhs=False, split=None: G.grouped_matmul_plain(
         lhs, rhs, gs, trans_rhs=trans_rhs)
+    G.tgmm = lambda lhs, dout, gs, *, split=None: G.tgmm_plain(lhs, dout, gs)
     try:
         yield
     finally:
@@ -2300,6 +2424,89 @@ def moe_train_trajectory_phase() -> None:
           f"{mean_gap}")
 
 
+@contextlib.contextmanager
+def ffma_route():
+    """The grouped-matmul backward on the FFMA kernels whatever the
+    operands (the route rule, patched for the block to take no tensor-core
+    call), for a route-vs-route trajectory."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
+
+    saved = G.tc_pieces
+    G.tc_pieces = lambda *args, **kw: 0
+    try:
+        yield
+    finally:
+        G.tc_pieces = saved
+
+
+def moe_route_trajectory_phase() -> None:
+    """The tensor-core route against the FFMA route over MOE_TRAJ_STEPS
+    AdamW steps (lr 1e-3) of the MoE LM at full width and 2 layers, batch
+    8 x T 512, bf16 compute (the path's dtype, where the routes differ),
+    from one init on the same batches; each run's launches show its route.
+    Losses within rtol 1e-4; the first step's gradient norm (same weights)
+    within rtol 1e-4; the parameters within 2 x lr a step at most (AdamW
+    moves an element by about lr whatever its gradient's size, so one whose
+    gradient's sign rests on rounding takes a step of the other sign, and
+    in bf16 the rounding of one step's activations reaches every later
+    gradient) and 1e-4 on average. A third run through the plain versions
+    (cuBLAS fp32 products: a third order of the same sums) is printed
+    beside them as the yardstick of how far two correct routes part."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+
+    b, t = 8, MOE_WIDTH["max_seq_len"]
+    toks = synthetic_tokens(b * MOE_TRAJ_STEPS, t, MOE_WIDTH["vocab_size"], seed=5)
+    runs, launches = {}, {}
+    routes = {"tensor_cores": contextlib.nullcontext, "ffma": ffma_route,
+              "plain": plain_grouped_matmuls}
+    for name, route in routes.items():
+        tr = LMTrainer(moe_config(num_layers=2, global_batch_size=b, learning_rate=MOE_TRAJ_LR))
+        model, _ = tr.init()
+        G.reset_launch_count()
+        with route():
+            steps = [tr.train_step(*tr.split_batch(toks[b * s : b * (s + 1)]))
+                     for s in range(MOE_TRAJ_STEPS)]
+        torch.cuda.synchronize()
+        launches[name] = {k: G.launch_count(k) for k in G.KERNELS if G.launch_count(k)}
+        runs[name] = ({k: [float(m[k]) for m in steps] for k in ("loss", "grad_norm")},
+                      [p.detach() for p in model.parameters()])
+        del tr, model
+    n = 2 * 2 * MOE_TRAJ_STEPS  # w_in and w_out of 2 layers a step
+    tc, ffma = launches["tensor_cores"], launches["ffma"]
+    if not (tc.get("gmm_tc") == tc.get("tgmm_tc") == n and not {"gmm", "tgmm"} & set(tc)
+            and ffma.get("gmm") == ffma.get("tgmm") == n
+            and not {"gmm_tc", "tgmm_tc", "split"} & set(ffma)):
+        raise RuntimeError(f"MoE route trajectory launches: {launches}")
+
+    def gaps(x, y):
+        d = torch.cat([(p - q).abs().flatten() for p, q in zip(runs[x][1], runs[y][1])])
+        return float(d.max()), float(d.mean())
+
+    (gap, mean_gap), (ref_gap, ref_mean) = gaps("tensor_cores", "ffma"), gaps("plain", "ffma")
+    ht, hf, hp = (runs[k][0] for k in routes)
+    del runs
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) and abs(x - y) <= 1e-4 * abs(y)
+               for x, y in zip(ht["loss"], hf["loss"])):
+        raise RuntimeError(f"MoE route trajectory losses differ: tensor cores {ht['loss']} FFMA "
+                           f"{hf['loss']}")
+    g_t, g_f = ht["grad_norm"][0], hf["grad_norm"][0]
+    if not abs(g_t - g_f) <= 1e-4 * abs(g_f):
+        raise RuntimeError(f"MoE route trajectory first-step gradient norms differ: {g_t} vs "
+                           f"{g_f}")
+    if not (gap <= 2 * MOE_TRAJ_LR * MOE_TRAJ_STEPS and mean_gap <= 1e-4):
+        raise RuntimeError(f"MoE route trajectory parameters differ by {gap} (mean {mean_gap}) "
+                           f"after {MOE_TRAJ_STEPS} steps; plain vs FFMA {ref_gap} (mean "
+                           f"{ref_mean})")
+    print(f"trajectory MoE tensor-core vs FFMA route (2 layers, full width, batch {b}, bf16): "
+          f"losses tensor cores {ht['loss']} FFMA {hf['loss']} plain {hp['loss']}; grad norms "
+          f"tensor cores {ht['grad_norm']} FFMA {hf['grad_norm']}; parameter gap after "
+          f"{MOE_TRAJ_STEPS} steps max {gap} mean {mean_gap} (plain vs FFMA: max {ref_gap} mean "
+          f"{ref_mean}); launches {launches}")
+
+
 def moe_scatter_phase() -> None:
     """3 steps of the MoE LM through ``lm_cli`` with the capacity-slot
     ``scatter`` dispatch (the JAX default; batched products, no
@@ -2349,7 +2556,7 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
     modules = (K, C, A, PA, QT, FX, G)
-    sources = [module.SOURCE for module in modules]
+    sources = [src for module in modules for src in getattr(module, "SOURCES", (module.SOURCE,))]
     _build.build_all(sources)
     for module in modules:
         module.load_kernel()
@@ -2403,6 +2610,7 @@ def main() -> int:
     records += bwd_records
     moe_train_throughput_phase()
     moe_train_trajectory_phase()
+    moe_route_trajectory_phase()
     moe_scatter_phase()
 
     print(json.dumps({"kernels": records}))

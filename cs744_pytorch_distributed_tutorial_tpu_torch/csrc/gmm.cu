@@ -61,9 +61,13 @@
 // - a 32-deep K (or row) slice a step in shared memory, widened to fp32;
 //   ragged M, K and N edges zero-filled and masked.
 //
-// Left for later work: tensor cores (mma on bf16 tiles; the backward's fp32
-// dout would take TF32 or a bf16 copy), cp.async pipelining, split-M for
-// tgmm's few large groups, a visit schedule that balances blocks.
+// gmm and tgmm here are the FFMA route: ops/gmm.py::tc_pieces sends calls
+// with a bf16 operand beside dout and rows of 16 bytes to the tensor-core
+// kernels of gmm_tc.cu instead (dout as three exact bf16 pieces), and keeps
+// these for fp32 operands and odd widths.
+//
+// Left for later work: tensor cores for gmm_fused (the forward and z),
+// cp.async pipelining, a visit schedule that balances blocks.
 //
 // Plain C interface, loaded with ctypes: every launch runs on the caller's
 // stream, does not synchronise, and returns cudaGetLastError().

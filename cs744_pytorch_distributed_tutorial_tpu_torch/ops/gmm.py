@@ -20,27 +20,39 @@ fused form adds the bias and applies the gelu (tanh form,
 
 The backward is the JAX ``_gmm_bwd_core``, with its rounding points:
 ``dout`` cast to fp32 (on the gelu path ``dz = dout * gelu'(z)`` in fp32,
-from the pre-activation ``z`` stored in the output dtype by the forward);
+from the pre-activation ``z`` stored in the output dtype by the forward;
+without an activation a bf16 ``dout`` goes to ``gmm`` and ``tgmm`` as it
+is, and they widen it, exactly);
 ``dlhs = gmm(dz, rhs^T)`` in fp32 rounded to lhs's dtype; ``drhs =
 tgmm(lhs, dz)`` (per group ``lhs^T @ dz``) in fp32 rounded to rhs's
 dtype; ``dbias`` the per-group column sums of ``dz`` in fp32; a group
 whose size is not positive gets a zero ``drhs`` and ``dbias``;
 ``group_sizes`` no gradient.
 
-``csrc/gmm.cu`` holds the kernels (its source note says how they are laid
-out): ``gmm_fused`` (with the optional ``z`` output), ``gmm``, ``tgmm``
+``csrc/gmm.cu`` holds the FFMA kernels (its source note says how they are
+laid out): ``gmm_fused`` (with the optional ``z`` output), ``gmm``, ``tgmm``
 and ``colsum`` (the bias gradient: tgmm's function on an all-ones lhs
-column, not materialised). They are built with nvcc on first use
-(``ops/_build.py``) and launched through ``ctypes`` on PyTorch's current
-stream; they read group_sizes on the device, so a call never
-synchronises with the host. Every wrapper takes the kernel for CUDA
+column, not materialised). ``csrc/gmm_tc.cu`` holds the tensor-core
+kernels: ``gmm_tc`` and ``tgmm_tc`` (wgmma on bf16 tiles fed by TMA) and
+``split``, which cuts an fp32 ``dout`` into three bf16 pieces whose sum
+is exactly ``dout``, so each piece's product with a bf16 operand is exact
+in fp32. ``gmm`` and ``tgmm`` choose their kernel by ``tc_pieces``, a
+fixed rule of dtypes and shapes: the tensor-core kernels when the operand
+that is not ``dout`` is bf16 and every row TMA reads is a multiple of 16
+bytes from a 16-byte-aligned pointer (``dout`` in 1 piece if bf16, 3 if
+fp32), the FFMA kernels otherwise. The kernels are built with nvcc on
+first use (``ops/_build.py``) and launched through ``ctypes`` on
+PyTorch's current stream; they read group_sizes on the device, so a call
+never synchronises with the host. Every wrapper takes the kernel for CUDA
 tensors and the plain version for CPU tensors; for a CUDA tensor it
 launches or raises, with no fallback. Each launch adds one to
 ``launch_count(kernel, dtype)``, kernel one of ``KERNELS`` (``fused``
-and ``fused_z`` are the forward without and with the ``z`` output) and
-dtype lhs's. The forward writes ``z`` only on the gelu path of a call
-made with grad enabled on an input that requires grad; a no-grad call
-(prefill, decode, serving, eval) does not.
+and ``fused_z`` are the forward without and with the ``z`` output;
+``gmm``/``tgmm`` the FFMA route, ``gmm_tc``/``tgmm_tc``/``split`` the
+tensor-core one) and dtype lhs's (``split``'s: its input's). The forward
+writes ``z`` only on the gelu path of a call made with grad enabled on an
+input that requires grad; a no-grad call (prefill, decode, serving,
+eval) does not.
 """
 
 from __future__ import annotations
@@ -54,7 +66,9 @@ import torch.nn.functional as F
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
 
 SOURCE = "gmm.cu"
-KERNELS = ("fused", "fused_z", "gmm", "tgmm", "colsum")
+TC_SOURCE = "gmm_tc.cu"
+SOURCES = (SOURCE, TC_SOURCE)
+KERNELS = ("fused", "fused_z", "gmm", "tgmm", "colsum", "gmm_tc", "tgmm_tc", "split")
 ACTIVATIONS = ("none", "gelu")
 IMPLS = ("pallas", "ragged")
 MAX_GROUPS = 64  # the kernels keep the group offsets in shared memory
@@ -78,9 +92,8 @@ def reset_launch_count() -> None:
 
 
 def load_kernel():
-    """Build (first call) and load the kernels; returns their C entry
-    points ``{"fused": gmm_fused, "gmm": gmm, "tgmm": tgmm, "colsum":
-    colsum}``."""
+    """Build (first call) and load the kernels of ``SOURCES``; returns
+    their C entry points by kernel name (``fused`` for ``gmm_fused``)."""
     global _kernel_fns
     if _kernel_fns is None:
         lib = load_library(SOURCE)
@@ -93,7 +106,15 @@ def load_kernel():
         lib.tgmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, p]
         # dout, group_sizes, out, M, N, E, stream
         lib.colsum.argtypes = [p, p, p, i64, i64, i64, p]
-        fns = {"fused": lib.gmm_fused, "gmm": lib.gmm, "tgmm": lib.tgmm, "colsum": lib.colsum}
+        tc = load_library(TC_SOURCE)
+        # a, rhs, group_sizes, out, M, K, N, E, pieces, rhs_mn_major, stream
+        tc.gmm_tc.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, p]
+        # lhs, b, group_sizes, out, M, K, N, E, pieces, stream
+        tc.tgmm_tc.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, p]
+        # x, out, n, stream
+        tc.split_bf16.argtypes = [p, p, i64, p]
+        fns = {"fused": lib.gmm_fused, "gmm": lib.gmm, "tgmm": lib.tgmm, "colsum": lib.colsum,
+               "gmm_tc": tc.gmm_tc, "tgmm_tc": tc.tgmm_tc, "split": tc.split_bf16}
         for fn in fns.values():
             fn.restype = ctypes.c_int
         _kernel_fns = fns
@@ -183,6 +204,41 @@ def segment_sum_rows_plain(dout: torch.Tensor, group_sizes: torch.Tensor) -> tor
     return tgmm_plain(ones, dout, group_sizes)[:, 0]
 
 
+def split_bf16_plain(x: torch.Tensor) -> torch.Tensor:
+    """``split``'s function: the three bf16 pieces [3, *x.shape] of an
+    fp32 ``x``, each rounded to nearest from the running remainder (h1 =
+    bf16(x), h2 = bf16(x - h1), h3 = bf16(x - h1 - h2)). Each remainder is
+    exact in fp32 and h1 + h2 + h3 == x (bits below bf16's subnormals
+    aside), so a piece's product with a bf16 value is exact in fp32."""
+    h1 = x.to(torch.bfloat16)
+    r = x - h1.float()
+    h2 = r.to(torch.bfloat16)
+    return torch.stack([h1, h2, (r - h2.float()).to(torch.bfloat16)])
+
+
+# --------------------------------------------------------------- route rule
+def tc_pieces(dout_dtype: torch.dtype, other_dtype: torch.dtype, shape: tuple[int, int, int],
+              aligned: bool = True) -> int:
+    """The kernel a ``gmm``/``tgmm`` call on CUDA tensors takes: the number
+    of bf16 pieces of ``dout`` the tensor-core kernels read (1 for a bf16
+    ``dout``, 3 for an fp32 one), or 0 for the FFMA kernels. ``dout`` is
+    the operand the backward differentiates by (``gmm``'s lhs, ``tgmm``'s
+    dout; the forward's bf16 lhs counts as one piece), ``other`` the
+    operand beside it; ``shape`` is (rows, k, n) with k and n the lengths
+    of the rows TMA reads, and ``aligned`` whether those tensors start on
+    16 bytes. The tensor-core kernels take the call when ``other`` is bf16,
+    rows > 0, and k and n are positive multiples of 8 (rows of 16 bytes)."""
+    rows, k, n = shape
+    if (other_dtype != torch.bfloat16 or dout_dtype not in _DTYPES or not aligned or rows <= 0
+            or k <= 0 or n <= 0 or k % 8 or n % 8):
+        return 0
+    return 1 if dout_dtype == torch.bfloat16 else 3
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 # ------------------------------------------------------------------ wrappers
 def _check_groups(group_sizes: torch.Tensor, num_groups: int | None,
                   *tensors: torch.Tensor) -> None:
@@ -257,11 +313,13 @@ def _fused(lhs, rhs, bias, group_sizes, activation, out_dtype, with_z):
 
 
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
-        trans_rhs: bool = False) -> torch.Tensor:
+        trans_rhs: bool = False, split: torch.Tensor | None = None) -> torch.Tensor:
     """``lhs[r] @ rhs[g(r)]`` [M, N] in fp32 (the TPU ``_gmm_kernel``):
-    lhs and rhs of one dtype as stored, or with ``trans_rhs`` an fp32 lhs
-    [M, K] against rhs [E, N, K] (fp32 or bf16) read transposed in place
-    (the backward's ``dlhs = dout @ rhs^T``)."""
+    lhs and rhs of one dtype as stored, or with ``trans_rhs`` an fp32 or
+    bf16 lhs [M, K] (widened exactly) against rhs [E, N, K] (fp32 or bf16)
+    read transposed in place (the backward's ``dlhs = dout @ rhs^T``).
+    ``split`` may hold ``split_bf16(lhs)``, made once for a backward whose
+    ``tgmm`` reads the same pieces."""
     e = rhs.shape[0]
     k = rhs.shape[2] if trans_rhs else rhs.shape[1]
     n = rhs.shape[1] if trans_rhs else rhs.shape[2]
@@ -269,43 +327,95 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
         raise ValueError(f"gmm shapes: lhs {tuple(lhs.shape)}, rhs {tuple(rhs.shape)}, "
                          f"trans_rhs={trans_rhs}")
     if lhs.dtype not in _DTYPES or rhs.dtype not in _DTYPES or (
-            lhs.dtype != (torch.float32 if trans_rhs else rhs.dtype)):
-        raise TypeError(f"gmm takes an fp32 lhs under a transposed rhs, or lhs and rhs of one "
-                        f"dtype; got {lhs.dtype} and {rhs.dtype}, trans_rhs={trans_rhs}")
+            not trans_rhs and lhs.dtype != rhs.dtype):
+        raise TypeError(f"gmm takes an fp32 or bf16 lhs under a transposed rhs, or lhs and rhs "
+                        f"of one dtype; got {lhs.dtype} and {rhs.dtype}, trans_rhs={trans_rhs}")
     _check_groups(group_sizes, e, lhs, rhs)
+    _check_split(split, lhs)
     if lhs.device.type == "cpu":
         return grouped_matmul_plain(lhs, rhs, group_sizes, trans_rhs=trans_rhs)
     lhs, rhs, gs = lhs.contiguous(), rhs.contiguous(), _sizes(group_sizes)
     m = lhs.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=lhs.device)
-    if m and n:
-        _launch("gmm", "gmm", lhs.dtype, lhs.device, lhs.data_ptr(), rhs.data_ptr(),
-                gs.data_ptr(), out.data_ptr(), m, k, n, e,
-                int(lhs.dtype == torch.bfloat16), int(rhs.dtype == torch.bfloat16),
-                int(trans_rhs))
+    if not (m and n):
+        return out
+    pieces = tc_pieces(lhs.dtype, rhs.dtype, (m, k, n), _aligned(lhs, rhs))
+    if pieces:
+        a = lhs if pieces == 1 else (split if split is not None else split_bf16(lhs))
+        _launch("gmm_tc", "gmm_tc", lhs.dtype, lhs.device, a.data_ptr(), rhs.data_ptr(),
+                gs.data_ptr(), out.data_ptr(), m, k, n, e, pieces, int(not trans_rhs))
+    else:
+        _gmm_ffma(lhs.float() if trans_rhs else lhs, rhs, gs, out, trans_rhs)
     return out
 
 
-def tgmm(lhs: torch.Tensor, dout: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+def _gmm_ffma(lhs, rhs, gs, out, trans_rhs: bool) -> None:
+    """The FFMA ``gmm`` kernel into ``out`` (contiguous CUDA tensors, gs
+    int32; under ``trans_rhs`` an fp32 lhs)."""
+    (m, k), e, n = lhs.shape, rhs.shape[0], out.shape[1]
+    _launch("gmm", "gmm", lhs.dtype, lhs.device, lhs.data_ptr(), rhs.data_ptr(), gs.data_ptr(),
+            out.data_ptr(), m, k, n, e, int(lhs.dtype == torch.bfloat16),
+            int(rhs.dtype == torch.bfloat16), int(trans_rhs))
+
+
+def tgmm(lhs: torch.Tensor, dout: torch.Tensor, group_sizes: torch.Tensor, *,
+         split: torch.Tensor | None = None) -> torch.Tensor:
     """Per group ``lhs[rows]^T @ dout[rows]`` [E, K, N] in fp32 (the TPU
-    ``_tgmm_kernel``; rhs's gradient), lhs [M, K] fp32 or bf16, dout [M,
-    N] fp32; zero for a group whose size is not positive."""
+    ``_tgmm_kernel``; rhs's gradient), lhs [M, K] and dout [M, N] each
+    fp32 or bf16 (widened exactly); zero for a group whose size is not
+    positive. ``split`` may hold ``split_bf16(dout)``."""
     if lhs.dim() != 2 or dout.dim() != 2 or lhs.shape[0] != dout.shape[0]:
         raise ValueError(f"tgmm shapes: lhs {tuple(lhs.shape)}, dout {tuple(dout.shape)}")
-    if lhs.dtype not in _DTYPES or dout.dtype != torch.float32:
-        raise TypeError(f"tgmm takes an fp32 or bf16 lhs and an fp32 dout, got {lhs.dtype} "
-                        f"and {dout.dtype}")
+    if lhs.dtype not in _DTYPES or dout.dtype not in _DTYPES:
+        raise TypeError(f"tgmm takes an fp32 or bf16 lhs and dout, got {lhs.dtype} and "
+                        f"{dout.dtype}")
     _check_groups(group_sizes, None, lhs, dout)
+    _check_split(split, dout)
     if lhs.device.type == "cpu":
         return tgmm_plain(lhs, dout, group_sizes)
     lhs, dout, gs = lhs.contiguous(), dout.contiguous(), _sizes(group_sizes)
     (m, k), n, e = lhs.shape, dout.shape[1], group_sizes.shape[0]
     out = torch.empty((e, k, n), dtype=torch.float32, device=lhs.device)
-    if k and n:
-        _launch("tgmm", "tgmm", lhs.dtype, lhs.device, lhs.data_ptr(), dout.data_ptr(),
-                gs.data_ptr(), out.data_ptr(), m, k, n, e,
-                int(lhs.dtype == torch.bfloat16))
+    if not (k and n):
+        return out
+    pieces = tc_pieces(dout.dtype, lhs.dtype, (m, k, n), _aligned(lhs, dout))
+    if pieces:
+        b = dout if pieces == 1 else (split if split is not None else split_bf16(dout))
+        _launch("tgmm_tc", "tgmm_tc", lhs.dtype, lhs.device, lhs.data_ptr(), b.data_ptr(),
+                gs.data_ptr(), out.data_ptr(), m, k, n, e, pieces)
+    else:
+        _tgmm_ffma(lhs, dout.float(), gs, out)
     return out
+
+
+def _tgmm_ffma(lhs, dout, gs, out) -> None:
+    """The FFMA ``tgmm`` kernel into ``out`` (contiguous CUDA tensors, an
+    fp32 dout, gs int32)."""
+    (m, k), n, e = lhs.shape, dout.shape[1], gs.shape[0]
+    _launch("tgmm", "tgmm", lhs.dtype, lhs.device, lhs.data_ptr(), dout.data_ptr(),
+            gs.data_ptr(), out.data_ptr(), m, k, n, e, int(lhs.dtype == torch.bfloat16))
+
+
+def split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The three bf16 pieces [3, *x.shape] of an fp32 ``x`` (see
+    ``split_bf16_plain``): the ``split`` kernel for a CUDA tensor, the plain
+    version for a CPU one."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"split_bf16 takes an fp32 tensor, got {x.dtype}")
+    if x.device.type == "cpu":
+        return split_bf16_plain(x)
+    x = x.contiguous()
+    out = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
+    if x.numel():
+        _launch("split", "split", x.dtype, x.device, x.data_ptr(), out.data_ptr(), x.numel())
+    return out
+
+
+def _check_split(split: torch.Tensor | None, dout: torch.Tensor) -> None:
+    if split is not None and (split.shape != (3, *dout.shape) or split.dtype != torch.bfloat16
+                              or dout.dtype != torch.float32 or split.device != dout.device):
+        raise ValueError(f"split must be split_bf16 of the fp32 {tuple(dout.shape)} operand, got "
+                         f"{tuple(split.shape)} {split.dtype}")
 
 
 def segment_sum_rows(dout: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
@@ -330,13 +440,22 @@ def segment_sum_rows(dout: torch.Tensor, group_sizes: torch.Tensor) -> torch.Ten
 
 # ------------------------------------------------------------------ autograd
 def _backward(needs, lhs, rhs, group_sizes, dz, with_bias: bool):
-    """The JAX ``_gmm_bwd_core`` on an fp32 ``dz``: (dlhs, drhs[, dbias]),
-    None where no gradient is needed."""
-    dlhs = gmm(dz, rhs, group_sizes, trans_rhs=True).to(lhs.dtype) if needs[0] else None
-    drhs = tgmm(lhs, dz, group_sizes).to(rhs.dtype) if needs[1] else None
+    """The JAX ``_gmm_bwd_core`` on ``dz`` (fp32; or bf16 as the output's
+    gradient came, which ``gmm`` and ``tgmm`` widen exactly): (dlhs,
+    drhs[, dbias]), None where no gradient is needed. An fp32 ``dz`` that
+    both take in three pieces is split once."""
+    m, k, n = lhs.shape[0], rhs.shape[1], rhs.shape[2]
+    split = None
+    if dz.device.type == "cuda" and needs[0] and needs[1] and (
+            tc_pieces(dz.dtype, rhs.dtype, (m, n, k)) == tc_pieces(dz.dtype, lhs.dtype, (m, k, n))
+            == 3):
+        split = split_bf16(dz)
+    dlhs = gmm(dz, rhs, group_sizes, trans_rhs=True, split=split).to(lhs.dtype) if needs[0] \
+        else None
+    drhs = tgmm(lhs, dz, group_sizes, split=split).to(rhs.dtype) if needs[1] else None
     if not with_bias:
         return dlhs, drhs
-    return dlhs, drhs, segment_sum_rows(dz, group_sizes) if needs[2] else None
+    return dlhs, drhs, segment_sum_rows(dz.float(), group_sizes) if needs[2] else None
 
 
 class _GroupedMatmulFused(torch.autograd.Function):
@@ -357,11 +476,11 @@ class _GroupedMatmulFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         lhs, rhs, group_sizes, z = ctx.saved_tensors
-        dz = g.float()
+        dz = g
         if ctx.activation == "gelu":
             # jax.nn.gelu's tanh form differentiated at z as stored (the
             # output dtype), in fp32.
-            dz = torch.ops.aten.gelu_backward(dz, z.float(), approximate="tanh")
+            dz = torch.ops.aten.gelu_backward(g.float(), z.float(), approximate="tanh")
         grads = _backward(ctx.needs_input_grad, lhs, rhs, group_sizes, dz, with_bias=True)
         return (*grads, None, None, None, None)
 
@@ -377,8 +496,7 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         lhs, rhs, group_sizes = ctx.saved_tensors
-        grads = _backward(ctx.needs_input_grad, lhs, rhs, group_sizes, g.float(),
-                          with_bias=False)
+        grads = _backward(ctx.needs_input_grad, lhs, rhs, group_sizes, g, with_bias=False)
         return (*grads, None)
 
 

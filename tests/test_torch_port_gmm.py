@@ -266,10 +266,10 @@ def test_new_entry_points_state_the_group_limit(call):
                                impl="ragged"), NotImplementedError, "not yet ported"),
      (lambda: G.grouped_matmul(torch.zeros(8, 4), torch.zeros(2, 4, 6), torch.tensor([3, 5]),
                                impl="dense"), ValueError, "unknown grouped_matmul impl"),
-     (lambda: G.gmm(torch.zeros(8, 4).bfloat16(), torch.zeros(2, 6, 4), torch.tensor([3, 5]),
-                    trans_rhs=True), TypeError, "fp32 lhs under a transposed rhs"),
-     (lambda: G.tgmm(torch.zeros(8, 4), torch.zeros(8, 6).bfloat16(), torch.tensor([3, 5])),
-      TypeError, "fp32 dout"),
+     (lambda: G.gmm(torch.zeros(8, 4).half(), torch.zeros(2, 6, 4), torch.tensor([3, 5]),
+                    trans_rhs=True), TypeError, "fp32 or bf16 lhs under a transposed rhs"),
+     (lambda: G.tgmm(torch.zeros(8, 4), torch.zeros(8, 6).half(), torch.tensor([3, 5])),
+      TypeError, "fp32 or bf16 lhs and dout"),
      (lambda: G.tgmm(torch.zeros(8, 4), torch.zeros(7, 6), torch.tensor([3, 5])), ValueError,
       "tgmm shapes")],
     ids=["ragged", "unknown_impl", "gmm_dtype", "tgmm_dtype", "tgmm_shapes"],
@@ -368,24 +368,30 @@ def _card_within(got, want, dtype, label):
 @pytest.mark.cuda
 def test_gmm_backward_kernels_match_plain_on_card():
     """The backward's kernels against their plain versions on the same
-    CUDA tensors: ``gmm`` (dlhs: an fp32 dout under rhs^T read in place,
-    fp32 and bf16 rhs; and as stored, grouped_matmul's forward), ``tgmm``
-    (drhs, fp32 and bf16 lhs) and ``colsum`` (dbias), all fp32 outputs
-    within 1e-5 x max|plain| (sums in another order; the products of
-    widened bf16 are exact); ``z`` of the differentiated gelu forward
-    within one ulp in bf16; then a full backward through the kernels
-    against the plain versions composed by hand from the kernel's ``z``
-    (a ``z`` one ulp apart would move ``dz`` by more than a bf16 ulp of a
-    small gradient). Groups include empty
-    ones, rows past the sum and boundaries off the tiles; no call
-    synchronises with the host, and two tgmm runs are bitwise equal."""
+    CUDA tensors, on both routes wherever both apply: ``gmm`` (dlhs: an
+    fp32 or bf16 dout under rhs^T read in place, fp32 and bf16 rhs; and as
+    stored, grouped_matmul's forward) and ``tgmm`` (drhs, fp32 and bf16
+    lhs) take the tensor-core kernels (``gmm_tc``/``tgmm_tc``, an fp32 dout
+    in three ``split`` pieces, a bf16 one in one) where ``tc_pieces`` says
+    so, and the FFMA kernels otherwise and through the private launchers on
+    the same operands; ``colsum`` (dbias); all fp32 outputs within 1e-5 x
+    max|plain| (sums in another order; every product is exact); ``z`` of
+    the differentiated gelu forward within one ulp in bf16; then a full
+    backward through the kernels against the plain versions composed by
+    hand from the kernel's ``z`` (a ``z`` one ulp apart would move ``dz``
+    by more than a bf16 ulp of a small gradient). Groups include empty
+    ones, rows past the sum and boundaries off the tiles; every call's
+    launches show its route (the odd shapes take the FFMA kernels), no call
+    synchronises with the host, and two runs of tgmm or tgmm_tc are
+    bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [(4096, 512, 1024, [600, 420, 512, 0, 700, 380, 900, 584]),
-             (77, 33, 45, [0, 30, 0, 20]), (100, 64, 70, [10, 20, 0]), (5, 8, 3, [1])]
+             (300, 72, 136, [100, 0, 150, 10]), (77, 33, 45, [0, 30, 0, 20]),
+             (100, 64, 70, [10, 20, 0]), (5, 8, 3, [1])]
 
     def quiet(fn, *args, **kw):
         torch.cuda.set_sync_debug_mode("error")
@@ -394,7 +400,24 @@ def test_gmm_backward_kernels_match_plain_on_card():
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    G.reset_launch_count()
+    def via(launches, fn, *args, **kw):
+        G.reset_launch_count()
+        out = quiet(fn, *args, **kw)
+        assert {k: G.launch_count(k) for k in G.KERNELS if G.launch_count(k)} == launches, (
+            fn, launches)
+        return out
+
+    def ffma_gmm(dout, w, gs):
+        out = torch.empty((dout.shape[0], w.shape[1]), device=dev)
+        G._gmm_ffma(dout, w, G._sizes(gs), out, True)
+        return out
+
+    def ffma_tgmm(a, dout, gs):
+        out = torch.empty((gs.shape[0], a.shape[1], dout.shape[1]), device=dev)
+        G._tgmm_ffma(a, dout, G._sizes(gs), out)
+        return out
+
+    tc_cases = 0
     for m, k, n, sizes in cases:
         e = len(sizes)
         gs = torch.tensor(sizes, device=dev)
@@ -404,24 +427,43 @@ def test_gmm_backward_kernels_match_plain_on_card():
         dout = torch.randn((m, n), generator=gen, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
             a, w = lhs.to(dtype), rhs.to(dtype)
-            _card_within(quiet(G.gmm, dout, w, gs, trans_rhs=True),
-                         G.grouped_matmul_plain(dout, w, gs, trans_rhs=True),
-                         torch.float32, ("gmm^T", m, dtype))
-            _card_within(quiet(G.gmm, a, w, gs), G.grouped_matmul_plain(a, w, gs),
-                         torch.float32, ("gmm", m, dtype))
-            dw = quiet(G.tgmm, a, dout, gs)
-            _card_within(dw, G.tgmm_plain(a, dout, gs), torch.float32, ("tgmm", m, dtype))
+            tc = G.tc_pieces(torch.float32, dtype, (m, n, k)) == 3
+            assert tc == (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0)
+            tc_cases += tc
+            want = G.grouped_matmul_plain(dout, w, gs, trans_rhs=True)
+            _card_within(via({"gmm_tc": 1, "split": 1} if tc else {"gmm": 1}, G.gmm, dout, w, gs,
+                             trans_rhs=True), want, torch.float32, ("gmm^T", m, dtype))
+            want_t = G.tgmm_plain(a, dout, gs)
+            dw = via({"tgmm_tc": 1, "split": 1} if tc else {"tgmm": 1}, G.tgmm, a, dout, gs)
+            _card_within(dw, want_t, torch.float32, ("tgmm", m, dtype))
             assert torch.equal(dw, G.tgmm(a, dout, gs))
-            _card_within(quiet(G.segment_sum_rows, dout, gs),
+            if tc:
+                # The FFMA route on the same operands, and a bf16 dout in one piece.
+                _card_within(via({"gmm": 1}, ffma_gmm, dout, w, gs), want, torch.float32,
+                             ("gmm^T ffma", m))
+                dw = via({"tgmm": 1}, ffma_tgmm, a, dout, gs)
+                _card_within(dw, want_t, torch.float32, ("tgmm ffma", m))
+                assert torch.equal(dw, ffma_tgmm(a, dout, gs))
+                d16 = dout.bfloat16()
+                _card_within(via({"gmm_tc": 1}, G.gmm, d16, w, gs, trans_rhs=True),
+                             G.grouped_matmul_plain(d16, w, gs, trans_rhs=True), torch.float32,
+                             ("gmm^T bf16 dout", m))
+                dw = via({"tgmm_tc": 1}, G.tgmm, a, d16, gs)
+                _card_within(dw, G.tgmm_plain(a, d16, gs), torch.float32, ("tgmm bf16 dout", m))
+                assert torch.equal(dw, G.tgmm(a, d16, gs))
+            _card_within(via({"gmm_tc": 1} if tc else {"gmm": 1}, G.gmm, a, w, gs),
+                         G.grouped_matmul_plain(a, w, gs), torch.float32, ("gmm", m, dtype))
+            _card_within(via({"colsum": 1}, G.segment_sum_rows, dout, gs),
                          G.segment_sum_rows_plain(dout, gs), torch.float32, ("colsum", m))
-            _, z = quiet(G._fused, a, w, bias, gs, "gelu", None, True)
+            _, z = via({"fused_z": 1}, G._fused, a, w, bias, gs, "gelu", None, True)
             _, z_plain = G.grouped_matmul_fused_plain(a, w, bias, gs, activation="gelu",
                                                       with_z=True)
             _card_within(z, z_plain, dtype, ("z", m, dtype))
 
             lt, rt, bt = (t.clone().requires_grad_() for t in (a, w, bias))
-            out = quiet(G.grouped_matmul_fused, lt, rt, bt, gs, activation="gelu")
-            quiet(out.backward, dout.to(dtype))
+            out = via({"fused_z": 1}, G.grouped_matmul_fused, lt, rt, bt, gs, activation="gelu")
+            bwd = {"gmm_tc": 1, "tgmm_tc": 1, "split": 1} if tc else {"gmm": 1, "tgmm": 1}
+            via({**bwd, "colsum": 1}, out.backward, dout.to(dtype))
             dz = torch.ops.aten.gelu_backward(dout.to(dtype).float(), z.float(),
                                               approximate="tanh")
             _card_within(lt.grad, G.grouped_matmul_plain(dz, w, gs, trans_rhs=True).to(dtype),
@@ -430,7 +472,4 @@ def test_gmm_backward_kernels_match_plain_on_card():
             _card_within(bt.grad, G.segment_sum_rows_plain(dz, gs), torch.float32,
                          ("dbias", m, dtype))
     torch.cuda.synchronize()
-    per_kernel = {k: G.launch_count(k) for k in G.KERNELS}
-    runs = 2 * len(cases)
-    assert per_kernel == {"fused": 0, "fused_z": 2 * runs, "gmm": 3 * runs, "tgmm": 3 * runs,
-                          "colsum": 2 * runs}, per_kernel
+    assert tc_cases == 2  # (4096, 512, 1024) and (300, 72, 136) in bf16
