@@ -7,7 +7,8 @@ no result):
 
 1. setup: the card, its power limit, torch/CUDA versions, TF32 settings,
    and the build of every kernel from ``csrc/`` (one ``nvcc`` per source,
-   all started together);
+   all started together), with ptxas's registers and spills for each
+   tensor-core kernel;
 2. kernels against their plain PyTorch versions on the card, then their
    times beside their bounds, the plain versions' times and one PyTorch
    library call's time:
@@ -30,9 +31,13 @@ no result):
    ResNet-18 (with and without ``fast_conv``);
 8. flash attention: the forward, dq and dk/dv kernels against their
    plain versions (the LM path's shape B16 T1024 H12 D64 causal, a
-   non-causal and ragged shapes, fp32 and bf16), then their times at the
-   path's shape in bf16 beside their bounds, the plain versions' and
-   ``scaled_dot_product_attention``'s forward and backward;
+   non-causal and ragged shapes, fp32 and bf16): fp32 dq and dk/dv on the
+   FFMA kernels, bf16 ones on the tensor-core kernels (bitwise repeatable)
+   and again on the FFMA route, each call's route shown by its launches;
+   then their times at the path's shape in bf16 (the backward's two routes
+   in turn; the tensor-core kernels must be the faster) beside their
+   bounds, the plain versions', ``scaled_dot_product_attention``'s forward
+   and backward, and the tensor-core kernels' registers and spills;
 9. fused cross-entropy: the forward and backward kernels against their
    plain versions at the LM path's logits ([16384, 50304] fp32), in bf16
    and at a ragged shape ([37, 50257]), then their times beside their
@@ -42,12 +47,15 @@ no result):
     width (12 layers, d 768, 12 heads, vocab 50304, T 1024, batch 16, RoPE,
     bf16, AdamW, ``--attention-impl flash --fused-xent``), 24 steps and one
     eval batch (plain CE, as the JAX eval), every launch count zeroed just
-    before and read just after;
+    before and read just after (the flash backward all on the tensor
+    cores: 288 dq and 288 dk/dv, none on the FFMA route);
 11. its throughput (``LMTrainer.train_step``, tokens/s and MFU) with flash
     and the fused cross-entropy, flash alone and dense attention,
     flash-vs-dense and fused-vs-plain cross-entropy trajectories (2 layers
-    at full width, fp32, TF32 off), and a profile of one step with and
-    one without the fused cross-entropy;
+    at full width, fp32, TF32 off), a profile of one step with and one
+    without the fused cross-entropy, and the flash backward's tensor-core
+    route against its FFMA route (2 layers at full width, batch 4, bf16, 4
+    AdamW steps, the plain versions printed beside as the yardstick);
 12. paged attention: the decode kernel against its plain version (the
     gather path) at the serving shape (16 slots, 12 query heads over 4 KV
     heads, D 64, page 16, ragged depths up to 511) in fp32, bf16 and int8
@@ -102,7 +110,8 @@ no result):
     full width, batch 32 x T 512, flash, bf16, AdamW, 8 steps and one eval
     batch, every launch count exact (a step: 12 ``gmm_fused`` of which the
     6 ``w_in`` calls write ``z``, 12 ``gmm_tc``, 12 ``tgmm_tc``, 6
-    ``split``, 12 ``colsum``, no FFMA ``gmm`` or ``tgmm``, and 18 flash);
+    ``split``, 12 ``colsum``, no FFMA ``gmm`` or ``tgmm``, and 18 flash,
+    the backward's 12 on the tensor cores);
     its throughput, one step under ``set_sync_debug_mode("error")`` and a
     profile of 2 steps; a kernel-vs-plain trajectory (2 layers at full
     width, batch 8, fp32, 4 steps); the tensor-core route against the FFMA
@@ -160,6 +169,7 @@ LM_WIDTH = dict(num_layers=12, d_model=768, num_heads=12, d_ff=3072, vocab_size=
                 max_seq_len=1024, seq_len=1024)
 LM_PARAMS, LM_TENSORS = 162_286_080, 148
 LM_TIMED_STEPS = 10
+LM_ROUTE_STEPS, LM_ROUTE_LR = 4, 1e-3  # the flash backward's route-vs-route trajectory
 
 # The inference slice: the JAX package's GPT-2-small decode shape
 # (benchmarks/bench_generate.py), 4 KV heads (GQA, group 3).
@@ -738,36 +748,100 @@ def profile_phase(model: str, **cfg_kw) -> dict:
 
 
 # ---------------------------------------------------------- flash attention
+@contextlib.contextmanager
+def flash_ffma_route():
+    """The flash backward on the FFMA kernels whatever the inputs (the
+    route rule, patched for the block to refuse the tensor cores), for a
+    route-vs-route comparison."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
+
+    saved = A.tc_route
+    A.tc_route = lambda *args, **kw: False
+    try:
+        yield
+    finally:
+        A.tc_route = saved
+
+
+@contextlib.contextmanager
+def plain_flash_backward():
+    """The flash autograd Function's backward through the plain versions
+    of dq and dk/dv on CUDA tensors (the module functions it calls, patched
+    for the block), as a trajectory's yardstick."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
+
+    saved = A.flash_dq, A.flash_dkv
+    A.flash_dq, A.flash_dkv = A.flash_dq_plain, A.flash_dkv_plain
+    try:
+        yield
+    finally:
+        A.flash_dq, A.flash_dkv = saved
+
+
 def flash_phase(dev: torch.device) -> list[dict]:
-    """The three kernels against their plain versions (each kernel given
-    the plain lse and delta, so each is checked on its own), then their
-    times at the LM path's shape in bf16."""
+    """The kernels against their plain versions (each backward kernel
+    given the plain lse and delta, so each is checked on its own): fp32
+    inputs take the FFMA dq and dk/dv, bf16 ones the tensor-core kernels
+    (a second run bitwise equal), then the same bf16 inputs on the FFMA
+    route; every call's route shown by its launches. Then times at the LM
+    path's shape in bf16, the backward's two routes in turn (tensor cores,
+    FFMA, FFMA, tensor cores: the mean of the two medians)."""
     import torch.nn.functional as F
 
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _build
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    err = {k: 0.0 for k in A.KERNELS}
-    rel = {k: 0.0 for k in A.KERNELS}
+    names = ("fwd", "dq", "dkv", "dq_tc", "dkv_tc")
+    err = {k: 0.0 for k in names}
+    share = {}  # (name, dtype) -> max over cases of err / (tolerance x max|plain|)
     lse_err = 0.0
+
+    def routed(want: dict, fn):
+        A.reset_launch_count()
+        res = fn()
+        torch.cuda.synchronize()
+        got = {(k, r): A.launch_count(k, route=r) for k in A.KERNELS for r in A.ROUTES
+               if A.launch_count(k, route=r)}
+        if got != want:
+            raise RuntimeError(f"flash launches {got}, expected {want}")
+        return res
+
     for dtype in (torch.float32, torch.bfloat16):
+        route = "tc" if dtype == torch.bfloat16 else "ffma"
+        sfx = "_tc" if route == "tc" else ""
         for b, t, h, d, causal in FLASH_CASES:
             q, k, v, do = (randn(gen, b, t, h, d, dtype=dtype) for _ in range(4))
-            out, lse = A.flash_forward_lse(q, k, v, causal)
             want_o, want_lse = A.flash_forward_lse_plain(q, k, v, causal)
             delta = A.flash_delta(want_o, do)
-            dq = A.flash_dq(q, k, v, do, want_lse, delta, causal)
-            dk, dv = A.flash_dkv(q, k, v, do, want_lse, delta, causal)
-            want_dq = A.flash_dq_plain(q, k, v, do, want_lse, delta, causal)
-            want_dk, want_dv = A.flash_dkv_plain(q, k, v, do, want_lse, delta, causal)
-            torch.cuda.synchronize()
+            args = (q, k, v, do, want_lse, delta, causal)
+
+            def backward():
+                return (A.flash_forward_lse(q, k, v, causal), A.flash_dq(*args),
+                        A.flash_dkv(*args))
+
+            (out, lse), dq, (dk, dv) = routed(
+                {("fwd", "ffma"): 1, ("dq", route): 1, ("dkv", route): 1}, backward)
+            want_dq = A.flash_dq_plain(*args)
+            want_dk, want_dv = A.flash_dkv_plain(*args)
             case = f"{dtype} B{b} T{t} H{h} D{d} causal={causal}"
+            checks = [("fwd", out, want_o), ("dq" + sfx, dq, want_dq),
+                      ("dkv" + sfx, dk, want_dk), ("dkv" + sfx, dv, want_dv)]
+            if route == "tc":
+                _, dq2, (dk2, dv2) = backward()
+                if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                    raise RuntimeError(f"flash tensor-core backward not bitwise repeatable at "
+                                       f"{case}")
+                with flash_ffma_route():
+                    _, fdq, (fdk, fdv) = routed(
+                        {("fwd", "ffma"): 1, ("dq", "ffma"): 1, ("dkv", "ffma"): 1}, backward)
+                checks += [("dq", fdq, want_dq), ("dkv", fdk, want_dk), ("dkv", fdv, want_dv)]
+            torch.cuda.synchronize()
             e = float((lse - want_lse).abs().max())
             if not (math.isfinite(e) and e <= FLASH_LSE_TOL):
                 raise RuntimeError(f"flash fwd lse disagrees with its plain version at {case}: {e}")
             lse_err = max(lse_err, e)
-            for name, got, want in (("fwd", out, want_o), ("dq", dq, want_dq),
-                                    ("dkv", dk, want_dk), ("dkv", dv, want_dv)):
+            for name, got, want in checks:
                 e = float((got.float() - want.float()).abs().max())
                 scale = float(want.float().abs().max())
                 if got.dtype != dtype or not (math.isfinite(e) and e <= FLASH_TOL[dtype] * scale):
@@ -775,26 +849,50 @@ def flash_phase(dev: torch.device) -> list[dict]:
                         f"flash {name} kernel disagrees with its plain version at {case}: "
                         f"max abs err {e}, max|plain| {scale}, dtype {got.dtype}")
                 err[name] = max(err[name], e)
-                rel[name] = max(rel[name], e / scale)
-    for name in A.KERNELS:
-        print(f"flash {name}: {len(FLASH_CASES)} shapes x (fp32, bf16) agree with the plain "
-              f"version, max abs err {err[name]}, / max|plain| {rel[name]:.3e} (tolerance "
-              f"{FLASH_TOL[torch.float32]} fp32, {FLASH_TOL[torch.bfloat16]} bf16)"
-              + (f"; lse max abs err {lse_err} (tolerance {FLASH_LSE_TOL})" if name == "fwd" else ""))
+                key = (name, dtype)
+                share[key] = max(share.get(key, 0.0), e / (FLASH_TOL[dtype] * scale))
+
+    def shares(name):
+        return ", ".join(f"{str(dt)[6:]} {share[(name, dt)]:.4f}" for dt in (torch.float32,
+                                                                             torch.bfloat16)
+                         if (name, dt) in share)
+
+    for name in names:
+        print(f"flash {name}: {len(FLASH_CASES)} shapes agree with the plain version, max abs "
+              f"err {err[name]}, share of the limit ({FLASH_TOL[torch.float32]} fp32, "
+              f"{FLASH_TOL[torch.bfloat16]} bf16 x max|plain|): {shares(name)}"
+              + (f"; lse max abs err {lse_err} (tolerance {FLASH_LSE_TOL})" if name == "fwd"
+                 else "")
+              + ("; bitwise repeatable" if name.endswith("_tc") else ""))
+    for name in ("dq", "dkv"):
+        print(f"flash {name} bf16 share of the limit: tensor cores "
+              f"{share[(name + '_tc', torch.bfloat16)]:.4f}, FFMA route on the same inputs "
+              f"{share[(name, torch.bfloat16)]:.4f}")
 
     # Times at the path's shape, bf16.
     b, t, h, d, causal = FLASH_PATH
     q, k, v, do = (randn(gen, b, t, h, d, dtype=torch.bfloat16) for _ in range(4))
     out, lse = A.flash_forward_lse(q, k, v, causal)
     delta = A.flash_delta(out, do)
+    args = (q, k, v, do, lse, delta, causal)
     calls = {
         "fwd": (lambda: A.flash_forward_lse(q, k, v, causal),
                 lambda: A.flash_forward_lse_plain(q, k, v, causal)),
-        "dq": (lambda: A.flash_dq(q, k, v, do, lse, delta, causal),
-               lambda: A.flash_dq_plain(q, k, v, do, lse, delta, causal)),
-        "dkv": (lambda: A.flash_dkv(q, k, v, do, lse, delta, causal),
-                lambda: A.flash_dkv_plain(q, k, v, do, lse, delta, causal)),
+        "dq": (lambda: A.flash_dq(*args), lambda: A.flash_dq_plain(*args)),
+        "dkv": (lambda: A.flash_dkv(*args), lambda: A.flash_dkv_plain(*args)),
     }
+    plain_ms = {name: median_ms(plain, reps=10, warmup=2) for name, (_, plain) in calls.items()}
+    ms_runs = {"fwd": [median_ms(calls["fwd"][0])]}
+    device_ms = {"fwd": device_busy_ms(calls["fwd"][0], match="flash_fwd_kernel")}
+    for turn in ("tc", "ffma", "ffma", "tc"):
+        ctx = flash_ffma_route() if turn == "ffma" else contextlib.nullcontext()
+        with ctx:
+            for base in ("dq", "dkv"):
+                name = base + ("_tc" if turn == "tc" else "")
+                ms_runs.setdefault(name, []).append(median_ms(calls[base][0]))
+                if name not in device_ms:
+                    device_ms[name] = device_busy_ms(calls[base][0],
+                                                     match=f"flash_{name}_kernel")
     # The library's attention on [B, H, T, D] copies made beforehand.
     ql, kl, vl = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     gl = do.transpose(1, 2).contiguous()
@@ -807,6 +905,7 @@ def flash_phase(dev: torch.device) -> list[dict]:
     library_device_ms = {key: device_busy_ms(fn) for key, fn in library.items()}
 
     bw, fp32_flops = card_rates(torch.cuda.get_device_name(0))
+    ptxas = _build.ptxas_report(A.TC_SOURCE)
     pairs = b * h * (t * (t + 1) // 2 if causal else t * t)  # (query, key) pairs computed
     tensor_bytes = 2.0 * b * t * h * d  # one bf16 [B, T, H, D]
     row_bytes = 4.0 * b * h * t  # one fp32 [B*H, T]
@@ -814,9 +913,10 @@ def flash_phase(dev: torch.device) -> list[dict]:
         "fwd": (2, 4, 1), "dq": (3, 5, 2), "dkv": (4, 6, 2),
     }
     records = []
-    for name in A.KERNELS:
-        kernel, plain = calls[name]
-        products, tensors, rows = work[name]
+    for name in names:
+        base = name.removesuffix("_tc")
+        tc = name != base
+        products, tensors, rows = work[base]
         flop = 2.0 * products * pairs * d
         nbytes = tensors * tensor_bytes + rows * row_bytes
         bytes_ms, ops_ms = nbytes / bw * 1e3, flop / BF16_FLOPS * 1e3
@@ -824,17 +924,24 @@ def flash_phase(dev: torch.device) -> list[dict]:
         rec = {
             "name": f"flash_{name}",
             "route": "cuda",
-            "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/flash_attention.cu",
+            "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/"
+                      + ("flash_attention_tc.cu" if tc else "flash_attention.cu"),
             "replaces": f"cs744_pytorch_distributed_tutorial_tpu/ops/flash_attention.py:"
-                        f"{FLASH_REPLACES[name]}",
+                        f"{FLASH_REPLACES[base]}",
             "tpu_kernel": "ops/flash_attention.py::" + {"fwd": "_kernel", "dq": "_dq_kernel",
-                                                        "dkv": "_dkv_kernel"}[name],
+                                                        "dkv": "_dkv_kernel"}[base]
+                          + (" (tensor-core route: bf16)" if tc else
+                             "" if base == "fwd" else " (FFMA route: fp32, head_dim 32, "
+                             "strides TMA cannot read)"),
             "launches": None,  # filled in from the main path's run
             "max_abs_err": err[name],
-            "max_rel_err": rel[name],
-            "ms": median_ms(kernel),
-            "device_ms": device_busy_ms(kernel, match=f"flash_{name}_kernel"),
-            "plain_ms": median_ms(plain, reps=10, warmup=2),
+            "share_of_limit": {str(dt)[6:]: share[(name, dt)] for dt in (torch.float32,
+                                                                       torch.bfloat16)
+                               if (name, dt) in share},
+            "ms": statistics.mean(ms_runs[name]),
+            "ms_runs": ms_runs[name],
+            "device_ms": device_ms[name],
+            "plain_ms": plain_ms[base],
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "fp32_ffma_bound_ms": flop / fp32_flops * 1e3,
@@ -849,14 +956,24 @@ def flash_phase(dev: torch.device) -> list[dict]:
         }
         if name == "fwd":
             rec["lse_max_abs_err"] = lse_err
+        if tc:  # ptxas's report of this process's build (None if the library was cached)
+            for head_dim, key in ((d, "ptxas"), (128, "ptxas_head_dim_128")):
+                rec[key] = ptxas.get(f"flash_{name}_kernel<{head_dim}>")
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         records.append(rec)
         print(f"flash {name} at B{b} T{t} H{h} D{d} causal bf16: {flop / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB; kernel {rec['ms']:.4f} ms (device {rec['device_ms']} ms), "
-              f"plain {rec['plain_ms']:.4f} ms, {rec['library']} {rec['library_ms']:.4f} ms "
-              f"(device {rec['library_device_ms']} ms), bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}; {100 * rec['bound_share']:.2f} % of it), FP32 FFMA floor "
-              f"{rec['fp32_ffma_bound_ms']:.4f} ms")
+              f"{nbytes / 1e6:.1f} MB; kernel {rec['ms']:.4f} ms (runs {ms_runs[name]}, device "
+              f"{rec['device_ms']} ms), plain {rec['plain_ms']:.4f} ms, {rec['library']} "
+              f"{rec['library_ms']:.4f} ms (device {rec['library_device_ms']} ms), bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {100 * rec['bound_share']:.2f} % of "
+              f"it), FP32 FFMA floor {rec['fp32_ffma_bound_ms']:.4f} ms"
+              + (f"; ptxas {rec['ptxas']} (head_dim 128: {rec['ptxas_head_dim_128']})" if tc
+                 else ""))
+    for base in ("dq", "dkv"):
+        tc_ms, ffma_ms = (statistics.mean(ms_runs[n]) for n in (base + "_tc", base))
+        if not tc_ms < ffma_ms:
+            raise RuntimeError(f"flash {base}: the tensor-core kernel ({tc_ms} ms) is not faster "
+                               f"than the FFMA kernel it replaces ({ffma_ms} ms)")
     return records
 
 
@@ -995,6 +1112,15 @@ def lm_config(**kw):
     return LMConfig(**{**base, **kw})
 
 
+def flash_counts() -> dict:
+    """The flash launches since the last reset by kernel and route: fwd,
+    dq and dkv (FFMA), dq_tc and dkv_tc (tensor cores)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
+
+    return {name + ("_tc" if route == "tc" else ""): A.launch_count(name, route=route)
+            for name in A.KERNELS for route in A.ROUTES if name != "fwd" or route == "ffma"}
+
+
 def lm_main_path_phase() -> dict:
     """Returns the launches of each flash and fused cross-entropy kernel."""
     from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
@@ -1010,7 +1136,7 @@ def lm_main_path_phase() -> dict:
     t0 = time.perf_counter()
     summary, all_counts = counted(lambda: run_cli(argv, main=lm_cli.main))
     wall = time.perf_counter() - t0
-    counts = {name: A.launch_count(name) for name in A.KERNELS}
+    counts = flash_counts()
     xent = {name: FX.launch_count(name, torch.float32) for name in FX.KERNELS}
     bf16 = A.launch_count(dtype=torch.bfloat16)
     if others(all_counts, "flash", "fused_xent"):
@@ -1018,10 +1144,12 @@ def lm_main_path_phase() -> dict:
                            f"{all_counts}")
     layers = LM_WIDTH["num_layers"]
     # 24 training forwards and one eval forward (400 sequences: 16 held out,
-    # one eval batch; 384 train, 24 distinct batches) per layer; one fused
+    # one eval batch; 384 train, 24 distinct batches) per layer, the
+    # backward's dq and dk/dv all on the tensor cores; one fused
     # cross-entropy forward and backward a training step on the fp32
     # logits (the eval takes plain CE, as the JAX package's).
-    expect = {"fwd": layers * (LM_STEPS + 1), "dq": layers * LM_STEPS, "dkv": layers * LM_STEPS}
+    expect = {"fwd": layers * (LM_STEPS + 1), "dq": 0, "dkv": 0, "dq_tc": layers * LM_STEPS,
+              "dkv_tc": layers * LM_STEPS}
     if counts != expect or bf16 != sum(expect.values()):
         raise RuntimeError(f"LM path flash launches {counts} (bf16 {bf16}), expected {expect}")
     if xent != {"fwd": LM_STEPS, "bwd": LM_STEPS} or all_counts["fused_xent"] != 2 * LM_STEPS:
@@ -1108,7 +1236,7 @@ def lm_profile(tr, batches, label: str) -> dict:
         for i in range(steps):
             tr.train_step(*batches[i % len(batches)])
         torch.cuda.synchronize()
-    names = ("fwd", "dq", "dkv")
+    names = ("fwd", "dq", "dkv", "dq_tc", "dkv_tc")
     groups = {f"flash_{n}": (f"flash_{n}_kernel",) for n in names}
     groups["cross_entropy"] = ("xent_fwd_kernel", "xent_bwd_kernel", "SoftMax", "nll_loss")
     out = summarize_profile(prof, steps, f"profile LM {label}", groups)
@@ -1167,6 +1295,76 @@ def lm_trajectory_phase() -> None:
               f"{b_name} {losses[b_name]}; grad norms {a_name} {grad_norms[a_name]} {b_name} "
               f"{grad_norms[b_name]}; max abs parameter gap after 4 steps {gap}")
 
+
+
+def lm_flash_route_trajectory_phase() -> dict:
+    """The flash backward's tensor-core route against its FFMA route over
+    LM_ROUTE_STEPS AdamW steps (lr LM_ROUTE_LR) of GPT-2-small at full
+    width and 2 layers, batch 4 x T 1024, bf16 compute (the LM path's
+    dtype, where the routes differ), from one init on the same batches;
+    each run's launches show its route. Limits as the MoE route
+    trajectory's: losses within rtol 1e-4; the first step's gradient norm
+    (same weights) within rtol 1e-4; the parameters within 2 x lr a step at
+    most (AdamW moves an element by about lr whatever its gradient's size,
+    so one whose gradient's sign rests on rounding may step the other way)
+    and 1e-4 on average. A third run through the plain versions of dq and
+    dk/dv (fp32 einsums: a third order of the same sums) is printed beside
+    them as the yardstick. Returns each run's flash launches."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+
+    b, layers = 4, 2
+    toks = synthetic_tokens(b * LM_ROUTE_STEPS, LM_WIDTH["seq_len"], LM_WIDTH["vocab_size"],
+                            seed=6)
+    routes = {"tensor_cores": contextlib.nullcontext, "ffma": flash_ffma_route,
+              "plain": plain_flash_backward}
+    runs, launches = {}, {}
+    for name, route in routes.items():
+        tr = LMTrainer(lm_config(num_layers=layers, global_batch_size=b,
+                                 learning_rate=LM_ROUTE_LR))
+        model, _ = tr.init()
+        A.reset_launch_count()
+        with route():
+            steps = [tr.train_step(*tr.split_batch(toks[b * i : b * (i + 1)]))
+                     for i in range(LM_ROUTE_STEPS)]
+        torch.cuda.synchronize()
+        launches[name] = {k: n for k, n in flash_counts().items() if n}
+        runs[name] = ({k: [float(m[k]) for m in steps] for k in ("loss", "grad_norm")},
+                      [p.detach() for p in model.parameters()])
+        del tr, model
+    n = layers * LM_ROUTE_STEPS
+    want = {"tensor_cores": {"fwd": n, "dq_tc": n, "dkv_tc": n},
+            "ffma": {"fwd": n, "dq": n, "dkv": n}, "plain": {"fwd": n}}
+    if launches != want:
+        raise RuntimeError(f"LM flash route trajectory launches {launches}, expected {want}")
+
+    def gaps(x, y):
+        d = torch.cat([(p - q).abs().flatten() for p, q in zip(runs[x][1], runs[y][1])])
+        return float(d.max()), float(d.mean())
+
+    (gap, mean_gap), (ref_gap, ref_mean) = gaps("tensor_cores", "ffma"), gaps("plain", "ffma")
+    ht, hf, hp = (runs[k][0] for k in routes)
+    del runs
+    torch.cuda.empty_cache()
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(ht["loss"], hf["loss"]))
+    g_t, g_f = ht["grad_norm"][0], hf["grad_norm"][0]
+    summary = (f"losses tensor cores {ht['loss']} FFMA {hf['loss']} plain {hp['loss']} (max "
+               f"relative gap {loss_rel:.3e}); grad norms tensor cores {ht['grad_norm']} FFMA "
+               f"{hf['grad_norm']} plain {hp['grad_norm']}; parameter gap after "
+               f"{LM_ROUTE_STEPS} steps max {gap} mean {mean_gap} (plain vs FFMA: max {ref_gap} "
+               f"mean {ref_mean})")
+    if not all(math.isfinite(x) and abs(x - y) <= 1e-4 * abs(y)
+               for x, y in zip(ht["loss"], hf["loss"])):
+        raise RuntimeError(f"LM flash route trajectory losses differ: {summary}")
+    if not abs(g_t - g_f) <= 1e-4 * abs(g_f):
+        raise RuntimeError(f"LM flash route trajectory first-step gradient norms differ: "
+                           f"{summary}")
+    if not (gap <= 2 * LM_ROUTE_LR * LM_ROUTE_STEPS and mean_gap <= 1e-4):
+        raise RuntimeError(f"LM flash route trajectory parameters differ: {summary}")
+    print(f"trajectory LM flash backward tensor-core vs FFMA route (2 layers, full width, batch "
+          f"{b}, bf16): {summary}; launches {launches}")
+    return launches
 
 # ------------------------------------------------------------ paged attention
 def paged_inputs(gen: torch.Generator, case: tuple, variant: str) -> dict:
@@ -2231,8 +2429,8 @@ def moe_train_path_phase() -> dict:
     12 tgmm_tc (w_in's fp32 dz in three pieces, split once a layer: 6
     split; w_out's bf16 gradient in one), no FFMA gmm or tgmm, and 12
     colsum (the bias gradient has a launch of its own); flash 6 forward, 6
-    dq and 6 dk/dv; the eval batch 12 gmm_fused without z and 6 flash
-    forwards."""
+    dq and 6 dk/dv, all on the tensor cores; the eval batch 12 gmm_fused
+    without z and 6 flash forwards."""
     from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
@@ -2243,7 +2441,7 @@ def moe_train_path_phase() -> dict:
                                                   main=lm_cli.main))
     wall = time.perf_counter() - t0
     gmm = {k: G.launch_count(k) for k in G.KERNELS}
-    flash = {k: A.launch_count(k) for k in A.KERNELS}
+    flash = flash_counts()
     want_gmm = {"fused": layers * (steps + 2), "fused_z": layers * steps, "gmm": 0, "tgmm": 0,
                 "colsum": 2 * layers * steps, "gmm_tc": 2 * layers * steps,
                 "tgmm_tc": 2 * layers * steps, "split": layers * steps}
@@ -2255,7 +2453,8 @@ def moe_train_path_phase() -> dict:
         raise RuntimeError(f"MoE training path: grouped-matmul launches {gmm} (gmm_tc by dout "
                            f"dtype {pieces}), all {all_counts}; expected {want_gmm} and no "
                            f"kernel but gmm and flash")
-    want_flash = {"fwd": layers * (steps + 1), "dq": layers * steps, "dkv": layers * steps}
+    want_flash = {"fwd": layers * (steps + 1), "dq": 0, "dkv": 0, "dq_tc": layers * steps,
+                  "dkv_tc": layers * steps}
     if flash != want_flash:
         raise RuntimeError(f"MoE training path: flash launches {flash}, expected {want_flash}")
     moe = summary.get("moe") or {}
@@ -2332,7 +2531,9 @@ def moe_train_throughput_phase() -> dict:
               "gmm_tc": ("::gmm_tc_kernel",), "tgmm_tc": ("::tgmm_tc_kernel",),
               "split": ("split_kernel",), "gmm_ffma": ("gmm_fused_kernel<float",),
               "tgmm": ("tgmm_kernel",), "colsum": ("colsum_kernel",),
-              "flash": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")}
+              "flash": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                        "flash_dq_tc_kernel", "flash_dkv_tc_kernel"),
+              "flash_backward_tc": ("flash_dq_tc_kernel", "flash_dkv_tc_kernel")}
     prof_out = summarize_profile(prof, steps, "MoE training profile", groups)
     if prof_out:
         prof_out["gmm_share_of_busy"] = (prof_out["gmm_ms_per_step"]
@@ -2562,6 +2763,11 @@ def main() -> int:
         module.load_kernel()
     print("built " + ", ".join(f"{s} in {_build.build_seconds[s]:.2f} s" for s in sources)
           + f", in parallel (wall {time.perf_counter() - t0:.2f} s)")
+    for src in (A.TC_SOURCE, G.TC_SOURCE):  # the tensor-core kernels' registers and spills
+        for kernel, usage in _build.ptxas_report(src).items():
+            print(f"ptxas {src}: {kernel}: {usage['registers']} registers, "
+                  f"{usage['spill_stores']} bytes spill stores, {usage['spill_loads']} bytes "
+                  f"spill loads")
 
     records = [fused_sgd_phase(dev), *wgrad_phase(dev)]
     counts = main_path_phase("resnet18", ("--fast-conv", "--fused-optimizer"), {
@@ -2591,6 +2797,10 @@ def main() -> int:
     records += lm_records
     lm_throughput_phase()
     lm_trajectory_phase()
+    route_launches = lm_flash_route_trajectory_phase()
+    for rec in lm_records:  # the FFMA backward's launches, off the bf16 main path
+        if rec["name"] in ("flash_dq", "flash_dkv"):
+            rec["launches_ffma_route_trajectory"] = route_launches["ffma"][rec["name"][6:]]
 
     paged_record = paged_phase(dev)
     int8_record = int8_matmul_phase(dev)

@@ -94,15 +94,19 @@
 // TMA descriptors are encoded on the host per call, from pointers and shapes
 // only, through the driver's cuTensorMapEncodeTiled (found with
 // cudaGetDriverEntryPoint[ByVersion], so the library links nothing new), and
-// passed as __grid_constant__ parameters.
+// passed as __grid_constant__ parameters. The Hopper primitives (mbarriers,
+// TMA loads, wgmma) are shared with flash_attention_tc.cu in hopper.cuh.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxGroups = 64;
@@ -111,127 +115,11 @@ constexpr int kTile = 128;                // output tile rows and columns
 constexpr int kChunk = 64;                // contraction a stage: one 128-byte row
 constexpr int kBox = kChunk * kChunk * 2;  // a 64 x 64 bf16 box: 8 KB
 constexpr int kRing = 192 * 1024;         // shared memory of the ring
-constexpr int kSwizzleBytes = 1024;       // 8 rows of 128 bytes: the swizzle's repeat
 
 // Bytes of a stage with P pieces: gmm_tc's 128 rows of each piece and 128 of
 // rhs; tgmm_tc's two 64-column boxes of lhs and of each piece.
 __host__ __device__ constexpr int gmm_stage_bytes(int P) { return (P + 1) * kTile * kChunk * 2; }
 __host__ __device__ constexpr int tgmm_stage_bytes(int P) { return (1 + P) * 2 * kBox; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Waits for the phase of the given parity to complete. A wait that outlasts
-// about ten seconds traps: a fault in the ring's bookkeeping then ends the
-// launch with an error instead of leaving the card spinning.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-
-// One box of a 3-D tensor map into shared memory, completed on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled operand at p (1024-byte aligned,
-// plus the offset of a k step inside a K-major row): 8-row groups 1024 bytes
-// apart (SBO), lbo bytes between the 64-wide column blocks of an MN-major
-// operand (LBO; unused for K-major).
-__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>(kSwizzleBytes >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulator across
-// the asynchronous wgmma that owns it.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC8(i)                                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (+)= A [64 x 16] @ B [16 x 128] in fp32 from bf16; kTA / kTB: operand
-// MN-major (transposed) rather than K-major. scale_d 0 starts a fresh sum.
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
-      "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
-      "%55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
-}
-
-#undef ACC8
-
-// The ring: 1024-byte-aligned dynamic shared memory (the swizzle's repeat).
-__device__ __forceinline__ uint8_t* ring_base(uint8_t* raw) {
-  const uint32_t pad = (kSwizzleBytes - (smem_u32(raw) & (kSwizzleBytes - 1))) &
-                       (kSwizzleBytes - 1);
-  return raw + pad;
-}
-
-// Thread 0 sets up the stage barriers: full waits for one expect_tx arrival
-// and the stage's bytes, empty for the 8 consumer warps.
-template <int kStages>
-__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
-  for (int s = 0; s < kStages; ++s) {
-    mbar_init(&full[s], 1);
-    mbar_init(&empty[s], 8);
-  }
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
 
 // A consumer's accumulator fragment of wgmma m64nN: thread (warp w, lane l)
 // holds rows 16 w + l / 4 (+ 8) and columns 8 c + 2 (l % 4) (+ 1) at
@@ -472,29 +360,6 @@ __global__ void __launch_bounds__(256) split_kernel(const float* __restrict__ x,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A map of the bf16 tensor [d2, d1, d0] (d0 contiguous, packed) read in
 // boxes of [1, box1, box0], 128-byte swizzled; out-of-range rows and
 // columns read as zeros.
@@ -523,8 +388,6 @@ cudaError_t launch(Kernel kernel, int stage_bytes, dim3 grid, cudaStream_t strea
   kernel<<<grid, kThreads, smem, stream>>>(ma, mb, gs, out, M, K, N, E);
   return cudaGetLastError();
 }
-
-bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 constexpr int64_t kMaxRows = (1LL << 31) - kTile;
 constexpr int64_t kSplitBlocks = 132 * 16;  // 16 blocks an SM, grid-stride

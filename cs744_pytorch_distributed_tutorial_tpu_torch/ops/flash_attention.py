@@ -19,14 +19,28 @@ are fp32; in bf16, ``p`` is rounded to bf16 before its products with
 the TPU kernels do. The plain versions round at the same places. ``lse``
 and ``delta`` are ``[B*H, T, 1]`` fp32, the JAX package's layout.
 
-``csrc/flash_attention.cu`` holds the kernels (its source note says how
-they are laid out): built with nvcc on first use (``ops/_build.py``) and
-launched through ``ctypes`` on PyTorch's current stream. They read q, k,
-v and do in place through their strides and take head_dim 32, 64 or 128.
+``csrc/flash_attention.cu`` holds the FFMA kernels (its source note says
+how they are laid out): the forward, and dq and dk/dv for fp32 inputs,
+head_dim 32 and strides the tensor-core kernels do not take; they read q,
+k, v and do in place through their strides and take head_dim 32, 64 or
+128. ``csrc/flash_attention_tc.cu`` holds the backward on the tensor
+cores for bf16 (``flash_dq_tc_kernel``, ``flash_dkv_tc_kernel``: wgmma on
+tiles that TMA brings into shared memory, the same products as the TPU
+kernels in another order of the fp32 sums). ``flash_dq`` and
+``flash_dkv`` choose their kernel by ``tc_route``, a fixed rule of dtypes,
+shapes, strides and alignment: the tensor-core kernels for bf16 inputs
+with head_dim 64 or 128 (not 32), a contiguous last dimension, (b, t, h)
+strides that are positive multiples of 16 bytes and 16-byte-aligned
+pointers; the FFMA kernels otherwise. Both are built with nvcc on first
+use (``ops/_build.py``) and launched through ``ctypes`` on PyTorch's
+current stream.
 
 The wrappers take the kernel for CUDA tensors and the plain version for
-CPU tensors; for a CUDA tensor they launch or raise, with no fallback.
-Each launch adds one to ``launch_count(kernel, dtype)``.
+CPU tensors; for a CUDA tensor they launch their route's kernel or raise,
+with no fallback. Each launch adds one to ``launch_count(kernel, dtype,
+route)``: ``launch_count("dq")`` counts the dq launches of both routes,
+``launch_count("dq", route="tc")`` those on the tensor cores and
+``route="ffma"`` the others.
 """
 
 from __future__ import annotations
@@ -39,21 +53,28 @@ import torch
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
 
 SOURCE = "flash_attention.cu"
+TC_SOURCE = "flash_attention_tc.cu"
+SOURCES = (SOURCE, TC_SOURCE)
 KERNELS = ("fwd", "dq", "dkv")
+ROUTES = ("ffma", "tc")
 HEAD_DIMS = (32, 64, 128)
+TC_HEAD_DIMS = (64, 128)
 
 _NEG = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
-_launches: collections.Counter = collections.Counter()  # (kernel, dtype) -> count
+_launches: collections.Counter = collections.Counter()  # (kernel, dtype, route) -> count
 _kernel_fns = None  # {kernel: C entry point}, set up once
 
 
-def launch_count(kernel: str | None = None, dtype: torch.dtype | None = None) -> int:
+def launch_count(kernel: str | None = None, dtype: torch.dtype | None = None,
+                 route: str | None = None) -> int:
     """Kernel launches since the last ``reset_launch_count()``: all of
-    them, or those of one kernel (``fwd``, ``dq``, ``dkv``) and/or dtype."""
+    them, or those of one kernel (``fwd``, ``dq``, ``dkv``), dtype and/or
+    route (``ffma``, ``tc``; the forward is always ``ffma``)."""
     return sum(
-        n for (k, d), n in _launches.items()
+        n for (k, d, r), n in _launches.items()
         if (kernel is None or k == kernel) and (dtype is None or d == dtype)
+        and (route is None or r == route)
     )
 
 
@@ -62,20 +83,23 @@ def reset_launch_count() -> None:
 
 
 def load_kernel():
-    """Build (first call) and load the kernels; returns their C entry
-    points ``{"fwd": flash_fwd, "dq": flash_dq, "dkv": flash_dkv}``."""
+    """Build (first call) and load the kernels of ``SOURCES``; returns
+    their C entry points by kernel and route: ``fwd``, ``dq``, ``dkv``
+    (FFMA), ``dq_tc`` and ``dkv_tc``."""
     global _kernel_fns
     if _kernel_fns is None:
-        lib = load_library(SOURCE)
+        lib, tc = load_library(SOURCE), load_library(TC_SOURCE)
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        tail = [p, i64, i64, i64, i64, i64, i64, p]  # strides, B, T, H, D, causal, bf16, stream
+        tail = [p, i64, i64, i64, i64, i64]  # strides, B, T, H, D, causal
         fns = {
-            "fwd": (lib.flash_fwd, [p] * 5),
-            "dq": (lib.flash_dq, [p] * 7),
-            "dkv": (lib.flash_dkv, [p] * 8),
+            "fwd": (lib.flash_fwd, [p] * 5 + tail + [i64, p]),  # ..., bf16, stream
+            "dq": (lib.flash_dq, [p] * 7 + tail + [i64, p]),
+            "dkv": (lib.flash_dkv, [p] * 8 + tail + [i64, p]),
+            "dq_tc": (tc.flash_dq_tc, [p] * 7 + tail + [p]),
+            "dkv_tc": (tc.flash_dkv_tc, [p] * 8 + tail + [p]),
         }
-        for fn, head in fns.values():
-            fn.argtypes = head + tail
+        for fn, argtypes in fns.values():
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _kernel_fns = {name: fn for name, (fn, _) in fns.items()}
     return _kernel_fns
@@ -145,6 +169,31 @@ def flash_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return delta.permute(0, 2, 1).reshape(b * h, t, 1)
 
 
+# --------------------------------------------------------------- route rule
+def tc_route(dtype: torch.dtype, shape: tuple[int, int, int, int],
+             strides: list[tuple[int, ...]], aligned: bool = True) -> bool:
+    """Whether a ``flash_dq``/``flash_dkv`` call on CUDA tensors takes the
+    tensor-core kernels: ``dtype`` and ``shape`` [B, T, H, D] are the
+    inputs', ``strides`` each input's four strides (in elements) and
+    ``aligned`` whether every input starts on 16 bytes. True for bf16 with
+    D in ``TC_HEAD_DIMS``, the last dimension contiguous, and every (b, t,
+    h) stride a positive multiple of 8 elements (16 bytes), the rows TMA
+    reads; the stride of a dimension of size 1 is never used and does not
+    count."""
+    if dtype != torch.bfloat16 or shape[-1] not in TC_HEAD_DIMS or not aligned:
+        return False
+    for st in strides:
+        if st[3] != 1:
+            return False
+        if any(n > 1 and (s <= 0 or s % 8) for n, s in zip(shape[:3], st[:3])):
+            return False
+    return True
+
+
+def _aligned(*xs: torch.Tensor) -> bool:
+    return all(x.data_ptr() % 16 == 0 for x in xs)
+
+
 # ------------------------------------------------------------------ wrappers
 def _check(*xs: torch.Tensor) -> None:
     q = xs[0]
@@ -168,14 +217,16 @@ def _check(*xs: torch.Tensor) -> None:
 
 def _cuda_args(*xs: torch.Tensor):
     """Tensors with a contiguous last dimension and the (b, t, h) strides
-    of each, then of the contiguous outputs."""
+    of each, then of the contiguous outputs; a dimension of size 1 gets
+    stride D (never used, and a multiple of 16 bytes, as TMA asks)."""
     xs = tuple(x if x.stride(-1) == 1 else x.contiguous() for x in xs)
     b, t, h, d = xs[0].shape
     if d not in HEAD_DIMS:
         raise ValueError(f"flash attention kernels take head_dim in {HEAD_DIMS}, got {d}")
     if b * h >= 2**31 or -(-t // 64) > 65535:  # the launch grid: (B*H, T/64 tiles)
         raise ValueError(f"flash attention: shape {tuple(xs[0].shape)} too large")
-    strides = [s for x in xs for s in x.stride()[:3]] + [t * h * d, h * d, d]
+    strides = [s if n > 1 else d for x in xs for n, s in zip(x.shape[:3], x.stride()[:3])]
+    strides += [t * h * d, h * d, d]
     return xs, (ctypes.c_int64 * len(strides))(*strides)
 
 
@@ -191,15 +242,24 @@ def _rowstat(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return x.reshape(b * h, t).float().contiguous()
 
 
-def _launch(kernel: str, fn_args: list, q: torch.Tensor, strides, causal: bool) -> None:
+def _launch(kernel: str, fn_args: list, q: torch.Tensor, strides, causal: bool,
+            route: str = "ffma") -> None:
     b, t, h, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = load_kernel()[kernel](
-        *fn_args, strides, b, t, h, d, int(causal), int(q.dtype == torch.bfloat16), stream
-    )
-    _launches[(kernel, q.dtype)] += 1
+    if route == "tc":
+        err = load_kernel()[f"{kernel}_tc"](*fn_args, strides, b, t, h, d, int(causal), stream)
+    else:
+        err = load_kernel()[kernel](*fn_args, strides, b, t, h, d, int(causal),
+                                    int(q.dtype == torch.bfloat16), stream)
+    _launches[(kernel, q.dtype, route)] += 1
     if err:
-        raise RuntimeError(f"flash attention {kernel} launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash attention {kernel} ({route}) launch failed: CUDA error {err}")
+
+
+def _route(*xs: torch.Tensor) -> str:
+    q = xs[0]
+    return "tc" if tc_route(q.dtype, tuple(q.shape), [x.stride() for x in xs],
+                            _aligned(*xs)) else "ffma"
 
 
 def flash_forward_lse(q, k, v, causal: bool = False):
@@ -221,11 +281,12 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool):
     _check(q, k, v, do)
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, causal)
+    route = _route(q, k, v, do)
     (q, k, v, do), strides = _cuda_args(q, k, v, do)
     lse, delta = _rowstat(lse, q), _rowstat(delta, q)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("dq", [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr()], q, strides, causal)
+                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr()], q, strides, causal, route)
     return dq
 
 
@@ -234,13 +295,14 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool):
     _check(q, k, v, do)
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, do, lse, delta, causal)
+    route = _route(q, k, v, do)
     (q, k, v, do), strides = _cuda_args(q, k, v, do)
     lse, delta = _rowstat(lse, q), _rowstat(delta, q)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     _launch("dkv", [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()],
-            q, strides, causal)
+            q, strides, causal, route)
     return dk, dv
 
 
