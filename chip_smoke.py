@@ -31,13 +31,13 @@ no result):
    ResNet-18 (with and without ``fast_conv``);
 8. flash attention: the forward, dq and dk/dv kernels against their
    plain versions (the LM path's shape B16 T1024 H12 D64 causal, a
-   non-causal and ragged shapes, fp32 and bf16): fp32 dq and dk/dv on the
-   FFMA kernels, bf16 ones on the tensor-core kernels (bitwise repeatable)
-   and again on the FFMA route, each call's route shown by its launches;
-   then their times at the path's shape in bf16 (the backward's two routes
-   in turn; the tensor-core kernels must be the faster) beside their
-   bounds, the plain versions', ``scaled_dot_product_attention``'s forward
-   and backward, and the tensor-core kernels' registers and spills;
+   non-causal and ragged shapes, fp32 and bf16): fp32 inputs on the FFMA
+   kernels, bf16 ones on the tensor-core kernels (bitwise repeatable) and
+   again on the FFMA route, each call's route shown by its launches; then
+   their times at the path's shape in bf16 (each kernel's two routes in
+   turn; the tensor-core kernels must be the faster) beside their bounds,
+   the plain versions', ``scaled_dot_product_attention``'s forward and
+   backward, and the tensor-core kernels' registers and spills;
 9. fused cross-entropy: the forward and backward kernels against their
    plain versions at the LM path's logits ([16384, 50304] fp32), in bf16
    and at a ragged shape ([37, 50257]), then their times beside their
@@ -47,15 +47,16 @@ no result):
     width (12 layers, d 768, 12 heads, vocab 50304, T 1024, batch 16, RoPE,
     bf16, AdamW, ``--attention-impl flash --fused-xent``), 24 steps and one
     eval batch (plain CE, as the JAX eval), every launch count zeroed just
-    before and read just after (the flash backward all on the tensor
-    cores: 288 dq and 288 dk/dv, none on the FFMA route);
+    before and read just after (flash all on the tensor cores: 300
+    forwards, 288 dq and 288 dk/dv, none on the FFMA route);
 11. its throughput (``LMTrainer.train_step``, tokens/s and MFU) with flash
     and the fused cross-entropy, flash alone and dense attention,
     flash-vs-dense and fused-vs-plain cross-entropy trajectories (2 layers
     at full width, fp32, TF32 off), a profile of one step with and one
-    without the fused cross-entropy, and the flash backward's tensor-core
-    route against its FFMA route (2 layers at full width, batch 4, bf16, 4
-    AdamW steps, the plain versions printed beside as the yardstick);
+    without the fused cross-entropy, and flash's tensor-core route
+    (forward and backward) against its FFMA route (2 layers at full width,
+    batch 4, bf16, 4 AdamW steps, the plain versions printed beside as the
+    yardstick);
 12. paged attention: the decode kernel against its plain version (the
     gather path) at the serving shape (16 slots, 12 query heads over 4 KV
     heads, D 64, page 16, ragged depths up to 511) in fp32, bf16 and int8
@@ -64,14 +65,20 @@ no result):
     written with NaN; then its times (bf16, and int8 pages under a bf16
     query, the variants serving runs) beside its bound, the gather path's
     and a gather plus ``scaled_dot_product_attention``'s;
-13. the int8 weight matmul against its plain version at the GPT-2-small
-    head's decode ([16, 768] x [768, 50304]) and prompt-pass ([2048, 768])
-    shapes in bf16 and fp32, then its times beside its bound, the plain
-    version's and ``torch.matmul`` on the widened weight;
+13. the int8 weight matmul's two kernels (tensor cores for bf16 x, FFMA
+    for fp32 x) against their plain version at the GPT-2-small head's
+    decode ([16, 768] x [768, 50304]) and prompt-pass ([2048, 768])
+    shapes and a ragged one ([77, 768] x [768, 50192]), bf16 x on both
+    routes, each call's route shown by its launches; then both routes'
+    times in turn (the tensor-core kernel must be the faster at the prompt
+    pass) beside the bound, the plain version's and ``torch.matmul`` on
+    the widened weight;
 14. generation through ``lm_cli --generate 128``: GPT-2-small width with 4
     KV heads, batch 16, prompt 128, greedy, bf16, ``--int8-decode head``
-    (one int8 matmul launch a model call), then in bf16 alone (the share
-    of greedy tokens the int8 head keeps) and with ``--int8-kv-cache``;
+    (one int8 matmul launch a model call: the prompt pass on the tensor
+    cores, the decode steps on the route ``ops/quant.py::tc_route`` gives
+    16 rows), then in bf16 alone (the share of greedy tokens the int8 head
+    keeps) and with ``--int8-kv-cache``;
 15. serving through ``serve_cli``: the same model, 16 slots over a
     513-page pool of 16 rows (32 pages a slot), 64 Poisson requests at 64
     rps, prompts and outputs 64-256 tokens, the paged kernel (12 launches
@@ -111,7 +118,7 @@ no result):
     batch, every launch count exact (a step: 12 ``gmm_fused`` of which the
     6 ``w_in`` calls write ``z``, 12 ``gmm_tc``, 12 ``tgmm_tc``, 6
     ``split``, 12 ``colsum``, no FFMA ``gmm`` or ``tgmm``, and 18 flash,
-    the backward's 12 on the tensor cores);
+    all on the tensor cores);
     its throughput, one step under ``set_sync_debug_mode("error")`` and a
     profile of 2 steps; a kernel-vs-plain trajectory (2 layers at full
     width, batch 8, fp32, 4 steps); the tensor-core route against the FFMA
@@ -192,7 +199,11 @@ PAGED_VARIANTS = {"float32": (torch.float32, torch.float32),
                   "int8": (torch.int8, torch.float32),
                   "int8_bf16q": (torch.int8, torch.bfloat16)}
 PAGED_FP32_TOL = 2e-5  # max abs err of fp32 outputs
-INT8_SHAPES = {"decode": (GEN_BATCH, 768, 50304), "prefill": (GEN_BATCH * GEN_PROMPT, 768, 50304)}
+# The GPT-2-small head's decode step and prompt pass, and a ragged shape the
+# tensor-core rule still takes (M not a multiple of 64, N a multiple of 16
+# but not of 128).
+INT8_SHAPES = {"decode": (GEN_BATCH, 768, 50304), "prefill": (GEN_BATCH * GEN_PROMPT, 768, 50304),
+               "ragged": (77, 768, 50192)}
 
 # Fused cross-entropy: (N, V, dtype). The LM path's logits first (B 16 x T
 # 1024 rows, fp32: the model returns fp32 logits).
@@ -349,6 +360,7 @@ def counted(fn):
     torch.cuda.synchronize()
     counts = {name: mod.launch_count() for name, mod in mods.items()}
     counts["paged_attention_int8"] = mods["paged_attention"].launch_count("int8")
+    counts["int8_matmul_tc"] = mods["int8_matmul"].launch_count(route="tc")
     return out, counts
 
 
@@ -750,9 +762,9 @@ def profile_phase(model: str, **cfg_kw) -> dict:
 # ---------------------------------------------------------- flash attention
 @contextlib.contextmanager
 def flash_ffma_route():
-    """The flash backward on the FFMA kernels whatever the inputs (the
-    route rule, patched for the block to refuse the tensor cores), for a
-    route-vs-route comparison."""
+    """The flash forward and backward on the FFMA kernels whatever the
+    inputs (the route rule, patched for the block to refuse the tensor
+    cores), for a route-vs-route comparison."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
 
     saved = A.tc_route
@@ -764,38 +776,39 @@ def flash_ffma_route():
 
 
 @contextlib.contextmanager
-def plain_flash_backward():
-    """The flash autograd Function's backward through the plain versions
-    of dq and dk/dv on CUDA tensors (the module functions it calls, patched
-    for the block), as a trajectory's yardstick."""
+def plain_flash():
+    """The flash autograd Function through the plain versions of the
+    forward, dq and dk/dv on CUDA tensors (the module functions it calls,
+    patched for the block), as a trajectory's yardstick."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
 
-    saved = A.flash_dq, A.flash_dkv
-    A.flash_dq, A.flash_dkv = A.flash_dq_plain, A.flash_dkv_plain
+    saved = A.flash_forward_lse, A.flash_dq, A.flash_dkv
+    A.flash_forward_lse, A.flash_dq, A.flash_dkv = (
+        A.flash_forward_lse_plain, A.flash_dq_plain, A.flash_dkv_plain)
     try:
         yield
     finally:
-        A.flash_dq, A.flash_dkv = saved
+        A.flash_forward_lse, A.flash_dq, A.flash_dkv = saved
 
 
 def flash_phase(dev: torch.device) -> list[dict]:
     """The kernels against their plain versions (each backward kernel
     given the plain lse and delta, so each is checked on its own): fp32
-    inputs take the FFMA dq and dk/dv, bf16 ones the tensor-core kernels
-    (a second run bitwise equal), then the same bf16 inputs on the FFMA
-    route; every call's route shown by its launches. Then times at the LM
-    path's shape in bf16, the backward's two routes in turn (tensor cores,
-    FFMA, FFMA, tensor cores: the mean of the two medians)."""
+    inputs take the FFMA forward, dq and dk/dv, bf16 ones the tensor-core
+    kernels (a second run bitwise equal), then the same bf16 inputs on the
+    FFMA route; every call's route shown by its launches. Then times at the
+    LM path's shape in bf16, each kernel's two routes in turn (tensor
+    cores, FFMA, FFMA, tensor cores: the mean of the two medians)."""
     import torch.nn.functional as F
 
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _build
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
 
     gen = torch.Generator(device=dev).manual_seed(3)
-    names = ("fwd", "dq", "dkv", "dq_tc", "dkv_tc")
+    names = ("fwd", "dq", "dkv", "fwd_tc", "dq_tc", "dkv_tc")
     err = {k: 0.0 for k in names}
     share = {}  # (name, dtype) -> max over cases of err / (tolerance x max|plain|)
-    lse_err = 0.0
+    lse_err = {"fwd": 0.0, "fwd_tc": 0.0}
 
     def routed(want: dict, fn):
         A.reset_launch_count()
@@ -821,26 +834,34 @@ def flash_phase(dev: torch.device) -> list[dict]:
                         A.flash_dkv(*args))
 
             (out, lse), dq, (dk, dv) = routed(
-                {("fwd", "ffma"): 1, ("dq", route): 1, ("dkv", route): 1}, backward)
+                {("fwd", route): 1, ("dq", route): 1, ("dkv", route): 1}, backward)
             want_dq = A.flash_dq_plain(*args)
             want_dk, want_dv = A.flash_dkv_plain(*args)
             case = f"{dtype} B{b} T{t} H{h} D{d} causal={causal}"
-            checks = [("fwd", out, want_o), ("dq" + sfx, dq, want_dq),
+            checks = [("fwd" + sfx, out, want_o), ("dq" + sfx, dq, want_dq),
                       ("dkv" + sfx, dk, want_dk), ("dkv" + sfx, dv, want_dv)]
+            lses = [("fwd" + sfx, lse)]
             if route == "tc":
-                _, dq2, (dk2, dv2) = backward()
+                (out2, lse2), dq2, (dk2, dv2) = backward()
+                if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+                    raise RuntimeError(f"flash tensor-core forward not bitwise repeatable at "
+                                       f"{case}")
                 if not (torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
                     raise RuntimeError(f"flash tensor-core backward not bitwise repeatable at "
                                        f"{case}")
                 with flash_ffma_route():
-                    _, fdq, (fdk, fdv) = routed(
+                    (fo, flse), fdq, (fdk, fdv) = routed(
                         {("fwd", "ffma"): 1, ("dq", "ffma"): 1, ("dkv", "ffma"): 1}, backward)
-                checks += [("dq", fdq, want_dq), ("dkv", fdk, want_dk), ("dkv", fdv, want_dv)]
+                checks += [("fwd", fo, want_o), ("dq", fdq, want_dq), ("dkv", fdk, want_dk),
+                           ("dkv", fdv, want_dv)]
+                lses.append(("fwd", flse))
             torch.cuda.synchronize()
-            e = float((lse - want_lse).abs().max())
-            if not (math.isfinite(e) and e <= FLASH_LSE_TOL):
-                raise RuntimeError(f"flash fwd lse disagrees with its plain version at {case}: {e}")
-            lse_err = max(lse_err, e)
+            for name, got_lse in lses:
+                e = float((got_lse - want_lse).abs().max())
+                if not (math.isfinite(e) and e <= FLASH_LSE_TOL):
+                    raise RuntimeError(f"flash {name} lse disagrees with its plain version at "
+                                       f"{case}: {e}")
+                lse_err[name] = max(lse_err[name], e)
             for name, got, want in checks:
                 e = float((got.float() - want.float()).abs().max())
                 scale = float(want.float().abs().max())
@@ -861,10 +882,10 @@ def flash_phase(dev: torch.device) -> list[dict]:
         print(f"flash {name}: {len(FLASH_CASES)} shapes agree with the plain version, max abs "
               f"err {err[name]}, share of the limit ({FLASH_TOL[torch.float32]} fp32, "
               f"{FLASH_TOL[torch.bfloat16]} bf16 x max|plain|): {shares(name)}"
-              + (f"; lse max abs err {lse_err} (tolerance {FLASH_LSE_TOL})" if name == "fwd"
-                 else "")
+              + (f"; lse max abs err {lse_err[name]} (tolerance {FLASH_LSE_TOL})"
+                 if name in lse_err else "")
               + ("; bitwise repeatable" if name.endswith("_tc") else ""))
-    for name in ("dq", "dkv"):
+    for name in ("fwd", "dq", "dkv"):
         print(f"flash {name} bf16 share of the limit: tensor cores "
               f"{share[(name + '_tc', torch.bfloat16)]:.4f}, FFMA route on the same inputs "
               f"{share[(name, torch.bfloat16)]:.4f}")
@@ -882,12 +903,11 @@ def flash_phase(dev: torch.device) -> list[dict]:
         "dkv": (lambda: A.flash_dkv(*args), lambda: A.flash_dkv_plain(*args)),
     }
     plain_ms = {name: median_ms(plain, reps=10, warmup=2) for name, (_, plain) in calls.items()}
-    ms_runs = {"fwd": [median_ms(calls["fwd"][0])]}
-    device_ms = {"fwd": device_busy_ms(calls["fwd"][0], match="flash_fwd_kernel")}
+    ms_runs, device_ms = {}, {}
     for turn in ("tc", "ffma", "ffma", "tc"):
         ctx = flash_ffma_route() if turn == "ffma" else contextlib.nullcontext()
         with ctx:
-            for base in ("dq", "dkv"):
+            for base in ("fwd", "dq", "dkv"):
                 name = base + ("_tc" if turn == "tc" else "")
                 ms_runs.setdefault(name, []).append(median_ms(calls[base][0]))
                 if name not in device_ms:
@@ -920,7 +940,7 @@ def flash_phase(dev: torch.device) -> list[dict]:
         flop = 2.0 * products * pairs * d
         nbytes = tensors * tensor_bytes + rows * row_bytes
         bytes_ms, ops_ms = nbytes / bw * 1e3, flop / BF16_FLOPS * 1e3
-        lib_key = "fwd" if name == "fwd" else "bwd"
+        lib_key = "fwd" if base == "fwd" else "bwd"
         rec = {
             "name": f"flash_{name}",
             "route": "cuda",
@@ -931,8 +951,7 @@ def flash_phase(dev: torch.device) -> list[dict]:
             "tpu_kernel": "ops/flash_attention.py::" + {"fwd": "_kernel", "dq": "_dq_kernel",
                                                         "dkv": "_dkv_kernel"}[base]
                           + (" (tensor-core route: bf16)" if tc else
-                             "" if base == "fwd" else " (FFMA route: fp32, head_dim 32, "
-                             "strides TMA cannot read)"),
+                             " (FFMA route: fp32, head_dim 32, strides TMA cannot read)"),
             "launches": None,  # filled in from the main path's run
             "max_abs_err": err[name],
             "share_of_limit": {str(dt)[6:]: share[(name, dt)] for dt in (torch.float32,
@@ -947,15 +966,15 @@ def flash_phase(dev: torch.device) -> list[dict]:
             "fp32_ffma_bound_ms": flop / fp32_flops * 1e3,
             "library_ms": library_ms[lib_key],
             "library_device_ms": library_device_ms[lib_key],
-            "library": ("scaled_dot_product_attention forward" if name == "fwd" else
+            "library": ("scaled_dot_product_attention forward" if base == "fwd" else
                         "scaled_dot_product_attention backward (dq, dk and dv together)"),
             "gflop": flop / 1e9,
             "mbytes": nbytes / 1e6,
             "shape": list(FLASH_PATH),
             "dtype": "bfloat16",
         }
-        if name == "fwd":
-            rec["lse_max_abs_err"] = lse_err
+        if base == "fwd":
+            rec["lse_max_abs_err"] = lse_err[name]
         if tc:  # ptxas's report of this process's build (None if the library was cached)
             for head_dim, key in ((d, "ptxas"), (128, "ptxas_head_dim_128")):
                 rec[key] = ptxas.get(f"flash_{name}_kernel<{head_dim}>")
@@ -969,7 +988,7 @@ def flash_phase(dev: torch.device) -> list[dict]:
               f"it), FP32 FFMA floor {rec['fp32_ffma_bound_ms']:.4f} ms"
               + (f"; ptxas {rec['ptxas']} (head_dim 128: {rec['ptxas_head_dim_128']})" if tc
                  else ""))
-    for base in ("dq", "dkv"):
+    for base in ("fwd", "dq", "dkv"):
         tc_ms, ffma_ms = (statistics.mean(ms_runs[n]) for n in (base + "_tc", base))
         if not tc_ms < ffma_ms:
             raise RuntimeError(f"flash {base}: the tensor-core kernel ({tc_ms} ms) is not faster "
@@ -1114,11 +1133,11 @@ def lm_config(**kw):
 
 def flash_counts() -> dict:
     """The flash launches since the last reset by kernel and route: fwd,
-    dq and dkv (FFMA), dq_tc and dkv_tc (tensor cores)."""
+    dq and dkv (FFMA), fwd_tc, dq_tc and dkv_tc (tensor cores)."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
 
     return {name + ("_tc" if route == "tc" else ""): A.launch_count(name, route=route)
-            for name in A.KERNELS for route in A.ROUTES if name != "fwd" or route == "ffma"}
+            for name in A.KERNELS for route in A.ROUTES}
 
 
 def lm_main_path_phase() -> dict:
@@ -1144,12 +1163,12 @@ def lm_main_path_phase() -> dict:
                            f"{all_counts}")
     layers = LM_WIDTH["num_layers"]
     # 24 training forwards and one eval forward (400 sequences: 16 held out,
-    # one eval batch; 384 train, 24 distinct batches) per layer, the
-    # backward's dq and dk/dv all on the tensor cores; one fused
+    # one eval batch; 384 train, 24 distinct batches) per layer, the forward
+    # and the backward's dq and dk/dv all on the tensor cores; one fused
     # cross-entropy forward and backward a training step on the fp32
     # logits (the eval takes plain CE, as the JAX package's).
-    expect = {"fwd": layers * (LM_STEPS + 1), "dq": 0, "dkv": 0, "dq_tc": layers * LM_STEPS,
-              "dkv_tc": layers * LM_STEPS}
+    expect = {"fwd": 0, "dq": 0, "dkv": 0, "fwd_tc": layers * (LM_STEPS + 1),
+              "dq_tc": layers * LM_STEPS, "dkv_tc": layers * LM_STEPS}
     if counts != expect or bf16 != sum(expect.values()):
         raise RuntimeError(f"LM path flash launches {counts} (bf16 {bf16}), expected {expect}")
     if xent != {"fwd": LM_STEPS, "bwd": LM_STEPS} or all_counts["fused_xent"] != 2 * LM_STEPS:
@@ -1236,7 +1255,7 @@ def lm_profile(tr, batches, label: str) -> dict:
         for i in range(steps):
             tr.train_step(*batches[i % len(batches)])
         torch.cuda.synchronize()
-    names = ("fwd", "dq", "dkv", "dq_tc", "dkv_tc")
+    names = ("fwd", "dq", "dkv", "fwd_tc", "dq_tc", "dkv_tc")
     groups = {f"flash_{n}": (f"flash_{n}_kernel",) for n in names}
     groups["cross_entropy"] = ("xent_fwd_kernel", "xent_bwd_kernel", "SoftMax", "nll_loss")
     out = summarize_profile(prof, steps, f"profile LM {label}", groups)
@@ -1298,18 +1317,19 @@ def lm_trajectory_phase() -> None:
 
 
 def lm_flash_route_trajectory_phase() -> dict:
-    """The flash backward's tensor-core route against its FFMA route over
-    LM_ROUTE_STEPS AdamW steps (lr LM_ROUTE_LR) of GPT-2-small at full
-    width and 2 layers, batch 4 x T 1024, bf16 compute (the LM path's
-    dtype, where the routes differ), from one init on the same batches;
-    each run's launches show its route. Limits as the MoE route
+    """Flash's tensor-core route (forward, dq and dk/dv) against its FFMA
+    route over LM_ROUTE_STEPS AdamW steps (lr LM_ROUTE_LR) of GPT-2-small
+    at full width and 2 layers, batch 4 x T 1024, bf16 compute (the LM
+    path's dtype, where the routes differ), from one init on the same
+    batches; each run's launches show its route. Limits as the MoE route
     trajectory's: losses within rtol 1e-4; the first step's gradient norm
     (same weights) within rtol 1e-4; the parameters within 2 x lr a step at
     most (AdamW moves an element by about lr whatever its gradient's size,
     so one whose gradient's sign rests on rounding may step the other way)
-    and 1e-4 on average. A third run through the plain versions of dq and
-    dk/dv (fp32 einsums: a third order of the same sums) is printed beside
-    them as the yardstick. Returns each run's flash launches."""
+    and 1e-4 on average. A third run through the plain versions of the
+    forward, dq and dk/dv (fp32 einsums: a third order of the same sums; no
+    flash kernel) is printed beside them as the yardstick. Returns each
+    run's flash launches."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
     from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
@@ -1318,7 +1338,7 @@ def lm_flash_route_trajectory_phase() -> dict:
     toks = synthetic_tokens(b * LM_ROUTE_STEPS, LM_WIDTH["seq_len"], LM_WIDTH["vocab_size"],
                             seed=6)
     routes = {"tensor_cores": contextlib.nullcontext, "ffma": flash_ffma_route,
-              "plain": plain_flash_backward}
+              "plain": plain_flash}
     runs, launches = {}, {}
     for name, route in routes.items():
         tr = LMTrainer(lm_config(num_layers=layers, global_batch_size=b,
@@ -1334,8 +1354,8 @@ def lm_flash_route_trajectory_phase() -> dict:
                       [p.detach() for p in model.parameters()])
         del tr, model
     n = layers * LM_ROUTE_STEPS
-    want = {"tensor_cores": {"fwd": n, "dq_tc": n, "dkv_tc": n},
-            "ffma": {"fwd": n, "dq": n, "dkv": n}, "plain": {"fwd": n}}
+    want = {"tensor_cores": {"fwd_tc": n, "dq_tc": n, "dkv_tc": n},
+            "ffma": {"fwd": n, "dq": n, "dkv": n}, "plain": {}}
     if launches != want:
         raise RuntimeError(f"LM flash route trajectory launches {launches}, expected {want}")
 
@@ -1362,7 +1382,7 @@ def lm_flash_route_trajectory_phase() -> dict:
                            f"{summary}")
     if not (gap <= 2 * LM_ROUTE_LR * LM_ROUTE_STEPS and mean_gap <= 1e-4):
         raise RuntimeError(f"LM flash route trajectory parameters differ: {summary}")
-    print(f"trajectory LM flash backward tensor-core vs FFMA route (2 layers, full width, batch "
+    print(f"trajectory LM flash tensor-core vs FFMA route (2 layers, full width, batch "
           f"{b}, bf16): {summary}; launches {launches}")
     return launches
 
@@ -1516,41 +1536,98 @@ def paged_phase(dev: torch.device) -> dict:
 
 
 # ---------------------------------------------------------- int8 weight matmul
-def int8_matmul_phase(dev: torch.device) -> dict:
+@contextlib.contextmanager
+def int8_route(route: str):
+    """The int8 matmul on one route (``tc`` or ``ffma``) whatever the call
+    (the route rule, patched for the block), for a route-vs-route
+    comparison."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
+
+    saved = QT.tc_route
+    QT.tc_route = lambda *args, **kw: route == "tc"
+    try:
+        yield
+    finally:
+        QT.tc_route = saved
+
+
+def int8_matmul_phase(dev: torch.device) -> list[dict]:
+    """Both kernels against the plain version at INT8_SHAPES: fp32 x on the
+    FFMA kernel (the rule's only route for it), bf16 x on the route the
+    rule takes and on each route in turn, every call's route shown by its
+    launches. Then the bf16 times of the two routes in turn at each shape
+    (tensor cores, FFMA, FFMA, tensor cores: the mean of the two medians)
+    beside the bound, the plain version's and ``torch.matmul`` on the
+    widened weight. The tensor-core kernel must be the faster at a prompt
+    pass. Returns the FFMA and tensor-core records."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _build
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
 
     gen = torch.Generator(device=dev).manual_seed(6)
     bw, fp32_flops = card_rates(torch.cuda.get_device_name(0))
-    err, rel, timed = 0.0, 0.0, {}
+    err = {"ffma": 0.0, "tc": 0.0}
+    share = {"ffma": 0.0, "tc": 0.0}  # bf16: max of err / limit over the elements
+    rules, timed = {}, {}
+
+    def launched(route: str, fn):
+        QT.reset_launch_count()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {r: QT.launch_count(route=r) for r in QT.ROUTES if QT.launch_count(route=r)}
+        if got != {route: 1}:
+            raise RuntimeError(f"int8_matmul launches {got}, expected one on {route}")
+        return out
+
     for label, (m, k, n) in INT8_SHAPES.items():
         q, scale = QT.quantize_int8(randn(gen, k, n))
         x32 = randn(gen, m, k)
+        rules[label] = "tc" if QT.tc_route(torch.bfloat16, m, k, n) else "ffma"
         for dtype in (torch.float32, torch.bfloat16):
             x = x32.to(dtype)
-            got, want = QT.int8_matmul(x, q, scale), QT.int8_matmul_plain(x, q, scale)
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            top = float(want.float().abs().max())
+            want = QT.int8_matmul_plain(x, q, scale)
             if dtype == torch.float32:
-                ok = float(diff.max()) <= 1e-5 * top
+                runs = [("ffma", launched("ffma", lambda: QT.int8_matmul(x, q, scale)))]
             else:
-                ok = bool((diff <= 2**-7 * want.float().abs() + 1e-5 * top).all())
-            if got.dtype != dtype or not ok:
-                raise RuntimeError(f"int8_matmul kernel disagrees with its plain version at "
-                                   f"{label} [{m},{k}]x[{k},{n}] {dtype}: max abs err "
-                                   f"{float(diff.max())}, max|plain| {top}")
-            err = max(err, float(diff.max()))
-            rel = max(rel, float(diff.max()) / top)
-            del got, want, diff
+                rule = rules[label]
+                runs = [(rule, launched(rule, lambda: QT.int8_matmul(x, q, scale)))]
+                for route in ("tc", "ffma"):
+                    with int8_route(route):
+                        runs.append((route, launched(route, lambda: QT.int8_matmul(x, q, scale))))
+            top = float(want.float().abs().max())
+            for route, got in runs:
+                diff = (got.float() - want.float()).abs()
+                if dtype == torch.float32:
+                    ok = float(diff.max()) <= 1e-5 * top
+                else:
+                    limit = 2**-7 * want.float().abs() + 1e-5 * top
+                    ok = bool((diff <= limit).all())
+                    share[route] = max(share[route], float((diff / limit).max()))
+                if got.dtype != dtype or not ok:
+                    raise RuntimeError(f"int8_matmul {route} kernel disagrees with its plain "
+                                       f"version at {label} [{m},{k}]x[{k},{n}] {dtype}: max abs "
+                                       f"err {float(diff.max())}, max|plain| {top}")
+                err[route] = max(err[route], float(diff.max()))
+                del diff
+            del runs, want
         xb = x32.bfloat16()
         nbytes = k * n + 2.0 * m * k + 2.0 * m * n + 4.0 * n
         flop = 2.0 * m * k * n
         bytes_ms, ops_ms = nbytes / bw * 1e3, flop / BF16_FLOPS * 1e3
+        def call():
+            return QT.int8_matmul(xb, q, scale)
+
+        ms_runs, device_ms = {}, {}
+        for turn in ("tc", "ffma", "ffma", "tc"):
+            with int8_route(turn):
+                ms_runs.setdefault(turn, []).append(median_ms(call))
+                if turn not in device_ms:
+                    device_ms[turn] = device_busy_ms(
+                        call, match="int8_matmul_tc_kernel" if turn == "tc" else
+                        "int8_matmul_kernel")
         t = {
-            "shape": [m, k, n], "dtype": "bfloat16",
-            "ms": median_ms(lambda: QT.int8_matmul(xb, q, scale)),
-            "device_ms": device_busy_ms(lambda: QT.int8_matmul(xb, q, scale),
-                                        match="int8_matmul_kernel"),
+            "shape": [m, k, n], "dtype": "bfloat16", "rule": rules[label],
+            "ms": {r: statistics.mean(v) for r, v in ms_runs.items()}, "ms_runs": ms_runs,
+            "device_ms": device_ms,
             "fp32_ms": median_ms(lambda: QT.int8_matmul(x32, q, scale)),
             "plain_ms": median_ms(lambda: QT.int8_matmul_plain(xb, q, scale), reps=10),
             "library_ms": median_ms(lambda: torch.matmul(xb, q.to(xb.dtype)) * scale),
@@ -1559,34 +1636,62 @@ def int8_matmul_phase(dev: torch.device) -> dict:
             "fp32_ffma_bound_ms": flop / fp32_flops * 1e3,
             "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
         }
-        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["bound_share"] = {r: t["bound_ms"] / v for r, v in t["ms"].items()}
         timed[label] = t
-        print(f"int8_matmul {label} [{m},{k}]x[{k},{n}] bf16: {flop / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.1f} MB; kernel {t['ms']:.4f} ms (device {t['device_ms']} ms; "
+        print(f"int8_matmul {label} [{m},{k}]x[{k},{n}] bf16 (the rule takes {rules[label]}): "
+              f"{flop / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; tensor cores {t['ms']['tc']:.4f} "
+              f"ms (runs {ms_runs['tc']}, device {device_ms['tc']} ms), FFMA "
+              f"{t['ms']['ffma']:.4f} ms (runs {ms_runs['ffma']}, device {device_ms['ffma']} ms; "
               f"fp32 x {t['fp32_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, torch.matmul on the "
               f"widened weight {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}; {100 * t['bound_share']:.2f} % of it), FP32 FFMA floor "
+              f"({t['bound_by']}; tensor cores {100 * t['bound_share']['tc']:.2f} %, FFMA "
+              f"{100 * t['bound_share']['ffma']:.2f} % of it), FP32 FFMA floor "
               f"{t['fp32_ffma_bound_ms']:.4f} ms")
         del q, scale, x32, xb
-    print(f"int8_matmul: {len(INT8_SHAPES)} shapes x (fp32, bf16) agree with the plain version, "
-          f"max abs err {err}, / max|plain| {rel:.3e} (tolerance 1e-5 x max|plain| fp32; 1 bf16 "
-          f"ulp + 1e-5 x max|plain| bf16)")
-    d = timed["decode"]
-    return {
-        "name": "int8_matmul",
-        "route": "cuda",
-        "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/int8_matmul.cu",
-        "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/quant.py:101",
-        "tpu_kernel": "ops/quant.py::_kernel",
-        "launches": None,  # filled in from the generation path's run
-        "max_abs_err": err,
-        "max_rel_err": rel,
-        **{k: d[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms", "fp32_ffma_bound_ms")},
-        "library": "torch.matmul(x, q.to(x.dtype)) * scale",
-        "shape": d["shape"], "dtype": "bfloat16",
-        "prefill": timed["prefill"],
-    }
+    print(f"int8_matmul: {len(INT8_SHAPES)} shapes agree with the plain version (fp32 x on the "
+          f"FFMA kernel; bf16 x on both routes), max abs err FFMA {err['ffma']}, tensor cores "
+          f"{err['tc']} (tolerance 1e-5 x max|plain| fp32; 2^-7 |plain| + 1e-5 x max|plain| "
+          f"bf16, share of it: FFMA {share['ffma']:.4f}, tensor cores {share['tc']:.4f}); the "
+          f"rule's route by shape {rules}")
+    tc_ms, ffma_ms = timed["prefill"]["ms"]["tc"], timed["prefill"]["ms"]["ffma"]
+    if not tc_ms < ffma_ms:
+        raise RuntimeError(f"int8_matmul prefill: the tensor-core kernel ({tc_ms} ms) is not "
+                           f"faster than the FFMA kernel ({ffma_ms} ms)")
+    ptxas = _build.ptxas_report(QT.TC_SOURCE)
+    records = []
+    for route, label in (("ffma", "decode"), ("tc", "prefill")):
+        t = timed[label]
+        rec = {
+            "name": "int8_matmul" + ("_tc" if route == "tc" else ""),
+            "route": "cuda",
+            "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/"
+                      + (QT.TC_SOURCE if route == "tc" else QT.SOURCE),
+            "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/quant.py:101",
+            "tpu_kernel": "ops/quant.py::_kernel" + (" (tensor-core route: bf16 x)"
+                                                    if route == "tc" else
+                                                    " (FFMA route: fp32 x, odd K or N)"),
+            "launches": None,  # filled in from the generation path's run
+            "max_abs_err": err[route],
+            "share_of_limit_bf16": share[route],
+            "ms": t["ms"][route],
+            "device_ms": t["device_ms"][route],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "bound_share": t["bound_share"][route],
+            "library_ms": t["library_ms"],
+            "library": "torch.matmul(x, q.to(x.dtype)) * scale",
+            "fp32_ffma_bound_ms": t["fp32_ffma_bound_ms"],
+            "shape": t["shape"], "dtype": "bfloat16",
+            "rule": rules,
+            **{other: {key: (v[route] if isinstance(v, dict) and route in v else v)
+                       for key, v in timed[other].items() if key != "ms_runs"}
+               for other in INT8_SHAPES if other != label},
+        }
+        if route == "tc":
+            rec["ptxas"] = {f"W={w}": ptxas.get(f"int8_matmul_tc_kernel<{w}>") for w in (1, 2)}
+        records.append(rec)
+    return records
 
 
 # ---------------------------------------------------------------- generation
@@ -1596,17 +1701,21 @@ def width_argv(**extra) -> list[str]:
                                                           str(value))]
 
 
-def generation_phase() -> int:
+def generation_phase() -> dict:
     """``lm_cli --generate`` at full width: int8 head (the main path), bf16,
-    and int8 head with an int8 KV cache. Returns the int8 launches of the
-    main path."""
+    and int8 head with an int8 KV cache. The prompt pass's int8 launch
+    takes the tensor cores, the decode steps' the route the rule gives 16
+    rows. Returns the int8 launches of the main path by route."""
     from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
 
     base = width_argv() + [
         "--use-rope", "--compute-dtype", "bfloat16", "--steps", "0", "--seq-len",
         str(GEN_PROMPT), "--num-seqs", str(GEN_BATCH), "--generate", str(GEN_NEW),
         "--prompt-len", str(GEN_PROMPT), "--generate-batch", str(GEN_BATCH),
         "--temperature", "0", "--json", "--device", "cuda"]
+    d, vocab = DECODE_WIDTH["d_model"], DECODE_WIDTH["vocab_size"]
+    decode_route = "tc" if QT.tc_route(torch.bfloat16, GEN_BATCH, d, vocab) else "ffma"
     runs = {}
     for label, flags in (("int8 head", ["--int8-decode", "head"]), ("bf16", []),
                          ("int8 head + int8 KV cache", ["--int8-decode", "head",
@@ -1618,10 +1727,15 @@ def generation_phase() -> int:
         if toks.shape != (GEN_BATCH, GEN_NEW) or not bool(((toks >= 0) & (toks < vocab)).all()):
             raise RuntimeError(f"generation {label}: tokens of shape {tuple(toks.shape)} "
                                f"out of range")
-        want_int8 = GEN_NEW if flags else 0  # one launch a model call: prefill + 127 steps
-        if counts["int8_matmul"] != want_int8 or others(counts, "int8_matmul"):
+        # One launch a model call: the prompt pass (2,048 rows, tensor cores)
+        # and 127 decode steps (16 rows, the decode route).
+        want_int8 = GEN_NEW if flags else 0
+        want_tc = (1 + (GEN_NEW - 1) * (decode_route == "tc")) if flags else 0
+        if (counts["int8_matmul"] != want_int8 or counts["int8_matmul_tc"] != want_tc
+                or others(counts, "int8_matmul", "int8_matmul_tc")):
             raise RuntimeError(f"generation {label}: launches {counts}, expected "
-                               f"{want_int8} int8_matmul and no other")
+                               f"{want_int8} int8_matmul ({want_tc} on the tensor cores, decode "
+                               f"on {decode_route}) and no other")
         runs[label] = (toks, counts)
         print(f"generation {label}: batch {GEN_BATCH}, prompt {GEN_PROMPT}, {GEN_NEW} new "
               f"tokens: {g['tokens_per_s']:.1f} tokens/s, prefill {g['prefill_ms']:.2f} ms, "
@@ -1630,7 +1744,9 @@ def generation_phase() -> int:
     for label in ("int8 head", "int8 head + int8 KV cache"):
         share = float((runs[label][0] == base_toks).float().mean())
         print(f"generation: {label} keeps {100 * share:.2f} % of the bf16 run's greedy tokens")
-    return runs["int8 head"][1]["int8_matmul"]
+    counts = runs["int8 head"][1]
+    tc = counts["int8_matmul_tc"]
+    return {"tc": tc, "ffma": counts["int8_matmul"] - tc}
 
 
 # ------------------------------------------------------------------- serving
@@ -1720,6 +1836,7 @@ def decode_model(**kw):
 def serving_checks_phase() -> None:
     """Kernel vs gather engines on the trace; the pool-pressure run; a
     profile of 20 decode steps."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
     from cs744_pytorch_distributed_tutorial_tpu_torch.serve import (
         ServeConfig,
         ServingEngine,
@@ -1753,10 +1870,16 @@ def serving_checks_phase() -> None:
     n = SERVE_TRACE["num_requests"]
     if s["completed"] != n or s["preemptions"] <= 0:
         raise RuntimeError(f"pool-pressure run: {s}")
+    # The int8 head: a prefill's padded prompt (64 rows and up) on the tensor
+    # cores, a decode step's 16 rows on the route the rule gives them.
+    decode_tc = QT.tc_route(torch.bfloat16, SERVE_GEOMETRY["num_slots"],
+                            DECODE_WIDTH["d_model"], DECODE_WIDTH["vocab_size"])
     want = {"paged_attention": layers * s["decode_steps_all"],
-            "int8_matmul": s["decode_steps_all"] + s["prefills_all"]}
+            "int8_matmul": s["decode_steps_all"] + s["prefills_all"],
+            "int8_matmul_tc": s["prefills_all"] + s["decode_steps_all"] * decode_tc}
     if (counts["paged_attention"] != want["paged_attention"]
             or counts["int8_matmul"] != want["int8_matmul"]
+            or counts["int8_matmul_tc"] != want["int8_matmul_tc"]
             or counts["paged_attention_int8"] != want["paged_attention"]):
         raise RuntimeError(f"pool-pressure run: launches {counts}, expected {want}")
     print(f"serving pool pressure ({PRESSURE_PAGES - 1} pages, int8 KV pages, int8 head): "
@@ -2430,7 +2553,7 @@ def moe_train_path_phase() -> dict:
     split; w_out's bf16 gradient in one), no FFMA gmm or tgmm, and 12
     colsum (the bias gradient has a launch of its own); flash 6 forward, 6
     dq and 6 dk/dv, all on the tensor cores; the eval batch 12 gmm_fused
-    without z and 6 flash forwards."""
+    without z and 6 flash forwards (tensor cores)."""
     from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
@@ -2453,8 +2576,8 @@ def moe_train_path_phase() -> dict:
         raise RuntimeError(f"MoE training path: grouped-matmul launches {gmm} (gmm_tc by dout "
                            f"dtype {pieces}), all {all_counts}; expected {want_gmm} and no "
                            f"kernel but gmm and flash")
-    want_flash = {"fwd": layers * (steps + 1), "dq": 0, "dkv": 0, "dq_tc": layers * steps,
-                  "dkv_tc": layers * steps}
+    want_flash = {"fwd": 0, "dq": 0, "dkv": 0, "fwd_tc": layers * (steps + 1),
+                  "dq_tc": layers * steps, "dkv_tc": layers * steps}
     if flash != want_flash:
         raise RuntimeError(f"MoE training path: flash launches {flash}, expected {want_flash}")
     moe = summary.get("moe") or {}
@@ -2532,7 +2655,8 @@ def moe_train_throughput_phase() -> dict:
               "split": ("split_kernel",), "gmm_ffma": ("gmm_fused_kernel<float",),
               "tgmm": ("tgmm_kernel",), "colsum": ("colsum_kernel",),
               "flash": ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-                        "flash_dq_tc_kernel", "flash_dkv_tc_kernel"),
+                        "flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel"),
+              "flash_forward_tc": ("flash_fwd_tc_kernel",),
               "flash_backward_tc": ("flash_dq_tc_kernel", "flash_dkv_tc_kernel")}
     prof_out = summarize_profile(prof, steps, "MoE training profile", groups)
     if prof_out:
@@ -2763,7 +2887,7 @@ def main() -> int:
         module.load_kernel()
     print("built " + ", ".join(f"{s} in {_build.build_seconds[s]:.2f} s" for s in sources)
           + f", in parallel (wall {time.perf_counter() - t0:.2f} s)")
-    for src in (A.TC_SOURCE, G.TC_SOURCE):  # the tensor-core kernels' registers and spills
+    for src in (A.TC_SOURCE, QT.TC_SOURCE, G.TC_SOURCE):  # tensor-core kernels' registers
         for kernel, usage in _build.ptxas_report(src).items():
             print(f"ptxas {src}: {kernel}: {usage['registers']} registers, "
                   f"{usage['spill_stores']} bytes spill stores, {usage['spill_loads']} bytes "
@@ -2798,15 +2922,17 @@ def main() -> int:
     lm_throughput_phase()
     lm_trajectory_phase()
     route_launches = lm_flash_route_trajectory_phase()
-    for rec in lm_records:  # the FFMA backward's launches, off the bf16 main path
-        if rec["name"] in ("flash_dq", "flash_dkv"):
+    for rec in lm_records:  # the FFMA kernels' launches, off the bf16 main path
+        if rec["name"] in ("flash_fwd", "flash_dq", "flash_dkv"):
             rec["launches_ffma_route_trajectory"] = route_launches["ffma"][rec["name"][6:]]
 
     paged_record = paged_phase(dev)
-    int8_record = int8_matmul_phase(dev)
-    int8_record["launches"] = generation_phase()
+    int8_records = int8_matmul_phase(dev)
+    int8_launches = generation_phase()
+    for rec in int8_records:
+        rec["launches"] = int8_launches["tc" if rec["name"].endswith("_tc") else "ffma"]
     paged_record["launches"] = serving_phase()
-    records += [paged_record, int8_record]
+    records += [paged_record, *int8_records]
     serving_checks_phase()
 
     gmm_record = gmm_phase(dev)

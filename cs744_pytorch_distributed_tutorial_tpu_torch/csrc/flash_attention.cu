@@ -40,8 +40,11 @@
 //   dimension contiguous), widened to fp32 on load; outputs are written
 //   [B, T, H, D] contiguous, lse as [B*H, T] fp32.
 //
-// Left for later work: tensor cores (mma/wgmma on bf16 tiles), TMA loads
-// and a pipeline of tiles in flight.
+// The tensor cores took over bf16 inputs at head_dim 64 and 128 with strides
+// TMA can read: flash_attention_tc.cu, the forward and the backward
+// (ops/flash_attention.py::tc_route picks). These kernels keep fp32 inputs,
+// head_dim 32 and the other strides. Left for later work here: a pipeline
+// of tiles in flight.
 //
 // Plain C interface, loaded with ctypes: the launches run on the caller's
 // stream, do not synchronise, and return cudaGetLastError().

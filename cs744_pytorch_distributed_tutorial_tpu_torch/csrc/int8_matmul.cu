@@ -25,8 +25,10 @@
 // - Any M, K and N: the ragged edges are masked (zero-filled tiles, guarded
 //   stores). The TPU code's fallback for K not a multiple of 128 is not needed.
 //
-// Left for later work: tensor cores (mma on bf16 tiles, the widened weight
-// as the B operand), a pipeline of tiles in flight, split-K for decode.
+// The tensor cores took over bf16 x with K a multiple of 8 and N of 16:
+// int8_matmul_tc.cu (wgmma with the widened weight as the B operand;
+// ops/quant.py::tc_route picks). This kernel keeps fp32 x and the other
+// shapes. Left for later work here: a pipeline of tiles in flight, split-K.
 //
 // Plain C interface, loaded with ctypes: the launch runs on the caller's
 // stream, does not synchronise, and returns cudaGetLastError().

@@ -20,20 +20,20 @@ the TPU kernels do. The plain versions round at the same places. ``lse``
 and ``delta`` are ``[B*H, T, 1]`` fp32, the JAX package's layout.
 
 ``csrc/flash_attention.cu`` holds the FFMA kernels (its source note says
-how they are laid out): the forward, and dq and dk/dv for fp32 inputs,
-head_dim 32 and strides the tensor-core kernels do not take; they read q,
-k, v and do in place through their strides and take head_dim 32, 64 or
-128. ``csrc/flash_attention_tc.cu`` holds the backward on the tensor
-cores for bf16 (``flash_dq_tc_kernel``, ``flash_dkv_tc_kernel``: wgmma on
-tiles that TMA brings into shared memory, the same products as the TPU
-kernels in another order of the fp32 sums). ``flash_dq`` and
-``flash_dkv`` choose their kernel by ``tc_route``, a fixed rule of dtypes,
-shapes, strides and alignment: the tensor-core kernels for bf16 inputs
-with head_dim 64 or 128 (not 32), a contiguous last dimension, (b, t, h)
-strides that are positive multiples of 16 bytes and 16-byte-aligned
-pointers; the FFMA kernels otherwise. Both are built with nvcc on first
-use (``ops/_build.py``) and launched through ``ctypes`` on PyTorch's
-current stream.
+how they are laid out): the forward, dq and dk/dv for fp32 inputs, head_dim
+32 and strides the tensor-core kernels do not take; they read q, k, v and do
+in place through their strides and take head_dim 32, 64 or 128.
+``csrc/flash_attention_tc.cu`` holds all three on the tensor cores for bf16
+(``flash_fwd_tc_kernel``, ``flash_dq_tc_kernel``, ``flash_dkv_tc_kernel``:
+wgmma on tiles that TMA brings into shared memory, the same products as the
+TPU kernels in another order of the fp32 sums). ``flash_forward_lse``,
+``flash_dq`` and ``flash_dkv`` choose their kernel by ``tc_route``, a fixed
+rule of dtypes, shapes, strides and alignment: the tensor-core kernels for
+bf16 inputs with head_dim 64 or 128 (not 32), a contiguous last dimension,
+(b, t, h) strides that are positive multiples of 16 bytes and 16-byte-aligned
+pointers; the FFMA kernels otherwise. Both are built with nvcc on first use
+(``ops/_build.py``) and launched through ``ctypes`` on PyTorch's current
+stream.
 
 The wrappers take the kernel for CUDA tensors and the plain version for
 CPU tensors; for a CUDA tensor they launch their route's kernel or raise,
@@ -70,7 +70,7 @@ def launch_count(kernel: str | None = None, dtype: torch.dtype | None = None,
                  route: str | None = None) -> int:
     """Kernel launches since the last ``reset_launch_count()``: all of
     them, or those of one kernel (``fwd``, ``dq``, ``dkv``), dtype and/or
-    route (``ffma``, ``tc``; the forward is always ``ffma``)."""
+    route (``ffma``, ``tc``)."""
     return sum(
         n for (k, d, r), n in _launches.items()
         if (kernel is None or k == kernel) and (dtype is None or d == dtype)
@@ -85,7 +85,7 @@ def reset_launch_count() -> None:
 def load_kernel():
     """Build (first call) and load the kernels of ``SOURCES``; returns
     their C entry points by kernel and route: ``fwd``, ``dq``, ``dkv``
-    (FFMA), ``dq_tc`` and ``dkv_tc``."""
+    (FFMA), ``fwd_tc``, ``dq_tc`` and ``dkv_tc``."""
     global _kernel_fns
     if _kernel_fns is None:
         lib, tc = load_library(SOURCE), load_library(TC_SOURCE)
@@ -95,6 +95,7 @@ def load_kernel():
             "fwd": (lib.flash_fwd, [p] * 5 + tail + [i64, p]),  # ..., bf16, stream
             "dq": (lib.flash_dq, [p] * 7 + tail + [i64, p]),
             "dkv": (lib.flash_dkv, [p] * 8 + tail + [i64, p]),
+            "fwd_tc": (tc.flash_fwd_tc, [p] * 5 + tail + [p]),
             "dq_tc": (tc.flash_dq_tc, [p] * 7 + tail + [p]),
             "dkv_tc": (tc.flash_dkv_tc, [p] * 8 + tail + [p]),
         }
@@ -172,8 +173,9 @@ def flash_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------- route rule
 def tc_route(dtype: torch.dtype, shape: tuple[int, int, int, int],
              strides: list[tuple[int, ...]], aligned: bool = True) -> bool:
-    """Whether a ``flash_dq``/``flash_dkv`` call on CUDA tensors takes the
-    tensor-core kernels: ``dtype`` and ``shape`` [B, T, H, D] are the
+    """Whether a ``flash_forward_lse``/``flash_dq``/``flash_dkv`` call on
+    CUDA tensors takes the tensor-core kernels: ``dtype`` and ``shape``
+    [B, T, H, D] are the
     inputs', ``strides`` each input's four strides (in elements) and
     ``aligned`` whether every input starts on 16 bytes. True for bf16 with
     D in ``TC_HEAD_DIMS``, the last dimension contiguous, and every (b, t,
@@ -243,7 +245,7 @@ def _rowstat(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(kernel: str, fn_args: list, q: torch.Tensor, strides, causal: bool,
-            route: str = "ffma") -> None:
+            route: str) -> None:
     b, t, h, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if route == "tc":
@@ -267,12 +269,13 @@ def flash_forward_lse(q, k, v, causal: bool = False):
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_forward_lse_plain(q, k, v, causal)
+    route = _route(q, k, v)
     (q, k, v), strides = _cuda_args(q, k, v)
     b, t, h, _ = q.shape
     out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     _launch("fwd", [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr()], q, strides, causal)
+                    lse.data_ptr()], q, strides, causal, route)
     return out, lse.unsqueeze(-1)
 
 

@@ -12,12 +12,16 @@ bit for bit.
 
 ``int8_matmul(x [..., K], q int8 [K, N], scale [N])`` is
 ``x @ widen(q)`` summed in fp32, then times the per-channel scale, cast
-to x's dtype. Its kernel (``csrc/int8_matmul.cu``, which replaces the
-TPU kernel ``ops/quant.py::_kernel``) reads the weight as int8 and
-widens it in shared memory: half the bytes of a bf16 weight, a quarter
-of fp32. The wrapper launches the kernel for CUDA tensors (or raises)
-and takes the plain version for CPU tensors only; each launch adds one
-to ``launch_count(dtype)``.
+to x's dtype. Two kernels replace the TPU kernel ``ops/quant.py::
+_kernel``; both read the weight as int8 and widen it in shared memory
+(half the bytes of a bf16 weight, a quarter of fp32):
+``csrc/int8_matmul_tc.cu`` on the tensor cores (bf16 wgmma on TMA-fed
+tiles) and ``csrc/int8_matmul.cu`` on the FP32 units (FFMA). A call on
+CUDA tensors takes the tensor cores when ``tc_route`` holds, a fixed
+rule of dtype, shape and alignment, and the FFMA kernel otherwise. The
+wrapper launches its route's kernel for CUDA tensors (or raises) and
+takes the plain version for CPU tensors only; each launch adds one to
+``launch_count(dtype, route)``.
 
 ``quantize_chunked``/``dequantize_chunked`` (the int8 gradient wire)
 are not ported yet.
@@ -40,6 +44,15 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.ring_attention import
 )
 
 SOURCE = "int8_matmul.cu"
+TC_SOURCE = "int8_matmul_tc.cu"
+SOURCES = (SOURCE, TC_SOURCE)
+ROUTES = ("ffma", "tc")
+# The fewest rows of x that take the tensor cores. A prompt pass (2,048
+# rows) and serving's prefills (64 rows and up) take them; a decode step
+# (16 rows) takes them too only where chip_smoke.py's paired runs showed
+# the tensor-core kernel no slower than the FFMA kernel there (PERF.md,
+# int8 row).
+TC_MIN_ROWS = 1
 
 # Every TransformerLM projection whose weight can quantize (embeddings
 # and norms stay float), and the JAX decode default: the head only.
@@ -47,14 +60,16 @@ QUANT_MODULES = frozenset({"q", "k", "v", "attn_out", "mlp_in", "mlp_gate", "mlp
 QUANT_HEAD_ONLY = ("lm_head",)
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_launches: collections.Counter = collections.Counter()  # x dtype -> count
-_kernel_fn = None
+_launches: collections.Counter = collections.Counter()  # (x dtype, route) -> count
+_kernel_fns = None  # {route: C entry point}, set up once
 
 
-def launch_count(dtype: torch.dtype | None = None) -> int:
+def launch_count(dtype: torch.dtype | None = None, route: str | None = None) -> int:
     """Kernel launches since the last ``reset_launch_count()``: all of
-    them, or those on activations of one dtype."""
-    return sum(n for d, n in _launches.items() if dtype is None or d == dtype)
+    them, or those on activations of one dtype and/or of one route
+    (``ffma``, ``tc``)."""
+    return sum(n for (d, r), n in _launches.items()
+               if (dtype is None or d == dtype) and (route is None or r == route))
 
 
 def reset_launch_count() -> None:
@@ -62,16 +77,30 @@ def reset_launch_count() -> None:
 
 
 def load_kernel():
-    """Build (first call) and load the kernel; returns its C entry point."""
-    global _kernel_fn
-    if _kernel_fn is None:
-        fn = load_library(SOURCE).int8_matmul
+    """Build (first call) and load the kernels of ``SOURCES``; returns
+    their C entry points by route."""
+    global _kernel_fns
+    if _kernel_fns is None:
         p, i64 = ctypes.c_void_p, ctypes.c_int64
-        # x, q, scale, out, M, K, N, bf16, stream
-        fn.argtypes = [p, p, p, p, i64, i64, i64, i64, p]
-        fn.restype = ctypes.c_int
-        _kernel_fn = fn
-    return _kernel_fn
+        fns = {  # x, q, scale, out, M, K, N, (bf16,) stream
+            "ffma": (load_library(SOURCE).int8_matmul, [p, p, p, p, i64, i64, i64, i64, p]),
+            "tc": (load_library(TC_SOURCE).int8_matmul_tc, [p, p, p, p, i64, i64, i64, p]),
+        }
+        for fn, argtypes in fns.values():
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _kernel_fns = {route: fn for route, (fn, _) in fns.items()}
+    return _kernel_fns
+
+
+def tc_route(x_dtype: torch.dtype, m: int, k: int, n: int, aligned: bool = True) -> bool:
+    """Whether an ``int8_matmul`` call on CUDA tensors takes the
+    tensor-core kernel: x ``[m, k]`` (contiguous) of ``x_dtype``, q ``[k,
+    n]``, ``aligned`` whether x and q start on 16 bytes. True for bf16 x
+    with k a positive multiple of 8 and n of 16 (the 16-byte rows TMA
+    reads of x and q) and at least ``TC_MIN_ROWS`` rows."""
+    return (x_dtype == torch.bfloat16 and aligned and m >= TC_MIN_ROWS and k > 0
+            and k % 8 == 0 and n % 16 == 0)
 
 
 def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -121,12 +150,16 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m and n:
+        aligned = x2.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
+        route = "tc" if tc_route(x.dtype, m, k, n, aligned) else "ffma"
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = load_kernel()(x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                            m, k, n, int(x.dtype == torch.bfloat16), stream)
-        _launches[x.dtype] += 1
+        args = [x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n]
+        if route == "ffma":
+            args.append(int(x.dtype == torch.bfloat16))
+        err = load_kernel()[route](*args, stream)
+        _launches[(x.dtype, route)] += 1
         if err:
-            raise RuntimeError(f"int8_matmul launch failed: CUDA error {err}")
+            raise RuntimeError(f"int8_matmul launch failed ({route}): CUDA error {err}")
     return out.reshape(*lead, n)
 
 

@@ -1,24 +1,27 @@
-"""The tensor-core route of the port's flash-attention backward.
+"""The tensor-core route of the port's flash attention.
 
-``flash_dq`` and ``flash_dkv`` send a call on CUDA tensors to the
-tensor-core kernels (``csrc/flash_attention_tc.cu``) when ``tc_route``
-holds, a rule of dtypes, shapes, strides and alignment, and to the FFMA
-kernels otherwise. On the CPU these tests hold:
+``flash_forward_lse``, ``flash_dq`` and ``flash_dkv`` send a call on CUDA
+tensors to the tensor-core kernels (``csrc/flash_attention_tc.cu``) when
+``tc_route`` holds, a rule of dtypes, shapes, strides and alignment, and
+to the FFMA kernels otherwise. On the CPU these tests hold:
 
-- the route rule, case by case;
+- the route rule, case by case, and the forward's route over q, k and v;
 - the strides the wrappers hand the kernels (views read in place; a
   dimension of size 1 gets a stride TMA takes);
 - the CPU wrappers and the autograd backward taking the plain versions,
   with no launch on either route;
 - the plain versions, the kernels' yardstick on the card, against the JAX
   package's Pallas kernels in interpret mode in bf16 at the head dims the
-  tensor-core kernels take (2e-2, the JAX test's bf16 tolerance);
+  tensor-core kernels take (2e-2, the JAX test's bf16 tolerance; the
+  forward's lse within 1e-5), over several key blocks so that the
+  forward's running max rescales;
 - the build's digest covering the headers a source includes.
 
 The ``cuda``-marked tests hold the kernels against the plain versions on
-the card (2e-2 x max|plain|, as ``chip_smoke.py``'s ``FLASH_TOL``: both
-form the same exact products; the order of the fp32 sums differs, and with
-it the bf16 rounding of a p or ds that lands near a tie), two runs bitwise
+the card (2e-2 x max|plain|, as ``chip_smoke.py``'s ``FLASH_TOL``, and the
+forward's lse within 1e-5, its ``FLASH_LSE_TOL``: both form the same exact
+products; the order of the fp32 sums differs, and with it the bf16
+rounding of a p, ds or output that lands near a tie), two runs bitwise
 equal, and the same inputs on the FFMA route within the same limit.
 """
 
@@ -32,6 +35,7 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _build
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as F
 
 BF16_TOL = 2e-2  # x max|plain|
+LSE_TOL = 1e-5  # the forward's lse, absolute
 
 
 def _strided(shape, strides, offset=0):
@@ -80,6 +84,35 @@ def test_tc_route(name, want):
     assert F.tc_route(dtype, tuple(shape), strides, aligned) is want
 
 
+def _forward_inputs(name):
+    """q, k, v for a forward route case (CPU tensors)."""
+    b, t, h = 2, 8, 3
+    if name == "fp32":
+        return tuple(torch.zeros((b, t, h, 64)) for _ in range(3))
+    if name.startswith("d"):
+        return tuple(torch.zeros((b, t, h, int(name[1:])), dtype=torch.bfloat16)
+                     for _ in range(3))
+    if name == "qkv_views":
+        return torch.zeros((b, t, 3, h, 64), dtype=torch.bfloat16).unbind(2)
+    if name == "v_stride_not_16_bytes":
+        q, k = (torch.zeros((b, t, h, 64), dtype=torch.bfloat16) for _ in range(2))
+        return q, k, torch.zeros((b, t, h, 68), dtype=torch.bfloat16)[..., :64]
+    if name == "k_misaligned_pointer":
+        q, v = (torch.zeros((b, t, h, 64), dtype=torch.bfloat16) for _ in range(2))
+        return q, _strided((b, t, h, 64), (t * h * 64, h * 64, 64, 1), offset=1), v
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("d64", "tc"), ("d128", "tc"), ("d32", "ffma"), ("fp32", "ffma"), ("qkv_views", "tc"),
+    ("v_stride_not_16_bytes", "ffma"), ("k_misaligned_pointer", "ffma"),
+])
+def test_forward_route(name, want):
+    """The forward's launch route: the rule over q, k and v (any one of
+    them that TMA cannot read sends the call to the FFMA kernel)."""
+    assert F._route(*_forward_inputs(name)) == want
+
+
 def test_cuda_args_read_views_in_place():
     """The (b, t, h) strides the kernels get: a view's own, D for a
     dimension of size 1, then the contiguous outputs'."""
@@ -114,6 +147,46 @@ def test_cpu_wrappers_and_backward_take_plain_versions():
     assert tq.grad.dtype == torch.bfloat16 and torch.isfinite(tq.grad.float()).all()
     assert F.launch_count() == 0
     assert F.launch_count(route="tc") == F.launch_count(route="ffma") == 0
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_cpu_forward_takes_plain_version(d):
+    """bf16 CPU tensors at a head dim the tensor-core forward takes: the
+    wrapper returns the plain forward's out and lse bit for bit, and no
+    route counts a launch."""
+    rng = np.random.default_rng(d + 1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 40, 2, d)).astype(np.float32))
+               .bfloat16() for _ in range(3))
+    F.reset_launch_count()
+    for causal in (True, False):
+        out, lse = F.flash_forward_lse(q, k, v, causal)
+        want_out, want_lse = F.flash_forward_lse_plain(q, k, v, causal)
+        assert out.dtype == torch.bfloat16 and lse.shape == (4, 40, 1)
+        assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    assert F.launch_count("fwd") == F.launch_count() == 0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_plain_forward_bf16_matches_pallas_interpret_at_tc_head_dims(d, causal):
+    """The plain forward the tensor-core forward is held to on the card, in
+    bf16 at head_dim 64 and 128, against the Pallas forward in interpret
+    mode over three key blocks (blk 16 at T 48, so that its running max
+    rescales the sums): out within 2e-2, lse within 1e-5."""
+    J = importlib.import_module("cs744_pytorch_distributed_tutorial_tpu.ops.flash_attention")
+    import jax.numpy as jnp
+
+    b, t, h, blk = 2, 48, 2, 16
+    rng = np.random.default_rng(10 * d + causal)
+    q, k, v = (rng.standard_normal((b, t, h, d)).astype(np.float32) for _ in range(3))
+    o, lse = J.flash_forward_lse(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                 causal=causal, block_q=blk, block_k=blk, interpret=True)
+    out, tlse = F.flash_forward_lse_plain(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)),
+                                          causal)
+    assert out.dtype == torch.bfloat16 and tlse.shape == (b * h, t, 1)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(o, np.float32), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    np.testing.assert_allclose(tlse.numpy(), np.asarray(lse, np.float32), rtol=0, atol=LSE_TOL)
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -186,9 +259,10 @@ def _card_inputs(case, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CARD_CASES)
 def test_tc_kernels_match_plain_on_card(case, monkeypatch):
-    """dq and dk/dv on the tensor cores against the plain versions within
-    2e-2 x max|plain|; a second run bitwise equal; the same inputs on the
-    FFMA route (tc_route patched to refuse) within the same limit."""
+    """The forward, dq and dk/dv on the tensor cores against the plain
+    versions within 2e-2 x max|plain| (the forward's lse within 1e-5); a
+    second run bitwise equal; the same inputs on the FFMA route (tc_route
+    patched to refuse) within the same limits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     causal = case[-1]
@@ -196,21 +270,26 @@ def test_tc_kernels_match_plain_on_card(case, monkeypatch):
     out, lse = F.flash_forward_lse_plain(q, k, v, causal)
     delta = F.flash_delta(out, do)
     args = (q, k, v, do, lse, delta, causal)
+
+    def run():
+        return (*F.flash_forward_lse(q, k, v, causal), F.flash_dq(*args), *F.flash_dkv(*args))
+
     F.reset_launch_count()
-    got = (F.flash_dq(*args), *F.flash_dkv(*args))
-    again = (F.flash_dq(*args), *F.flash_dkv(*args))
-    want = (F.flash_dq_plain(*args), *F.flash_dkv_plain(*args))
+    got, again = run(), run()
+    want = (out, lse, F.flash_dq_plain(*args), *F.flash_dkv_plain(*args))
     torch.cuda.synchronize()
+    assert F.launch_count("fwd", route="tc") == 2
     assert F.launch_count("dq", route="tc") == F.launch_count("dkv", route="tc") == 2
     assert F.launch_count(route="ffma") == 0
     monkeypatch.setattr(F, "tc_route", lambda *a, **kw: False)
-    ffma = (F.flash_dq(*args), *F.flash_dkv(*args))
+    ffma = run()
     torch.cuda.synchronize()
+    assert F.launch_count("fwd", route="ffma") == 1
     assert F.launch_count("dq", route="ffma") == F.launch_count("dkv", route="ffma") == 1
-    for name, g, a, f, w in zip(("dq", "dk", "dv"), got, again, ffma, want):
-        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+    for name, g, a, f, w in zip(("out", "lse", "dq", "dk", "dv"), got, again, ffma, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.equal(g, a), name
-        limit = BF16_TOL * float(w.float().abs().max())
+        limit = LSE_TOL if name == "lse" else BF16_TOL * float(w.float().abs().max())
         for route, x in (("tc", g), ("ffma", f)):
             err = float((x.float() - w.float()).abs().max())
             assert err <= limit, (name, route, err, limit)
@@ -219,7 +298,8 @@ def test_tc_kernels_match_plain_on_card(case, monkeypatch):
 @pytest.mark.cuda
 def test_tc_route_refuses_or_launches_on_card():
     """fp32 and head_dim 32 take the FFMA kernels; a bf16 call that
-    tc_route accepts launches the tensor-core kernel (never the FFMA one)."""
+    tc_route accepts launches the tensor-core kernels (never the FFMA
+    ones), the forward's as the backward's."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     for dtype, d, route in ((torch.float32, 64, "ffma"), (torch.bfloat16, 32, "ffma"),
@@ -228,10 +308,12 @@ def test_tc_route_refuses_or_launches_on_card():
         out, lse = F.flash_forward_lse_plain(q, k, v, True)
         delta = F.flash_delta(out, do)
         F.reset_launch_count()
+        F.flash_forward_lse(q, k, v, True)
         F.flash_dq(q, k, v, do, lse, delta, True)
         F.flash_dkv(q, k, v, do, lse, delta, True)
         torch.cuda.synchronize()
-        assert F.launch_count(route=route) == 2 and F.launch_count() == 2, (dtype, d)
+        assert F.launch_count(route=route) == 3 and F.launch_count() == 3, (dtype, d)
+        assert F.launch_count("fwd", route=route) == 1, (dtype, d)
 
 
 def test_ptxas_report_names_kernels_and_spills(monkeypatch):

@@ -7,8 +7,11 @@ tensors) agrees with the JAX ``int8_matmul`` (the Pallas kernel in
 interpret mode, or its XLA reference when K is not a multiple of 128) at
 1e-5 relative in fp32; ``quantize_lm_params`` over the port's
 ``state_dict`` gives the JAX quantized tree through the converter. The
-``cuda``-marked test holds the CUDA kernel against its plain version on
-the card. JAX is imported inside the tests that use it.
+route rule (``tc_route``) is held case by case, and the CPU wrapper takes
+the plain version whatever route the rule would give a CUDA call. The
+``cuda``-marked tests hold both CUDA kernels (tensor cores for bf16 x,
+FFMA otherwise) against their plain version on the card. JAX is imported
+inside the tests that use it.
 """
 
 import importlib
@@ -88,6 +91,43 @@ def test_int8_matmul_bfloat16_matches_jax():
                                atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("m,k,n,dtype,aligned,want", [
+    (2048, 768, 50304, torch.bfloat16, True, True),   # a prompt pass
+    (16, 768, 50304, torch.bfloat16, True, True),     # a decode step (TC_MIN_ROWS)
+    (77, 768, 50192, torch.bfloat16, True, True),     # ragged M; N a multiple of 16, not 128
+    (2048, 768, 50304, torch.float32, True, False),   # fp32 x: FFMA
+    (5, 200, 70, torch.bfloat16, True, False),        # N not a multiple of 16
+    (16, 204, 64, torch.bfloat16, True, False),       # K not a multiple of 8
+    (16, 0, 64, torch.bfloat16, True, False),         # no contraction
+    (16, 768, 50304, torch.bfloat16, False, False),   # x or q off 16 bytes
+])
+def test_int8_tc_route(m, k, n, dtype, aligned, want):
+    assert Q.tc_route(dtype, m, k, n, aligned) is want
+
+
+def test_int8_tc_route_row_threshold():
+    """The fewest rows that take the tensor cores is the rule's constant:
+    one row fewer takes the FFMA kernel."""
+    assert Q.TC_MIN_ROWS >= 1
+    assert Q.tc_route(torch.bfloat16, Q.TC_MIN_ROWS, 768, 50304)
+    assert not Q.tc_route(torch.bfloat16, Q.TC_MIN_ROWS - 1, 768, 50304)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_int8_matmul_takes_plain_version(dtype):
+    """CPU tensors at a shape the rule sends to the tensor cores in bf16:
+    the wrapper returns the plain version bit for bit and no route counts a
+    launch."""
+    rng = np.random.default_rng(3)
+    q, s = Q.quantize_int8(torch.from_numpy(rng.standard_normal((128, 256)).astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal((2, 64, 128)).astype(np.float32)).to(dtype)
+    Q.reset_launch_count()
+    got = Q.int8_matmul(x, q, s)
+    assert got.shape == (2, 64, 256) and got.dtype == dtype
+    assert torch.equal(got, Q.int8_matmul_plain(x, q, s))
+    assert Q.launch_count() == Q.launch_count(route="tc") == Q.launch_count(route="ffma") == 0
+
+
 def test_int8_matmul_checks_inputs():
     x = torch.zeros(2, 8)
     q = torch.zeros(8, 4, dtype=torch.int8)
@@ -139,11 +179,11 @@ def test_quantize_lm_params_matches_jax_tree(scope):
 
 @pytest.mark.cuda
 def test_int8_matmul_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version (fp32 matmul, TF32 off)
-    at the decode and ragged shapes, fp32 and bf16: max abs err <= 1e-5 x
-    max|plain| in fp32, the bf16 output within 1 bf16 ulp (2**-7
-    relative; near zero, 1e-5 x max|plain|, the fp32 sums' spread) of the
-    plain one."""
+    """The CUDA kernels against their plain version (fp32 matmul, TF32 off)
+    at the decode and ragged shapes, fp32 and bf16, each call on the route
+    the rule gives it: max abs err <= 1e-5 x max|plain| in fp32, the bf16
+    output within 1 bf16 ulp (2**-7 relative; near zero, 1e-5 x max|plain|,
+    the fp32 sums' spread) of the plain one."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -168,3 +208,38 @@ def test_int8_matmul_kernel_matches_plain_on_card():
                 assert bool((err <= tol).all()), (m, k, n)
     assert Q.launch_count() == 2 * len(shapes)
     assert Q.launch_count(torch.bfloat16) == len(shapes)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_tc_matches_plain_on_card(monkeypatch):
+    """The tensor-core kernel at the GPT-2-small head's decode step and
+    prompt pass and at a ragged shape (M not a multiple of 64, N a multiple
+    of 16 but not of 128), bf16 x: each call launches the tensor-core
+    kernel once, agrees with the plain version within 1 bf16 ulp (2**-7
+    |plain| + 1e-5 x max|plain|), and gives the same bits twice; the FFMA
+    route (tc_route patched to refuse) on the same inputs within the same
+    limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for m, k, n in [(16, 768, 50304), (2048, 768, 50304), (77, 768, 50192)]:
+        q, s = Q.quantize_int8(torch.randn((k, n), generator=gen, device=dev))
+        x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+        assert Q.tc_route(x.dtype, m, k, n)
+        want = Q.int8_matmul_plain(x, q, s).float()
+        limit = 2**-7 * want.abs() + 1e-5 * float(want.abs().max())
+        Q.reset_launch_count()
+        got, again = Q.int8_matmul(x, q, s), Q.int8_matmul(x, q, s)
+        torch.cuda.synchronize()
+        assert Q.launch_count(route="tc") == Q.launch_count() == 2, (m, k, n)
+        assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+        assert torch.equal(got, again), (m, k, n)
+        with monkeypatch.context() as patch:
+            patch.setattr(Q, "tc_route", lambda *a, **kw: False)
+            ffma = Q.int8_matmul(x, q, s)
+            torch.cuda.synchronize()
+        assert Q.launch_count(route="ffma") == 1, (m, k, n)
+        for route, y in (("tc", got), ("ffma", ffma)):
+            assert bool(((y.float() - want).abs() <= limit).all()), (route, m, k, n)
