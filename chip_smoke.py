@@ -15,12 +15,16 @@ no result):
    - fused SGD at ResNet-18's 62 and VGG-11's 34 parameter shapes and
      ragged ones;
    - the 3x3 conv wgrad at ResNet-18's routed (stride 1) and stride-2
-     shapes at batch 256 and at ragged shapes, fp32 and bf16;
+     shapes at batch 256 and at ragged shapes, fp32 and bf16: each call on
+     the route ``ops/fused_conv.py::tc_route`` gives it (the tensor cores;
+     FFMA for rows of 4 or 6) and the tensor cores' calls again on FFMA, each
+     route's share of the limit printed; both routes timed in turn;
 3. main paths, through the port's CLI, part 1 (one rank), batch 256, 24
    steps each, the kernel launch counts zeroed just before each run and
    read just after: ResNet-18 at full width with ``--fast-conv
-   --fused-optimizer`` (this slice's path: 6 wgrad and 62 fused-SGD
-   launches a step), and VGG-11 with ``--fused-optimizer`` (34 a step);
+   --fused-optimizer`` (6 wgrad launches a step, all fp32 stride 1 on the
+   tensor cores, and 62 fused-SGD launches), and VGG-11 with
+   ``--fused-optimizer`` (34 a step);
 4. NCCL paths at a world of one, 5 steps each: VGG-11 part 2b, and
    ResNet-18 part 3 (DDP) with ``--fast-conv``;
 5. bf16: ResNet-18 ``--fast-conv --compute-dtype bfloat16``, 5 steps, the
@@ -88,15 +92,18 @@ no result):
     profile of 20 decode steps;
 16. the fused grouped matmul (dropless MoE's expert FFN) against its plain
     version at the MoE path's prefill (M 4096) and decode (M 32) shapes,
-    with group sizes from a real router's top-2 on random tokens, and at a
-    ragged shape with empty groups, both activations, bf16 and fp32; its
-    times beside its bound, the plain version's and ``torch._grouped_mm``
-    plus bias and gelu; one MoE layer's forward under
-    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation);
+    with group sizes from a real router's top-2 on random tokens, and at
+    ragged shapes with empty groups, both activations, bf16 and fp32, each
+    call on the route ``ops/gmm.py::fused_tc_route`` gives it and bf16 on
+    both routes; both routes' times in turn beside the bound, the plain
+    version's and ``torch._grouped_mm`` plus bias and gelu; one MoE layer's
+    forward under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+    synchronisation);
 17. MoE generation through ``lm_cli --generate 128``: the JAX package's
     MoE LM (``benchmarks/bench_vit_moe.py``: 6 layers, d 512, 8 heads, d_ff
     1024, 8 experts top-2, dropless, vocab 50304, RoPE, bf16), batch 16,
-    prompt 128, greedy, 2 grouped-matmul launches a layer a model call;
+    prompt 128, greedy, 2 grouped-matmul launches a layer a model call
+    (the prompt pass on the tensor cores, decode on the rule's route);
     prefill + 8 decode steps against the full forward; a profile of 5
     decode steps;
 18. the grouped matmul's backward kernels against their plain versions at
@@ -108,21 +115,24 @@ no result):
     in place) and ``tgmm`` (drhs); bf16 ones the tensor-core ``gmm_tc`` and
     ``tgmm_tc`` (an fp32 dout in three bf16 pieces from ``split``, a bf16
     one in one), and the FFMA kernels on the same operands; ``split``
-    bitwise against its plain version; ``colsum`` (dbias) and the forward's
-    ``z``; then the path's four calls on both routes in turn, split and
-    colsum, beside their bounds, the plain versions' and one PyTorch
-    call's times;
+    bitwise against its plain version; ``colsum`` (dbias) and the forward
+    with ``z`` (bf16 on both routes); then the path's four backward calls
+    and the forward with ``z`` on both routes in turn, split and colsum,
+    beside their bounds, the plain versions' and one PyTorch call's
+    times;
 19. MoE training through ``lm_cli``: the JAX package's
     ``moe_e8_top2_dropless_pallas`` (``benchmarks/bench_vit_moe.py``) at
     full width, batch 32 x T 512, flash, bf16, AdamW, 8 steps and one eval
-    batch, every launch count exact (a step: 12 ``gmm_fused`` of which the
-    6 ``w_in`` calls write ``z``, 12 ``gmm_tc``, 12 ``tgmm_tc``, 6
+    batch, every launch count exact (a step: 12 ``gmm_fused`` on the
+    tensor cores, of which the 6 ``w_in`` calls write ``z``, 12 ``gmm_tc``,
+    12 ``tgmm_tc``, 6
     ``split``, 12 ``colsum``, no FFMA ``gmm`` or ``tgmm``, and 18 flash,
     all on the tensor cores);
     its throughput, one step under ``set_sync_debug_mode("error")`` and a
     profile of 2 steps; a kernel-vs-plain trajectory (2 layers at full
-    width, batch 8, fp32, 4 steps); the tensor-core route against the FFMA
-    route (the same, in bf16, with the plain versions as a yardstick); and
+    width, batch 8, fp32, 4 steps); the tensor-core routes against the FFMA
+    routes, forward and backward (the same, in bf16, with the plain
+    versions as a yardstick); and
     3 steps with the capacity-slot ``scatter`` dispatch (no grouped-matmul
     kernel).
 
@@ -221,6 +231,8 @@ MOE_EXPERTS, MOE_TOP_K = 8, 2
 MOE_DECODE_STEPS = 8  # prefill + this many decode steps vs the full forward
 MOE_LOGIT_RTOL = 2e-2  # rms(decode - full) / rms(full), bf16
 GMM_RAGGED = (1000, 100, 70, [0, 300, 0, 250, 0, 0, 450, 0])  # M, K, N, group sizes
+# The same groups at widths of 16-byte rows (the tensor cores take it).
+GMM_RAGGED_TC = (1000, 96, 72, [0, 300, 0, 250, 0, 0, 450, 0])
 # MoE training (the JAX bench's moe_e8_top2_dropless_pallas): batch 32 x T 512,
 # 32768 routed rows a layer. Ragged group sizes for the backward's kernels: an
 # empty group, boundaries off the 64-row tiles, summing to 32768.
@@ -302,6 +314,26 @@ def device_busy_ms(fn, reps: int = 10, match: str | None = None,
     return None
 
 
+def kernel_breakdown(fn, reps: int = 10) -> dict[str, float]:
+    """Device ms per call of ``fn`` by kernel (the name cut at its template
+    arguments), from a torch.profiler trace of ``reps`` calls; empty when
+    the profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in device_kernels(prof):
+        name = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+        name = name.split("<")[0].split("(")[0].split("::")[-1]
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / reps / 1e3
+    return out
+
+
 def summarize_profile(prof, steps: int, label: str, groups: dict[str, tuple[str, ...]]) -> dict:
     """Where ``steps`` steps' device time went in a torch.profiler trace:
     kernel time a step (busy), first kernel start to last kernel end
@@ -328,6 +360,20 @@ def summarize_profile(prof, steps: int, label: str, groups: dict[str, tuple[str,
            / steps / 1e3 for group, keys in groups.items()},
         "top_kernels_ms_per_step": {k[:90]: v / steps / 1e3 for k, v in top},
     }
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """``module``'s attributes set to ``attrs`` for the block, then
+    restored: a route rule or a kernel function swapped for a comparison."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
 
 
 def kernel_modules():
@@ -483,37 +529,75 @@ def fused_sgd_phase(dev: torch.device) -> dict:
 
 
 # ----------------------------------------------------------- conv wgrad
+def wgrad_route(route: str):
+    """conv3x3_wgrad on one route (``tc`` or ``ffma``) whatever the call
+    (the route rule, patched for the block), for a route-vs-route
+    comparison."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
+
+    return patched(C, tc_route=lambda *args, **kw: route == "tc")
+
+
 def wgrad_phase(dev: torch.device) -> list[dict]:
+    """The kernels against the plain version at ResNet-18's routed (stride
+    1) and stride-2 shapes at batch 256 and at ragged ones, fp32 and bf16:
+    each call on the route ``tc_route`` gives it (6 x 6 images and the 4 x 4
+    outputs of stride 2 take FFMA) and every call it gives the tensor cores
+    again on the FFMA route,
+    each call's route shown by its launches, within WGRAD_RTOL x max|plain|
+    (each route's share of that limit printed); two tensor-core runs
+    bitwise equal. Then the times of both routes in turn at the path's
+    shapes (tensor cores, FFMA, FFMA, tensor cores: the mean of the two
+    medians), fp32 and bf16, beside the bounds, the plain version's and
+    cuDNN's. Returns the FFMA and tensor-core records of each stride."""
     import torch.nn.functional as F
 
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _build
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
 
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [(s, shape, k) for s in (1, 2) for shape, k in WGRAD_RAGGED]
     cases += [(1, shape, k) for shape, k in WGRAD_S1] + [(2, shape, k) for shape, k in WGRAD_S2]
-    max_err = {1: 0.0, 2: 0.0}
-    max_rel = {1: 0.0, 2: 0.0}
+    keys = [(r, s) for r in C.ROUTES for s in (1, 2)]
+    max_err = dict.fromkeys(keys, 0.0)
+    share = {(r, s, d): 0.0 for r, s in keys for d in ("float32", "bfloat16")}
     for dtype in (torch.float32, torch.bfloat16):
         for stride, shape, k in cases:
             b, c, h, w = shape
             x = randn(gen, *shape, dtype=dtype)
             g = randn(gen, b, k, h // stride, w // stride, dtype=dtype)
-            got = C.conv3x3_wgrad(x, g, stride)
             want = C.conv3x3_wgrad_plain(x, g, stride)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
             scale = float(want.abs().max())
-            if not (math.isfinite(err) and err <= WGRAD_RTOL * scale):
-                raise RuntimeError(
-                    f"conv3x3_wgrad kernel disagrees with its plain version: stride "
-                    f"{stride} x {shape} K {k} {dtype}: max abs err {err}, max|plain| {scale}"
-                )
-            max_err[stride] = max(max_err[stride], err)
-            max_rel[stride] = max(max_rel[stride], err / scale)
-    for s in (1, 2):
-        print(f"conv3x3_wgrad stride {s}: {sum(c[0] == s for c in cases)} shapes x "
-              f"(fp32, bf16) agree with the plain version, max abs err {max_err[s]}, "
-              f"max abs err / max|plain| {max_rel[s]:.3e} (tolerance {WGRAD_RTOL})")
+            rule = "tc" if C.tc_route(dtype, shape, stride) else "ffma"
+            for route in (rule, "ffma") if rule == "tc" else (rule,):
+                with wgrad_route(route) if route != rule else contextlib.nullcontext():
+                    C.reset_launch_count()
+                    got = C.conv3x3_wgrad(x, g, stride)
+                    torch.cuda.synchronize()
+                    if C.launch_count() != 1 or C.launch_count(route=route) != 1:
+                        raise RuntimeError(f"conv3x3_wgrad {shape} stride {stride}: launches "
+                                           f"{C.launch_count()}, expected one on {route}")
+                    if route == "tc" and not torch.equal(got, C.conv3x3_wgrad(x, g, stride)):
+                        raise RuntimeError(f"conv3x3_wgrad tc {shape} stride {stride} {dtype} is "
+                                           f"not bitwise repeatable")
+                err = float((got - want).abs().max())
+                if not (math.isfinite(err) and err <= WGRAD_RTOL * scale):
+                    raise RuntimeError(
+                        f"conv3x3_wgrad {route} kernel disagrees with its plain version: stride "
+                        f"{stride} x {shape} K {k} {dtype}: max abs err {err}, max|plain| "
+                        f"{scale}")
+                d = str(dtype)[6:]
+                max_err[(route, stride)] = max(max_err[(route, stride)], err)
+                share[(route, stride, d)] = max(share[(route, stride, d)],
+                                                err / (WGRAD_RTOL * scale))
+            del x, g, want, got
+    for (route, s), e in max_err.items():
+        print(f"conv3x3_wgrad {route} stride {s}: max abs err {e}, share of the limit "
+              f"({WGRAD_RTOL} x max|plain|) fp32 {share[(route, s, 'float32')]:.4f}, bf16 "
+              f"{share[(route, s, 'bfloat16')]:.4f}")
+    print(f"conv3x3_wgrad: {len(cases)} shapes x (fp32, bf16) agree with the plain version on "
+          f"the rule's route and, where that is the tensor cores, on FFMA too; the rule gives the "
+          f"tensor cores {[c[1:] for c in cases if C.tc_route(torch.float32, c[1], c[0])]}")
 
     bw, flops = card_rates(torch.cuda.get_device_name(0))
     per_shape = {1: [], 2: []}
@@ -527,43 +611,68 @@ def wgrad_phase(dev: torch.device) -> list[dict]:
             xb, gb = x.bfloat16(), g.bfloat16()
             # The library's wgrad: cuDNN, stride-2 on the input padded
             # beforehand (the pad is not in its time), stride 1 padding 1.
-            xl, pad = (x, 1) if stride == 1 else (F.pad(x, (0, 1, 0, 1)), 0)
+            pad = (0, 1, 0, 1)
+            xl, p = (x, 1) if stride == 1 else (F.pad(x, pad), 0)
+            xlb = xb if stride == 1 else F.pad(xb, pad)
 
-            def library():
-                return torch.nn.grad.conv2d_weight(xl, (k, c, 3, 3), g, stride=stride, padding=pad)
+            def library(xl=xl, g=g):
+                return torch.nn.grad.conv2d_weight(xl, (k, c, 3, 3), g, stride=stride, padding=p)
 
-            t = {
-                "shape": [list(shape), k],
-                "ms": median_ms(lambda: C.conv3x3_wgrad(x, g, stride)),
-                "device_ms": device_busy_ms(lambda: C.conv3x3_wgrad(x, g, stride)),
-                "bf16_ms": median_ms(lambda: C.conv3x3_wgrad(xb, gb, stride)),
-                "plain_ms": median_ms(lambda: C.conv3x3_wgrad_plain(x, g, stride)),
-                "library_ms": median_ms(library),
-            }
+            t = {"shape": [list(shape), k]}
+            for label, (xx, gg) in (("fp32", (x, g)), ("bf16", (xb, gb))):
+                runs = {}
+                for turn in ("tc", "ffma", "ffma", "tc"):
+                    with wgrad_route(turn):
+                        runs.setdefault(turn, []).append(
+                            median_ms(lambda: C.conv3x3_wgrad(xx, gg, stride)))
+                        if f"{label}_{turn}_device_ms" not in t:
+                            t[f"{label}_{turn}_device_ms"] = device_busy_ms(
+                                lambda: C.conv3x3_wgrad(xx, gg, stride))
+                for turn, v in runs.items():
+                    t[f"{label}_{turn}_ms"] = statistics.mean(v)
+                    t[f"{label}_{turn}_ms_runs"] = v
+                # Where a tensor-core call's device time goes: the pre-passes
+                # (x's tap planes, g's pieces), the products, the slices' sum.
+                t[f"{label}_tc_kernels_ms"] = kernel_breakdown(
+                    lambda: C.conv3x3_wgrad(xx, gg, stride))
+            t["plain_ms"] = median_ms(lambda: C.conv3x3_wgrad_plain(x, g, stride))
+            t["library_ms"] = median_ms(library)
+            t["library_bf16_ms"] = median_ms(lambda: library(xlb, gb))
             torch.backends.cudnn.allow_tf32 = False
             try:
                 t["library_fp32_ms"] = median_ms(library)
             finally:
                 torch.backends.cudnn.allow_tf32 = tf32
             flop = 2.0 * k * 9 * c * b * ho * wo
-            nbytes = 4.0 * (x.numel() + g.numel() + k * c * 9)
-            bytes_ms, ops_ms = nbytes / bw * 1e3, flop / flops * 1e3
-            t.update(
-                gflop=flop / 1e9, mbytes=nbytes / 1e6,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                tf32_bound_ms=flop / TF32_FLOPS * 1e3,
-            )
-            t["fp32_peak_share"] = t["bound_ms"] / t["ms"]
+            out_bytes = 4.0 * k * c * 9
+            for label, nbytes, tc_passes in (("fp32", 4.0 * (x.numel() + g.numel()) + out_bytes, 3),
+                                             ("bf16", 2.0 * (x.numel() + g.numel()) + out_bytes, 1)):
+                bytes_ms = nbytes / bw * 1e3
+                for route, ops_ms in (("ffma", flop / flops * 1e3),
+                                      ("tc", tc_passes * flop / BF16_FLOPS * 1e3)):
+                    key = f"{label}_{route}"
+                    t[f"{key}_bound_ms"] = max(bytes_ms, ops_ms)
+                    t[f"{key}_bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+                    t[f"{key}_bound_share"] = t[f"{key}_bound_ms"] / t[f"{key}_ms"]
+            t.update(gflop=flop / 1e9, tf32_bound_ms=flop / TF32_FLOPS * 1e3)
             per_shape[stride].append(t)
-            print(f"conv3x3_wgrad stride {stride} x {list(shape)} K {k}: {flop / 1e9:.2f} "
-                  f"GFLOP, {nbytes / 1e6:.1f} MB; kernel {t['ms']:.4f} ms (device "
-                  f"{t['device_ms']} ms, bf16 {t['bf16_ms']:.4f} ms), plain "
-                  f"{t['plain_ms']:.4f} ms, cuDNN wgrad {t['library_ms']:.4f} ms (TF32) "
-                  f"{t['library_fp32_ms']:.4f} ms (fp32), bound {t['bound_ms']:.4f} ms "
-                  f"({t['bound_by']}; {100 * t['fp32_peak_share']:.1f} % of it), TF32 "
-                  f"bound {t['tf32_bound_ms']:.4f} ms")
+            print(f"conv3x3_wgrad stride {stride} x {list(shape)} K {k}: {flop / 1e9:.2f} GFLOP; "
+                  f"fp32: tensor cores {t['fp32_tc_ms']:.4f} ms (runs {t['fp32_tc_ms_runs']}, "
+                  f"device {t['fp32_tc_device_ms']} ms; bound {t['fp32_tc_bound_ms']:.4f}, "
+                  f"{t['fp32_tc_bound_by']}, three bf16 passes: "
+                  f"{100 * t['fp32_tc_bound_share']:.1f} %), FFMA {t['fp32_ffma_ms']:.4f} ms (runs "
+                  f"{t['fp32_ffma_ms_runs']}, device {t['fp32_ffma_device_ms']} ms; bound "
+                  f"{t['fp32_ffma_bound_ms']:.4f}: {100 * t['fp32_ffma_bound_share']:.1f} %); "
+                  f"bf16: tensor cores {t['bf16_tc_ms']:.4f} ms (device {t['bf16_tc_device_ms']} "
+                  f"ms; bound {t['bf16_tc_bound_ms']:.4f}: {100 * t['bf16_tc_bound_share']:.1f} "
+                  f"%), FFMA {t['bf16_ffma_ms']:.4f} ms; plain {t['plain_ms']:.4f} ms; cuDNN wgrad "
+                  f"{t['library_ms']:.4f} ms (TF32), {t['library_fp32_ms']:.4f} ms (fp32), "
+                  f"{t['library_bf16_ms']:.4f} ms (bf16); TF32 bound {t['tf32_bound_ms']:.4f} ms; "
+                  f"tensor-core device ms by kernel: fp32 {t['fp32_tc_kernels_ms']}, bf16 "
+                  f"{t['bf16_tc_kernels_ms']}")
+            del x, g, xb, gb, xl, xlb
 
+    ptxas = _build.ptxas_report(C.TC_SOURCE)
     records = []
     for stride, times, work, reps in (
         (1, per_shape[1], "3 calls at each of ResNet-18's two routed shapes "
@@ -571,33 +680,47 @@ def wgrad_phase(dev: torch.device) -> list[dict]:
         (2, per_shape[2], "one call at each of ResNet-18's two stride-2 3x3 "
          "shapes (not on the main path: routing takes stride 1 only)", 1),
     ):
-        def total(key):
-            vals = [t[key] for t in times]
-            return None if None in vals else reps * sum(vals)
+        for route in ("ffma", "tc"):
+            def total(key, times=times):
+                vals = [t[key] for t in times]
+                return None if None in vals else reps * sum(vals)
 
-        bound = total("bound_ms")
-        records.append({
-            "name": f"conv3x3_wgrad_s{stride}",
-            "route": "cuda",
-            "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/fused_conv.cu",
-            "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/fused_conv.py:"
-                        + ("70" if stride == 1 else "104"),
-            "tpu_kernel": f"ops/fused_conv.py::_wgrad_kernel_s{stride}",
-            "launches": None,  # filled in from the main path's run
-            "max_abs_err": max_err[stride],
-            "max_rel_err": max_rel[stride],
-            "ms": total("ms"),
-            "device_ms": total("device_ms"),
-            "bf16_ms": total("bf16_ms"),
-            "plain_ms": total("plain_ms"),
-            "bound_ms": bound,
-            "bound_by": "operations" if all(t["bound_by"] == "operations" for t in times) else "bytes",
-            "tf32_bound_ms": total("tf32_bound_ms"),
-            "library_ms": total("library_ms"),
-            "library_fp32_ms": total("library_fp32_ms"),
-            "work": work,
-            "shapes": times,
-        })
+            key = f"fp32_{route}"
+            rec = {
+                "name": f"conv3x3_wgrad_s{stride}" + ("_tc" if route == "tc" else ""),
+                "route": "cuda",
+                "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/"
+                          + (C.TC_SOURCE if route == "tc" else C.SOURCE),
+                "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/fused_conv.py:"
+                            + ("70" if stride == 1 else "104"),
+                "tpu_kernel": f"ops/fused_conv.py::_wgrad_kernel_s{stride} ("
+                              + ("tensor-core route: fp32 as two bf16 pieces, bf16 as one"
+                                 if route == "tc" else "FFMA route") + ")",
+                "launches": None,  # filled in from the main path's run
+                "max_abs_err": max_err[(route, stride)],
+                "share_of_limit": share[(route, stride, "float32")],
+                "share_of_limit_bf16": share[(route, stride, "bfloat16")],
+                "ms": total(f"{key}_ms"),
+                "device_ms": total(f"{key}_device_ms"),
+                "bf16_ms": total(f"bf16_{route}_ms"),
+                "bf16_device_ms": total(f"bf16_{route}_device_ms"),
+                "plain_ms": total("plain_ms"),
+                "bound_ms": total(f"{key}_bound_ms"),
+                "bound_by": "operations" if all(t[f"{key}_bound_by"] == "operations"
+                                                for t in times) else "bytes",
+                "bf16_bound_ms": total(f"bf16_{route}_bound_ms"),
+                "tf32_bound_ms": total("tf32_bound_ms"),
+                "library_ms": total("library_ms"),
+                "library": "torch.nn.grad.conv2d_weight (cuDNN, TF32)",
+                "library_fp32_ms": total("library_fp32_ms"),
+                "library_bf16_ms": total("library_bf16_ms"),
+                "work": work,
+                "shapes": times,
+            }
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            if route == "tc":
+                rec["ptxas"] = {f"P={p}": ptxas.get(f"wgrad_tc_kernel<{p}>") for p in (1, 2)}
+            records.append(rec)
     return records
 
 
@@ -619,9 +742,10 @@ def counted_run(argv: list[str]) -> tuple[dict, dict]:
     summary, counts = counted(lambda: run_cli(argv))
     counts = {
         "fused_sgd": counts["fused_sgd"],
-        "conv3x3_wgrad_s1": C.launch_count(stride=1),
-        "conv3x3_wgrad_s2": C.launch_count(stride=2),
+        **{f"conv3x3_wgrad_s{s}" + ("_tc" if r == "tc" else ""): C.launch_count(stride=s, route=r)
+           for s in (1, 2) for r in C.ROUTES},
         "conv3x3_wgrad_bf16": C.launch_count(dtype=torch.bfloat16),
+        "conv3x3_wgrad_bf16_tc": C.launch_count(dtype=torch.bfloat16, route="tc"),
     }
     return summary, counts
 
@@ -660,7 +784,8 @@ def nccl_phases() -> None:
     if summary["backend"] != "nccl":
         raise RuntimeError(f"part 3 ran on backend {summary['backend']!r}, not nccl")
     check_run("DDP path resnet18 part 3", summary, counts, NCCL_STEPS,
-              {"conv3x3_wgrad_s1": RESNET18_ROUTED * NCCL_STEPS, "conv3x3_wgrad_s2": 0})
+              {"conv3x3_wgrad_s1_tc": RESNET18_ROUTED * NCCL_STEPS, "conv3x3_wgrad_s1": 0,
+               "conv3x3_wgrad_s2": 0, "conv3x3_wgrad_s2_tc": 0})
 
 
 def bf16_phase() -> None:
@@ -668,7 +793,9 @@ def bf16_phase() -> None:
                     "--compute-dtype", "bfloat16")
     summary, counts = counted_run(argv)
     check_run("bf16 path resnet18 part 1", summary, counts, BF16_STEPS, {
-        "conv3x3_wgrad_s1": RESNET18_ROUTED * BF16_STEPS,
+        "conv3x3_wgrad_s1_tc": RESNET18_ROUTED * BF16_STEPS,
+        "conv3x3_wgrad_s1": 0,
+        "conv3x3_wgrad_bf16_tc": RESNET18_ROUTED * BF16_STEPS,
         "conv3x3_wgrad_bf16": RESNET18_ROUTED * BF16_STEPS,
         "fused_sgd": RESNET18_TENSORS * BF16_STEPS,
     })
@@ -751,7 +878,9 @@ def profile_phase(model: str, **cfg_kw) -> dict:
     wall = time.perf_counter() - t0
     steps = len(batches) - 3
     summary = summarize_profile(prof, steps, f"profile {model}", {
-        "fused_sgd": ("fused_sgd",), "wgrad_kernel": ("wgrad_kernel", "sum_splits_kernel")})
+        "fused_sgd": ("fused_sgd",), "wgrad_kernel": ("wgrad_kernel", "sum_splits_kernel"),
+        "wgrad_tc": ("wgrad_tc_kernel", "wgrad_planes_kernel", "wgrad_split_kernel",
+                     "wgrad_tc_sum_kernel")})
     if not summary:
         return {}
     out = {"model": model, **cfg_kw, **summary, "wall_ms_per_step_profiled": wall / steps * 1e3}
@@ -760,35 +889,23 @@ def profile_phase(model: str, **cfg_kw) -> dict:
 
 
 # ---------------------------------------------------------- flash attention
-@contextlib.contextmanager
 def flash_ffma_route():
     """The flash forward and backward on the FFMA kernels whatever the
     inputs (the route rule, patched for the block to refuse the tensor
     cores), for a route-vs-route comparison."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
 
-    saved = A.tc_route
-    A.tc_route = lambda *args, **kw: False
-    try:
-        yield
-    finally:
-        A.tc_route = saved
+    return patched(A, tc_route=lambda *args, **kw: False)
 
 
-@contextlib.contextmanager
 def plain_flash():
     """The flash autograd Function through the plain versions of the
     forward, dq and dk/dv on CUDA tensors (the module functions it calls,
     patched for the block), as a trajectory's yardstick."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
 
-    saved = A.flash_forward_lse, A.flash_dq, A.flash_dkv
-    A.flash_forward_lse, A.flash_dq, A.flash_dkv = (
-        A.flash_forward_lse_plain, A.flash_dq_plain, A.flash_dkv_plain)
-    try:
-        yield
-    finally:
-        A.flash_forward_lse, A.flash_dq, A.flash_dkv = saved
+    return patched(A, flash_forward_lse=A.flash_forward_lse_plain, flash_dq=A.flash_dq_plain,
+                   flash_dkv=A.flash_dkv_plain)
 
 
 def flash_phase(dev: torch.device) -> list[dict]:
@@ -1536,19 +1653,13 @@ def paged_phase(dev: torch.device) -> dict:
 
 
 # ---------------------------------------------------------- int8 weight matmul
-@contextlib.contextmanager
 def int8_route(route: str):
     """The int8 matmul on one route (``tc`` or ``ffma``) whatever the call
     (the route rule, patched for the block), for a route-vs-route
     comparison."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
 
-    saved = QT.tc_route
-    QT.tc_route = lambda *args, **kw: route == "tc"
-    try:
-        yield
-    finally:
-        QT.tc_route = saved
+    return patched(QT, tc_route=lambda *args, **kw: route == "tc")
 
 
 def int8_matmul_phase(dev: torch.device) -> list[dict]:
@@ -1973,14 +2084,30 @@ def gmm_library(lhs, rhs, bias, group_sizes, act: str):
     return None, reason
 
 
-def gmm_phase(dev: torch.device) -> dict:
-    """The kernel against its plain version at the MoE path's shapes (group
-    sizes from the router's top-2 on random tokens) and a ragged one, both
-    activations, bf16 and fp32: fp32 within 1e-5 x max|plain| (the sums in
-    another order), bf16 within one ulp of each plain value plus 1e-5 x
-    max|plain|. Then the times of the main path's bf16 calls, and one MoE
-    layer's forward with host synchronisation made an error."""
+def gmm_fused_route(route: str):
+    """The grouped matmul's forward on one route (``tc`` or ``ffma``)
+    whatever the call (``fused_tc_route``, patched for the block)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
+
+    return patched(G, fused_tc_route=lambda *args, **kw: route == "tc")
+
+
+def gmm_phase(dev: torch.device) -> list[dict]:
+    """The forward's kernels against their plain version at the MoE path's
+    shapes (group sizes from the router's top-2 on random tokens) and
+    ragged ones, both activations, bf16 and fp32: each call on the route
+    ``fused_tc_route`` gives it (fp32 and widths off 16-byte rows take
+    FFMA), and every bf16 call the tensor cores can take on both routes,
+    each call's route shown by its launches; fp32 within 1e-5 x max|plain|
+    (the sums in another order), bf16 within one ulp of each plain value
+    plus 1e-5 x max|plain|; two tensor-core runs bitwise equal. Then the
+    times of both routes in turn (tensor cores, FFMA, FFMA, tensor cores:
+    the mean of the two medians) at prefill, decode and the ragged shape;
+    the tensor cores must be the faster at prefill. Then one MoE layer's
+    forward with host synchronisation made an error. Returns the FFMA and
+    tensor-core records."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.models.moe import MoEFFN
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _build
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
 
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -1998,51 +2125,83 @@ def gmm_phase(dev: torch.device) -> dict:
             cases[f"{label} w_in gelu"] = (xs, w_in, layer.b_in, sizes, "gelu")
             cases[f"{label} w_out"] = (h, w_out, layer.b_out, sizes, "none")
             print(f"gmm {label}: {rows} tokens, top-2 group sizes {sizes.tolist()}")
-        m, k, n, ragged = GMM_RAGGED
-        args = (randn(gen, m, k), randn(gen, len(ragged), k, n) / k**0.5,
-                randn(gen, len(ragged), n), torch.tensor(ragged, device=dev))
-        cases["ragged gelu"] = (*args, "gelu")
-        cases["ragged"] = (*args, "none")
+        for name, (m, k, n, ragged) in (("ragged", GMM_RAGGED), ("ragged_tc", GMM_RAGGED_TC)):
+            args = (randn(gen, m, k), randn(gen, len(ragged), k, n) / k**0.5,
+                    randn(gen, len(ragged), n), torch.tensor(ragged, device=dev))
+            cases[f"{name} gelu"] = (*args, "gelu")
+            cases[name] = (*args, "none")
 
-    err, worst = 0.0, 0.0
+    err = {"ffma": 0.0, "tc": 0.0}
+    worst = {"ffma": 0.0, "tc": 0.0}
+    rules = {}
     for label, (lhs, rhs, bias, sizes, act) in cases.items():
         for dtype in (torch.bfloat16, torch.float32):
             a, b = lhs.to(dtype), rhs.to(dtype)
-            got = G.grouped_matmul_fused(a, b, bias, sizes, activation=act)
+            shape = (a.shape[0], a.shape[1], b.shape[2])
+            rule = "tc" if G.fused_tc_route(dtype, shape) else "ffma"
+            rules[f"{label} {str(dtype)[6:]}"] = rule
+            eligible = G.fused_tc_route(dtype, (max(shape[0], G.FUSED_TC_MIN_ROWS), *shape[1:]))
             want = G.grouped_matmul_fused_plain(a, b, bias, sizes, activation=act)
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
             top = float(want.float().abs().max())
-            if dtype == torch.float32:
-                share = float(diff.max()) / (1e-5 * top)
-            else:
-                share = float((diff / (2**-7 * want.float().abs() + 1e-5 * top)).max())
-            if got.dtype != dtype or not (math.isfinite(share) and share <= 1.0):
-                raise RuntimeError(f"gmm_fused kernel disagrees with its plain version at "
-                                   f"{label} {dtype} {list(a.shape)}x{list(b.shape)}: max abs "
-                                   f"err {float(diff.max())}, {share} of the limit")
-            err, worst = max(err, float(diff.max())), max(worst, share)
-            print(f"gmm_fused {label} {dtype} [{a.shape[0]}, {a.shape[1]}] x "
-                  f"{list(b.shape)}: max abs err {float(diff.max())} ({share:.3f} of the limit)")
-    print(f"gmm_fused: {len(cases)} cases x (bf16, fp32) agree with the plain version, max abs "
-          f"err {err}, largest share of the limit {worst:.3f} (limit: 1e-5 x max|plain| fp32; "
-          f"one bf16 ulp + 1e-5 x max|plain| bf16)")
+            for route in ("tc", "ffma") if eligible else ("ffma",):
+                with gmm_fused_route(route) if route != rule else contextlib.nullcontext():
+                    G.reset_launch_count()
+                    got = G.grouped_matmul_fused(a, b, bias, sizes, activation=act)
+                    torch.cuda.synchronize()
+                    name = "fused_tc" if route == "tc" else "fused"
+                    if G.launch_count() != 1 or G.launch_count(name) != 1:
+                        raise RuntimeError(f"gmm_fused {label} {dtype}: launches "
+                                           f"{ {k: G.launch_count(k) for k in G.KERNELS} }, "
+                                           f"expected one {name}")
+                    if route == "tc" and not torch.equal(
+                            got, G.grouped_matmul_fused(a, b, bias, sizes, activation=act)):
+                        raise RuntimeError(f"gmm_fused_tc {label} is not bitwise repeatable")
+                diff = (got.float() - want.float()).abs()
+                if dtype == torch.float32:
+                    share = float(diff.max()) / (1e-5 * top)
+                else:
+                    share = float((diff / (2**-7 * want.float().abs() + 1e-5 * top)).max())
+                if got.dtype != dtype or not (math.isfinite(share) and share <= 1.0):
+                    raise RuntimeError(f"gmm_fused {route} kernel disagrees with its plain version "
+                                       f"at {label} {dtype} {list(a.shape)}x{list(b.shape)}: max "
+                                       f"abs err {float(diff.max())}, {share} of the limit")
+                err[route] = max(err[route], float(diff.max()))
+                worst[route] = max(worst[route], share)
+                print(f"gmm_fused {route} {label} {dtype} [{a.shape[0]}, {a.shape[1]}] x "
+                      f"{list(b.shape)}: max abs err {float(diff.max())} ({share:.3f} of the "
+                      f"limit)")
+    print(f"gmm_fused: {len(cases)} cases x (bf16, fp32) agree with the plain version on the "
+          f"rule's route and bf16 on both, max abs err FFMA {err['ffma']}, tensor cores "
+          f"{err['tc']}, largest share of the limit FFMA {worst['ffma']:.3f}, tensor cores "
+          f"{worst['tc']:.3f} (limit: 1e-5 x max|plain| fp32; one bf16 ulp + 1e-5 x max|plain| "
+          f"bf16); the rule's routes {rules}")
 
     bw, fp32_flops = card_rates(torch.cuda.get_device_name(0))
     timed = {}
-    for label in ("prefill w_in gelu", "prefill w_out", "decode w_in gelu", "decode w_out"):
+    for label in ("prefill w_in gelu", "prefill w_out", "decode w_in gelu", "decode w_out",
+                  "ragged_tc gelu"):
         lhs, rhs, bias, sizes, act = cases[label]
+        lhs, rhs = lhs.bfloat16(), rhs.bfloat16()
         (mm, kk), nn_ = lhs.shape, rhs.shape[2]
         hit = int((sizes > 0).sum())  # experts with rows: their weights are read
-        nbytes = 2.0 * mm * kk + 2.0 * hit * kk * nn_ + 4.0 * hit * nn_ + 4.0 * e + 2.0 * mm * nn_
+        nbytes = (2.0 * mm * kk + 2.0 * hit * kk * nn_ + 4.0 * hit * nn_ + 4.0 * len(sizes)
+                  + 2.0 * mm * nn_)
         flop = 2.0 * mm * kk * nn_
         bytes_ms, ops_ms = nbytes / bw * 1e3, flop / BF16_FLOPS * 1e3
         library, reason = gmm_library(lhs, rhs, bias, sizes, act)
         kernel = lambda: G.grouped_matmul_fused(lhs, rhs, bias, sizes, activation=act)  # noqa: E731
+        runs, device = {}, {}
+        for turn in ("tc", "ffma", "ffma", "tc"):
+            with gmm_fused_route(turn):
+                runs.setdefault(turn, []).append(median_ms(kernel))
+                if turn not in device:
+                    device[turn] = device_busy_ms(
+                        kernel, match="gmm_fused_tc_kernel" if turn == "tc" else "gmm_fused_kernel")
         t = {
             "shape": [mm, kk, nn_], "groups_hit": hit, "activation": act, "dtype": "bfloat16",
-            "ms": median_ms(kernel),
-            "device_ms": device_busy_ms(kernel, match="gmm_fused_kernel"),
+            "rule": "tc" if G.fused_tc_route(torch.bfloat16, (mm, kk, nn_)) else "ffma",
+            "ms": {r: statistics.mean(v) for r, v in runs.items()}, "ms_runs": runs,
+            "device_ms": device,
             "fp32_ms": median_ms(lambda: G.grouped_matmul_fused(
                 lhs.float(), rhs.float(), bias, sizes, activation=act)),
             "plain_ms": median_ms(lambda: G.grouped_matmul_fused_plain(
@@ -2056,14 +2215,27 @@ def gmm_phase(dev: torch.device) -> dict:
             "fp32_ffma_bound_ms": flop / fp32_flops * 1e3,
             "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
         }
-        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["bound_share"] = {r: t["bound_ms"] / v for r, v in t["ms"].items()}
         timed[label] = t
-        print(f"gmm_fused {label} [{mm}, {kk}] x [{e}, {kk}, {nn_}] bf16 ({hit} experts hit): "
-              f"{flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; kernel {t['ms']:.4f} ms (device "
-              f"{t['device_ms']} ms; fp32 {t['fp32_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+        print(f"gmm_fused {label} [{mm}, {kk}] x [{len(sizes)}, {kk}, {nn_}] bf16 ({hit} experts "
+              f"hit; the rule takes {t['rule']}): {flop / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; "
+              f"tensor cores {t['ms']['tc']:.4f} ms (runs {runs['tc']}, device {device['tc']} "
+              f"ms), FFMA {t['ms']['ffma']:.4f} ms (runs {runs['ffma']}, device "
+              f"{device['ffma']} ms; fp32 {t['fp32_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
               f"{t['library']} {t['library_ms']} ms (device {t['library_device_ms']} ms), bound "
-              f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {100 * t['bound_share']:.2f} % of it), "
-              f"FP32 FFMA floor {t['fp32_ffma_bound_ms']:.4f} ms")
+              f"{t['bound_ms']:.5f} ms ({t['bound_by']}; tensor cores "
+              f"{100 * t['bound_share']['tc']:.2f} %, FFMA {100 * t['bound_share']['ffma']:.2f} "
+              f"% of it), FP32 FFMA floor {t['fp32_ffma_bound_ms']:.4f} ms")
+    for phase in ("prefill", "decode"):
+        tc_ms, ffma_ms = (sum(timed[f"{phase} {c}"]["ms"][r] for c in ("w_in gelu", "w_out"))
+                          for r in ("tc", "ffma"))
+        print(f"gmm_fused {phase} layer: tensor cores {tc_ms:.4f} ms, FFMA {ffma_ms:.4f} ms "
+              f"({ffma_ms / tc_ms:.2f}x); the rule takes "
+              f"{timed[f'{phase} w_in gelu']['rule']} at {timed[f'{phase} w_in gelu']['shape'][0]} "
+              f"rows (FUSED_TC_MIN_ROWS {G.FUSED_TC_MIN_ROWS})")
+        if phase == "prefill" and not tc_ms < ffma_ms:
+            raise RuntimeError(f"gmm_fused prefill: the tensor-core kernel ({tc_ms} ms) is not "
+                               f"faster than the FFMA kernel ({ffma_ms} ms)")
 
     # One MoE layer's forward with every host synchronisation an error.
     for label, t in (("prefill", GEN_PROMPT), ("decode", 1)):
@@ -2081,37 +2253,53 @@ def gmm_phase(dev: torch.device) -> dict:
         print(f"MoE layer forward at {label} ([{GEN_BATCH}, {t}, {d}] bf16) ran under "
               f"torch.cuda.set_sync_debug_mode('error'): no host synchronisation")
 
-    def layer_total(key, phase):
-        vals = [timed[f"{phase} w_in gelu"][key], timed[f"{phase} w_out"][key]]
+    def layer_total(key, phase, route):
+        vals = [timed[f"{phase} {c}"][key] for c in ("w_in gelu", "w_out")]
+        vals = [v[route] if isinstance(v, dict) else v for v in vals]
         return None if None in vals else sum(vals)
 
-    return {
-        "name": "gmm_fused",
-        "route": "cuda",
-        "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/gmm.cu",
-        "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/gmm.py:278",
-        "tpu_kernel": "ops/gmm.py::_gmm_fused_kernel (the undifferentiated forward, without "
-                      "with_z; with it: the gmm_fused_with_z record)",
-        "launches": None,  # filled in from the MoE generation path's run
-        "max_abs_err": err,
-        "share_of_limit": worst,
-        **{key: layer_total(key, "decode") for key in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "fp32_ffma_bound_ms")},
-        "bound_by": "bytes" if all(timed[f"decode {c}"]["bound_by"] == "bytes"
-                                   for c in ("w_in gelu", "w_out")) else "operations",
-        "library": timed["decode w_in gelu"]["library"],
-        "work": "one MoE layer's two calls at a decode step (16 tokens, top-2)",
-        "prefill_layer": {key: layer_total(key, "prefill") for key in (
-            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "fp32_ffma_bound_ms")},
-        "calls": timed,
-    }
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms", "fp32_ffma_bound_ms")
+    ptxas = _build.ptxas_report(G.TC_SOURCE)
+    records = []
+    for route in ("ffma", "tc"):
+        rec = {
+            "name": "gmm_fused" + ("_tc" if route == "tc" else ""),
+            "route": "cuda",
+            "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/"
+                      + (G.TC_SOURCE if route == "tc" else G.SOURCE),
+            "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/gmm.py:278",
+            "tpu_kernel": "ops/gmm.py::_gmm_fused_kernel (the undifferentiated forward, without "
+                          "with_z; with it: the gmm_fused_with_z records), "
+                          + ("tensor-core route" if route == "tc" else "FFMA route"),
+            "launches": None,  # filled in from the MoE generation path's run
+            "max_abs_err": err[route],
+            "share_of_limit": worst[route],
+            **{key: layer_total(key, "prefill", route) for key in keys},
+            "bound_by": "bytes" if all(timed[f"prefill {c}"]["bound_by"] == "bytes"
+                                       for c in ("w_in gelu", "w_out")) else "operations",
+            "library": timed["prefill w_in gelu"]["library"],
+            "work": "one MoE layer's two calls at a prefill (16 x 128 tokens, top-2: 4,096 rows)",
+            "decode_layer": {key: layer_total(key, "decode", route) for key in keys},
+            "ragged_tc_gelu": {key: (v[route] if isinstance(v, dict) and route in v else v)
+                               for key, v in timed["ragged_tc gelu"].items() if key != "ms_runs"},
+            "rule": rules,
+            "calls": timed,
+        }
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        if route == "tc":
+            rec["ptxas"] = {name: usage for name, usage in ptxas.items()
+                            if name.startswith("gmm_fused_tc_kernel")}
+        records.append(rec)
+    return records
 
 
 # ------------------------------------------------------------ MoE generation
-def moe_generation_phase() -> int:
+def moe_generation_phase() -> dict:
     """``lm_cli --generate 128`` on the MoE LM (the main path); returns its
-    gmm_fused launches. Then prefill + MOE_DECODE_STEPS decode steps
-    against the full forward, and a profile of 5 decode steps."""
+    grouped-matmul launches by kernel: the prompt pass (4,096 routed rows)
+    on the tensor cores, each decode step (32 rows) on the route
+    ``fused_tc_route`` gives it. Then prefill + MOE_DECODE_STEPS decode
+    steps against the full forward, and a profile of 5 decode steps."""
     from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
 
@@ -2132,18 +2320,23 @@ def moe_generation_phase() -> int:
     vocab = MOE_WIDTH["vocab_size"]
     if toks.shape != (GEN_BATCH, GEN_NEW) or not bool(((toks >= 0) & (toks < vocab)).all()):
         raise RuntimeError(f"MoE generation: tokens of shape {tuple(toks.shape)} out of range")
-    want = 2 * MOE_WIDTH["num_layers"] * GEN_NEW  # w_in and w_out a layer, a model call
+    calls = 2 * MOE_WIDTH["num_layers"]  # w_in and w_out a layer, a model call
+    decode_tc = G.fused_tc_route(torch.bfloat16, (MOE_TOP_K * GEN_BATCH, MOE_WIDTH["d_model"],
+                                                  MOE_WIDTH["d_ff"]))
+    decode = calls * (GEN_NEW - 1)
+    want = {"fused_tc": calls + (decode if decode_tc else 0), "fused": 0 if decode_tc else decode}
     per_kernel = {k: G.launch_count(k) for k in G.KERNELS}
-    if (counts["gmm_fused"] != want or per_kernel["fused"] != want
+    if (counts["gmm_fused"] != calls * GEN_NEW
+            or per_kernel != {**dict.fromkeys(G.KERNELS, 0), **want}
             or others(counts, "gmm_fused")):
         raise RuntimeError(f"MoE generation: launches {counts}, grouped-matmul kernels "
-                           f"{per_kernel}; expected {want} gmm_fused without z and no other")
+                           f"{per_kernel}; expected {want} (no z) and no other")
     print(f"MoE generation: batch {GEN_BATCH}, prompt {GEN_PROMPT}, {GEN_NEW} new tokens: "
           f"{g['tokens_per_s']:.1f} tokens/s, prefill {g['prefill_ms']:.2f} ms, "
           f"{g['decode_ms_per_step']:.3f} ms a decode step; {wall:.1f} s wall with model build; "
-          f"launches {counts}")
+          f"launches {counts}, by kernel {want}")
     moe_decode_checks()
-    return counts["gmm_fused"]
+    return per_kernel
 
 
 def moe_decode_checks() -> None:
@@ -2199,7 +2392,8 @@ def moe_decode_checks() -> None:
                 model(last, "decode", decode_pos=pos + 1 + i, cache=cache)
             torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    out = summarize_profile(prof, steps, "MoE decode profile", {"gmm": ("gmm_fused_kernel",)})
+    out = summarize_profile(prof, steps, "MoE decode profile",
+                            {"gmm": ("gmm_fused_kernel", "gmm_fused_tc_kernel")})
     if out:
         out.update(wall_ms_per_step_profiled=wall / steps * 1e3,
                    gmm_share_of_busy=out["gmm_ms_per_step"] / out["device_busy_ms_per_step"])
@@ -2289,7 +2483,7 @@ def gmm_backward_phase(dev: torch.device) -> list[dict]:
           f"{routed.tolist()}")
     sizes = {"ragged": torch.tensor(GMM_TRAIN_RAGGED, device=dev), "router": routed}
     shapes = {"w_in": (d, f), "w_out": (f, d)}  # the forward product's (K, N)
-    names = ("gmm", "tgmm", "gmm_tc", "tgmm_tc", "split", "colsum", "fused_z")
+    names = ("gmm", "tgmm", "gmm_tc", "tgmm_tc", "split", "colsum", "fused_z", "fused_z_tc")
     err, worst = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
 
     def check(name, got, want, dtype, label):
@@ -2375,11 +2569,18 @@ def gmm_backward_phase(dev: torch.device) -> list[dict]:
                     repeats(f"tgmm_tc at {label} (1 piece)", dw, lambda: G.tgmm(a, d16, gs))
                 check("colsum", via({"colsum": 1}, lambda: G.segment_sum_rows(dout, gs)),
                       G.segment_sum_rows_plain(dout, gs), torch.float32, label)
-                _, z = via({"fused_z": 1}, lambda: G._fused(a, w, bias, gs, "gelu", None, True))
-                _, z_plain = G.grouped_matmul_fused_plain(a, w, bias, gs, activation="gelu",
-                                                          with_z=True)
-                check("fused_z", z, z_plain, dtype, label)
-                del dw, z, z_plain, want_g, want_t
+                h_plain, z_plain = G.grouped_matmul_fused_plain(a, w, bias, gs, activation="gelu",
+                                                                with_z=True)
+                # The forward with z: bf16 on both routes (the rule takes the
+                # tensor cores), fp32 on FFMA.
+                for fz in ("fused_z_tc", "fused_z") if dtype == torch.bfloat16 else ("fused_z",):
+                    forced = fz == "fused_z" and dtype == torch.bfloat16
+                    with gmm_fused_route("ffma") if forced else contextlib.nullcontext():
+                        h, z = via({fz: 1}, lambda: G._fused(a, w, bias, gs, "gelu", None, True))
+                    route = " (FFMA route)" if forced else ""
+                    check(fz, z, z_plain, dtype, label + " z" + route)
+                    check(fz, h, h_plain, dtype, label + " out" + route)
+                del dw, h, z, h_plain, z_plain, want_g, want_t
         del split, d16
         torch.cuda.empty_cache()
     print("gmm backward kernels agree with their plain versions on both routes, no host "
@@ -2430,12 +2631,17 @@ def gmm_backward_phase(dev: torch.device) -> list[dict]:
             calls["split"] = (lambda: G.split_bf16(dout),
                               median_ms(lambda: G.split_bf16_plain(dout), reps=3, warmup=1),
                               10.0 * m * n, 2.0 * m * n, fp32_flops, None, None)
-            calls["fused_z"] = (
-                lambda: G._fused(a, w, bias, gs, "gelu", None, True),
-                median_ms(lambda: G.grouped_matmul_fused_plain(a, w, bias, gs, activation="gelu",
-                                                               with_z=True), reps=3, warmup=1),
-                2.0 * m * k + 2.0 * e * k * n + 4.0 * e * n + 4.0 * e + 2 * 2.0 * m * n,
-                flop, BF16_FLOPS, "fused_z", None)
+            def ffma_fused_z():
+                with gmm_fused_route("ffma"):
+                    return G._fused(a, w, bias, gs, "gelu", None, True)
+
+            fz_plain = median_ms(lambda: G.grouped_matmul_fused_plain(
+                a, w, bias, gs, activation="gelu", with_z=True), reps=3, warmup=1)
+            fz_bytes = 2.0 * m * k + 2.0 * e * k * n + 4.0 * e * n + 4.0 * e + 2 * 2.0 * m * n
+            calls["fused_z_tc"] = (lambda: G._fused(a, w, bias, gs, "gelu", None, True), fz_plain,
+                                   fz_bytes, flop, BF16_FLOPS, "fused_z", None)
+            calls["fused_z"] = (ffma_fused_z, fz_plain, fz_bytes, flop, BF16_FLOPS, "fused_z",
+                                None)
         libs = {}
         for lib_name in ("gmm", "tgmm", "colsum"):
             libs[lib_name] = gmm_bwd_library(lib_name, a, w, dp, gs)
@@ -2443,16 +2649,16 @@ def gmm_backward_phase(dev: torch.device) -> list[dict]:
         libs["fused_z"] = (fz_lib, fz_reason, "torch._grouped_mm + row bias + gelu (bf16, no z)")
         libs[None] = (None, "no single PyTorch call makes the pieces", None)
         route_ms = {}
-        for name in ("gmm_tc", "gmm", "tgmm_tc", "tgmm"):  # in turn, then again reversed
-            route_ms[name] = [median_ms(calls[name][0])]
-        for name in ("tgmm", "tgmm_tc", "gmm", "gmm_tc"):
-            route_ms[name].append(median_ms(calls[name][0]))
+        turns = [name for name in ("gmm_tc", "gmm", "tgmm_tc", "tgmm", "fused_z_tc", "fused_z")
+                 if name in calls]
+        for name in turns + turns[::-1]:  # in turn, then again reversed
+            route_ms.setdefault(name, []).append(median_ms(calls[name][0]))
         for name, (kernel, plain_ms, nbytes, flop_, peak, lib_name, npieces) in calls.items():
             library, reason, lib_label = libs[lib_name]
             bytes_ms, ops_ms = nbytes / bw * 1e3, flop_ / peak * 1e3
             kname = {"gmm": "gmm_fused_kernel", "fused_z": "gmm_fused_kernel",
-                     "gmm_tc": "::gmm_tc_kernel", "tgmm_tc": "::tgmm_tc_kernel"}.get(
-                         name, f"{name}_kernel")
+                     "fused_z_tc": "gmm_fused_tc_kernel", "gmm_tc": "::gmm_tc_kernel",
+                     "tgmm_tc": "::tgmm_tc_kernel"}.get(name, f"{name}_kernel")
             t = {
                 "ms": (statistics.mean(route_ms[name]) if name in route_ms
                        else median_ms(kernel)),
@@ -2480,7 +2686,9 @@ def gmm_backward_phase(dev: torch.device) -> list[dict]:
                   f"{t['library_ms']} ms (device {t['library_device_ms']} ms), bound "
                   f"{t['bound_ms']:.5f} ms ({t['bound_by']}; {100 * t['bound_share']:.2f} % of "
                   f"it){floor}")
-        for fn_name in ("gmm", "tgmm"):
+        for fn_name in ("gmm", "tgmm", "fused_z"):
+            if wname not in timed[fn_name]:
+                continue
             tc, ffma = timed[f"{fn_name}_tc"][wname]["ms"], timed[fn_name][wname]["ms"]
             print(f"{fn_name} {wname} path call: tensor cores {tc:.4f} ms, FFMA {ffma:.4f} ms "
                   f"({ffma / tc:.2f}x; {'faster' if tc < ffma else 'NOT faster'} on tensor cores)")
@@ -2498,7 +2706,9 @@ def gmm_backward_phase(dev: torch.device) -> list[dict]:
                 "colsum": ("124", "gmm.cu", "_tgmm_kernel on an all-ones lhs (_segment_sum_rows: "
                                             "dbias)"),
                 "fused_z": ("278", "gmm.cu", "_gmm_fused_kernel with with_z (the differentiated "
-                                             "gelu forward)")}
+                                             "gelu forward), FFMA route"),
+                "fused_z_tc": ("278", "gmm_tc.cu", "_gmm_fused_kernel with with_z, tensor-core "
+                                                   "route")}
     records = []
     for name in names:
         calls = timed[name]
@@ -2509,7 +2719,7 @@ def gmm_backward_phase(dev: torch.device) -> list[dict]:
 
         line, source, what = replaces[name]
         records.append({
-            "name": "gmm_fused_with_z" if name == "fused_z" else name,
+            "name": name.replace("fused_z", "gmm_fused_with_z"),
             "kernel": name,
             "route": "cuda",
             "source": src + source,
@@ -2548,12 +2758,13 @@ def moe_train_argv(dispatch: str, steps: int) -> list[str]:
 def moe_train_path_phase() -> dict:
     """``lm_cli`` trains the MoE LM (the main path); returns the launches
     of each grouped-matmul kernel. A step's forward makes 12 gmm_fused
-    launches (6 w_in with z, 6 w_out without), its backward 12 gmm_tc and
+    launches, all on the tensor cores (6 w_in with z, 6 w_out without),
+    its backward 12 gmm_tc and
     12 tgmm_tc (w_in's fp32 dz in three pieces, split once a layer: 6
     split; w_out's bf16 gradient in one), no FFMA gmm or tgmm, and 12
     colsum (the bias gradient has a launch of its own); flash 6 forward, 6
     dq and 6 dk/dv, all on the tensor cores; the eval batch 12 gmm_fused
-    without z and 6 flash forwards (tensor cores)."""
+    without z (tensor cores) and 6 flash forwards (tensor cores)."""
     from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
@@ -2565,7 +2776,8 @@ def moe_train_path_phase() -> dict:
     wall = time.perf_counter() - t0
     gmm = {k: G.launch_count(k) for k in G.KERNELS}
     flash = flash_counts()
-    want_gmm = {"fused": layers * (steps + 2), "fused_z": layers * steps, "gmm": 0, "tgmm": 0,
+    want_gmm = {"fused": 0, "fused_z": 0, "fused_tc": layers * (steps + 2),
+                "fused_z_tc": layers * steps, "gmm": 0, "tgmm": 0,
                 "colsum": 2 * layers * steps, "gmm_tc": 2 * layers * steps,
                 "tgmm_tc": 2 * layers * steps, "split": layers * steps}
     # gmm_tc counts under its dout's dtype: fp32 (w_in, 3 pieces), bf16 (w_out, 1 piece).
@@ -2648,9 +2860,10 @@ def moe_train_throughput_phase() -> dict:
         for i in range(steps):
             tr.train_step(*batches[i % 2])
         torch.cuda.synchronize()
-    groups = {"gmm": ("gmm_fused_kernel", "tgmm_kernel", "colsum_kernel", "gmm_tc_kernel",
-                      "split_kernel"),
-              "gmm_forward": ("gmm_fused_kernel<__nv_bfloat16",),
+    groups = {"gmm": ("gmm_fused_kernel", "gmm_fused_tc_kernel", "tgmm_kernel", "colsum_kernel",
+                      "gmm_tc_kernel", "split_kernel"),
+              "gmm_forward": ("gmm_fused_kernel<__nv_bfloat16", "gmm_fused_tc_kernel"),
+              "gmm_forward_tc": ("gmm_fused_tc_kernel",),
               "gmm_tc": ("::gmm_tc_kernel",), "tgmm_tc": ("::tgmm_tc_kernel",),
               "split": ("split_kernel",), "gmm_ffma": ("gmm_fused_kernel<float",),
               "tgmm": ("tgmm_kernel",), "colsum": ("colsum_kernel",),
@@ -2669,30 +2882,23 @@ def moe_train_throughput_phase() -> dict:
     return out
 
 
-@contextlib.contextmanager
 def plain_grouped_matmuls():
     """The grouped-matmul autograd Functions through the plain versions on
     CUDA tensors (the module functions they call, patched for the block),
     for a kernel-vs-plain trajectory."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
 
-    saved = {name: getattr(G, name)
-             for name in ("_fused", "gmm", "tgmm", "segment_sum_rows", "split_bf16")}
-
     def fused(lhs, rhs, bias, group_sizes, activation, out_dtype, with_z):
         res = G.grouped_matmul_fused_plain(lhs, rhs, bias, group_sizes, activation=activation,
                                            out_dtype=out_dtype, with_z=with_z)
         return res if with_z else (res, None)
 
-    G._fused, G.segment_sum_rows, G.split_bf16 = fused, G.segment_sum_rows_plain, G.split_bf16_plain
-    G.gmm = lambda lhs, rhs, gs, *, trans_rhs=False, split=None: G.grouped_matmul_plain(
-        lhs, rhs, gs, trans_rhs=trans_rhs)
-    G.tgmm = lambda lhs, dout, gs, *, split=None: G.tgmm_plain(lhs, dout, gs)
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(G, name, fn)
+    return patched(
+        G, _fused=fused, segment_sum_rows=G.segment_sum_rows_plain,
+        split_bf16=G.split_bf16_plain,
+        gmm=lambda lhs, rhs, gs, *, trans_rhs=False, split=None: G.grouped_matmul_plain(
+            lhs, rhs, gs, trans_rhs=trans_rhs),
+        tgmm=lambda lhs, dout, gs, *, split=None: G.tgmm_plain(lhs, dout, gs))
 
 
 def moe_train_trajectory_phase() -> None:
@@ -2749,23 +2955,18 @@ def moe_train_trajectory_phase() -> None:
           f"{mean_gap}")
 
 
-@contextlib.contextmanager
 def ffma_route():
-    """The grouped-matmul backward on the FFMA kernels whatever the
-    operands (the route rule, patched for the block to take no tensor-core
-    call), for a route-vs-route trajectory."""
+    """The grouped matmuls, forward and backward, on the FFMA kernels
+    whatever the operands (the route rules, patched for the block to take
+    no tensor-core call), for a route-vs-route trajectory."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
 
-    saved = G.tc_pieces
-    G.tc_pieces = lambda *args, **kw: 0
-    try:
-        yield
-    finally:
-        G.tc_pieces = saved
+    return patched(G, tc_pieces=lambda *args, **kw: 0, fused_tc_route=lambda *args, **kw: False)
 
 
 def moe_route_trajectory_phase() -> None:
-    """The tensor-core route against the FFMA route over MOE_TRAJ_STEPS
+    """The tensor-core routes (forward and backward) against the FFMA
+    routes over MOE_TRAJ_STEPS
     AdamW steps (lr 1e-3) of the MoE LM at full width and 2 layers, batch
     8 x T 512, bf16 compute (the path's dtype, where the routes differ),
     from one init on the same batches; each run's launches show its route.
@@ -2800,9 +3001,12 @@ def moe_route_trajectory_phase() -> None:
         del tr, model
     n = 2 * 2 * MOE_TRAJ_STEPS  # w_in and w_out of 2 layers a step
     tc, ffma = launches["tensor_cores"], launches["ffma"]
-    if not (tc.get("gmm_tc") == tc.get("tgmm_tc") == n and not {"gmm", "tgmm"} & set(tc)
+    if not (tc.get("gmm_tc") == tc.get("tgmm_tc") == n
+            and tc.get("fused_tc") == tc.get("fused_z_tc") == n // 2
+            and not {"gmm", "tgmm", "fused", "fused_z"} & set(tc)
             and ffma.get("gmm") == ffma.get("tgmm") == n
-            and not {"gmm_tc", "tgmm_tc", "split"} & set(ffma)):
+            and ffma.get("fused") == ffma.get("fused_z") == n // 2
+            and not {"gmm_tc", "tgmm_tc", "split", "fused_tc", "fused_z_tc"} & set(ffma)):
         raise RuntimeError(f"MoE route trajectory launches: {launches}")
 
     def gaps(x, y):
@@ -2887,22 +3091,25 @@ def main() -> int:
         module.load_kernel()
     print("built " + ", ".join(f"{s} in {_build.build_seconds[s]:.2f} s" for s in sources)
           + f", in parallel (wall {time.perf_counter() - t0:.2f} s)")
-    for src in (A.TC_SOURCE, QT.TC_SOURCE, G.TC_SOURCE):  # tensor-core kernels' registers
+    for src in (A.TC_SOURCE, QT.TC_SOURCE, G.TC_SOURCE, C.TC_SOURCE):  # tensor-core kernels
         for kernel, usage in _build.ptxas_report(src).items():
             print(f"ptxas {src}: {kernel}: {usage['registers']} registers, "
                   f"{usage['spill_stores']} bytes spill stores, {usage['spill_loads']} bytes "
                   f"spill loads")
 
     records = [fused_sgd_phase(dev), *wgrad_phase(dev)]
+    # ResNet-18's fp32 stride-1 wgrads all on the tensor cores.
     counts = main_path_phase("resnet18", ("--fast-conv", "--fused-optimizer"), {
         "fused_sgd": RESNET18_TENSORS * STEPS,
-        "conv3x3_wgrad_s1": RESNET18_ROUTED * STEPS,
+        "conv3x3_wgrad_s1_tc": RESNET18_ROUTED * STEPS,
+        "conv3x3_wgrad_s1": 0,
         "conv3x3_wgrad_s2": 0,
+        "conv3x3_wgrad_s2_tc": 0,
     })
     vgg_counts = main_path_phase("vgg11", ("--fused-optimizer",), {
         "fused_sgd": VGG11_TENSORS * STEPS,
-        "conv3x3_wgrad_s1": 0,
-        "conv3x3_wgrad_s2": 0,
+        "conv3x3_wgrad_s1": 0, "conv3x3_wgrad_s1_tc": 0,
+        "conv3x3_wgrad_s2": 0, "conv3x3_wgrad_s2_tc": 0,
     })
     for rec in records:
         rec["launches"] = counts[rec["name"]]
@@ -2935,9 +3142,11 @@ def main() -> int:
     records += [paged_record, *int8_records]
     serving_checks_phase()
 
-    gmm_record = gmm_phase(dev)
-    gmm_record["launches"] = moe_generation_phase()
-    records.append(gmm_record)
+    gmm_records = gmm_phase(dev)
+    gen_gmm = moe_generation_phase()
+    for rec in gmm_records:
+        rec["launches"] = gen_gmm["fused_tc" if rec["name"].endswith("_tc") else "fused"]
+    records += gmm_records
 
     bwd_records = gmm_backward_phase(dev)
     train_counts = moe_train_path_phase()

@@ -66,8 +66,13 @@
 // kernels of gmm_tc.cu instead (dout as three exact bf16 pieces), and keeps
 // these for fp32 operands and odd widths.
 //
-// Left for later work: tensor cores for gmm_fused (the forward and z),
-// cp.async pipelining, a visit schedule that balances blocks.
+// gmm_fused here is the forward's FFMA route: ops/gmm.py::fused_tc_route sends
+// bf16 calls with rows of 16 bytes (and enough rows) to gmm_tc.cu's
+// gmm_fused_tc_kernel instead, which applies the same epilogue (gelu_tanh
+// from activation.cuh) to wgmma sums.
+//
+// Left for later work: cp.async pipelining, a visit schedule that balances
+// blocks.
 //
 // Plain C interface, loaded with ctypes: every launch runs on the caller's
 // stream, does not synchronise, and returns cudaGetLastError().
@@ -76,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "activation.cuh"
 
 namespace {
 
@@ -95,10 +102,6 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float gelu_tanh(float x) {
-  return 0.5f * x * (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
 }
 
 // Rows [start, end) of group e, as the forward's layout clamps them.

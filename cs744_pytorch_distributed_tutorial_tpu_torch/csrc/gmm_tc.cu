@@ -11,15 +11,19 @@
 //            forward, one piece);
 //   tgmm_tc  out[e] = sum over the rows r of group e of lhs[r]^T (x)
 //            sum_p b_p[r], [E, K, N] fp32, lhs [M, K] bf16, b [P, M, N] bf16
-//            (the backward's drhs).
+//            (the backward's drhs);
+//   gmm_fused_tc  out[r] = act(lhs[r] @ rhs[g(r)] + bias[g(r)]) in bf16 or
+//            fp32, and optionally z[r] = lhs[r] @ rhs[g(r)] + bias[g(r)] (the
+//            pre-activation, for the backward's gelu'), lhs [M, K] and rhs
+//            [E, K, N] bf16 (grouped_matmul_fused's forward).
 //
 // Replaces the TPU kernels of cs744_pytorch_distributed_tutorial_tpu/ops/gmm.py
 // _gmm_kernel (dlhs, and grouped_matmul's forward) and _tgmm_kernel (drhs), as
-// _gmm_bwd_core calls them, where csrc/gmm.cu's FFMA kernels ran before. Rows
-// belong to groups as there: group e holds rows [start_e, end_e) of the
-// contiguous layout, rows from sum(group_sizes) to M belong to the last group,
-// and the offsets are read from group_sizes on the device (no launch
-// synchronises with the host).
+// _gmm_bwd_core calls them, and _gmm_fused_kernel (with and without its with_z
+// output), where csrc/gmm.cu's FFMA kernels ran before. Rows belong to groups
+// as there: group e holds rows [start_e, end_e) of the contiguous layout, rows
+// from sum(group_sizes) to M belong to the last group, and the offsets are
+// read from group_sizes on the device (no launch synchronises with the host).
 //
 // Why the products are exact. The JAX backward multiplies an fp32 dout by a
 // bf16 operand widened to fp32 (rhs for dlhs, lhs for drhs). An fp32 x is
@@ -34,12 +38,14 @@
 // activation: w_out's gradient) is its own single piece. An infinite x splits
 // into (inf, NaN, NaN), so such a row gives NaN where FFMA gives inf.
 //
-// The route rule (ops/gmm.py::tc_pieces, a function of dtypes and shapes):
-// these kernels take a call when the operand that is not dout is bf16 and
-// every row TMA reads is a multiple of 16 bytes (K and N multiples of 8) from
-// 16-byte-aligned base pointers; dout then takes 1 piece if it is bf16 and 3
-// if fp32. Anything else (fp32 operands, odd widths) takes gmm.cu's FFMA
-// kernels, unchanged.
+// The route rules (ops/gmm.py, functions of dtypes and shapes): tc_pieces
+// gives gmm_tc and tgmm_tc a call when the operand that is not dout is bf16
+// and every row TMA reads is a multiple of 16 bytes (K and N multiples of 8)
+// from 16-byte-aligned base pointers; dout then takes 1 piece if it is bf16
+// and 3 if fp32. fused_tc_route gives gmm_fused_tc a forward with bf16 lhs and
+// rhs under the same row rule and at least FUSED_TC_MIN_ROWS rows. Anything
+// else (fp32 operands, odd widths, the forward below its row threshold) takes
+// gmm.cu's FFMA kernels, unchanged.
 //
 // Layout of a block (384 threads, one block an SM): warpgroup 0 is the
 // producer, one thread of which issues every TMA load into a ring of stages
@@ -50,13 +56,18 @@
 // (one 128-byte row, 128-byte swizzle, read by wgmma descriptors of the same
 // swizzle), and the ring fills 192 KB (6 stages for one piece, 3 for three).
 //
-// - gmm_tc: a block owns a 128 x 128 output tile. It visits every group that
-//   overlaps its rows, in order, each visit a full pass over K with that
-//   group's rhs[e] into a fresh sum, and stores only that group's rows: each
-//   row is written once, from exactly its own group's products (a tile that
-//   straddles b boundaries pays b extra passes; at most E - 1 a call). A and
+// - gmm_tc and gmm_fused_tc (one mainloop): a block owns a 128 x 128 output
+//   tile. It visits every group that overlaps its rows, in order, each visit
+//   a full pass over K with that group's rhs[e] into a fresh sum, and stores
+//   only that group's rows: each row is written once, from exactly its own
+//   group's products (a tile that straddles b boundaries pays b extra
+//   passes; at most E - 1 a call). A and
 //   dlhs's B are K-major; the forward's B (rhs as stored) is MN-major, read
-//   through the descriptor's transpose bit.
+//   through the descriptor's transpose bit. gmm_tc stores a visit's fp32 sums;
+//   gmm_fused_tc's epilogue adds bias[e] of the visit's group e in fp32,
+//   stores z rounded to the output type, applies gelu_tanh (activation.cuh,
+//   the FFMA kernel's function) and rounds once: the rounding points of
+//   _gmm_fused_kernel. Each row is written once, by its own group's visit.
 // - tgmm_tc: a block owns (group e, a 128 x 128 tile of [K, N]) and walks the
 //   group's rows in order, 64 a stage; the boxes start at the group's first
 //   row (TMA takes any coordinate). Both operands are MN-major (lhs^T and the
@@ -75,6 +86,14 @@
 // - split: one thread converts four values (16-byte loads, 8-byte stores of
 //   each piece).
 //
+// What bounds gmm_fused_tc: bytes at the MoE path's shapes. A prefill layer
+// (lhs [4096, 512] against [8, 512, 1024], gelu, then [4096, 1024] against
+// [8, 1024, 512]) moves about 42 MB for 8.6 GFLOP (0.0125 ms of bytes); the
+// training forward with z (lhs [32768, 512]) reads 34 MB and writes 134 MB
+// (0.053 ms of bytes, 0.035 of bf16 operations). At decode (32 routed rows)
+// the expert weights are the bytes, and a 128-row tile leaves most of the
+// tensor cores' rows empty.
+//
 // What bounds them, at the MoE training path (M = 32768 routed rows; w_in:
 // [32768, 512] against [8, 512, 1024], w_out: [32768, 1024] against [8, 1024,
 // 512]; 34.4 GFLOP of products a call): bytes over 3.35 TB/s against 2 M K N
@@ -84,9 +103,12 @@
 // bytes an element (335 MB at [32768, 1024]: 0.10 ms).
 //
 // Left for later work: a persistent grid walking tiles (the epilogue of one
-// under the loads of the next), TMA multicast of rhs across a cluster,
-// fusing split into the gelu backward, and splitting tgmm's large groups
-// across blocks.
+// under the loads of the next), TMA stores of the fused epilogue's out and z
+// (staged in shared memory; the register layout writes 16-byte pieces of
+// eight rows a warp), a swap-AB decode variant of gmm_fused_tc (the experts'
+// columns as wgmma's rows, the few tokens as n8/n16), TMA multicast of rhs
+// across a cluster, fusing split into the gelu backward, and splitting tgmm's
+// large groups across blocks.
 //
 // Plain C interface, loaded with ctypes: every launch runs on the caller's
 // stream, does not synchronise, and returns cudaGetLastError() (or
@@ -102,6 +124,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "activation.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -142,11 +167,15 @@ __device__ __forceinline__ void store_tile(const float (&v)[64], float* out, int
   }
 }
 
-template <int P, bool kBMN>
-__global__ void __launch_bounds__(kThreads, 1)
-gmm_tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-              const int* __restrict__ group_sizes, float* __restrict__ out, int M, int K, int N,
-              int E) {
+// The mainloop of gmm_tc_kernel and gmm_fused_tc_kernel: the producer
+// warpgroup feeds the ring; each consumer warpgroup sums its 64 rows of every
+// group visit and hands the sums to store(sum, e, row0, lo, hi), which writes
+// the rows [lo, hi) of group e among rows row0 ... row0 + 63, columns n0 ...
+// n0 + 127 (n0 = blockIdx.x * kTile).
+template <int P, bool kBMN, typename Store>
+__device__ __forceinline__ void gmm_tc_mainloop(const CUtensorMap* map_a, const CUtensorMap* map_b,
+                                                const int* __restrict__ group_sizes, int M, int K,
+                                                int E, Store store) {
   constexpr int kA = kTile * kChunk * 2;  // one piece's 128 rows: 16 KB
   constexpr int kStage = gmm_stage_bytes(P);
   constexpr int kStages = kRing / kStage;
@@ -180,13 +209,13 @@ gmm_tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
           mbar_wait(&empty[s], ph ^ 1);
           uint8_t* st = ring + s * kStage;
           mbar_expect_tx(&full[s], kStage);
-          for (int p = 0; p < P; ++p) tma_load(st + p * kA, &map_a, &full[s], kc * kChunk, m0, p);
+          for (int p = 0; p < P; ++p) tma_load(st + p * kA, map_a, &full[s], kc * kChunk, m0, p);
           uint8_t* b = st + P * kA;
           if (kBMN) {  // rhs [E, K, N]: two boxes of 64 columns, 64 rows of K
-            tma_load(b, &map_b, &full[s], n0, kc * kChunk, e);
-            tma_load(b + kBox, &map_b, &full[s], n0 + kChunk, kc * kChunk, e);
+            tma_load(b, map_b, &full[s], n0, kc * kChunk, e);
+            tma_load(b + kBox, map_b, &full[s], n0 + kChunk, kc * kChunk, e);
           } else {  // rhs [E, N, K]: 128 rows of N, 64 of K
-            tma_load(b, &map_b, &full[s], kc * kChunk, n0, e);
+            tma_load(b, map_b, &full[s], kc * kChunk, n0, e);
           }
           if (++s == kStages) s = 0, ph ^= 1;
         }
@@ -229,8 +258,70 @@ gmm_tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__
       for (int i = 0; i < 64; ++i) sum[i] += acc[i];
       if (++s == kStages) s = 0, ph ^= 1;
     }
-    store_tile(sum, out, m0 + 64 * cw, n0, lo, hi, N, N);
+    store(sum, e, m0 + 64 * cw, lo, hi);
   }
+}
+
+template <int P, bool kBMN>
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+              const int* __restrict__ group_sizes, float* __restrict__ out, int M, int K, int N,
+              int E) {
+  gmm_tc_mainloop<P, kBMN>(&map_a, &map_b, group_sizes, M, K, E,
+                           [&](const float (&v)[64], int, int row0, int lo, int hi) {
+                             store_tile(v, out, row0, blockIdx.x * kTile, lo, hi, N, N);
+                           });
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// grouped_matmul_fused's forward: out = act(lhs @ rhs[e] + bias[e]) with lhs
+// [M, K] bf16 (K-major) and rhs [E, K, N] bf16 as stored (MN-major), the
+// epilogue in fp32 on the promoted sums of each group visit: add the row's
+// own group's bias (each visit stores only its group's rows, so a tile that
+// straddles a boundary adds each group's bias to its own rows), store the
+// pre-activation z rounded to the output type (kZ), apply gelu_tanh (kGelu),
+// round once to the output type (kOutBf16: bf16, else fp32). The rounding
+// points of _gmm_fused_kernel and of grouped_matmul_fused_plain.
+template <int kOutBf16, bool kGelu, bool kZ>
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_fused_tc_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b, const float* __restrict__ bias,
+                    const int* __restrict__ group_sizes, void* __restrict__ out_raw,
+                    void* __restrict__ z_raw, int M, int K, int N, int E) {
+  using Out = typename std::conditional<kOutBf16 != 0, bf16, float>::type;
+  Out* out = static_cast<Out*>(out_raw);
+  Out* z = static_cast<Out*>(z_raw);
+  gmm_tc_mainloop<1, true>(
+      &map_a, &map_b, group_sizes, M, K, E,
+      [&](const float (&v)[64], int e, int row0, int lo, int hi) {
+        // The accumulator layout of store_tile: rows r, r + 8; column pairs.
+        const int t = threadIdx.x % 128;
+        const int r = row0 + (t / 32) * 16 + (t % 32) / 4;
+        const int c0 = blockIdx.x * kTile + 2 * (t % 4);
+        const float* brow = bias + static_cast<int64_t>(e) * N;
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const int col = c0 + 8 * c;
+          if (col >= N) continue;  // N even: col + 1 < N
+          const float b0 = brow[col], b1 = brow[col + 1];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = r + 8 * h;
+            if (row < lo || row >= hi) continue;
+            float a0 = v[4 * c + 2 * h] + b0, a1 = v[4 * c + 2 * h + 1] + b1;
+            const int64_t off = static_cast<int64_t>(row) * N + col;
+            if (kZ) store2(z + off, a0, a1);
+            if (kGelu) a0 = gelu_tanh(a0), a1 = gelu_tanh(a1);
+            store2(out + off, a0, a1);
+          }
+        }
+      });
 }
 
 template <int P>
@@ -378,14 +469,13 @@ bool make_map(CUtensorMap* map, const void* ptr, int64_t d0, int64_t d1, int64_t
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int stage_bytes, dim3 grid, cudaStream_t stream,
-                   const CUtensorMap& ma, const CUtensorMap& mb, const int* gs, float* out, int M,
-                   int K, int N, int E) {
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), int stage_bytes, dim3 grid, cudaStream_t stream,
+                   Args... args) {
   const int smem = (kRing / stage_bytes) * stage_bytes + kSwizzleBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(ma, mb, gs, out, M, K, N, E);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -425,6 +515,43 @@ extern "C" int gmm_tc(const void* a, const void* rhs, const void* group_sizes, v
     err = launch(gmm_tc_kernel<1, false>, gmm_stage_bytes(1), grid, s, ma, mb, gs, o, m, k, n, e);
   else
     err = launch(gmm_tc_kernel<3, false>, gmm_stage_bytes(3), grid, s, ma, mb, gs, o, m, k, n, e);
+  return static_cast<int>(err);
+}
+
+// out [M, N] (bf16 if out_bf16, else fp32) = act(lhs [M, K] @ rhs[g] [K, N] +
+// bias[g]) with lhs and rhs bf16, bias fp32 [E, N], group_sizes int32 [E];
+// gelu != 0 applies the tanh gelu; z, if not null, receives the
+// pre-activation in out's type (gelu only). K and N multiples of 8, lhs and
+// rhs 16-byte aligned, all contiguous.
+extern "C" int gmm_fused_tc(const void* lhs, const void* rhs, const void* bias,
+                            const void* group_sizes, void* out, void* z, int64_t M, int64_t K,
+                            int64_t N, int64_t E, int64_t gelu, int64_t out_bf16, void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (E < 1 || E > kMaxGroups || K <= 0 || K % 8 || N % 8 || M > kMaxRows || N > kMaxRows ||
+      K > kMaxRows || (M + kTile - 1) / kTile > 65535 || (z && !gelu) || misaligned(lhs) ||
+      misaligned(rhs))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ma, mb;
+  if (!make_map(&ma, lhs, K, M, 1, kChunk, kTile) || !make_map(&mb, rhs, N, K, E, kChunk, kChunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((N + kTile - 1) / kTile),
+                  static_cast<unsigned>((M + kTile - 1) / kTile));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* b = static_cast<const float*>(bias);
+  const int* gs = static_cast<const int*>(group_sizes);
+  const int m = static_cast<int>(M), k = static_cast<int>(K), n = static_cast<int>(N),
+            e = static_cast<int>(E);
+  const int sb = gmm_stage_bytes(1);
+  cudaError_t err;
+#define GMM_FUSED_TC(OUT, GELU, Z) \
+  launch(gmm_fused_tc_kernel<OUT, GELU, Z>, sb, grid, s, ma, mb, b, gs, out, z, m, k, n, e)
+  if (out_bf16)
+    err = z ? GMM_FUSED_TC(1, true, true) : gelu ? GMM_FUSED_TC(1, true, false)
+                                                 : GMM_FUSED_TC(1, false, false);
+  else
+    err = z ? GMM_FUSED_TC(0, true, true) : gelu ? GMM_FUSED_TC(0, true, false)
+                                                 : GMM_FUSED_TC(0, false, false);
+#undef GMM_FUSED_TC
   return static_cast<int>(err);
 }
 

@@ -33,22 +33,27 @@ whose size is not positive gets a zero ``drhs`` and ``dbias``;
 laid out): ``gmm_fused`` (with the optional ``z`` output), ``gmm``, ``tgmm``
 and ``colsum`` (the bias gradient: tgmm's function on an all-ones lhs
 column, not materialised). ``csrc/gmm_tc.cu`` holds the tensor-core
-kernels: ``gmm_tc`` and ``tgmm_tc`` (wgmma on bf16 tiles fed by TMA) and
-``split``, which cuts an fp32 ``dout`` into three bf16 pieces whose sum
-is exactly ``dout``, so each piece's product with a bf16 operand is exact
-in fp32. ``gmm`` and ``tgmm`` choose their kernel by ``tc_pieces``, a
+kernels: ``gmm_fused_tc`` (the forward and its ``z``, with the FFMA
+kernel's epilogue), ``gmm_tc`` and ``tgmm_tc`` (wgmma on bf16 tiles fed
+by TMA) and ``split``, which cuts an fp32 ``dout`` into three bf16
+pieces whose sum is exactly ``dout``, so each piece's product with a
+bf16 operand is exact in fp32. ``gmm`` and ``tgmm`` choose their kernel by ``tc_pieces``, a
 fixed rule of dtypes and shapes: the tensor-core kernels when the operand
 that is not ``dout`` is bf16 and every row TMA reads is a multiple of 16
 bytes from a 16-byte-aligned pointer (``dout`` in 1 piece if bf16, 3 if
-fp32), the FFMA kernels otherwise. The kernels are built with nvcc on
-first use (``ops/_build.py``) and launched through ``ctypes`` on
+fp32), the FFMA kernels otherwise; the forward chooses by
+``fused_tc_route``: the tensor cores for bf16 lhs and rhs under the same
+row rule and at least ``FUSED_TC_MIN_ROWS`` rows, the FFMA ``gmm_fused``
+otherwise. The kernels are built with nvcc on first use
+(``ops/_build.py``) and launched through ``ctypes`` on
 PyTorch's current stream; they read group_sizes on the device, so a call
 never synchronises with the host. Every wrapper takes the kernel for CUDA
 tensors and the plain version for CPU tensors; for a CUDA tensor it
 launches or raises, with no fallback. Each launch adds one to
 ``launch_count(kernel, dtype)``, kernel one of ``KERNELS`` (``fused``
-and ``fused_z`` are the forward without and with the ``z`` output;
-``gmm``/``tgmm`` the FFMA route, ``gmm_tc``/``tgmm_tc``/``split`` the
+and ``fused_z`` are the FFMA forward without and with the ``z`` output,
+``fused_tc`` and ``fused_z_tc`` the tensor-core one; ``gmm``/``tgmm``
+the FFMA route of the backward, ``gmm_tc``/``tgmm_tc``/``split`` the
 tensor-core one) and dtype lhs's (``split``'s: its input's). The forward
 writes ``z`` only on the gelu path of a call made with grad enabled on an
 input that requires grad; a no-grad call (prefill, decode, serving,
@@ -68,10 +73,17 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
 SOURCE = "gmm.cu"
 TC_SOURCE = "gmm_tc.cu"
 SOURCES = (SOURCE, TC_SOURCE)
-KERNELS = ("fused", "fused_z", "gmm", "tgmm", "colsum", "gmm_tc", "tgmm_tc", "split")
+KERNELS = ("fused", "fused_z", "fused_tc", "fused_z_tc", "gmm", "tgmm", "colsum", "gmm_tc",
+           "tgmm_tc", "split")
 ACTIVATIONS = ("none", "gelu")
 IMPLS = ("pallas", "ragged")
 MAX_GROUPS = 64  # the kernels keep the group offsets in shared memory
+# The fewest rows of a forward that take the tensor cores. A prefill (4,096
+# routed rows at batch 16) and a training step (32,768) do, and so does a
+# decode step (32 rows over 8 experts): chip_smoke.py's paired runs of both
+# routes found the 128-row tensor-core tile no slower there than the FFMA
+# kernel's 8 x 32 tile (PERF.md, gmm_fused row).
+FUSED_TC_MIN_ROWS = 1
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _launches: collections.Counter = collections.Counter()  # (kernel, lhs dtype) -> count
@@ -113,8 +125,11 @@ def load_kernel():
         tc.tgmm_tc.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, p]
         # x, out, n, stream
         tc.split_bf16.argtypes = [p, p, i64, p]
+        # lhs, rhs, bias, group_sizes, out, z, M, K, N, E, gelu, out_bf16, stream
+        tc.gmm_fused_tc.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, p]
         fns = {"fused": lib.gmm_fused, "gmm": lib.gmm, "tgmm": lib.tgmm, "colsum": lib.colsum,
-               "gmm_tc": tc.gmm_tc, "tgmm_tc": tc.tgmm_tc, "split": tc.split_bf16}
+               "fused_tc": tc.gmm_fused_tc, "gmm_tc": tc.gmm_tc, "tgmm_tc": tc.tgmm_tc,
+               "split": tc.split_bf16}
         for fn in fns.values():
             fn.restype = ctypes.c_int
         _kernel_fns = fns
@@ -235,6 +250,20 @@ def tc_pieces(dout_dtype: torch.dtype, other_dtype: torch.dtype, shape: tuple[in
     return 1 if dout_dtype == torch.bfloat16 else 3
 
 
+def fused_tc_route(dtype: torch.dtype, shape: tuple[int, int, int], aligned: bool = True) -> bool:
+    """Whether a forward (``grouped_matmul_fused``) on CUDA tensors takes
+    the tensor-core kernel ``gmm_fused_tc``: lhs and rhs of ``dtype``,
+    ``shape`` (M, K, N), ``aligned`` whether lhs and rhs start on 16 bytes.
+    True for bf16 with K and N positive multiples of 8 (the 16-byte rows TMA
+    reads of lhs [M, K] and rhs [E, K, N]) and M at least
+    ``FUSED_TC_MIN_ROWS``; fp32 operands and odd widths take the FFMA
+    ``gmm_fused``. The output dtype (bf16 or fp32) and ``z`` do not
+    matter."""
+    m, k, n = shape
+    return (dtype == torch.bfloat16 and aligned and m > 0 and m >= FUSED_TC_MIN_ROWS and k > 0
+            and n > 0 and k % 8 == 0 and n % 8 == 0)
+
+
 def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
@@ -303,12 +332,17 @@ def _fused(lhs, rhs, bias, group_sizes, activation, out_dtype, with_z):
     lhs, rhs, bias, gs = lhs.contiguous(), rhs.contiguous(), bias.contiguous(), _sizes(group_sizes)
     out = torch.empty((m, n), dtype=out_dtype, device=lhs.device)
     z = torch.empty_like(out) if with_z else None
-    if m and n:
-        _launch("fused", "fused_z" if with_z else "fused", lhs.dtype, lhs.device,
-                lhs.data_ptr(), rhs.data_ptr(), bias.data_ptr(), gs.data_ptr(),
-                out.data_ptr(), z.data_ptr() if with_z else None, m, k, n, e,
-                int(activation == "gelu"), int(lhs.dtype == torch.bfloat16),
-                int(out_dtype == torch.bfloat16))
+    if not (m and n):
+        return out, z
+    name = "fused_z" if with_z else "fused"
+    ptrs = (lhs.data_ptr(), rhs.data_ptr(), bias.data_ptr(), gs.data_ptr(), out.data_ptr(),
+            z.data_ptr() if with_z else None, m, k, n, e, int(activation == "gelu"))
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    if fused_tc_route(lhs.dtype, (m, k, n), _aligned(lhs, rhs)):
+        _launch("fused_tc", name + "_tc", lhs.dtype, lhs.device, *ptrs, out_bf16)
+    else:
+        _launch("fused", name, lhs.dtype, lhs.device, *ptrs, int(lhs.dtype == torch.bfloat16),
+                out_bf16)
     return out, z
 
 

@@ -9,6 +9,15 @@ which pins the stride-2 (0, 1) padding. Tolerance rtol 1e-4, atol 1e-4,
 the JAX test's own (fp32 sums in another order). The JAX package is
 imported inside the tests that use it, so the ``cuda``-marked test also
 runs on a machine with a card and no flax.
+
+The tensor-core route (``tc_route``) multiplies fp32 inputs as two bf16
+pieces each and reads each tap from a plane of x shifted by its column
+(``tap_planes_plain``) at a whole-row offset; ``conv3x3_wgrad_tc_plain`` is
+that arithmetic and index map in plain PyTorch. It is held against the fp32 plain version and the
+Pallas kernels within TC_LIMIT = 1e-5 x max|plain| (a tenth of
+chip_smoke.py's WGRAD_RTOL; on random data it comes to about 5e-6), and
+bf16 inputs (one exact piece) within 1e-6 x max|plain| (the order of the
+fp32 sums).
 """
 
 import numpy as np
@@ -40,6 +49,125 @@ def _inputs(seed, b, side, c, k, stride):
 
 def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))
+
+
+TC_LIMIT = 1e-5  # x max|plain|: the two-piece products' error, a tenth of WGRAD_RTOL
+
+# ResNet-like small shapes (batch 4 at ResNet-18's widths and sides), and
+# ragged ones (C, K odd or under a tile; output planes of 16, 64 and 144
+# positions, not all whole chunks of 64; rows of 4 and 6, which the
+# tensor-core rule leaves to FFMA but the plain arithmetic still covers).
+TC_CASES = [
+    (1, 4, 16, 64, 64, 2),
+    (1, 4, 8, 128, 128, 2),
+    (2, 4, 32, 32, 64, 2),
+    (2, 4, 16, 64, 128, 2),
+    (1, 3, 8, 3, 10, None),
+    (2, 3, 8, 5, 7, None),
+    (1, 2, 12, 9, 6, None),
+]
+
+
+def _within(got: torch.Tensor, want: torch.Tensor, limit: float) -> float:
+    share = float((got - want).abs().max()) / (limit * float(want.abs().max()))
+    assert share <= 1.0, share
+    return share
+
+
+@pytest.mark.parametrize(
+    "dtype,shape,stride,aligned,want",
+    [("float32", (256, 128, 16, 16), 1, True, True),   # ResNet-18's routed convs
+     ("float32", (256, 256, 8, 8), 1, True, True),
+     ("bfloat16", (256, 128, 16, 16), 1, True, True),
+     ("float32", (256, 64, 32, 32), 2, True, True),    # its stride-2 3x3 convs
+     ("bfloat16", (256, 128, 16, 16), 2, True, True),
+     ("float32", (3, 3, 8, 8), 1, True, True),         # rows of 8: 16 bytes
+     ("float32", (3, 3, 8, 8), 2, True, False),        # rows of 4
+     ("float32", (5, 20, 6, 6), 1, True, False),       # rows of 6
+     ("float32", (2, 8, 12, 12), 2, True, False),      # rows of 6
+     ("float32", (2, 8, 16, 12), 1, True, False),      # rows of 12
+     ("float32", (8, 64, 16, 16), 1, False, False),    # a pointer off 16 bytes
+     ("float16", (8, 64, 16, 16), 1, True, False),
+     ("float32", (0, 64, 16, 16), 1, True, False),     # no images
+     ("float32", (8, 64, 16, 16), 3, True, False)],
+    ids=["resnet_s1_16", "resnet_s1_8", "resnet_s1_bf16", "resnet_s2_32", "resnet_s2_bf16",
+         "rows_8", "s2_rows_4", "rows_6", "s2_rows_6", "rows_12", "misaligned", "fp16",
+         "no_images", "stride3"],
+)
+def test_tc_route_rule(dtype, shape, stride, aligned, want):
+    assert K.tc_route(getattr(torch, dtype), shape, stride, aligned) is want
+
+
+@pytest.mark.parametrize("stride,want", [
+    (1, [(0, 0), (1, 0), (2, 0), (0, 1), (1, 1), (2, 1), (0, 2), (1, 2), (2, 2)]),
+    (2, [(0, 1), (1, 1), (2, 1), (3, 1), (4, 1), (5, 1), (0, 2), (1, 2), (2, 2)]),
+])
+def test_tap_geometry(stride, want):
+    """Stride 1: tap (ky, kx) reads plane kx from row ky (1 + the shift ky -
+    1; row 0 is the zero row above the image). Stride 2 (pads (0, 1)): plane
+    (ky % 2, kx) from row 1 + ky // 2, the last tap row reading past the
+    plane's end (the bottom pad)."""
+    assert K.tap_geometry(stride) == want
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_tap_planes_plain(stride):
+    """Plane (py, kx) row 1 + y, column x holds x[s y + py, s x + kx - p],
+    zero outside the image; row 0 is zeros."""
+    x = torch.arange(2 * 3 * 8 * 8, dtype=torch.float32).reshape(2, 3, 8, 8) + 1
+    planes = K.tap_planes_plain(x, stride)
+    ho = wo = 8 // stride
+    assert planes.shape == (2, 3 * stride, 3, ho + 1, wo)
+    assert not planes[:, :, :, 0].any()
+    pad = K.PADS[stride][0]
+    for u in range(3 * stride):
+        py, kx = divmod(u, 3)
+        for y in range(ho):
+            for xo in range(wo):
+                h, w = stride * y + py, stride * xo + kx - pad
+                want = x[:, :, h, w] if 0 <= h < 8 and 0 <= w < 8 else torch.zeros(2, 3)
+                assert torch.equal(planes[:, u, :, 1 + y, xo], want), (u, y, xo)
+
+
+def test_split2_bf16_plain_pieces():
+    rng = np.random.default_rng(5)
+    v = torch.from_numpy((rng.standard_normal(4096) * 10.0 ** rng.integers(-8, 8, 4096))
+                         .astype(np.float32))
+    h, lo = K.split2_bf16_plain(v)
+    assert h.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal(h, v.bfloat16()) and torch.equal(lo, (v - h.float()).bfloat16())
+    # h + l keeps 16 significant bits: the rest is at most 2^-16 of |v|.
+    rest = (v - h.float() - lo.float()).abs()
+    assert bool((rest <= 2.0**-16 * v.abs()).all())
+
+
+@pytest.mark.parametrize("stride,b,side,c,k,bb", TC_CASES)
+def test_tc_plain_matches_fp32_plain(stride, b, side, c, k, bb):
+    """fp32 within TC_LIMIT; bf16 inputs within 1e-6 (one exact piece)."""
+    x, g = _inputs(7, b, side, c, k, stride)
+    xt, gt = _nchw(x), _nchw(g)
+    got = K.conv3x3_wgrad_tc_plain(xt, gt, stride)
+    assert got.dtype == torch.float32 and got.shape == (k, c, 3, 3)
+    _within(got, K.conv3x3_wgrad_plain(xt, gt, stride), TC_LIMIT)
+    xb, gb = xt.bfloat16(), gt.bfloat16()
+    _within(K.conv3x3_wgrad_tc_plain(xb, gb, stride), K.conv3x3_wgrad_plain(xb, gb, stride), 1e-6)
+
+
+@pytest.mark.parametrize("stride,b,side,c,k,bb", TC_CASES)
+def test_tc_plain_matches_pallas_kernel_interpret(stride, b, side, c, k, bb):
+    """The tensor-core route's arithmetic against _wgrad_kernel_s1 / _s2 in
+    interpret mode, within TC_LIMIT x max|JAX|."""
+    import jax.numpy as jnp
+
+    from cs744_pytorch_distributed_tutorial_tpu.ops.fused_conv import (
+        conv3x3_wgrad as jax_wgrad,
+    )
+
+    x, g = _inputs(8, b, side, c, k, stride)
+    want = jax_wgrad(jnp.asarray(x), jnp.asarray(g), stride=stride, block_batch=bb,
+                     interpret=True)
+    want = torch.from_numpy(np.asarray(want).transpose(3, 2, 0, 1).copy())
+    _within(K.conv3x3_wgrad_tc_plain(_nchw(x), _nchw(g), stride), want, TC_LIMIT)
 
 
 @pytest.mark.parametrize("stride,b,side,c,k,bb", CASES)
@@ -159,6 +287,50 @@ CARD_CASES = [
     (1, (8, 128, 16, 16), 128), (1, (8, 256, 8, 8), 256),
     (2, (8, 64, 32, 32), 128), (2, (8, 128, 16, 16), 256),
 ]
+
+
+@pytest.mark.cuda
+def test_tc_kernel_matches_plain_on_card():
+    """Each call on its rule's route (shown by its launches), and every
+    call the rule gives the tensor cores also on the FFMA route: fp32 within
+    1e-4 x max|plain| on both routes (chip_smoke.py's WGRAD_RTOL), the
+    tensor-core route within a quarter of it (two-piece products); bf16 on
+    the tensor cores within 1e-5 (one exact piece); ResNet-18's routed and
+    stride-2 shapes at batch 32, ragged ones (6 x 6 images and 4 x 4
+    outputs on FFMA, C and K odd); two tensor-core runs bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [(1, (32, 128, 16, 16), 128), (1, (32, 256, 8, 8), 256),
+             (2, (32, 64, 32, 32), 128), (2, (32, 128, 16, 16), 256),
+             (1, (3, 3, 8, 8), 10), (2, (3, 3, 8, 8), 10), (1, (2, 9, 12, 12), 6),
+             (1, (5, 20, 6, 6), 7), (2, (5, 20, 6, 6), 7)]
+    real = K.tc_route
+    for stride, shape, k in cases:
+        b, _, h, w = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            g = torch.randn((b, k, h // stride, w // stride), generator=gen, device=dev).to(dtype)
+            want = K.conv3x3_wgrad_plain(x, g, stride)
+            top = float(want.abs().max())
+            rule = "tc" if real(dtype, shape, stride) else "ffma"
+            assert rule == ("tc" if (w // stride) % 8 == 0 else "ffma")
+            for route in ([rule, "ffma"] if rule == "tc" else [rule]):
+                K.reset_launch_count()
+                K.tc_route = (lambda *a, r=route, **kw: r == "tc") if route != rule else real
+                try:
+                    got = K.conv3x3_wgrad(x, g, stride)
+                finally:
+                    K.tc_route = real
+                torch.cuda.synchronize()
+                assert K.launch_count() == K.launch_count(stride, dtype, route) == 1
+                limit = 1e-4 if route == "ffma" else (2.5e-5 if dtype == torch.float32 else 1e-5)
+                err = float((got - want).abs().max())
+                assert err <= limit * top, (route, dtype, stride, shape, k, err / top)
+                if route == "tc":
+                    assert torch.equal(got, K.conv3x3_wgrad(x, g, stride))
 
 
 @pytest.mark.cuda

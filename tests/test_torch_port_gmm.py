@@ -311,11 +311,13 @@ def test_grouped_matmul_fused_rejects(change, err):
 
 @pytest.mark.cuda
 def test_gmm_fused_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version (fp32 products, TF32 off)
+    """The CUDA kernels against their plain version (fp32 products, TF32 off)
     at the MoE path's prefill and decode shapes and ragged ones (empty
     groups, rows past the sum), both activations, fp32 and bf16 in and
     out: fp32 within 1e-5 x max|plain|, bf16 within one ulp plus 1e-5 x
-    max|plain|. The call never synchronises with the host."""
+    max|plain|. Each call takes the route ``fused_tc_route`` gives it
+    (bf16 at rows of 16 bytes: the tensor cores; the rest FFMA), shown by
+    its launches. The call never synchronises with the host."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -325,7 +327,7 @@ def test_gmm_fused_kernel_matches_plain_on_card():
     cases = [(4096, 512, 1024, [600, 420, 512, 0, 700, 380, 900, 584]),
              (32, 1024, 512, [5, 3, 0, 8, 2, 6, 4, 4]),
              (77, 33, 45, [0, 30, 0, 20]), (5, 8, 3, [1]), (100, 64, 70, [10, 20, 0])]
-    launches = 0
+    launches = {"fused": 0, "fused_tc": 0}
     for m, k, n, sizes in cases:
         e = len(sizes)
         lhs = torch.randn((m, k), generator=gen, device=dev)
@@ -342,7 +344,7 @@ def test_gmm_fused_kernel_matches_plain_on_card():
                     torch.cuda.set_sync_debug_mode("default")
                 want = G.grouped_matmul_fused_plain(*args, activation=act)
                 torch.cuda.synchronize()
-                launches += 1
+                launches["fused_tc" if G.fused_tc_route(dtype, (m, k, n)) else "fused"] += 1
                 assert got.dtype == dtype and got.shape == (m, n)
                 err = (got.float() - want.float()).abs()
                 top = float(want.float().abs().max())
@@ -351,7 +353,68 @@ def test_gmm_fused_kernel_matches_plain_on_card():
                 else:
                     tol = 2**-7 * want.float().abs() + 1e-5 * top
                     assert bool((err <= tol).all()), (m, k, n, act)
-    assert G.launch_count() == G.launch_count("fused") == launches
+    assert launches["fused_tc"] >= 2  # the prefill shape in bf16, both activations
+    assert {k: G.launch_count(k) for k in launches} == launches
+    assert G.launch_count() == sum(launches.values())
+
+
+@pytest.mark.cuda
+def test_gmm_fused_tc_matches_plain_on_card(monkeypatch):
+    """The tensor-core forward (``gmm_fused_tc``) and the FFMA one on the
+    same bf16 operands against the plain version, the route forced by
+    patching ``fused_tc_route``: the MoE path's prefill calls (w_in with
+    gelu, w_out), its decode step (32 rows), its training w_in with ``z``
+    (32,768 rows), a ragged case (empty groups, boundaries off the tiles,
+    rows past the sum) and the narrowest rows TMA reads; out in bf16 and
+    fp32, both activations, ``z`` on the gelu path. bf16 within one ulp
+    plus 1e-5 x max|plain|, fp32 within 1e-5 x max|plain|; launches by
+    route; no host synchronisation; two tensor-core runs bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [(4096, 512, 1024, [600, 420, 512, 0, 700, 380, 900, 584], ("gelu",)),
+             (4096, 1024, 512, [600, 420, 512, 0, 700, 380, 900, 584], ("none",)),
+             (32, 512, 1024, [5, 3, 0, 8, 2, 6, 4, 4], ("gelu", "none")),
+             (32768, 512, 1024, [4100, 0, 5000, 3333, 6000, 4444, 5555, 4336], ("gelu",)),
+             (1000, 96, 72, [0, 300, 0, 250, 0, 0, 400, 0], ("gelu", "none")),
+             (5, 8, 8, [2, 1], ("gelu", "none"))]
+    real = G.fused_tc_route
+    for m, k, n, sizes, acts in cases:
+        e = len(sizes)
+        assert real(torch.bfloat16, (m, k, n)) or m < G.FUSED_TC_MIN_ROWS
+        lhs = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+        rhs = (torch.randn((e, k, n), generator=gen, device=dev) / k**0.5).bfloat16()
+        bias = torch.randn((e, n), generator=gen, device=dev)
+        gs = torch.tensor(sizes, device=dev)
+        for act in acts:
+            for out_dtype in (torch.bfloat16, torch.float32):
+                with_z = act == "gelu"
+                want = G.grouped_matmul_fused_plain(lhs, rhs, bias, gs, activation=act,
+                                                    out_dtype=out_dtype, with_z=True)
+                for route in ("tc", "ffma"):
+                    monkeypatch.setattr(G, "fused_tc_route", lambda *a, r=route, **kw: r == "tc")
+                    name = ("fused_z" if with_z else "fused") + ("_tc" if route == "tc" else "")
+
+                    def call():
+                        torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            return G._fused(lhs, rhs, bias, gs, act, out_dtype, with_z)
+                        finally:
+                            torch.cuda.set_sync_debug_mode("default")
+
+                    G.reset_launch_count()
+                    out, z = call()
+                    torch.cuda.synchronize()
+                    assert G.launch_count() == G.launch_count(name) == 1, (route, name)
+                    for got, ref in ((out, want[0]), (z, want[1]) if with_z else (None, None)):
+                        if got is not None:
+                            _card_within(got, ref, out_dtype, (m, k, n, act, route, out_dtype))
+                    if route == "tc":
+                        again, _ = call()
+                        assert torch.equal(out, again)
+                monkeypatch.setattr(G, "fused_tc_route", real)
 
 
 def _card_within(got, want, dtype, label):
@@ -455,13 +518,14 @@ def test_gmm_backward_kernels_match_plain_on_card():
                          G.grouped_matmul_plain(a, w, gs), torch.float32, ("gmm", m, dtype))
             _card_within(via({"colsum": 1}, G.segment_sum_rows, dout, gs),
                          G.segment_sum_rows_plain(dout, gs), torch.float32, ("colsum", m))
-            _, z = via({"fused_z": 1}, G._fused, a, w, bias, gs, "gelu", None, True)
+            fz = "fused_z_tc" if G.fused_tc_route(dtype, (m, k, n)) else "fused_z"
+            _, z = via({fz: 1}, G._fused, a, w, bias, gs, "gelu", None, True)
             _, z_plain = G.grouped_matmul_fused_plain(a, w, bias, gs, activation="gelu",
                                                       with_z=True)
             _card_within(z, z_plain, dtype, ("z", m, dtype))
 
             lt, rt, bt = (t.clone().requires_grad_() for t in (a, w, bias))
-            out = via({"fused_z": 1}, G.grouped_matmul_fused, lt, rt, bt, gs, activation="gelu")
+            out = via({fz: 1}, G.grouped_matmul_fused, lt, rt, bt, gs, activation="gelu")
             bwd = {"gmm_tc": 1, "tgmm_tc": 1, "split": 1} if tc else {"gmm": 1, "tgmm": 1}
             via({**bwd, "colsum": 1}, out.backward, dout.to(dtype))
             dz = torch.ops.aten.gelu_backward(dout.to(dtype).float(), z.float(),

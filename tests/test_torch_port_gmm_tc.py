@@ -15,11 +15,18 @@ that rests on, through the plain versions:
   copy;
 - the route rule, case by case, and the autograd backward handing the
   output's bf16 gradient to ``gmm`` and ``tgmm`` unwidened when there is no
-  activation.
+  activation;
+- the forward's route rule (``fused_tc_route``), and the fused epilogue's
+  plain form (``grouped_matmul_fused_plain`` on bf16 operands: bias in
+  fp32, ``z`` rounded to the output dtype, gelu on the unrounded value, one
+  rounding) against the Pallas ``_gmm_fused_kernel`` in interpret mode,
+  both activations and both output dtypes.
 
 The kernels are held against these plain versions on the card
 (``tests/test_torch_port_gmm.py``'s ``cuda`` tests and ``chip_smoke.py``).
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -166,3 +173,75 @@ def test_backward_hands_the_gradient_over_in_its_dtype(monkeypatch, activation, 
     G.grouped_matmul_fused(lt, rt, bias, gs, activation=activation).backward(dout.bfloat16())
     assert seen == {"gmm": want, "tgmm": want, "segment_sum_rows": torch.float32}
     assert lt.grad.dtype == rt.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize(
+    "dtype,shape,aligned,want",
+    [("bfloat16", (4096, 512, 1024), True, True),    # prefill w_in
+     ("bfloat16", (4096, 1024, 512), True, True),    # prefill w_out
+     ("bfloat16", (32768, 512, 1024), True, True),   # training w_in (with z)
+     ("bfloat16", (1000, 96, 72), True, True),       # ragged rows, narrow widths
+     ("bfloat16", (5, 8, 8), True, True),            # the narrowest rows TMA reads
+     ("float32", (4096, 512, 1024), True, False),    # fp32 operands: FFMA
+     ("bfloat16", (1000, 100, 70), True, False),     # rows not of 16 bytes
+     ("bfloat16", (77, 33, 45), True, False),
+     ("bfloat16", (64, 64, 64), False, False),       # a pointer off 16 bytes
+     ("bfloat16", (0, 64, 64), True, False),         # no rows
+     ("float16", (64, 64, 64), True, False)],
+    ids=["prefill_w_in", "prefill_w_out", "train_w_in", "ragged_96x72", "narrow", "fp32",
+         "odd_100x70", "odd_33x45", "misaligned", "no_rows", "fp16"],
+)
+def test_fused_route_rule(dtype, shape, aligned, want):
+    assert G.fused_tc_route(getattr(torch, dtype), shape, aligned) is want
+
+
+@pytest.mark.parametrize("rows", [1, 16, 32, 64, 65, 4096])
+def test_fused_route_row_threshold(rows):
+    """Rows below FUSED_TC_MIN_ROWS take the FFMA kernel, the rest the
+    tensor cores (bf16, widths of the MoE path's decode step)."""
+    assert G.fused_tc_route(torch.bfloat16, (rows, 512, 1024)) is (rows >= G.FUSED_TC_MIN_ROWS)
+
+
+FUSED_GROUPS = {
+    "empty_and_spanning": (37, [10, 0, 20, 7]),
+    "rows_past_the_sum": (20, [5, 6, 0]),
+    "decode": (32, [5, 3, 0, 8, 2, 6, 4, 4]),
+}
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("activation", ["none", "gelu"])
+@pytest.mark.parametrize("case", sorted(FUSED_GROUPS))
+def test_fused_epilogue_plain_matches_pallas_interpret(case, activation, out_dtype):
+    """bf16 lhs and rhs (the tensor-core route's operands) through
+    ``_gmm_fused_fwd_impl`` (``_gmm_fused_kernel``, interpret mode) and the
+    plain version: out and, on the gelu path, z in ``out_dtype``. bf16
+    within one ulp plus 1e-5 x max|JAX| (both round the fp32 value once;
+    the sums run in another order), fp32 within 1e-5 x max|JAX|."""
+    import jax.numpy as jnp
+
+    jg = importlib.import_module("cs744_pytorch_distributed_tutorial_tpu.ops.gmm")
+    m, sizes = FUSED_GROUPS[case]
+    rng = np.random.default_rng(m * len(sizes))
+    e = len(sizes)
+    lhs = rng.standard_normal((m, K)).astype(np.float32)
+    rhs = (rng.standard_normal((e, K, N)) / np.sqrt(K)).astype(np.float32)
+    bias = rng.standard_normal((e, N)).astype(np.float32)
+    gs = np.asarray(sizes, np.int32)
+    jd = jnp.dtype(getattr(jnp, out_dtype))
+    with_z = activation == "gelu"
+    res = jg._gmm_fused_fwd_impl(jnp.asarray(lhs, jnp.bfloat16), jnp.asarray(rhs, jnp.bfloat16),
+                                 jnp.asarray(bias), jnp.asarray(gs), activation, jd, 8, 8, True,
+                                 with_z=with_z)
+    got = G.grouped_matmul_fused_plain(
+        torch.from_numpy(lhs).bfloat16(), torch.from_numpy(rhs).bfloat16(),
+        torch.from_numpy(bias), torch.from_numpy(gs), activation=activation,
+        out_dtype=getattr(torch, out_dtype), with_z=with_z)
+    got = got if with_z else (got,)
+    assert (res[1] is not None) == with_z
+    for t, w in zip(got, res):
+        assert t.dtype == getattr(torch, out_dtype) and t.shape == (m, N)
+        w = np.asarray(w.astype(jnp.float32))
+        err = np.abs(t.float().numpy() - w)
+        tol = 1e-5 * np.abs(w).max() + (2**-7 * np.abs(w) if out_dtype == "bfloat16" else 0)
+        assert np.all(err <= tol), float(err.max())
