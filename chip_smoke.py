@@ -12,8 +12,11 @@ no result):
 2. kernels against their plain PyTorch versions on the card, then their
    times beside their bounds, the plain versions' times and one PyTorch
    library call's time:
-   - fused SGD at ResNet-18's 62 and VGG-11's 34 parameter shapes and
-     ragged ones;
+   - fused SGD, one multi-tensor launch for a list, bitwise against the
+     plain update over ResNet-18's 62 and VGG-11's 34 parameter shapes and
+     a list of both with ragged shapes, led by a misaligned tensor (more
+     than one launch holds); a whole update timed as one call, as a loop
+     of one-tensor calls, plain and as ``torch.optim.SGD(fused=True)``;
    - the 3x3 conv wgrad at ResNet-18's routed (stride 1) and stride-2
      shapes at batch 256 and at ragged shapes, fp32 and bf16: each call on
      the route ``ops/fused_conv.py::tc_route`` gives it (the tensor cores;
@@ -23,8 +26,8 @@ no result):
    steps each, the kernel launch counts zeroed just before each run and
    read just after: ResNet-18 at full width with ``--fast-conv
    --fused-optimizer`` (6 wgrad launches a step, all fp32 stride 1 on the
-   tensor cores, and 62 fused-SGD launches), and VGG-11 with
-   ``--fused-optimizer`` (34 a step);
+   tensor cores, and one fused-SGD launch for the 62 tensors), and VGG-11
+   with ``--fused-optimizer`` (one a step for its 34);
 4. NCCL paths at a world of one, 5 steps each: VGG-11 part 2b, and
    ResNet-18 part 3 (DDP) with ``--fast-conv``;
 5. bf16: ResNet-18 ``--fast-conv --compute-dtype bfloat16``, 5 steps, the
@@ -61,14 +64,18 @@ no result):
     (forward and backward) against its FFMA route (2 layers at full width,
     batch 4, bf16, 4 AdamW steps, the plain versions printed beside as the
     yardstick);
-12. paged attention: the decode kernel against its plain version (the
-    gather path) at the serving shape (16 slots, 12 query heads over 4 KV
-    heads, D 64, page 16, ragged depths up to 511) in fp32, bf16 and int8
-    (under an fp32 and a bf16 query), and at a ragged one (page 8, group
-    1, D 128, a slot at depth 0), every page a slot does not hold live
-    written with NaN; then its times (bf16, and int8 pages under a bf16
-    query, the variants serving runs) beside its bound, the gather path's
-    and a gather plus ``scaled_dot_product_attention``'s;
+12. paged attention: the decode kernels (a block a 64-key span, then a
+    merge kernel) against their plain version (the gather path) at
+    the serving shape (16 slots, 12 query heads over 4 KV heads, D 64,
+    page 16, ragged depths up to 511) in fp32, bf16 and int8 (under an
+    fp32 and a bf16 query), at a ragged one (page 8, group 1, D 128, a
+    slot at depth 0) and at the key spans' edge cases (depth 0, depths
+    on and beside span boundaries, a page of 24, a narrowed table, groups
+    1 and 16, D 32 and 128), every page a slot does not hold live written
+    with NaN, two calls bitwise equal; then their times (bf16, and int8
+    pages under a bf16 query, the variants serving runs) beside the bound,
+    the gather path's and a gather plus
+    ``scaled_dot_product_attention``'s;
 13. the int8 weight matmul's two kernels (tensor cores for bf16 x, FFMA
     for fp32 x) against their plain version at the GPT-2-small head's
     decode ([16, 768] x [768, 50304]) and prompt-pass ([2048, 768])
@@ -85,8 +92,8 @@ no result):
     keeps) and with ``--int8-kv-cache``;
 15. serving through ``serve_cli``: the same model, 16 slots over a
     513-page pool of 16 rows (32 pages a slot), 64 Poisson requests at 64
-    rps, prompts and outputs 64-256 tokens, the paged kernel (12 launches
-    a decode step); the same trace through the kernel and gather engines
+    rps, prompts and outputs 64-256 tokens, the paged kernels (12 calls a
+    decode step, two launches a call); the same trace through the kernel and gather engines
     (the share of greedy tokens that agree); a pool-pressure run (97
     pages, int8 KV pages and the int8 head) that must preempt; and a
     profile of 20 decode steps;
@@ -198,10 +205,20 @@ PRESSURE_PAGES = 97  # 96 allocatable pages for 16 slots of up to 32 pages
 PROFILE_PROMPT, PROFILE_BUDGET = 128, 64
 SERVE_TRACE = dict(num_requests=64, rate_rps=64.0, prompt_len=(64, 256), output_len=(64, 256),
                    seed=0)
-# Paged attention: (B, Hq, Hkv, D, page_size, pages a slot). The serving
-# shape first.
+# Paged attention: (B, Hq, Hkv, D, page_size, pages a slot[, pos,
+# pages_per_slot]); without pos, ragged depths with slot 0 at depth 0. The
+# serving shape first; then the key spans' edge cases: depth 0
+# everywhere, depths on and beside the 64-key span boundaries, a page of 24
+# (no divisor of the span), a table narrowed to 5 of its 8 pages, groups 1
+# and 16, D 32 and 128.
 PAGED_SERVE = (16, 12, 4, 64, 16, 32)
-PAGED_CASES = [PAGED_SERVE, (5, 2, 2, 128, 8, 7)]
+PAGED_CASES = [PAGED_SERVE, (5, 2, 2, 128, 8, 7),
+               (4, 12, 4, 64, 16, 32, [0, 0, 0, 0], None),
+               (6, 12, 4, 64, 16, 32, [63, 64, 65, 127, 128, 129], None),
+               (3, 4, 2, 64, 24, 8, [47, 100, 191], None),
+               (3, 6, 2, 64, 16, 8, [10, 70, 79], 5),
+               (3, 2, 2, 32, 8, 20, [5, 64, 159], None),
+               (2, 16, 1, 128, 16, 10, [0, 159], None)]
 # name: (pool dtype, q dtype). int8_bf16q is the variant serving runs:
 # bf16 compute over int8 pages, the output in bf16.
 PAGED_VARIANTS = {"float32": (torch.float32, torch.float32),
@@ -429,6 +446,14 @@ def randn(gen: torch.Generator, *shape, dtype=torch.float32) -> torch.Tensor:
 
 # --------------------------------------------------------------- fused SGD
 def fused_sgd_phase(dev: torch.device) -> dict:
+    """The multi-tensor kernel bitwise against the plain update, 3 steps,
+    over three lists: ResNet-18's 62 shapes, VGG-11's 34 (one launch a
+    step each), and one list of a tensor one float off its 16-byte
+    alignment, both models' shapes and RAGGED_SHAPES (more tensors and
+    chunks than one launch holds); each call's launches as the C entry
+    point reports them (1, 1 and 2). Then a whole update of each model four
+    ways, host-fenced and on the device: the multi-tensor call, a loop of
+    one-tensor lists, plain, ``SGD(fused=True)``."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.models import resnet18, vgg11
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_sgd as K
 
@@ -440,36 +465,42 @@ def fused_sgd_phase(dev: torch.device) -> dict:
         raise RuntimeError(f"unexpected parameter counts: {[len(v) for v in shapes.values()]}")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    # Correctness: 3 steps of kernel vs plain on the same inputs; the
-    # misaligned case (a view one float into its storage) takes the
-    # kernel's scalar path.
-    max_err = 0.0
-    all_shapes = sorted(set(shapes["resnet18"] + shapes["vgg11"] + RAGGED_SHAPES))
-    cases = [(s, 0) for s in all_shapes] + [((1000,), 1)]
-    for shape, offset in cases:
-        n = math.prod(shape)
-        p = randn(gen, n + offset)[offset:].view(shape)
-        m = (0.1 * randn(gen, n + offset))[offset:].view(shape)
-        pk, mk, pp, mp = p.clone(), m.clone(), p.clone(), m.clone()
-        if offset:
-            pk = torch.empty(n + offset, device=dev)[offset:].view(shape).copy_(p)
-            mk = torch.empty(n + offset, device=dev)[offset:].view(shape).copy_(m)
+    # label: (shapes, offset of tensor 0 in floats, launches a call)
+    lists = {"resnet18": (shapes["resnet18"], 0, 1), "vgg11": (shapes["vgg11"], 0, 1),
+             "over_capacity": ([(1000,)] + shapes["resnet18"] + shapes["vgg11"] + RAGGED_SHAPES,
+                               1, 2)}
+    launches, max_err = {}, 0.0
+    for label, (list_shapes, offset, want) in lists.items():
+        params = [randn(gen, *s) for s in list_shapes]
+        moms = [0.1 * randn(gen, *s) for s in list_shapes]
+        if offset:  # tensor 0 one float into its storage: its blocks take the scalar path
+            n = math.prod(list_shapes[0])
+            params[0] = torch.empty(n + offset, device=dev)[offset:].copy_(params[0])
+            if params[0].data_ptr() % 16 == 0:
+                raise RuntimeError("the misaligned tensor is 16-byte aligned")
+        pp, mp = [p.clone() for p in params], [m.clone() for m in moms]
+        K.reset_launch_count()
         for _ in range(3):
-            g = randn(gen, *shape)
-            K.fused_sgd_(pk, mk, g, lr=LR, mu=MU, wd=WD)
-            K.fused_sgd_plain(pp, mp, g, lr=LR, mu=MU, wd=WD)
+            grads = [randn(gen, *s) for s in list_shapes]
+            K.fused_sgd_multi_(params, moms, grads, lr=LR, mu=MU, wd=WD)
+            for p, m, g in zip(pp, mp, grads):
+                K.fused_sgd_plain(p, m, g, lr=LR, mu=MU, wd=WD)
         torch.cuda.synchronize()
-        for got, want in ((pk, pp), (mk, mp)):
-            err = (got - want).abs()
-            tol = 1e-6 * want.abs() + 1e-7
-            if not bool((err <= tol).all()):
+        launches[label] = K.launch_count() / 3
+        if K.launch_count() != 3 * want:
+            raise RuntimeError(f"fused_sgd {label}: {K.launch_count()} launches in 3 calls, "
+                               f"expected {3 * want}")
+        for i, (got, ref) in enumerate(zip(params + moms, pp + mp)):
+            if got.numel():
+                max_err = max(max_err, float((got - ref).abs().max()))
+            if not torch.equal(got, ref):
                 raise RuntimeError(
-                    f"fused_sgd kernel disagrees with its plain version at shape "
-                    f"{shape} offset {offset}: max abs err {float(err.max())}"
-                )
-            max_err = max(max_err, float(err.max()))
-    print(f"fused_sgd: {len(cases)} shapes x 3 steps agree with the plain "
-          f"version, max abs err {max_err} (tolerance 1e-6*|p| + 1e-7)")
+                    f"fused_sgd kernel differs from its plain version in list {label} at "
+                    f"tensor {i % len(list_shapes)} {list_shapes[i % len(list_shapes)]}: max abs "
+                    f"err {float((got - ref).abs().max())}")
+    print(f"fused_sgd: lists {({k: len(v[0]) for k, v in lists.items()})} x 3 steps bitwise "
+          f"equal to the plain update (the last led by a misaligned tensor); launches a call "
+          f"{launches}")
 
     bw, flops = card_rates(torch.cuda.get_device_name(0))
     timed = {}
@@ -478,9 +509,12 @@ def fused_sgd_phase(dev: torch.device) -> dict:
         moms = [torch.zeros_like(p) for p in params]
         grads = [randn(gen, *s) for s in model_shapes]
 
-        def kernel_update():
+        def multi_update():
+            K.fused_sgd_multi_(params, moms, grads, lr=LR, mu=MU, wd=WD)
+
+        def loop_update():
             for p, m, g in zip(params, moms, grads):
-                K.fused_sgd_(p, m, g, lr=LR, mu=MU, wd=WD)
+                K.fused_sgd_multi_([p], [m], [g], lr=LR, mu=MU, wd=WD)
 
         def plain_update():
             for p, m, g in zip(params, moms, grads):
@@ -494,25 +528,36 @@ def fused_sgd_phase(dev: torch.device) -> dict:
         n = sum(math.prod(s) for s in model_shapes)
         bytes_ms = 20.0 * n / bw * 1e3  # read p, m, g; write p, m (fp32)
         ops_ms = 6.0 * n / flops * 1e3  # 3 multiplies + 3 adds per element
+        K.reset_launch_count()
+        multi_update()
+        per_update = K.launch_count()
         t = {
-            "ms": median_ms(kernel_update),
+            "ms": median_ms(multi_update),
+            "loop_ms": median_ms(loop_update),
             "plain_ms": median_ms(plain_update),
             "library_ms": median_ms(lib_opt.step),
-            "device_ms": device_busy_ms(kernel_update),
+            "device_ms": device_busy_ms(multi_update),
+            "loop_device_ms": device_busy_ms(loop_update),
             "plain_device_ms": device_busy_ms(plain_update),
             "library_device_ms": device_busy_ms(lib_opt.step),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "elements": n,
             "tensors": len(model_shapes),
+            "launches_per_update": per_update,
+            "loop_launches_per_update": len(model_shapes),
         }
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        if t["device_ms"]:
+            t["bound_share_device"] = t["bound_ms"] / t["device_ms"]
         timed[model] = t
-        print(f"fused_sgd: {model} update of {n} elements in {len(model_shapes)} "
-              f"tensors ({20 * n / 1e6:.1f} MB): kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, torch.optim.SGD(fused=True) "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms; device busy "
-              f"per update (profiler): kernel {t['device_ms']}, plain "
-              f"{t['plain_device_ms']}, library {t['library_device_ms']} ms")
+        print(f"fused_sgd: {model} update of {n} elements in {len(model_shapes)} tensors "
+              f"({20 * n / 1e6:.1f} MB): multi-tensor {t['ms']:.4f} ms ({per_update} launch), "
+              f"per-tensor loop {t['loop_ms']:.4f} ms ({len(model_shapes)} launches), plain "
+              f"{t['plain_ms']:.4f} ms, torch.optim.SGD(fused=True) {t['library_ms']:.4f} ms, "
+              f"bound {t['bound_ms']:.4f} ms; device busy per update (profiler): multi-tensor "
+              f"{t['device_ms']}, loop {t['loop_device_ms']}, plain {t['plain_device_ms']}, "
+              f"library {t['library_device_ms']} ms")
     # The record carries this slice's main path (ResNet-18); VGG-11 beside it.
     return {
         "name": "fused_sgd",
@@ -523,8 +568,9 @@ def fused_sgd_phase(dev: torch.device) -> dict:
         "launches": None,  # filled in from the main path's run
         "max_abs_err": max_err,
         **timed["resnet18"],
-        "work": "one whole ResNet-18 update (62 tensors)",
+        "work": "one whole ResNet-18 update (62 tensors, one launch)",
         "vgg11": timed["vgg11"],
+        "launches_per_call_checked": launches,
     }
 
 
@@ -777,7 +823,7 @@ def nccl_phases() -> None:
     if summary["backend"] != "nccl":
         raise RuntimeError(f"part 2b ran on backend {summary['backend']!r}, not nccl")
     check_run("NCCL path vgg11 part 2b", summary, counts, NCCL_STEPS,
-              {"fused_sgd": VGG11_TENSORS * NCCL_STEPS})
+              {"fused_sgd": NCCL_STEPS})  # one launch a step
     # DDP: every parameter's gradient, the autograd Function's dW
     # included, must reach the reducer, or DDP raises on the next step.
     summary, counts = counted_run(cli_argv("resnet18", "3", NCCL_STEPS, "--fast-conv"))
@@ -797,7 +843,7 @@ def bf16_phase() -> None:
         "conv3x3_wgrad_s1": 0,
         "conv3x3_wgrad_bf16_tc": RESNET18_ROUTED * BF16_STEPS,
         "conv3x3_wgrad_bf16": RESNET18_ROUTED * BF16_STEPS,
-        "fused_sgd": RESNET18_TENSORS * BF16_STEPS,
+        "fused_sgd": BF16_STEPS,  # one launch a step
     })
 
 
@@ -1505,18 +1551,22 @@ def lm_flash_route_trajectory_phase() -> dict:
 
 # ------------------------------------------------------------ paged attention
 def paged_inputs(gen: torch.Generator, case: tuple, variant: str) -> dict:
-    """Pools, a shuffled table, ragged depths (slot 0 at depth 0), and every
-    page a slot does not hold live: NaN in the float pools, or in the scale
-    pools of int8 ones; the plain version is given the values before."""
+    """Pools, a shuffled table, the case's depths (or ragged ones, slot 0
+    at depth 0), and every page a slot does not hold live: NaN in the
+    float pools, or in the scale pools of int8 ones; the plain version is
+    given the values before."""
     dtype, q_dtype = PAGED_VARIANTS[variant]
-    b, hq, hkv, d, ps, ppr = case
+    b, hq, hkv, d, ps, ppr, *extra = case
+    pos_list, narrow = (list(extra) + [None, None])[:2]
     dev = gen.device
     num_pages = b * ppr + 1
     table = (1 + torch.randperm(num_pages - 1, generator=gen, device=dev)).view(b, ppr)
     table = table.to(torch.int32)
-    pos = torch.randint(0, ppr * ps, (b,), generator=gen, device=dev)
-    pos = pos.to(torch.int32)
-    pos[0] = 0
+    if pos_list is None:
+        pos = torch.randint(0, ppr * ps, (b,), generator=gen, device=dev).to(torch.int32)
+        pos[0] = 0
+    else:
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     live = torch.arange(ppr, device=dev)[None, :] <= (pos // ps)[:, None].long()
     dead = table[~live].long()
     shape = (num_pages, ps, hkv, d)
@@ -1535,23 +1585,25 @@ def paged_inputs(gen: torch.Generator, case: tuple, variant: str) -> dict:
         plain = dict(key_pages=kp.clone(), value_pages=vp.clone())
         kp[dead], vp[dead] = float("nan"), float("nan")
         kernel = dict(key_pages=kp, value_pages=vp)
-    return {"q": q, "table": table, "pos": pos, "kernel": kernel, "plain": plain}
+    return {"q": q, "table": table, "pos": pos, "kernel": kernel, "plain": plain,
+            "pages_per_slot": narrow}
 
 
 def paged_phase(dev: torch.device) -> dict:
-    """The kernel against the gather path, then its times at the serving
-    shape in bf16 and int8 pages with bf16 q (the serving path's
-    variants).
+    """The kernels against the gather path at every case and variant (two
+    calls bitwise equal), then their times at the serving shape in bf16
+    and int8 pages with bf16 q (the serving path's variants).
 
     fp32 outputs must lie within 2e-5 of the plain version's. A bf16
     output may differ by one bf16 ulp of the plain value (2^-7 of it),
     since both round their fp32 result, plus 2^-8 S, S = sum_i p_i |v_i|
     (the plain version over |V|): with float pools both sides round each
-    probability to bf16 before PV, to within 2^-8 of it, the kernel
-    exp(s - running max) and the plain version the normalised p, so the
-    two sums differ by a few parts in 2^-8 S (1e-6 is added for outputs
-    of 0). At depths of 100-511 S is about 0.8, and one key dropped or
-    counted twice moves some output of its slot by more than that limit."""
+    probability to bf16 before PV, to within 2^-8 of it, the kernels
+    exp(s - a span's or a running max) and the plain version the
+    normalised p, so the two sums differ by a few parts in 2^-8 S (1e-6 is
+    added for outputs of 0). At depths of 100-511 S is about 0.8, and one
+    key dropped or counted twice moves some output of its slot by more
+    than that limit."""
     import torch.nn.functional as F
 
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import paged_attention as PA
@@ -1559,34 +1611,44 @@ def paged_phase(dev: torch.device) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(5)
     err, worst = {}, {}
+    PA.reset_launch_count()
     for case in PAGED_CASES:
         for variant in PAGED_VARIANTS:
             x = paged_inputs(gen, case, variant)
-            q, table, pos = x["q"], x["table"], x["pos"]
-            kern, plain = x["kernel"], x["plain"]
-            got = PA.paged_attention(q, kern.pop("key_pages"), kern.pop("value_pages"), table,
-                                     pos, **kern)
+            q, table, pos, narrow = x["q"], x["table"], x["pos"], x["pages_per_slot"]
+            kern, plain = dict(x["kernel"]), dict(x["plain"])
+            kpk, vpk = kern.pop("key_pages"), kern.pop("value_pages")
             kp, vp = plain.pop("key_pages"), plain.pop("value_pages")
-            want = PA.paged_attention_plain(q, kp, vp, table, pos, **plain)
-            torch.cuda.synchronize()
-            e = float((got.float() - want.float()).abs().max())
+            want = PA.paged_attention_plain(q, kp, vp, table, pos, pages_per_slot=narrow, **plain)
             if want.dtype == torch.float32:
                 limit = torch.full_like(want, PAGED_FP32_TOL)
             else:
                 wide = (lambda t: t) if kp.dtype == torch.int8 else torch.Tensor.float
                 spread = PA.paged_attention_plain(q.float(), wide(kp), wide(vp).abs(), table,
-                                                  pos, **plain)
+                                                  pos, pages_per_slot=narrow, **plain)
                 limit = 2**-7 * want.float().abs() + 2**-8 * spread + 1e-6
+            got = PA.paged_attention(q, kpk, vpk, table, pos, pages_per_slot=narrow, **kern)
+            torch.cuda.synchronize()
+            e = float((got.float() - want.float()).abs().max())
             ratio = float(((got.float() - want.float()).abs() / limit).max())
             if got.dtype != want.dtype or not (math.isfinite(e) and ratio <= 1.0):
-                raise RuntimeError(f"paged attention kernel disagrees with its plain version at "
-                                   f"{case} {variant}: max abs err {e}, {ratio} of the limit, "
-                                   f"dtype {got.dtype}")
+                raise RuntimeError(f"paged attention disagrees with its plain version at {case} "
+                                   f"{variant}: max abs err {e}, {ratio} of the limit, dtype "
+                                   f"{got.dtype}")
+            again = PA.paged_attention(q, kpk, vpk, table, pos, pages_per_slot=narrow, **kern)
+            if not torch.equal(got, again):
+                raise RuntimeError(f"paged attention is not repeatable at {case} {variant}")
             err[variant] = max(err.get(variant, 0.0), e)
             worst[variant] = max(worst.get(variant, 0.0), ratio)
-    print(f"paged attention: {len(PAGED_CASES)} shapes x {tuple(PAGED_VARIANTS)} (pool/q) agree "
-          f"with the gather path, dead pages NaN; max abs err {err}; largest share of the limit "
-          f"{worst} (limit: {PAGED_FP32_TOL} fp32; 2^-7 |plain| + 2^-8 sum p|v| + 1e-6 bf16)")
+    # two calls a case and variant, two launches a call (the spans, the merge)
+    want_launches = 4 * len(PAGED_CASES) * len(PAGED_VARIANTS)
+    if PA.launch_count() != want_launches:
+        raise RuntimeError(f"paged attention: {PA.launch_count()} launches, expected "
+                           f"{want_launches}")
+    print(f"paged attention: {len(PAGED_CASES)} cases x {tuple(PAGED_VARIANTS)} (pool/q) agree "
+          f"with the gather path, dead pages NaN, bitwise repeatable; max abs err {err}; "
+          f"largest share of the limit {worst} (limit: {PAGED_FP32_TOL} fp32; 2^-7 |plain| + "
+          f"2^-8 sum p|v| + 1e-6 bf16)")
 
     bw, fp32_flops = card_rates(torch.cuda.get_device_name(0))
     b, hq, hkv, d, ps, ppr = PAGED_SERVE
@@ -1603,17 +1665,25 @@ def paged_phase(dev: torch.device) -> dict:
                   + 2 * q.numel() * q.element_size() + 4.0 * (table.numel() + b))
         flop = 4.0 * keys * hq * d
         bytes_ms, ops_ms = nbytes / bw * 1e3, flop / fp32_flops * 1e3
+
+        def call():
+            return PA.paged_attention(q, kp, vp, table, pos, **scales)
+
+        spans = -(-(ppr * ps) // PA.SPAN)
         t = {
-            "ms": median_ms(lambda: PA.paged_attention(q, kp, vp, table, pos, **scales)),
-            "device_ms": device_busy_ms(lambda: PA.paged_attention(q, kp, vp, table, pos,
-                                                                   **scales),
-                                        match="paged_decode_kernel"),
+            "ms": median_ms(call),
+            "device_ms": device_busy_ms(call, match="paged_decode"),
             "plain_ms": median_ms(lambda: PA.paged_attention_plain(q, kp, vp, table, pos,
                                                                    **scales)),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "live_rows": keys, "mbytes": nbytes / 1e6, "max_pos": int(pos.max()),
+            "grid_blocks": hkv * b * spans,
+            "live_blocks": hkv * int(((pos.long() + PA.SPAN) // PA.SPAN).sum()),
         }
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        if t["device_ms"]:
+            t["bound_share_device"] = t["bound_ms"] / t["device_ms"]
         if not scales:
             rep = hq // hkv
             mask = (torch.arange(ppr * ps, device=dev)[None, :] <= pos[:, None])[:, None, None]
@@ -1627,11 +1697,15 @@ def paged_phase(dev: torch.device) -> dict:
             t["library_device_ms"] = device_busy_ms(library)
         timed[variant] = t
         print(f"paged attention at {PAGED_SERVE} {variant}, {keys} live rows (depths up to "
-              f"{t['max_pos']}), {nbytes / 1e6:.3f} MB: kernel {t['ms']:.4f} ms (device "
-              f"{t['device_ms']} ms), plain {t['plain_ms']:.4f} ms"
+              f"{t['max_pos']}), {nbytes / 1e6:.3f} MB: kernels {t['ms']:.4f} ms (device "
+              f"{t['device_ms']} ms; {t['live_blocks']} live of {t['grid_blocks']} blocks), "
+              f"plain {t['plain_ms']:.4f} ms"
               + (f", gather + SDPA {t['library_ms']:.4f} ms (device {t['library_device_ms']} ms)"
                  if "library_ms" in t else "")
               + f", bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+    if timed["bfloat16"]["live_blocks"] < 132:
+        raise RuntimeError(f"paged attention: {timed['bfloat16']['live_blocks']} blocks with "
+                           f"live keys at the serving shape, fewer than the card's 132 SMs")
     main_t = timed["bfloat16"]
     return {
         "name": "paged_attention",
@@ -1639,11 +1713,13 @@ def paged_phase(dev: torch.device) -> dict:
         "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/paged_attention.cu",
         "replaces": "cs744_pytorch_distributed_tutorial_tpu/ops/paged_attention.py:74",
         "tpu_kernel": "ops/paged_attention.py::_decode_kernel",
-        "launches": None,  # filled in from the serving path's run
+        "kernels": "paged_decode_split_kernel + paged_decode_merge_kernel",
+        "launches": None,  # filled in from the serving path's run (two a call)
         "max_abs_err": max(err.values()),
         "max_abs_err_by_variant": err,
         "share_of_limit_by_variant": worst,
-        **{k: main_t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        **{k: main_t[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "live_blocks", "grid_blocks")},
         "library_ms": main_t["library_ms"],
         "library_device_ms": main_t["library_device_ms"],
         "library": "gather_pages + repeat_interleave + scaled_dot_product_attention (per-slot mask)",
@@ -1897,11 +1973,10 @@ def serving_phase() -> int:
     n = SERVE_TRACE["num_requests"]
     if s["completed"] != n or s["requests"] != n or s["paged_attention_impl"] != "kernel":
         raise RuntimeError(f"serving: {s}")
-    want = DECODE_WIDTH["num_layers"] * s["decode_steps_all"]
-    if counts["paged_attention"] != want or others(counts, "paged_attention",
-                                                    "paged_attention_int8"):
-        raise RuntimeError(f"serving: launches {counts}, expected {want} paged (12 x "
-                           f"{s['decode_steps_all']} decode steps) and no other")
+    want = 2 * DECODE_WIDTH["num_layers"] * s["decode_steps_all"]
+    if counts["paged_attention"] != want or others(counts, "paged_attention"):
+        raise RuntimeError(f"serving: launches {counts}, expected {want} paged launches (two a "
+                           f"call, 12 calls x {s['decode_steps_all']} decode steps) and no other")
     print(f"serving (kernel, bf16): {n} requests, {s['total_output_tokens']} tokens in "
           f"{s['makespan_s']} s: {s['tokens_per_sec']} tokens/s, TTFT p50 {s['ttft_p50_ms']} ms "
           f"p99 {s['ttft_p99_ms']} ms, ITL p50 {s['itl_p50_ms']} ms p99 {s['itl_p99_ms']} ms, "
@@ -1985,7 +2060,7 @@ def serving_checks_phase() -> None:
     # cores, a decode step's 16 rows on the route the rule gives them.
     decode_tc = QT.tc_route(torch.bfloat16, SERVE_GEOMETRY["num_slots"],
                             DECODE_WIDTH["d_model"], DECODE_WIDTH["vocab_size"])
-    want = {"paged_attention": layers * s["decode_steps_all"],
+    want = {"paged_attention": 2 * layers * s["decode_steps_all"],  # two launches a call
             "int8_matmul": s["decode_steps_all"] + s["prefills_all"],
             "int8_matmul_tc": s["prefills_all"] + s["decode_steps_all"] * decode_tc}
     if (counts["paged_attention"] != want["paged_attention"]
@@ -2030,7 +2105,7 @@ def decode_profile(model) -> dict:
             eng.step()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    out = summarize_profile(prof, steps, "decode profile", {"paged": ("paged_decode_kernel",)})
+    out = summarize_profile(prof, steps, "decode profile", {"paged": ("paged_decode",)})
     if not out:
         return {}
     out.update(active_slots=SERVE_GEOMETRY["num_slots"],
@@ -3098,16 +3173,17 @@ def main() -> int:
                   f"spill loads")
 
     records = [fused_sgd_phase(dev), *wgrad_phase(dev)]
-    # ResNet-18's fp32 stride-1 wgrads all on the tensor cores.
+    # ResNet-18's fp32 stride-1 wgrads all on the tensor cores; the whole
+    # update one fused-SGD launch a step (62 tensors), VGG-11's too (34).
     counts = main_path_phase("resnet18", ("--fast-conv", "--fused-optimizer"), {
-        "fused_sgd": RESNET18_TENSORS * STEPS,
+        "fused_sgd": STEPS,
         "conv3x3_wgrad_s1_tc": RESNET18_ROUTED * STEPS,
         "conv3x3_wgrad_s1": 0,
         "conv3x3_wgrad_s2": 0,
         "conv3x3_wgrad_s2_tc": 0,
     })
     vgg_counts = main_path_phase("vgg11", ("--fused-optimizer",), {
-        "fused_sgd": VGG11_TENSORS * STEPS,
+        "fused_sgd": STEPS,
         "conv3x3_wgrad_s1": 0, "conv3x3_wgrad_s1_tc": 0,
         "conv3x3_wgrad_s2": 0, "conv3x3_wgrad_s2_tc": 0,
     })

@@ -9,8 +9,14 @@ and for int8 pools under a bf16 query;
 ``decode_attention``, ``paged_decode_attention`` and
 ``decode_attention_quant`` at 1e-6 (the same einsums, summed in another
 order). Page tables are shuffled, depths run from 0 to full, GQA groups
-are 1 and 2. The ``cuda``-marked test holds the CUDA kernel against its
-plain version on the card. JAX is imported inside the tests that use it.
+are 1 and 2. ``paged_attention_split_plain`` (the CUDA kernels'
+arithmetic: per-span partials, the merge in span order) is held to the
+Pallas kernel at the same tolerances, for all four variants, at spans
+that do and do not divide the page, with depth 0 and depths on and
+beside a span boundary, and to the gather path at groups 1 and 16, head
+dims 32 and 128 and a narrowed table. The ``cuda``-marked tests hold
+the CUDA kernels against the plain version on the card. JAX is imported
+inside the tests that use it.
 """
 
 import importlib
@@ -188,6 +194,80 @@ def test_paged_attention_checks_inputs(kw, match):
         P.paged_attention(q, kp, kp, table, pos, **scales)
 
 
+# (pool dtype, q dtype, tolerance) of the four variants, as the Pallas
+# tests above hold them.
+SPLIT_VARIANTS = {"float32": ("float32", "float32", 2e-5),
+                  "bfloat16": ("bfloat16", "bfloat16", 2e-2),
+                  "int8": ("int8", "float32", 2e-5), "int8_bf16q": ("int8", "bfloat16", 2e-2)}
+
+
+@pytest.mark.parametrize("span", [3, 4, 5], ids=["span3", "span4", "span5"])
+@pytest.mark.parametrize("variant", sorted(SPLIT_VARIANTS))
+def test_split_plain_matches_pallas_interpret(variant, span):
+    """Depths 0, ``span`` (the first key of the second span) and
+    ``2 span - 1`` (the last of the second); page 4, so spans of 3 and 5
+    straddle pages. NaN in every page a slot does not hold live on the
+    port's side only: the split version never reads them into a sum."""
+    import jax.numpy as jnp
+
+    pool, q_dtype, tol = SPLIT_VARIANTS[variant]
+    if pool == "int8":
+        q, kp, vp, ks, vs, table, _ = _int8_case(7, 4, 2)
+    else:
+        q, kp, vp, table, _ = _float_case(7, 4, 2)
+        ks = vs = None
+    pos = np.asarray([0, span, 2 * span - 1], np.int32)
+    jd = getattr(jnp, q_dtype)
+    scales = {} if ks is None else dict(key_scale_pages=jnp.asarray(ks),
+                                        value_scale_pages=jnp.asarray(vs))
+    jk, jv = (jnp.asarray(a) if pool == "int8" else jnp.asarray(a).astype(jd) for a in (kp, vp))
+    want = _jax("ops.paged_attention").paged_attention(
+        jnp.asarray(q).astype(jd), jk, jv, jnp.asarray(table), jnp.asarray(pos), interpret=True,
+        **scales)
+    live = np.arange(table.shape[1])[None, :] <= (pos // kp.shape[1])[:, None]
+    dead = table[~live]
+    qt, kt, vt, tt, pt = _t(q, kp, vp, table, pos)
+    kw = {}
+    if ks is None:
+        kt, vt = kt.to(getattr(torch, pool)), vt.to(getattr(torch, pool))
+        kt[dead], vt[dead] = float("nan"), float("nan")
+    else:
+        kst, vst = _t(ks, vs)
+        kst[dead], vst[dead] = float("nan"), float("nan")
+        kw = dict(key_scale_pages=kst, value_scale_pages=vst)
+    got = P.paged_attention_split_plain(qt.to(getattr(torch, q_dtype)), kt, vt, tt, pt,
+                                        span=span, **kw)
+    assert got.dtype == getattr(torch, q_dtype) and got.shape == (B, 1, 4, D)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+# (Hq, Hkv, D, page_size, pages a slot, pages_per_slot, span): groups 1 and
+# 16, head dims 32 and 128, a narrowed table, spans over and within pages.
+SPLIT_GATHER_CASES = [(2, 2, 32, 4, 4, None, 3), (16, 1, 32, 5, 3, None, 4),
+                      (4, 2, 128, 3, 6, 4, 5), (6, 3, 16, 4, 5, 3, 64)]
+
+
+@pytest.mark.parametrize("case", SPLIT_GATHER_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+def test_split_plain_matches_gather_path(case, dtype, tol):
+    hq, hkv, d, ps, ppr, narrow, span = case
+    rng = np.random.default_rng(8)
+    num_pages = B * ppr + 1
+    td = getattr(torch, dtype)
+    kp, vp = (torch.from_numpy(rng.standard_normal((num_pages, ps, hkv, d)).astype(np.float32))
+              .to(td) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((B, 1, hq, d)).astype(np.float32)).to(td)
+    table = torch.from_numpy((1 + rng.permutation(num_pages - 1)).reshape(B, ppr).astype(np.int32))
+    cap = (narrow or ppr) * ps
+    pos = torch.tensor([0, span, cap + 3], dtype=torch.int32)  # the last past the table: clipped
+    want = P.paged_attention_plain(q, kp, vp, table, pos.clamp(max=cap - 1),
+                                   pages_per_slot=narrow)
+    got = P.paged_attention_split_plain(q, kp, vp, table, pos, pages_per_slot=narrow, span=span)
+    assert got.dtype == td
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=tol, atol=tol)
+
+
 # The card: the serving shape (16 slots, 12 query heads over 4 KV heads,
 # D 64, page 16, ragged depths up to 511), fp32, bf16 and int8, and a
 # ragged one (page 8, group 1, D 128, a slot at depth 0); (B, Hq, Hkv, D,
@@ -201,7 +281,7 @@ CARD_VARIANTS = [(torch.float32, torch.float32, 2e-5), (torch.bfloat16, torch.bf
 
 @pytest.mark.cuda
 def test_paged_attention_kernel_matches_plain_on_card():
-    """The CUDA kernel against the gather path on the card: max abs err
+    """The CUDA kernels against the gather path on the card: max abs err
     <= 2e-5 for fp32 outputs, 2e-2 for bf16 ones (the CPU tests'
     tolerances against the Pallas kernel), with NaN written into every
     page a slot does not hold live (the kernel never reads them)."""
@@ -244,5 +324,81 @@ def test_paged_attention_kernel_matches_plain_on_card():
             assert got.dtype == want.dtype and got.shape == want.shape
             err = float((got.float() - want.float()).abs().max())
             assert err <= tol, (b, hq, hkv, d, ps, dtype, q_dtype, err)
-    assert P.launch_count() == len(CARD_VARIANTS) * len(CARD_CASES)
-    assert P.launch_count("int8") == 2 * len(CARD_CASES)
+    # two launches a call: the spans, then the merge
+    assert P.launch_count() == 2 * len(CARD_VARIANTS) * len(CARD_CASES)
+    assert P.launch_count("int8") == 4 * len(CARD_CASES)
+
+
+# Edge cases of the key spans: (B, Hq, Hkv, D, page_size, pages a slot,
+# pos, pages_per_slot). Depth 0 everywhere; depths on and beside the span
+# boundaries 64 and 128; a page of 24 (no divisor of the 64-key span); a
+# table narrowed to 5 of its 8 pages; groups 1 and 16; D 32 and 128.
+SPAN_EDGE_CASES = [
+    (4, 12, 4, 64, 16, 32, [0, 0, 0, 0], None),
+    (6, 12, 4, 64, 16, 32, [63, 64, 65, 127, 128, 129], None),
+    (3, 4, 2, 64, 24, 8, [47, 100, 191], None),
+    (3, 6, 2, 64, 16, 8, [10, 70, 79], 5),
+    (3, 2, 2, 32, 8, 20, [5, 64, 159], None),
+    (2, 16, 1, 128, 16, 10, [0, 159], None),
+]
+
+
+@pytest.mark.cuda
+def test_paged_kernel_edge_cases_on_card():
+    """The CUDA kernels against the gather path at the edge cases, every
+    variant, NaN in every page a slot does not hold live; two calls
+    bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    P.reset_launch_count()
+    for b, hq, hkv, d, ps, ppr, pos, narrow in SPAN_EDGE_CASES:
+        num_pages = b * ppr + 1
+        table = (1 + torch.randperm(num_pages - 1, generator=gen, device=dev)).view(b, ppr)
+        table = table.to(torch.int32)
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        live = torch.arange(ppr, device=dev)[None, :] <= (pos // ps)[:, None]
+        dead = table[~live].long()
+        for dtype, q_dtype, tol in CARD_VARIANTS:
+            shape = (num_pages, ps, hkv, d)
+            q = torch.randn((b, 1, hq, d), generator=gen, device=dev).to(q_dtype)
+            if dtype == torch.int8:
+                kp, vp = (torch.randint(-127, 128, shape, generator=gen, device=dev).to(dtype)
+                          for _ in range(2))
+                ks, vs = (torch.rand(shape[:3], generator=gen, device=dev) / 127 + 0.5 / 127
+                          for _ in range(2))
+                want = P.paged_attention_plain(q, kp, vp, table, pos, key_scale_pages=ks,
+                                               value_scale_pages=vs, pages_per_slot=narrow)
+                ks[dead], vs[dead] = float("nan"), float("nan")
+                kw = dict(key_scale_pages=ks, value_scale_pages=vs)
+            else:
+                kp, vp = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                          for _ in range(2))
+                want = P.paged_attention_plain(q, kp, vp, table, pos, pages_per_slot=narrow)
+                kp[dead], vp[dead] = float("nan"), float("nan")
+                kw = {}
+            got = P.paged_attention(q, kp, vp, table, pos, pages_per_slot=narrow, **kw)
+            again = P.paged_attention(q, kp, vp, table, pos, pages_per_slot=narrow, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            err = float((got.float() - want.float()).abs().max())
+            assert got.dtype == want.dtype and err <= tol, (b, hq, d, ps, pos, dtype, err)
+    assert P.launch_count() == 4 * len(CARD_VARIANTS) * len(SPAN_EDGE_CASES)
+
+
+@pytest.mark.cuda
+def test_paged_attention_rejects_misaligned_pools_on_card():
+    """The kernel copies pool rows 16 bytes at a time: a pool that does
+    not start on 16 bytes raises, with no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    q = torch.randn(1, 1, 2, 32, device="cuda")
+    vp = torch.randn(3, 4, 2, 32, device="cuda")
+    kp = torch.empty(vp.numel() + 1, device="cuda")[1:].view(vp.shape).copy_(vp)
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([5], dtype=torch.int32, device="cuda")
+    P.reset_launch_count()
+    with pytest.raises(ValueError, match="aligned"):
+        P.paged_attention(q, kp, vp, table, pos)
+    assert P.launch_count() == 0
