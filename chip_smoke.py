@@ -36,6 +36,21 @@ no result):
    with the wgrad kernel vs the library's (4 steps, TF32 off);
 7. profiles: where the device time of a main-path step goes, VGG-11 and
    ResNet-18 (with and without ``fast_conv``);
+7a. the port's headline benchmark (``bench.py``): ResNet-18, bf16, DDP
+   on a process group of one, batch 4096 (10 + 30 steps) and 1024 (10 +
+   90), its ``kind: "bench"`` line after the card and the peak memory;
+7b. the gradient wire's paths through the CLI on NCCL at a world of one,
+   ResNet-18 at batch 256, 12 steps each, launch counts zeroed just
+   before each run and read just after: part 2b's allreduce and ring,
+   the overlapped schedule over both (``--sync-overlap bucket``: one
+   fused-SGD launch a bucket, 12 buckets a step), the int8 wire over both
+   and overlapped (``--grad-compress int8``, ``--sync-overlap
+   bucket+int8``) and ``--accum-steps 2 --fused-optimizer``, each mode's
+   step time (overlap hides nothing at one rank); then, with cuDNN
+   deterministic, 3 Trainer steps each: the overlapped float paths
+   bitwise equal to the fused ones, and one int8 step's mean and
+   residual bitwise equal to the wire's CPU version on the same
+   gradients;
 8. flash attention: the forward, dq and dk/dv kernels against their
    plain versions (the LM path's shape B16 T1024 H12 D64 causal, a
    non-causal and ragged shapes, fp32 and bf16): fp32 inputs on the FFMA
@@ -932,6 +947,155 @@ def profile_phase(model: str, **cfg_kw) -> dict:
     out = {"model": model, **cfg_kw, **summary, "wall_ms_per_step_profiled": wall / steps * 1e3}
     print(json.dumps({"step_profile": out}))
     return out
+
+
+# ------------------------------------------------------------- the bench
+def bench_phase() -> dict:
+    """The port's headline (``bench.py``): ResNet-18, bf16, DDP on a
+    process group of one, batch 4096 (10 + 30 steps) and 1024 (10 + 90),
+    its ``kind: "bench"`` line after the card and the peak memory."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import bench
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.sinks import sanitize
+
+    record, measured = bench.run_headline()
+    for batch, m in measured.items():
+        if not (m["samples_per_sec"] > 0 and m["device"].type == "cuda"):
+            raise RuntimeError(f"bench at batch {batch}: {m}")
+    print(f"bench card: {card_line()}")
+    print("bench peak memory: " + ", ".join(
+        f"batch {b} {m['peak_memory_bytes'] / 1e9:.3f} GB" for b, m in measured.items()))
+    if record["mfu"] is None or record["vs_baseline"] is not None:
+        raise RuntimeError(f"bench record: mfu {record['mfu']}, vs_baseline {record['vs_baseline']}")
+    print(json.dumps(sanitize(record)))
+    from torch.profiler import ProfilerActivity, profile
+
+    with bench.headline_trainer(bench.GLOBAL_BATCH) as (tr, x, y):
+        for _ in range(3):
+            tr.train_step(x, y)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                tr.train_step(x, y)
+            torch.cuda.synchronize()
+    summary = summarize_profile(prof, 3, "profile bench", {
+        "bn": ("bn_", "batch_norm", "BatchNorm"), "conv": ("conv", "xmma", "cutlass", "sm90"),
+        "nchw_nhwc": ("nchwToNhwc", "nhwcToNchw")})
+    if summary:
+        print(json.dumps({"bench_profile": summary}))
+    return record
+
+
+# ------------------------------------------------------------ sync paths
+SYNC_STEPS = 12  # > 10, so the CLI's timing window (batches 1-10) fills
+SYNC_MODES = {  # label: (flags, fused-SGD launches a step: None = a bucket each)
+    "allreduce": ((), 0),
+    "ring": (("--sync", "ring"), 0),
+    "overlap allreduce": (("--sync-overlap", "bucket"), None),
+    "overlap ring": (("--sync", "ring", "--sync-overlap", "bucket"), None),
+    "int8 allreduce": (("--grad-compress", "int8"), 0),
+    "int8 ring": (("--sync", "ring", "--grad-compress", "int8"), 0),
+    "overlap int8": (("--grad-compress", "int8", "--sync-overlap", "bucket+int8"), None),
+    "accum 2": (("--accum-steps", "2", "--fused-optimizer"), 1),
+}
+
+
+def resnet18_buckets() -> int:
+    """Buckets of the overlapped schedule over ResNet-18 (4 MiB, reverse)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.models import resnet18
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.overlap import overlap_layout
+
+    shapes = [(tuple(p.shape), p.dtype) for p in resnet18().parameters()]
+    return len(overlap_layout(shapes, "allreduce", 1, None).bucket_cols)
+
+
+def _trainer_run(cfg_kw: dict, steps: int, batch: int = 64):
+    """(losses, parameters, trainer) of ResNet-18 on the card, augmentation
+    off, a process group of one; launch counts zeroed just before."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.config import TrainConfig
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_cifar10
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train import Trainer
+
+    ds = synthetic_cifar10(steps * batch, 8, seed=3)
+    tr = Trainer(TrainConfig(model="resnet18", num_devices=1, global_batch_size=batch,
+                             augment=False, learning_rate=0.02, **cfg_kw))
+
+    def run():
+        out = []
+        for s in range(steps):
+            x = torch.from_numpy(ds.train_images[s * batch : (s + 1) * batch]).to(tr.device)
+            y = torch.from_numpy(ds.train_labels[s * batch : (s + 1) * batch].astype("int64"))
+            out.append(float(tr.train_step(x, y.to(tr.device))))
+        return out
+
+    losses, counts = counted(run)
+    return losses, [p.detach().clone() for p in tr.params], tr, counts
+
+
+def sync_paths_phase() -> int:
+    """The gradient wire's paths on NCCL at a world of one (ResNet-18,
+    batch 256, ``SYNC_STEPS`` each, through the CLI): the overlapped
+    schedule over allreduce and ring (one fused-SGD launch a bucket a
+    step), the int8 wire over both and overlapped, and ``--accum-steps
+    2``; each mode's step time (overlap hides nothing at one rank).
+    Then, with cuDNN deterministic, 3 Trainer steps each: the overlapped
+    float paths bitwise equal to the fused ones, and the int8 wire's
+    residual and mean after one step bitwise equal to the CPU version on
+    the same gradients; the residual nonzero."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import buckets as B
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import mesh
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import sync_bucket_compressed
+
+    buckets = resnet18_buckets()
+    for label, (flags, per_step) in SYNC_MODES.items():
+        summary, counts = counted_run(cli_argv("resnet18", "2b", SYNC_STEPS, *flags))
+        if summary["backend"] != "nccl":
+            raise RuntimeError(f"{label} ran on backend {summary['backend']!r}, not nccl")
+        want = (buckets if per_step is None else per_step) * SYNC_STEPS
+        check_run(f"sync path {label}", summary, counts, SYNC_STEPS, {"fused_sgd": want})
+        if summary["avg_batch_time_s"] is None:
+            raise RuntimeError(f"sync path {label}: no avg_batch_time_s recorded")
+        print(f"sync path {label}: {summary['avg_batch_time_s'] * 1e3:.3f} ms a step "
+              f"(batches 1-10), {256 / summary['avg_batch_time_s']:.1f} samples/s")
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mesh.initialize(None, 1, 0, device=torch.device("cuda", 0))
+    try:
+        for sync in ("allreduce", "ring"):
+            fused = _trainer_run(dict(sync=sync), 3)
+            over = _trainer_run(dict(sync=sync, sync_overlap="bucket"), 3)
+            if over[3]["fused_sgd"] != buckets * 3:
+                raise RuntimeError(f"overlapped {sync}: {over[3]['fused_sgd']} fused-SGD "
+                                   f"launches, expected {buckets * 3}")
+            gap = max(float((a - b).abs().max()) for a, b in zip(over[1], fused[1]))
+            if over[0] != fused[0] or gap != 0.0:
+                raise RuntimeError(f"overlapped {sync} differs from fused: losses "
+                                   f"{over[0]} vs {fused[0]}, parameter gap {gap}")
+            print(f"sync path {sync}: overlapped == fused bitwise over 3 steps "
+                  f"({over[3]['fused_sgd']} fused-SGD launches, {buckets} buckets)")
+        # One int8 step from zero residuals: its residual is b - dequant(quant(b))
+        # of the step's local gradient b, which the float run at a world of
+        # one leaves in p.grad unchanged (the mean over one rank).
+        ref = _trainer_run(dict(sync="allreduce"), 1)[2]
+        _, _, tr, _ = _trainer_run(dict(sync="allreduce", grad_compress="int8"), 1)
+        layout = B.bucket_layout(tr.params, rows=0)
+        local = [p.grad for p in ref.params]
+        for g, e, m in zip(B.flatten_for_sync(local, layout),
+                           B.flatten_for_sync(tr.state.ef, layout),
+                           B.flatten_for_sync([p.grad for p in tr.params], layout)):
+            cpu_mean, cpu_resid = sync_bucket_compressed(g.cpu(), torch.zeros_like(g.cpu()),
+                                                         "allreduce", 1)
+            if not (torch.equal(e.cpu(), cpu_resid) and torch.equal(m.cpu(), cpu_mean)):
+                raise RuntimeError("int8 wire on the card differs from its CPU version")
+        nonzero = sum(int(bool(e.abs().max() > 0)) for e in tr.state.ef)
+        if not nonzero:
+            raise RuntimeError("int8 error feedback stayed zero")
+        print(f"sync path int8: mean and residual == CPU version over {len(layout.bucket_cols)} "
+              f"buckets; residual nonzero in {nonzero} of {len(tr.state.ef)} tensors")
+    finally:
+        mesh.shutdown()
+        torch.backends.cudnn.deterministic = det
+    return buckets
 
 
 # ---------------------------------------------------------- flash attention
@@ -3196,6 +3360,9 @@ def main() -> int:
     profile_phase("vgg11")
     profile_phase("resnet18", fast_conv=True)
     profile_phase("resnet18", fast_conv=False)
+    bench_phase()
+    buckets = sync_paths_phase()
+    print(f"fused_sgd on the overlapped paths: one launch a bucket ({buckets} a ResNet-18 step)")
 
     lm_records = flash_phase(dev) + fused_xent_phase(dev)
     lm_counts = lm_main_path_phase()

@@ -83,6 +83,14 @@ class TrainConfig:
     # num_devices is the data-parallel world size: one process per rank.
     sync: str = "allreduce"
     num_devices: int | None = None
+    # The gradient wire: "int8" quantizes each bucket with error feedback
+    # (allreduce, ring and the int8_* strategies); buckets of
+    # sync_bucket_mb MiB (0: one collective a tensor); sync_overlap
+    # "bucket" (float) or "bucket+int8" syncs and applies SGD a bucket at
+    # a time as backward produces them (parallel/overlap.py).
+    grad_compress: str = "none"
+    sync_bucket_mb: float = 4.0
+    sync_overlap: str = "off"
 
     compute_dtype: str = "float32"
 

@@ -1,3 +1,4 @@
-"""Observability: the record sinks ``serve_cli`` writes through
-(``sinks.py``) and the MoE router's load entropy (``metrics.py``). The
+"""Observability: the record sinks ``serve_cli`` and ``bench`` write
+through (``sinks.py``), the MoE router's load entropy (``metrics.py``)
+and the FLOP models and MFU against the card's peak (``flops.py``). The
 rest of the JAX package's ``obs/`` is not ported yet."""

@@ -23,8 +23,10 @@ wrapper launches its route's kernel for CUDA tensors (or raises) and
 takes the plain version for CPU tensors only; each launch adds one to
 ``launch_count(dtype, route)``.
 
-``quantize_chunked``/``dequantize_chunked`` (the int8 gradient wire)
-are not ported yet.
+``quantize_chunked``/``dequantize_chunked`` are the int8 gradient
+wire's codes (``parallel/sync.py``): the same max-abs/127 scheme per
+chunk of a flat buffer, in plain tensor ops on either device, as the
+JAX package computes them outside any kernel.
 """
 
 from __future__ import annotations
@@ -112,6 +114,35 @@ def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
     q = torch.clamp(torch.round(w32 / scale[None, :]), -127, 127).to(torch.int8)
     return q, scale
+
+
+def quantize_chunked(x: torch.Tensor, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flat buffer of a multiple of ``chunk`` elements -> (q int8 [m,
+    chunk], scale fp32 [m]) with ``dequantize_chunked(q, scale) ~= x``:
+    max-abs/127 a chunk, scale 1 for an all-zero chunk, round half to
+    even, clip to [-127, 127]."""
+    if x.dim() != 1 or x.numel() % chunk:
+        raise ValueError(
+            f"quantize_chunked expects a flat buffer sized a multiple of {chunk}, "
+            f"got shape {tuple(x.shape)}"
+        )
+    x2 = x.float().reshape(-1, chunk)
+    amax = x2.abs().amax(dim=1)
+    scale = torch.where(amax > 0, true_div(amax, 127.0), torch.ones_like(amax))
+    q = torch.clamp(torch.round(x2 / scale[:, None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded once on either device: PyTorch's CUDA kernels
+    multiply by the reciprocal of a Python-number divisor, so the
+    divisor goes in as a tensor."""
+    return x / x.new_full((), d)
+
+
+def dequantize_chunked(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``[m, chunk]`` int8 codes and ``[m]`` fp32 scales -> flat fp32."""
+    return (q.float() * scale[:, None]).reshape(-1)
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

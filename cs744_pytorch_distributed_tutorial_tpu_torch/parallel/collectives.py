@@ -10,6 +10,8 @@ the tutorial teaches. A process group must be initialized.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 import torch.distributed as dist
 
@@ -60,40 +62,55 @@ def star_mean(x: torch.Tensor, world_size: int) -> torch.Tensor:
     return out
 
 
-def _ring_hop(send: torch.Tensor, recv: torch.Tensor, nxt: int, prv: int) -> None:
-    """Send to the next rank and receive from the previous one at once:
-    one batched pair, so no rank blocks on a send its neighbour has not
-    posted a receive for."""
-    ops = [dist.P2POp(dist.isend, send, nxt), dist.P2POp(dist.irecv, recv, prv)]
+def ring_hop(send: Sequence[torch.Tensor], recv: Sequence[torch.Tensor]) -> None:
+    """One hop up the ring: ``send`` to rank + 1 and ``recv`` from rank - 1
+    at once, one batch of pairs, so no rank blocks on a send its
+    neighbour has not posted a receive for."""
+    n, idx = dist.get_world_size(), dist.get_rank()
+    ops = [dist.P2POp(dist.isend, t, (idx + 1) % n) for t in send]
+    ops += [dist.P2POp(dist.irecv, t, (idx - 1) % n) for t in recv]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
 
 
-def ring_all_reduce(x: torch.Tensor, world_size: int) -> torch.Tensor:
-    """Bandwidth-optimal ring all-reduce (sum): reduce-scatter, then
-    all-gather, 2(n-1) neighbour hops of |x|/n each. Chunk ``c`` is row
-    ``c`` of the zero-padded ``[n, cols]`` view; the hop schedule is the
-    JAX package's (``parallel/collectives.py::ring_all_reduce_rows``)."""
+def ring_all_reduce_rows(chunks: torch.Tensor, world_size: int) -> torch.Tensor:
+    """Ring all-reduce (sum), in place, of an ``[n, cols]`` matrix whose
+    row ``c`` is ring chunk ``c``: reduce-scatter, then all-gather,
+    2(n-1) neighbour hops of one row each (the JAX package's
+    ``parallel/collectives.py::ring_all_reduce_rows``). An element's
+    summation order depends only on its row and the ring position, so
+    the bucketed sync can run many tensors' row blocks through one ring
+    and match the per-tensor calls bit for bit."""
     n = world_size
     if n == 1:
-        return x.clone()
+        return chunks
+    if chunks.shape[0] != n or chunks.dim() != 2:
+        raise ValueError(f"expected [{n}, cols] chunk rows, got shape {tuple(chunks.shape)}")
     idx = dist.get_rank()
-    nxt, prv = (idx + 1) % n, (idx - 1) % n
-    size = x.numel()
-    flat = x.new_zeros(size + (-size) % n)
-    flat[:size] = x.reshape(-1)
-    chunks = flat.reshape(n, -1)
     buf = torch.empty_like(chunks[0])
     # Reduce-scatter: at step s rank i sends its running sum of chunk
     # (i - s) mod n and adds what it receives into chunk (i - s - 1) mod n;
     # after n-1 steps rank i holds the full sum of chunk (i + 1) mod n.
     for s in range(n - 1):
-        _ring_hop(chunks[(idx - s) % n], buf, nxt, prv)
+        ring_hop([chunks[(idx - s) % n]], [buf])
         chunks[(idx - s - 1) % n] += buf
     # All-gather: rotate the finished chunks around the ring.
     for s in range(n - 1):
-        _ring_hop(chunks[(idx + 1 - s) % n], buf, nxt, prv)
+        ring_hop([chunks[(idx + 1 - s) % n]], [buf])
         chunks[(idx - s) % n] = buf
+    return chunks
+
+
+def ring_all_reduce(x: torch.Tensor, world_size: int) -> torch.Tensor:
+    """Bandwidth-optimal ring all-reduce (sum) of any tensor: chunk
+    ``c`` is row ``c`` of its zero-padded ``[n, cols]`` view."""
+    n = world_size
+    if n == 1:
+        return x.clone()
+    size = x.numel()
+    flat = x.new_zeros(size + (-size) % n)
+    flat[:size] = x.reshape(-1)
+    chunks = ring_all_reduce_rows(flat.reshape(n, -1), n)
     return chunks.reshape(-1)[:size].reshape(x.shape)
 
 

@@ -11,10 +11,21 @@ one process driving one device. A step:
    BatchNorm batch statistics — the reference's data-parallel semantics;
 3. ``backward()``;
 4. the strategy's gradient averaging over the world (under ``auto``,
-   ``DistributedDataParallel``'s reducer does it inside ``backward()``);
+   ``DistributedDataParallel``'s reducer does it inside ``backward()``;
+   ``allreduce`` and ``ring`` a bucket at a time);
 5. the SGD(momentum, wd) update — the fused CUDA kernel
    (``ops/fused_sgd.py``) when ``fused_optimizer`` is set, plain tensor
    ops otherwise. Every rank applies it to identical synced gradients.
+
+With ``accum_steps`` > 1, steps 2–4 run a microbatch at a time and the
+gradients are summed, ``((0 + g1) + g2) ...``, then divided by the
+count, as the JAX engine's scan: the float strategies (and DDP) sync
+each microbatch, the int8 wire and the overlapped schedule sync once,
+after accumulation. ``grad_compress="int8"`` replaces step 4 with the
+int8 wire and its per-rank error feedback (``sync_grads_compressed``);
+``sync_overlap`` replaces steps 4–5 with the overlapped schedule
+(``parallel/overlap.py``): each bucket's collective fires from gradient
+hooks as backward completes it, and SGD is applied a bucket at a time.
 
 BatchNorm running statistics stay per replica, as in the reference's
 manual parts and the JAX package: DDP is built with
@@ -45,9 +56,14 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.data.augment import (
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.models import get_model
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import rank_device, world
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.overlap import (
+    OVERLAP_MODES,
+    OverlappedSGD,
+)
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
     get_sync,
     sync_grads,
+    sync_grads_compressed,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import (
     TrainState,
@@ -114,8 +130,13 @@ class Trainer:
             raise ValueError(
                 f"label_smoothing must be in [0, 1), got {cfg.label_smoothing}"
             )
-        if cfg.accum_steps != 1:
-            raise NotImplementedError("accum_steps > 1 is not yet ported")
+        per_rank = cfg.global_batch_size // self.world_size
+        if cfg.accum_steps < 1 or per_rank % cfg.accum_steps:
+            raise ValueError(
+                f"accum_steps {cfg.accum_steps} must divide the per-rank "
+                f"batch shard ({per_rank})"
+            )
+        self._check_sync_options(cfg)
         self.compute_dtype = resolve_dtype(cfg.compute_dtype)
         self.tx = make_optimizer(cfg)
 
@@ -148,11 +169,84 @@ class Trainer:
                 broadcast_buffers=False,
             )
         self.state = TrainState(
-            step=0, params=self.params, momentum=self.tx.init(self.params)
+            step=0, params=self.params, momentum=self.tx.init(self.params),
+            ef=[torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+            if self._compress else [],
         )
+        self.overlap = None
+        if self._overlap:
+            self.overlap = OverlappedSGD(
+                self.params, self.state.momentum, self.state.ef if self._compress else None,
+                name=cfg.sync, world_size=self.world_size, lr=cfg.learning_rate,
+                mu=cfg.momentum, wd=cfg.weight_decay, bucket_bytes=self._bucket_bytes,
+            )
         # Crop/flip randomness per rank, seeded from (seed, rank).
         seed = int(np.random.SeedSequence([cfg.seed, self.rank]).generate_state(1)[0])
         self.augment_gen = torch.Generator().manual_seed(seed)
+
+    def _check_sync_options(self, cfg: TrainConfig) -> None:
+        """The JAX engine's checks of the wire options (its
+        ``engine.py:253-392``) for those the port runs."""
+        if cfg.sync_bucket_mb < 0:
+            raise ValueError(f"sync_bucket_mb must be >= 0, got {cfg.sync_bucket_mb}")
+        self._bucket_bytes = int(cfg.sync_bucket_mb * 2**20)
+        if cfg.grad_compress not in ("none", "int8"):
+            raise ValueError(
+                f"unknown grad_compress {cfg.grad_compress!r}; choose 'none' or 'int8'"
+            )
+        # Naming an int8_* strategy implies compression; either way the
+        # sync keeps its residual as per-rank error feedback.
+        self._compress = cfg.grad_compress == "int8" or cfg.sync in (
+            "int8_allreduce", "int8_ring")
+        if self._compress:
+            if cfg.sync not in ("allreduce", "ring", "int8_allreduce", "int8_ring"):
+                raise ValueError(
+                    "grad_compress='int8' applies to the flat allreduce syncs only "
+                    f"(allreduce, ring, int8_allreduce, int8_ring); sync={cfg.sync!r} "
+                    "either has no grad-sync pass to compress (auto/none) or exists "
+                    "to teach an uncompressed wire shape (gather_scatter, p2p_star)"
+                )
+            if cfg.fused_optimizer:
+                raise ValueError(
+                    "grad_compress='int8' does not compose with fused_optimizer (the "
+                    "compressed sync hands back bucket-dequantized gradients plus "
+                    "error-feedback state the fused update does not carry)"
+                )
+        if cfg.sync_overlap not in OVERLAP_MODES:
+            raise ValueError(
+                f"unknown sync_overlap {cfg.sync_overlap!r}; choose from {OVERLAP_MODES}"
+            )
+        self._overlap = cfg.sync_overlap != "off"
+        if not self._overlap:
+            return
+        if cfg.fused_optimizer:
+            raise ValueError(
+                f"sync_overlap={cfg.sync_overlap!r} replaces the whole-model update "
+                "with per-bucket updates; fused_optimizer names the whole-model "
+                "update and cannot combine"
+            )
+        if (cfg.optimizer != "sgd" or cfg.lr_schedule != "constant" or cfg.warmup_steps
+                or cfg.grad_clip_norm is not None):
+            raise ValueError(
+                "sync_overlap applies the reference's fixed-lr SGD(momentum) per "
+                f"bucket; optimizer={cfg.optimizer!r}/lr_schedule={cfg.lr_schedule!r}/"
+                f"warmup_steps={cfg.warmup_steps}/grad_clip_norm={cfg.grad_clip_norm} "
+                "need the whole-model update"
+            )
+        if cfg.sync_overlap == "bucket":
+            if self._compress or cfg.sync not in ("allreduce", "ring"):
+                raise ValueError(
+                    "sync_overlap='bucket' overlaps the float bucketed wire: requires "
+                    "sync in ('allreduce', 'ring') and grad_compress='none' (got "
+                    f"sync={cfg.sync!r}, grad_compress={cfg.grad_compress!r}; for the "
+                    "quantized wire use sync_overlap='bucket+int8')"
+                )
+        elif not self._compress:
+            raise ValueError(
+                "sync_overlap='bucket+int8' overlaps the int8+EF compressed wire: "
+                "requires grad_compress='int8' or an int8_* sync strategy (got "
+                f"sync={cfg.sync!r}, grad_compress={cfg.grad_compress!r})"
+            )
 
     def _autocast(self):
         if self.compute_dtype == torch.float32:
@@ -162,7 +256,8 @@ class Trainer:
     # ------------------------------------------------------------------ step
     def train_step(self, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """One step on this rank's uint8 NHWC batch; returns the local
-        loss (a 0-dim tensor on the device, not fetched)."""
+        loss (a 0-dim tensor on the device, not fetched): with
+        accumulation, the mean of the microbatches' losses."""
         cfg = self.cfg
         x = (
             augment_train_batch(self.augment_gen, images)
@@ -170,18 +265,43 @@ class Trainer:
             else eval_batch(images)
         )
         self.model.train()
-        with self._autocast():
-            logits = self.forward_module(x)
-        loss = _smoothed_xent(logits.float(), labels, cfg.label_smoothing)
-        for p in self.params:
-            p.grad = None
-        loss.backward()
-        grads = [p.grad for p in self.params]
-        if cfg.sync != "auto":
-            sync_grads(grads, cfg.sync, self.world_size)
-        self.tx.apply(self.params, self.state.momentum, grads)
+        accum = cfg.accum_steps
+        # Float strategies sync every microbatch (DDP inside backward);
+        # the int8 wire and the overlapped schedule once, after the sum.
+        sync_each = cfg.sync != "auto" and not (self._compress or self._overlap)
+        g_sum = loss_sum = None
+        for k, (xm, ym) in enumerate(zip(x.chunk(accum), labels.chunk(accum))):
+            last = k == accum - 1
+            if self.overlap is not None and last:
+                self.overlap.begin(g_sum, accum)
+            with self._autocast():
+                logits = self.forward_module(xm)
+            loss = _smoothed_xent(logits.float(), ym, cfg.label_smoothing)
+            for p in self.params:
+                p.grad = None
+            loss.backward()
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            if self.overlap is not None and last:
+                break
+            grads = [p.grad for p in self.params]
+            if sync_each:
+                sync_grads(grads, cfg.sync, self.world_size, self._bucket_bytes)
+            if accum > 1:
+                g_sum = [(torch.zeros_like(g) if g_sum is None else g_sum[i]) + g
+                         for i, g in enumerate(grads)]
+        if self.overlap is not None:
+            self.overlap.finish()
+        else:
+            if accum > 1:
+                grads = [g / accum for g in g_sum]
+                for p, g in zip(self.params, grads):
+                    p.grad = g
+            if self._compress:
+                sync_grads_compressed(grads, self.state.ef, cfg.sync, self.world_size,
+                                      bucket_bytes=self._bucket_bytes)
+            self.tx.apply(self.params, self.state.momentum, grads)
         self.state.step += 1
-        return loss.detach()
+        return loss_sum / accum if accum > 1 else loss_sum
 
     def global_mean(self, local: torch.Tensor) -> float:
         """Mean of a per-rank scalar over the world, fetched to the host."""

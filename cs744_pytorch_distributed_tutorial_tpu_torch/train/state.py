@@ -30,6 +30,9 @@ class TrainState:
     step: int
     params: list[torch.Tensor]  # the model's parameters, updated in place
     momentum: list[torch.Tensor]  # one fp32 buffer per parameter
+    # The int8 wire's error feedback: one fp32 residual per parameter,
+    # this rank's own (empty without compression).
+    ef: list[torch.Tensor] = dataclasses.field(default_factory=list)
 
 
 class SGD(FusedSGD):

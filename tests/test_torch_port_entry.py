@@ -176,7 +176,7 @@ def test_multi_rank_part_needs_a_coordinator():
         (dict(optimizer="adamw"), NotImplementedError),
         (dict(lr_schedule="cosine"), NotImplementedError),
         (dict(grad_clip_norm=1.0), NotImplementedError),
-        (dict(accum_steps=2), NotImplementedError),
+        (dict(sync="fsdp"), NotImplementedError),
         (dict(model="vit_tiny"), NotImplementedError),
         (dict(model="vgg11", fast_conv=True), ValueError),  # no ResNet 3x3 convs
         (dict(sync="zero1"), NotImplementedError),
