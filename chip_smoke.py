@@ -51,6 +51,16 @@ no result):
    bitwise equal to the fused ones, and one int8 step's mean and
    residual bitwise equal to the wire's CPU version on the same
    gradients;
+7c. the sharded optimizers and the recipes through the CLI at a world of
+   one, ResNet-18 at batch 256, 12 steps each: part 2b's allreduce and
+   part 1's SGD as yardsticks, ``--sync zero1`` and
+   ``--sync fsdp`` (NCCL), alone and with ``--sync-overlap bucket``, their
+   reduce-scatters and all-gathers counted; part 1 with AdamW +
+   warmup_cosine + clip and with Lion + cosine; part 2b with ``--sync-bn
+   --debug-sync-check``; each mode's step time beside the card; then,
+   with cuDNN deterministic, 3 Trainer steps each: zero1 and fsdp (alone
+   and overlapped) bitwise equal to part 2b's allreduce, SyncBN's losses
+   within 1e-3 of the per-replica path (TF32 off);
 8. flash attention: the forward, dq and dk/dv kernels against their
    plain versions (the LM path's shape B16 T1024 H12 D64 causal, a
    non-causal and ragged shapes, fp32 and bf16): fp32 inputs on the FFMA
@@ -78,7 +88,8 @@ no result):
     without the fused cross-entropy, and flash's tensor-core route
     (forward and backward) against its FFMA route (2 layers at full width,
     batch 4, bf16, 4 AdamW steps, the plain versions printed beside as the
-    yardstick);
+    yardstick); then 6 steps of GPT-2-small through ``lm_cli`` with Lion,
+    a warmup-cosine schedule and the global-norm clip;
 12. paged attention: the decode kernels (a block a 64-key span, then a
     merge kernel) against their plain version (the gather path) at
     the serving shape (16 slots, 12 query heads over 4 KV heads, D 64,
@@ -1098,6 +1109,126 @@ def sync_paths_phase() -> int:
     return buckets
 
 
+# ------------------------------------------- sharded optimizers and recipes
+SHARDED_MODES = {  # label: (part, flags); the first two are the yardsticks
+    "part 2b allreduce": ("2b", ()),
+    "part 1 sgd": ("1", ()),
+    "zero1": ("2b", ("--sync", "zero1")),
+    "zero1 overlap": ("2b", ("--sync", "zero1", "--sync-overlap", "bucket")),
+    "fsdp": ("2b", ("--sync", "fsdp")),
+    "fsdp overlap": ("2b", ("--sync", "fsdp", "--sync-overlap", "bucket")),
+    "adamw warmup_cosine clip": ("1", ("--optimizer", "adamw", "--lr", "1e-3", "--lr-schedule",
+                                       "warmup_cosine", "--warmup-steps", "4", "--total-steps",
+                                       str(SYNC_STEPS), "--grad-clip-norm", "1.0")),
+    "lion cosine": ("1", ("--optimizer", "lion", "--lr", "1e-4", "--lr-schedule", "cosine",
+                          "--total-steps", str(SYNC_STEPS))),
+    "sync_bn debug_sync_check": ("2b", ("--sync-bn", "--debug-sync-check")),
+}
+COLLECTIVES = ("reduce_scatter_tensor", "all_gather_into_tensor")
+SYNC_BN_RTOL = 1e-3  # SyncBN vs per-replica losses over 3 steps, TF32 off
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Calls of ``COLLECTIVES`` in the block, counted at ``torch.distributed``."""
+    import torch.distributed as dist
+
+    counts = dict.fromkeys(COLLECTIVES, 0)
+    saved = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def wrap(name):
+        def call(*args, **kw):
+            counts[name] += 1
+            return saved[name](*args, **kw)
+        return call
+
+    with patched(dist, **{name: wrap(name) for name in COLLECTIVES}):
+        yield counts
+
+
+def resnet18_zero_buckets() -> int:
+    """Buckets of zero1's overlapped lane over ResNet-18 at a world of
+    one (4 MiB, reverse, rows of one)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.models import resnet18
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import Zero1SGD
+
+    shapes = [(tuple(p.shape), p.dtype) for p in resnet18().parameters()]
+    return len(Zero1SGD(0.1, 0.9, 0.0, 1, overlap=True).layout(shapes).bucket_cols)
+
+
+def sharded_phase() -> None:
+    """ZeRO-1, FSDP and the recipes through the CLI on NCCL at a world of
+    one (ResNet-18, batch 256, ``SYNC_STEPS`` each), beside part 2b's
+    allreduce and part 1's SGD in the same run: zero1 and fsdp alone
+    and overlapped, each one's reduce-scatters and all-gathers counted (a
+    world of one runs them as copies: per tensor, 62 a step, as JAX at an
+    axis of one; zero1's overlapped lane a bucket, fsdp one more gather
+    for the eval); part 1 with AdamW + warmup_cosine + clip and with
+    Lion + cosine; part 2b with SyncBN and the divergence check; each
+    one's step time. Then, with cuDNN deterministic, 3 Trainer steps
+    each: zero1 and fsdp, alone and overlapped, equal part 2b's allreduce
+    bit for bit in losses and parameters (``p + (-lr m)`` is ``p - lr m``),
+    and SyncBN's losses within ``SYNC_BN_RTOL`` of the per-replica path
+    (TF32 off: the two BatchNorms round differently)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import mesh
+
+    leaves, buckets = 62, resnet18_zero_buckets()
+    expect = {  # (reduce-scatters, all-gathers) in the run
+        "zero1": (leaves * SYNC_STEPS, leaves * SYNC_STEPS),
+        "zero1 overlap": (buckets * SYNC_STEPS, buckets * SYNC_STEPS),
+        "fsdp": (leaves * SYNC_STEPS, leaves * (SYNC_STEPS + 1)),
+        "fsdp overlap": (leaves * SYNC_STEPS, leaves * (SYNC_STEPS + 1)),
+        "sync_bn debug_sync_check": (0, SYNC_STEPS),  # one checksum gather a step
+    }
+    for label, (part, flags) in SHARDED_MODES.items():
+        with counted_collectives() as coll:
+            summary, counts = counted_run(cli_argv("resnet18", part, SYNC_STEPS, *flags))
+        want_backend = "nccl" if part != "1" else None
+        if summary["backend"] != want_backend:
+            raise RuntimeError(f"{label} ran on backend {summary['backend']!r}, "
+                               f"not {want_backend}")
+        check_run(f"sharded path {label}", summary, counts, SYNC_STEPS, {
+            "fused_sgd": 0, "conv3x3_wgrad_s1": 0, "conv3x3_wgrad_s1_tc": 0})
+        got = (coll["reduce_scatter_tensor"], coll["all_gather_into_tensor"])
+        if got != expect.get(label, (0, 0)):
+            raise RuntimeError(f"{label}: {got} reduce-scatters and all-gathers, expected "
+                               f"{expect.get(label, (0, 0))}")
+        if summary["avg_batch_time_s"] is None:
+            raise RuntimeError(f"sharded path {label}: no avg_batch_time_s recorded")
+        print(f"sharded path {label}: {summary['avg_batch_time_s'] * 1e3:.3f} ms a step "
+              f"(batches 1-10), {256 / summary['avg_batch_time_s']:.1f} samples/s, "
+              f"{got[0]} reduce-scatters, {got[1]} all-gathers; card {card_line()}")
+
+    det, tf32 = torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.deterministic = True
+    mesh.initialize(None, 1, 0, device=torch.device("cuda", 0))
+    try:
+        ref = _trainer_run(dict(sync="allreduce"), 3)
+        for kw in (dict(sync="zero1"), dict(sync="zero1", sync_overlap="bucket"),
+                   dict(sync="fsdp"), dict(sync="fsdp", sync_overlap="bucket")):
+            losses, params, tr, _ = _trainer_run(kw, 3)
+            if tr._fsdp:  # at a world of one a shard is the whole tensor, flat
+                params = [p.view(r.shape) for p, r in zip(params, ref[1], strict=True)]
+            gap = max(float((a - b).abs().max()) for a, b in zip(params, ref[1], strict=True))
+            if losses != ref[0] or gap != 0.0:
+                raise RuntimeError(f"{kw} differs from allreduce: losses {losses} vs "
+                                   f"{ref[0]}, parameter gap {gap}")
+            print(f"sharded {kw}: == allreduce bitwise over 3 steps, losses {losses}")
+        torch.backends.cudnn.allow_tf32 = False
+        plain, plain_p, *_ = _trainer_run(dict(sync="allreduce"), 3)
+        synced, synced_p, *_ = _trainer_run(dict(sync="allreduce", sync_bn=True), 3)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(synced, plain))
+        if not rel <= SYNC_BN_RTOL:
+            raise RuntimeError(f"SyncBN losses {synced} vs per-replica {plain}: rel {rel}")
+        gap = max(float((a - b).abs().max()) for a, b in zip(synced_p, plain_p))
+        print(f"sync_bn at a world of one: losses {synced} vs per-replica {plain}, "
+              f"largest relative gap {rel:.3e} (limit {SYNC_BN_RTOL}), parameters apart "
+              f"by at most {gap:.3e}")
+    finally:
+        mesh.shutdown()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32 = det, tf32
+
+
 # ---------------------------------------------------------- flash attention
 def flash_ffma_route():
     """The flash forward and backward on the FFMA kernels whatever the
@@ -1513,6 +1644,27 @@ def lm_main_path_phase() -> dict:
           f"flash launches {counts}, fused_xent launches {xent}")
     return {**{f"flash_{k}": n for k, n in counts.items()},
             **{f"fused_xent_{k}": n for k, n in xent.items()}}
+
+
+def lm_lion_phase() -> None:
+    """GPT-2-small through ``lm_cli`` with Lion, a warmup-cosine schedule
+    over its 6 steps and the global-norm clip (bf16, flash)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
+
+    steps = 6
+    argv = [arg for key, value in LM_WIDTH.items()
+            for arg in (f"--{key.replace('_', '-')}", str(value))]
+    argv += ["--global-batch-size", "16", "--use-rope", "--attention-impl", "flash",
+             "--compute-dtype", "bfloat16", "--optimizer", "lion", "--lr", "1e-4",
+             "--lr-schedule", "warmup_cosine", "--warmup-steps", "2", "--grad-clip-norm", "1.0",
+             "--steps", str(steps), "--num-seqs", "120", "--json", "--device", "cuda"]
+    t0 = time.perf_counter()
+    summary = run_cli(argv, main=lm_cli.main)
+    wall = time.perf_counter() - t0
+    if summary["steps_run"] != steps or not summary["finite"]:
+        raise RuntimeError(f"LM Lion run: {summary}")
+    print(f"LM lion warmup_cosine clip: {steps} steps in {wall:.1f} s wall (build included), "
+          f"loss {summary['first_loss']} -> {summary['final_loss']}; card {card_line()}")
 
 
 def _timed_steps(tr, batches, steps: int) -> float:
@@ -3363,6 +3515,7 @@ def main() -> int:
     bench_phase()
     buckets = sync_paths_phase()
     print(f"fused_sgd on the overlapped paths: one launch a bucket ({buckets} a ResNet-18 step)")
+    sharded_phase()
 
     lm_records = flash_phase(dev) + fused_xent_phase(dev)
     lm_counts = lm_main_path_phase()
@@ -3371,6 +3524,7 @@ def main() -> int:
     records += lm_records
     lm_throughput_phase()
     lm_trajectory_phase()
+    lm_lion_phase()
     route_launches = lm_flash_route_trajectory_phase()
     for rec in lm_records:  # the FFMA kernels' launches, off the bf16 main path
         if rec["name"] in ("flash_fwd", "flash_dq", "flash_dkv"):

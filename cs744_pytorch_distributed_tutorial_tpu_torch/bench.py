@@ -50,7 +50,7 @@ MEASURE_STEPS_SMALL = 90  # shorter steps: a longer window
 log = logging.getLogger("cs744_pytorch_distributed_tutorial_tpu_torch")
 
 _NOT_YET_PORTED = {
-    "sync_compare": "--sync-compare needs the zero1 strategy",
+    "sync_compare": "--sync-compare needs obs/phases.py's phase records",
     "phase_breakdown": "--phase-breakdown needs obs/phases.py",
     "serve": "--serve needs the serving tracer and guard",
 }

@@ -7,6 +7,9 @@
         --coordinator 10.0.0.1:29500 --num-processes 4 --process-id 0
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 2b \\
         --grad-compress int8 --sync-overlap bucket+int8 ...
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 2b --sync zero1 ...
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 1 --optimizer lion \\
+        --lr-schedule cosine --total-steps 196
 
 The flags are the JAX package's (``cli.py``) for the options the port
 runs. A run of several ranks starts one process per rank, as the
@@ -39,7 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--part", choices=sorted(PART_PRESETS), default=None,
                    help="reference part preset: sync strategy + world size")
     p.add_argument("--sync", default=None,
-                   help="gradient sync strategy (overrides --part)")
+                   help="gradient sync strategy (overrides --part): none, allreduce, "
+                        "gather_scatter, p2p_star, ring, auto, int8_allreduce, int8_ring, "
+                        "zero1 (sharded momentum), fsdp (sharded parameters and momentum)")
     p.add_argument("--grad-compress", choices=["none", "int8"], default=None,
                    help="compress gradient sync traffic: int8 quantizes "
                         "each bucket (per-chunk scales) with error feedback "
@@ -49,17 +54,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "0 = per-tensor collectives (default 4)")
     p.add_argument("--sync-overlap", choices=["off", "bucket", "bucket+int8"],
                    default=None,
-                   help="overlapped gradient sync (parallel/overlap.py): "
-                        "reverse-order buckets, each one's collective fired "
-                        "from gradient hooks as backward completes it, SGD "
-                        "applied a bucket at a time; 'bucket' overlaps the "
-                        "float wire (allreduce/ring), 'bucket+int8' the "
-                        "int8+EF wire")
+                   help="overlapped gradient sync (parallel/overlap.py, "
+                        "parallel/zero.py): reverse-order buckets, each one's "
+                        "collective fired as backward completes it, the optimizer "
+                        "applied a bucket at a time; 'bucket' overlaps the float "
+                        "wire (allreduce/ring/zero1/fsdp), 'bucket+int8' the "
+                        "int8+EF wire (allreduce/ring/zero1)")
     p.add_argument("--model", default=None, help="model name (default vgg11)")
     p.add_argument("--image-size", type=int, default=None)
     p.add_argument("--num-classes", type=int, default=None)
     p.add_argument("--imagenet-stem", action="store_true", default=None,
                    help="force the 7x7/stride-2 + maxpool ResNet stem")
+    p.add_argument("--sync-bn", action="store_true", default=None,
+                   help="cross-replica BatchNorm statistics (default: the "
+                        "reference's per-replica BN)")
     p.add_argument("--num-devices", type=int, default=None,
                    help="data-parallel world size")
     p.add_argument("--global-batch-size", type=int, default=None)
@@ -71,7 +79,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lr-schedule",
                    choices=["constant", "cosine", "warmup_cosine"], default=None)
     p.add_argument("--warmup-steps", type=int, default=None)
-    p.add_argument("--grad-clip-norm", type=float, default=None)
+    p.add_argument("--total-steps", type=int, default=None,
+                   help="decay horizon for cosine schedules")
+    p.add_argument("--grad-clip-norm", type=float, default=None,
+                   help="clip the global gradient norm before the optimizer")
     p.add_argument("--label-smoothing", type=float, default=None,
                    help="smoothed CE target: (1-s) one-hot + s/num_classes")
     p.add_argument("--accum-steps", type=int, default=None)
@@ -91,6 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="disable train-time crop/flip (deterministic inputs)")
     p.add_argument("--log-every", type=int, default=None)
+    p.add_argument("--debug-sync-check", action="store_true", default=None,
+                   help="all-gather per-rank grad checksums every step and fail on "
+                        "divergence")
     # init_process mirror (master/part2a/part2a.py:80-85)
     p.add_argument("--coordinator", dest="coordinator_address", default=None,
                    help="rendezvous address host:port (the --master-ip analog)")
@@ -114,6 +128,7 @@ _ARG_TO_FIELD = {
     "augment": "augment",
     "image_size": "image_size",
     "num_classes": "num_classes",
+    "sync_bn": "sync_bn",
     "num_devices": "num_devices",
     "global_batch_size": "global_batch_size",
     "epochs": "epochs",
@@ -123,6 +138,7 @@ _ARG_TO_FIELD = {
     "optimizer": "optimizer",
     "lr_schedule": "lr_schedule",
     "warmup_steps": "warmup_steps",
+    "total_steps": "total_steps",
     "grad_clip_norm": "grad_clip_norm",
     "label_smoothing": "label_smoothing",
     "accum_steps": "accum_steps",
@@ -136,6 +152,7 @@ _ARG_TO_FIELD = {
     "fast_conv": "fast_conv",
     "imagenet_stem": "imagenet_stem",
     "log_every": "log_every",
+    "debug_sync_check": "debug_sync_check",
     "coordinator_address": "coordinator_address",
     "num_processes": "num_processes",
     "process_id": "process_id",

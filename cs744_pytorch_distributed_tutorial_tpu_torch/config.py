@@ -1,6 +1,6 @@
 """Single dataclass config for the port.
 
-The fields this slice uses, with the JAX package's names and defaults
+The fields the port runs, with the JAX package's names and defaults
 (the reference's SGD recipe, batch 256 and seed 5000,
 ``master/part1/part1.py:17,98-101,107``), plus ``device``. Options of
 the JAX config that the port does not run yet are absent rather than
@@ -57,6 +57,9 @@ class TrainConfig:
     # <= 64, ImageNet 7x7/stride-2 + maxpool above); True/False forces.
     # Ignored by non-ResNet models.
     imagenet_stem: bool | None = None
+    # Cross-replica BatchNorm statistics (models/batchnorm.py); False is
+    # the reference's per-replica BatchNorm.
+    sync_bn: bool = False
     data_root: str = "./data"
     synthetic_data: bool | None = None  # None = auto (synthetic if no local CIFAR-10)
     synthetic_train_size: int = 50_000
@@ -72,6 +75,7 @@ class TrainConfig:
     optimizer: str = "sgd"
     lr_schedule: str = "constant"
     warmup_steps: int = 0
+    total_steps: int | None = None  # the cosine schedules' horizon
     grad_clip_norm: float | None = None
     label_smoothing: float = 0.0
     # Train-time crop/flip (the reference's transform_train). False trains
@@ -79,7 +83,8 @@ class TrainConfig:
     augment: bool = True
     accum_steps: int = 1
 
-    # Parallelism: none|gather_scatter|p2p_star|allreduce|ring|auto.
+    # Parallelism: none|gather_scatter|p2p_star|allreduce|ring|auto|
+    # int8_allreduce|int8_ring|zero1|fsdp (parallel/sync.py, parallel/zero.py).
     # num_devices is the data-parallel world size: one process per rank.
     sync: str = "allreduce"
     num_devices: int | None = None
@@ -87,7 +92,8 @@ class TrainConfig:
     # (allreduce, ring and the int8_* strategies); buckets of
     # sync_bucket_mb MiB (0: one collective a tensor); sync_overlap
     # "bucket" (float) or "bucket+int8" syncs and applies SGD a bucket at
-    # a time as backward produces them (parallel/overlap.py).
+    # a time as backward produces them (parallel/overlap.py; zero1's and
+    # fsdp's lanes in parallel/zero.py).
     grad_compress: str = "none"
     sync_bucket_mb: float = 4.0
     sync_overlap: str = "off"
@@ -105,6 +111,10 @@ class TrainConfig:
     # and the avg per-batch time over batches 1-10: master/part1/part1.py:39-44)
     log_every: int = 20
     timing_batches: tuple[int, int] = (1, 10)
+    # All-gather a checksum of each rank's synced gradients (zero1: its
+    # parameters) every step and fail at the epoch's end if the ranks
+    # disagree (utils/debug.py).
+    debug_sync_check: bool = False
 
     # Rendezvous (the reference's --master-ip/--num-nodes/--rank,
     # master/part2a/part2a.py:136-143): "host:port", world size, rank.

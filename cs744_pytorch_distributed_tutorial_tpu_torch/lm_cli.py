@@ -37,8 +37,7 @@ The flags are the JAX package's (``lm_cli.py``), with its names and
 defaults, for the options the port runs, plus ``--device`` (``cuda``,
 the default, or ``cpu``) and ``--generate-batch`` (prompts are the
 leading training sequences' prefixes; the JAX CLI takes one). Other
-flags and choices of the JAX CLI (the lion optimizer, cosine schedules)
-are not accepted; ``--moe-expert-parallel``, ``--beam`` and
+flags of the JAX CLI are not accepted; ``--moe-expert-parallel``, ``--beam`` and
 ``--speculative-k`` exit with "not yet ported". The stdout lines and the ``--json`` summary
 keys are the JAX CLI's, plus ``generation`` (batch, times and every
 row's tokens) when generating and, for an MoE run with steps, ``moe``:
@@ -104,11 +103,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seq-len", type=int, default=256)
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=1e-3)
-    p.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
-    p.add_argument("--lr-schedule", default="constant", choices=["constant"])
+    p.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd", "lion"])
+    p.add_argument("--lr-schedule", default="constant",
+                   choices=["constant", "cosine", "warmup_cosine"],
+                   help="cosine schedules decay over --steps")
     p.add_argument("--warmup-steps", type=int, default=0,
                    help="linear warmup from 0 over this many steps")
     p.add_argument("--weight-decay", type=float, default=1e-4)
+    p.add_argument("--grad-clip-norm", type=float, default=None)
     p.add_argument("--label-smoothing", type=float, default=0.0)
     p.add_argument("--no-halt-on-nonfinite", dest="halt_on_nonfinite",
                    action="store_false", default=True)
@@ -262,7 +264,10 @@ def main(argv: list[str] | None = None) -> int:
         optimizer=args.optimizer,
         lr_schedule=args.lr_schedule,
         warmup_steps=args.warmup_steps,
+        # Cosine schedules decay over the full requested run.
+        total_steps=args.steps if args.lr_schedule != "constant" else None,
         weight_decay=args.weight_decay,
+        grad_clip_norm=args.grad_clip_norm,
         label_smoothing=args.label_smoothing,
         seed=args.seed,
         halt_on_nonfinite=args.halt_on_nonfinite,

@@ -52,6 +52,14 @@ with Dense kernels ``[in, out]`` (the MoE router's too) transposed into
 ``Linear.weight [out, in]``; norm scales, embeddings and the MoE expert
 tensors (``[E, K, N]`` kernels, ``[E, N]`` biases: the layout the
 grouped-matmul kernel reads) copied as they are.
+
+Sharded state (``parallel/zero.py``): ZeRO-1's momentum and FSDP's
+parameters are, on each side, rank ``r``'s row of a tensor's flat
+zero-padded ``[n, ceil(size / n)]`` layout. The flat order is each
+framework's own (HWIO against OIHW), so a JAX ``[n, chunk]`` leaf maps
+to the port's rows through the full tensor: ``zero_rows_from_jax`` and
+``jax_rows_from_zero`` (per leaf ``shard_row`` and ``unshard_rows``,
+which the Trainer's FSDP ``load_state_dict`` uses too).
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ import torch
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.models import MODEL_CFGS
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.vgg import feature_map_size
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import _shard_flat, _unshard
 
 
 def _np(x: Any) -> np.ndarray:
@@ -310,3 +319,53 @@ def jax_lm_params_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
         else:
             raise ValueError(f"unexpected LM state_dict key {key!r}")
     return params
+
+
+# ------------------------------------------------------------ sharded state
+def shard_row(x: Any, rank: int, world_size: int) -> torch.Tensor:
+    """Row ``rank`` of ``x``'s flat zero-padded ``[n, chunk]`` layout."""
+    x = x if isinstance(x, torch.Tensor) else _tensor(x)
+    return _shard_flat(x.detach(), world_size)[rank].clone()
+
+
+def unshard_rows(rows: Any, shape: Sequence[int]) -> torch.Tensor:
+    """``[n, chunk]`` rows (every rank's, in rank order) -> the tensor."""
+    rows = rows if isinstance(rows, torch.Tensor) else _tensor(rows)
+    return _unshard(rows.contiguous(), shape).clone()
+
+
+def _map_leaves(tree: Mapping, like: Mapping, fn) -> dict:
+    return {k: _map_leaves(v, like[k], fn) if isinstance(v, Mapping) else fn(v, like[k])
+            for k, v in tree.items()}
+
+
+def zero_rows_from_jax(rows_params: Mapping, like_params: Mapping, arch: str, rank: int,
+                       image_size: int = 32) -> dict[str, torch.Tensor]:
+    """A flax params tree of JAX ``[n, chunk]`` leaves (zero1's momentum,
+    fsdp's parameters; ``like_params`` gives each leaf's shape) -> rank
+    ``rank``'s ``[chunk]`` rows in the port's layout, by parameter name."""
+    full = _map_leaves(rows_params, like_params,
+                       lambda rows, like: _np(unshard_rows(rows, _np(like).shape)))
+    n = _np(next(_flatten(rows_params))[1]).shape[0]
+    sd = state_dict_from_jax({"params": full}, arch, image_size)
+    return {k: shard_row(sd[k], rank, n) for k in sd if _is_param(k)}
+
+
+def jax_rows_from_zero(rows_by_rank: Sequence[Mapping[str, Any]], shapes: Mapping[str, Sequence],
+                       arch: str, image_size: int = 32) -> dict:
+    """The reverse: each rank's rows by parameter name (rank order) and
+    the parameters' shapes -> the flax params tree of ``[n, chunk]``
+    leaves."""
+    n = len(rows_by_rank)
+    sd: dict[str, Any] = {}
+    for name, shape in shapes.items():
+        sd[name] = unshard_rows(torch.stack([_tensor(r[name]) for r in rows_by_rank]), shape)
+        if name.endswith("bias"):  # BatchNorm statistics the conversion reads, unused here
+            for stat in ("running_mean", "running_var"):
+                sd.setdefault(name[: -len("bias")] + stat, torch.zeros(shape[0]))
+    params = jax_from_state_dict(sd, arch, image_size)["params"]
+    return _map_leaves(params, params, lambda x, _: _np(_shard_flat(_tensor(x), n)))
+
+
+def _is_param(key: str) -> bool:
+    return not key.endswith(("running_mean", "running_var", "num_batches_tracked"))

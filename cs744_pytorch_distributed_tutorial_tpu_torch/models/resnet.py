@@ -22,7 +22,8 @@ stages 2 and 3; the bottleneck block accepts the flag and routes none.
 Module names follow the flax tree (``conv0``/``bn0`` for the stem,
 ``blocks.N.convJ``/``bnJ``, ``fc``), so ``models/convert.py`` maps the
 two with a table. BatchNorm uses eps 1e-5 and torch momentum 0.1 (flax
-0.9). Initialisation follows flax's defaults, as ``vgg.py`` does: conv
+0.9); ``sync_bn`` takes the world's batch statistics
+(``batchnorm.py``). Initialisation follows flax's defaults, as ``vgg.py`` does: conv
 and dense kernels from a fan-in truncated normal, dense bias zero,
 BatchNorm scale one (zero for each block's last), drawn from an
 explicit ``torch.Generator``.
@@ -36,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cs744_pytorch_distributed_tutorial_tpu_torch.models.batchnorm import batch_norm
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.vgg import _lecun_normal_
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.fused_conv import conv3x3
 
@@ -77,10 +79,6 @@ class FastConv3x3(nn.Module):
         return conv3x3(x, self.weight, self.stride)
 
 
-def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
-
-
 def _conv3(cin: int, cout: int, stride: int, fast_conv: bool,
            min_ch: int = 128, max_ch: int = 256) -> nn.Module:
     """The JAX ``BasicBlock._conv3`` routing: FastConv3x3 where the
@@ -98,16 +96,16 @@ class BasicBlock(nn.Module):
     last_bn = "bn1"  # zero-initialised gamma
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
-                 fast_conv: bool = False):
+                 fast_conv: bool = False, sync_bn: bool = False):
         super().__init__()
         self.conv0 = _conv3(in_channels, features, stride, fast_conv)
-        self.bn0 = _bn(features)
+        self.bn0 = batch_norm(features, sync_bn)
         self.conv1 = _conv3(features, features, 1, fast_conv)
-        self.bn1 = _bn(features)
+        self.bn1 = batch_norm(features, sync_bn)
         self.project = stride != 1 or in_channels != features
         if self.project:
             self.conv2 = SameConv2d(in_channels, features, 1, stride)
-            self.bn2 = _bn(features)
+            self.bn2 = batch_norm(features, sync_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn0(self.conv0(x)))
@@ -125,19 +123,19 @@ class BottleneckBlock(nn.Module):
     last_bn = "bn2"  # zero-initialised gamma
 
     def __init__(self, in_channels: int, features: int, stride: int = 1,
-                 fast_conv: bool = False):
+                 fast_conv: bool = False, sync_bn: bool = False):
         super().__init__()
         out = features * self.expansion
         self.conv0 = SameConv2d(in_channels, features, 1)
-        self.bn0 = _bn(features)
+        self.bn0 = batch_norm(features, sync_bn)
         self.conv1 = SameConv2d(features, features, 3, stride)
-        self.bn1 = _bn(features)
+        self.bn1 = batch_norm(features, sync_bn)
         self.conv2 = SameConv2d(features, out, 1)
-        self.bn2 = _bn(out)
+        self.bn2 = batch_norm(out, sync_bn)
         self.project = stride != 1 or in_channels != out
         if self.project:
             self.conv3 = SameConv2d(in_channels, out, 1, stride)
-            self.bn3 = _bn(out)
+            self.bn3 = batch_norm(out, sync_bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn0(self.conv0(x)))
@@ -162,6 +160,7 @@ class ResNet(nn.Module):
         cifar_stem: bool = True,
         fast_conv: bool = False,
         generator: torch.Generator | None = None,
+        sync_bn: bool = False,
     ):
         super().__init__()
         self.cifar_stem = cifar_stem
@@ -170,14 +169,14 @@ class ResNet(nn.Module):
             self.conv0 = SameConv2d(3, 64, 3)
         else:
             self.conv0 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn0 = _bn(64)
+        self.bn0 = batch_norm(64, sync_bn)
         blocks: list[nn.Module] = []
         channels = 64
         for stage, n_blocks in enumerate(stage_sizes):
             for b in range(n_blocks):
                 stride = 2 if stage > 0 and b == 0 else 1
                 features = 64 * 2**stage
-                blocks.append(cls(channels, features, stride, fast_conv))
+                blocks.append(cls(channels, features, stride, fast_conv, sync_bn))
                 channels = features * cls.expansion
         self.blocks = nn.ModuleList(blocks)
         self.fc = nn.Linear(channels, num_classes)

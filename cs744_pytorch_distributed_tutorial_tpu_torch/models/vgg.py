@@ -7,7 +7,8 @@ into a single Linear head (``model.py:30-46``). The module names are the
 reference ``_VGG``'s (``layers.N.*``, ``fc1.*``), so its ``state_dict``
 loads as it is.
 
-BatchNorm uses eps 1e-5 and torch momentum 0.1, which is flax's 0.9.
+BatchNorm uses eps 1e-5 and torch momentum 0.1, which is flax's 0.9;
+``sync_bn`` takes the world's batch statistics (``batchnorm.py``).
 One difference from the JAX package stays: torch stores the
 Bessel-corrected (n/(n-1)) batch variance in ``running_var``, flax the
 biased one — an O(1/n) eval-mode difference the tests pin.
@@ -24,6 +25,8 @@ from typing import Any, Sequence
 
 import torch
 from torch import nn
+
+from cs744_pytorch_distributed_tutorial_tpu_torch.models.batchnorm import batch_norm
 
 # Layer tables: channel count = conv(3x3)+BN+ReLU block, 'M' = 2x2 maxpool.
 # The reference's _cfg layouts (model.py:3-8).
@@ -61,6 +64,7 @@ class VGG(nn.Module):
         num_classes: int = 10,
         image_size: int = 32,
         generator: torch.Generator | None = None,
+        sync_bn: bool = False,
     ):
         super().__init__()
         self.cfg = tuple(cfg)
@@ -72,7 +76,7 @@ class VGG(nn.Module):
             else:
                 layers += [
                     nn.Conv2d(c_in, int(entry), 3, padding=1, bias=True),
-                    nn.BatchNorm2d(int(entry), eps=1e-5, momentum=0.1),
+                    batch_norm(int(entry), sync_bn),
                     nn.ReLU(inplace=True),
                 ]
                 c_in = int(entry)

@@ -116,3 +116,56 @@ def ring_all_reduce(x: torch.Tensor, world_size: int) -> torch.Tensor:
 
 def ring_all_reduce_mean(x: torch.Tensor, world_size: int) -> torch.Tensor:
     return ring_all_reduce(x, world_size) / world_size
+
+
+def reduce_scatter_sum(rows: torch.Tensor) -> torch.Tensor:
+    """Row ``rank`` of the world's sum of an ``[n, cols]`` matrix: one
+    ``reduce_scatter_tensor`` (JAX's ``lax.psum_scatter`` over the
+    leading axis)."""
+    out = rows.new_empty(rows.shape[1:])
+    dist.reduce_scatter_tensor(out, rows.reshape(-1))  # flat: gloo splits dim 0
+    return out
+
+
+def all_gather_flat(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's flat ``[cols]`` buffer stacked ``[n, cols]`` in rank
+    order: one ``all_gather_into_tensor`` (JAX's ``lax.all_gather``)."""
+    n = dist.get_world_size()
+    out = x.new_empty(n * x.numel())  # flat: gloo stacks along dim 0
+    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1))
+    return out.view(n, *x.shape)
+
+
+class GatherRows(torch.autograd.Function):
+    """``all_gather_flat`` whose backward reduce-scatters the cotangent's
+    sum: the AD transpose of ``all_gather`` that JAX's FSDP relies on
+    (its ``parallel/zero.py::FsdpSGD``), written out. The gradient a
+    shard receives is the world's sum for its row, issued the moment
+    autograd reaches this node."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        return all_gather_flat(x)
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor) -> torch.Tensor:
+        return reduce_scatter_sum(ct)
+
+
+class AllReduceMean(torch.autograd.Function):
+    """The world's mean of a tensor (JAX's ``lax.pmean``), differentiable:
+    the backward is the mean of the cotangents, pmean's transpose. Its
+    collectives run where autograd puts them, so every rank must build
+    the same graph."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = x.clone()
+        dist.all_reduce(y)
+        return y / dist.get_world_size()
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor) -> torch.Tensor:
+        y = ct.clone()
+        dist.all_reduce(y)
+        return y / dist.get_world_size()

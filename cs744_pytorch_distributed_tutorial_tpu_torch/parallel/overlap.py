@@ -30,6 +30,15 @@ bucket. For ``allreduce`` and ``ring`` the result equals the fused
 schedule's (the ring bit for bit: the row-chunked layout keeps every
 element's ring row); the int8 wire is not bitwise (reverse buckets
 regroup the quantization chunks) and is held to the short-run bar.
+
+ZeRO-1's lane (``OverlappedZero1``) keeps the hooks and the layout order
+on ``Zero1SGD``'s row-chunked reverse layout: a complete bucket's
+reduce-scatter (or its int8 all-reduce) is issued from the hooks, and
+``finish`` runs each bucket's chunk updates and its delta all-gather.
+The parameters change only in ``finish``, after autograd is done with
+them. FSDP's lane is its gather in the reverse layout
+(``FsdpSGD(overlap=True)``): each bucket's reduce-scatter is the
+backward of its all-gather, issued as autograd reaches it.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
     sync_bucket,
     sync_bucket_compressed,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import Zero1SGD
 
 #: ``--sync-overlap`` modes: ``bucket`` overlaps the float wire
 #: (allreduce, ring), ``bucket+int8`` the int8 wire with error feedback.
@@ -80,9 +90,12 @@ class OverlappedSGD:
         self.ef = None if ef is None else list(ef)
         self.name, self.world_size, self.quant_chunk = name, world_size, quant_chunk
         self.lr, self.mu, self.wd = lr, mu, wd
-        self.layout = overlap_layout(self.params, name, world_size, bucket_bytes,
-                                     compressed=self.ef is not None)
-        self.members = B.bucket_members(self.layout)
+        self._install(overlap_layout(self.params, name, world_size, bucket_bytes,
+                                     compressed=self.ef is not None))
+
+    def _install(self, layout: B.BucketLayout) -> None:
+        self.layout = layout
+        self.members = B.bucket_members(layout)
         self._armed = False
         self._handles = [p.register_post_accumulate_grad_hook(self._hook(i))
                          for i, p in enumerate(self.params)]
@@ -133,16 +146,19 @@ class OverlappedSGD:
         else:
             self._pending[b] = (sync_bucket(buf, self.name, self.world_size), None)
 
-    @torch.no_grad()
-    def finish(self) -> None:
-        """Wait on each bucket in layout order and apply SGD to it; the
-        parameters' ``grad`` become views of the synced means."""
+    def _disarm(self) -> None:
         self._armed = False
         if self._next != self.num_buckets:
             raise RuntimeError(
                 f"backward completed {self._next} of {self.num_buckets} gradient buckets: "
                 "every parameter must receive a gradient"
             )
+
+    @torch.no_grad()
+    def finish(self) -> None:
+        """Wait on each bucket in layout order and apply SGD to it; the
+        parameters' ``grad`` become views of the synced means."""
+        self._disarm()
         for b, members in enumerate(self.members):
             synced, extra = self._pending[b]
             if self.ef is not None:
@@ -156,5 +172,41 @@ class OverlappedSGD:
                              lr=self.lr, mu=self.mu, wd=self.wd)
             for i, g in zip(members, grads):
                 self.params[i].grad = g
+        self._pending = [None] * self.num_buckets
+        self._prefix = None
+
+
+class OverlappedZero1(OverlappedSGD):
+    """ZeRO-1's overlapped lane over ``zero``'s reverse row-chunked
+    layout (``Zero1SGD(overlap=True)``): a complete bucket's
+    reduce-scatter (with ``ef``, its int8 all-reduce) is issued from the
+    hooks in layout order; ``finish`` takes each bucket's rows of the
+    mean through the chunk updates and one delta all-gather. The
+    parameters' ``grad`` stay the local gradients, as zero1 never forms
+    the synced ones. The buckets are used at any world size."""
+
+    def __init__(self, params: Sequence[torch.Tensor], momentum: Sequence[torch.Tensor],
+                 ef: Sequence[torch.Tensor] | None, zero: Zero1SGD):
+        self.params, self.momentum = list(params), list(momentum)
+        self.ef = None if ef is None else list(ef)
+        self.zero = zero
+        self._install(zero.layout(self.params))
+
+    def _issue(self, b: int) -> None:
+        members = self.members[b]
+        gbuf = B.flatten_bucket([p.grad for p in self.params], self.layout, b, members)
+        ebuf = None if self.ef is None else B.flatten_bucket(self.ef, self.layout, b, members)
+        self._pending[b] = self.zero.scatter_bucket(gbuf, ebuf)
+
+    @torch.no_grad()
+    def finish(self) -> None:
+        """Each bucket in layout order: chunk updates, delta all-gather."""
+        self._disarm()
+        for b, members in enumerate(self.members):
+            g_mine, resid = self._pending[b]
+            self.zero.update_bucket(self.params, self.momentum, self.layout, members, g_mine)
+            if resid is not None:
+                for i in members:
+                    self.ef[i].copy_(B.leaf_view(resid, self.layout, self.layout.slots[i]))
         self._pending = [None] * self.num_buckets
         self._prefix = None

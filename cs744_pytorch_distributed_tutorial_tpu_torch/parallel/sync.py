@@ -11,6 +11,8 @@ strategy           reference                                      mechanism here
 ``auto``           part3 DDP (``master/part3/part3.py:116``)      DistributedDataParallel
 ``int8_allreduce`` (compressed wire)                              int8 all_to_all + all_gather
 ``int8_ring``      (compressed wire)                              int8 requantizing ring
+``zero1``          (sharded optimizer)                            identity here: ``zero.py``
+``fsdp``           (sharded parameters)                           identity here: ``zero.py``
 =================  =============================================  ==========================
 
 A strategy is ``fn(tensor, world_size) -> mean tensor``, applied per
@@ -22,6 +24,9 @@ JAX package. ``auto`` is the trainer's: it wraps the model in
 ``backward()``; called directly it is an all-reduce mean. The int8
 strategies called per tensor drop their residual; the trainer routes
 int8 through ``sync_grads_compressed``, which keeps it as error feedback.
+``zero1`` and ``fsdp`` leave the gradients as they are: zero1's
+reduce-scatter is part of its sharded update, fsdp's the backward of its
+parameter all-gather (``parallel/zero.py``).
 """
 
 from __future__ import annotations
@@ -171,10 +176,9 @@ SYNC_STRATEGIES: dict[str, SyncFn] = {
     "auto": C.all_reduce_mean,
     "int8_allreduce": _int8_allreduce,
     "int8_ring": _int8_ring,
+    "zero1": _none,
+    "fsdp": _none,
 }
-
-# Strategies of the JAX package that the port does not run yet.
-_NOT_YET_PORTED = ("zero1", "fsdp")
 
 #: Strategies whose collective is an elementwise mean over flat data,
 #: which the bucketed path may coalesce.
@@ -182,8 +186,6 @@ _BUCKETED = ("allreduce", "ring")
 
 
 def get_sync(name: str) -> SyncFn:
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(f"sync strategy {name!r} is not yet ported")
     try:
         return SYNC_STRATEGIES[name]
     except KeyError:

@@ -1,0 +1,230 @@
+"""ZeRO-1 and FSDP: optimizer state (and, under FSDP, the parameters)
+sharded over the data-parallel ranks.
+
+Port of the JAX package's ``parallel/zero.py`` (``Zero1SGD``,
+``FsdpSGD`` and their helpers). The reference keeps a full optimizer
+replica on every rank (plain SGD over a full model copy,
+``master/part2a/part2a.py:127-128``); these remove that redundancy.
+
+The layout, the JAX package's: a tensor of ``size`` elements is
+flattened, zero-padded to ``n * chunk`` (``chunk = ceil(size / n)``) and
+viewed ``[n, chunk]``; rank ``r`` owns row ``r``. Each rank keeps one
+``[chunk]`` momentum tensor a parameter (its row), and under FSDP one
+``[chunk]`` parameter shard too, so ``models/convert.py`` carries state
+across frameworks leaf by leaf.
+
+- ZeRO-1 (``Zero1SGD``): the local gradients are reduce-scattered (each
+  rank receives its row of the sum and divides it into the mean), each
+  rank applies torch-SGD to its rows, and one all-gather of the
+  parameter *deltas* restores the replicated parameters. One pair of
+  collectives a tensor, or with ``bucket_bytes`` one a bucket of the
+  row-chunked layout (``buckets.bucket_layout(rows=n)``: each tensor's
+  ``[n, chunk]`` block a block of columns, so every element keeps its
+  row). The int8 wire replaces a bucket's reduce-scatter with the
+  quantized all-reduce of ``sync._int8_allreduce_flat``.
+- FSDP (``FsdpSGD``): each rank persists only its rows. A step gathers
+  the full parameters (one all-gather a tensor or a bucket,
+  ``collectives.GatherRows``), runs forward and backward on them, and
+  the gather's backward reduce-scatters the gradients' sum into each
+  shard's ``grad``; ``apply`` divides by ``n`` and updates the rows.
+
+At a world of one the collectives run all the same (copies); the JAX
+schedule counts them as none.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import true_div
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import buckets as B
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as C
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import _int8_allreduce_flat
+
+
+def chunk_size(size: int, world_size: int) -> int:
+    return -(-size // world_size)
+
+
+def _shard_flat(x: torch.Tensor, world_size: int) -> torch.Tensor:
+    """A tensor -> its zero-padded ``[n, chunk]`` flat layout."""
+    chunk = chunk_size(x.numel(), world_size)
+    return F.pad(x.reshape(-1), (0, world_size * chunk - x.numel())).view(world_size, chunk)
+
+
+def _unshard(rows: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``[n, chunk]`` rows (gathered) -> the tensor of ``shape``."""
+    return rows.reshape(-1)[: math.prod(shape)].view(tuple(shape))
+
+
+def _gather_flat(shards: Sequence[torch.Tensor], shapes: Sequence) -> list[torch.Tensor]:
+    """Each rank's ``[chunk]`` shards -> the full tensors, one all-gather
+    a tensor (differentiable: the backward reduce-scatters)."""
+    return [_unshard(C.GatherRows.apply(sh), shape) for sh, (shape, _) in zip(shards, shapes)]
+
+
+def _gather_bucketed_flat(shards: Sequence[torch.Tensor], shapes: Sequence, world_size: int,
+                          bucket_bytes: int, *, reverse: bool = False) -> list[torch.Tensor]:
+    """Bucketed unshard: a bucket's shards concatenate in slot-offset
+    order into one flat buffer, one all-gather gives ``[n, cols]``, and
+    the tensors slice out of it. Its backward is one reduce-scatter a
+    bucket. ``reverse`` is the overlapped schedule's layout: the
+    reduce-scatters then run bucket by bucket in backward order."""
+    layout = B.bucket_layout(shapes, bucket_bytes, rows=world_size, reverse=reverse)
+    out: list[torch.Tensor | None] = [None] * len(shapes)
+    for members in B.bucket_members(layout):
+        full = C.GatherRows.apply(torch.cat([shards[i] for i in members]))
+        for i in members:
+            out[i] = B.leaf_view(full, layout, layout.slots[i])
+    return out
+
+
+def zero1_collective_schedule(units: int, axis_size: int) -> dict[str, int]:
+    """One ZeRO-1 step's collectives: a reduce-scatter and an all-gather
+    a sync unit (bucket, or tensor); none on a world of one."""
+    if axis_size <= 1:
+        return {}
+    return {"reduce_scatter": units, "all_gather": units}
+
+
+def fsdp_collective_schedule(units: int, axis_size: int) -> dict[str, int]:
+    """FSDP's: the parameter all-gather a unit and its transpose, one
+    reduce-scatter; ZeRO-1's pair count on the other side of the model."""
+    return zero1_collective_schedule(units, axis_size)
+
+
+def zero1_int8_collective_schedule(units: int, axis_size: int) -> dict[str, int]:
+    """ZeRO-1 on the int8 wire: a unit's quantized all-reduce (2
+    all-to-alls, 2 all-gathers: codes and scales apart) and the float
+    delta all-gather; no reduce-scatter."""
+    if axis_size <= 1:
+        return {}
+    return {"all_to_all": 2 * units, "all_gather": 3 * units}
+
+
+class Zero1SGD:
+    """SGD(momentum, weight decay) with rank-sharded momentum.
+
+    ``init`` gives this rank's ``[chunk]`` momentum rows; ``apply``
+    takes the LOCAL gradients (before any sync) and updates the
+    replicated parameters and this rank's rows in place. Per tensor when
+    ``bucket_bytes`` is 0 or the world is one, bucketed otherwise;
+    ``overlap`` selects the reverse-order layout of the overlapped
+    schedule (``OverlappedZero1`` drives it from gradient hooks)."""
+
+    def __init__(self, learning_rate: float, momentum: float, weight_decay: float,
+                 world_size: int, bucket_bytes: int | None = None, overlap: bool = False):
+        self.learning_rate = learning_rate
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.world_size = world_size
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.bucket_bytes = B.DEFAULT_BUCKET_BYTES if bucket_bytes is None else int(bucket_bytes)
+        self.overlap = bool(overlap)
+
+    def init(self, params: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """This rank's momentum rows: ``[chunk]`` zeros a parameter."""
+        return [p.new_zeros(chunk_size(p.numel(), self.world_size), dtype=torch.float32)
+                for p in params]
+
+    def layout(self, params: Sequence) -> B.BucketLayout:
+        return B.bucket_layout(params, self.bucket_bytes, rows=self.world_size,
+                               reverse=self.overlap)
+
+    def _sgd_chunk_update(self, p_mine: torch.Tensor, m_mine: torch.Tensor,
+                          g_mine: torch.Tensor) -> torch.Tensor:
+        """The torch-SGD rule on this rank's rows (``g + wd p``, then ``mu
+        m + g``, then ``-lr m``): updates ``m_mine`` in place, returns
+        the parameter delta."""
+        g_eff = g_mine + p_mine * self.weight_decay
+        m_mine.mul_(self.momentum).add_(g_eff)
+        return m_mine * -self.learning_rate
+
+    @torch.no_grad()
+    def apply(self, params: Sequence[torch.Tensor], momenta: Sequence[torch.Tensor],
+              grads: Sequence[torch.Tensor], ef: Sequence[torch.Tensor] | None = None) -> None:
+        """One ZeRO-1 step; ``ef`` (per-parameter fp32 residuals) sends
+        each bucket over the int8 wire and keeps its residual."""
+        s = self.world_size
+        if self.bucket_bytes and s > 1:
+            layout = self.layout(grads)
+            for b, members in enumerate(B.bucket_members(layout)):
+                gbuf = B.flatten_bucket(grads, layout, b, members)
+                ebuf = None if ef is None else B.flatten_bucket(ef, layout, b, members)
+                g_mine, resid = self.scatter_bucket(gbuf, ebuf)
+                self.update_bucket(params, momenta, layout, members, g_mine)
+                if resid is not None:
+                    for i in members:
+                        ef[i].copy_(B.leaf_view(resid, layout, layout.slots[i]))
+            return
+        if ef is not None:
+            raise ValueError(
+                "the int8 wire for zero1 requires the bucketed path (bucket_bytes > 0 "
+                "and world size > 1): quantization chunks are defined on bucket boundaries"
+            )
+        for p, m, g in zip(params, momenta, grads, strict=True):
+            g_mine = true_div(C.reduce_scatter_sum(_shard_flat(g, s)), s)
+            delta = self._sgd_chunk_update(_shard_flat(p, s)[self.rank], m, g_mine)
+            p.add_(_unshard(C.all_gather_flat(delta), p.shape))
+
+    def scatter_bucket(self, gbuf: torch.Tensor, ebuf: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """This rank's row of the world's mean of an ``[n, cols]`` bucket,
+        and, on the int8 wire (``ebuf``, the bucket's residuals), the new
+        ``[n, cols]`` residuals: the quantized all-reduce of ``g + ef``,
+        whose row this rank keeps."""
+        s = self.world_size
+        if ebuf is None:
+            return true_div(C.reduce_scatter_sum(gbuf), s), None
+        mean, resid = _int8_allreduce_flat(gbuf.reshape(-1).float() + ebuf.reshape(-1).float(), s)
+        return mean.view(gbuf.shape)[self.rank].to(gbuf.dtype), resid.view(gbuf.shape)
+
+    def update_bucket(self, params: Sequence[torch.Tensor], momenta: Sequence[torch.Tensor],
+                      layout: B.BucketLayout, members: Sequence[int], g_mine: torch.Tensor) -> None:
+        """A bucket's chunk updates in slot-offset order, then one
+        all-gather of their deltas, added to the parameters."""
+        deltas = []
+        for i in members:
+            slot = layout.slots[i]
+            p_mine = _shard_flat(params[i], self.world_size)[self.rank]
+            deltas.append(self._sgd_chunk_update(
+                p_mine, momenta[i], g_mine[slot.offset : slot.offset + slot.size]))
+        delta_buf = C.all_gather_flat(torch.cat(deltas))
+        for i in members:
+            params[i].add_(B.leaf_view(delta_buf, layout, layout.slots[i]))
+
+
+class FsdpSGD(Zero1SGD):
+    """ZeRO-3/FSDP: parameters and momentum sharded alike.
+
+    ``shard_params`` keeps this rank's ``[chunk]`` rows of each
+    parameter; ``gather_params`` rebuilds the full tensors before each
+    forward (per tensor, or a bucket at a time as ``Zero1SGD`` chooses);
+    differentiating through it leaves each shard's ``grad`` the world's
+    SUM of its rows, which ``apply`` divides into the mean before the
+    torch-SGD rule. Persistent memory for parameters and momentum:
+    ``2 * params / n`` a rank."""
+
+    def shard_params(self, params: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """This rank's rows of each parameter, as new leaf tensors."""
+        return [_shard_flat(p.detach(), self.world_size)[self.rank].clone().requires_grad_()
+                for p in params]
+
+    def gather_params(self, shards: Sequence[torch.Tensor], shapes: Sequence) -> list[torch.Tensor]:
+        """``shapes``: each parameter's ``(shape, dtype)``."""
+        if not (self.bucket_bytes and self.world_size > 1):
+            return _gather_flat(shards, shapes)
+        return _gather_bucketed_flat(shards, shapes, self.world_size, self.bucket_bytes,
+                                     reverse=self.overlap)
+
+    @torch.no_grad()
+    def apply(self, shards: Sequence[torch.Tensor], momenta: Sequence[torch.Tensor],
+              grad_chunks: Sequence[torch.Tensor]) -> None:
+        """One step from the shards' gradient sums (``[chunk]`` each)."""
+        for sh, m, g in zip(shards, momenta, grad_chunks, strict=True):
+            sh.add_(self._sgd_chunk_update(sh, m, true_div(g, self.world_size)))

@@ -13,9 +13,18 @@ one process driving one device. A step:
 4. the strategy's gradient averaging over the world (under ``auto``,
    ``DistributedDataParallel``'s reducer does it inside ``backward()``;
    ``allreduce`` and ``ring`` a bucket at a time);
-5. the SGD(momentum, wd) update — the fused CUDA kernel
-   (``ops/fused_sgd.py``) when ``fused_optimizer`` is set, plain tensor
-   ops otherwise. Every rank applies it to identical synced gradients.
+5. the update: the reference's SGD(momentum, wd) through the fused CUDA
+   kernel (``ops/fused_sgd.py``) when ``fused_optimizer`` is set, else
+   the registry's recipe (``train/state.py``: SGD, AdamW or Lion, a
+   schedule, a global-norm clip on the synced gradients). Every rank
+   applies it to identical synced gradients.
+
+``zero1`` and ``fsdp`` (``parallel/zero.py``) replace steps 4-5: zero1
+reduce-scatters the local gradients, updates this rank's rows of
+momentum and parameters and all-gathers the deltas; fsdp holds only its
+rows of the parameters, gathers them for forward and backward
+(``functional_call`` on the module, whose own parameters are released),
+and its gather's backward reduce-scatters the gradients.
 
 With ``accum_steps`` > 1, steps 2–4 run a microbatch at a time and the
 gradients are summed, ``((0 + g1) + g2) ...``, then divided by the
@@ -29,7 +38,12 @@ hooks as backward completes it, and SGD is applied a bucket at a time.
 
 BatchNorm running statistics stay per replica, as in the reference's
 manual parts and the JAX package: DDP is built with
-``broadcast_buffers=False``.
+``broadcast_buffers=False``. ``sync_bn`` takes the world's batch
+statistics instead (``models/batchnorm.py``); its all-reduces run in
+forward and backward, in the same order on every rank. With
+``debug_sync_check`` each rank's checksum of its synced gradients (zero1:
+its parameters) is all-gathered every step and checked at each epoch's
+end (``utils/debug.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +56,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch import nn
+from torch.func import functional_call
 from torch.nn.parallel import DistributedDataParallel
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.config import (
@@ -55,19 +71,29 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.data.augment import (
     eval_batch,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.models import get_model
+from cs744_pytorch_distributed_tutorial_tpu_torch.models.convert import shard_row
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as C
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import rank_device, world
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.overlap import (
     OVERLAP_MODES,
     OverlappedSGD,
+    OverlappedZero1,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
     get_sync,
     sync_grads,
     sync_grads_compressed,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import FsdpSGD, Zero1SGD
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import (
     TrainState,
+    check_recipe,
+    is_reference_recipe,
     make_optimizer,
+)
+from cs744_pytorch_distributed_tutorial_tpu_torch.utils.debug import (
+    DivergenceMonitor,
+    tree_checksum,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.timing import StepTimer
 
@@ -116,11 +142,6 @@ class Trainer:
                 "sync='none' (part1 semantics) requires a world of one; "
                 f"got {self.world_size}. Pick a sync strategy."
             )
-        if cfg.sync != "none" and not dist.is_initialized():
-            raise ValueError(
-                f"sync={cfg.sync!r} communicates through torch.distributed: "
-                "initialize a process group first (parallel.mesh.initialize)"
-            )
         if cfg.global_batch_size % self.world_size:
             raise ValueError(
                 f"global batch {cfg.global_batch_size} not divisible by "
@@ -136,11 +157,48 @@ class Trainer:
                 f"accum_steps {cfg.accum_steps} must divide the per-rank "
                 f"batch shard ({per_rank})"
             )
+        if cfg.sync_bn and not (cfg.model.startswith(("vgg", "resnet"))
+                                or cfg.model == "tiny_cnn"):
+            raise ValueError(
+                f"sync_bn applies to BatchNorm models only; {cfg.model!r} has no BN layers"
+            )
+        self._zero1, self._fsdp = cfg.sync == "zero1", cfg.sync == "fsdp"
+        if (self._zero1 or self._fsdp) and cfg.fused_optimizer:
+            raise ValueError(
+                f"sync={cfg.sync!r} shards the optimizer state and supplies its own "
+                "update; it cannot combine with fused_optimizer"
+            )
+        if (self._zero1 or self._fsdp or cfg.fused_optimizer) and not is_reference_recipe(cfg):
+            raise ValueError(
+                f"optimizer={cfg.optimizer!r}/lr_schedule={cfg.lr_schedule!r}/"
+                f"warmup_steps={cfg.warmup_steps}/grad_clip_norm={cfg.grad_clip_norm} "
+                "require the registry's optimizer path (train/state.py::make_optimizer); "
+                f"sync={cfg.sync!r} fused_optimizer={cfg.fused_optimizer} hard-code "
+                "unclipped SGD(momentum) at a fixed lr"
+            )
         self._check_sync_options(cfg)
+        check_recipe(cfg)
+        if cfg.debug_sync_check and self._fsdp:
+            raise ValueError(
+                "debug_sync_check is meaningless under sync='fsdp': each rank's "
+                "parameters are its own shards and the only replicated values are "
+                "all-gather outputs, equal by construction; check replication under "
+                "zero1 or a replicated strategy instead"
+            )
+        if cfg.sync != "none" and not dist.is_initialized():
+            raise ValueError(
+                f"sync={cfg.sync!r} communicates through torch.distributed: "
+                "initialize a process group first (parallel.mesh.initialize)"
+            )
         self.compute_dtype = resolve_dtype(cfg.compute_dtype)
-        self.tx = make_optimizer(cfg)
+        if self._zero1 or self._fsdp:
+            cls = FsdpSGD if self._fsdp else Zero1SGD
+            self.tx = cls(cfg.learning_rate, cfg.momentum, cfg.weight_decay, self.world_size,
+                          bucket_bytes=self._bucket_bytes, overlap=self._overlap)
+        else:
+            self.tx = make_optimizer(cfg)
 
-        model_kw: dict[str, Any] = {}
+        model_kw: dict[str, Any] = {"sync_bn": cfg.sync_bn}
         if cfg.model.startswith("resnet"):
             use_imagenet_stem = (
                 cfg.image_size > 64
@@ -168,25 +226,73 @@ class Trainer:
                 device_ids=[self.device.index] if self.device.type == "cuda" else None,
                 broadcast_buffers=False,
             )
-        self.state = TrainState(
-            step=0, params=self.params, momentum=self.tx.init(self.params),
-            ef=[torch.zeros_like(p, dtype=torch.float32) for p in self.params]
-            if self._compress else [],
-        )
+        momentum = self.tx.init(self.params)
+        ef = ([torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+              if self._compress else [])
+        if self._fsdp:
+            self._shard_model()
+        self.state = TrainState(step=0, params=self.params, momentum=momentum, ef=ef)
         self.overlap = None
-        if self._overlap:
+        if self._overlap and self._zero1:
+            self.overlap = OverlappedZero1(self.params, momentum, ef or None, self.tx)
+        elif self._overlap and not self._fsdp:
             self.overlap = OverlappedSGD(
-                self.params, self.state.momentum, self.state.ef if self._compress else None,
+                self.params, momentum, ef if self._compress else None,
                 name=cfg.sync, world_size=self.world_size, lr=cfg.learning_rate,
                 mu=cfg.momentum, wd=cfg.weight_decay, bucket_bytes=self._bucket_bytes,
             )
+        self.sync_monitor = DivergenceMonitor() if cfg.debug_sync_check else None
         # Crop/flip randomness per rank, seeded from (seed, rank).
         seed = int(np.random.SeedSequence([cfg.seed, self.rank]).generate_state(1)[0])
         self.augment_gen = torch.Generator().manual_seed(seed)
 
+    def _shard_model(self) -> None:
+        """FSDP: keep this rank's rows of each parameter (``self.params``)
+        and release the module's own tensors; forward and backward take
+        the gathered tensors through ``functional_call``."""
+        self._param_names = [name for name, _ in self.model.named_parameters()]
+        self._param_shapes = [(tuple(p.shape), p.dtype) for p in self.params]
+        shards = self.tx.shard_params(self.params)
+        for name in self._param_names:
+            module_name, _, attr = name.rpartition(".")
+            setattr(self.model.get_submodule(module_name), attr,
+                    nn.Parameter(torch.empty(0, device=self.device), requires_grad=False))
+        self.params = shards
+
+    def _full_params(self) -> dict[str, torch.Tensor]:
+        """FSDP: the gathered parameters by name (differentiable)."""
+        full = self.tx.gather_params(self.params, self._param_shapes)
+        return dict(zip(self._param_names, full))
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._fsdp:
+            return functional_call(self.model, self._full_params(), (x,))
+        return self.forward_module(x)
+
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """The model's full state dict; under FSDP its parameters are
+        gathered, a collective every rank must join."""
+        sd = self.model.state_dict()
+        if self._fsdp:
+            with torch.no_grad():
+                sd.update({k: v.clone() for k, v in self._full_params().items()})
+        return sd
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Load a full state dict; under FSDP each parameter's rows for
+        this rank go to its shard (``models/convert.py::shard_row``)."""
+        if not self._fsdp:
+            self.model.load_state_dict(state_dict)
+            return
+        for name, buf in self.model.named_buffers():
+            buf.copy_(state_dict[name])
+        for name, shard in zip(self._param_names, self.params):
+            shard.copy_(shard_row(state_dict[name], self.rank, self.world_size))
+
     def _check_sync_options(self, cfg: TrainConfig) -> None:
         """The JAX engine's checks of the wire options (its
-        ``engine.py:253-392``) for those the port runs."""
+        ``engine.py:253-392``)."""
         if cfg.sync_bucket_mb < 0:
             raise ValueError(f"sync_bucket_mb must be >= 0, got {cfg.sync_bucket_mb}")
         self._bucket_bytes = int(cfg.sync_bucket_mb * 2**20)
@@ -199,12 +305,24 @@ class Trainer:
         self._compress = cfg.grad_compress == "int8" or cfg.sync in (
             "int8_allreduce", "int8_ring")
         if self._compress:
-            if cfg.sync not in ("allreduce", "ring", "int8_allreduce", "int8_ring"):
+            if cfg.sync == "zero1" and cfg.sync_overlap == "bucket+int8":
+                pass  # zero1's int8 wire lives on its overlapped reverse buckets
+            elif cfg.sync == "fsdp":
+                raise ValueError(
+                    "grad_compress='int8' cannot ride sync='fsdp': its gradient "
+                    "reduction is the backward of the parameter all-gather, so there "
+                    "is no separate grad-sync pass to quantize; for a quantized "
+                    "sharded-optimizer wire use sync='zero1' with "
+                    "sync_overlap='bucket+int8'"
+                )
+            elif cfg.sync not in ("allreduce", "ring", "int8_allreduce", "int8_ring"):
                 raise ValueError(
                     "grad_compress='int8' applies to the flat allreduce syncs only "
-                    f"(allreduce, ring, int8_allreduce, int8_ring); sync={cfg.sync!r} "
-                    "either has no grad-sync pass to compress (auto/none) or exists "
-                    "to teach an uncompressed wire shape (gather_scatter, p2p_star)"
+                    "(allreduce, ring, int8_allreduce, int8_ring) or sync='zero1' with "
+                    f"sync_overlap='bucket+int8'; sync={cfg.sync!r} either has no "
+                    "grad-sync pass to compress (auto/none, zero1 without the "
+                    "overlapped schedule) or exists to teach an uncompressed wire "
+                    "shape (gather_scatter, p2p_star)"
                 )
             if cfg.fused_optimizer:
                 raise ValueError(
@@ -225,21 +343,22 @@ class Trainer:
                 "with per-bucket updates; fused_optimizer names the whole-model "
                 "update and cannot combine"
             )
-        if (cfg.optimizer != "sgd" or cfg.lr_schedule != "constant" or cfg.warmup_steps
-                or cfg.grad_clip_norm is not None):
+        if not is_reference_recipe(cfg):
             raise ValueError(
                 "sync_overlap applies the reference's fixed-lr SGD(momentum) per "
                 f"bucket; optimizer={cfg.optimizer!r}/lr_schedule={cfg.lr_schedule!r}/"
                 f"warmup_steps={cfg.warmup_steps}/grad_clip_norm={cfg.grad_clip_norm} "
-                "need the whole-model update"
+                "need the whole-model update (a global clip or schedule state cannot "
+                "be applied bucket-locally)"
             )
         if cfg.sync_overlap == "bucket":
-            if self._compress or cfg.sync not in ("allreduce", "ring"):
+            if self._compress or cfg.sync not in ("allreduce", "ring", "zero1", "fsdp"):
                 raise ValueError(
                     "sync_overlap='bucket' overlaps the float bucketed wire: requires "
-                    "sync in ('allreduce', 'ring') and grad_compress='none' (got "
-                    f"sync={cfg.sync!r}, grad_compress={cfg.grad_compress!r}; for the "
-                    "quantized wire use sync_overlap='bucket+int8')"
+                    "sync in ('allreduce', 'ring', 'zero1', 'fsdp') and "
+                    f"grad_compress='none' (got sync={cfg.sync!r}, "
+                    f"grad_compress={cfg.grad_compress!r}; for the quantized wire use "
+                    "sync_overlap='bucket+int8')"
                 )
         elif not self._compress:
             raise ValueError(
@@ -267,15 +386,17 @@ class Trainer:
         self.model.train()
         accum = cfg.accum_steps
         # Float strategies sync every microbatch (DDP inside backward);
-        # the int8 wire and the overlapped schedule once, after the sum.
-        sync_each = cfg.sync != "auto" and not (self._compress or self._overlap)
+        # the int8 wire, the overlapped schedule and zero1 once, after the
+        # sum; fsdp's sync is its gather's backward, every microbatch.
+        sync_each = cfg.sync not in ("auto", "zero1", "fsdp") and not (
+            self._compress or self._overlap)
         g_sum = loss_sum = None
         for k, (xm, ym) in enumerate(zip(x.chunk(accum), labels.chunk(accum))):
             last = k == accum - 1
             if self.overlap is not None and last:
                 self.overlap.begin(g_sum, accum)
             with self._autocast():
-                logits = self.forward_module(xm)
+                logits = self._forward(xm)
             loss = _smoothed_xent(logits.float(), ym, cfg.label_smoothing)
             for p in self.params:
                 p.grad = None
@@ -300,8 +421,19 @@ class Trainer:
                 sync_grads_compressed(grads, self.state.ef, cfg.sync, self.world_size,
                                       bucket_bytes=self._bucket_bytes)
             self.tx.apply(self.params, self.state.momentum, grads)
+        if self.sync_monitor is not None:
+            self._record_checksum()
         self.state.step += 1
         return loss_sum / accum if accum > 1 else loss_sum
+
+    @torch.no_grad()
+    def _record_checksum(self) -> None:
+        """Every rank's checksum of its synced gradients (zero1, which
+        never forms them: of its updated parameters), all-gathered."""
+        tensors = self.params if self._zero1 else [p.grad for p in self.params]
+        local = tree_checksum(tensors).reshape(1)
+        every = C.all_gather_flat(local) if dist.is_initialized() else local
+        self.sync_monitor.record_world(self.state.step, every.reshape(-1))
 
     def global_mean(self, local: torch.Tensor) -> float:
         """Mean of a per-rank scalar over the world, fetched to the host."""
@@ -347,6 +479,11 @@ class Trainer:
                     value = self.global_mean(loss)
                     history["train_loss"].append((epoch, batch_idx, value))
                     log.info("%d loss:  %f", batch_idx, value)
+            if self.sync_monitor is not None:
+                bad = self.sync_monitor.divergent_steps()
+                log.info("divergence check: %d steps, %d divergent",
+                         self.sync_monitor.steps_recorded, len(bad))
+                self.sync_monitor.assert_in_sync()
             metrics = self.evaluate(test_loader)
             history["eval"].append(metrics)
             log.info(
@@ -359,12 +496,15 @@ class Trainer:
     @torch.no_grad()
     def evaluate(self, test_loader: BatchLoader) -> dict[str, float]:
         """Eval over the test set with this replica's running BN stats; the
-        loss sum, correct count and example count are summed over ranks."""
+        loss sum, correct count and example count are summed over ranks.
+        FSDP gathers its parameters once for the whole pass."""
         self.model.eval()
         totals = torch.zeros(3, dtype=torch.float64, device=self.device)
+        full = self._full_params() if self._fsdp else None
         for x, y, mask in test_loader.epoch_padded(0):
             with self._autocast():
-                logits = self.model(eval_batch(x))
+                logits = (self.model(eval_batch(x)) if full is None
+                          else functional_call(self.model, full, (eval_batch(x),)))
             losses = F.cross_entropy(logits.float(), y, reduction="none")
             correct = (logits.argmax(dim=-1) == y).float()
             totals += torch.stack(

@@ -7,8 +7,9 @@ explicit casts inside each module, fp32 parameters, fp32 logits), the
 mean cross-entropy (the JAX ``_smoothed_xent``, label smoothing
 included; with ``fused_xent`` the CUDA kernels of ``ops/fused_xent.py``,
 which compute plain CE, so label smoothing then raises), ``backward()``,
-and the optimizer update (``adamw`` with
-optax semantics or ``sgd``; ``train/state.py::make_lm_optimizer``). The
+and the optimizer update (``adamw``, ``sgd`` or ``lion`` at a constant,
+warmup or cosine lr, behind an optional global-norm clip, with optax's
+semantics; ``train/state.py::make_lm_optimizer``). The
 step returns ``{loss, grad_norm, param_norm}`` as 0-d tensors on the
 device: the global L2 norms of the gradient and of the updated
 parameters.
@@ -56,7 +57,10 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import (
     resolve_quant_modules,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.engine import _smoothed_xent
-from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import make_lm_optimizer
+from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import (
+    check_recipe,
+    make_lm_optimizer,
+)
 
 
 class NonFiniteLossError(RuntimeError):
@@ -101,9 +105,12 @@ class LMConfig:
     seq_len: int = 256
     learning_rate: float = 1e-3
     seed: int = 0
-    optimizer: str = "adamw"  # "adamw" | "sgd"
-    lr_schedule: str = "constant"
+    optimizer: str = "adamw"  # "adamw" | "sgd" | "lion"
+    lr_schedule: str = "constant"  # | "cosine" | "warmup_cosine"
     warmup_steps: int = 0
+    # cosine schedules need total_steps, warmup ramps linearly from 0 first.
+    total_steps: int | None = None
+    grad_clip_norm: float | None = None
     momentum: float = 0.9  # adamw b1; sgd momentum
     weight_decay: float = 1e-4
     label_smoothing: float = 0.0
@@ -114,7 +121,6 @@ class LMConfig:
     seq_parallel: int = 1
     tensor_parallel: int = 1
     moe_expert_parallel: bool = False
-    grad_clip_norm: float | None = None
     grad_compress: str = "none"
     sync_overlap: str = "off"
     remat: bool = False
@@ -137,8 +143,7 @@ class LMConfig:
 
 
 _LATER_FIELDS = (
-    "data_parallel", "seq_parallel", "tensor_parallel", "moe_expert_parallel", "grad_clip_norm",
-    "grad_compress", "sync_overlap", "remat", "zero1", "fsdp", "scan_layers", "dropout_rate",
+    "data_parallel", "seq_parallel", "tensor_parallel", "moe_expert_parallel", "grad_compress", "sync_overlap", "remat", "zero1", "fsdp", "scan_layers", "dropout_rate",
     "accum_steps", "checkpoint_dir", "snapshot_every", "step_timeout_s", "metrics_dir",
     "profile_dir",
 )
@@ -157,6 +162,7 @@ def _check_config(cfg: LMConfig) -> None:
         raise ValueError(f"seq_len {cfg.seq_len} exceeds max_seq_len {cfg.max_seq_len}")
     if not 0.0 <= cfg.label_smoothing < 1.0:
         raise ValueError(f"label_smoothing must be in [0, 1), got {cfg.label_smoothing}")
+    check_recipe(cfg)
     if cfg.label_smoothing and cfg.fused_xent:
         raise ValueError("label_smoothing is incompatible with fused_xent: the fused kernel "
                          "computes plain CE")

@@ -1,21 +1,27 @@
-"""Train state and the reference optimizer.
+"""Train state, the reference optimizer and the optimizer registry.
 
-Optimizer: SGD lr=0.1, momentum=0.9, weight_decay=1e-4 — the reference's
-exact update rule (``master/part1/part1.py:98-99``), with torch-SGD
-semantics: decay is added to the gradient BEFORE the momentum update
-(g += wd*p; buf = mu*buf + g; p -= lr*buf). Every replica holds the full
-parameters and momentum, as in the reference.
+The reference's recipe is SGD lr=0.1, momentum=0.9, weight_decay=1e-4
+(``master/part1/part1.py:98-99``), with torch-SGD semantics: decay is
+added to the gradient BEFORE the momentum update (g += wd*p; buf =
+mu*buf + g; p -= lr*buf). Every replica holds the full parameters and
+momentum, as in the reference; ``parallel/zero.py`` shards them.
 
-The LM trainer's optimizers (``make_lm_optimizer``): AdamW with
-``optax.adamw`` semantics or the same SGD, at a constant lr or after a
-linear warmup from 0 (``make_schedule``).
+The JAX package's registry (its ``train/state.py``) as plain tensor
+ops: ``make_schedule`` (constant, linear warmup, cosine, warmup +
+cosine), ``make_optimizer`` (``sgd``, ``adamw``, ``lion``, each behind
+an optional ``clip_by_global_norm``), and ``make_lm_optimizer`` (the
+same, bound to the LM's parameter list). Each rule keeps optax's order
+of operations, rounding after every multiply and add, so that one
+update on the same inputs is optax's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.config import TrainConfig
@@ -24,21 +30,105 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.ops.fused_sgd import (
     fused_sgd_plain,
 )
 
+OPTIMIZERS = ("sgd", "adamw", "lion")
+LR_SCHEDULES = ("constant", "cosine", "warmup_cosine")
+#: optax.adamw's and optax.lion's second-moment decays.
+ADAM_B2, LION_B2 = 0.999, 0.99
+ADAM_EPS = 1e-8
+
 
 @dataclasses.dataclass
 class TrainState:
     step: int
-    params: list[torch.Tensor]  # the model's parameters, updated in place
-    momentum: list[torch.Tensor]  # one fp32 buffer per parameter
+    # The model's parameters, updated in place; under sync="fsdp", this
+    # rank's [chunk] row of each one's flat [world, chunk] layout.
+    params: list[torch.Tensor]
+    # One fp32 buffer per parameter (SGD's trace, AdamW's and Lion's
+    # first moment); under zero1 and fsdp, this rank's [chunk] row.
+    momentum: list[torch.Tensor]
     # The int8 wire's error feedback: one fp32 residual per parameter,
     # this rank's own (empty without compression).
     ef: list[torch.Tensor] = dataclasses.field(default_factory=list)
 
 
+# ------------------------------------------------------------- schedules
+_f32 = np.float32  # optax evaluates its schedules in float32
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], np.float32]:
+    """``optax.linear_schedule(init, end, steps)`` in float32."""
+
+    def schedule(count: int) -> np.float32:
+        frac = _f32(1) - _f32(min(max(count, 0), steps)) / _f32(steps)
+        return _f32(init - end) * frac + _f32(end)
+
+    return schedule
+
+
+def _cosine(init: float, decay_steps: int) -> Callable[[int], np.float32]:
+    """``optax.cosine_decay_schedule(init, decay_steps)`` (alpha 0,
+    exponent 1) in float32: the cosine of the float32 argument, rounded
+    once."""
+
+    def schedule(count: int) -> np.float32:
+        t = _f32(min(count, decay_steps))
+        arg = _f32(math.pi) * t / _f32(decay_steps)
+        decay = _f32(0.5) * (_f32(1) + _f32(math.cos(float(arg))))
+        return _f32(init) * decay
+
+    return schedule
+
+
+def make_schedule(cfg) -> Callable[[int], float]:
+    """The learning rate as a function of the update count (0 for the
+    first update), the JAX ``make_schedule``: a constant, or a linear
+    warmup from 0 over ``warmup_steps``; ``cosine`` decays to 0 over
+    ``total_steps``; with ``warmup_steps`` either cosine schedule is
+    ``optax.warmup_cosine_decay_schedule(0, lr, warmup_steps,
+    total_steps)``, whose cosine spans ``total_steps - warmup_steps``.
+    Values are optax's float32 values, as Python floats."""
+    lr, warmup = cfg.learning_rate, cfg.warmup_steps
+    if cfg.lr_schedule == "constant":
+        if not warmup:
+            return lambda count: lr
+        ramp = _linear(0.0, lr, warmup)
+        return lambda count: float(ramp(count))
+    if cfg.lr_schedule not in LR_SCHEDULES:
+        raise ValueError(
+            f"unknown lr_schedule {cfg.lr_schedule!r}; choose from {LR_SCHEDULES}"
+        )
+    if not cfg.total_steps:
+        raise ValueError(
+            f"lr_schedule={cfg.lr_schedule!r} needs total_steps (the decay "
+            "horizon); set cfg.total_steps = epochs * steps_per_epoch"
+        )
+    if not warmup:
+        cos = _cosine(lr, cfg.total_steps)
+        return lambda count: float(cos(count))
+    ramp, cos = _linear(0.0, lr, warmup), _cosine(lr, cfg.total_steps - warmup)
+    return lambda count: float(ramp(count) if count < warmup else cos(count - warmup))
+
+
+# ----------------------------------------------------------------- clip
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> list[torch.Tensor]:
+    """``optax.clip_by_global_norm``: the gradients as they are when their
+    global norm (over fp32 squares) is below ``max_norm``, else ``g /
+    norm * max_norm``. Chosen on the device, without a host sync. Not
+    ``torch.nn.utils.clip_grad_norm_``, whose ``max_norm / (norm + 1e-6)``
+    is another function."""
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    for g in grads:
+        total = total + g.float().square().sum()
+    norm = total.sqrt()
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm.to(g.dtype) * max_norm) for g in grads]
+
+
+# ------------------------------------------------------------ optimizers
 class SGD(FusedSGD):
     """torch-SGD(momentum, weight decay) at a fixed lr in plain tensor ops,
     on any device (the JAX package's optax chain add_decayed_weights ->
-    trace -> scale): the update without the fused kernel."""
+    trace -> scale): the reference's update without the fused kernel."""
 
     @torch.no_grad()
     def apply(
@@ -53,106 +143,131 @@ class SGD(FusedSGD):
             )
 
 
-def check_optimizer_options(cfg: TrainConfig) -> None:
-    """The port runs the reference's recipe only: unclipped SGD(momentum)
-    at a fixed lr. Everything else raises."""
-    if cfg.optimizer != "sgd":
-        if cfg.optimizer in ("adamw", "lion"):
-            raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not yet ported")
-        raise ValueError(
-            f"unknown optimizer {cfg.optimizer!r}; choose from ('sgd', 'adamw', 'lion')"
-        )
-    if cfg.lr_schedule != "constant":
-        if cfg.lr_schedule in ("cosine", "warmup_cosine"):
-            raise NotImplementedError(
-                f"lr_schedule {cfg.lr_schedule!r} is not yet ported"
-            )
-        raise ValueError(
-            f"unknown lr_schedule {cfg.lr_schedule!r}; choose from "
-            "('constant', 'cosine', 'warmup_cosine')"
-        )
-    if cfg.warmup_steps or cfg.grad_clip_norm is not None:
-        raise NotImplementedError(
-            f"warmup_steps={cfg.warmup_steps}/grad_clip_norm={cfg.grad_clip_norm} "
-            "are not yet ported; the port runs unclipped SGD(momentum) at a "
-            "fixed lr"
-        )
+class Optimizer:
+    """One of the registry's rules behind an optional global-norm clip,
+    at ``lr = schedule(count)`` (the JAX ``make_optimizer``'s optax chain):
 
+    - ``sgd``: ``add_decayed_weights -> trace -> scale(-lr)``, the
+      reference's update (``fused_sgd_plain``);
+    - ``adamw``: ``optax.adamw(lr, b1=momentum, b2=0.999, eps=1e-8,
+      weight_decay)``: bias-corrected moments, then decoupled decay
+      ``lr * wd * p`` on every parameter (optax masks none);
+    - ``lion``: ``optax.lion(lr, b1=momentum, b2=0.99, weight_decay)``:
+      ``sign((1 - b1) g + b1 m)``, then ``m = b2 m + (1 - b2) g``, then
+      the decoupled decay; ``sign(0) = 0``.
 
-def make_optimizer(cfg: TrainConfig) -> SGD | FusedSGD:
-    check_optimizer_options(cfg)
-    cls = FusedSGD if cfg.fused_optimizer else SGD
-    return cls(cfg.learning_rate, cfg.momentum, cfg.weight_decay)
+    ``init`` returns the first moments (the trainer's
+    ``TrainState.momentum``); AdamW's second moments live here, in
+    ``nu``. The lists go through ``torch._foreach_*`` ops: a few
+    multi-tensor launches an update on the card."""
 
+    def __init__(self, rule: str, schedule: Callable[[int], float], momentum: float,
+                 weight_decay: float, clip_norm: float | None = None):
+        if rule not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {rule!r}; choose from {OPTIMIZERS}")
+        self.rule, self.schedule, self.clip_norm = rule, schedule, clip_norm
+        self.b1, self.weight_decay = momentum, weight_decay
+        self.count = 0
+        self.nu: list[torch.Tensor] = []
 
-def make_schedule(learning_rate: float, lr_schedule: str = "constant",
-                  warmup_steps: int = 0) -> Callable[[int], float]:
-    """lr as a function of the update count (0 for the first update): a
-    constant, or ``optax.linear_schedule(0, lr, warmup_steps)``. Cosine
-    schedules raise "not yet ported"."""
-    if lr_schedule in ("cosine", "warmup_cosine"):
-        raise NotImplementedError(f"lr_schedule {lr_schedule!r} is not yet ported")
-    if lr_schedule != "constant":
-        raise ValueError(
-            f"unknown lr_schedule {lr_schedule!r}; choose from "
-            "('constant', 'cosine', 'warmup_cosine')"
-        )
-    if not warmup_steps:
-        return lambda count: learning_rate
-
-    def warmup(count: int) -> float:
-        frac = 1.0 - min(count, warmup_steps) / warmup_steps
-        return (0.0 - learning_rate) * frac + learning_rate
-
-    return warmup
-
-
-class AdamW:
-    """``optax.adamw(lr, b1, b2=0.999, eps=1e-8, weight_decay)``:
-    bias-corrected Adam moments, then decoupled decay ``lr * wd * p`` on
-    every parameter (optax masks none: biases, norms and embeddings decay
-    too). ``torch.optim.AdamW`` with one parameter group computes the
-    same update; its lr is set from the schedule before each step."""
-
-    def __init__(self, params: Sequence[torch.Tensor], schedule: Callable[[int], float],
-                 b1: float, weight_decay: float, b2: float = 0.999, eps: float = 1e-8):
-        self.schedule, self.count = schedule, 0
-        self.opt = torch.optim.AdamW(list(params), lr=schedule(0), betas=(b1, b2),
-                                     eps=eps, weight_decay=weight_decay)
+    def init(self, params: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        if self.rule == "adamw":
+            self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        return [torch.zeros_like(p, dtype=torch.float32) for p in params]
 
     @torch.no_grad()
-    def step(self) -> None:
-        for group in self.opt.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.opt.step()
+    def apply(self, params: Sequence[torch.Tensor], momentum: Sequence[torch.Tensor],
+              grads: Sequence[torch.Tensor]) -> None:
+        params, momentum = list(params), list(momentum)
+        grads = list(grads)
+        if self.clip_norm is not None:
+            grads = clip_by_global_norm(grads, self.clip_norm)
+        lr = self.schedule(self.count)
+        if self.rule == "sgd":
+            for p, m, g in zip(params, momentum, grads, strict=True):
+                fused_sgd_plain(p, m, g, lr=lr, mu=self.b1, wd=self.weight_decay)
+        elif self.rule == "adamw":
+            self._adamw(params, momentum, grads, lr)
+        else:
+            self._lion(params, momentum, grads, lr)
         self.count += 1
 
+    def _moment(self, m: list, x: list, decay: float) -> None:
+        """``m = (1 - decay) * x + decay * m`` in place (optax's
+        ``update_moment``)."""
+        t = torch._foreach_mul(x, 1.0 - decay)
+        torch._foreach_mul_(m, decay)
+        torch._foreach_add_(m, t)
 
-class ScheduledSGD:
-    """``SGD`` (torch-SGD momentum and decay) with its lr from a schedule."""
+    def _decay_and_step(self, params: list, updates: list, lr: float) -> None:
+        """``u + wd * p``, then ``p + (-lr) * u``, each rounded."""
+        torch._foreach_add_(updates, torch._foreach_mul(params, self.weight_decay))
+        torch._foreach_mul_(updates, -lr)
+        torch._foreach_add_(params, updates)
 
-    def __init__(self, params: Sequence[torch.Tensor], schedule: Callable[[int], float],
-                 momentum: float, weight_decay: float):
-        self.params, self.schedule, self.count = list(params), schedule, 0
-        self.sgd = SGD(schedule(0), momentum, weight_decay)
-        self.momentum = self.sgd.init(self.params)
+    def _adamw(self, params: list, mu: list, grads: list, lr: float) -> None:
+        self._moment(mu, grads, self.b1)
+        self._moment(self.nu, torch._foreach_mul(grads, grads), ADAM_B2)
+        count = self.count + 1
+        bc1 = float(_f32(1) - _f32(self.b1) ** count)
+        bc2 = float(_f32(1) - _f32(ADAM_B2) ** count)
+        mu_hat = torch._foreach_div(mu, bc1)
+        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
+        torch._foreach_add_(denom, ADAM_EPS)
+        self._decay_and_step(params, torch._foreach_div(mu_hat, denom), lr)
 
-    @torch.no_grad()
+    def _lion(self, params: list, mu: list, grads: list, lr: float) -> None:
+        mixed = torch._foreach_mul(grads, 1.0 - self.b1)
+        torch._foreach_add_(mixed, torch._foreach_mul(mu, self.b1))
+        updates = torch._foreach_sign(mixed)
+        self._moment(mu, grads, LION_B2)
+        self._decay_and_step(params, updates, lr)
+
+
+def check_recipe(cfg: TrainConfig) -> None:
+    """The registry's own checks (the JAX ``make_optimizer``): known
+    names, a horizon for the cosine schedules, a positive clip."""
+    if cfg.optimizer not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}; choose from {OPTIMIZERS}")
+    make_schedule(cfg)
+    if cfg.grad_clip_norm is not None and cfg.grad_clip_norm <= 0:
+        raise ValueError(f"grad_clip_norm must be > 0, got {cfg.grad_clip_norm}")
+
+
+def is_reference_recipe(cfg) -> bool:
+    """Unclipped SGD(momentum) at a fixed lr: what the fused kernel, the
+    overlapped schedule and the sharded optimizers hard-code."""
+    return (cfg.optimizer == "sgd" and cfg.lr_schedule == "constant"
+            and not cfg.warmup_steps and cfg.grad_clip_norm is None)
+
+
+def make_optimizer(cfg: TrainConfig) -> FusedSGD | Optimizer:
+    """The reference's recipe through the fused kernel (``fused_optimizer``)
+    or plain ops (``SGD``); any other recipe through ``Optimizer``."""
+    check_recipe(cfg)
+    if is_reference_recipe(cfg):
+        cls = FusedSGD if cfg.fused_optimizer else SGD
+        return cls(cfg.learning_rate, cfg.momentum, cfg.weight_decay)
+    return Optimizer(cfg.optimizer, make_schedule(cfg), cfg.momentum, cfg.weight_decay,
+                     cfg.grad_clip_norm)
+
+
+class BoundOptimizer:
+    """An ``Optimizer`` over a fixed parameter list whose ``step()``
+    reads each parameter's ``grad`` (the LM trainer's interface)."""
+
+    def __init__(self, tx: Optimizer, params: Sequence[torch.Tensor]):
+        self.tx, self.params = tx, list(params)
+        self.momentum = tx.init(self.params)
+
     def step(self) -> None:
-        self.sgd.learning_rate = self.schedule(self.count)
-        self.sgd.apply(self.params, self.momentum, [p.grad for p in self.params])
-        self.count += 1
+        self.tx.apply(self.params, self.momentum, [p.grad for p in self.params])
 
 
-def make_lm_optimizer(cfg, params: Sequence[torch.Tensor]) -> AdamW | ScheduledSGD:
-    """The LM config's optimizer over ``params`` (``adamw`` or ``sgd``,
-    with ``momentum`` as Adam's b1 or SGD's momentum); ``lion`` raises
-    "not yet ported"."""
-    schedule = make_schedule(cfg.learning_rate, cfg.lr_schedule, cfg.warmup_steps)
-    if cfg.optimizer == "adamw":
-        return AdamW(params, schedule, cfg.momentum, cfg.weight_decay)
-    if cfg.optimizer == "sgd":
-        return ScheduledSGD(params, schedule, cfg.momentum, cfg.weight_decay)
-    if cfg.optimizer == "lion":
-        raise NotImplementedError("optimizer 'lion' is not yet ported")
-    raise ValueError(f"unknown optimizer {cfg.optimizer!r}; choose from ('sgd', 'adamw', 'lion')")
+def make_lm_optimizer(cfg, params: Sequence[torch.Tensor]) -> BoundOptimizer:
+    """The LM config's optimizer over ``params``: the same registry (the
+    JAX LM builds its optimizer with the same ``make_optimizer``)."""
+    check_recipe(cfg)
+    tx = Optimizer(cfg.optimizer, make_schedule(cfg), cfg.momentum, cfg.weight_decay,
+                   cfg.grad_clip_norm)
+    return BoundOptimizer(tx, params)

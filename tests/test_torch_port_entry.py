@@ -173,13 +173,15 @@ def test_multi_rank_part_needs_a_coordinator():
 @pytest.mark.parametrize(
     "override,exc",
     [
-        (dict(optimizer="adamw"), NotImplementedError),
-        (dict(lr_schedule="cosine"), NotImplementedError),
-        (dict(grad_clip_norm=1.0), NotImplementedError),
-        (dict(sync="fsdp"), NotImplementedError),
+        # The recipes and the sharded optimizers run now: each case is the
+        # JAX Trainer's rejection of a combination.
+        (dict(optimizer="adamw", fused_optimizer=True), ValueError),  # fused: SGD only
+        (dict(lr_schedule="cosine"), ValueError),  # no total_steps
+        (dict(grad_clip_norm=-1.0), ValueError),  # must be > 0
+        (dict(sync="fsdp", debug_sync_check=True), ValueError),  # no replicated state
         (dict(model="vit_tiny"), NotImplementedError),
         (dict(model="vgg11", fast_conv=True), ValueError),  # no ResNet 3x3 convs
-        (dict(sync="zero1"), NotImplementedError),
+        (dict(sync="zero1", fused_optimizer=True), ValueError),  # its own update
         (dict(sync="allreduce"), ValueError),  # no process group
         (dict(num_devices=2), ValueError),
     ],

@@ -170,8 +170,9 @@ def test_cli_flags_of_later_slices_say_not_yet_ported(flag):
 
 @pytest.mark.parametrize(
     "flag",
-    [["--data-parallel", "2"], ["--zero1"], ["--remat"], ["--optimizer", "lion"],
-     ["--lr-schedule", "cosine"]],
+    # lion and the cosine schedules run now; the JAX CLI's choices end there.
+    [["--data-parallel", "2"], ["--zero1"], ["--remat"], ["--optimizer", "adagrad"],
+     ["--lr-schedule", "step"]],
 )
 def test_cli_rejects_flags_it_does_not_have(flag):
     with pytest.raises(SystemExit) as exc:
@@ -183,9 +184,25 @@ def test_cli_rejects_flags_it_does_not_have(flag):
     "override",
     [dict(remat=True), dict(moe_experts=4, moe_expert_parallel=True), dict(seq_parallel=2),
      dict(zero1=True), dict(accum_steps=2), dict(grad_compress="int8"),
-     dict(checkpoint_dir="ckpt"), dict(optimizer="lion"), dict(lr_schedule="cosine"),
-     dict(grad_clip_norm=1.0)],
+     dict(checkpoint_dir="ckpt")],
 )
 def test_config_options_of_later_slices_raise(override):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         LMTrainer(LMConfig(**SMALL, device="cpu", **override)).init()
+
+
+@pytest.mark.parametrize(
+    "override,match",
+    [(dict(optimizer="lion"), None), (dict(lr_schedule="cosine"), "total_steps"),
+     (dict(grad_clip_norm=1.0), None)],
+)
+def test_config_recipes_follow_jax(override, match):
+    """Lion and the clip train (the JAX LM's registry); a cosine schedule
+    without its horizon raises ValueError, as JAX's make_schedule does."""
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            LMTrainer(LMConfig(**SMALL, device="cpu", **override))
+        return
+    tr = LMTrainer(LMConfig(**SMALL, attention_impl="dense", device="cpu", **override))
+    _, _, losses = tr.fit(synthetic_tokens(8, 32, 64, seed=3), 2)
+    assert len(losses) == 2 and all(math.isfinite(x) for x in losses)
