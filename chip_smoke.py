@@ -167,7 +167,25 @@ no result):
     routes, forward and backward (the same, in bf16, with the plain
     versions as a yardstick); and
     3 steps with the capacity-slot ``scatter`` dispatch (no grouped-matmul
-    kernel).
+    kernel);
+20. the CIFAR Trainer's run loop: a seeded CIFAR-10-sized binary tree
+    (50,000 + 10,000 records) read through the port in strict mode,
+    bitwise against a numpy decode, the native decoder and gather built
+    and used, their times against numpy at batch 256 and 4096; then
+    through ``cli.main``, ResNet-18 fp32, part 2b (NCCL at a world of
+    one), batch 256, ``--fused-optimizer``, one epoch (195 steps) with
+    cuDNN deterministic: checkpoints every 50 steps, the metric stream,
+    a profiler window over steps 10-14, the watchdog at 120 s, prefetch
+    depth 2 (one fused-SGD launch a step, every batch gathered
+    natively); again with a NaN injected once at step 120 and
+    ``--max-restarts 1`` (restored from the disk checkpoint of step 100),
+    and with ``--snapshot-every 50`` and no checkpoint directory
+    (restored from host RAM, no file read): both bitwise equal to the
+    first run in every parameter, momentum and BatchNorm buffer;
+    ``--eval-only`` on the first run's checkpoints equal to its last
+    eval; the trace holding the fused SGD kernel; the watchdog never
+    firing; ``avg_batch_time_s`` at prefetch depth 0 and 2 in turns; a
+    checkpoint's blocking, durable, read and copy-back times.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -3447,6 +3465,304 @@ def moe_scatter_phase() -> None:
           f"moe_drop {drops}, moe_aux {summary['moe']['moe_aux']}; launches {counts}")
 
 
+# ------------------------------------------------------------- run loop
+RUN_LOOP_PER_FILE = 10_000  # records a file: CIFAR-10's 50,000 + 10,000, binary layout
+RUN_LOOP_EVERY = 50
+RUN_LOOP_NAN_STEP = 120  # restores step 100's state, replays 100..194
+PREFETCH_STEPS = 24
+FUSED_SGD_KERNEL = "fused_sgd_multi_kernel"
+RUN_LOOP_BACKEND = "nccl"
+
+
+def write_cifar_binary(root, seed: int = 14):
+    """A seeded ``cifar-10-batches-bin`` tree, CIFAR-10's size: five files of
+    ``RUN_LOOP_PER_FILE`` (10,000) records and a test file of as many (1
+    label byte + 3,072 CHW bytes each). Returns each file's raw bytes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = root / "cifar-10-batches-bin"
+    d.mkdir()
+    raws = {}
+    names = [f"data_batch_{i}.bin" for i in range(1, 6)] + ["test_batch.bin"]
+    for name in names:
+        recs = rng.integers(0, 256, size=(RUN_LOOP_PER_FILE, 3073), dtype=np.uint8)
+        recs[:, 0] = rng.integers(0, 10, size=RUN_LOOP_PER_FILE)
+        (d / name).write_bytes(recs.tobytes())
+        raws[name] = recs.reshape(-1)
+    return raws
+
+
+def host_median_ms(fn, reps: int = 5) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def host_data_phase(root) -> dict:
+    """The binary tree written and read through the port (strict mode),
+    bitwise against a numpy decode; the native decoder and gather built
+    and used; their times against numpy."""
+    import numpy as np
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import load_cifar10
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data.native_batcher import (
+        gather_rows,
+        native_usable,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data.native_decode import (
+        decode_cifar_records,
+        decode_cifar_records_numpy,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.native import native_available
+
+    t0 = time.perf_counter()
+    raws = write_cifar_binary(root)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = load_cifar10(str(root), synthetic=False)
+    load_s = time.perf_counter() - t0
+    if not (native_available("decode") and native_available("batcher")):
+        raise RuntimeError("the native decoder or batcher did not build (g++)")
+    train = [decode_cifar_records_numpy(raws[f"data_batch_{i}.bin"]) for i in range(1, 6)]
+    test = decode_cifar_records_numpy(raws["test_batch.bin"])
+    want = (np.concatenate([p[0] for p in train]), np.concatenate([p[1] for p in train]), *test)
+    got = (ds.train_images, ds.train_labels, ds.test_images, ds.test_labels)
+    if ds.synthetic or any(a.shape != b.shape or not np.array_equal(a, b)
+                           for a, b in zip(got, want)):
+        raise RuntimeError("the binary CIFAR reader differs from the numpy decode")
+    if ds.train_images.shape != (5 * RUN_LOOP_PER_FILE, 32, 32, 3) or not native_usable(ds.train_images):
+        raise RuntimeError(f"binary CIFAR: shape {ds.train_images.shape}, native gather unusable")
+    raw = np.concatenate([raws[f"data_batch_{i}.bin"] for i in range(1, 6)])
+    out = {
+        "write_s": write_s,
+        "load_s": load_s,
+        "decode_ms_native": host_median_ms(lambda: decode_cifar_records(raw)),
+        "decode_ms_numpy": host_median_ms(lambda: decode_cifar_records_numpy(raw)),
+    }
+    rng = np.random.default_rng(0)
+    for batch in (256, 4096):
+        idx = rng.permutation(5 * RUN_LOOP_PER_FILE)[:batch]
+        buf = np.empty((batch, 32, 32, 3), np.uint8)
+        if not np.array_equal(gather_rows(ds.train_images, idx, out=buf),
+                              np.take(ds.train_images, idx, axis=0)):
+            raise RuntimeError(f"native gather differs from np.take at batch {batch}")
+        out[f"gather_ms_native_{batch}"] = host_median_ms(
+            lambda: gather_rows(ds.train_images, idx, out=buf), reps=20)
+        out[f"gather_ms_numpy_{batch}"] = host_median_ms(
+            lambda: np.take(ds.train_images, idx, axis=0), reps=20)
+    print(f"run loop data: {5 * RUN_LOOP_PER_FILE} + {RUN_LOOP_PER_FILE} binary records written in "
+          f"{write_s:.2f} s, loaded (native decode, strict) in {load_s:.2f} s, bitwise == "
+          f"numpy; {json.dumps(out)}")
+    return out
+
+
+@contextlib.contextmanager
+def captured_trainers(nan_at_call: int | None = None):
+    """Patch the port's Trainer so each instance ``fit`` runs on is
+    recorded, and (optionally) so train_step returns a NaN loss once, at
+    its ``nan_at_call``-th call over every instance."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train import engine as E
+
+    trainers, calls = [], {"n": 0}
+    fit, train_step = E.Trainer.fit, E.Trainer.train_step
+
+    def recording_fit(self, *args, **kwargs):
+        if self not in trainers:
+            trainers.append(self)
+        return fit(self, *args, **kwargs)
+
+    def nan_once(self, x, y):
+        loss = train_step(self, x, y)
+        calls["n"] += 1
+        if calls["n"] == nan_at_call:
+            loss = torch.full_like(loss, float("nan"))
+        return loss
+
+    attrs = {"fit": recording_fit}
+    if nan_at_call is not None:
+        attrs["train_step"] = nan_once
+    with patched(E.Trainer, **attrs):
+        yield trainers, calls
+
+
+def run_loop_argv(root, *flags: str) -> list[str]:
+    return ["--part", "2b", "--num-devices", "1", "--model", "resnet18", "--data-root",
+            str(root), "--global-batch-size", "256", "--epochs", "1", "--fused-optimizer",
+            "--step-timeout-s", "120", "--prefetch-depth", "2", "--json", "--device", "cuda",
+            *flags]
+
+
+def states_equal(a: dict, b: dict) -> tuple[bool, float]:
+    """Bitwise equality of two ``Trainer.capture_state`` dicts, and the
+    largest gap over their tensors."""
+    pairs = [(x, y) for key in ("params", "momentum", "ef", "opt_nu")
+             for x, y in zip(a[key], b[key], strict=True)]
+    pairs += [(a["buffers"][n], b["buffers"][n]) for n in a["buffers"]]
+    gap = max(float((x.double() - y.double()).abs().max()) for x, y in pairs)
+    same = (a["step"] == b["step"] and a["opt_count"] == b["opt_count"]
+            and torch.equal(a["augment_gen"], b["augment_gen"])
+            and all(torch.equal(x, y) for x, y in pairs))
+    return same, gap
+
+
+def stream_events(metrics_dir) -> list[dict]:
+    with open(metrics_dir / "metrics.jsonl") as f:
+        return [r for r in map(json.loads, f) if r["kind"] == "event"]
+
+
+def run_loop_phase() -> dict:
+    """The CIFAR Trainer's run loop on the card (ResNet-18 fp32, part 2b on
+    NCCL at a world of one, batch 256, ``--fused-optimizer``, one epoch of
+    the binary CIFAR tree, cuDNN deterministic): checkpoints every 50
+    steps, the metric stream, a profiler window over steps 10-14, the
+    watchdog at 120 s, prefetch depth 2; again with a NaN injected once at
+    step 120 and ``--max-restarts 1`` (disk tier), and with
+    ``--snapshot-every 50`` and no checkpoint directory (memory tier):
+    both bitwise equal to the first run; ``--eval-only`` on the first
+    run's checkpoints; prefetch depth 0 vs 2; a save's and a restore's
+    cost."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_sgd as K
+    from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import (
+        Checkpointer,
+        to_host,
+    )
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="run_loop_"))
+    steps = 5 * RUN_LOOP_PER_FILE // 256  # one epoch: 195 steps
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {"host_data": host_data_phase(root)}
+        states, summaries = {}, {}
+        runs = {
+            "run": ((), None),
+            "disk": (("--checkpoint-dir", str(root / "ck_disk"), "--max-restarts", "1"),
+                     RUN_LOOP_NAN_STEP + 1),
+            "memory": (("--snapshot-every", str(RUN_LOOP_EVERY), "--max-restarts", "1"),
+                       RUN_LOOP_NAN_STEP + 1),
+        }
+        for label, (flags, nan_call) in runs.items():
+            if label == "run":
+                flags = ("--checkpoint-dir", str(root / "ck_run"), "--profile-dir",
+                         str(root / "trace"), "--profile-start-step", "10",
+                         "--profile-num-steps", "5")
+            if label != "memory":
+                flags += ("--checkpoint-every", str(RUN_LOOP_EVERY))
+            flags += ("--metrics-dir", str(root / f"metrics_{label}"))
+            restores = Checkpointer.total_restores
+            t0 = time.perf_counter()
+            with captured_trainers(nan_call) as (trainers, calls):
+                summary, counts = counted(lambda: run_cli(run_loop_argv(root, *flags)))
+            wall = time.perf_counter() - t0
+            (tr,) = trainers
+            states[label], summaries[label] = to_host(tr.capture_state()), summary
+            restarts = 0 if nan_call is None else 1
+            restart_at = RUN_LOOP_NAN_STEP // RUN_LOOP_EVERY * RUN_LOOP_EVERY
+            launches = steps + (0 if nan_call is None else RUN_LOOP_NAN_STEP + 1 - restart_at)
+            # Every batch of the epoch and of the eval gathered natively
+            # (a recovered run's first attempt gathers as far as its
+            # producer ran ahead).
+            native = steps + -(-RUN_LOOP_PER_FILE // 256)
+            if (summary["steps"] != steps or summary["restarts"] != restarts
+                    or summary["backend"] != RUN_LOOP_BACKEND or counts["fused_sgd"] != launches
+                    or others(counts, "fused_sgd") or not math.isfinite(summary["final_eval_loss"])
+                    or summary["native_batches"] < native
+                    or (label == "run" and summary["native_batches"] != native)):
+                raise RuntimeError(f"run loop {label}: {summary}, launches {counts}")
+            events = stream_events(root / f"metrics_{label}")
+            if any(e["event"] == "flight_dump" and e.get("reason") == "watchdog" for e in events):
+                raise RuntimeError(f"run loop {label}: the watchdog fired: {events}")
+            if label == "run":
+                run_trainer = tr
+            restored = [e["source"] for e in events if e["event"] == "restore"]
+            if restored != ({"run": [], "disk": ["disk"], "memory": ["memory"]}[label]):
+                raise RuntimeError(f"run loop {label}: restores {restored}")
+            if label == "memory" and Checkpointer.total_restores != restores:
+                raise RuntimeError("the memory tier's recovery read a checkpoint file")
+            out[f"{label}_wall_s"] = wall
+            out[f"{label}_fused_sgd_launches"] = counts["fused_sgd"]
+            print(f"run loop {label}: {summary['steps']} steps, {summary['restarts']} restart(s), "
+                  f"{counts['fused_sgd']} fused-SGD launches, {summary['native_batches']} native "
+                  f"batches, eval loss {summary['final_eval_loss']}, {wall:.1f} s wall")
+        for label in ("disk", "memory"):
+            same, gap = states_equal(states[label], states["run"])
+            if not same:
+                raise RuntimeError(f"run loop: recovery from the {label} tier differs from the "
+                                   f"uninterrupted run by {gap}")
+            print(f"run loop: recovery from the {label} tier == the uninterrupted run, bitwise "
+                  f"(every parameter, momentum and BatchNorm buffer, the generator's state)")
+
+        ev = run_cli(run_loop_argv(root, "--checkpoint-dir", str(root / "ck_run"),
+                                   "--eval-only"))
+        want = summaries["run"]["final_eval_loss"]
+        if (abs(ev["final_eval_loss"] - want) > 1e-6 * abs(want)
+                or ev["final_eval_accuracy"] != summaries["run"]["final_eval_accuracy"]):
+            raise RuntimeError(f"--eval-only {ev} differs from the run's final eval {want}")
+        print(f"run loop: --eval-only {ev['final_eval_loss']} vs the run's {want}")
+
+        m = root / "metrics_run"
+        with open(m / "metrics.jsonl") as f:
+            records = [r for r in map(json.loads, f) if r["kind"] == "step"]
+        traces = list((root / "trace").glob("trace_rank0_*.json"))
+        if not ((m / "manifest.json").exists() and records and len(traces) == 1):
+            raise RuntimeError(f"run loop: metrics {len(records)} step records, traces {traces}")
+        if FUSED_SGD_KERNEL not in traces[0].read_text():
+            raise RuntimeError("the profiler window's trace holds no fused SGD kernel")
+        out["trace_mb"] = traces[0].stat().st_size / 1e6
+        print(f"run loop: {len(records)} step records, manifest, a {out['trace_mb']:.1f} MB trace "
+              f"holding {FUSED_SGD_KERNEL}; the watchdog never fired")
+
+        # Prefetch depth 0 vs 2 in turns, synthetic data through the same loader.
+        for depth in ("0", "2", "2", "0"):
+            s = run_cli(cli_argv("resnet18", "1", PREFETCH_STEPS, "--fused-optimizer",
+                                 "--prefetch-depth", depth))
+            out.setdefault(f"avg_batch_time_s_depth{depth}", []).append(s["avg_batch_time_s"])
+        print(f"run loop prefetch: avg_batch_time_s depth 0 "
+              f"{out['avg_batch_time_s_depth0']}, depth 2 {out['avg_batch_time_s_depth2']}")
+
+        # A checkpoint's costs on the run's trainer (ResNet-18, fused SGD).
+        tr = run_trainer
+        ck = Checkpointer(str(root / "ck_cost"))
+        save_ms, durable_ms, restore_ms, load_ms = [], [], [], []
+        for i in range(3):
+            tr.state.step = steps + i + 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(tr.capture_state())
+            t1 = time.perf_counter()
+            ck.latest_step()
+            t2 = time.perf_counter()
+            state = ck.restore_latest()
+            t3 = time.perf_counter()
+            tr.restore_state(state)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            save_ms.append((t1 - t0) * 1e3)
+            durable_ms.append((t2 - t0) * 1e3)
+            restore_ms.append((t3 - t2) * 1e3)
+            load_ms.append((t4 - t3) * 1e3)
+        ck.close()
+        nbytes = sum(f.stat().st_size for f in (root / "ck_cost").rglob("rank0.pt")) / len(
+            list((root / "ck_cost").iterdir()))
+        out.update(save_blocking_ms=save_ms, save_durable_ms=durable_ms,
+                   restore_read_ms=restore_ms, restore_copy_ms=load_ms,
+                   checkpoint_mb=nbytes / 1e6)
+        print(json.dumps({"run_loop": out}))
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3554,6 +3870,9 @@ def main() -> int:
     moe_train_trajectory_phase()
     moe_route_trajectory_phase()
     moe_scatter_phase()
+
+    run_loop = run_loop_phase()
+    records[0]["launches_run_loop"] = run_loop["run_fused_sgd_launches"]
 
     print(json.dumps({"kernels": records}))
     print(card_line())

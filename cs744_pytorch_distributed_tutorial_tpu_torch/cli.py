@@ -10,6 +10,10 @@
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 2b --sync zero1 ...
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 1 --optimizer lion \\
         --lr-schedule cosine --total-steps 196
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 1 --checkpoint-dir ckpt \\
+        --checkpoint-every 50 --metrics-dir metrics --max-restarts 1
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 1 --checkpoint-dir ckpt \\
+        --eval-only --json
 
 The flags are the JAX package's (``cli.py``) for the options the port
 runs. A run of several ranks starts one process per rank, as the
@@ -102,9 +106,50 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="disable train-time crop/flip (deterministic inputs)")
     p.add_argument("--log-every", type=int, default=None)
+    p.add_argument("--prefetch-depth", type=int, default=None,
+                   help="batches staged ahead by the input pipeline (0 disables)")
     p.add_argument("--debug-sync-check", action="store_true", default=None,
                    help="all-gather per-rank grad checksums every step and fail on "
                         "divergence")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help="checkpoint every N steps (0 = only at end)")
+    p.add_argument("--snapshot-every", type=int, default=None,
+                   help="keep in-memory state snapshots every N steps "
+                        "(utils/memstore.py): restart recovery with no file "
+                        "read (0 disables)")
+    p.add_argument("--snapshot-keep", type=int, default=None,
+                   help="in-memory snapshots retained (default 2)")
+    p.add_argument("--step-timeout-s", type=float, default=None,
+                   help="arm a hang watchdog per training step (utils/failure.py)")
+    p.add_argument("--hang-action", choices=["log", "abort", "escalate"], default=None,
+                   help="watchdog action after reporting a hang: 'log' (observe), "
+                        "'abort' (exit so a supervisor restarts the job from the "
+                        "newest checkpoint), or 'escalate' (warn -> dump -> abort "
+                        "across successive expiries)")
+    p.add_argument("--no-halt-on-nonfinite", dest="halt_on_nonfinite",
+                   action="store_false", default=None,
+                   help="keep training through NaN/inf losses instead of raising "
+                        "NonFiniteLossError")
+    p.add_argument("--metrics-dir", default=None,
+                   help="write manifest.json + per-step metrics.jsonl here (obs/; "
+                        "rank 0 only)")
+    p.add_argument("--metrics-every", type=int, default=None,
+                   help="metric emission cadence in steps (default: ride "
+                        "--log-every)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of a few steps here")
+    p.add_argument("--profile-start-step", type=int, default=None)
+    p.add_argument("--profile-num-steps", type=int, default=None)
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help="restart from the newest recoverable state on detected "
+                        "training failures (needs --checkpoint-dir or "
+                        "--snapshot-every)")
+    p.add_argument("--restart-backoff-s", type=float, default=0.0,
+                   help="exponential backoff base between restarts (attempt n "
+                        "sleeps backoff * 2^(n-1), capped 60s)")
+    p.add_argument("--restart-jitter", choices=("none", "decorrelated"), default="none",
+                   help="decorrelate restart backoff across ranks (seeded per rank)")
     # init_process mirror (master/part2a/part2a.py:80-85)
     p.add_argument("--coordinator", dest="coordinator_address", default=None,
                    help="rendezvous address host:port (the --master-ip analog)")
@@ -114,6 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the --rank analog")
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="cuda (default, NCCL between ranks) or cpu (Gloo)")
+    p.add_argument("--eval-only", action="store_true",
+                   help="restore --checkpoint-dir's newest checkpoint and evaluate; "
+                        "no training")
     p.add_argument("--json", action="store_true",
                    help="print a final JSON summary line")
     return p
@@ -152,7 +200,20 @@ _ARG_TO_FIELD = {
     "fast_conv": "fast_conv",
     "imagenet_stem": "imagenet_stem",
     "log_every": "log_every",
+    "prefetch_depth": "prefetch_depth",
     "debug_sync_check": "debug_sync_check",
+    "checkpoint_dir": "checkpoint_dir",
+    "checkpoint_every": "checkpoint_every",
+    "snapshot_every": "snapshot_every",
+    "snapshot_keep": "snapshot_keep",
+    "step_timeout_s": "step_timeout_s",
+    "hang_action": "hang_action",
+    "halt_on_nonfinite": "halt_on_nonfinite",
+    "metrics_dir": "metrics_dir",
+    "metrics_every": "metrics_every",
+    "profile_dir": "profile_dir",
+    "profile_start_step": "profile_start_step",
+    "profile_num_steps": "profile_num_steps",
     "coordinator_address": "coordinator_address",
     "num_processes": "num_processes",
     "process_id": "process_id",
@@ -197,13 +258,38 @@ def main(argv: list[str] | None = None) -> int:
             rank,
             device=mesh.rank_device(device, rank),
         )
+    restarts = 0
     try:
         trainer = Trainer(cfg)
         backend = dist.get_backend() if dist.is_initialized() else None
-        _, history = trainer.fit()
+        if args.eval_only:
+            metrics = trainer.evaluate_only()
+        elif args.max_restarts > 0:
+            from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import (
+                run_with_recovery,
+            )
+
+            _, history, restarts = run_with_recovery(
+                trainer, max_restarts=args.max_restarts, backoff_s=args.restart_backoff_s,
+                backoff_jitter=args.restart_jitter, jitter_seed=cfg.seed,
+            )
+            if restarts:
+                print(f"recovered after {restarts} restart(s)")
+        else:
+            _, history = trainer.fit()
     finally:
         mesh.shutdown()
 
+    if args.eval_only:
+        if args.json and rank == 0:
+            print(json.dumps({
+                "sync": cfg.sync,
+                "model": cfg.model,
+                "num_devices": trainer.world_size,
+                "final_eval_loss": metrics["avg_loss"],
+                "final_eval_accuracy": metrics["accuracy"],
+            }))
+        return 0
     if args.json and history["eval"] and rank == 0:
         last = history["eval"][-1]
         print(json.dumps({
@@ -217,6 +303,8 @@ def main(argv: list[str] | None = None) -> int:
             "steps": trainer.state.step,
             "device": str(trainer.device),
             "backend": backend,
+            "native_batches": trainer.native_batches,
+            "restarts": restarts,
         }))
     return 0
 

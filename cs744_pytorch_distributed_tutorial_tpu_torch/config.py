@@ -2,9 +2,10 @@
 
 The fields the port runs, with the JAX package's names and defaults
 (the reference's SGD recipe, batch 256 and seed 5000,
-``master/part1/part1.py:17,98-101,107``), plus ``device``. Options of
-the JAX config that the port does not run yet are absent rather than
-accepted and ignored.
+``master/part1/part1.py:17,98-101,107``; the run loop's prefetch,
+telemetry, checkpoint, snapshot, failure and profiler fields), plus
+``device``. Options of the JAX config that the port does not run yet
+are absent rather than accepted and ignored.
 """
 
 from __future__ import annotations
@@ -107,10 +108,51 @@ class TrainConfig:
     # the CUDA wgrad kernel (ops/fused_conv.py); ResNet models only.
     fast_conv: bool = False
 
+    # Input-pipeline prefetch depth: batches a producer thread stages
+    # ahead, their host-to-device copies on a side stream from pinned
+    # memory (data/prefetch.py; the DataLoader num_workers/pin_memory
+    # analog, master/part1/part1.py:80-93). 0 disables.
+    prefetch_depth: int = 2
+
     # Logging / instrumentation (the reference prints loss every 20 batches
     # and the avg per-batch time over batches 1-10: master/part1/part1.py:39-44)
     log_every: int = 20
     timing_batches: tuple[int, int] = (1, 10)
+
+    # Telemetry (obs/): metrics_dir writes manifest.json + metrics.jsonl
+    # (per-step loss, grad and param norms, lr, grad_sync_bytes, step time;
+    # rank 0 only). metrics_every is the emission cadence in steps; 0 rides
+    # the log_every cadence, so telemetry adds no fetch of its own.
+    metrics_dir: str | None = None
+    metrics_every: int = 0
+
+    # Checkpoints (utils/checkpoint.py): every checkpoint_every steps and
+    # at the end (0: at the end only) when checkpoint_dir is set.
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 0
+
+    # In-memory snapshots (utils/memstore.py): the last snapshot_keep
+    # certified states in host RAM every snapshot_every steps (0: off), a
+    # restore tier that reads no file.
+    snapshot_every: int = 0
+    snapshot_keep: int = 2
+
+    # Failure detection (utils/failure.py): halt_on_nonfinite raises
+    # NonFiniteLossError when a fetched loss is NaN/inf (at the fetches
+    # logging already makes); step_timeout_s arms a watchdog around each
+    # step after the first (which builds the kernels); hang_action is
+    # "log", "abort" (os._exit(13) so a supervisor restarts the job) or
+    # "escalate" (warn, then dump, then abort on successive expiries).
+    halt_on_nonfinite: bool = True
+    step_timeout_s: float | None = None
+    hang_action: str = "log"
+
+    # Profiler window (utils/profiling.py): a torch.profiler Chrome trace
+    # of steps [profile_start_step, profile_start_step + profile_num_steps)
+    # written into profile_dir.
+    profile_dir: str | None = None
+    profile_start_step: int = 10
+    profile_num_steps: int = 5
     # All-gather a checksum of each rank's synced gradients (zero1: its
     # parameters) every step and fail at the epoch's end if the ranks
     # disagree (utils/debug.py).
@@ -124,6 +166,9 @@ class TrainConfig:
 
     # "cuda" (one card per rank) or "cpu" (tests; gloo between ranks).
     device: str = "cuda"
+
+    def replace(self, **kw: Any) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
 
     @property
     def world_size(self) -> int:

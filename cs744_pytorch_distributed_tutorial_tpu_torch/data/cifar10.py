@@ -1,9 +1,11 @@
-"""CIFAR-10: the torchvision pickle-format reader and the synthetic set.
+"""CIFAR-10: the pickle and binary readers and the synthetic set.
 
 The reference loads CIFAR-10 through ``torchvision.datasets.CIFAR10``
 (``master/part1/part1.py:78-79,86-87``). This reads the same on-disk
-``cifar-10-batches-py`` tree without torchvision and, where it is absent,
-makes a deterministic learnable synthetic set. The synthetic generator
+``cifar-10-batches-py`` pickle tree without torchvision, or the official
+binary distribution ``cifar-10-batches-bin`` (3073-byte records, decoded
+by the native decoder, ``data/native_decode.py``), and, where neither is
+present, makes a deterministic learnable synthetic set. The synthetic generator
 draws numpy random numbers in exactly the JAX package's order, so one
 seed gives byte-identical images in both packages.
 """
@@ -19,6 +21,9 @@ import numpy as np
 _BATCH_DIR = "cifar-10-batches-py"
 _TRAIN_FILES = [f"data_batch_{i}" for i in range(1, 6)]
 _TEST_FILE = "test_batch"
+_BIN_DIR = "cifar-10-batches-bin"
+_BIN_TRAIN_FILES = [f"data_batch_{i}.bin" for i in range(1, 6)]
+_BIN_TEST_FILE = "test_batch.bin"
 NUM_CLASSES = 10
 
 
@@ -44,6 +49,14 @@ def _read_batch(path: str) -> tuple[np.ndarray, np.ndarray]:
     images = data.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
     labels = np.asarray(d[b"labels"], dtype=np.int32)
     return images, labels
+
+
+def _read_binary_batch(path: str) -> tuple[np.ndarray, np.ndarray]:
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data.native_decode import (
+        decode_cifar_records,
+    )
+
+    return decode_cifar_records(np.fromfile(path, dtype=np.uint8))
 
 
 def synthetic_images(
@@ -94,17 +107,24 @@ def load_cifar10(
     image_size: int = 32,
     num_classes: int = NUM_CLASSES,
 ) -> CIFAR10Dataset:
-    """Load CIFAR-10 from ``root`` (torchvision pickle layout), or fall back.
+    """Load CIFAR-10 from ``root`` (torchvision's pickle layout or the
+    binary one; pickle first when both are there), or fall back.
 
     ``synthetic``: ``None`` = real data if present, else synthetic;
     ``True`` = always synthetic; ``False`` = real data or
-    ``FileNotFoundError``.
+    ``FileNotFoundError``. Other shapes than 32x32 and 10 classes are
+    synthetic only.
     """
     cifar_shaped = image_size == 32 and num_classes == NUM_CLASSES
     batch_dir = os.path.join(root, _BATCH_DIR)
+    bin_dir = os.path.join(root, _BIN_DIR)
     have_pickle = cifar_shaped and all(
         os.path.exists(os.path.join(batch_dir, f))
         for f in _TRAIN_FILES + [_TEST_FILE]
+    )
+    have_binary = cifar_shaped and all(
+        os.path.exists(os.path.join(bin_dir, f))
+        for f in _BIN_TRAIN_FILES + [_BIN_TEST_FILE]
     )
     if synthetic is False and not cifar_shaped:
         raise ValueError(
@@ -112,7 +132,7 @@ def load_cifar10(
             f"image_size={image_size}, num_classes={num_classes} with "
             "synthetic=False"
         )
-    if synthetic is True or (synthetic is None and not have_pickle):
+    if synthetic is True or (synthetic is None and not (have_pickle or have_binary)):
         return synthetic_images(
             synthetic_train_size,
             synthetic_test_size,
@@ -120,13 +140,18 @@ def load_cifar10(
             num_classes=num_classes,
             seed=seed,
         )
-    if not have_pickle:
+    if not (have_pickle or have_binary):
         raise FileNotFoundError(
-            f"CIFAR-10 batches not found under {batch_dir!r} and "
-            "synthetic=False"
+            f"CIFAR-10 batches not found under {batch_dir!r} (pickle layout) "
+            f"or {bin_dir!r} (binary layout) and synthetic=False"
         )
-    parts = [_read_batch(os.path.join(batch_dir, f)) for f in _TRAIN_FILES]
-    test_images, test_labels = _read_batch(os.path.join(batch_dir, _TEST_FILE))
+    if have_pickle:
+        read, train_files, test_file, d = _read_batch, _TRAIN_FILES, _TEST_FILE, batch_dir
+    else:
+        read, train_files, test_file, d = (
+            _read_binary_batch, _BIN_TRAIN_FILES, _BIN_TEST_FILE, bin_dir)
+    parts = [read(os.path.join(d, f)) for f in train_files]
+    test_images, test_labels = read(os.path.join(d, test_file))
     return CIFAR10Dataset(
         np.concatenate([p[0] for p in parts]),
         np.concatenate([p[1] for p in parts]),

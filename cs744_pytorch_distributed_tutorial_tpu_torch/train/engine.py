@@ -44,12 +44,23 @@ forward and backward, in the same order on every rank. With
 ``debug_sync_check`` each rank's checksum of its synced gradients (zero1:
 its parameters) is all-gathered every step and checked at each epoch's
 end (``utils/debug.py``).
+
+``fit`` wraps the epoch loop in the JAX engine's run loop: batches
+prefetched a producer thread ahead (``data/prefetch.py``), two recovery
+tiers (disk checkpoints, ``utils/checkpoint.py``; host-RAM snapshots,
+``utils/memstore.py``) with mid-epoch resume, a step watchdog and a
+non-finite-loss halt (``utils/failure.py``), the metric stream and run
+manifest (``obs/metrics.py``), the flight recorder (``obs/flight.py``)
+and a profiler window (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import math
+import os
+import time
 from typing import Any
 
 import numpy as np
@@ -70,8 +81,19 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.data.augment import (
     augment_train_batch,
     eval_batch,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.data.prefetch import PrefetchIterator, prefetch
 from cs744_pytorch_distributed_tutorial_tpu_torch.models import get_model
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.convert import shard_row
+from cs744_pytorch_distributed_tutorial_tpu_torch.native import native_available
+from cs744_pytorch_distributed_tutorial_tpu_torch.obs.flight import (
+    FlightRecorder,
+    HbmHighWater,
+    StragglerMonitor,
+)
+from cs744_pytorch_distributed_tutorial_tpu_torch.obs.flops import (
+    resnet18_cifar_train_flops_per_sample,
+)
+from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import Telemetry, tree_l2_norm
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as C
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import rank_device, world
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.overlap import (
@@ -83,18 +105,28 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
     get_sync,
     sync_grads,
     sync_grads_compressed,
+    sync_wire_bytes,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import FsdpSGD, Zero1SGD
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import (
+    Optimizer,
     TrainState,
     check_recipe,
     is_reference_recipe,
     make_optimizer,
+    make_schedule,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.utils import profiling
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.debug import (
     DivergenceMonitor,
     tree_checksum,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import Checkpointer, to_host
+from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import (
+    NonFiniteLossError,
+    StepWatchdog,
+)
+from cs744_pytorch_distributed_tutorial_tpu_torch.utils.memstore import ReplicatedSnapshot
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.timing import StepTimer
 
 log = logging.getLogger("cs744_pytorch_distributed_tutorial_tpu_torch")
@@ -124,11 +156,15 @@ class Trainer:
 
     The process group, when the strategy needs one, is initialized before
     the trainer is built (``parallel/mesh.py::initialize``); its world
-    size is the data-parallel degree.
+    size is the data-parallel degree. ``memstore`` is the in-memory
+    snapshot tier; without one, ``cfg.snapshot_every`` builds it.
     """
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, memstore: ReplicatedSnapshot | None = None):
         self.cfg = cfg
+        if memstore is None and cfg.snapshot_every:
+            memstore = ReplicatedSnapshot(max_to_keep=cfg.snapshot_keep)
+        self.memstore = memstore
         self.world_size, self.rank = world()
         self.device = rank_device(resolve_device(cfg.device), self.rank)
         if cfg.num_devices is not None and cfg.num_devices != self.world_size:
@@ -178,6 +214,13 @@ class Trainer:
             )
         self._check_sync_options(cfg)
         check_recipe(cfg)
+        if cfg.hang_action not in ("log", "abort", "escalate"):
+            raise ValueError(
+                f"unknown hang_action {cfg.hang_action!r}; choose 'log', "
+                "'abort', or 'escalate'"
+            )
+        if cfg.prefetch_depth < 0:
+            raise ValueError(f"prefetch_depth must be >= 0, got {cfg.prefetch_depth}")
         if cfg.debug_sync_check and self._fsdp:
             raise ValueError(
                 "debug_sync_check is meaningless under sync='fsdp': each rank's "
@@ -245,6 +288,13 @@ class Trainer:
         # Crop/flip randomness per rank, seeded from (seed, rank).
         seed = int(np.random.SeedSequence([cfg.seed, self.rank]).generate_state(1)[0])
         self.augment_gen = torch.Generator().manual_seed(seed)
+        # The state fit() starts over from when it is entered again with
+        # no tier to restore (JAX's fit re-initializes): kept on the host
+        # at the first fit, only when a recovery tier exists.
+        self._initial_state: dict | None = None
+        self._fits = 0
+        # Batches fit's loaders assembled with the native gather.
+        self.native_batches = 0
 
     def _shard_model(self) -> None:
         """FSDP: keep this rank's rows of each parameter (``self.params``)
@@ -442,77 +492,434 @@ class Trainer:
             dist.all_reduce(local)
         return float(local)
 
+    # ------------------------------------------------------------ state
+    @torch.no_grad()
+    def capture_state(self, *, clone: bool = False) -> dict[str, Any]:
+        """Everything a bitwise resume needs, as a dict of tensors and
+        scalars (the checkpoint's and the snapshot's content): the step,
+        the world size, this rank's parameters (under fsdp its rows),
+        momentum and error feedback, the BatchNorm buffers, the
+        registry optimizer's count and second moments, and the
+        augmentation generator's state. ``clone`` copies the tensors on
+        their device (the pending/certify gate holds a state across the
+        next step, which updates the live tensors in place)."""
+        take = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
+        opt = self.tx if isinstance(self.tx, Optimizer) else None
+        return {
+            "step": int(self.state.step),
+            "world_size": self.world_size,
+            "params": [take(p) for p in self.state.params],
+            "momentum": [take(m) for m in self.state.momentum],
+            "ef": [take(e) for e in self.state.ef],
+            "buffers": {n: take(b) for n, b in self.model.named_buffers()},
+            "opt_count": None if opt is None else opt.count,
+            "opt_nu": [] if opt is None else [take(v) for v in opt.nu],
+            "augment_gen": self.augment_gen.get_state(),
+        }
+
+    @torch.no_grad()
+    def restore_state(self, state: dict[str, Any]) -> None:
+        """Load ``capture_state``'s dict by copying into the live tensors:
+        DDP, the overlapped schedules and fsdp's shards hold references
+        to them, so they are never rebound."""
+        if state["world_size"] != self.world_size:
+            raise ValueError(
+                f"state saved by a world of {state['world_size']} ranks cannot load "
+                f"into a world of {self.world_size}: restoring onto another world "
+                "size needs the elastic restore (the JAX package's "
+                "utils/checkpoint.py adapt), which the port does not have yet"
+            )
+        groups = [(self.state.params, state["params"]), (self.state.momentum, state["momentum"]),
+                  (self.state.ef, state["ef"])]
+        opt = self.tx if isinstance(self.tx, Optimizer) else None
+        if opt is not None:
+            groups.append((opt.nu, state["opt_nu"]))
+        for live, saved in groups:
+            if len(live) != len(saved) or any(a.shape != b.shape for a, b in zip(live, saved)):
+                raise ValueError("saved state does not match this trainer's configuration")
+            for dst, src in zip(live, saved):
+                dst.copy_(src)
+        for name, buf in self.model.named_buffers():
+            buf.copy_(state["buffers"][name])
+        if opt is not None:
+            opt.count = int(state["opt_count"])
+        self.augment_gen.set_state(state["augment_gen"])
+        self.state.step = int(state["step"])
+
     # ------------------------------------------------------------------ loops
+    def _loaders(self, dataset) -> tuple[BatchLoader, BatchLoader]:
+        cfg = self.cfg
+        kw = dict(device=self.device, world_size=self.world_size, rank=self.rank)
+        train = BatchLoader(dataset.train_images, dataset.train_labels, cfg.global_batch_size,
+                            shuffle=True, seed=cfg.seed, **kw)
+        test = BatchLoader(dataset.test_images, dataset.test_labels, cfg.global_batch_size,
+                           shuffle=False, drop_last=False, **kw)
+        return train, test
+
+    def _telemetry(self) -> tuple[Telemetry, int]:
+        """The run's Telemetry (manifest written) and its analytic wire
+        bytes a step."""
+        cfg = self.cfg
+        flops_per_step = None
+        if cfg.model == "resnet18":
+            flops_per_step = resnet18_cifar_train_flops_per_sample() * cfg.global_batch_size
+        # The float strategies sync each microbatch; the int8 wire, zero1
+        # and the overlapped schedule once a step (fsdp gathers and
+        # scatters each microbatch, overlapped or not).
+        syncs = (1 if (self._compress or self._zero1 or (self._overlap and not self._fsdp))
+                 else cfg.accum_steps)
+        shapes = self._param_shapes if self._fsdp else self.params
+        wire_bytes = syncs * sync_wire_bytes(shapes, cfg.sync, self.world_size, cfg.grad_compress,
+                                             bucket_bytes=self._bucket_bytes,
+                                             overlap=self._overlap)
+        on_card = self.device.type == "cuda"
+        telemetry = Telemetry(
+            cfg.metrics_dir, every=cfg.metrics_every or cfg.log_every, run="cifar",
+            flops_per_step=flops_per_step, n_chips=self.world_size,
+            device_kind=torch.cuda.get_device_name(self.device) if on_card else "cpu",
+            device=self.device,
+        )
+        telemetry.write_manifest(config=cfg, grad_sync_bytes_per_step=wire_bytes,
+                                 native_gather=native_available("batcher"))
+        return telemetry, wire_bytes
+
     def fit(
         self, dataset=None, epochs: int | None = None
     ) -> tuple[TrainState, dict[str, Any]]:
         """The reference's epoch loop (``master/part1/part1.py:101-103``)
-        with its three signals: loss every ``log_every`` batches, average
-        per-batch time over the timing window, eval after each epoch."""
+        with its three signals (loss every ``log_every`` batches, the
+        average per-batch time over the timing window, eval after each
+        epoch) inside the JAX engine's run loop, step for step: telemetry
+        and manifest; the flight recorder; the restore tiers (the newer
+        wins, memory on a tie) and a resume mid-epoch; the watchdog
+        (the first step, which builds the kernels, exempt); the pending/
+        certify gate in front of checkpoints and snapshots; the profiler
+        window; the loss fetched only where timing, logging, telemetry or
+        the gate needs it (the non-finite check and the step records ride
+        that fetch); a forced save at the end."""
         cfg = self.cfg
         if dataset is None:
             dataset = _load_dataset(cfg)
-        loader_kw = dict(
-            device=self.device, world_size=self.world_size, rank=self.rank
-        )
-        train_loader = BatchLoader(
-            dataset.train_images, dataset.train_labels, cfg.global_batch_size,
-            shuffle=True, seed=cfg.seed, **loader_kw,
-        )
-        test_loader = BatchLoader(
-            dataset.test_images, dataset.test_labels, cfg.global_batch_size,
-            shuffle=False, drop_last=False, **loader_kw,
-        )
+        train_loader, test_loader = self._loaders(dataset)
+        telemetry, wire_bytes = self._telemetry()
+        lr_at = make_schedule(cfg)
+        obs_norms = not (self._zero1 or self._fsdp)  # they never form the synced grads
+
+        straggler = StragglerMonitor()
+        flight = FlightRecorder(telemetry=telemetry, straggler=straggler,
+                                hbm=HbmHighWater([self.device] if self.device.type == "cuda" else []))
+        flight.install()
+
         history: dict[str, Any] = {"train_loss": [], "eval": [], "avg_batch_time": None}
         timer = StepTimer(window=cfg.timing_batches, device=self.device)
-        last = cfg.timing_batches[1]
-        for epoch in range(epochs if epochs is not None else cfg.epochs):
-            timer.start()
-            for batch_idx, (x, y) in enumerate(train_loader.epoch(epoch)):
-                loss = self.train_step(x, y)
-                if timer.steps_recorded <= last:
-                    timer.tick()
-                    if timer.steps_recorded == last + 1:
-                        history["avg_batch_time"] = timer.window_average()
-                        log.info("average time:  %f", history["avg_batch_time"])
-                if batch_idx % cfg.log_every == 0:
-                    value = self.global_mean(loss)
-                    history["train_loss"].append((epoch, batch_idx, value))
-                    log.info("%d loss:  %f", batch_idx, value)
-            if self.sync_monitor is not None:
-                bad = self.sync_monitor.divergent_steps()
-                log.info("divergence check: %d steps, %d divergent",
-                         self.sync_monitor.steps_recorded, len(bad))
-                self.sync_monitor.assert_in_sync()
-            metrics = self.evaluate(test_loader)
-            history["eval"].append(metrics)
-            log.info(
-                "Test set: Average loss: %.4f, Accuracy: %d/%d (%.0f%%)",
-                metrics["avg_loss"], metrics["correct"], metrics["count"],
-                100.0 * metrics["accuracy"],
+        mem = self.memstore
+        ckpt = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+        if self._fits == 0 and (ckpt is not None or mem is not None):
+            self._initial_state = to_host(self.capture_state())
+        self._fits += 1
+        mem_step = mem.latest_step() if mem is not None else None
+        disk_step = ckpt.latest_step() if ckpt is not None else None
+        restored = source = None
+        if mem_step is not None and (disk_step is None or disk_step <= mem_step):
+            restored, source = mem.restore_latest(), "memory"
+        elif disk_step is not None:
+            restored, source = ckpt.restore_latest(), "disk"
+        steps_per_epoch = len(train_loader)
+        if restored is not None:
+            self.restore_state(restored)
+            telemetry.emit_event("restore", source=source, step=self.state.step)
+        elif self._fits > 1 and self._initial_state is not None:
+            self.restore_state(self._initial_state)
+        steps_done = self.state.step
+        start_epoch = steps_done // max(steps_per_epoch, 1)
+        if restored is not None:
+            log.info("restored %s state at step %d (resuming at epoch %d)",
+                     source, steps_done, start_epoch)
+
+        watchdog = None
+        if cfg.step_timeout_s:
+            on_hang = None
+            if cfg.hang_action in ("abort", "escalate"):
+                # A wedged device fetch cannot be unblocked from inside the
+                # process: exit so a supervisor restarts the job, which
+                # resumes from the newest checkpoint.
+                def on_hang(elapsed_s: float) -> None:
+                    os._exit(13)
+
+            watchdog = StepWatchdog(
+                cfg.step_timeout_s, on_hang=on_hang, metric_ring=telemetry.ring,
+                flight_recorder=flight,
+                escalation=("warn", "dump", "abort") if cfg.hang_action == "escalate" else None,
             )
+
+        # Mid-epoch resume: the restored state holds the epoch's first
+        # steps_done % steps_per_epoch batches; the loader's start skips
+        # them by index arithmetic (its order is a function of seed and
+        # epoch), so none is replayed.
+        resume_skip = steps_done % steps_per_epoch if steps_per_epoch else 0
+
+        def guarded_save(state: dict, *, force: bool = False) -> None:
+            """A save under a widened watchdog window."""
+            if watchdog is not None:
+                watchdog.arm(cfg.step_timeout_s * 10)
+            try:
+                ckpt.save(state, force=force)
+            finally:
+                if watchdog is not None:
+                    watchdog.disarm()
+
+        # Under halt_on_nonfinite a due checkpoint or snapshot is held as
+        # (step, state cloned on the device, to disk, to memory) and
+        # persisted once the next fetched loss (the forward pass over
+        # those parameters) comes back finite: neither tier ever holds a
+        # state whose own forward pass diverged.
+        pending: tuple[int, dict, bool, bool] | None = None
+
+        def certify() -> None:
+            nonlocal pending
+            _, pstate, to_disk, to_mem = pending
+            if to_disk:
+                guarded_save(pstate)
+            if to_mem:
+                mem.save(pstate)
+            pending = None
+
+        compile_pending = True  # the first step builds the kernels: not watched
+        capture: profiling.Trace | None = None
+
+        def stop_profile(fence: bool) -> None:
+            nonlocal capture
+            if capture is None:
+                return
+            if fence and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            capture.stop()
+            capture = None
+
+        prev_mono = None  # per-step wall clock for the straggler ring
+        source_iter = None
+        try:
+            for epoch in range(start_epoch, epochs if epochs is not None else cfg.epochs):
+                timer.start()
+                skip = resume_skip if epoch == start_epoch else 0
+                source_iter = prefetch(train_loader.epoch(epoch, start=skip),
+                                       cfg.prefetch_depth, self.device)
+                batch_iter = enumerate(source_iter, start=skip)
+                while True:
+                    # The armed window covers the batch's acquisition: a
+                    # wedged card blocks the producer's copy and this
+                    # thread then waits on the queue.
+                    arm_now = watchdog is not None and not compile_pending
+                    if arm_now:
+                        watchdog.arm()
+                    fetch_ctx = (profiling.annotate("input_fetch") if capture is not None
+                                 else contextlib.nullcontext())
+                    try:
+                        with fetch_ctx:
+                            batch_idx, (x, y) = next(batch_iter)
+                    except StopIteration:
+                        if arm_now:
+                            watchdog.disarm()
+                        stop_profile(True)  # never trace the eval or a save
+                        break
+                    if (cfg.profile_dir and capture is None and cfg.profile_start_step
+                            <= steps_done < cfg.profile_start_step + cfg.profile_num_steps):
+                        capture = profiling.Trace(cfg.profile_dir)
+                        capture.start()
+                    step_ctx = (profiling.step_annotation("train", steps_done)
+                                if capture is not None else contextlib.nullcontext())
+                    with step_ctx:
+                        loss_t = self.train_step(x, y)
+                    compile_pending = False
+                    if (capture is not None and steps_done + 1
+                            >= cfg.profile_start_step + cfg.profile_num_steps):
+                        stop_profile(True)
+                    timing_active = timer.steps_recorded <= cfg.timing_batches[1]
+                    should_log = batch_idx % cfg.log_every == 0
+                    metrics_due = telemetry.due(steps_done)
+                    checkpoint_due = bool(ckpt and cfg.checkpoint_every
+                                          and (steps_done + 1) % cfg.checkpoint_every == 0)
+                    snapshot_due = bool(mem is not None and cfg.snapshot_every
+                                        and (steps_done + 1) % cfg.snapshot_every == 0)
+                    if timing_active or should_log or metrics_due or pending is not None:
+                        sync_enter_wall, sync_enter_mono = time.time(), time.monotonic()
+                        loss = self.global_mean(loss_t)
+                        sync_exit_wall, sync_exit_mono = time.time(), time.monotonic()
+                        if watchdog is not None:
+                            watchdog.disarm()  # the fetch is where a hang shows
+                        if cfg.halt_on_nonfinite and not math.isfinite(loss):
+                            telemetry.emit_event("non_finite_loss", step=steps_done, loss=loss)
+                            raise NonFiniteLossError(steps_done, loss)
+                        if metrics_due:
+                            norms = {}
+                            if obs_norms:
+                                norms = {
+                                    "grad_norm": float(tree_l2_norm([p.grad for p in self.params])),
+                                    "param_norm": float(tree_l2_norm(self.params)),
+                                }
+                            telemetry.emit_step(
+                                steps_done, loss=loss, epoch=epoch, batch=batch_idx,
+                                lr=float(lr_at(steps_done)), grad_sync_bytes=wire_bytes,
+                                sync_enter_wall=sync_enter_wall,
+                                sync_enter_mono=sync_enter_mono,
+                                sync_exit_wall=sync_exit_wall, sync_exit_mono=sync_exit_mono,
+                                **norms,
+                            )
+                        if pending is not None and steps_done == pending[0]:
+                            certify()  # this loss is the pending state's forward pass
+                    elif watchdog is not None:
+                        watchdog.disarm()
+                    if timing_active:
+                        timer.tick()
+                        if timer.steps_recorded == cfg.timing_batches[1] + 1:
+                            history["avg_batch_time"] = timer.window_average()
+                            log.info("average time:  %f", history["avg_batch_time"])
+                    if should_log:
+                        history["train_loss"].append((epoch, batch_idx, loss))
+                        log.info("%d loss:  %f", batch_idx, loss)
+                    # Straggler ring: the wall time between iterations
+                    # (launches are asynchronous, so a slow step shows at
+                    # the next fetch or as queue back-pressure).
+                    now_mono = time.monotonic()
+                    if prev_mono is not None:
+                        outlier = straggler.record(steps_done, now_mono - prev_mono)
+                        if outlier is not None:
+                            telemetry.emit_event("straggler", **outlier)
+                    prev_mono = now_mono
+                    steps_done += 1
+                    if checkpoint_due or snapshot_due:
+                        if cfg.halt_on_nonfinite:
+                            pending = (steps_done, self.capture_state(clone=True),
+                                       checkpoint_due, snapshot_due)
+                        else:
+                            if checkpoint_due:
+                                guarded_save(self.capture_state())
+                            if snapshot_due:
+                                mem.save(self.capture_state())
+                if self.sync_monitor is not None:
+                    bad = self.sync_monitor.divergent_steps()
+                    telemetry.emit_event(
+                        "divergence_check", epoch=epoch,
+                        steps_checked=self.sync_monitor.steps_recorded,
+                        divergent_steps=len(bad), in_sync=not bad,
+                    )
+                    log.info("divergence check: %d steps, %d divergent",
+                             self.sync_monitor.steps_recorded, len(bad))
+                    self.sync_monitor.assert_in_sync()
+                metrics = self.evaluate(test_loader, watchdog=watchdog)
+                history["eval"].append(metrics)
+                telemetry.emit_event("eval", epoch=epoch, step=steps_done,
+                                     avg_loss=metrics["avg_loss"], accuracy=metrics["accuracy"])
+                log.info(
+                    "Test set: Average loss: %.4f, Accuracy: %d/%d (%.0f%%)",
+                    metrics["avg_loss"], metrics["correct"], metrics["count"],
+                    100.0 * metrics["accuracy"],
+                )
+                if cfg.halt_on_nonfinite and not math.isfinite(metrics["avg_loss"]):
+                    raise NonFiniteLossError(steps_done, metrics["avg_loss"])
+                if pending is not None and steps_done == pending[0]:
+                    certify()  # the eval loss certified the state the epoch ended on
+            if ckpt is not None:
+                guarded_save(self.capture_state(), force=True)
+            if mem is not None:
+                mem.save(self.capture_state())
+            if (cfg.profile_dir and cfg.profile_num_steps
+                    and steps_done <= cfg.profile_start_step):
+                log.warning(
+                    "profile window [%d, %d) never opened: run ended after %d steps; "
+                    "lower profile_start_step",
+                    cfg.profile_start_step, cfg.profile_start_step + cfg.profile_num_steps,
+                    steps_done,
+                )
+        except BaseException as e:
+            flight.dump("exception", error=repr(e), step=steps_done)
+            raise
+        finally:
+            if isinstance(source_iter, PrefetchIterator):
+                source_iter.close()
+            stop_profile(False)
+            flight.uninstall()
+            if watchdog is not None:
+                watchdog.close()
+            if ckpt is not None:
+                ckpt.close()
+            telemetry.close()
+            self.native_batches += train_loader.native_batches + test_loader.native_batches
         return self.state, history
 
+    def evaluate_only(self, dataset=None) -> dict[str, float]:
+        """Restore the newest checkpoint of ``cfg.checkpoint_dir`` and run
+        the held-out evaluation without training (``--eval-only``);
+        ``FileNotFoundError`` when the directory holds none. Without a
+        checkpoint directory this evaluates the initial parameters."""
+        cfg = self.cfg
+        if dataset is None:
+            dataset = _load_dataset(cfg)
+        _, test_loader = self._loaders(dataset)
+        if cfg.checkpoint_dir:
+            ckpt = Checkpointer(cfg.checkpoint_dir)
+            try:
+                restored = ckpt.restore_latest()
+            finally:
+                ckpt.close()
+            if restored is None:
+                raise FileNotFoundError(f"no checkpoint under {cfg.checkpoint_dir!r} to evaluate")
+            self.restore_state(restored)
+        metrics = self.evaluate(test_loader)
+        log.info(
+            "Test set: Average loss: %.4f, Accuracy: %d/%d (%.0f%%)",
+            metrics["avg_loss"], metrics["correct"], metrics["count"],
+            100.0 * metrics["accuracy"],
+        )
+        return metrics
+
     @torch.no_grad()
-    def evaluate(self, test_loader: BatchLoader) -> dict[str, float]:
+    def evaluate(self, test_loader: BatchLoader, watchdog: StepWatchdog | None = None
+                 ) -> dict[str, float]:
         """Eval over the test set with this replica's running BN stats; the
         loss sum, correct count and example count are summed over ranks.
-        FSDP gathers its parameters once for the whole pass."""
+        FSDP gathers its parameters once for the whole pass. ``watchdog``,
+        when given, is armed around each batch after the first (which
+        builds the eval's kernels) and around the final fetch."""
         self.model.eval()
         totals = torch.zeros(3, dtype=torch.float64, device=self.device)
         full = self._full_params() if self._fsdp else None
-        for x, y, mask in test_loader.epoch_padded(0):
-            with self._autocast():
-                logits = (self.model(eval_batch(x)) if full is None
-                          else functional_call(self.model, full, (eval_batch(x),)))
-            losses = F.cross_entropy(logits.float(), y, reduction="none")
-            correct = (logits.argmax(dim=-1) == y).float()
-            totals += torch.stack(
-                [(losses * mask).sum(), (correct * mask).sum(), mask.sum()]
-            ).double()
-        if self.world_size > 1:
-            dist.all_reduce(totals)
-        loss_sum, correct, count = totals.tolist()
+        batches = prefetch(test_loader.epoch_padded(0), self.cfg.prefetch_depth, self.device)
+        first = True
+        try:
+            while True:
+                arm_now = watchdog is not None and not first
+                if arm_now:
+                    watchdog.arm()
+                try:
+                    try:
+                        x, y, mask = next(batches)
+                    except StopIteration:
+                        break
+                    with self._autocast():
+                        logits = (self.model(eval_batch(x)) if full is None
+                                  else functional_call(self.model, full, (eval_batch(x),)))
+                    losses = F.cross_entropy(logits.float(), y, reduction="none")
+                    correct = (logits.argmax(dim=-1) == y).float()
+                    totals += torch.stack(
+                        [(losses * mask).sum(), (correct * mask).sum(), mask.sum()]
+                    ).double()
+                finally:
+                    if arm_now:
+                        watchdog.disarm()
+                first = False
+        finally:
+            if isinstance(batches, PrefetchIterator):
+                batches.close()
+        if watchdog is not None:
+            watchdog.arm()
+        try:
+            if self.world_size > 1:
+                dist.all_reduce(totals)
+            loss_sum, correct, count = totals.tolist()
+        finally:
+            if watchdog is not None:
+                watchdog.disarm()
         return {
             "avg_loss": loss_sum / max(count, 1),
             "correct": int(correct),

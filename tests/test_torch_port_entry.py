@@ -44,6 +44,27 @@ def test_port_and_chip_smoke_import_no_jax():
     assert not bad, bad
 
 
+RUN_LOOP_MODULES = [
+    "native/__init__.py", "native/build.py", "data/native_decode.py",
+    "data/native_batcher.py", "data/prefetch.py", "obs/sinks.py", "obs/run_manifest.py",
+    "obs/system.py", "obs/metrics.py", "obs/flight.py", "utils/checkpoint.py",
+    "utils/memstore.py", "utils/failure.py", "utils/profiling.py", "utils/logging.py",
+]
+
+
+@pytest.mark.parametrize("module", RUN_LOOP_MODULES)
+def test_run_loop_modules_import_no_jax(module):
+    """The run loop's modules, the native build included, import neither
+    JAX nor the JAX package, and build the port's own C++ copies."""
+    path = PORT / module
+    assert path.exists()
+    bad = [mod for mod in _imported_modules(path) if mod.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+    if module == "native/build.py":
+        assert (PORT / "native" / "batcher.cpp").exists() and (PORT / "native" / "decode.cpp").exists()
+        assert "cs744_pytorch_distributed_tutorial_tpu/" not in path.read_text()
+
+
 def _no_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: the default device is valid here")
