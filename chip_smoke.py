@@ -185,7 +185,30 @@ no result):
     ``--eval-only`` on the first run's checkpoints equal to its last
     eval; the trace holding the fused SGD kernel; the watchdog never
     firing; ``avg_batch_time_s`` at prefetch depth 0 and 2 in turns; a
-    checkpoint's blocking, durable, read and copy-back times.
+    checkpoint's blocking, durable, read and copy-back times;
+21. the phase profiler on the CIFAR Trainer (``obs/phases.py``) through
+    the port's ``bench.py``: ``--phase-breakdown`` with its defaults
+    (ResNet-18, bf16, DDP, batch 4096, NCCL at a world of one), then over
+    the overlapped allreduce and the overlapped int8 wire, each with
+    ``parity_ok``; ``python -m ...obs report`` on the written
+    ``phase_report.json`` printing the table the bench printed;
+    ``profile_phases`` on ResNet-18 fp32 batch 256 ``fast_conv`` (each
+    segment's launches in one call exact: 6 tensor-core wgrads in the
+    grads and fused segments, none in forward or the optimizer);
+    ``device_op_breakdown`` of its fused step; ``--sync-compare``'s four
+    bench records and its two pure data-parallel phase pairs (zero1's
+    pair raises at one rank, as in JAX);
+22. ``profile_lm_phases`` on GPT-2-small at full width (bf16, flash,
+    ``fused_xent``) and on the MoE LM ``moe_e8_top2_dropless_pallas``,
+    each with ``parity_ok`` and each segment's flash, fused
+    cross-entropy and grouped-matmul launches in one call exact;
+23. the LM run loop through ``lm_cli`` on GPT-2-small, 40 steps:
+    checkpoints every 20, the metric stream, a profiler window whose
+    trace holds the flash kernels, the watchdog; again with a NaN at step
+    30 and ``--max-restarts 1`` (disk tier) and with ``--snapshot-every
+    20`` (memory tier, no file read), both bitwise equal to the first run
+    in every parameter and AdamW moment, every launch count exact; a
+    checkpoint's blocking, durable, read and copy-back times (1.95 GB).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -3763,6 +3786,362 @@ def run_loop_phase() -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+
+# ----------------------------------------------------------- phase profiler
+LM_LOOP_STEPS, LM_LOOP_EVERY, LM_LOOP_NAN_CALL = 40, 20, 30  # the NaN restores step 20
+PHASE_BREAKDOWNS = {  # label: bench.py flags (each with its defaults otherwise)
+    "auto": (),
+    "allreduce_bucket": ("--sync", "allreduce", "--sync-overlap", "bucket"),
+    "int8_bucket": ("--sync", "allreduce", "--grad-compress", "int8", "--sync-overlap",
+                    "bucket+int8"),
+}
+
+
+def kernel_detail() -> dict:
+    """Every path kernel's launches since the last reset, by kernel and
+    route (read after ``counted``)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_xent as FX
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
+
+    detail = {f"flash_{k}": n for k, n in flash_counts().items()}
+    detail.update({f"fused_xent_{k}": FX.launch_count(k) for k in FX.KERNELS})
+    detail.update({f"gmm_{k}": G.launch_count(k) for k in G.KERNELS})
+    detail.update({f"conv3x3_wgrad_s{s}" + ("_tc" if r == "tc" else ""): C.launch_count(s, route=r)
+                   for s in (1, 2) for r in ("ffma", "tc")})
+    return {k: n for k, n in detail.items() if n}
+
+
+def segment_launches(segs, x, y, start: dict) -> dict:
+    """Each segment's launches in one call (``counted``: zeroed just before,
+    read just after), the trainer restored to ``start`` after each; the
+    optimizer's inputs are the grads segment's gradients."""
+    tr = segs.trainer
+    out = {}
+    for name in ("forward", "grads", "opt", "fused"):
+        grads = segs.grads(x, y)[1] if name == "opt" else None
+        fn = {"forward": lambda: segs.forward(x, y), "grads": lambda: segs.grads(x, y),
+              "opt": lambda: segs.opt(grads if segs.sync is None else segs.sync(grads)),
+              "fused": lambda: segs.fused(x, y)}[name]
+        _, counts = counted(fn)
+        out[name] = {**kernel_detail(), **({"fused_sgd": counts["fused_sgd"]}
+                                           if counts["fused_sgd"] else {})}
+        tr.restore_state(start)
+    return out
+
+
+def cifar_phases_phase() -> dict:
+    """Phase 21: the phase profiler on the CIFAR Trainer (``obs/phases.py``)
+    through the port's ``bench.py``: ``--phase-breakdown`` with its
+    defaults (ResNet-18, bf16, DDP, batch 4096, NCCL at a world of one),
+    then over the overlapped allreduce and the overlapped int8 wire, each
+    with ``parity_ok``; ``python -m ...obs report`` on the first one's
+    ``phase_report.json`` printing the table the bench printed;
+    ``profile_phases`` on ResNet-18 fp32 at batch 256 with ``fast_conv``
+    (the backward launches the tensor-core wgrad 6 times a call, the
+    forward none); ``device_op_breakdown`` of its fused step; and
+    ``--sync-compare``'s four bench records and the two pure
+    data-parallel wires' phase pairs (zero1's pair needs more than one
+    rank and raises, as in JAX)."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch import bench
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs import phases as P
+    from cs744_pytorch_distributed_tutorial_tpu_torch.utils.profiling import device_op_breakdown
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="phases_"))
+    out: dict = {"card": card_line()}
+    try:
+        for label, flags in PHASE_BREAKDOWNS.items():
+            mdir = root / label
+            stdout, stderr = io.StringIO(), io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+                rc = bench.main(["--phase-breakdown", *flags, "--metrics-dir", str(mdir)])
+            wall = time.perf_counter() - t0
+            records = [json.loads(line) for line in stdout.getvalue().splitlines()
+                       if line.startswith("{")]
+            summary = next(r for r in records if r["kind"] == "phase_summary")
+            print(stderr.getvalue(), end="")
+            print(json.dumps({"phase_breakdown": label, "records": records}))
+            if rc != 0 or not summary["parity_ok"] or summary["fused_clock"] != "device":
+                raise RuntimeError(f"--phase-breakdown {label}: rc {rc}, {summary}")
+            if label == "auto":
+                rep = subprocess.run([sys.executable, "-m",
+                                      "cs744_pytorch_distributed_tutorial_tpu_torch.obs", "report",
+                                      str(mdir)], capture_output=True, text=True, timeout=300)
+                if rep.returncode != 0 or rep.stdout.strip() not in stderr.getvalue():
+                    raise RuntimeError(f"obs report printed another table:\n{rep.stdout}\n"
+                                       f"{rep.stderr}")
+                print("obs report on phase_report.json: the table the bench printed")
+            out[f"breakdown_{label}"] = {"records": records, "wall_s": wall}
+
+        with bench.headline_trainer(256, "cuda", compute_dtype="float32",
+                                    fast_conv=True) as (tr, x, y):
+            segs = P.build_cifar_segments(tr)
+            start = tr.capture_state(clone=True)
+            launches = segment_launches(segs, x, y, start)
+            want = {"forward": {}, "grads": {"conv3x3_wgrad_s1_tc": RESNET18_ROUTED},
+                    "opt": {}, "fused": {"conv3x3_wgrad_s1_tc": RESNET18_ROUTED}}
+            if launches != want:
+                raise RuntimeError(f"ResNet-18 fast_conv segments launched {launches}, "
+                                   f"expected {want}")
+            report = P.profile_phases(tr, x, y)
+            print(report.table())
+            print(json.dumps({"profile_phases_resnet18_fp32_fast_conv": report.records()}))
+            if not report.parity_ok or report.fused_clock != "device":
+                raise RuntimeError("profile_phases on ResNet-18 fp32 fast_conv: parity "
+                                   f"{report.parity_ok}, clock {report.fused_clock}")
+            total, rows = device_op_breakdown(tr.train_step, x, y, iters=3, top=12)
+            print(f"device_op_breakdown of the fused ResNet-18 fp32 fast_conv step: {total:.4f} "
+                  f"ms a step; top ops " + json.dumps([[round(ms, 4), name[:80]]
+                                                        for ms, name in rows]))
+            if not any("wgrad_tc_kernel" in name for _, name in rows):
+                raise RuntimeError("device_op_breakdown shows no wgrad_tc_kernel in the step")
+            out.update(segment_launches_resnet18=launches, profile_resnet18=report.records(),
+                       breakdown_device_ms=total, breakdown_rows=rows)
+
+        class Sink:
+            records: list = []
+
+            def emit(self, rec):
+                self.records.append(rec)
+
+        sink = Sink()
+        t0 = time.perf_counter()
+        try:
+            bench.sync_compare(sink)
+            raise RuntimeError("sync_compare's zero1 phase pair ran at a world of one")
+        except ValueError as e:
+            if "bucket" not in str(e):
+                raise
+        kinds = [r["kind"] for r in sink.records]
+        print(json.dumps({"sync_compare": sink.records, "wall_s": time.perf_counter() - t0}))
+        if kinds != ["bench"] * 4 + ["sync_compare"] * 2 or not all(
+                r["parity_ok"] for r in sink.records[4:]):
+            raise RuntimeError(f"sync_compare records {kinds}")
+        out["sync_compare"] = sink.records
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def lm_phases_phase() -> dict:
+    """Phase 22: ``profile_lm_phases`` on GPT-2-small at full width (12
+    layers, d 768, T 1024, batch 16, bf16, flash, ``fused_xent``) and on the
+    MoE LM ``moe_e8_top2_dropless_pallas`` (6 layers, d 512, E 8 top-2,
+    batch 32 x T 512), each with ``parity_ok``, and each segment's kernel
+    launches in one call exact: flash, the fused cross-entropy and the
+    grouped matmuls."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs import phases as P
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+
+    gpt, moe = LM_WIDTH["num_layers"], MOE_WIDTH["num_layers"]
+    fwd_gpt = {"flash_fwd_tc": gpt, "fused_xent_fwd": 1}
+    grads_gpt = {**fwd_gpt, "flash_dq_tc": gpt, "flash_dkv_tc": gpt, "fused_xent_bwd": 1}
+    fwd_moe = {"flash_fwd_tc": moe, "gmm_fused_tc": moe, "gmm_fused_z_tc": moe}
+    grads_moe = {**fwd_moe, "flash_dq_tc": moe, "flash_dkv_tc": moe, "gmm_gmm_tc": 2 * moe,
+                 "gmm_tgmm_tc": 2 * moe, "gmm_split": moe, "gmm_colsum": 2 * moe}
+    cases = {
+        "gpt2_small": (lm_config(fused_xent=True), 16,
+                       {"forward": fwd_gpt, "grads": grads_gpt, "opt": {}, "fused": grads_gpt}),
+        "moe_e8_top2_dropless": (moe_config(), MOE_TRAIN_BATCH,
+                                 {"forward": fwd_moe, "grads": grads_moe, "opt": {},
+                                  "fused": grads_moe}),
+    }
+    out: dict = {}
+    for label, (cfg, batch, want) in cases.items():
+        tr = LMTrainer(cfg)
+        tr.init()
+        x, y = tr.split_batch(synthetic_tokens(batch, cfg.seq_len, cfg.vocab_size, seed=0))
+        segs = P.build_lm_segments(tr)
+        launches = segment_launches(segs, x, y, tr.capture_state(clone=True))
+        if launches != want:
+            raise RuntimeError(f"{label} segments launched {launches}, expected {want}")
+        t0 = time.perf_counter()
+        report = P.profile_lm_phases(tr, x, y)
+        wall = time.perf_counter() - t0
+        print(report.table())
+        print(json.dumps({f"profile_lm_phases_{label}": report.records(), "wall_s": wall,
+                          "launches": launches}))
+        if not report.parity_ok or report.fused_clock != "device":
+            raise RuntimeError(f"profile_lm_phases {label}: parity {report.parity_ok}, clock "
+                               f"{report.fused_clock}")
+        out[label] = {"records": report.records(), "launches": launches}
+        del tr, segs, x, y
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def captured_lm_trainers(nan_at_call: int | None = None):
+    """Patch the port's LMTrainer so each instance ``fit`` runs on is
+    recorded, and (optionally) so train_step returns a NaN loss once, at
+    its ``nan_at_call``-th call over every instance."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train import lm as L
+
+    trainers, calls = [], {"n": 0}
+    fit, train_step = L.LMTrainer.fit, L.LMTrainer.train_step
+
+    def recording_fit(self, *args, **kwargs):
+        if self not in trainers:
+            trainers.append(self)
+        return fit(self, *args, **kwargs)
+
+    def nan_once(self, x, y):
+        m = train_step(self, x, y)
+        calls["n"] += 1
+        if calls["n"] == nan_at_call:
+            m = dict(m, loss=torch.full_like(m["loss"], float("nan")))
+        return m
+
+    attrs = {"fit": recording_fit}
+    if nan_at_call is not None:
+        attrs["train_step"] = nan_once
+    with patched(L.LMTrainer, **attrs):
+        yield trainers
+
+
+def lm_states_equal(a: dict, b: dict) -> tuple[bool, float]:
+    pairs = [(x, y) for key in ("params", "momentum", "opt_nu")
+             for x, y in zip(a[key], b[key], strict=True)]
+    gap = max(float((x.double() - y.double()).abs().max()) for x, y in pairs)
+    same = ((a["step"], a["opt_count"]) == (b["step"], b["opt_count"])
+            and all(torch.equal(x, y) for x, y in pairs))
+    return same, gap
+
+
+def lm_run_loop_phase() -> dict:
+    """Phase 23: the LM trainer's run loop through ``lm_cli`` on
+    GPT-2-small at full width (bf16, flash, ``--fused-xent``), 40 steps:
+    checkpoints every 20, the metric stream, a profiler window over steps
+    2-4 whose trace holds the flash kernels, the watchdog at 300 s; again
+    with a NaN injected once at step 30 and ``--max-restarts 1`` (restored
+    from the disk checkpoint of step 20), and with ``--snapshot-every 20``
+    and no checkpoint directory (restored from host RAM, no file read):
+    both bitwise equal to the first run in every parameter and moment;
+    then a checkpoint's blocking, durable, read and copy-back costs for
+    the parameters and both AdamW moments."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
+    from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import (
+        Checkpointer,
+        to_host,
+    )
+
+    steps, layers = LM_LOOP_STEPS, LM_WIDTH["num_layers"]
+    argv = [arg for key, value in LM_WIDTH.items()
+            for arg in (f"--{key.replace('_', '-')}", str(value))]
+    argv += ["--global-batch-size", "16", "--use-rope", "--attention-impl", "flash",
+             "--fused-xent", "--compute-dtype", "bfloat16", "--optimizer", "adamw", "--steps",
+             str(steps), "--num-seqs", "320", "--json", "--device", "cuda"]
+    root = pathlib.Path(tempfile.mkdtemp(prefix="lm_run_loop_"))
+    runs = {
+        "run": (("--checkpoint-dir", str(root / "ck_run"), "--checkpoint-every",
+                 str(LM_LOOP_EVERY), "--profile-dir", str(root / "trace"), "--step-timeout-s",
+                 "300"), None),
+        "disk": (("--checkpoint-dir", str(root / "ck_disk"), "--checkpoint-every",
+                  str(LM_LOOP_EVERY), "--max-restarts", "1"), LM_LOOP_NAN_CALL),
+        "memory": (("--snapshot-every", str(LM_LOOP_EVERY), "--max-restarts", "1"),
+                   LM_LOOP_NAN_CALL),
+    }
+    out: dict = {"card": card_line()}
+    states = {}
+    try:
+        for label, (flags, nan_call) in runs.items():
+            mdir = root / f"metrics_{label}"
+            restores = Checkpointer.total_restores
+            t0 = time.perf_counter()
+            with captured_lm_trainers(nan_call) as trainers:
+                summary, _ = counted(lambda: run_cli([*argv, *flags, "--metrics-dir", str(mdir)],
+                                                     main=lm_cli.main))
+            wall = time.perf_counter() - t0
+            detail = kernel_detail()
+            (tr,) = trainers
+            states[label] = to_host(tr.capture_state())
+            # Train calls: every step, and on a recovered run the replay from
+            # step 20; one eval forward certifies the final state.
+            calls = steps + (0 if nan_call is None else nan_call - LM_LOOP_EVERY)
+            want = {"flash_fwd_tc": layers * (calls + 1), "flash_dq_tc": layers * calls,
+                    "flash_dkv_tc": layers * calls, "fused_xent_fwd": calls,
+                    "fused_xent_bwd": calls}
+            run_steps = steps if nan_call is None else steps - LM_LOOP_EVERY
+            if detail != want or summary["steps_run"] != run_steps or not summary["finite"]:
+                raise RuntimeError(f"LM run loop {label}: {summary}, launches {detail}, "
+                                   f"expected {want}")
+            events = stream_events(mdir)
+            restored = [(e["source"], e["step"]) for e in events if e["event"] == "restore"]
+            if restored != {"run": [], "disk": [("disk", LM_LOOP_EVERY)],
+                            "memory": [("memory", LM_LOOP_EVERY)]}[label]:
+                raise RuntimeError(f"LM run loop {label}: restores {restored}")
+            if any(e["event"] == "flight_dump" and e.get("reason") == "watchdog"
+                   for e in events):
+                raise RuntimeError(f"LM run loop {label}: the watchdog fired")
+            if label == "memory" and Checkpointer.total_restores != restores:
+                raise RuntimeError("the LM memory tier's recovery read a checkpoint file")
+            if label == "run":
+                run_trainer = tr
+            out[f"{label}_wall_s"], out[f"{label}_launches"] = wall, detail
+            print(f"LM run loop {label}: {summary['steps_run']} steps run, restores {restored}, "
+                  f"launches {detail}, final loss {summary['final_loss']}, {wall:.1f} s wall")
+        for label in ("disk", "memory"):
+            same, gap = lm_states_equal(states[label], states["run"])
+            if not same:
+                raise RuntimeError(f"LM run loop: recovery from the {label} tier differs from "
+                                   f"the uninterrupted run by {gap}")
+            print(f"LM run loop: recovery from the {label} tier == the uninterrupted run, "
+                  f"bitwise (every parameter, both AdamW moments, the count and the step)")
+        shutil.rmtree(root / "ck_disk", ignore_errors=True)
+
+        with open(root / "metrics_run" / "metrics.jsonl") as f:
+            records = [r for r in map(json.loads, f) if r["kind"] == "step"]
+        traces = list((root / "trace").glob("trace_rank0_*.json"))
+        text = traces[0].read_text() if len(traces) == 1 else ""
+        if not ((root / "metrics_run" / "manifest.json").exists() and len(records) == steps
+                and "flash_fwd_tc_kernel" in text and "flash_dq_tc_kernel" in text):
+            raise RuntimeError(f"LM run loop: {len(records)} step records, traces {traces}")
+        out["trace_mb"] = traces[0].stat().st_size / 1e6
+        del text
+        print(f"LM run loop: {len(records)} step records, manifest, a {out['trace_mb']:.1f} MB "
+              f"trace holding flash_fwd_tc_kernel and flash_dq_tc_kernel")
+        shutil.rmtree(root / "ck_run", ignore_errors=True)
+
+        tr = run_trainer
+        ck = Checkpointer(str(root / "ck_cost"), max_to_keep=1)
+        save_ms, durable_ms, restore_ms, load_ms = [], [], [], []
+        for i in range(3):
+            tr.step = steps + i + 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(tr.capture_state())
+            t1 = time.perf_counter()
+            ck.latest_step()
+            t2 = time.perf_counter()
+            state = ck.restore_latest()
+            t3 = time.perf_counter()
+            tr.restore_state(state)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            save_ms.append((t1 - t0) * 1e3)
+            durable_ms.append((t2 - t0) * 1e3)
+            restore_ms.append((t3 - t2) * 1e3)
+            load_ms.append((t4 - t3) * 1e3)
+        ck.close()
+        nbytes = next((root / "ck_cost").rglob("rank0.pt")).stat().st_size
+        out.update(save_blocking_ms=save_ms, save_durable_ms=durable_ms,
+                   restore_read_ms=restore_ms, restore_copy_ms=load_ms, checkpoint_mb=nbytes / 1e6)
+        print(json.dumps({"lm_run_loop": out}))
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3873,6 +4252,22 @@ def main() -> int:
 
     run_loop = run_loop_phase()
     records[0]["launches_run_loop"] = run_loop["run_fused_sgd_launches"]
+
+    # The phase profiler's segments, one call each, and the LM run loop.
+    cifar_phases = cifar_phases_phase()
+    lm_phases = lm_phases_phase()
+    lm_loop = lm_run_loop_phase()
+    for rec in records:
+        key = {"gmm_fused_tc": "gmm_fused_tc", "gmm_fused_with_z_tc": "gmm_fused_z_tc",
+               "gmm_tc": "gmm_gmm_tc", "tgmm_tc": "gmm_tgmm_tc", "split": "gmm_split",
+               "colsum": "gmm_colsum"}.get(rec["name"], rec["name"])
+        segs = {f"{label}_{seg}": n[key] for label, case in (
+            ("resnet18_fast_conv", {"launches": cifar_phases["segment_launches_resnet18"]}),
+            *lm_phases.items()) for seg, n in case["launches"].items() if key in n}
+        if segs:
+            rec["launches_phase_segments"] = segs
+        if key in lm_loop["run_launches"]:
+            rec["launches_lm_run_loop"] = lm_loop["run_launches"][key]
 
     print(json.dumps({"kernels": records}))
     print(card_line())

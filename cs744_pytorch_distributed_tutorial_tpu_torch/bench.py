@@ -1,29 +1,48 @@
 """Headline benchmark of the port: CIFAR-10 ResNet-18 training samples/s
-per card.
+per card, and its phase and sync modes.
 
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.bench [--metrics-dir DIR]
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.bench --phase-breakdown \
+        [--batch 4096 --model resnet18 --sync auto --grad-compress none \
+         --sync-overlap off --compute-dtype bfloat16 --phase-iters 3] [--metrics-dir DIR]
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.bench --sync-compare
 
-The JAX package's root ``bench.py`` headline on PyTorch: ResNet-18 on
-synthetic CIFAR (``synthetic_cifar10(batch, 16, seed=0)``, one batch
-trained on again and again), bf16 autocast, ``sync="auto"`` (DDP) on a
-process group of one, augmentation on, neither ``fast_conv`` nor
-``fused_optimizer``. Global batch 4096 (10 warm-up steps, then 30
-timed) and 1024 (10, then 90), each timed window fenced by a device
-synchronise at both ends. One ``kind: "bench"`` line goes to stdout
-(and to ``metrics.jsonl`` under ``--metrics-dir``) with the JAX
-headline's keys; ``mfu`` is against the card's peak dense BF16 rate
-(``obs/flops.py``), null for a card without a known peak.
-``vs_baseline`` and ``vs_baseline_b1024`` are null: the repo's only
-baseline was measured on another accelerator.
+The JAX package's root ``bench.py`` on PyTorch. The headline: ResNet-18
+on synthetic CIFAR (``synthetic_cifar10(batch, 16, seed=0)``, one batch
+trained on again and again, each rank its rows), bf16 autocast,
+``sync="auto"`` (DDP) on a process group of one (or the caller's),
+augmentation on, neither ``fast_conv`` nor ``fused_optimizer``. Global
+batch 4096 (10 warm-up steps, then 30 timed) and 1024 (10, then 90),
+each timed window fenced by a device synchronise at both ends. One
+``kind: "bench"`` line goes to stdout (and to ``metrics.jsonl`` under
+``--metrics-dir``) with the JAX headline's keys; ``mfu`` is against the
+card's peak dense BF16 rate (``obs/flops.py``), null for a card without a
+known peak. ``vs_baseline`` and ``vs_baseline_b1024`` are null: the
+repo's only baseline was measured on another accelerator.
 
-``--device cuda`` (default) or ``cpu``. ``--sync-compare``,
-``--phase-breakdown`` and ``--serve`` exit "not yet ported".
+``--phase-breakdown`` runs the phase profiler (``obs/phases.py``) on one
+configuration: per-phase (forward, backward, grad sync, optimizer)
+device time, FLOPs, bytes (an unfused per-op count), MFU, roofline class
+and ``sync_exposed_ms``, the segmented step held against the fused one.
+Its ``kind: "phase"``/``"phase_summary"`` records and a ``kind: "bench"``
+line go to the sink, the table to stderr, the records to
+``DIR/phase_report.json``; it exits 1 when the parity check fails.
+``--sync-compare`` reports samples/s and gradient wire bytes per step for
+four wires (f32 per-tensor DDP, f32 bucketed allreduce, the int8 wire,
+zero1's reduce-scatter), the bucketed ones also overlapped, then one
+``kind: "sync_compare"`` record a wire comparing the fused and the
+overlapped step; as in JAX, zero1's phase pair needs more than one rank
+and raises at a world of one, after the other records.
+
+``--device cuda`` (default) or ``cpu``. ``--serve`` exits "not yet
+ported".
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import logging
 import os
 import sys
@@ -49,11 +68,7 @@ MEASURE_STEPS_SMALL = 90  # shorter steps: a longer window
 
 log = logging.getLogger("cs744_pytorch_distributed_tutorial_tpu_torch")
 
-_NOT_YET_PORTED = {
-    "sync_compare": "--sync-compare needs obs/phases.py's phase records",
-    "phase_breakdown": "--phase-breakdown needs obs/phases.py",
-    "serve": "--serve needs the serving tracer and guard",
-}
+_NOT_YET_PORTED = {"serve": "--serve needs the serving tracer and guard"}
 
 
 def _make_sink(metrics_dir: str | None) -> MultiSink:
@@ -70,10 +85,11 @@ def _fence(device: torch.device) -> None:
 
 
 @contextlib.contextmanager
-def headline_trainer(batch: int, device: str = "cuda"):
-    """The headline configuration at global batch ``batch``: ``(trainer,
-    images, labels)`` on the device, inside a process group of one (or
-    the caller's)."""
+def headline_trainer(batch: int, device: str = "cuda", **overrides):
+    """The headline configuration at global batch ``batch`` (``overrides``:
+    other ``TrainConfig`` fields, such as the sync): ``(trainer, images,
+    labels)``, this rank's rows of the batch on the device, inside a
+    process group of one (or the caller's)."""
     import torch.distributed as dist
 
     from cs744_pytorch_distributed_tutorial_tpu_torch.config import TrainConfig, resolve_device
@@ -86,13 +102,14 @@ def headline_trainer(batch: int, device: str = "cuda"):
     if own_group:
         mesh.initialize(None, 1, 0, device=dev)
     try:
-        world, _ = mesh.world()
-        tr = Trainer(TrainConfig(model="resnet18", sync="auto", num_devices=world,
-                                 global_batch_size=batch, compute_dtype="bfloat16",
-                                 synthetic_data=True, device=device))
+        world, rank = mesh.world()
+        cfg = dict(model="resnet18", sync="auto", compute_dtype="bfloat16") | overrides
+        tr = Trainer(TrainConfig(num_devices=world, global_batch_size=batch, synthetic_data=True,
+                                 device=device, **cfg))
         ds = synthetic_cifar10(batch, 16, seed=0)
-        x = torch.from_numpy(ds.train_images).to(tr.device)
-        y = torch.from_numpy(ds.train_labels.astype("int64")).to(tr.device)
+        rows = slice(rank * batch // world, (rank + 1) * batch // world)
+        x = torch.from_numpy(ds.train_images[rows]).to(tr.device)
+        y = torch.from_numpy(ds.train_labels[rows].astype("int64")).to(tr.device)
         yield tr, x, y
     finally:
         if own_group:
@@ -100,17 +117,19 @@ def headline_trainer(batch: int, device: str = "cuda"):
 
 
 def bench_at(batch: int, steps: int = MEASURE_STEPS, *, device: str = "cuda",
-             warmup: int = WARMUP_STEPS) -> dict:
-    """Train the headline configuration at global batch ``batch``:
-    ``warmup`` steps, then ``steps`` timed. Returns the samples/s, the
-    analytic gradient-sync bytes a step and the peak device memory
-    (bytes; None on the CPU)."""
+             warmup: int = WARMUP_STEPS, **overrides) -> dict:
+    """Train the headline configuration (``overrides``: other
+    ``TrainConfig`` fields) at global batch ``batch``: ``warmup`` steps,
+    then ``steps`` timed. Returns the samples/s per card, the analytic
+    gradient-sync bytes a step and the peak device memory (bytes; None on
+    the CPU)."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.buckets import (
         sync_bytes_per_step,
     )
 
-    with headline_trainer(batch, device) as (tr, x, y):
-        wire = sync_bytes_per_step(tr.params, tr.cfg.sync, tr.world_size)
+    with headline_trainer(batch, device, **overrides) as (tr, x, y):
+        wire = sync_bytes_per_step(tr.params, "int8_allreduce" if tr._compress else tr.cfg.sync,
+                                   tr.world_size, reverse=tr._overlap)
         if tr.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(tr.device)
         for _ in range(warmup):
@@ -156,16 +175,148 @@ def run_headline(device: str = "cuda") -> tuple[dict, dict[int, dict]]:
     return headline_record(big, small), {GLOBAL_BATCH: big, BATCH_SMALL: small}
 
 
+SYNC_COMPARE_ROWS = (  # label, sync, grad_compress, the overlapped mode (None: no overlap)
+    ("f32_per_leaf_auto", "auto", "none", None),
+    ("f32_bucketed_allreduce", "allreduce", "none", "bucket"),
+    ("int8_bucketed_allreduce", "allreduce", "int8", "bucket+int8"),
+    ("f32_zero1_scatter", "zero1", "none", "bucket"),
+)
+
+
+def sync_compare(sink, batch: int = BATCH_SMALL, steps: int = MEASURE_STEPS, *,
+                 phase_iters: int = 3, device: str = "cuda", warmup: int = WARMUP_STEPS,
+                 model: str = "resnet18") -> None:
+    """The wire's modes (the JAX ``sync_compare``): samples/s per card and
+    analytic gradient payload bytes sent per rank a step, one ``kind:
+    "bench"`` record per wire of ``SYNC_COMPARE_ROWS`` (bf16, the headline
+    configuration otherwise), the bucketed wires' with their overlapped
+    throughput; then each overlapped wire's ``kind: "sync_compare"``
+    record: the fused and the overlapped step's time and the
+    ``sync_exposed_ms`` each leaves (``obs/phases.py``). zero1's pair
+    raises ``ValueError`` at a world of one, as JAX's does."""
+    for label, sync, compress, ov in SYNC_COMPARE_ROWS:
+        kw = dict(device=device, warmup=warmup, model=model, sync=sync, grad_compress=compress)
+        m = bench_at(batch, steps, **kw)
+        rec = {
+            "kind": "bench",
+            "time": time.time(),
+            "metric": f"cifar10_{model}_grad_sync",
+            "sync": label,
+            "batch": batch,
+            "samples_per_sec_per_chip": round(m["samples_per_sec"], 1),
+            "grad_sync_bytes_per_step": m["wire_bytes"],
+        }
+        if ov is not None:
+            rec["sync_overlap"] = ov
+            rec["samples_per_sec_per_chip_overlap"] = round(
+                bench_at(batch, steps, sync_overlap=ov, **kw)["samples_per_sec"], 1)
+        sink.emit(rec)
+    for label, sync, compress, ov in SYNC_COMPARE_ROWS:
+        if ov is None:
+            continue
+        kw = dict(model=model, sync=sync, grad_compress=compress, compute_dtype="bfloat16",
+                  iters=phase_iters, device=device)
+        rep_f, _ = _phase_report(batch, **kw)
+        rep_o, _ = _phase_report(batch, sync_overlap=ov, **kw)
+        sink.emit(
+            {
+                "kind": "sync_compare",
+                "time": time.time(),
+                "metric": f"cifar10_{model}_sync_overlap",
+                "wire": label,
+                "sync_overlap": ov,
+                "batch": batch,
+                "fused_step_ms": round(rep_f.fused_ms, 4),
+                "overlap_step_ms": round(rep_o.fused_ms, 4),
+                "sync_exposed_ms_fused": round(rep_f.sync_exposed_ms, 4),
+                "sync_exposed_ms_overlap": round(rep_o.sync_exposed_ms, 4),
+                "parity_ok": bool(rep_f.parity_ok and rep_o.parity_ok),
+            }
+        )
+
+
+def _phase_report(batch: int, *, model: str = "resnet18", sync: str = "auto",
+                  grad_compress: str = "none", compute_dtype: str = "bfloat16",
+                  sync_overlap: str = "off", iters: int = 3, device: str = "cuda"):
+    """Build a trainer of the given configuration and run the phase
+    profiler on it: ``(PhaseReport, world size)``; shared by
+    ``--phase-breakdown`` and ``--sync-compare``."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.phases import profile_phases
+
+    with headline_trainer(batch, device, model=model, sync=sync, grad_compress=grad_compress,
+                          compute_dtype=compute_dtype, sync_overlap=sync_overlap) as (tr, x, y):
+        return profile_phases(tr, x, y, iters=iters), tr.world_size
+
+
+def phase_breakdown(sink, batch: int = GLOBAL_BATCH, *, model: str = "resnet18",
+                    sync: str = "auto", grad_compress: str = "none",
+                    compute_dtype: str = "bfloat16", sync_overlap: str = "off", iters: int = 3,
+                    metrics_dir: str | None = None, device: str = "cuda") -> bool:
+    """The phase profiler's mode (the JAX ``phase_breakdown``): its
+    ``kind="phase"`` and ``"phase_summary"`` records, then a ``kind:
+    "bench"`` line whose ``value`` is the fused step's samples/s per card;
+    the table to stderr; the records to ``metrics_dir/phase_report.json``.
+    Returns ``parity_ok``: the attribution of a step that computes
+    something else is not a benchmark."""
+    report, n_chips = _phase_report(batch, model=model, sync=sync, grad_compress=grad_compress,
+                                    compute_dtype=compute_dtype, sync_overlap=sync_overlap,
+                                    iters=iters, device=device)
+    now = time.time()
+    for rec in report.records(run=f"bench_{model}"):
+        sink.emit({**rec, "time": now})
+    sink.emit(
+        {
+            "kind": "bench",
+            "time": now,
+            "metric": f"cifar10_{model}_phase_breakdown",
+            "value": round(batch / (report.fused_ms / 1e3) / n_chips, 1),
+            "unit": "samples/sec/chip",
+            "batch": batch,
+            "sync_overlap": sync_overlap,
+            "sync_exposed_ms": round(report.sync_exposed_ms, 4),
+            "parity_ok": report.parity_ok,
+        }
+    )
+    print(report.table(), file=sys.stderr)
+    if metrics_dir:
+        with open(os.path.join(metrics_dir, "phase_report.json"), "w") as f:
+            json.dump(report.records(run=f"bench_{model}"), f, indent=1)
+    return report.parity_ok
+
+
 def _parse_args(argv: list[str] | None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="cs744-torch-bench",
-        description="CIFAR-10 ResNet-18 training samples/s per card (the headline)",
+        description="CIFAR-10 ResNet-18 training samples/s per card (the headline), its phase "
+                    "breakdown and its sync wires",
     )
+    p.add_argument("--sync-compare", action="store_true",
+                   help="report samples/s per card and gradient bytes on the wire a step for "
+                        "f32 per-tensor / f32 bucketed / int8 bucketed / zero1 sync instead of "
+                        "the headline")
+    p.add_argument("--phase-breakdown", action="store_true",
+                   help="per-phase (forward/backward/grad-sync/optimizer) device time, flops, "
+                        "bytes, MFU, roofline class and sync_exposed_ms, the segmented step "
+                        "checked against the fused one")
+    p.add_argument("--batch", type=int, default=GLOBAL_BATCH,
+                   help="global batch size for --phase-breakdown (default %(default)s)")
+    p.add_argument("--model", default="resnet18",
+                   help="model for --phase-breakdown (default %(default)s)")
+    p.add_argument("--sync", default="auto",
+                   help="sync strategy for --phase-breakdown (default %(default)s)")
+    p.add_argument("--grad-compress", default="none", choices=("none", "int8"),
+                   help="gradient compression for --phase-breakdown")
+    p.add_argument("--sync-overlap", default="off", choices=("off", "bucket", "bucket+int8"),
+                   help="overlapped bucket sync schedule for --phase-breakdown ('bucket' needs "
+                        "--grad-compress none, 'bucket+int8' needs --grad-compress int8)")
+    p.add_argument("--compute-dtype", default="bfloat16",
+                   help="compute dtype for --phase-breakdown (default %(default)s; float32 "
+                        "keeps the parity check at the strict f32 tolerance)")
+    p.add_argument("--phase-iters", type=int, default=3,
+                   help="timed iterations per segment for --phase-breakdown")
     p.add_argument("--metrics-dir", default=None,
-                   help="also append the bench record to DIR/metrics.jsonl")
+                   help="also append the result records to DIR/metrics.jsonl")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    p.add_argument("--sync-compare", action="store_true", help="not yet ported")
-    p.add_argument("--phase-breakdown", action="store_true", help="not yet ported")
     p.add_argument("--serve", nargs=argparse.REMAINDER, default=None, help="not yet ported")
     return p.parse_args(argv)
 
@@ -178,6 +329,17 @@ def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     sink = _make_sink(args.metrics_dir)
     try:
+        if args.phase_breakdown:
+            ok = phase_breakdown(
+                sink, args.batch, model=args.model, sync=args.sync,
+                grad_compress=args.grad_compress, compute_dtype=args.compute_dtype,
+                sync_overlap=args.sync_overlap, iters=args.phase_iters,
+                metrics_dir=args.metrics_dir, device=args.device,
+            )
+            return 0 if ok else 1
+        if args.sync_compare:
+            sync_compare(sink, device=args.device)
+            return 0
         record, measured = run_headline(args.device)
         for batch, m in measured.items():
             log.info("bench: batch %d, %.1f samples/s, peak memory %s bytes",

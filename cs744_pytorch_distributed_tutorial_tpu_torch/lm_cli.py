@@ -33,10 +33,23 @@ capacity slots) and generates:
         --compute-dtype bfloat16 --steps 0 --seq-len 128 --num-seqs 16 \
         --generate 128 --prompt-len 128 --generate-batch 16 --temperature 0 --json
 
+The run loop (``LMTrainer.fit``) checkpoints and resumes exactly
+(``--checkpoint-dir``, ``--checkpoint-every``), keeps in-memory snapshots
+(``--snapshot-every``, ``--snapshot-keep``), streams metrics
+(``--metrics-dir``, ``--metrics-every``) and, with ``--max-restarts``,
+restarts from the newest recoverable state after a NaN or a hang:
+
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.lm_cli ... \
+        --checkpoint-dir /tmp/ck --checkpoint-every 20 --metrics-dir /tmp/m \
+        --max-restarts 1 --profile-dir /tmp/trace
+
 The flags are the JAX package's (``lm_cli.py``), with its names and
 defaults, for the options the port runs, plus ``--device`` (``cuda``,
-the default, or ``cpu``) and ``--generate-batch`` (prompts are the
-leading training sequences' prefixes; the JAX CLI takes one). Other
+the default, or ``cpu``), ``--generate-batch`` (prompts are the
+leading training sequences' prefixes; the JAX CLI takes one) and the
+JAX CIFAR CLI's ``--step-timeout-s``, ``--profile-dir``,
+``--profile-start-step`` and ``--profile-num-steps`` for the LMConfig
+fields of those names (their defaults are LMConfig's). Other
 flags of the JAX CLI are not accepted; ``--moe-expert-parallel``, ``--beam`` and
 ``--speculative-k`` exit with "not yet ported". The stdout lines and the ``--json`` summary
 keys are the JAX CLI's, plus ``generation`` (batch, times and every
@@ -116,6 +129,34 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_false", default=True)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=20)
+    p.add_argument("--metrics-dir", default=None,
+                   help="write manifest.json + per-step metrics.jsonl here (obs/)")
+    p.add_argument("--metrics-every", type=int, default=None,
+                   help="metric emission cadence in steps (default 1; the LM loop fetches "
+                        "every step already)")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help="keep in-memory state snapshots every N steps (utils/memstore.py): "
+                        "restart recovery with no file read (0 disables)")
+    p.add_argument("--snapshot-keep", type=int, default=2,
+                   help="in-memory snapshots retained (default 2)")
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help="restart from the newest recoverable state on detected training "
+                        "failures (needs --checkpoint-dir or --snapshot-every)")
+    p.add_argument("--restart-backoff-s", type=float, default=0.0,
+                   help="exponential backoff base between restarts (attempt n sleeps "
+                        "backoff * 2^(n-1), capped 60s)")
+    p.add_argument("--restart-jitter", choices=("none", "decorrelated"), default="none",
+                   help="decorrelate restart backoff across ranks (seeded per "
+                        "process/generation)")
+    p.add_argument("--step-timeout-s", type=float, default=None,
+                   help="arm the hang watchdog around each step after the first")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a profiler trace of steps [--profile-start-step, "
+                        "+ --profile-num-steps) here")
+    p.add_argument("--profile-start-step", type=int, default=2)
+    p.add_argument("--profile-num-steps", type=int, default=3)
     # data
     p.add_argument("--text-file", default=None,
                    help="byte-level corpus from a local file (vocab 256); "
@@ -271,12 +312,34 @@ def main(argv: list[str] | None = None) -> int:
         label_smoothing=args.label_smoothing,
         seed=args.seed,
         halt_on_nonfinite=args.halt_on_nonfinite,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
+        snapshot_every=args.snapshot_every,
+        snapshot_keep=args.snapshot_keep,
+        step_timeout_s=args.step_timeout_s,
+        metrics_dir=args.metrics_dir,
+        metrics_every=1 if args.metrics_every is None else args.metrics_every,
+        profile_dir=args.profile_dir,
+        profile_start_step=args.profile_start_step,
+        profile_num_steps=args.profile_num_steps,
         device=args.device,
     )
     eval_tokens, tokens = _split_eval(args.eval_frac, tokens, cfg.global_batch_size)
 
     trainer = LMTrainer(cfg)
-    _, _, losses = trainer.fit(tokens, steps=args.steps)
+    restarts = 0
+    if args.max_restarts > 0:
+        from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import run_with_recovery
+
+        _, _, losses, restarts = run_with_recovery(
+            trainer, max_restarts=args.max_restarts, backoff_s=args.restart_backoff_s,
+            backoff_jitter=args.restart_jitter, jitter_seed=args.seed, fit_args=(tokens,),
+            fit_kwargs={"steps": args.steps},
+        )
+        if restarts:
+            print(f"recovered after {restarts} restart(s)")
+    else:
+        _, _, losses = trainer.fit(tokens, steps=args.steps)
     moe = ({key: trainer.history[key] for key in ("moe_aux", "moe_drop", "moe_load_entropy")}
            if args.moe_experts > 0 and losses else None)
     for i, loss in enumerate(losses):

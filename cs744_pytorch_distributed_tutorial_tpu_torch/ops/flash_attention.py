@@ -50,6 +50,7 @@ import ctypes
 
 import torch
 
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _cost
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
 
 SOURCE = "flash_attention.cu"
@@ -254,6 +255,15 @@ def _launch(kernel: str, fn_args: list, q: torch.Tensor, strides, causal: bool,
         err = load_kernel()[kernel](*fn_args, strides, b, t, h, d, int(causal),
                                     int(q.dtype == torch.bfloat16), stream)
     _launches[(kernel, q.dtype, route)] += 1
+    # Products: the scores and P V (fwd); + dP and dQ (dq); + dV and dK
+    # (dkv): 2 FLOPs a multiply-add each, half under the causal mask.
+    # Bytes: q, k, v (+ do) read and the outputs written once, with the
+    # fp32 row statistics.
+    n, rows = b * t * h * d, b * h * t
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
+    tensors, stats = {"fwd": (4, 1), "dq": (5, 2), "dkv": (6, 2)}[kernel]
+    _cost.add(2.0 * products * b * h * t * t * d * (0.5 if causal else 1.0),
+              tensors * n * q.element_size() + 4.0 * stats * rows)
     if err:
         raise RuntimeError(f"flash attention {kernel} ({route}) launch failed: CUDA error {err}")
 

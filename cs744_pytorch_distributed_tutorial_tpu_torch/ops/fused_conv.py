@@ -48,6 +48,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _cost
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
 
 SOURCE = "fused_conv.cu"
@@ -245,6 +246,10 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int = 1) -> torch.Te
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = kernel(*args, b, c, h, w, k, stride, int(bf16), splits, stream)
     _launches[(stride, x.dtype, route)] += 1
+    # The 9 taps' products over every output pixel; x and g read once, the
+    # fp32 [K, C, 3, 3] result written once.
+    _cost.add(2.0 * b * ho * wo * c * k * 9,
+              x.numel() * x.element_size() + g.numel() * g.element_size() + 36.0 * k * c)
     if err:
         raise RuntimeError(f"conv3x3_wgrad {route} launch failed: CUDA error {err}")
     return out

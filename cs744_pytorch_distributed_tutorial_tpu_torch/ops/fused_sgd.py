@@ -35,6 +35,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _cost
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
 
 SOURCE = "fused_sgd.cu"
@@ -139,6 +140,8 @@ def fused_sgd_multi_(
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernel(table.ctypes.data, len(params), lr, mu, wd, stream, ctypes.byref(launches))
     _launches += launches.value
+    # p, m and g read and p, m written, fp32; no matrix product.
+    _cost.add(0.0, 20.0 * sum(p.numel() for p in params))
     if err:
         raise RuntimeError(f"fused_sgd_multi_f32 launch failed: CUDA error {err}")
 

@@ -27,6 +27,7 @@ import ctypes
 
 import torch
 
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _cost
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
 
 SOURCE = "fused_xent.cu"
@@ -128,6 +129,10 @@ def _launch(kernel: str, args: list, logits: torch.Tensor) -> None:
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     err = load_kernel()[kernel](*args, n, v, int(logits.dtype == torch.bfloat16), stream)
     _launches[(kernel, logits.dtype)] += 1
+    # The logits read once (and, backward, their gradient written once),
+    # the int64 labels and two fp32 row vectors; no matrix product.
+    passes = 1 if kernel == "fwd" else 2
+    _cost.add(0.0, passes * n * v * logits.element_size() + 16.0 * n)
     if err:
         raise RuntimeError(f"fused_xent {kernel} launch failed: CUDA error {err}")
 

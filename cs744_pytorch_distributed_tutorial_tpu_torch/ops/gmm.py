@@ -68,6 +68,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _cost
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
 
 SOURCE = "gmm.cu"
@@ -308,12 +309,20 @@ def _check(lhs, rhs, bias, group_sizes, activation, out_dtype) -> None:
     _check_groups(group_sizes, rhs.shape[0], lhs, rhs, bias)
 
 
-def _launch(kernel: str, name: str, lhs_dtype: torch.dtype, device, *args) -> None:
+def _launch(kernel: str, name: str, lhs_dtype: torch.dtype, device, *args,
+            cost: tuple[float, float]) -> None:
+    """``cost``: the call's (FLOPs of its products, bytes read and
+    written once), for ``_cost``."""
     stream = torch.cuda.current_stream(device).cuda_stream
     err = load_kernel()[kernel](*args, stream)
     _launches[(name, lhs_dtype)] += 1
+    _cost.add(*cost)
     if err:
         raise RuntimeError(f"gmm {name} launch failed: CUDA error {err}")
+
+
+def _nbytes(*tensors: torch.Tensor) -> float:
+    return float(sum(t.numel() * t.element_size() for t in tensors))
 
 
 def _sizes(group_sizes: torch.Tensor) -> torch.Tensor:
@@ -338,11 +347,12 @@ def _fused(lhs, rhs, bias, group_sizes, activation, out_dtype, with_z):
     ptrs = (lhs.data_ptr(), rhs.data_ptr(), bias.data_ptr(), gs.data_ptr(), out.data_ptr(),
             z.data_ptr() if with_z else None, m, k, n, e, int(activation == "gelu"))
     out_bf16 = int(out_dtype == torch.bfloat16)
+    cost = (2.0 * m * k * n, _nbytes(lhs, rhs, bias, gs) + (1 + with_z) * _nbytes(out))
     if fused_tc_route(lhs.dtype, (m, k, n), _aligned(lhs, rhs)):
-        _launch("fused_tc", name + "_tc", lhs.dtype, lhs.device, *ptrs, out_bf16)
+        _launch("fused_tc", name + "_tc", lhs.dtype, lhs.device, *ptrs, out_bf16, cost=cost)
     else:
         _launch("fused", name, lhs.dtype, lhs.device, *ptrs, int(lhs.dtype == torch.bfloat16),
-                out_bf16)
+                out_bf16, cost=cost)
     return out, z
 
 
@@ -377,7 +387,8 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
     if pieces:
         a = lhs if pieces == 1 else (split if split is not None else split_bf16(lhs))
         _launch("gmm_tc", "gmm_tc", lhs.dtype, lhs.device, a.data_ptr(), rhs.data_ptr(),
-                gs.data_ptr(), out.data_ptr(), m, k, n, e, pieces, int(not trans_rhs))
+                gs.data_ptr(), out.data_ptr(), m, k, n, e, pieces, int(not trans_rhs),
+                cost=(2.0 * m * k * n, _nbytes(lhs, rhs, gs, out)))
     else:
         _gmm_ffma(lhs.float() if trans_rhs else lhs, rhs, gs, out, trans_rhs)
     return out
@@ -389,7 +400,8 @@ def _gmm_ffma(lhs, rhs, gs, out, trans_rhs: bool) -> None:
     (m, k), e, n = lhs.shape, rhs.shape[0], out.shape[1]
     _launch("gmm", "gmm", lhs.dtype, lhs.device, lhs.data_ptr(), rhs.data_ptr(), gs.data_ptr(),
             out.data_ptr(), m, k, n, e, int(lhs.dtype == torch.bfloat16),
-            int(rhs.dtype == torch.bfloat16), int(trans_rhs))
+            int(rhs.dtype == torch.bfloat16), int(trans_rhs),
+            cost=(2.0 * m * k * n, _nbytes(lhs, rhs, gs, out)))
 
 
 def tgmm(lhs: torch.Tensor, dout: torch.Tensor, group_sizes: torch.Tensor, *,
@@ -416,7 +428,8 @@ def tgmm(lhs: torch.Tensor, dout: torch.Tensor, group_sizes: torch.Tensor, *,
     if pieces:
         b = dout if pieces == 1 else (split if split is not None else split_bf16(dout))
         _launch("tgmm_tc", "tgmm_tc", lhs.dtype, lhs.device, lhs.data_ptr(), b.data_ptr(),
-                gs.data_ptr(), out.data_ptr(), m, k, n, e, pieces)
+                gs.data_ptr(), out.data_ptr(), m, k, n, e, pieces,
+                cost=(2.0 * m * k * n, _nbytes(lhs, dout, gs, out)))
     else:
         _tgmm_ffma(lhs, dout.float(), gs, out)
     return out
@@ -427,7 +440,8 @@ def _tgmm_ffma(lhs, dout, gs, out) -> None:
     fp32 dout, gs int32)."""
     (m, k), n, e = lhs.shape, dout.shape[1], gs.shape[0]
     _launch("tgmm", "tgmm", lhs.dtype, lhs.device, lhs.data_ptr(), dout.data_ptr(),
-            gs.data_ptr(), out.data_ptr(), m, k, n, e, int(lhs.dtype == torch.bfloat16))
+            gs.data_ptr(), out.data_ptr(), m, k, n, e, int(lhs.dtype == torch.bfloat16),
+            cost=(2.0 * m * k * n, _nbytes(lhs, dout, gs, out)))
 
 
 def split_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -441,7 +455,8 @@ def split_bf16(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
     if x.numel():
-        _launch("split", "split", x.dtype, x.device, x.data_ptr(), out.data_ptr(), x.numel())
+        _launch("split", "split", x.dtype, x.device, x.data_ptr(), out.data_ptr(), x.numel(),
+                cost=(0.0, _nbytes(x, out)))
     return out
 
 
@@ -468,7 +483,7 @@ def segment_sum_rows(dout: torch.Tensor, group_sizes: torch.Tensor) -> torch.Ten
     out = torch.empty((e, n), dtype=torch.float32, device=dout.device)
     if n:
         _launch("colsum", "colsum", dout.dtype, dout.device, dout.data_ptr(), gs.data_ptr(),
-                out.data_ptr(), m, n, e)
+                out.data_ptr(), m, n, e, cost=(0.0, _nbytes(dout, gs, out)))
     return out
 
 

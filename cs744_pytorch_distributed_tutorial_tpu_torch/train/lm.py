@@ -22,9 +22,21 @@ moe_aux_coef * sum of the layers' Switch aux losses`` (JAX
 returns ``moe_aux`` (the sum over layers), ``moe_drop`` and
 ``moe_load_entropy`` (each the mean over layers).
 
-``fit`` follows the JAX batch plan (batch k starts at sequence
-``(k * B) % max(N - B + 1, 1)``), records every step metric in
-``history`` and stops on a non-finite loss.
+``fit`` is the JAX ``LMTrainer.fit`` run loop: the JAX batch plan (batch
+k starts at sequence ``(k * B) % max(N - B + 1, 1)``, a pure function of
+k, so a restored run replays the same remaining plan), every step metric
+in ``history``, and the two recovery tiers (disk checkpoints,
+``utils/checkpoint.py``, every ``checkpoint_every`` steps; host-RAM
+snapshots, ``utils/memstore.py``, every ``snapshot_every``), the newer
+restored at entry (memory on a tie) behind the divergence-safe
+pending/certify gate; the metric stream and run manifest
+(``obs/metrics.py``, every ``metrics_every`` steps), the flight recorder
+(``obs/flight.py``), the step watchdog (``step_timeout_s``, the first
+step exempt), a profiler window (``profile_dir``, steps
+``[profile_start_step, + profile_num_steps)``) and the non-finite halt.
+``capture_state``/``restore_state`` carry the parameters, the
+optimizer's moments and count, and the step, copied into the live
+tensors.
 
 For generation and serving, ``decode_model`` and
 ``quantized_decode_model`` build a decode copy of the model (dense
@@ -39,8 +51,10 @@ Options of later slices raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import time
 from typing import Any
 
 import numpy as np
@@ -61,12 +75,10 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import (
     check_recipe,
     make_lm_optimizer,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import NonFiniteLossError
+from cs744_pytorch_distributed_tutorial_tpu_torch.utils.memstore import ReplicatedSnapshot
 
-
-class NonFiniteLossError(RuntimeError):
-    def __init__(self, step: int, loss: float):
-        super().__init__(f"non-finite loss {loss} at step {step}")
-        self.step, self.loss = step, loss
+__all__ = ["LMConfig", "LMTrainer", "NonFiniteLossError"]
 
 
 @dataclasses.dataclass
@@ -114,7 +126,25 @@ class LMConfig:
     momentum: float = 0.9  # adamw b1; sgd momentum
     weight_decay: float = 1e-4
     label_smoothing: float = 0.0
+    # The run loop (fit), with the JAX LMConfig's names and defaults:
+    # checkpoints every checkpoint_every steps (0: only at the end) when
+    # checkpoint_dir is set; host-RAM snapshots every snapshot_every
+    # steps (0: off), snapshot_keep kept; NaN/inf losses raise
+    # NonFiniteLossError; step_timeout_s arms the hang watchdog around
+    # each step after the first; metrics_dir writes manifest.json and
+    # metrics.jsonl every metrics_every steps; profile_dir traces steps
+    # [profile_start_step, + profile_num_steps).
     halt_on_nonfinite: bool = True
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 0
+    snapshot_every: int = 0
+    snapshot_keep: int = 2
+    step_timeout_s: float | None = None
+    metrics_dir: str | None = None
+    metrics_every: int = 1
+    profile_dir: str | None = None
+    profile_start_step: int = 2
+    profile_num_steps: int = 3
 
     # Options of later slices, accepted only at their "off" value.
     data_parallel: int = 1
@@ -129,11 +159,6 @@ class LMConfig:
     scan_layers: bool = False
     dropout_rate: float = 0.0
     accum_steps: int = 1
-    checkpoint_dir: str | None = None
-    snapshot_every: int = 0
-    step_timeout_s: float | None = None
-    metrics_dir: str | None = None
-    profile_dir: str | None = None
 
     # "cuda" (default) or "cpu".
     device: str = "cuda"
@@ -144,8 +169,7 @@ class LMConfig:
 
 _LATER_FIELDS = (
     "data_parallel", "seq_parallel", "tensor_parallel", "moe_expert_parallel", "grad_compress", "sync_overlap", "remat", "zero1", "fsdp", "scan_layers", "dropout_rate",
-    "accum_steps", "checkpoint_dir", "snapshot_every", "step_timeout_s", "metrics_dir",
-    "profile_dir",
+    "accum_steps",
 )
 
 
@@ -175,15 +199,21 @@ def _global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 
 class LMTrainer:
     """``TransformerLM`` training on one device: ``init``, ``split_batch``,
-    ``train_step``, ``eval_step``, ``evaluate`` and ``fit``."""
+    ``train_step``, ``eval_step``, ``evaluate`` and ``fit``. ``memstore``
+    is the in-memory snapshot tier; without one, ``cfg.snapshot_every``
+    builds it."""
 
-    def __init__(self, cfg: LMConfig):
+    def __init__(self, cfg: LMConfig, memstore: ReplicatedSnapshot | None = None):
         _check_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.dtype = resolve_dtype(cfg.compute_dtype)
+        if memstore is None and cfg.snapshot_every:
+            memstore = ReplicatedSnapshot(max_to_keep=cfg.snapshot_keep)
+        self.memstore = memstore
         self.model: TransformerLM | None = None
         self.optimizer = None
+        self.step = 0
 
     def init(self, seed: int | None = None, state_dict: dict | None = None):
         """Build the model (parameters from ``seed``, default
@@ -197,6 +227,7 @@ class LMTrainer:
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.optimizer = make_lm_optimizer(self.cfg, list(self.model.parameters()))
+        self.step = 0
         return self.model, self.optimizer
 
     def _model_kw(self) -> dict:
@@ -301,21 +332,61 @@ class LMTrainer:
             "moe_load_entropy": torch.stack([m.load_entropy for m in layers]).mean(),
         }
 
-    def train_step(self, inputs: torch.Tensor, targets: torch.Tensor) -> dict[str, torch.Tensor]:
-        params = list(self.model.parameters())
-        for p in params:
-            p.grad = None
+    def objective(self, inputs: torch.Tensor, targets: torch.Tensor
+                  ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """The training loss (cross-entropy, label-smoothed or through the
+        fused kernels, plus ``moe_aux_coef`` times the MoE aux loss) and
+        the MoE statistics of its forward (empty for a dense model)."""
         loss = self._loss(inputs, targets, self.cfg.label_smoothing, fused=self.cfg.fused_xent)
         moe = self._moe_stats() if self.cfg.moe_experts > 0 else {}
         if moe:
             loss = loss + self.cfg.moe_aux_coef * moe["moe_aux"]
+        return loss, moe
+
+    def train_step(self, inputs: torch.Tensor, targets: torch.Tensor) -> dict[str, torch.Tensor]:
+        params = list(self.model.parameters())
+        for p in params:
+            p.grad = None
+        loss, moe = self.objective(inputs, targets)
         loss.backward()
         grad_norm = _global_norm([p.grad for p in params])
         self.optimizer.step()
+        self.step += 1
         with torch.no_grad():
             param_norm = _global_norm(params)
         return {"loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm,
                 **{k: v.detach() for k, v in moe.items()}}
+
+    @torch.no_grad()
+    def capture_state(self, *, clone: bool = False) -> dict[str, Any]:
+        """Everything a bitwise resume needs (the checkpoint's and the
+        snapshot's content): the step, the parameters, the optimizer's
+        first moments (``momentum``), AdamW's second moments and the
+        update count. ``clone`` copies the tensors on their device."""
+        take = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
+        opt = self.optimizer
+        return {
+            "step": int(self.step),
+            "world_size": 1,
+            "params": [take(p) for p in opt.params],
+            "momentum": [take(m) for m in opt.momentum],
+            "opt_nu": [take(v) for v in opt.tx.nu],
+            "opt_count": int(opt.tx.count),
+        }
+
+    @torch.no_grad()
+    def restore_state(self, state: dict[str, Any]) -> None:
+        """Load ``capture_state``'s dict by copying into the live tensors."""
+        opt = self.optimizer
+        for key, live in (("params", opt.params), ("momentum", opt.momentum),
+                          ("opt_nu", opt.tx.nu)):
+            saved = state[key]
+            if len(live) != len(saved) or any(a.shape != b.shape for a, b in zip(live, saved)):
+                raise ValueError(f"saved {key} do not match this trainer's configuration")
+            for dst, src in zip(live, saved):
+                dst.copy_(src)
+        opt.tx.count = int(state["opt_count"])
+        self.step = int(state["step"])
 
     @torch.no_grad()
     def eval_step(self, inputs: torch.Tensor, targets: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -338,24 +409,192 @@ class LMTrainer:
         mean_loss = total / n_batches
         return {"loss": mean_loss, "perplexity": math.exp(mean_loss)}
 
+    def _telemetry(self) -> tuple[Any, int]:
+        """The run's Telemetry (manifest written) and its analytic
+        data-parallel wire bytes a step (0 on one device)."""
+        from cs744_pytorch_distributed_tutorial_tpu_torch.obs.flops import (
+            transformer_train_flops_per_token,
+        )
+        from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import Telemetry
+        from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import sync_wire_bytes
+
+        cfg = self.cfg
+        n_params = sum(p.numel() for p in self.optimizer.params)
+        wire_bytes = sync_wire_bytes(self.optimizer.params, "allreduce", cfg.data_parallel,
+                                     cfg.grad_compress)
+        on_card = self.device.type == "cuda"
+        telemetry = Telemetry(
+            cfg.metrics_dir, every=cfg.metrics_every, run="lm",
+            flops_per_step=(transformer_train_flops_per_token(n_params)
+                            * cfg.global_batch_size * cfg.seq_len),
+            n_chips=1, device_kind=torch.cuda.get_device_name(self.device) if on_card else "cpu",
+            device=self.device,
+        )
+        telemetry.write_manifest(config=cfg, n_params=n_params, grad_sync_bytes_per_step=wire_bytes)
+        return telemetry, wire_bytes
+
     def fit(self, tokens, steps: int):
-        """Train ``steps`` steps from a fresh ``init()`` over batches of
-        ``tokens`` [N, seq_len + 1]; returns ``(model, optimizer,
-        losses)``. ``self.history`` holds every step's metrics."""
+        """Train until ``steps`` steps have run, over batches of ``tokens``
+        [N, seq_len + 1], from a fresh ``init()`` or from the newest
+        recoverable state (the in-memory snapshot when it is at least as
+        new as the newest checkpoint); returns ``(model, optimizer,
+        losses)``, the losses of the steps this call ran.
+        ``self.history`` holds their metrics.
+
+        The JAX ``LMTrainer.fit``, step for step: every loss is fetched
+        (the non-finite check and the step records ride that fetch); a
+        due checkpoint or snapshot is held, under ``halt_on_nonfinite``,
+        until the next finite loss (the forward over its parameters)
+        certifies it, and the final state is certified by one eval
+        forward before the last save; the watchdog spares the first step,
+        which builds the kernels."""
+        from cs744_pytorch_distributed_tutorial_tpu_torch.obs.flight import (
+            FlightRecorder,
+            HbmHighWater,
+            StragglerMonitor,
+        )
+        from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import make_schedule
+        from cs744_pytorch_distributed_tutorial_tpu_torch.utils import profiling
+        from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import Checkpointer
+        from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import StepWatchdog
+
         cfg = self.cfg
         model, optimizer = self.init()
+        mem = self.memstore
+        ckpt = Checkpointer(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
+        mem_step = mem.latest_step() if mem is not None else None
+        disk_step = ckpt.latest_step() if ckpt is not None else None
+        restored = source = None
+        if mem_step is not None and (disk_step is None or disk_step <= mem_step):
+            restored, source = mem.restore_latest(), "memory"
+        elif disk_step is not None:
+            restored, source = ckpt.restore_latest(), "disk"
+        if restored is not None:
+            self.restore_state(restored)
+        start_step = self.step
         losses: list[float] = []
         self.history: dict[str, list[float]] = {"loss": losses}
         n, b = len(tokens), cfg.global_batch_size
-        for step in range(steps):
-            lo = (step * b) % max(n - b + 1, 1)
-            x, y = self.split_batch(tokens[lo : lo + b])
-            m = self.train_step(x, y)
-            loss = float(m["loss"])
-            if cfg.halt_on_nonfinite and not math.isfinite(loss):
-                raise NonFiniteLossError(step, loss)
-            losses.append(loss)
-            for key, value in m.items():
-                if key != "loss":
-                    self.history.setdefault(key, []).append(float(value))
+
+        telemetry, wire_bytes = self._telemetry()
+        if source is not None:
+            telemetry.emit_event("restore", source=source, step=start_step)
+        lr_at = make_schedule(cfg)
+        straggler = StragglerMonitor()
+        flight = FlightRecorder(telemetry=telemetry, straggler=straggler,
+                                hbm=HbmHighWater([self.device] if self.device.type == "cuda"
+                                                 else []))
+        flight.install()
+        watchdog = None
+        if cfg.step_timeout_s:
+            watchdog = StepWatchdog(cfg.step_timeout_s, metric_ring=telemetry.ring,
+                                    flight_recorder=flight)
+        capture: profiling.Trace | None = None
+
+        def stop_profile() -> None:
+            nonlocal capture
+            if capture is not None:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                capture.stop()
+                capture = None
+
+        # Divergence-safe saves: the loss fetched at step k is the forward
+        # over the parameters the previous update made, so a due state is
+        # held as (state cloned on the device, to disk, to memory) and
+        # persisted once a later finite loss certifies it.
+        pending: tuple[dict, bool, bool] | None = None
+        x = y = None
+        prev_mono = None  # per-step wall clock for the straggler ring
+        step = start_step
+        try:
+            for step in range(start_step, steps):
+                lo = (step * b) % max(n - b + 1, 1)
+                fetch_ctx = (profiling.annotate("input_fetch") if capture is not None
+                             else contextlib.nullcontext())
+                with fetch_ctx:
+                    x, y = self.split_batch(tokens[lo : lo + b])
+                if (cfg.profile_dir and capture is None and cfg.profile_start_step
+                        <= step < cfg.profile_start_step + cfg.profile_num_steps):
+                    capture = profiling.Trace(cfg.profile_dir)
+                    capture.start()
+                arm_now = watchdog is not None and step > start_step
+                if arm_now:
+                    watchdog.arm()
+                step_ctx = (profiling.step_annotation("lm", step) if capture is not None
+                            else contextlib.nullcontext())
+                try:
+                    with step_ctx:
+                        m = self.train_step(x, y)
+                        self.step = step + 1
+                        # (wall, mono) around the blocking fetch, as the
+                        # JAX loop records them.
+                        sync_enter_wall, sync_enter_mono = time.time(), time.monotonic()
+                        loss = float(m["loss"])
+                        sync_exit_wall, sync_exit_mono = time.time(), time.monotonic()
+                finally:
+                    if arm_now:
+                        watchdog.disarm()
+                now_mono = time.monotonic()
+                if prev_mono is not None:
+                    outlier = straggler.record(step, now_mono - prev_mono)
+                    if outlier is not None:
+                        telemetry.emit_event("straggler", **outlier)
+                prev_mono = now_mono
+                if capture is not None and step + 1 >= cfg.profile_start_step + cfg.profile_num_steps:
+                    stop_profile()
+                if cfg.halt_on_nonfinite and not math.isfinite(loss):
+                    telemetry.emit_event("non_finite_loss", step=step, loss=loss)
+                    raise NonFiniteLossError(step, loss)
+                if pending is not None:  # this finite loss certifies it
+                    pstate, to_disk, to_mem = pending
+                    if to_disk:
+                        ckpt.save(pstate)
+                    if to_mem:
+                        mem.save(pstate)
+                    pending = None
+                losses.append(loss)
+                fields = {key: float(value) for key, value in m.items() if key != "loss"}
+                for key, value in fields.items():
+                    self.history.setdefault(key, []).append(value)
+                if telemetry.due(step):
+                    telemetry.emit_step(
+                        step, loss=loss, lr=float(lr_at(step)), grad_sync_bytes=wire_bytes,
+                        sync_enter_wall=sync_enter_wall, sync_enter_mono=sync_enter_mono,
+                        sync_exit_wall=sync_exit_wall, sync_exit_mono=sync_exit_mono, **fields,
+                    )
+                ckpt_due = bool(ckpt and cfg.checkpoint_every
+                                and (step + 1) % cfg.checkpoint_every == 0)
+                snap_due = bool(mem is not None and cfg.snapshot_every
+                                and (step + 1) % cfg.snapshot_every == 0)
+                if ckpt_due or snap_due:
+                    if cfg.halt_on_nonfinite:
+                        pending = (self.capture_state(clone=True), ckpt_due, snap_due)
+                    else:
+                        if ckpt_due:
+                            ckpt.save(self.capture_state())
+                        if snap_due:
+                            mem.save(self.capture_state())
+            if ckpt is not None or mem is not None:
+                if cfg.halt_on_nonfinite and steps > start_step:
+                    # Certify the final parameters with one eval forward
+                    # (no later train step will).
+                    f_loss = float(self.eval_step(x, y)["loss"])
+                    if not math.isfinite(f_loss):
+                        raise NonFiniteLossError(steps, f_loss)
+                if ckpt is not None:
+                    ckpt.save(self.capture_state(), force=True)
+                if mem is not None:
+                    mem.save(self.capture_state())
+        except BaseException as e:
+            flight.dump("exception", error=repr(e), step=step)
+            raise
+        finally:
+            stop_profile()
+            flight.uninstall()
+            if watchdog is not None:
+                watchdog.close()
+            if ckpt is not None:
+                ckpt.close()
+            telemetry.close()
         return model, optimizer, losses

@@ -380,8 +380,9 @@ def run_with_recovery(
     ``recovery_complete`` / ``recovery_giveup`` at the end.
 
     Works with a trainer whose ``fit`` restores from those tiers (the
-    CIFAR ``Trainer``: ``fit()`` -> ``(state, history)``); returns
-    ``fit``'s tuple with ``restarts`` appended.
+    CIFAR ``Trainer``: ``fit()`` -> ``(state, history)``; the
+    ``LMTrainer``: ``fit(tokens, steps)`` -> ``(model, optimizer,
+    losses)``); returns ``fit``'s tuple with ``restarts`` appended.
     """
     log = get_logger()
     if not (

@@ -5,7 +5,8 @@ batch 10 (``master/part1/part1.py:39-44``), which on an asynchronous
 device measure the launches, not the work. Here: ``torch.profiler``
 traces over CPU and CUDA activity, written as Chrome traces (viewable in
 ``chrome://tracing`` or ui.perfetto.dev), plus named regions that show
-on them.
+on them; ``device_op_breakdown``, the device time of a function by
+kernel.
 """
 
 from __future__ import annotations
@@ -72,3 +73,20 @@ def annotate(name: str):
 def step_annotation(name: str, step: int):
     """A step marker: the region ``<name>#<step>``."""
     return record_function(f"{name}#{step}")
+
+
+def device_op_breakdown(fn, *args, iters: int = 3, top: int = 20, trace_dir: str | None = None):
+    """Run ``fn(*args)`` ``iters`` times under a profiler trace and return
+    its per-op device time: ``(total_ms, [(ms_per_iter, op_name), ...])``,
+    the device events summed by name and averaged over ``iters``, sorted
+    descending; ``total_ms`` is their interval union per iteration (NCCL's
+    stream and the compute stream overlap). One warm-up call runs outside
+    the trace; ``torch.cuda.synchronize()`` fences the timed calls. On the
+    CPU there are no device lanes: ``(0.0, [])``.
+
+    A shim over ``obs.phases.capture_device_profile``: the phase profiler
+    and this breakdown share one warm-up, fence and trace-parsing path."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.phases import capture_device_profile
+
+    prof = capture_device_profile(fn, *args, iters=iters, top=top, trace_dir=trace_dir)
+    return prof.device_ms, prof.op_rows

@@ -49,6 +49,8 @@ RUN_LOOP_MODULES = [
     "data/native_batcher.py", "data/prefetch.py", "obs/sinks.py", "obs/run_manifest.py",
     "obs/system.py", "obs/metrics.py", "obs/flight.py", "utils/checkpoint.py",
     "utils/memstore.py", "utils/failure.py", "utils/profiling.py", "utils/logging.py",
+    # the phase profiler and its report CLI
+    "obs/phases.py", "obs/__main__.py", "ops/_cost.py",
 ]
 
 

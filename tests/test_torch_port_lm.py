@@ -184,7 +184,7 @@ def test_cli_rejects_flags_it_does_not_have(flag):
     "override",
     [dict(remat=True), dict(moe_experts=4, moe_expert_parallel=True), dict(seq_parallel=2),
      dict(zero1=True), dict(accum_steps=2), dict(grad_compress="int8"),
-     dict(checkpoint_dir="ckpt")],
+     dict(dropout_rate=0.1)],
 )
 def test_config_options_of_later_slices_raise(override):
     with pytest.raises(NotImplementedError, match="not yet ported"):
