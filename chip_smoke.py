@@ -272,6 +272,15 @@ PRESSURE_PAGES = 97  # 96 allocatable pages for 16 slots of up to 32 pages
 PROFILE_PROMPT, PROFILE_BUDGET = 128, 64
 SERVE_TRACE = dict(num_requests=64, rate_rps=64.0, prompt_len=(64, 256), output_len=(64, 256),
                    seed=0)
+# The serving tracer, guard and failure phases: overload at 3x the trace's
+# rate under deadlines, a bounded queue and degrade; decode faults and a
+# hung step on the pool-pressure geometry, its trace cut to 16 requests.
+OVERLOAD_RPS = 3 * SERVE_TRACE["rate_rps"]
+OVERLOAD_FLAGS = ["--deadline-s", "30", "--max-queue-depth", "16", "--shed-policy", "degrade"]
+CHAOS_REQUESTS = 16
+SERVE_CHAOS = "40:decode_nan,90:engine_crash"
+SLOW_CHAOS, SLOW_STEP_TIMEOUT_S = "60:slow_step", 0.15  # abort at 0.45 s, the stall 0.5 s
+SERVE_RUNS: dict = {}  # the serving phase's untraced run, for the tracer's cost
 # Paged attention: (B, Hq, Hkv, D, page_size, pages a slot[, pos,
 # pages_per_slot]); without pos, ragged depths with slot 0 at depth 0. The
 # serving shape first; then the key spans' edge cases: depth 0
@@ -2305,9 +2314,12 @@ def serve_argv(**geometry) -> list[str]:
         "--seed", str(tr["seed"]), "--device", "cuda"]
 
 
+def json_lines(text: str) -> list[dict]:
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
 def serve_summary(text: str) -> dict:
-    recs = [json.loads(line) for line in text.strip().splitlines() if line.startswith("{")]
-    return next(r for r in recs if r.get("kind") == "serve_summary")
+    return next(r for r in json_lines(text) if r.get("kind") == "serve_summary")
 
 
 def serving_phase() -> int:
@@ -2334,6 +2346,7 @@ def serving_phase() -> int:
     if counts["paged_attention"] != want or others(counts, "paged_attention"):
         raise RuntimeError(f"serving: launches {counts}, expected {want} paged launches (two a "
                            f"call, 12 calls x {s['decode_steps_all']} decode steps) and no other")
+    SERVE_RUNS["untraced"] = s
     print(f"serving (kernel, bf16): {n} requests, {s['total_output_tokens']} tokens in "
           f"{s['makespan_s']} s: {s['tokens_per_sec']} tokens/s, TTFT p50 {s['ttft_p50_ms']} ms "
           f"p99 {s['ttft_p99_ms']} ms, ITL p50 {s['itl_p50_ms']} ms p99 {s['itl_p99_ms']} ms, "
@@ -2469,6 +2482,359 @@ def decode_profile(model) -> dict:
                wall_ms_per_step_profiled=wall / steps * 1e3,
                paged_share_of_busy=out["paged_ms_per_step"] / out["device_busy_ms_per_step"])
     print(json.dumps({"decode_profile": out}))
+    return out
+
+
+# ------------------------------------- serving: the tracer, the guard, failure
+def traced_serving_phase() -> int:
+    """(a) ``bench.py --serve`` with ``--trace-dir`` on the serving
+    phase's trace (the traced serving path): spans and request rows audit
+    clean, ``obs serve-report --check`` exits 0, the paged launches are
+    exactly two a call, 12 calls a decode step of the run, plus the
+    profiler's own decode steps; prints the decode and prefill attribution
+    and the tracer's cost beside the serving phase's untraced run. Returns
+    the run's paged launches."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch import bench
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.serve_trace import (
+        check_spans,
+        load_trace_dir,
+        reconcile,
+    )
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.flight import StragglerMonitor
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.serve_trace import ServeTracer
+
+    # The tracer's own host time (every hook) and the flight recorder's
+    # straggler window, each summed over the run.
+    hooks = ("on_submit", "on_requeue", "on_admit", "on_decode_step", "on_preempt",
+             "on_retire", "on_shed", "sample_ttft", "sample_itl", "flush_window")
+    spent = {"tracer": 0.0, "straggler": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return call
+
+    root = pathlib.Path(tempfile.mkdtemp(prefix="serve_trace_"))
+    try:
+        buf = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(buf):
+                return bench.main(["--serve", *serve_argv(), "--trace-dir", str(root)])
+
+        t0 = time.perf_counter()
+        with patched(ServeTracer, **{h: timed(getattr(ServeTracer, h), "tracer") for h in hooks}), \
+                patched(StragglerMonitor, record=timed(StragglerMonitor.record, "straggler")):
+            rc, counts = counted(run)
+        wall = time.perf_counter() - t0
+        records = json_lines(buf.getvalue())
+        s = serve_summary(buf.getvalue())
+        n = SERVE_TRACE["num_requests"]
+        if rc != 0 or s["completed"] != n or s["requests"] != n:
+            raise RuntimeError(f"traced serving: rc {rc}, {s}")
+        data = load_trace_dir(str(root))
+        problems = check_spans(data["spans"]) + reconcile(data["spans"], data["requests"])
+        if problems or len(data["requests"]) != n:
+            raise RuntimeError(f"traced serving: {len(data['requests'])} request rows, "
+                               f"problems {problems[:5]}")
+        rep = subprocess.run([sys.executable, "-m",
+                              "cs744_pytorch_distributed_tutorial_tpu_torch.obs",
+                              "serve-report", str(root), "--check"],
+                             capture_output=True, text=True, timeout=300)
+        if rep.returncode != 0 or "serve-trace check: OK" not in rep.stdout:
+            raise RuntimeError(f"obs serve-report --check: rc {rep.returncode}\n{rep.stdout}\n"
+                               f"{rep.stderr}")
+        phases = json.loads((root / "serve_phases.json").read_text())
+        summ = phases[-1]
+        calls = 2 * DECODE_WIDTH["num_layers"]
+        run_launches = calls * s["decode_steps_all"]
+        profiled = calls * summ["profiled_decode_steps"]
+        if counts["paged_attention"] != run_launches + profiled or others(counts,
+                                                                        "paged_attention"):
+            raise RuntimeError(f"traced serving: launches {counts}, expected {run_launches} "
+                               f"paged launches of the run ({s['decode_steps_all']} decode "
+                               f"steps) + {profiled} of the profiler "
+                               f"({summ['profiled_decode_steps']} steps) and no other")
+        windows = [r for r in records if r.get("kind") == "serve_window"]
+        base = SERVE_RUNS.get("untraced", {})
+        card = card_line()
+        print(f"traced serving ({card}): {n} requests, {len(data['spans'])} spans, "
+              f"{len(windows)} SLO windows, check_spans and reconcile clean, serve-report "
+              f"--check OK; {s['tokens_per_sec']} tokens/s, TTFT p99 {s['ttft_p99_ms']} ms, "
+              f"ITL p99 {s['itl_p99_ms']} ms (untraced: {base.get('tokens_per_sec')} "
+              f"tokens/s, TTFT p99 {base.get('ttft_p99_ms')} ms, ITL p99 "
+              f"{base.get('itl_p99_ms')} ms); launches: {run_launches} paged of the run + "
+              f"{profiled} of the profiler; {wall:.1f} s wall; the tracer's hooks "
+              f"{spent['tracer'] * 1e3:.2f} ms in all, "
+              f"{spent['tracer'] * 1e6 / s['decode_steps']:.1f} us a decode step, the flight "
+              f"recorder's straggler window {spent['straggler'] * 1e6 / s['decode_steps']:.1f} "
+              f"us a decode step")
+        for r in phases[:-1]:
+            print(f"serve_phase {r['phase']}: device {r['device_ms']} ms ({r['clock']} clock; "
+                  f"wall {r['wall_ms']} ms), {r['flops']:.4g} FLOPs, {r['bytes_accessed']:.4g} "
+                  f"bytes, {r['roofline']}" + (f", depth {r['depth']}" if "depth" in r else ""))
+        print(f"serve_phase_summary: decode_step_ms {summ['decode_step_ms']}, decode_host_ms "
+              f"{summ.get('decode_host_ms')}, decode_host_exposed_ms "
+              f"{summ.get('decode_host_exposed_ms')} over {summ['decode_steps_observed']} "
+              f"decode steps")
+        print(json.dumps({"traced_serving": {
+            "card": card, "summary": s, "untraced": base, "serve_phases": phases,
+            "windows": len(windows), "spans": len(data["spans"]), "launches": counts,
+            "tracer_hooks_s": spent["tracer"], "straggler_s": spent["straggler"],
+            "wall_s": wall}}))
+        return run_launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def tracer_cost_pairs_phase(turns: str = "UTTUUTTU") -> dict:
+    """The tracer's cost in paired turns, not run by ``main`` (alone:
+    ``python -c "import chip_smoke as CS; CS.tracer_cost_pairs_phase()"``,
+    ~3.5 min): the serving phase's ``serve_cli`` command untraced (U) and
+    with ``--trace-dir`` (T) in ``turns``, one card; prints each run's
+    tokens/s, TTFT and ITL p99, host ms a decode step and the traced
+    runs' hook time a step, then the medians."""
+    import shutil
+    import tempfile
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch import serve_cli
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.serve_trace import ServeTracer
+
+    hooks = ("on_submit", "on_requeue", "on_admit", "on_decode_step", "on_preempt",
+             "on_retire", "on_shed", "sample_ttft", "sample_itl", "flush_window")
+    card = card_line()
+    rows: dict = {"U": [], "T": []}
+    for turn in turns:
+        spent = [0.0]
+
+        def timed(fn):
+            def call(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    spent[0] += time.perf_counter() - t
+            return call
+
+        root = tempfile.mkdtemp(prefix="serve_pair_")
+        buf = io.StringIO()
+        try:
+            with patched(ServeTracer, **{h: timed(getattr(ServeTracer, h)) for h in hooks}), \
+                    contextlib.redirect_stdout(buf):
+                rc = serve_cli.main(serve_argv() + (["--trace-dir", root] if turn == "T" else []))
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        s = serve_summary(buf.getvalue())
+        if rc != 0 or s["completed"] != SERVE_TRACE["num_requests"]:
+            raise RuntimeError(f"tracer pairs: turn {turn}: rc {rc}, {s}")
+        row = {k: s[k] for k in ("tokens_per_sec", "ttft_p99_ms", "itl_p99_ms",
+                                 "decode_ms_per_step", "decode_steps")}
+        row["hooks_us_a_step"] = spent[0] * 1e6 / s["decode_steps"]
+        rows[turn].append(row)
+        print(f"tracer pairs {turn} ({card}): {json.dumps(row)}", flush=True)
+    medians = {key: {turn: statistics.median(r[key] for r in rows[turn]) for turn in rows}
+               for key in ("tokens_per_sec", "ttft_p99_ms", "itl_p99_ms", "decode_ms_per_step",
+                           "hooks_us_a_step")}
+    print(f"tracer pairs ({card}), medians untraced U vs traced T: {json.dumps(medians)}")
+    print(json.dumps({"tracer_pairs": {"card": card, "rows": rows, "medians": medians}}))
+    return medians
+
+
+def overload_phase() -> None:
+    """(b) ``serve_cli`` at 3x the trace's rate with deadlines, a bounded
+    queue and degrade: every request ends in exactly one terminal status
+    (``run_poisson`` raises otherwise; the counts must add up), the pool
+    holds its invariants and no page at the end, two paged launches a
+    call."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import serve as S
+    from cs744_pytorch_distributed_tutorial_tpu_torch import serve_cli
+
+    engines, real = [], S.run_poisson
+
+    def spy(engine, workload, **kw):
+        engines.append(engine)
+        return real(engine, workload, **kw)
+
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            return serve_cli.main([*serve_argv(), "--rate", str(OVERLOAD_RPS), *OVERLOAD_FLAGS])
+
+    with patched(S, run_poisson=spy):
+        rc, counts = counted(run)
+    records = json_lines(buf.getvalue())
+    s = serve_summary(buf.getvalue())
+    n = SERVE_TRACE["num_requests"]
+    statuses = {k: s[k] for k in ("completed", "rejected", "timed_out", "recovered")}
+    (eng,) = engines
+    if (rc != 0 or s["requests"] != n or sum(statuses.values()) != n
+            or not eng.pool.check_invariants() or eng.pool.allocated_pages != 0):
+        raise RuntimeError(f"overload: rc {rc}, statuses {statuses}, {s}")
+    want = 2 * DECODE_WIDTH["num_layers"] * s["decode_steps_all"]
+    if counts["paged_attention"] != want or others(counts, "paged_attention"):
+        raise RuntimeError(f"overload: launches {counts}, expected {want} paged launches")
+    sheds = [r for r in records if r.get("kind") == "serve_shed"]
+    trims = [r for r in sheds if r["reason"] == "degrade_trim"]
+    expired = [r for r in records if r.get("event") == "timed_out"]
+    print(f"overload ({card_line()}): {n} requests at {OVERLOAD_RPS} rps with "
+          f"{' '.join(OVERLOAD_FLAGS)}: statuses {statuses}, {len(trims)} degrade trims "
+          f"({sum(r['tokens_shed'] for r in trims)} tokens shed), "
+          f"{len(sheds) - len(trims)} rejections, {len(expired)} deadline expiries; "
+          f"{s['tokens_per_sec']} tokens/s, TTFT p99 {s['ttft_p99_ms']} ms, ITL p99 "
+          f"{s['itl_p99_ms']} ms; pool invariants hold, 0 pages live; launches {counts}")
+    print(json.dumps({"overload": {"summary": s, "trims": len(trims),
+                                   "tokens_shed": sum(r["tokens_shed"] for r in trims),
+                                   "expired": len(expired), "launches": counts}}))
+
+
+def chaos_serve_run(qmodel, extra: list[str]) -> dict:
+    """``serve_cli`` on the pool-pressure geometry (int8 KV pages and the
+    int8 head of ``qmodel``, handed in for ``build_model``) with ``extra``
+    flags: its summary, records, launches, the streams by submission order,
+    and the recovery timeline (fault injections, engine rebuilds and the
+    replayed requests' first new tokens, on the engines' clock)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import serve as S
+    from cs744_pytorch_distributed_tutorial_tpu_torch import serve_cli
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
+    from cs744_pytorch_distributed_tutorial_tpu_torch.utils import chaos as CH
+
+    engines, faults, rebuilds = [], [], []
+    real_poisson, real_recovery = S.run_poisson, S.run_serve_with_recovery
+    real_inject = CH.ChaosMonkey._inject
+
+    def poisson(engine, workload, **kw):
+        engines.append(engine)
+        return real_poisson(engine, workload, **kw)
+
+    def recovery(make_engine, workload, **kw):
+        def make():
+            t0 = time.monotonic()
+            engines.append(make_engine())
+            rebuilds.append((t0, time.monotonic()))
+            return engines[-1]
+        return real_recovery(make, workload, **kw)
+
+    def inject(self, idx, kind):
+        faults.append((time.monotonic(), idx, kind))
+        real_inject(self, idx, kind)
+
+    argv = [*serve_argv(num_pages=PRESSURE_PAGES), "--requests", str(CHAOS_REQUESTS),
+            "--quant-kv", *extra]
+    buf = io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(buf):
+            return serve_cli.main(argv)
+
+    with patched(serve_cli, build_model=lambda args: qmodel), \
+            patched(S, run_poisson=poisson, run_serve_with_recovery=recovery), \
+            patched(CH.ChaosMonkey, _inject=inject):
+        t0 = time.perf_counter()
+        rc, counts = counted(run)
+        wall = time.perf_counter() - t0
+    records = json_lines(buf.getvalue())
+    s = serve_summary(buf.getvalue())
+    done = sorted((r for e in engines for r in e._completed), key=lambda r: r.req_id)
+    streams = [[int(t) for t in list(r.prompt[r.orig_prompt_len:]) + r.generated] for r in done]
+    # A resumed request's first token after each resume boundary, on the
+    # engines' clock: the replayed requests' way back.
+    resumed = sorted(r.token_times[b] for r in done for b in r.resume_boundaries
+                     if b < len(r.token_times))
+    recoveries = []
+    for j, ((t_fault, idx, kind), (b0, b1)) in enumerate(zip(faults, rebuilds[1:])):
+        end = faults[j + 1][0] if j + 1 < len(faults) else float("inf")
+        back = [t for t in resumed if b1 < t < end]
+        recoveries.append({"fault": kind, "decode_step": idx,
+                           "to_rebuild_ms": (b0 - t_fault) * 1e3,
+                           "rebuild_ms": (b1 - b0) * 1e3,
+                           "first_replayed_token_ms": (back[0] - t_fault) * 1e3 if back else None,
+                           "last_replayed_token_ms": (back[-1] - t_fault) * 1e3 if back else None,
+                           "replayed_requests": len(back)})
+    if rc != 0 or s["requests"] != CHAOS_REQUESTS or len(streams) != CHAOS_REQUESTS:
+        raise RuntimeError(f"serving under failure {extra}: rc {rc}, {s}")
+    if s["completed"] + s["recovered"] != CHAOS_REQUESTS:
+        raise RuntimeError(f"serving under failure {extra}: statuses {s}")
+    layers = DECODE_WIDTH["num_layers"]
+    decode_tc = QT.tc_route(torch.bfloat16, SERVE_GEOMETRY["num_slots"],
+                            DECODE_WIDTH["d_model"], DECODE_WIDTH["vocab_size"])
+    want = {"paged_attention": 2 * layers * s["decode_steps_all"],
+            "paged_attention_int8": 2 * layers * s["decode_steps_all"],
+            "int8_matmul": s["decode_steps_all"] + s["prefills_all"],
+            "int8_matmul_tc": s["prefills_all"] + s["decode_steps_all"] * decode_tc}
+    got = {k: counts[k] for k in want}
+    if got != want or others(counts, "paged_attention", "paged_attention_int8", "int8_matmul",
+                             "int8_matmul_tc"):
+        raise RuntimeError(f"serving under failure {extra}: launches {counts}, expected {want}")
+    return {"summary": s, "records": records, "launches": counts, "streams": streams,
+            "recoveries": recoveries, "faults": faults, "wall_s": wall}
+
+
+def serving_failure_phase() -> dict:
+    """(c) The pool-pressure geometry, 16 requests of the trace, greedy,
+    through ``serve_cli``: a fault-free run, then ``--chaos 40:decode_nan,
+    90:engine_crash`` and a ``slow_step`` under ``--step-timeout-s`` (the
+    watchdog's abort), both with ``--recompute decode``: restarts equal
+    the faults that fired and every stream is the fault-free run's token
+    for token (no fed-back token mismatched). Then the chaos run with the
+    JAX engine's one-pass re-prefill (``--recompute prefill``), whose
+    rebuilt rows differ from the decode steps' in the last bits: its
+    agreement with the fault-free run is printed, not held. Prints each
+    recovery's wall time."""
+    qmodel = decode_model(quant=True)
+    card = card_line()
+    decode = ["--recompute", "decode"]
+    base = chaos_serve_run(qmodel, decode)
+    if base["summary"]["preemptions"] <= 0:
+        raise RuntimeError(f"pool-pressure run without preemptions: {base['summary']}")
+    out = {"card": card, "fault_free": {k: base[k] for k in ("summary", "launches", "wall_s")}}
+    runs = (("chaos", decode + ["--chaos", SERVE_CHAOS], 2, "DecodeNanError"),
+            ("hung step", decode + ["--chaos", SLOW_CHAOS, "--step-timeout-s",
+                                    str(SLOW_STEP_TIMEOUT_S)], 1, "HungStepError"),
+            ("chaos, recompute prefill", ["--recompute", "prefill", "--chaos", SERVE_CHAOS], 2,
+             "DecodeNanError"))
+    for label, flags, faults, failure in runs:
+        r = chaos_serve_run(qmodel, flags)
+        s = r["summary"]
+        events = [e for e in r["records"] if e.get("kind") == "event"]
+        names = [e["event"] for e in events]
+        restart = [e for e in events if e["event"] == "recovery_restart"]
+        if (s["restarts"] != faults or names.count("chaos_inject") != faults
+                or len(restart) != faults or failure not in restart[0]["failure"]
+                or "recovery_complete" not in names or "recovery_giveup" in names):
+            raise RuntimeError(f"serving under failure ({label}): restarts {s['restarts']}, "
+                               f"events {names}")
+        same = sum(a == b for x, y in zip(r["streams"], base["streams"]) for a, b in zip(x, y))
+        total = sum(len(x) for x in base["streams"])
+        identical = r["streams"] == base["streams"]
+        exact = "prefill" not in label
+        if exact and (not identical or s["replay_mismatches"] != 0):
+            raise RuntimeError(f"serving under failure ({label}): {same} of {total} tokens "
+                               f"agree with the fault-free run, {s['replay_mismatches']} "
+                               f"fed-back tokens mismatched")
+        print(f"serving under failure, {label} ({card}): {CHAOS_REQUESTS} requests, "
+              f"{s['restarts']} restarts for {faults} faults, statuses completed "
+              f"{s['completed']} recovered {s['recovered']}; {same} of {total} greedy tokens "
+              f"agree with the fault-free run" + (" (identical)" if identical else "")
+              + f"; {s['replay_mismatches']} fed-back mismatches, {s['preemptions']} "
+              f"preemptions, {s['tokens_per_sec']} tokens/s (fault-free "
+              f"{base['summary']['tokens_per_sec']}); recoveries " + json.dumps(r["recoveries"])
+              + f"; launches {r['launches']}")
+        out[label] = {"summary": s, "recoveries": r["recoveries"], "agree": same,
+                      "total": total, "identical": identical, "launches": r["launches"],
+                      "wall_s": r["wall_s"]}
+    print(json.dumps({"serving_under_failure": out}))
+    del qmodel
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4233,6 +4599,16 @@ def main() -> int:
     paged_record["launches"] = serving_phase()
     records += [paged_record, *int8_records]
     serving_checks_phase()
+    # The serving tracer, guard and recovery: their main path is
+    # the traced serving run.
+    paged_record["launches_traced_serving"] = traced_serving_phase()
+    overload_phase()
+    failure = serving_failure_phase()
+    chaos = failure["chaos"]["launches"]
+    for rec in int8_records:  # the int8 head's launches in the chaos run, by route
+        tc = chaos["int8_matmul_tc"]
+        rec["launches_serving_chaos"] = tc if rec["name"].endswith("_tc") else (
+            chaos["int8_matmul"] - tc)
 
     gmm_records = gmm_phase(dev)
     gen_gmm = moe_generation_phase()

@@ -6,6 +6,8 @@ per card, and its phase and sync modes.
         [--batch 4096 --model resnet18 --sync auto --grad-compress none \
          --sync-overlap off --compute-dtype bfloat16 --phase-iters 3] [--metrics-dir DIR]
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.bench --sync-compare
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.bench [--metrics-dir DIR] \
+        --serve [serve_cli flags]
 
 The JAX package's root ``bench.py`` on PyTorch. The headline: ResNet-18
 on synthetic CIFAR (``synthetic_cifar10(batch, 16, seed=0)``, one batch
@@ -34,8 +36,12 @@ zero1's reduce-scatter), the bucketed ones also overlapped, then one
 overlapped step; as in JAX, zero1's phase pair needs more than one rank
 and raises at a world of one, after the other records.
 
-``--device cuda`` (default) or ``cpu``. ``--serve`` exits "not yet
-ported".
+``--serve`` hands every argument after it to the serving benchmark
+(``serve_cli.main``), e.g. ``--serve --requests 32 --gate`` or ``--serve
+--trace-dir /tmp/trace --window-every 0.25``; a ``--metrics-dir`` given
+before ``--serve`` is forwarded, and the exit code is the serving CLI's.
+
+``--device cuda`` (default) or ``cpu``.
 """
 
 from __future__ import annotations
@@ -67,9 +73,6 @@ MEASURE_STEPS = 30
 MEASURE_STEPS_SMALL = 90  # shorter steps: a longer window
 
 log = logging.getLogger("cs744_pytorch_distributed_tutorial_tpu_torch")
-
-_NOT_YET_PORTED = {"serve": "--serve needs the serving tracer and guard"}
-
 
 def _make_sink(metrics_dir: str | None) -> MultiSink:
     sinks = [StreamSink(sys.stdout)]
@@ -317,15 +320,23 @@ def _parse_args(argv: list[str] | None) -> argparse.Namespace:
     p.add_argument("--metrics-dir", default=None,
                    help="also append the result records to DIR/metrics.jsonl")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    p.add_argument("--serve", nargs=argparse.REMAINDER, default=None, help="not yet ported")
+    p.add_argument("--serve", nargs=argparse.REMAINDER, default=None,
+                   help="delegate to the continuous-batching serving benchmark (serve_cli): "
+                        "every argument after --serve passes through, e.g. --serve "
+                        "--requests 32 --gate; a --metrics-dir given before --serve is "
+                        "forwarded")
     return p.parse_args(argv)
 
 
 def main(argv: list[str] | None = None) -> int:
     args = _parse_args(argv)
-    for flag, why in _NOT_YET_PORTED.items():
-        if getattr(args, flag) not in (None, False):
-            raise SystemExit(f"bench: {why}, which is not yet ported")
+    if args.serve is not None:
+        from cs744_pytorch_distributed_tutorial_tpu_torch.serve_cli import main as serve_main
+
+        serve_argv = list(args.serve)
+        if args.metrics_dir and "--metrics-dir" not in serve_argv:
+            serve_argv += ["--metrics-dir", args.metrics_dir]
+        return serve_main(serve_argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     sink = _make_sink(args.metrics_dir)
     try:

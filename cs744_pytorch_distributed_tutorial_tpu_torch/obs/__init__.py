@@ -6,8 +6,9 @@ card's peak (``flops.py``), and the phase profiler (``phases.py``: a
 training step cut into forward, backward, grad sync and optimizer, each
 traced and costed, with ``sync_exposed_ms``), whose records
 ``python -m cs744_pytorch_distributed_tutorial_tpu_torch.obs report``
-renders. The JAX package's fleet view and serving tracer are not ported
-yet.
+renders, and the serving tracer (``serve_trace.py``: spans, SLO windows
+and the device attribution of the serving programs; ``obs
+serve-report``). The JAX package's fleet view is not ported yet.
 """
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.obs import flops
@@ -35,6 +36,12 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.obs.run_manifest import (
     build_manifest,
     read_manifest,
     write_manifest,
+)
+from cs744_pytorch_distributed_tutorial_tpu_torch.obs.serve_trace import (
+    ServeTracer,
+    check_spans,
+    profile_serve_programs,
+    reconcile,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.obs.sinks import (
     CsvSink,
@@ -70,6 +77,10 @@ __all__ = [
     "build_manifest",
     "read_manifest",
     "write_manifest",
+    "ServeTracer",
+    "check_spans",
+    "profile_serve_programs",
+    "reconcile",
     "CsvSink",
     "JsonlSink",
     "MultiSink",

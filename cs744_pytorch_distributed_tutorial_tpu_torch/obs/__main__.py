@@ -1,14 +1,18 @@
 """Render telemetry artifacts from the command line.
 
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.obs report <metrics_dir>
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.obs serve-report <trace_dir> --check
 
 ``report`` reads a metrics dir (or a metrics.jsonl / phase_report.json
 directly), keeps the phase profiler's ``kind="phase"`` and
 ``"phase_summary"`` records, and prints the per-phase table: the renderer
 ``bench.py --phase-breakdown`` prints live, usable after the fact on any
-machine the records landed on. The JAX package's ``serve-report`` (the
-serving tracer) and ``fleet-report`` (the multi-process timeline) exit
-"not yet ported".
+machine the records landed on. ``serve-report`` summarizes a trace dir
+that ``serve_cli --trace-dir`` wrote (or a bare ``serve_spans.jsonl``);
+with ``--check`` it exits 1 on orphan, unclosed or overlapping spans or
+on TTFT drift (``obs/serve_trace.py::check_spans``, ``reconcile``). The
+JAX package's ``fleet-report`` (the multi-process timeline) exits "not
+yet ported".
 """
 
 from __future__ import annotations
@@ -25,7 +29,6 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.obs.phases import (
 )
 
 _NOT_YET_PORTED = {
-    "serve-report": "serve-report needs the serving tracer (obs/serve_trace.py)",
     "fleet-report": "fleet-report needs the fleet view (obs/fleet.py)",
 }
 
@@ -72,12 +75,38 @@ def main(argv: list[str] | None = None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
     rep = sub.add_parser("report", help="render phase records as a table")
     rep.add_argument("path", help="metrics dir, metrics.jsonl, or phase_report.json")
+    srv = sub.add_parser("serve-report", help="summarize a serve trace dir")
+    srv.add_argument("path", help="trace dir written by serve_cli --trace-dir, or a "
+                                  "serve_spans.jsonl")
+    srv.add_argument("--check", action="store_true",
+                     help="exit 1 on orphan/unclosed/overlapping spans or TTFT "
+                          "reconciliation drift")
     for cmd in _NOT_YET_PORTED:
         unported = sub.add_parser(cmd, help="not yet ported")
         unported.add_argument("args", nargs=argparse.REMAINDER)
     args = p.parse_args(argv)
     if args.cmd in _NOT_YET_PORTED:
         raise SystemExit(f"obs: {_NOT_YET_PORTED[args.cmd]}, which is not yet ported")
+
+    if args.cmd == "serve-report":
+        from cs744_pytorch_distributed_tutorial_tpu_torch.obs.serve_trace import (
+            check_spans,
+            load_trace_dir,
+            reconcile,
+            render_serve_report,
+        )
+
+        data = load_trace_dir(args.path)
+        print(render_serve_report(data))
+        if args.check:
+            problems = check_spans(data["spans"]) + reconcile(data["spans"], data["requests"])
+            if problems:
+                for prob in problems:
+                    print(f"serve-trace check: {prob}", file=sys.stderr)
+                return 1
+            print(f"serve-trace check: OK ({len(data['spans'])} spans, "
+                  f"{len(data['requests'])} requests)")
+        return 0
 
     records = phase_records_from_stream(_load_stream(args.path))
     if not records:

@@ -41,6 +41,12 @@ def counting() -> Iterator[KernelCosts]:
         _active.remove(costs)
 
 
+def active() -> bool:
+    """Whether a counter is open: a wrapper whose cost needs a value on
+    the card (the paged kernel's live rows) reads it only then."""
+    return bool(_active)
+
+
 def add(flops: float, nbytes: float) -> None:
     """A call's FLOPs and bytes, into every active counter."""
     for costs in _active:

@@ -30,7 +30,8 @@ The wrapper takes the kernels for CUDA tensors (or raises) and the plain
 version for CPU tensors only. Each kernel launch on the card (two a call:
 the spans, then the merge) adds one to ``launch_count(variant)``, the
 variant being the pools' dtype name (``float32``, ``bfloat16`` or
-``int8``).
+``int8``), and reports its cost to ``ops/_cost.py``
+(``paged_attention_cost``) while a counter is open.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import ctypes
 
 import torch
 
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _cost
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import paged_decode_attention_quant
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.ring_attention import (
@@ -144,6 +146,25 @@ def paged_attention_split_plain(q, key_pages, value_pages, page_table, pos, *,
     return (acc_all / l_all[..., None]).to(out_dtype).view(b, 1, hq, d)
 
 
+def paged_attention_cost(q: torch.Tensor, key_pages: torch.Tensor, page_table: torch.Tensor,
+                         pos: torch.Tensor, *, quant: bool,
+                         pages_per_slot: int | None = None) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: each slot's live K and V rows (depth +
+    1, at most its table's capacity) read once with their fp32 scales for
+    int8 pools, q read and the output written once (q's dtype), the table
+    and the depths read once (int32); FLOPs 4 a live row, query head and
+    head dim (q k and p v, 2 a multiply-add). ``PERF.md``'s bound for the
+    kernel counts the same. Reads ``pos`` (a sync on the card)."""
+    b, _, hq, d = q.shape
+    page_size, hkv = key_pages.shape[1], key_pages.shape[2]
+    n_pages = page_table.shape[1] if pages_per_slot is None else min(pages_per_slot,
+                                                                     page_table.shape[1])
+    rows = float((pos.long() + 1).clamp(max=n_pages * page_size).sum())
+    nbytes = (2.0 * rows * hkv * d * key_pages.element_size() + (8.0 * rows * hkv if quant else 0.0)
+              + 2.0 * q.numel() * q.element_size() + 4.0 * (page_table.numel() + b))
+    return 4.0 * rows * hq * d, nbytes
+
+
 def _check(q, key_pages, value_pages, page_table, pos, ks, vs) -> None:
     b, t, hq, d = q.shape
     if t != 1:
@@ -227,4 +248,7 @@ def paged_attention(q: torch.Tensor, key_pages: torch.Tensor, value_pages: torch
     _launches[str(kv_dtype).removeprefix("torch.")] += launches.value
     if err:
         raise RuntimeError(f"paged attention launch failed: CUDA error {err}")
+    if _cost.active():
+        _cost.add(*paged_attention_cost(q, key_pages, table, pos32, quant=quant,
+                                        pages_per_slot=n_pages))
     return out

@@ -21,7 +21,8 @@ CUDA tensors takes the tensor cores when ``tc_route`` holds, a fixed
 rule of dtype, shape and alignment, and the FFMA kernel otherwise. The
 wrapper launches its route's kernel for CUDA tensors (or raises) and
 takes the plain version for CPU tensors only; each launch adds one to
-``launch_count(dtype, route)``.
+``launch_count(dtype, route)`` and reports its cost to ``ops/_cost.py``
+(``int8_matmul_cost``).
 
 ``quantize_chunked``/``dequantize_chunked`` are the int8 gradient
 wire's codes (``parallel/sync.py``): the same max-abs/127 scheme per
@@ -38,6 +39,7 @@ from collections.abc import Mapping
 import torch
 from torch import nn
 
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _cost
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops._build import load_library
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.ring_attention import (
     _MASK,
@@ -153,6 +155,15 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> 
     return (acc * scale.float()).to(x.dtype)
 
 
+def int8_matmul_cost(m: int, k: int, n: int, x_dtype: torch.dtype) -> tuple[float, float]:
+    """(FLOPs, bytes) of one [m, k] x [k, n] call: 2 m k n FLOPs; the
+    int8 weight, x and the fp32 scales read once and the output (x's
+    dtype) written once. ``PERF.md``'s bound for the kernels counts the
+    same."""
+    elt = torch.finfo(x_dtype).bits // 8
+    return 2.0 * m * k * n, k * n + elt * (m * k + m * n) + 4.0 * n
+
+
 def _check(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
     if q.dim() != 2 or q.dtype != torch.int8:
         raise ValueError(f"expected q int8 [K, N], got {q.dtype} {tuple(q.shape)}")
@@ -191,6 +202,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
         _launches[(x.dtype, route)] += 1
         if err:
             raise RuntimeError(f"int8_matmul launch failed ({route}): CUDA error {err}")
+        _cost.add(*int8_matmul_cost(m, k, n, x.dtype))
     return out.reshape(*lead, n)
 
 

@@ -11,7 +11,9 @@ pass and reports:
 - per-token decode latency: (done - first token) / (output - 1);
 - ITL: the gaps between a request's consecutive surfaced tokens;
 - tokens/s: total output tokens over the makespan (first arrival to
-  last completion).
+  last completion);
+- terminal statuses: completed, rejected, timed out and recovered
+  (``serve/guard.py``), each request in exactly one.
 
 ``run_batch_baseline`` replays the same trace through ``make_generator``
 a batch at a time: arrival-order batches, prompts right-padded to the
@@ -70,13 +72,28 @@ def _percentile(values: list[float], q: float) -> float:
 
 def _summarize(label: str, reqs: list[Request], makespan: float,
                extra: dict[str, Any]) -> dict[str, Any]:
-    delivered = [r for r in reqs if r.terminal_status == "completed"
+    # Every request that left the system lands in one terminal bucket.
+    # Latencies are over the requests that delivered (completed or
+    # recovered): a rejected one has none, and a timed-out one's cut
+    # stream would flatter the tail.
+    statuses = {"completed": 0, "rejected": 0, "timed_out": 0, "recovered": 0}
+    for r in reqs:
+        if r.terminal_status in statuses:
+            statuses[r.terminal_status] += 1
+    delivered = [r for r in reqs if r.terminal_status in ("completed", "recovered")
                  and r.first_token_time is not None]
     ttfts = [(r.first_token_time - r.arrival_time) * 1e3 for r in delivered]
     per_tok = [(r.done_time - r.first_token_time) * 1e3 / max(1, r.output_tokens - 1)
                for r in delivered]
-    itls = [float(d) * 1e3 for r in delivered if len(r.token_times) > 1
-            for d in np.diff(np.asarray(r.token_times))]
+    itls: list[float] = []
+    for r in delivered:
+        if len(r.token_times) > 1:
+            diffs = np.diff(np.asarray(r.token_times))
+            # The gap across a resume boundary spans the kill (two clock
+            # epochs), not an inter-token latency: left out. Every other
+            # gap, preemption stalls included, counts.
+            skip = {b - 1 for b in r.resume_boundaries if 1 <= b <= len(diffs)}
+            itls.extend(float(d) * 1e3 for i, d in enumerate(diffs) if i not in skip)
     total_tokens = sum(r.output_tokens for r in reqs)
     return {
         "kind": "serve_summary",
@@ -91,50 +108,80 @@ def _summarize(label: str, reqs: list[Request], makespan: float,
         "itl_p50_ms": round(_percentile(itls, 50), 4),
         "itl_p99_ms": round(_percentile(itls, 99), 4),
         "tokens_per_sec": round(total_tokens / makespan, 2) if makespan > 0 else 0.0,
-        "completed": len(delivered),
+        **statuses,
         **extra,
     }
 
 
 def _emit_summary(sink: Any, record: dict[str, Any]) -> None:
-    """The summary, then its metrics as ``kind:"bench"`` records."""
+    """The summary, then its metrics as ``kind:"bench"`` records (shared
+    with ``serve/guard.py::run_serve_with_recovery``): throughput, the
+    TTFT and ITL tails, and the recovered, rejected and timed-out
+    counts (0 on a clean, unguarded run)."""
     if sink is None:
         return
     sink.emit(record)
-    for metric, key, unit in (("serve_tokens_per_sec", "tokens_per_sec", "tokens/sec"),
-                              ("serve_ttft_p99_ms", "ttft_p99_ms", "ms"),
-                              ("serve_itl_p99_ms", "itl_p99_ms", "ms")):
-        sink.emit({"kind": "bench", "time": time.time(), "metric": metric,
-                   "value": record[key], "unit": unit})
+    for metric, value, unit in (
+            ("serve_tokens_per_sec", record["tokens_per_sec"], "tokens/sec"),
+            ("serve_ttft_p99_ms", record["ttft_p99_ms"], "ms"),
+            ("serve_itl_p99_ms", record["itl_p99_ms"], "ms"),
+            ("serve_recovered", record.get("recovered_requests", 0), "requests"),
+            ("serve_rejected", record.get("rejected", 0), "requests"),
+            ("serve_timed_out", record.get("timed_out", 0), "requests")):
+        sink.emit({"kind": "bench", "time": time.time(), "metric": metric, "value": value,
+                   "unit": unit})
+
+
+def reset_after_warmup(engine: ServingEngine) -> None:
+    """Zero the counters a warm-up moved, so the measurement sees only
+    measured traffic (``decode_steps_all``/``prefills_all`` keep
+    counting: the kernels' launch counts are held against them)."""
+    engine._completed.clear()
+    engine._preemptions = 0
+    engine._timed_out = 0
+    engine._shed = 0
+    engine._step_count = 0
+    engine._active_slot_steps = 0
+    engine._active_depth_sum = 0
+    engine._trash_rows = 0
+    engine._decode_walls.clear()
+    engine._event_ring.clear()
+    engine.pool.high_water = engine.pool.allocated_pages
+    engine.pool.total_allocs = 0
+    engine.pool.total_frees = 0
+
+
+def warm_up(engine: ServingEngine, workload: Workload) -> None:
+    """One throwaway request a prompt bucket of the workload (budget 2, so
+    a decode step runs too) with the sink, tracer and guard detached, then
+    ``reset_after_warmup``: first-call set-up stays out of the measured
+    TTFTs, and no warm-up record, span or shed is counted."""
+    buckets = sorted({engine._bucket_for(len(p)) for p in workload.prompts})
+    saved = engine.sink, engine.tracer, engine.guard
+    engine.sink = engine.tracer = engine.guard = None
+    try:
+        for b in buckets:
+            engine.submit(Request(prompt=np.ones((min(b, engine.max_seq_len - 1),), np.int64),
+                                  max_new_tokens=2))
+        engine.run()
+    finally:
+        engine.sink, engine.tracer, engine.guard = saved
+    reset_after_warmup(engine)
+    if engine.tracer is not None:
+        engine.tracer.reset(engine.clock())
 
 
 def run_poisson(engine: ServingEngine, workload: Workload, *, sink: Any = None,
-                warmup: bool = True) -> dict[str, Any]:
+                warmup: bool = True, watchdog: Any = None) -> dict[str, Any]:
     """Replay ``workload`` open-loop against the engine on the wall clock;
-    returns (and emits) the ``serve_summary`` record. ``warmup`` first
-    runs one throwaway request per prompt bucket, so first-call set-up
-    stays out of the measured TTFTs."""
+    returns (and emits) the ``serve_summary`` record. ``warmup`` runs
+    ``warm_up`` first. A ``StepWatchdog`` given as ``watchdog`` is armed
+    around every measured step (give it ``engine.make_flight_recorder()``
+    so a wedged step dumps the serve event ring). Every submitted request
+    must end in exactly one terminal status."""
     clock = engine.clock
     if warmup:
-        buckets = sorted({engine._bucket_for(len(p)) for p in workload.prompts})
-        saved_sink, engine.sink = engine.sink, None
-        try:
-            for b in buckets:
-                engine.submit(Request(prompt=np.ones((min(b, engine.max_seq_len - 1),), np.int64),
-                                      max_new_tokens=2))
-            engine.run()
-        finally:
-            engine.sink = saved_sink
-        engine._completed.clear()
-        engine._preemptions = 0
-        engine._step_count = 0
-        engine._active_slot_steps = 0
-        engine._trash_rows = 0
-        engine._decode_walls.clear()
-        engine.pool.high_water = engine.pool.allocated_pages
-        engine.pool.total_allocs = 0
-        engine.pool.total_frees = 0
-
+        warm_up(engine, workload)
     t0 = clock()
     n, i = len(workload), 0
     submitted: list[Request] = []
@@ -146,15 +193,24 @@ def run_poisson(engine: ServingEngine, workload: Workload, *, sink: Any = None,
                 arrival_time=t0 + float(workload.arrivals[i]))))
             i += 1
         if engine.busy:
-            engine.step()
+            if watchdog is not None:
+                with watchdog.watch():
+                    engine.step()
+            else:
+                engine.step()
         elif i < n:
             # Idle until the next arrival: the arrival process is the
             # experiment, so it is not pulled in early.
             time.sleep(min(0.002, max(0.0, float(workload.arrivals[i]) - now)))
+    engine.finalize_trace()  # the last partial serve_window
     reqs = engine._completed[:]
     unresolved = [r.req_id for r in submitted if r.terminal_status is None]
     if unresolved:
         raise RuntimeError(f"requests ended unresolved: {unresolved}")
+    ids = [r.req_id for r in reqs]
+    if len(ids) != len(set(ids)):
+        raise RuntimeError(f"requests resolved more than once: "
+                           f"{sorted({x for x in ids if ids.count(x) > 1})}")
     makespan = max(r.done_time for r in reqs) - t0 if reqs else 0.0
     record = _summarize("continuous", reqs, makespan, {
         **engine.stats(),

@@ -107,8 +107,8 @@ class PagePool:
         any violation, returns True when clean (so tests can assert it).
 
         The engine calls this under ``__debug__`` at every retire /
-        preempt free — the paths where a bookkeeping bug would silently
-        leak (or double-lease) pages:
+        preempt / deadline-expiry free — the paths where a bookkeeping
+        bug would silently leak (or double-lease) pages:
 
         - free-list ∪ live pages == every allocatable page (none leaked),
         - free-list ∩ live pages == ∅ (no page both free and leased),

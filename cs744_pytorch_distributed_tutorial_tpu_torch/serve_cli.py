@@ -17,15 +17,24 @@ and ``--metrics-dir``:
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.serve_cli \\
         --requests 8 --parity-check --device cpu
 
+    # spans, SLO windows and the device attribution of the programs
+    # (obs serve-report renders and checks the directory):
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.serve_cli \\
+        --requests 24 --trace-dir /tmp/serve_trace --window-every 0.25
+
+    # overload past the sustainable rate, shed at the door, expire stale
+    # requests, and ride out injected decode faults under the
+    # supervised restart ladder:
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.serve_cli \\
+        --requests 64 --rate 48 --deadline-s 30 --max-queue-depth 16 \\
+        --shed-policy degrade --chaos 40:decode_nan,90:engine_crash
+
 The flags are the JAX package's (``serve_cli.py``) with its names and
-defaults, plus ``--compute-dtype`` (the JAX CLI serves in fp32) and
-``--device`` (``cuda``, the default, or ``cpu``). ``--trace-dir``,
-``--window-every``, the guard flags (``--deadline-s``, ``--max-queue-s``,
-``--max-queue-depth``, ``--shed-policy``, ``--degrade-floor``) and the
-chaos and recovery flags (``--chaos``, ``--max-restarts``,
-``--restart-backoff-s``, ``--step-timeout-s``) exit with "not yet
-ported". Weights are random from ``--seed``: latency, throughput and the
-parity contract do not depend on them.
+defaults, plus ``--compute-dtype`` (the JAX CLI serves in fp32),
+``--recompute`` (``ServeConfig.recompute``) and ``--device`` (``cuda``,
+the default, or ``cpu``). Weights are random from
+``--seed``: latency, throughput and the parity contract do not depend on
+them.
 """
 
 from __future__ import annotations
@@ -34,13 +43,6 @@ import argparse
 import json
 import os
 import sys
-
-# Flags of the JAX CLI whose features are not ported: name -> default.
-_NOT_YET_PORTED = {
-    "trace_dir": None, "window_every": None, "deadline_s": None, "max_queue_s": None,
-    "max_queue_depth": None, "shed_policy": None, "degrade_floor": 8, "chaos": None,
-    "max_restarts": 2, "restart_backoff_s": 0.0, "step_timeout_s": None,
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,6 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("auto", "gather", "kernel"),
                    help="decode attention: the CUDA live-pages kernel (auto; on the "
                         "CPU its plain version) or the gather reference")
+    p.add_argument("--recompute", default="prefill", choices=("prefill", "decode"),
+                   help="how a preempted or resumed request rebuilds its KV: one dense pass "
+                        "over prompt + produced tokens (the JAX engine's), or the prompt's "
+                        "pass then the produced tokens fed back through decode steps (the "
+                        "first pass's arithmetic: streams independent of preemptions and "
+                        "restarts)")
     # sampling
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--top-k", type=int, default=None)
@@ -96,20 +104,55 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-dir", default=None,
                    help="also write records to METRICS_DIR/metrics.jsonl")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    # not yet ported
-    p.add_argument("--trace-dir", default=None, help="not yet ported")
-    p.add_argument("--window-every", type=float, default=None, help="not yet ported")
-    p.add_argument("--deadline-s", type=float, default=None, help="not yet ported")
-    p.add_argument("--max-queue-s", type=float, default=None, help="not yet ported")
-    p.add_argument("--max-queue-depth", type=int, default=None, help="not yet ported")
+    # tracing (obs/serve_trace.py)
+    p.add_argument("--trace-dir", default=None,
+                   help="write the serve trace here: the Perfetto trace (serve_trace.json), "
+                        "span/window/request JSONL, and serve_phases.json (device time and "
+                        "roofline of the decode and prefill programs)")
+    p.add_argument("--window-every", type=float, default=None, metavar="S",
+                   help="emit kind:'serve_window' SLO records every S seconds of the measured "
+                        "run; defaults to 0.25 when --trace-dir is set")
+    # deadlines and admission control (serve/guard.py); any of these
+    # attaches a ServeGuard
+    p.add_argument("--deadline-s", type=float, default=None,
+                   help="default end-to-end deadline a request; expiry retires it as "
+                        "timed_out and frees its pages")
+    p.add_argument("--max-queue-s", type=float, default=None,
+                   help="most time a request may wait queued for its first token")
+    p.add_argument("--max-queue-depth", type=int, default=None,
+                   help="bounded admission queue: arrivals beyond this depth are shed")
     p.add_argument("--shed-policy", default=None, choices=("reject", "degrade"),
-                   help="not yet ported")
-    p.add_argument("--degrade-floor", type=int, default=8, help="not yet ported")
-    p.add_argument("--chaos", default=None, help="not yet ported")
-    p.add_argument("--max-restarts", type=int, default=2, help="not yet ported")
-    p.add_argument("--restart-backoff-s", type=float, default=0.0, help="not yet ported")
-    p.add_argument("--step-timeout-s", type=float, default=None, help="not yet ported")
+                   help="overload response: reject new arrivals, or degrade (trim "
+                        "max_new_tokens to the floor under page-pool pressure)")
+    p.add_argument("--degrade-floor", type=int, default=8,
+                   help="least max_new_tokens a degrade trim leaves")
+    # chaos and supervised recovery (utils/chaos.py, serve/guard.py)
+    p.add_argument("--chaos", default=None, metavar="IDX:KIND,...",
+                   help="inject serve faults at measured decode-step indices, e.g. "
+                        "'40:decode_nan,90:engine_crash'; kinds: decode_nan, slow_step, "
+                        "engine_crash. Implies the supervised recovery loop")
+    p.add_argument("--max-restarts", type=int, default=2,
+                   help="engine restarts before recovery gives up")
+    p.add_argument("--restart-backoff-s", type=float, default=0.0,
+                   help="base exponential-backoff delay between restarts")
+    p.add_argument("--step-timeout-s", type=float, default=None,
+                   help="watchdog deadline a decode step: a hung step escalates warn -> "
+                        "flight dump -> engine restart. Implies the supervised recovery loop")
     return p
+
+
+def _parse_chaos(spec: str) -> dict[int, str]:
+    """``"40:decode_nan,90:engine_crash"`` -> ``{40: ..., 90: ...}``."""
+    faults: dict[int, str] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        idx, sep, kind = part.partition(":")
+        if not sep:
+            raise ValueError(f"chaos spec {part!r} is not IDX:KIND")
+        faults[int(idx)] = kind
+    return faults
 
 
 def _make_sink(metrics_dir: str | None):
@@ -148,20 +191,19 @@ def build_model(args):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    for name, default in _NOT_YET_PORTED.items():
-        if getattr(args, name) != default:
-            flag = "--" + name.replace("_", "-")
-            raise SystemExit(f"{flag} is not yet ported to the PyTorch/CUDA package")
 
     import numpy as np
 
     from cs744_pytorch_distributed_tutorial_tpu_torch.serve import (
+        GuardConfig,
         Request,
         ServeConfig,
+        ServeGuard,
         ServingEngine,
         make_poisson_workload,
         run_batch_baseline,
         run_poisson,
+        run_serve_with_recovery,
     )
 
     model = build_model(args)
@@ -169,7 +211,7 @@ def main(argv: list[str] | None = None) -> int:
         num_slots=args.num_slots, page_size=args.page_size, num_pages=args.num_pages,
         max_pages_per_slot=args.max_pages_per_slot, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p, eos_id=args.eos_id, seed=args.seed,
-        paged_attention_impl=args.paged_attention_impl,
+        paged_attention_impl=args.paged_attention_impl, recompute=args.recompute,
     )
     workload = make_poisson_workload(
         num_requests=args.requests, rate_rps=args.rate, prompt_len=tuple(args.prompt_len),
@@ -201,8 +243,79 @@ def main(argv: list[str] | None = None) -> int:
                        "mismatches": mismatches, "parity_ok": mismatches == 0})
             failed |= mismatches > 0
 
-        engine = ServingEngine(model, cfg, device=args.device, sink=sink)
-        serve_rec = run_poisson(engine, workload, sink=sink)
+        tracer = None
+        window_every = args.window_every
+        if args.trace_dir and window_every is None:
+            window_every = 0.25
+        if args.trace_dir or window_every is not None:
+            from cs744_pytorch_distributed_tutorial_tpu_torch.obs.serve_trace import ServeTracer
+
+            tracer = ServeTracer(args.num_slots, window_every_s=window_every)
+        guard = None
+        if any(v is not None for v in (args.deadline_s, args.max_queue_s,
+                                       args.max_queue_depth, args.shed_policy)):
+            guard = ServeGuard(cfg=GuardConfig(
+                deadline_s=args.deadline_s, max_queue_s=args.max_queue_s,
+                max_queue_depth=args.max_queue_depth, shed_policy=args.shed_policy or "reject",
+                degrade_floor=args.degrade_floor,
+            ))
+
+        if args.chaos or args.step_timeout_s is not None:
+            # The supervised loop: it owns the flight recorder (one an
+            # engine, armed by its watchdog) and restarts the engine from
+            # its snapshot on any ServeFailure.
+            from cs744_pytorch_distributed_tutorial_tpu_torch.utils.chaos import (
+                SERVE_FAULT_KINDS,
+                FaultSchedule,
+                ServeChaosMonkey,
+            )
+
+            monkey = None
+            if args.chaos:
+                faults = _parse_chaos(args.chaos)
+                bad = sorted(set(faults.values()) - set(SERVE_FAULT_KINDS))
+                if bad:
+                    raise SystemExit(f"--chaos kinds {bad} not in {SERVE_FAULT_KINDS}")
+                monkey = ServeChaosMonkey(FaultSchedule(faults), telemetry=sink)
+            engines: list = []
+
+            def make_engine():
+                eng = ServingEngine(model, cfg, device=args.device, sink=sink, tracer=tracer,
+                                    guard=guard)
+                engines.append(eng)
+                return eng
+
+            serve_rec = run_serve_with_recovery(
+                make_engine, workload, monkey=monkey, max_restarts=args.max_restarts,
+                backoff_s=args.restart_backoff_s, step_timeout_s=args.step_timeout_s,
+                telemetry=sink, sink=sink,
+            )
+            engine = engines[-1]
+        else:
+            engine = ServingEngine(model, cfg, device=args.device, sink=sink, tracer=tracer,
+                                   guard=guard)
+            # A SIGTERM or an uncaught crash dumps the serve event ring and
+            # the pool's high water through the sink.
+            flight = engine.make_flight_recorder()
+            flight.install()
+            try:
+                serve_rec = run_poisson(engine, workload, sink=sink)
+            finally:
+                flight.uninstall()
+
+        if args.trace_dir:
+            from cs744_pytorch_distributed_tutorial_tpu_torch.obs.serve_trace import (
+                profile_serve_programs,
+            )
+
+            tracer.write(args.trace_dir)
+            # After the run: profiling re-runs the programs, off the clock.
+            phase_recs = profile_serve_programs(engine)
+            for rec in phase_recs:
+                sink.emit(rec)
+            with open(os.path.join(args.trace_dir, "serve_phases.json"), "w",
+                      encoding="utf-8") as f:
+                json.dump(phase_recs, f, indent=1)
 
         if args.compare_baseline or args.gate:
             pool_tokens = cfg.num_pages * cfg.page_size

@@ -87,6 +87,55 @@ class ProcessLossError(TrainingFailure):
         self.dead = dead
 
 
+class ServeFailure(TrainingFailure):
+    """Base class for detected serving-engine failures: recoverable by
+    rebuilding the engine and resuming from ``ServingEngine.snapshot()``
+    (the request state on the host; a snapshot taken after the failing
+    step is consistent because the engine raises before any per-step
+    bookkeeping). ``serve/guard.py::run_serve_with_recovery`` catches
+    them. Defined here so ``utils/chaos.py`` can raise them without an
+    import cycle."""
+
+
+class DecodeNanError(ServeFailure):
+    """A decode step produced out-of-vocabulary tokens: the logits were
+    NaN/inf (a numerical blowup, or the chaos ``decode_nan`` fault).
+    Found on the host in the token array the step already fetched, so the
+    check costs no extra transfer."""
+
+    def __init__(self, step: int, slots=()):
+        slots = tuple(int(s) for s in slots)
+        super().__init__(
+            f"decode step {step} produced out-of-vocab tokens"
+            + (f" in slots {list(slots)}" if slots else "")
+        )
+        self.step = step
+        self.slots = slots
+
+
+class EngineCrashError(ServeFailure):
+    """The decode step itself died (a CUDA error, chaos ``engine_crash``).
+    Raised before the step runs, so the engine's host state still
+    describes the world before it and ``snapshot()`` is valid."""
+
+    def __init__(self, step: int):
+        super().__init__(f"engine crash at decode step {step}")
+        self.step = step
+
+
+class HungStepError(ServeFailure):
+    """A decode step outlived the watchdog's whole escalation ladder
+    (warn -> dump -> abort). Raised by the supervisor once the step
+    returns: the hung thread itself cannot raise."""
+
+    def __init__(self, elapsed_s: float):
+        super().__init__(
+            f"decode step hung for {elapsed_s:.1f}s (watchdog escalation "
+            f"exhausted)"
+        )
+        self.elapsed_s = elapsed_s
+
+
 class StepWatchdog:
     """Detect hung training steps from the host side.
 

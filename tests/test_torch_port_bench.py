@@ -80,9 +80,31 @@ def test_bench_record_and_cpu_measurement(monkeypatch, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--serve", "--requests", "4"]])
-def test_unported_modes_exit(flag):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        bench.main(flag)
+def test_unported_modes_exit(flag, monkeypatch, tmp_path, capsys):
+    """``--serve`` (the bench's one mode that once exited "not yet
+    ported") hands the rest of the line to ``serve_cli.main``, with a
+    ``--metrics-dir`` given before ``--serve`` appended, as the JAX root
+    ``bench.py`` does, and returns its exit code; then a real run of it on
+    the CPU writes its serve_summary to that metrics dir."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import serve_cli
+
+    seen = []
+    with monkeypatch.context() as mp:
+        mp.setattr(serve_cli, "main", lambda argv: seen.append(argv) or 7)
+        assert bench.main(["--metrics-dir", str(tmp_path), *flag]) == 7
+        assert bench.main([*flag, "--metrics-dir", "elsewhere"]) == 7
+    assert seen == [[*flag[1:], "--metrics-dir", str(tmp_path)],
+                    [*flag[1:], "--metrics-dir", "elsewhere"]]
+    tiny = ["--num-layers", "1", "--d-model", "16", "--num-heads", "2", "--d-ff", "32",
+            "--vocab-size", "64", "--max-seq-len", "32", "--use-rope", "--rate", "200",
+            "--prompt-len", "3", "6", "--output-len", "2", "4", "--num-slots", "2",
+            "--page-size", "4", "--num-pages", "12", "--max-pages-per-slot", "4",
+            "--device", "cpu"]
+    assert bench.main(["--metrics-dir", str(tmp_path), *flag, *tiny]) == 0
+    capsys.readouterr()
+    rows = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    (summary,) = [r for r in rows if r.get("kind") == "serve_summary"]
+    assert summary["requests"] == summary["completed"] == 4
 
 
 class _FakeReport:

@@ -1,7 +1,8 @@
 """The port's boundaries: it imports no JAX, its entry points need a GPU
 unless asked for the CPU, its options of later slices raise, its CLI runs
 parts 1 and 2b on the CPU, and ``lm_cli --generate`` and ``serve_cli``
-run on the CPU at tiny sizes."""
+(its trace, guard, chaos and recovery flags included) run on the CPU at
+tiny sizes."""
 
 import ast
 import json
@@ -51,6 +52,8 @@ RUN_LOOP_MODULES = [
     "utils/memstore.py", "utils/failure.py", "utils/profiling.py", "utils/logging.py",
     # the phase profiler and its report CLI
     "obs/phases.py", "obs/__main__.py", "ops/_cost.py",
+    # the serving tracer, guard and chaos monkey
+    "obs/serve_trace.py", "serve/guard.py", "utils/chaos.py",
 ]
 
 
@@ -114,15 +117,99 @@ def test_inference_entry_points_without_gpu_raise(entry):
         calls[entry]()
 
 
+def _records(out: str) -> list[dict]:
+    rows = []
+    for line in out.splitlines():
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(rec, dict):
+            rows.append(rec)
+    return rows
+
+
 @pytest.mark.parametrize(
     "argv",
-    [["--trace-dir", "t"], ["--window-every", "0.5"], ["--deadline-s", "3"],
-     ["--max-queue-s", "1"], ["--max-queue-depth", "4"], ["--shed-policy", "degrade"],
-     ["--chaos", "4:decode_nan"], ["--step-timeout-s", "2"], ["--max-restarts", "3"]],
+    [["--trace-dir", "t"], ["--window-every", "0.5"], ["--deadline-s", "0"],
+     ["--max-queue-s", "0"], ["--max-queue-depth", "1", "--rate", "1e6"],
+     ["--shed-policy", "degrade", "--degrade-floor", "2"],
+     ["--chaos", "4:decode_nan"], ["--step-timeout-s", "2"],
+     ["--max-restarts", "3", "--chaos", "1:engine_crash,2:engine_crash,3:engine_crash"]],
 )
-def test_serve_cli_unported_flags_exit(argv):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        serve_cli.main([*SERVE_FLAGS, "--device", "cpu", *argv])
+def test_serve_cli_unported_flags_exit(argv, tmp_path, monkeypatch, capsys):
+    """The serving CLI's trace, guard, chaos and recovery flags (each once
+    exited "not yet ported") run on the CPU, each case checking what its
+    flag does: the trace dir, the SLO windows, deadline and queue-wait
+    expiry (budget 0: every request expires), the bounded queue's sheds,
+    the degrade policy's trims (exactly the admissions made under pool
+    pressure with a budget above the floor), one restart after a
+    ``decode_nan``, the watchdog armed around every step, and three
+    restarts allowed and taken."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.serve_trace import (
+        check_spans,
+        load_trace_dir,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.serve import ServeGuard
+    from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import StepWatchdog
+
+    monkeypatch.chdir(tmp_path)
+    admits, arms = [], []
+    real_admit, real_arm = ServeGuard.admit, StepWatchdog.arm
+
+    def admit(self, engine, req):
+        pool, budget = engine.pool, req.max_new_tokens
+        pressured = pool.free_pages < self.cfg.pressure_free_frac * (pool.num_pages - 1)
+        ok = real_admit(self, engine, req)
+        admits.append((self.cfg.shed_policy, pressured and budget > self.cfg.degrade_floor,
+                       req.max_new_tokens < budget))
+        return ok
+
+    def arm(self, timeout_s=None):
+        arms.append(self.timeout_s)
+        real_arm(self, timeout_s)
+
+    monkeypatch.setattr(ServeGuard, "admit", admit)
+    monkeypatch.setattr(StepWatchdog, "arm", arm)
+    assert serve_cli.main([*SERVE_FLAGS, "--device", "cpu", *argv]) == 0
+    records = _records(capsys.readouterr().out)
+    (summary,) = [r for r in records if r.get("kind") == "serve_summary"]
+    events = [r.get("event") for r in records if r.get("kind") == "event"]
+    flag = argv[0]
+    assert summary["requests"] == 6
+    assert sum(summary[k] for k in ("completed", "rejected", "timed_out", "recovered")) == 6
+    if flag == "--trace-dir":
+        data = load_trace_dir("t")
+        assert check_spans(data["spans"]) == [] and len(data["requests"]) == 6
+        assert data["windows"] and os.path.exists("t/serve_trace.json")
+        phases = json.load(open("t/serve_phases.json"))
+        assert phases[0]["phase"] == "decode" and "decode_host_exposed_ms" in phases[-1]
+        assert any(r.get("kind") == "serve_phase" for r in records)
+    elif flag == "--window-every":
+        assert [r for r in records if r.get("kind") == "serve_window"]
+    elif flag in ("--deadline-s", "--max-queue-s"):
+        reason = "deadline" if flag == "--deadline-s" else "queue_wait"
+        expired = [r for r in records if r.get("event") == "timed_out"]
+        assert summary["timed_out"] == len(expired) >= 1
+        assert all(r["reason"] == reason for r in expired)
+    elif flag == "--max-queue-depth":
+        sheds = [r for r in records if r.get("kind") == "serve_shed"]
+        assert summary["rejected"] == len(sheds) >= 1
+        assert all(r["reason"] == "queue_full" and r["terminal"] for r in sheds)
+    elif flag == "--shed-policy":
+        assert len(admits) == 6 and all(policy == "degrade" for policy, _, _ in admits)
+        assert all(trimmed == should for _, should, trimmed in admits)
+        trims = [r for r in records if r.get("reason") == "degrade_trim"]
+        assert len(trims) == sum(t for _, _, t in admits)
+    elif flag == "--chaos":
+        assert summary["restarts"] == 1 and events.count("recovery_restart") == 1
+        assert events.count("chaos_inject") == 1 and "recovery_complete" in events
+    elif flag == "--step-timeout-s":
+        assert summary["restarts"] == 0 and len(arms) >= summary["decode_steps"] > 0
+        assert set(arms) == {2.0}
+    else:
+        assert summary["restarts"] == 3 and events.count("recovery_restart") == 3
+        assert "recovery_giveup" not in events
 
 
 @pytest.mark.parametrize("flag", ["--beam", "--speculative-k"])
@@ -134,15 +221,47 @@ def test_lm_cli_unported_decoders_exit(flag):
 @pytest.mark.parametrize("option", ["guard", "tracer", "mesh", "snapshot", "resume",
                                     "make_flight_recorder", "generator_mesh"])
 def test_unported_serving_options_raise(option):
+    """``mesh`` (the engine's and the generator's) is still not ported and
+    raises; the guard, the tracer, snapshot/resume and the flight
+    recorder, once raises too, now serve on the CPU."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.serve_trace import ServeTracer
+    from cs744_pytorch_distributed_tutorial_tpu_torch.serve import Request, ServeGuard
+
     model = TransformerLM(**TINY_LM)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        if option in ("guard", "tracer", "mesh"):
-            ServingEngine(model, ServeConfig(), device="cpu", **{option: object()})
-        elif option == "generator_mesh":
-            make_generator(model, max_new_tokens=2, device="cpu", mesh=object())
-        else:
-            engine = ServingEngine(model, ServeConfig(), device="cpu")
-            getattr(engine, option)(*([None] if option == "resume" else []))
+    cfg = ServeConfig(num_slots=2, page_size=4, num_pages=9, max_pages_per_slot=4)
+    if option in ("mesh", "generator_mesh"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            if option == "mesh":
+                ServingEngine(model, cfg, device="cpu", mesh=object())
+            else:
+                make_generator(model, max_new_tokens=2, device="cpu", mesh=object())
+        return
+    kw = {"guard": ServeGuard(), "tracer": ServeTracer(2)}.get(option)
+    engine = ServingEngine(model, cfg, device="cpu", **({option: kw} if kw else {}))
+    reqs = [engine.submit(Request(prompt=[1, 2, 3], max_new_tokens=5)) for _ in range(3)]
+    engine.step()
+    if option == "guard":
+        assert engine.guard is kw and all(r.deadline_s is None for r in reqs)
+    elif option == "tracer":
+        assert {s["name"] for s in kw.spans} == {"queue", "prefill"}
+    elif option in ("snapshot", "resume"):
+        snap = engine.snapshot()
+        assert [r["in_flight"] for r in snap.requests] == [True, True, False]
+        if option == "resume":
+            fresh = ServingEngine(model, cfg, device="cpu")
+            resumed = fresh.resume(snap)
+            fresh.run()
+            engine.run()
+            assert [list(r.prompt[r.orig_prompt_len:]) + r.generated for r in resumed] == [
+                r.generated for r in reqs]
+            assert all(r.terminal_status == "recovered" for r in resumed)
+    else:
+        sink = []
+        engine.make_flight_recorder(emit=lambda event, **f: sink.append(event),
+                                    hbm=False).dump("test")
+        assert sink[0] == "flight_dump" and "flight_serve" not in sink
+    engine.run()
+    assert all(r.terminal_status in ("completed", "recovered") for r in reqs)
 
 
 def test_lm_cli_generates_on_cpu(capsys):

@@ -402,3 +402,64 @@ def test_paged_attention_rejects_misaligned_pools_on_card():
     with pytest.raises(ValueError, match="aligned"):
         P.paged_attention(q, kp, vp, table, pos)
     assert P.launch_count() == 0
+
+
+def _paged_cost_case(dev, quant):
+    """A ragged serving-like call: 3 slots over 4 pages of 8 rows, depths
+    0, 13 and 31 (1 + 14 + 32 = 47 live rows), 4 query heads on 2 KV
+    heads of 32."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    shape = (13, 8, 2, 32)
+    q = torch.randn(3, 1, 4, 32, generator=gen, device=dev)
+    if quant:
+        kp = torch.randint(-127, 128, shape, generator=gen, device=dev).to(torch.int8)
+        vp = kp.clone()
+        scales = dict(key_scale_pages=torch.full(shape[:3], 0.01, device=dev),
+                      value_scale_pages=torch.full(shape[:3], 0.01, device=dev))
+    else:
+        kp, vp = (torch.randn(shape, generator=gen, device=dev) for _ in range(2))
+        scales = {}
+    table = (1 + torch.arange(12, device=dev)).view(3, 4).to(torch.int32)
+    pos = torch.tensor([0, 13, 31], dtype=torch.int32, device=dev)
+    return q, kp, vp, table, pos, scales
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_paged_attention_cost_counts_live_rows(quant):
+    """``paged_attention_cost`` (what the wrapper reports to
+    ``ops/_cost.py`` for each launch on the card): 47 live rows x 2 KV
+    heads x 32 read as K and V (4 bytes fp32, 1 int8, + 8 bytes of
+    scales a row and head), q and the output (fp32), the table and the
+    depths; 4 FLOPs a live row, query head and head dim. On CPU tensors
+    the wrapper runs its plain version, whose work the dispatcher counts,
+    and reports nothing."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _cost
+
+    q, kp, vp, table, pos, scales = _paged_cost_case(torch.device("cpu"), quant)
+    rows, elt = 47, (1 if quant else 4)
+    want_bytes = (2 * rows * 2 * 32 * elt + (8 * rows * 2 if quant else 0) + 2 * 3 * 4 * 32 * 4
+                  + 4 * (12 + 3))
+    assert P.paged_attention_cost(q, kp, table, pos, quant=quant) == (4.0 * rows * 4 * 32,
+                                                                      want_bytes)
+    narrowed = P.paged_attention_cost(q, kp, table, pos, quant=quant, pages_per_slot=2)
+    assert narrowed[0] == 4.0 * (1 + 14 + 16) * 4 * 32  # depth 31 capped at 16 rows
+    with _cost.counting() as costs:
+        P.paged_attention(q, kp, vp, table, pos, **scales)
+    assert (costs.flops, costs.bytes_accessed) == (0.0, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+def test_paged_attention_reports_cost_on_card(quant):
+    """Each call on the card adds its ``paged_attention_cost`` to every
+    open ``_cost.counting()`` (and nothing while none is open)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _cost
+
+    q, kp, vp, table, pos, scales = _paged_cost_case(torch.device("cuda"), quant)
+    want = P.paged_attention_cost(q, kp, table, pos, quant=quant)
+    with _cost.counting() as costs:
+        P.paged_attention(q, kp, vp, table, pos, **scales)
+        P.paged_attention(q, kp, vp, table, pos, **scales)
+    assert (costs.flops, costs.bytes_accessed) == (2 * want[0], 2 * want[1])

@@ -243,3 +243,38 @@ def test_int8_matmul_tc_matches_plain_on_card(monkeypatch):
         assert Q.launch_count(route="ffma") == 1, (m, k, n)
         for route, y in (("tc", got), ("ffma", ffma)):
             assert bool(((y.float() - want).abs() <= limit).all()), (route, m, k, n)
+
+
+@pytest.mark.parametrize("dtype,elt", [(torch.float32, 4), (torch.bfloat16, 2)])
+def test_int8_matmul_cost(dtype, elt):
+    """``int8_matmul_cost`` (what the wrapper reports to ``ops/_cost.py``
+    for each launch on the card): 2 m k n FLOPs; the int8 weight, x, the
+    output and the fp32 scales once. On CPU tensors the wrapper runs its
+    plain version, whose work the dispatcher counts, and reports nothing."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _cost
+
+    m, k, n = 16, 768, 50304
+    assert Q.int8_matmul_cost(m, k, n, dtype) == (2.0 * m * k * n,
+                                                  k * n + elt * (m * k + m * n) + 4.0 * n)
+    q, s = Q.quantize_int8(torch.randn(64, 48))
+    with _cost.counting() as costs:
+        Q.int8_matmul(torch.randn(5, 64, dtype=dtype), q, s)
+    assert (costs.flops, costs.bytes_accessed) == (0.0, 0.0)
+
+
+@pytest.mark.cuda
+def test_int8_matmul_reports_cost_on_card():
+    """Each launch on the card, on either route, adds its
+    ``int8_matmul_cost`` to the open counter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _cost
+
+    q, s = Q.quantize_int8(torch.randn(768, 1000, device="cuda"))
+    with _cost.counting() as costs:
+        Q.int8_matmul(torch.randn(16, 768, device="cuda", dtype=torch.bfloat16), q, s)
+        Q.int8_matmul(torch.randn(7, 768, device="cuda"), q, s)
+    want = [Q.int8_matmul_cost(16, 768, 1000, torch.bfloat16),
+            Q.int8_matmul_cost(7, 768, 1000, torch.float32)]
+    assert (costs.flops, costs.bytes_accessed) == (want[0][0] + want[1][0],
+                                                   want[0][1] + want[1][1])
