@@ -208,7 +208,26 @@ no result):
     30 and ``--max-restarts 1`` (disk tier) and with ``--snapshot-every
     20`` (memory tier, no file read), both bitwise equal to the first run
     in every parameter and AdamW moment, every launch count exact; a
-    checkpoint's blocking, durable, read and copy-back times (1.95 GB).
+    checkpoint's blocking, durable, read and copy-back times (1.95 GB);
+24. the LM training options on GPT-2-small at full width (bf16, flash,
+    ``fused_xent``, AdamW, batch 16 x T 1024), 4 steps a run from one
+    initial state: the baseline, remat ``none`` and ``dots``,
+    ``scan_layers``, ``accum_steps=2``, dropout 0.1 alone and with remat;
+    every launch count exact (remat runs the flash forward again in the
+    backward; accumulation doubles every count); losses and parameters
+    against the baseline, dropout with remat against dropout alone
+    (first-step gradients); each run's step ms and peak memory;
+25. beam search at GPT-2-small width (4 KV heads, bf16), batch 2, 4 beams,
+    a 64-token prompt, 64 new tokens: beam 1 bitwise greedy, the score
+    against a teacher-forced re-score, 64 int8 launches under the int8
+    head, ms a beam step on the host and the device beside greedy
+    decoding of the same 8 rows;
+26. speculative decoding through ``lm_cli`` (``--speculative-k 4
+    --draft-layers 1 --generate 128``, target and draft each trained 24
+    steps, exact launch counts), greedy and at ``--temperature 0.8``:
+    target calls, accept rate, tokens/s against plain greedy on the same
+    weights and the tokens that agree with it; the target as its own
+    draft in fp32 equal to plain greedy, every round accepting all 4.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -4508,6 +4527,305 @@ def lm_run_loop_phase() -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------- LM options, beam, speculative
+OPT_STEPS, OPT_TIMED = 4, 3  # steps a run of phase 24; the last OPT_TIMED timed
+OPT_RUNS = {  # label: LMConfig overrides on the main path's config
+    "baseline": {}, "remat_none": dict(remat=True), "remat_dots": dict(remat=True,
+                                                                       remat_policy="dots"),
+    "scan_layers": dict(scan_layers=True), "accum_2": dict(accum_steps=2),
+    "dropout_0.1": dict(dropout_rate=0.1), "dropout_0.1_remat": dict(dropout_rate=0.1, remat=True),
+}
+BEAM_BATCH, BEAM_K, BEAM_PROMPT, BEAM_NEW = 2, 4, 64, 64
+BEAM_SCORE_RTOL = 1e-3  # |beam score - teacher-forced re-score| / |re-score|, bf16
+SPEC_K, SPEC_NEW, SPEC_STEPS, SPEC_PROMPT = 4, 128, 24, 64
+
+
+def lm_options_phase() -> dict:
+    """Phase 24: GPT-2-small at full width (bf16, flash, ``fused_xent``,
+    AdamW, batch 16 x T 1024), OPT_STEPS steps from one initial state on
+    the same batches for each of OPT_RUNS, every launch count exact (a
+    step: 12 flash forwards, 12 dq, 12 dk/dv, one fused cross-entropy
+    forward and backward; remat runs the forwards again in the backward,
+    under either policy, the kernels being opaque to a dispatch-level
+    policy; accum_steps=2 doubles every count). Against the baseline:
+    remat, dots and scan_layers losses within rtol 1e-5 and parameters
+    within 2 x lr a step at most, 1e-6 on average (bitwise expected,
+    printed); accum_steps=2 losses within rtol 2e-3, parameters within 2 x
+    lr a step, 1e-4 on average; dropout losses within 5 % of the
+    baseline's and not equal to them. Dropout with remat against dropout
+    alone: losses equal, and the first step's gradients within 1e-6 x
+    max|g| (bitwise expected, printed). Each run's step ms (CUDA events,
+    the last OPT_TIMED steps) and its peak memory above what was allocated
+    before its trainer was built."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
+    from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import (
+        stack_block_params,
+        unstack_block_params,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+
+    b, layers = 16, LM_WIDTH["num_layers"]
+    toks = synthetic_tokens(b * OPT_STEPS, LM_WIDTH["seq_len"], LM_WIDTH["vocab_size"], seed=24)
+    start = LMTrainer(lm_config(fused_xent=True))
+    start.init()
+    init_sd = {k: v.detach().clone() for k, v in start.model.state_dict().items()}
+    lr = start.cfg.learning_rate
+    del start
+    torch.cuda.empty_cache()
+    runs: dict = {}
+    for label, kw in OPT_RUNS.items():
+        # Peak memory: the run's own (its model, optimizer, batches and
+        # activations) above what earlier runs left for the comparisons.
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr = LMTrainer(lm_config(fused_xent=True, **kw))
+        tr.init(state_dict=stack_block_params(init_sd) if kw.get("scan_layers") else init_sd)
+        batches = [tr.split_batch(toks[b * i: b * (i + 1)]) for i in range(OPT_STEPS)]
+        timer = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        first_grads = []
+
+        def steps():
+            losses = []
+            for i, (x, y) in enumerate(batches):
+                if i == OPT_STEPS - OPT_TIMED:
+                    timer[0].record()
+                losses.append(tr.train_step(x, y)["loss"])
+                if i == 0 and label.startswith("dropout"):
+                    first_grads.extend(p.grad.detach().clone() for p in tr.model.parameters())
+            timer[1].record()
+            return losses
+
+        losses, all_counts = counted(steps)
+        detail = kernel_detail()
+        ms = timer[0].elapsed_time(timer[1]) / OPT_TIMED
+        sd = tr.model.state_dict()
+        if kw.get("scan_layers"):
+            sd = unstack_block_params(sd)
+        runs[label] = {"losses": [float(v) for v in losses], "ms_per_step": ms,
+                       "peak_memory_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+                       "launches": detail, "params": {k: v.detach() for k, v in sd.items()},
+                       "grads": first_grads}
+        # A step: each layer's forward (again in the backward under remat),
+        # dq and dk/dv, and one cross-entropy forward and backward, a
+        # microbatch each.
+        micro = kw.get("accum_steps", 1) * OPT_STEPS
+        want = {"flash_fwd_tc": layers * micro * (2 if kw.get("remat") else 1),
+                "flash_dq_tc": layers * micro, "flash_dkv_tc": layers * micro,
+                "fused_xent_fwd": micro, "fused_xent_bwd": micro}
+        if detail != want or others(all_counts, "flash", "fused_xent"):
+            raise RuntimeError(f"LM options {label}: launches {detail} (all {all_counts}), "
+                               f"expected {want}")
+        print(f"LM options {label}: losses {runs[label]['losses']}, {ms:.3f} ms a step, peak "
+              f"memory {runs[label]['peak_memory_gb']:.3f} GB, launches {detail}")
+        del tr, batches, sd
+        torch.cuda.empty_cache()
+
+    def gap(a: str, c: str) -> tuple[float, float, bool]:
+        d = torch.cat([(runs[a]["params"][k] - runs[c]["params"][k]).abs().flatten()
+                       for k in runs[c]["params"]])
+        same = all(torch.equal(runs[a]["params"][k], runs[c]["params"][k])
+                   for k in runs[c]["params"])
+        return float(d.max()), float(d.mean()), same
+
+    base = runs["baseline"]["losses"]
+    out: dict = {"card": card_line()}
+    for label, (rtol, mean_tol) in (("remat_none", (1e-5, 1e-6)), ("remat_dots", (1e-5, 1e-6)),
+                                    ("scan_layers", (1e-5, 1e-6)), ("accum_2", (2e-3, 1e-4))):
+        losses = runs[label]["losses"]
+        loss_gap = max(abs(x - y) / abs(y) for x, y in zip(losses, base))
+        pmax, pmean, same = gap(label, "baseline")
+        line = (f"LM options {label} vs baseline: max relative loss gap {loss_gap:.3e}, parameter "
+                f"gap max {pmax} mean {pmean}, bitwise {same and losses == base}")
+        print(line)
+        if not (loss_gap <= rtol and pmax <= 2 * lr * OPT_STEPS and pmean <= mean_tol):
+            raise RuntimeError(line)
+    for label in ("dropout_0.1", "dropout_0.1_remat"):
+        losses = runs[label]["losses"]
+        if not all(math.isfinite(x) and abs(x - y) <= 0.05 * abs(y) and x != y
+                   for x, y in zip(losses, base)):
+            raise RuntimeError(f"LM options {label}: losses {losses} vs baseline {base}")
+    ga, gb = runs["dropout_0.1"]["grads"], runs["dropout_0.1_remat"]["grads"]
+    g_gap = max(float((x - y).abs().max()) for x, y in zip(ga, gb))
+    g_max = max(float(x.abs().max()) for x in ga)
+    g_same = all(torch.equal(x, y) for x, y in zip(ga, gb))
+    d_line = (f"LM options dropout 0.1 with remat vs without: losses "
+              f"{runs['dropout_0.1_remat']['losses']} vs {runs['dropout_0.1']['losses']}, first "
+              f"step's gradient gap {g_gap} (max |g| {g_max}), bitwise {g_same}")
+    print(d_line)
+    if runs["dropout_0.1_remat"]["losses"] != runs["dropout_0.1"]["losses"] or not (
+            g_gap <= 1e-6 * g_max):
+        raise RuntimeError(d_line)
+    for label, r in runs.items():
+        out[label] = {k: r[k] for k in ("losses", "ms_per_step", "peak_memory_gb", "launches")}
+    del runs
+    torch.cuda.empty_cache()
+    print(json.dumps({"lm_options": out}))
+    return out
+
+
+def beam_phase() -> dict:
+    """Phase 25: beam search at GPT-2-small width (4 KV heads, bf16), batch
+    BEAM_BATCH, BEAM_K beams, a BEAM_PROMPT-token prompt, BEAM_NEW new
+    tokens, random weights: beam 1 bitwise equal to greedy
+    ``make_generator``; the K-beam score of each row against a
+    teacher-forced re-score of its tokens (the full forward, fp32
+    log-softmax) within BEAM_SCORE_RTOL; with the int8 head exactly one
+    int8 launch a model call (BEAM_NEW in all, on the route its rows
+    take) and no other kernel; ms a beam step on the host clock and on
+    the device (torch.profiler's kernel time), beside greedy decoding of
+    the same rows. Returns the int8 head run's launches by route."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
+    from cs744_pytorch_distributed_tutorial_tpu_torch.infer import (
+        make_beam_searcher,
+        make_generator,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMConfig, LMTrainer
+
+    tr = LMTrainer(LMConfig(**DECODE_WIDTH, use_rope=True, compute_dtype="bfloat16",
+                            device="cuda"))
+    model = tr.decode_model()
+    prompt = torch.from_numpy(synthetic_tokens(BEAM_BATCH, BEAM_PROMPT, DECODE_WIDTH["vocab_size"],
+                                               seed=25)[:, :BEAM_PROMPT]).long().cuda()
+    greedy = make_generator(model, max_new_tokens=BEAM_NEW, temperature=0.0)
+    beam1 = make_beam_searcher(model, beam_size=1, max_new_tokens=BEAM_NEW)
+    want, (got1, _) = greedy(prompt), beam1(prompt)
+    if not torch.equal(got1, want):
+        raise RuntimeError(f"beam 1 differs from greedy at {int((got1 != want).sum())} tokens")
+    search = make_beam_searcher(model, beam_size=BEAM_K, max_new_tokens=BEAM_NEW)
+    (toks, scores), counts = counted(lambda: search(prompt))
+    if any(counts.values()):
+        raise RuntimeError(f"the float beam search launched kernels: {counts}")
+    host_ms = search.timing["decode_s"] * 1e3 / search.timing["decode_steps"]
+    with torch.no_grad():
+        logp = torch.log_softmax(model(torch.cat([prompt, toks], 1)).float(), -1)
+    t0 = BEAM_PROMPT
+    rescore = logp[:, t0 - 1:-1].gather(-1, toks[..., None])[..., 0].sum(-1)
+    rel = float(((scores - rescore).abs() / rescore.abs()).max())
+    line = (f"beam K={BEAM_K}: scores {scores.tolist()}, teacher-forced {rescore.tolist()}, "
+            f"max relative gap {rel:.3e}")
+    print(line)
+    if not (bool(torch.isfinite(scores).all()) and rel <= BEAM_SCORE_RTOL):
+        raise RuntimeError(line)
+    steps = BEAM_NEW - 1
+    greedy_b = make_generator(model, max_new_tokens=BEAM_NEW, temperature=0.0)
+    rows = prompt.repeat_interleave(BEAM_K, 0)
+    greedy_b(rows)
+    g_host_ms = greedy_b.timing["decode_s"] * 1e3 / greedy_b.timing["decode_steps"]
+    device_ms = device_busy_ms(lambda: search(prompt), reps=1)
+    g_device_ms = device_busy_ms(lambda: greedy_b(rows), reps=1)
+    qmodel = tr.quantized_decode_model("head")
+    qsearch = make_beam_searcher(qmodel, beam_size=BEAM_K, max_new_tokens=BEAM_NEW)
+    (qtoks, _), qcounts = counted(lambda: qsearch(prompt))
+    if qcounts["int8_matmul"] != BEAM_NEW or others(qcounts, "int8_matmul", "int8_matmul_tc"):
+        raise RuntimeError(f"int8-head beam search launches {qcounts}, expected {BEAM_NEW} "
+                           f"int8_matmul and no other")
+    agree = float((qtoks == toks).float().mean())
+    out = {"card": card_line(), "host_ms_per_beam_step": host_ms,
+           "device_ms_per_beam_step": None if device_ms is None else device_ms / steps,
+           "greedy_host_ms_per_step_same_rows": g_host_ms,
+           "greedy_device_ms_per_step_same_rows": (None if g_device_ms is None
+                                                   else g_device_ms / steps),
+           "score_max_relative_gap": rel, "int8_launches": qcounts["int8_matmul"],
+           "int8_launches_tc": qcounts["int8_matmul_tc"], "int8_head_token_agreement": agree}
+    print(json.dumps({"beam": out}))
+    del tr, model, qmodel
+    torch.cuda.empty_cache()
+    tc = qcounts["int8_matmul_tc"]
+    return {"tc": tc, "ffma": qcounts["int8_matmul"] - tc}
+
+
+def speculative_phase() -> dict:
+    """Phase 26: speculative decoding through ``lm_cli`` on GPT-2-small
+    (bf16, flash, ``fused_xent``; the target and the 1-layer draft each
+    trained SPEC_STEPS steps at batch 16 x T 1024): ``--speculative-k
+    SPEC_K --draft-layers 1 --generate SPEC_NEW``, greedy and at
+    ``--temperature 0.8``, every launch count exact (the two trainings'
+    flash and fused cross-entropy; decoding runs dense attention, as the
+    JAX decode model, and no kernel). Greedy: the tokens that agree with
+    plain greedy ``make_generator`` on the same target weights, target
+    calls, accept rate and tokens/s against plain greedy's. Then the
+    target as its own draft in fp32 (TF32 off): equal to plain greedy,
+    every round accepting all k (ceil((SPEC_NEW - 1) / (SPEC_K + 1))
+    calls). Returns each run's launches."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
+    from cs744_pytorch_distributed_tutorial_tpu_torch.infer import (
+        make_generator,
+        make_speculative_generator,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import speculative_accept_rate
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+
+    argv = [arg for key, value in LM_WIDTH.items()
+            for arg in (f"--{key.replace('_', '-')}", str(value))]
+    argv += ["--global-batch-size", "16", "--use-rope", "--attention-impl", "flash",
+             "--fused-xent", "--compute-dtype", "bfloat16", "--steps", str(SPEC_STEPS),
+             "--num-seqs", str(16 * SPEC_STEPS), "--generate", str(SPEC_NEW), "--prompt-len",
+             str(SPEC_PROMPT), "--speculative-k", str(SPEC_K), "--draft-layers", "1", "--json",
+             "--device", "cuda"]
+    layers = LM_WIDTH["num_layers"]
+    want = {"flash_fwd_tc": (layers + 1) * SPEC_STEPS, "flash_dq_tc": (layers + 1) * SPEC_STEPS,
+            "flash_dkv_tc": (layers + 1) * SPEC_STEPS, "fused_xent_fwd": 2 * SPEC_STEPS,
+            "fused_xent_bwd": 2 * SPEC_STEPS}
+    out: dict = {"card": card_line()}
+    for label, temp in (("greedy", "0"), ("temperature_0.8", "0.8")):
+        t0 = time.perf_counter()
+        with captured_lm_trainers() as trainers:
+            summary, counts = counted(lambda: run_cli([*argv, "--temperature", temp],
+                                                      main=lm_cli.main))
+        wall = time.perf_counter() - t0
+        detail = kernel_detail()
+        g = summary["generation"]
+        toks = torch.tensor(g["tokens"])
+        in_range = bool(((toks >= 0) & (toks < LM_WIDTH["vocab_size"])).all())
+        if (detail != want or others(counts, "flash", "fused_xent") or not in_range
+                or toks.shape != (1, SPEC_NEW)
+                or not -(-(SPEC_NEW - 1) // (SPEC_K + 1)) <= g["target_calls"] < SPEC_NEW):
+            raise RuntimeError(f"speculative {label}: launches {detail} (all {counts}), expected "
+                               f"{want}; generation {dict(g, tokens=None)}")
+        rec = {k: g[k] for k in ("target_calls", "accept_rate", "tokens_per_s", "prefill_ms",
+                                 "decode_ms_per_step")}
+        rec.update(wall_s=wall, launches=detail, final_loss=summary["final_loss"])
+        if label == "greedy":
+            target = trainers[0]  # fit runs the target first, then the draft
+            model = target.decode_model()
+            # lm_cli's prompt: the first training sequence's prefix.
+            data = synthetic_tokens(16 * SPEC_STEPS, LM_WIDTH["seq_len"], LM_WIDTH["vocab_size"],
+                                    seed=0)
+            prompt = torch.from_numpy(data[:1, :SPEC_PROMPT]).long().cuda()
+            plain = make_generator(model, max_new_tokens=SPEC_NEW, temperature=0.0)
+            want_toks = plain(prompt).cpu()
+            t = plain.timing
+            rec["plain_greedy_tokens_per_s"] = SPEC_NEW / (t["prefill_s"] + t["decode_s"])
+            rec["tokens_agreeing_with_plain_greedy"] = int((want_toks == toks).sum())
+            # The target as its own draft, fp32, TF32 off (set in main).
+            fp32 = LMTrainer(target.cfg.replace(compute_dtype="float32")).decode_model(
+                target.model.state_dict())
+            spec = make_speculative_generator(fp32, fp32, max_new_tokens=SPEC_NEW, k=SPEC_K,
+                                              return_stats=True)
+            self_toks, calls = spec(prompt)
+            self_want = make_generator(fp32, max_new_tokens=SPEC_NEW, temperature=0.0)(prompt)
+            # Every round accepting all k: ceil((N - 1) / (k + 1)) calls (the
+            # rate formula then reads below 1 by the last round's overshoot).
+            rate = speculative_accept_rate(SPEC_NEW, calls, SPEC_K)
+            all_accepted = calls == -(-(SPEC_NEW - 1) // (SPEC_K + 1))
+            line = (f"speculative fp32 self-draft: {calls} target calls (every round accepted "
+                    f"all {SPEC_K}: {all_accepted}), accept rate {rate}, equal to plain greedy "
+                    f"{torch.equal(self_toks, self_want)}")
+            print(line)
+            if not (torch.equal(self_toks, self_want) and all_accepted):
+                raise RuntimeError(line)
+            rec.update(fp32_self_draft_target_calls=calls, fp32_self_draft_accept_rate=rate)
+            del model, fp32, spec
+        del trainers
+        torch.cuda.empty_cache()
+        out[label] = rec
+        print(f"speculative {label}: {rec}")
+    print(json.dumps({"speculative": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4633,6 +4951,12 @@ def main() -> int:
     cifar_phases = cifar_phases_phase()
     lm_phases = lm_phases_phase()
     lm_loop = lm_run_loop_phase()
+    # The LM training options, beam search and speculative decoding.
+    lm_options = lm_options_phase()
+    beam_int8 = beam_phase()
+    speculative = speculative_phase()
+    for rec in int8_records:
+        rec["launches_beam"] = beam_int8["tc" if rec["name"].endswith("_tc") else "ffma"]
     for rec in records:
         key = {"gmm_fused_tc": "gmm_fused_tc", "gmm_fused_with_z_tc": "gmm_fused_z_tc",
                "gmm_tc": "gmm_gmm_tc", "tgmm_tc": "gmm_tgmm_tc", "split": "gmm_split",
@@ -4644,6 +4968,14 @@ def main() -> int:
             rec["launches_phase_segments"] = segs
         if key in lm_loop["run_launches"]:
             rec["launches_lm_run_loop"] = lm_loop["run_launches"][key]
+        opts = {label: r["launches"][key] for label, r in lm_options.items()
+                if label != "card" and key in r["launches"]}
+        if opts:
+            rec["launches_lm_options"] = opts
+        spec = {label: r["launches"][key] for label, r in speculative.items()
+                if label != "card" and key in r["launches"]}
+        if spec:
+            rec["launches_speculative"] = spec
 
     print(json.dumps({"kernels": records}))
     print(card_line())

@@ -33,6 +33,15 @@ capacity slots) and generates:
         --compute-dtype bfloat16 --steps 0 --seq-len 128 --num-seqs 16 \
         --generate 128 --prompt-len 128 --generate-batch 16 --temperature 0 --json
 
+The training options ``--remat`` (``--remat-policy none|dots``),
+``--scan-layers``, ``--dropout-rate`` and ``--accum-steps`` run as the JAX
+CLI's. ``--beam K`` decodes by beam search, ``--speculative-k K``
+speculatively with a ``--draft-layers``-layer draft trained as the
+target is (greedy at ``--temperature 0``, rejection sampling above):
+
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.lm_cli ... \
+        --steps 8 --generate 128 --temperature 0 --speculative-k 4 --draft-layers 1 --json
+
 The run loop (``LMTrainer.fit``) checkpoints and resumes exactly
 (``--checkpoint-dir``, ``--checkpoint-every``), keeps in-memory snapshots
 (``--snapshot-every``, ``--snapshot-keep``), streams metrics
@@ -50,10 +59,13 @@ leading training sequences' prefixes; the JAX CLI takes one) and the
 JAX CIFAR CLI's ``--step-timeout-s``, ``--profile-dir``,
 ``--profile-start-step`` and ``--profile-num-steps`` for the LMConfig
 fields of those names (their defaults are LMConfig's). Other
-flags of the JAX CLI are not accepted; ``--moe-expert-parallel``, ``--beam`` and
-``--speculative-k`` exit with "not yet ported". The stdout lines and the ``--json`` summary
-keys are the JAX CLI's, plus ``generation`` (batch, times and every
-row's tokens) when generating and, for an MoE run with steps, ``moe``:
+flags of the JAX CLI are not accepted; ``--moe-expert-parallel`` exits
+with "not yet ported". The JAX CLI's refusals of ``--beam`` and
+``--speculative-k`` combinations are made before training. The stdout
+lines and the ``--json`` summary keys are the JAX CLI's, plus
+``generation`` (batch, times and every row's tokens; the decoder, and
+for speculative decoding its target calls and accept rate) when
+generating and, for an MoE run with steps, ``moe``:
 every step's ``moe_aux``, ``moe_drop`` and ``moe_load_entropy`` (the
 per-step MoE fields the JAX trainer's telemetry records).
 """
@@ -91,6 +103,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dense, or flash (the CUDA kernels); on one device ring/ulysses "
                         "run dense and ring_flash/ulysses_flash run flash")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--remat-policy", default="none", choices=["none", "dots"],
+                   help="remat granularity: recompute everything, or keep matmul outputs and "
+                        "recompute elementwise only")
+    p.add_argument("--scan-layers", action="store_true",
+                   help="the layer-stacked parameter layout: one blocks module whose "
+                        "parameters carry a leading layer axis, run a layer at a time; "
+                        "identical numerics")
     p.add_argument("--tie-embeddings", action="store_true")
     p.add_argument("--norm", default="layernorm", choices=["layernorm", "rmsnorm"])
     p.add_argument("--mlp", default="gelu", choices=["gelu", "swiglu"])
@@ -125,8 +145,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--grad-clip-norm", type=float, default=None)
     p.add_argument("--label-smoothing", type=float, default=0.0)
+    p.add_argument("--dropout-rate", type=float, default=0.0,
+                   help="residual dropout on each block's sublayer outputs; masks are keyed "
+                        "by the step index")
     p.add_argument("--no-halt-on-nonfinite", dest="halt_on_nonfinite",
                    action="store_false", default=True)
+    p.add_argument("--accum-steps", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--metrics-dir", default=None,
@@ -184,9 +208,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default) quantizes lm_head only, 'all' every projection")
     p.add_argument("--int8-kv-cache", action="store_true",
                    help="store the decode KV cache int8 with per-row scales")
-    p.add_argument("--beam", type=int, default=0, metavar="K", help="not yet ported")
+    p.add_argument("--beam", type=int, default=0, metavar="K",
+                   help="beam-search decode with K beams instead of sampling")
     p.add_argument("--speculative-k", type=int, default=0, metavar="K",
-                   help="not yet ported")
+                   help="speculative decoding: train a shallow draft on the same data, propose "
+                        "K tokens per target verification chunk (infer/speculative.py; greedy "
+                        "at --temperature 0, rejection sampling above; no --beam)")
+    p.add_argument("--draft-layers", type=int, default=1,
+                   help="layer count of the speculative draft model (same width/heads as the "
+                        "target)")
     p.add_argument("--json", action="store_true")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
@@ -208,10 +238,72 @@ def _split_eval(eval_frac: float, tokens, batch_size: int):
     return tokens[:n_eval], tokens[n_eval:]
 
 
+def _check_decoders(args) -> None:
+    """The JAX CLI's refusals of ``--beam`` and ``--speculative-k``
+    combinations (raised before training here)."""
+    if args.beam > 0 and (args.top_k is not None or args.top_p is not None
+                          or args.temperature != 1.0):
+        raise SystemExit("--beam is deterministic highest-likelihood decoding; it cannot "
+                         "combine with --temperature/--top-k/--top-p (drop --beam to sample)")
+    if args.generate > 0 and args.speculative_k > 0:
+        if args.beam > 0:
+            raise SystemExit("--speculative-k does not combine with --beam")
+        if args.top_k is not None or args.top_p is not None:
+            raise SystemExit("--speculative-k supports temperature-only sampling (top-k/top-p "
+                             "truncation re-normalizes the target distribution, breaking the "
+                             "rejection-sampling exactness identity)")
+        if args.int8_decode is not None or args.int8_kv_cache:
+            raise SystemExit("--speculative-k does not combine with the int8 decode paths "
+                             "(verify in float; quantize separately)")
+
+
+def _speculative(args, trainer, tokens, model, prompt):
+    """Train the ``--draft-layers`` draft as the target was trained (its
+    configuration but the depth), then decode speculatively; returns
+    ``(tokens, timing, stats)``."""
+    import torch
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.infer import make_speculative_generator
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import (
+        Telemetry,
+        speculative_accept_rate,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+
+    draft_tr = LMTrainer(trainer.cfg.replace(num_layers=args.draft_layers))
+    draft_tr.fit(tokens, args.steps)
+    spec = make_speculative_generator(model, draft_tr.decode_model(),
+                                      max_new_tokens=args.generate, k=args.speculative_k,
+                                      temperature=args.temperature, return_stats=True,
+                                      device=args.device)
+    gen = None
+    if args.temperature > 0.0:
+        gen = torch.Generator(device=trainer.device).manual_seed(args.seed)
+    out, target_calls = spec(prompt[:1].astype(np.int64), gen)
+    accept_rate = speculative_accept_rate(args.generate, target_calls, args.speculative_k)
+    print(f"speculative: {target_calls} target calls for {args.generate} tokens "
+          f"(k={args.speculative_k}, accept rate {accept_rate:.3f})")
+    stats = {"target_calls": target_calls, "k": args.speculative_k, "accept_rate": accept_rate,
+             "draft_layers": args.draft_layers}
+    if args.metrics_dir is not None:
+        # Appended to the training run's stream: one timeline a run.
+        telemetry = Telemetry(args.metrics_dir, run="lm")
+        telemetry.emit_event("speculative_decode", new_tokens=args.generate,
+                             target_calls=target_calls, k=args.speculative_k,
+                             accept_rate=accept_rate, draft_layers=args.draft_layers,
+                             temperature=args.temperature)
+        telemetry.close()
+    return out, spec.timing, stats
+
+
 def _generate(args, trainer, tokens):
-    """Sample ``--generate`` tokens with the trainer's weights; prints the
-    first row and returns ``(sample, generation record)``."""
-    from cs744_pytorch_distributed_tutorial_tpu_torch.infer import make_generator
+    """Decode ``--generate`` tokens with the trainer's weights (sampling,
+    ``--beam`` or ``--speculative-k``); prints the first row and returns
+    ``(sample, generation record)``."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.infer import (
+        make_beam_searcher,
+        make_generator,
+    )
 
     if args.prompt is not None and args.text_file:
         prompt = np.frombuffer(args.prompt.encode("utf-8"), dtype=np.uint8)[None, :]
@@ -226,14 +318,27 @@ def _generate(args, trainer, tokens):
         model = trainer.quantized_decode_model(args.int8_decode, kv_cache=args.int8_kv_cache)
     else:
         model = trainer.decode_model(kv_cache=args.int8_kv_cache)
-    generate = make_generator(model, max_new_tokens=args.generate, temperature=args.temperature,
-                              top_k=args.top_k, top_p=args.top_p, device=args.device)
-    gen = None
-    if args.temperature != 0.0:
-        import torch
+    extra: dict = {}
+    if args.speculative_k > 0:
+        out, timing, stats = _speculative(args, trainer, tokens, model, prompt)
+        extra = {"decoder": "speculative", **stats}
+    elif args.beam > 0:
+        search = make_beam_searcher(model, beam_size=args.beam, max_new_tokens=args.generate,
+                                    device=args.device)
+        out, _ = search(prompt.astype(np.int64))
+        timing, extra = search.timing, {"decoder": "beam", "beam": args.beam}
+    else:
+        generate = make_generator(model, max_new_tokens=args.generate,
+                                  temperature=args.temperature, top_k=args.top_k,
+                                  top_p=args.top_p, device=args.device)
+        gen = None
+        if args.temperature != 0.0:
+            import torch
 
-        gen = torch.Generator(device=trainer.device).manual_seed(args.seed)
-    out = generate(prompt.astype(np.int64), gen).cpu().numpy()
+            gen = torch.Generator(device=trainer.device).manual_seed(args.seed)
+        out = generate(prompt.astype(np.int64), gen)
+        timing = generate.timing
+    out = out.cpu().numpy()
     ids = out[0].tolist()
     if args.text_file:
         sample = bytes(ids).decode("utf-8", errors="replace")
@@ -241,15 +346,14 @@ def _generate(args, trainer, tokens):
     else:
         sample = ids
         print(f"sample ids: {ids}")
-    t = generate.timing
-    new_tokens = out.size
+    t, new_tokens = timing, out.size
     total_s = t["prefill_s"] + t["decode_s"]
     generation = {
         "batch": int(out.shape[0]), "prompt_len": int(prompt.shape[1]),
         "new_tokens": args.generate, "int8_decode": args.int8_decode,
         "int8_kv_cache": args.int8_kv_cache, "prefill_ms": t["prefill_s"] * 1e3,
         "decode_ms_per_step": t["decode_s"] * 1e3 / max(1, t["decode_steps"]),
-        "tokens_per_s": new_tokens / total_s, "tokens": out.tolist(),
+        "tokens_per_s": new_tokens / total_s, **extra, "tokens": out.tolist(),
     }
     print(f"generated {new_tokens} tokens in {total_s:.3f} s ({generation['tokens_per_s']:.1f} "
           f"tokens/s): prefill {generation['prefill_ms']:.2f} ms, "
@@ -259,10 +363,9 @@ def _generate(args, trainer, tokens):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, on in (("--moe-expert-parallel", args.moe_expert_parallel),
-                     ("--beam", args.beam), ("--speculative-k", args.speculative_k)):
-        if on:
-            raise SystemExit(f"{flag} is not yet ported to the PyTorch/CUDA package")
+    if args.moe_expert_parallel:
+        raise SystemExit("--moe-expert-parallel is not yet ported to the PyTorch/CUDA package")
+    _check_decoders(args)
 
     from cs744_pytorch_distributed_tutorial_tpu_torch.data import (
         BYTE_VOCAB,
@@ -289,6 +392,9 @@ def main(argv: list[str] | None = None) -> int:
         max_seq_len=args.max_seq_len,
         attention_impl=args.attention_impl,
         compute_dtype=args.compute_dtype,
+        remat=args.remat,
+        remat_policy=args.remat_policy,
+        scan_layers=args.scan_layers,
         tie_embeddings=args.tie_embeddings,
         use_rope=args.use_rope,
         norm=args.norm,
@@ -310,6 +416,8 @@ def main(argv: list[str] | None = None) -> int:
         weight_decay=args.weight_decay,
         grad_clip_norm=args.grad_clip_norm,
         label_smoothing=args.label_smoothing,
+        dropout_rate=args.dropout_rate,
+        accum_steps=args.accum_steps,
         seed=args.seed,
         halt_on_nonfinite=args.halt_on_nonfinite,
         checkpoint_dir=args.checkpoint_dir,

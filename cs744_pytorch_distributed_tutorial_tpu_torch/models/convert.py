@@ -265,7 +265,10 @@ def lm_params_from_jax(params: Mapping[str, Any], cfg: Any = None) -> dict[str, 
     tree's block count is checked against it. A quantized tree (the JAX
     ``quantize_lm_params``: ``qkernel`` int8 [K, N] and ``scale`` [N] in
     a ``QuantDense``) gives ``QuantLinear``'s ``qweight`` [K, N] and
-    ``scale`` as they are."""
+    ``scale`` as they are. The ``scan_layers`` tree (one ``blocks``
+    subtree, leaves with a leading [L] axis) gives the port's stacked
+    layout, ``blocks.*`` with the same leading axis: bitwise the
+    unrolled tree's mapping, stacked."""
     out: dict[str, torch.Tensor] = {}
     flat = list(_flatten(params))
     quant_scopes = {path[:-1] for path, _ in flat if path[-1] == "qkernel"}
@@ -273,8 +276,8 @@ def lm_params_from_jax(params: Mapping[str, Any], cfg: Any = None) -> dict[str, 
         scope = [f"blocks.{p[len('block_'):]}" if p.startswith("block_") else p
                  for p in path[:-1]]
         name = path[-1]
-        if name == "kernel":
-            out[".".join(scope + ["weight"])] = _tensor(_np(leaf).T)
+        if name == "kernel":  # [(L,) in, out] -> [(L,) out, in]
+            out[".".join(scope + ["weight"])] = _tensor(np.swapaxes(_np(leaf), -1, -2))
         elif name == "qkernel":
             out[".".join(scope + ["qweight"])] = _tensor(leaf)
         elif name == "scale" and path[:-1] in quant_scopes:
@@ -286,7 +289,10 @@ def lm_params_from_jax(params: Mapping[str, Any], cfg: Any = None) -> dict[str, 
         else:
             raise ValueError(f"unexpected LM param {'/'.join(path)!r}")
     if cfg is not None:
-        blocks = {k.split(".")[1] for k in out if k.startswith("blocks.")}
+        if "blocks" in params:
+            blocks = range(len(_np(next(_flatten(params["blocks"]))[1])))
+        else:
+            blocks = {k.split(".")[1] for k in out if k.startswith("blocks.")}
         if len(blocks) != cfg.num_layers:
             raise ValueError(f"params hold {len(blocks)} blocks, cfg.num_layers is {cfg.num_layers}")
     return out
@@ -295,11 +301,12 @@ def lm_params_from_jax(params: Mapping[str, Any], cfg: Any = None) -> dict[str, 
 def jax_lm_params_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
     """The reverse: the port LM's ``state_dict`` -> a flax ``params``
     tree of numpy arrays (a ``QuantLinear``'s ``qweight``/``scale`` to
-    ``qkernel``/``scale``)."""
+    ``qkernel``/``scale``; the stacked layout to the ``scan_layers``
+    tree)."""
     params: dict = {}
     for key, value in state_dict.items():
         *scope, name = key.split(".")
-        if scope[:1] == ["blocks"]:
+        if scope[:1] == ["blocks"] and len(scope) > 1 and scope[1].isdigit():
             scope = [f"block_{scope[1]}", *scope[2:]]
         node = params
         for part in scope:
@@ -311,7 +318,7 @@ def jax_lm_params_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
             elif module in _LM_EMBEDS:
                 node["embedding"] = _np(value)
             else:
-                node["kernel"] = np.ascontiguousarray(_np(value).T)
+                node["kernel"] = np.ascontiguousarray(np.swapaxes(_np(value), -1, -2))
         elif name == "qweight":
             node["qkernel"] = _np(value)
         elif name in ("bias", "scale") or name in _LM_AS_IS:

@@ -38,19 +38,43 @@ stores K/V rows int8 with fp32 row scales.
 ``num_experts > 0`` replaces each block's dense MLP with
 ``models/moe.py::MoEFFN`` (``moe_dispatch`` ``scatter``, ``einsum`` or
 ``dropless``; the block adds its output to the residual, with no
-``mlp_out_bias``), in every mode. Options of later slices
-(sequence/tensor axes, remat, scan_layers, dropout) raise
-``NotImplementedError``.
+``mlp_out_bias``), in every mode.
+
+Training options, as the JAX model's:
+
+- ``dropout_rate``: residual dropout on the attention sublayer's output
+  and on the MLP's (before the residual add), active only when
+  ``forward`` gets a ``dropout`` key. Masks come from ``dropout_mask``, a
+  pure function of the key (seed, step, microbatch), the layer, the site
+  and the element: no generator carries state from one call to the
+  next, so a recompute under remat draws the very same mask.
+- ``remat``: each block of a ``train``-mode forward with gradients runs
+  under ``torch.utils.checkpoint`` (non-reentrant) and is recomputed in
+  the backward; ``remat_policy`` ``none`` recomputes everything, ``dots``
+  saves the outputs of the matrix products (``mm``, ``addmm``, ``bmm``)
+  through a selective-checkpoint policy. The CUDA kernels launch through
+  ``ctypes`` inside ``autograd.Function``s, which a dispatch-level policy
+  cannot see: under either policy their forwards run again in the
+  backward.
+- ``scan_layers``: the JAX layer-stacked layout. ``blocks`` is one
+  ``Block`` whose parameters carry a leading ``[num_layers]`` axis; each
+  layer runs on views of it (``torch.func.functional_call``), in every
+  mode. ``stack_block_params`` / ``unstack_block_params`` convert the
+  ``state_dict`` between the two layouts. MoE raises ``ValueError``.
+
+Sequence and tensor axes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.config import resolve_dtype
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.moe import MoEFFN
@@ -82,6 +106,57 @@ ROPE_BASE = 10000.0  # the JAX model's rope_base default
 NORM_EPS = 1e-6  # the JAX model's norm_eps default (flax's)
 MODES = ("train", "prefill", "decode", "paged_decode")
 PAGED_IMPLS = ("gather", "kernel")
+REMAT_POLICIES = ("none", "dots")
+# The aten matrix products a ``dots`` remat saves (F.linear and the MoE
+# capacity path's batched products dispatch to these).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default)
+_M64 = (1 << 64) - 1
+
+
+def resolve_remat_policy(name: str | None):
+    """A policy name -> the ``context_fn`` of ``torch.utils.checkpoint``:
+    ``none`` (or None) recomputes everything in the backward (None, the
+    default context); ``dots`` saves the matrix products' outputs and
+    recomputes the rest."""
+    if name in (None, "none"):
+        return None
+    if name == "dots":
+        return lambda: create_selective_checkpoint_contexts(list(_DOTS))
+    raise ValueError(f"unknown remat_policy {name!r}; choose from {REMAT_POLICIES}")
+
+
+def _key_seed(key: tuple[int, ...]) -> int:
+    """A 63-bit seed from a tuple of integers (splitmix64 folded over
+    them): different keys give unrelated seeds."""
+    h = 0x9E3779B97F4A7C15
+    for v in key:
+        h = (h ^ (int(v) & _M64)) * 0xBF58476D1CE4E5B9 & _M64
+        h = (h ^ (h >> 31)) * 0x94D049BB133111EB & _M64
+        h ^= h >> 29
+    return h >> 1
+
+
+def dropout_mask(key: tuple[int, ...], shape: torch.Size, rate: float,
+                 device: torch.device) -> torch.Tensor:
+    """The keep mask (bool, ``shape``) of dropout at ``rate`` for ``key``
+    (seed, step, microbatch, layer, site): element e is kept when the e-th
+    uniform of a generator seeded from the key alone is at least
+    ``rate``. The generator is made afresh from the key at each call (on
+    a card it is Philox, counter-based: the element's index is its
+    counter), so the mask is a pure function of the key and the element;
+    a recompute draws it again bit for bit."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_key_seed(key))
+    return torch.rand(shape, generator=gen, device=device) >= rate
+
+
+def dropout(x: torch.Tensor, rate: float, key: tuple[int, ...]) -> torch.Tensor:
+    """flax ``nn.Dropout``: kept elements scaled by 1 / (1 - rate), the
+    others zero; rate 1 zeroes everything."""
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = dropout_mask(key, x.shape, rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 @dataclasses.dataclass
@@ -244,7 +319,7 @@ class Attention(nn.Module):
 class Block(nn.Module):
     def __init__(self, d_model: int, num_heads: int, d_ff: int, *, norm: str = "layernorm",
                  mlp: str = "gelu", quant_modules: tuple = (), moe: dict | None = None,
-                 **attn_kw):
+                 dropout_rate: float = 0.0, **attn_kw):
         super().__init__()
         if mlp not in MLP_IMPLS:
             raise ValueError(f"unknown mlp {mlp!r}; choose from {MLP_IMPLS}")
@@ -252,7 +327,7 @@ class Block(nn.Module):
             raise ValueError(
                 f"mlp={mlp!r} does not compose with MoE (num_experts={moe['num_experts']}): "
                 "the routed MoEFFN replaces the dense MLP; drop --mlp swiglu or the experts")
-        self.mlp = mlp
+        self.mlp, self.dropout_rate = mlp, dropout_rate
         self.ln1 = Norm(d_model, norm)
         self.attn = Attention(d_model, num_heads, quant_modules=quant_modules, **attn_kw)
         self.ln2 = Norm(d_model, norm)
@@ -266,8 +341,15 @@ class Block(nn.Module):
         self.mlp_out = _linear(d_ff, d_model, False, "mlp_out" in quant_modules)
         self.mlp_out_bias = nn.Parameter(torch.zeros(d_model))
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, **attn_kw) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x, dtype), dtype, **attn_kw)
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, drop_key: tuple | None = None,
+                **attn_kw) -> torch.Tensor:
+        """``drop_key`` (seed, step, microbatch, layer) turns dropout on:
+        site 0 on the attention output, site 1 on the MLP output."""
+        drop = drop_key is not None and self.dropout_rate > 0.0
+        a = self.attn(self.ln1(x, dtype), dtype, **attn_kw)
+        if drop:
+            a = dropout(a, self.dropout_rate, (*drop_key, 0))
+        x = x + a
         h = self.ln2(x, dtype)
         if self.moe is not None:
             return x + self.moe(h, dtype)
@@ -277,6 +359,8 @@ class Block(nn.Module):
         else:
             h = F.gelu(up, approximate="tanh")
         h = _dense(self.mlp_out, h, dtype)
+        if drop:
+            h = dropout(h, self.dropout_rate, (*drop_key, 1))
         return x + h + self.mlp_out_bias.to(dtype)
 
 
@@ -291,10 +375,65 @@ def _modules_outside_moe(module: nn.Module):
 
 # Options of the JAX model that later slices port: name -> the value
 # that means "off".
-_NOT_YET_PORTED = {
-    "seq_axis_size": 1, "tensor_axis_size": 1, "remat": False, "scan_layers": False,
-    "dropout_rate": 0.0,
-}
+_NOT_YET_PORTED = {"seq_axis_size": 1, "tensor_axis_size": 1}
+
+
+def _stack_blocks(blocks: nn.ModuleList) -> "Block":
+    """The first of ``blocks`` with each parameter replaced by the stack
+    of all the blocks' ([num_layers, ...])."""
+    stacked = blocks[0]
+    for name, _ in list(stacked.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        value = torch.stack([b.get_parameter(name).detach() for b in blocks])
+        setattr(stacked.get_submodule(owner), leaf, nn.Parameter(value))
+    return stacked
+
+
+_UNROLLED_KEY = re.compile(r"blocks\.(\d+)\.(.+)")
+
+
+def is_stacked(state_dict) -> bool:
+    """Whether an LM ``state_dict`` is in the ``scan_layers`` layout."""
+    return any(k.startswith("blocks.") and not _UNROLLED_KEY.fullmatch(k) for k in state_dict)
+
+
+def stack_block_params(state_dict, num_layers: int | None = None) -> dict:
+    """The unrolled ``state_dict`` layout (``blocks.0.*`` ..
+    ``blocks.{L-1}.*``) -> the ``scan_layers`` one (``blocks.*``, each a
+    stack with a leading [L] axis), the other entries as they are. The
+    JAX ``stack_block_params`` on the port's names, with its checks: the
+    block indices must run 0..L-1 and match an explicit ``num_layers``."""
+    per_layer: dict[int, dict] = {}
+    rest = {}
+    for key, value in state_dict.items():
+        m = _UNROLLED_KEY.fullmatch(key)
+        if m:
+            per_layer.setdefault(int(m.group(1)), {})[m.group(2)] = value
+        else:
+            rest[key] = value
+    present = sorted(per_layer)
+    if present != list(range(len(present))):
+        raise ValueError(f"non-contiguous block indices in params: {present}")
+    if num_layers is None:
+        num_layers = len(present)
+    elif num_layers != len(present):
+        raise ValueError(f"num_layers={num_layers} but params carry {len(present)} block_* "
+                         "subtrees — stacking would silently drop layers")
+    for name in per_layer[0] if present else ():
+        rest[f"blocks.{name}"] = torch.stack([per_layer[i][name] for i in range(num_layers)])
+    return rest
+
+
+def unstack_block_params(state_dict) -> dict:
+    """The ``scan_layers`` ``state_dict`` -> the unrolled layout (the JAX
+    ``unstack_block_params``); layer i's tensors are views of the stacks."""
+    rest = {k: v for k, v in state_dict.items() if not k.startswith("blocks.")}
+    stacked = {k[len("blocks."):]: v for k, v in state_dict.items() if k.startswith("blocks.")}
+    n = next(iter(stacked.values())).shape[0]
+    for i in range(n):
+        for name, value in stacked.items():
+            rest[f"blocks.{i}.{name}"] = value[i]
+    return rest
 
 
 class TransformerLM(nn.Module):
@@ -303,7 +442,8 @@ class TransformerLM(nn.Module):
     flax defaults' distributions: lecun-normal (truncated) kernels, zero
     biases, embeddings N(0, 1/d_model), unit norm scales; a
     ``QuantLinear`` is built zero with scale 1 and filled by
-    ``ops/quant.py::quantize_lm_params``."""
+    ``ops/quant.py::quantize_lm_params``. With ``scan_layers`` the blocks
+    are drawn as the unrolled model's, then stacked."""
 
     def __init__(self, vocab_size: int = 1024, num_layers: int = 4, num_heads: int = 8,
                  d_model: int = 256, d_ff: int = 1024, max_seq_len: int = 2048,
@@ -315,7 +455,8 @@ class TransformerLM(nn.Module):
                  quant_kv_cache: bool = False, num_experts: int = 0, moe_top_k: int = 2,
                  moe_capacity_factor: float = 1.25, moe_num_groups: int = 1,
                  moe_dispatch: str = "scatter", moe_gmm_impl: str = "auto",
-                 generator: torch.Generator | None = None, **later):
+                 remat: bool = False, remat_policy: str = "none", scan_layers: bool = False,
+                 dropout_rate: float = 0.0, generator: torch.Generator | None = None, **later):
         super().__init__()
         for name, value in later.items():
             if name not in _NOT_YET_PORTED:
@@ -325,6 +466,13 @@ class TransformerLM(nn.Module):
         unknown = set(quant_modules) - QUANT_MODULES
         if unknown:
             raise ValueError(f"unknown quant modules {sorted(unknown)}")
+        if scan_layers and num_experts > 0:
+            raise ValueError(
+                f"scan_layers does not compose with MoE (num_experts={num_experts}): stacking "
+                "would change the sown aux-loss reduction (each layer's term must be summed, "
+                "not stacked); run routed blocks unrolled or in the pipeline engine")
+        self.remat, self.scan_layers, self.num_layers = remat, scan_layers, num_layers
+        self.remat_context = resolve_remat_policy(remat_policy) if remat else None
         quant = tuple(quant_modules) if quant_dense else ()
         self.dtype = resolve_dtype(dtype) if isinstance(dtype, str) else dtype
         self.use_rope, self.tie_embeddings = use_rope, tie_embeddings
@@ -340,13 +488,15 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(d_model, num_heads, d_ff, norm=norm, mlp=mlp, num_kv_heads=num_kv_heads,
                   impl=attention_impl, rope=use_rope, attn_bias=attn_bias, quant_modules=quant,
-                  moe=moe)
+                  moe=moe, dropout_rate=dropout_rate)
             for _ in range(num_layers)
         )
         self.ln_f = Norm(d_model, norm)
         self.lm_head = (None if tie_embeddings
                         else _linear(d_model, vocab_size, False, "lm_head" in quant))
         self.reset_parameters(generator)
+        if scan_layers:
+            self.blocks = _stack_blocks(self.blocks)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -384,12 +534,12 @@ class TransformerLM(nn.Module):
         return self
 
     def _kv(self, n0: int, n1: int, device) -> list[KVCache]:
-        attn = self.blocks[0].attn
+        attn = (self.blocks if self.scan_layers else self.blocks[0]).attn
         shape = (n0, n1, attn.kv_heads, attn.head_dim)
         device = self.tok_embed.weight.device if device is None else device
         dtype = torch.int8 if self.quant_kv_cache else self.dtype
         caches = []
-        for _ in self.blocks:
+        for _ in range(self.num_layers):
             c = KVCache(torch.zeros(shape, dtype=dtype, device=device),
                         torch.zeros(shape, dtype=dtype, device=device))
             if self.quant_kv_cache:
@@ -408,21 +558,40 @@ class TransformerLM(nn.Module):
         page_size, Hkv, D], zero (scales one)."""
         return self._kv(num_pages, page_size, device)
 
+    def _layers(self):
+        """Layer i's block as a callable ``(x, dtype, **kw)``: the
+        unrolled model's ``blocks[i]``, or the stacked block run on layer
+        i's views of its parameters."""
+        if not self.scan_layers:
+            return list(self.blocks)
+        names = [name for name, _ in self.blocks.named_parameters()]
+        views = zip(*(p.unbind(0) for _, p in self.blocks.named_parameters()))
+
+        def layer(params):
+            return lambda x, dtype, **kw: torch.func.functional_call(
+                self.blocks, params, (x, dtype), kw)
+
+        return [layer(dict(zip(names, v))) for v in views]
+
     def forward(self, tokens: torch.Tensor, mode: str = "train", *, decode_pos=None,
                 page_table: torch.Tensor | None = None, cache: list[KVCache] | None = None,
-                paged_attention_impl: str = "gather") -> torch.Tensor:
+                paged_attention_impl: str = "gather",
+                dropout: tuple[int, ...] | None = None) -> torch.Tensor:
         """fp32 logits [B, T, vocab]. ``prefill`` writes the prompt's K/V to
         ``cache`` (``init_cache``); ``decode`` takes T tokens at position
         ``decode_pos`` (an int) over ``cache``; ``paged_decode`` one token a
         slot at depths ``decode_pos`` [B] over the pools in ``cache``
-        (``init_pages``) through ``page_table`` [B, P]."""
+        (``init_pages``) through ``page_table`` [B, P]. ``dropout``, a key
+        (seed, step, microbatch), turns the blocks' dropout on (the JAX
+        ``deterministic=False``); without it the forward is
+        deterministic."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; choose from {MODES}")
         dtype = self.dtype
         t = tokens.shape[1]
         attn_kw = {}
         if mode != "train":
-            if cache is None or len(cache) != len(self.blocks):
+            if cache is None or len(cache) != self.num_layers:
                 raise ValueError(f"mode={mode!r} needs a cache of one KVCache a layer")
             if (mode == "paged_decode") != (page_table is not None):
                 raise ValueError("page_table goes with mode='paged_decode', and it needs one")
@@ -443,8 +612,16 @@ class TransformerLM(nn.Module):
         if self.pos_embed is not None:
             positions = _positions(t, decode_pos, tokens.device)
             x = x + F.embedding(positions, self.pos_embed.weight).to(dtype)
-        for i, block in enumerate(self.blocks):
-            x = block(x, dtype, kv=cache[i] if cache is not None else None, **attn_kw)
+        # Remat in train mode only, and only where a backward will follow.
+        remat = self.remat and mode == "train" and torch.is_grad_enabled()
+        for i, block in enumerate(self._layers()):
+            kw = dict(attn_kw, kv=cache[i] if cache is not None else None,
+                      drop_key=None if dropout is None else (*dropout, i))
+            if remat:
+                ctx = {} if self.remat_context is None else {"context_fn": self.remat_context}
+                x = checkpoint(block, x, dtype, use_reentrant=False, **ctx, **kw)
+            else:
+                x = block(x, dtype, **kw)
         x = self.ln_f(x, dtype)
         if self.tie_embeddings:
             return F.linear(x, self.tok_embed.weight.to(dtype)).float()

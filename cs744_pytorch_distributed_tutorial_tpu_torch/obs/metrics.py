@@ -2,7 +2,8 @@
 
 A port of the JAX package's ``obs/metrics.py``. The device half computes
 scalars where the tensors live (``tree_sq_norm``, ``tree_l2_norm``,
-``expert_load_entropy``); the host reads them only at a fetch the engine
+``expert_load_entropy``; ``speculative_accept_rate`` is host
+arithmetic); the host reads them only at a fetch the engine
 already makes. ``Telemetry`` owns the sinks (a ring always, which the
 watchdog flushes; a rank-0 JSONL stream when ``metrics_dir`` is set),
 stamps records with run, kind and time, amortizes ``step_time_s`` over
@@ -73,6 +74,17 @@ def expert_load_entropy(load: torch.Tensor) -> torch.Tensor:
     p = load / load.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     ent = -(p * torch.log(p + 1e-9)).sum(dim=-1)
     return ent.mean() / math.log(e)
+
+
+def speculative_accept_rate(new_tokens: int, target_calls: int, k: int) -> float | None:
+    """The realized draft acceptance of a speculative decode: each target
+    call yields one token of its own plus its accepted drafts, so the
+    rate is ``(new_tokens / target_calls - 1) / k``, clipped to [0, 1];
+    None without calls or drafts."""
+    if target_calls <= 0 or k <= 0:
+        return None
+    rate = (new_tokens / target_calls - 1.0) / k
+    return max(0.0, min(1.0, rate))
 
 
 def _labels() -> dict[str, int]:

@@ -101,9 +101,15 @@ PHASE_NAMES = ("forward", "backward", "grad_sync", "optimizer")
 # card uses its own (obs/flops.py: an H100 SXM's 989e12 / 3.35e12 ~= 295).
 DEFAULT_RIDGE_FLOPS_PER_BYTE = 240.0
 
-# Traces taken before a card's empty trace is an error: the profiler now
-# and then returns one without device events.
-_TRACE_ATTEMPTS = 3
+# Seconds of idle time inside a card's trace on each side of the timed
+# calls, one a trace attempt; after the last an empty trace is an error
+# (the profiler now and then returns one without device events). The
+# profiler keeps only the device events whose timestamps, mapped to the
+# host clock, fall inside its window, and late in a long process that
+# mapping drifts by milliseconds: enough to lose every event of a trace a
+# few ms long that ends at its last kernel.
+_TRACE_PADS_S = (0.1, 0.5, 2.0)
+_TRACE_ATTEMPTS = len(_TRACE_PADS_S)
 
 
 # ---------------------------------------------------------------------------
@@ -209,10 +215,11 @@ def capture_device_profile(
 
     The card is the device of the first tensor ``fn`` returns (else of
     its arguments). On the CPU there are no device lanes: ``device_ms``
-    is 0.0 and the clock ``"wall"``. On a card, a trace with no device
-    event is retaken up to ``_TRACE_ATTEMPTS`` times (the profiler now and then
-    returns one empty) and then raises: there is no fallback to the wall
-    clock."""
+    is 0.0 and the clock ``"wall"``. On a card the timed calls sit
+    between two idle pads inside the trace (``_TRACE_PADS_S``), and a
+    trace with no device event is retaken up to ``_TRACE_ATTEMPTS`` times
+    with a longer pad (the profiler now and then returns one empty) and
+    then raises: there is no fallback to the wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
     if iters < 1:
@@ -221,13 +228,16 @@ def capture_device_profile(
     _fence(device)
     on_card = device.type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
-    for _ in range(_TRACE_ATTEMPTS):
+    for attempt in range(_TRACE_ATTEMPTS):
+        pad_s = _TRACE_PADS_S[attempt] if on_card else 0.0
         with profile(activities=activities) as prof:
+            time.sleep(pad_s)
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn(*args)
             _fence(device)
             wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+            time.sleep(pad_s)
         events = _device_events(prof) if on_card else []
         if events or not on_card:
             break
@@ -693,7 +703,9 @@ class LMSegments:
     """The segments of one ``LMTrainer`` step (pure data-parallel layouts
     only, as in JAX: seq and tensor collectives live inside the forward).
     The port's LM runs on one device, so there is no sync program
-    (``sync`` is None): JAX's pmean over axes of size 1."""
+    (``sync`` is None): JAX's pmean over axes of size 1. Under dropout the
+    segments draw the masks of the trainer's step (``objective``'s key),
+    as the fused step does, and JAX's segments at that step."""
 
     sync = None
 

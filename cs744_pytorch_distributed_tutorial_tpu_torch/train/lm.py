@@ -14,6 +14,17 @@ step returns ``{loss, grad_norm, param_norm}`` as 0-d tensors on the
 device: the global L2 norms of the gradient and of the updated
 parameters.
 
+``remat`` (with ``remat_policy`` ``none`` or ``dots``), ``scan_layers``
+and ``dropout_rate`` are the model's options (``models/transformer.py``).
+Dropout is keyed by (seed, step, microbatch): ``train_step`` takes the
+step index (default ``self.step``, which ``fit`` keeps), as the JAX
+trainer folds it into its dropout key, so a resumed run draws the masks
+the uninterrupted one drew. ``accum_steps`` splits the batch into that
+many contiguous microbatches, each with its own forward and backward
+(and its own dropout key), then divides the gradient sum, the loss sum
+and the MoE statistics' sums by ``accum_steps`` (JAX
+``train/lm.py:1044-1077``).
+
 With ``moe_experts > 0`` each block's FFN is a routed ``MoEFFN``
 (``models/moe.py``; dispatch ``scatter``, the JAX default, ``einsum`` or
 ``dropless``, the grouped-matmul kernels), the objective is ``ce +
@@ -41,12 +52,14 @@ tensors.
 For generation and serving, ``decode_model`` and
 ``quantized_decode_model`` build a decode copy of the model (dense
 attention for the prompt pass, the float weights already in the compute
-dtype, int8 projections and/or an int8 KV cache on request) from the
-trainer's weights or from a ``state_dict``; ``quantize_for_decode``
-makes the int8 ``state_dict`` and ``gather_for_decode`` is the identity
-on one device.
+dtype, int8 projections and/or an int8 KV cache on request, no remat,
+the unrolled layout) from the trainer's weights or from a
+``state_dict``; ``quantize_for_decode`` makes the int8 ``state_dict``
+and ``gather_for_decode`` gives the unrolled weights (one device holds
+them whole).
 
-Options of later slices raise ``NotImplementedError``.
+Options of later slices (the parallel layouts, the gradient wire,
+ZeRO/FSDP) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,6 +77,9 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.config import resolve_device, 
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import (
     ATTENTION_IMPLS,
     TransformerLM,
+    is_stacked,
+    resolve_remat_policy,
+    unstack_block_params,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.fused_xent import fused_cross_entropy
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import (
@@ -99,6 +115,19 @@ class LMConfig:
     mlp: str = "gelu"
     use_rope: bool = False
     num_kv_heads: int | None = None
+    # Rematerialization of each block in the backward: remat_policy "none"
+    # recomputes everything, "dots" keeps the matrix products' outputs.
+    remat: bool = False
+    remat_policy: str = "none"
+    # The layer-stacked parameter layout (one ``blocks`` with a leading
+    # [num_layers] axis; models/transformer.py::stack_block_params).
+    scan_layers: bool = False
+    # Residual dropout on each block's attention and MLP outputs, keyed by
+    # (seed, step, microbatch); 0.0 is the dropout-free path exactly.
+    dropout_rate: float = 0.0
+    # Gradient accumulation: this many microbatches a step (must divide
+    # global_batch_size); the gradient is the mean of theirs.
+    accum_steps: int = 1
 
     # MoE (models/moe.py): moe_experts > 0 swaps each block's dense FFN
     # for a routed expert mixture; moe_aux_coef weighs its aux loss.
@@ -153,12 +182,8 @@ class LMConfig:
     moe_expert_parallel: bool = False
     grad_compress: str = "none"
     sync_overlap: str = "off"
-    remat: bool = False
     zero1: bool = False
     fsdp: bool = False
-    scan_layers: bool = False
-    dropout_rate: float = 0.0
-    accum_steps: int = 1
 
     # "cuda" (default) or "cpu".
     device: str = "cuda"
@@ -168,8 +193,8 @@ class LMConfig:
 
 
 _LATER_FIELDS = (
-    "data_parallel", "seq_parallel", "tensor_parallel", "moe_expert_parallel", "grad_compress", "sync_overlap", "remat", "zero1", "fsdp", "scan_layers", "dropout_rate",
-    "accum_steps",
+    "data_parallel", "seq_parallel", "tensor_parallel", "moe_expert_parallel", "grad_compress",
+    "sync_overlap", "zero1", "fsdp",
 )
 
 
@@ -186,6 +211,11 @@ def _check_config(cfg: LMConfig) -> None:
         raise ValueError(f"seq_len {cfg.seq_len} exceeds max_seq_len {cfg.max_seq_len}")
     if not 0.0 <= cfg.label_smoothing < 1.0:
         raise ValueError(f"label_smoothing must be in [0, 1), got {cfg.label_smoothing}")
+    if cfg.accum_steps < 1 or cfg.global_batch_size % cfg.accum_steps:
+        raise ValueError(f"accum_steps {cfg.accum_steps} must divide the per-device batch shard "
+                         f"({cfg.global_batch_size} sequences)")
+    if cfg.remat:
+        resolve_remat_policy(cfg.remat_policy)
     check_recipe(cfg)
     if cfg.label_smoothing and cfg.fused_xent:
         raise ValueError("label_smoothing is incompatible with fused_xent: the fused kernel "
@@ -217,15 +247,20 @@ class LMTrainer:
 
     def init(self, seed: int | None = None, state_dict: dict | None = None):
         """Build the model (parameters from ``seed``, default
-        ``cfg.seed``, or loaded from ``state_dict``) and its optimizer;
-        returns ``(model, optimizer)``."""
+        ``cfg.seed``, or copies of ``state_dict``'s, in this
+        configuration's layout: stacked under ``scan_layers``) and its
+        optimizer; returns ``(model, optimizer)``."""
         cfg = self.cfg
-        gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
-        self.model = TransformerLM(
-            **self._model_kw(), attention_impl=cfg.attention_impl, generator=gen,
-        ).to(self.device)
-        if state_dict is not None:
-            self.model.load_state_dict(state_dict)
+        kw = dict(self._model_kw(), attention_impl=cfg.attention_impl)
+        if state_dict is None:
+            gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+            self.model = TransformerLM(**kw, generator=gen).to(self.device)
+        else:  # no init drawn: the weights are the given ones
+            with torch.device("meta"):
+                self.model = TransformerLM(**kw)
+            self.model.load_state_dict(
+                {k: v.detach().to(self.device, copy=True) for k, v in state_dict.items()},
+                assign=True)
         self.optimizer = make_lm_optimizer(self.cfg, list(self.model.parameters()))
         self.step = 0
         return self.model, self.optimizer
@@ -240,24 +275,30 @@ class LMTrainer:
             num_experts=cfg.moe_experts, moe_top_k=cfg.moe_top_k,
             moe_capacity_factor=cfg.moe_capacity_factor, moe_num_groups=cfg.moe_groups,
             moe_dispatch=cfg.moe_dispatch, moe_gmm_impl=cfg.moe_gmm_impl,
+            remat=cfg.remat, remat_policy=cfg.remat_policy, scan_layers=cfg.scan_layers,
+            dropout_rate=cfg.dropout_rate,
         )
 
     def gather_for_decode(self, params: dict | None = None) -> dict:
-        """The full weights for a decode copy: ``params``, or the trainer's
-        model's ``state_dict`` (built by ``init()`` if there is none yet).
-        One device holds them whole, so nothing is gathered."""
-        if params is not None:
-            return params
-        if self.model is None:
-            self.init()
-        return self.model.state_dict()
+        """The full weights for a decode copy, in the unrolled layout:
+        ``params``, or the trainer's model's ``state_dict`` (built by
+        ``init()`` if there is none yet), unstacked if stacked. One device
+        holds them whole, so nothing is gathered."""
+        if params is None:
+            if self.model is None:
+                self.init()
+            params = self.model.state_dict()
+        return unstack_block_params(params) if is_stacked(params) else params
 
     def _decode_copy(self, params: dict, **options) -> TransformerLM:
-        """A ``TransformerLM`` with dense attention for the prompt pass,
-        built without an init and loaded with copies of ``params`` on the
-        trainer's device, its float weights cast to the compute dtype."""
+        """A ``TransformerLM`` with dense attention for the prompt pass, no
+        remat and the unrolled layout, built without an init and loaded
+        with copies of ``params`` on the trainer's device, its float
+        weights cast to the compute dtype."""
+        params = unstack_block_params(params) if is_stacked(params) else params
+        kw = dict(self._model_kw(), remat=False, scan_layers=False)
         with torch.device("meta"):
-            model = TransformerLM(**self._model_kw(), attention_impl="dense", **options)
+            model = TransformerLM(**kw, attention_impl="dense", **options)
         model.load_state_dict(
             {k: v.detach().to(self.device, copy=True) for k, v in params.items()}, assign=True)
         return model.cast_for_decode_()
@@ -313,8 +354,8 @@ class LMTrainer:
         return tokens[:, :-1], tokens[:, 1:]
 
     def _loss(self, inputs: torch.Tensor, targets: torch.Tensor, smoothing: float,
-              fused: bool = False):
-        logits = self.model(inputs)
+              fused: bool = False, dropout: tuple[int, ...] | None = None):
+        logits = self.model(inputs, dropout=dropout)
         v = logits.shape[-1]
         if fused:
             return fused_cross_entropy(logits.reshape(-1, v), targets.reshape(-1)).mean()
@@ -332,23 +373,49 @@ class LMTrainer:
             "moe_load_entropy": torch.stack([m.load_entropy for m in layers]).mean(),
         }
 
-    def objective(self, inputs: torch.Tensor, targets: torch.Tensor
-                  ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    def objective(self, inputs: torch.Tensor, targets: torch.Tensor, step: int | None = None,
+                  microbatch: int = 0) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """The training loss (cross-entropy, label-smoothed or through the
         fused kernels, plus ``moe_aux_coef`` times the MoE aux loss) and
-        the MoE statistics of its forward (empty for a dense model)."""
-        loss = self._loss(inputs, targets, self.cfg.label_smoothing, fused=self.cfg.fused_xent)
-        moe = self._moe_stats() if self.cfg.moe_experts > 0 else {}
+        the MoE statistics of its forward (empty for a dense model), read
+        right after the forward (a remat recompute in the backward sets
+        them again). Dropout, when on, is keyed by (seed, ``step``,
+        default ``self.step``, ``microbatch``)."""
+        cfg = self.cfg
+        key = None
+        if cfg.dropout_rate > 0.0:
+            key = (cfg.seed, self.step if step is None else step, microbatch)
+        loss = self._loss(inputs, targets, cfg.label_smoothing, fused=cfg.fused_xent, dropout=key)
+        moe = self._moe_stats() if cfg.moe_experts > 0 else {}
         if moe:
-            loss = loss + self.cfg.moe_aux_coef * moe["moe_aux"]
+            loss = loss + cfg.moe_aux_coef * moe["moe_aux"]
         return loss, moe
 
-    def train_step(self, inputs: torch.Tensor, targets: torch.Tensor) -> dict[str, torch.Tensor]:
+    def train_step(self, inputs: torch.Tensor, targets: torch.Tensor,
+                   step: int | None = None) -> dict[str, torch.Tensor]:
+        """One update on a batch; ``step`` keys the dropout masks (default
+        ``self.step``; inert at ``dropout_rate`` 0)."""
         params = list(self.model.parameters())
         for p in params:
             p.grad = None
-        loss, moe = self.objective(inputs, targets)
-        loss.backward()
+        step = self.step if step is None else step
+        accum = self.cfg.accum_steps
+        if accum == 1:
+            loss, moe = self.objective(inputs, targets, step)
+            loss.backward()
+        else:
+            # Microbatch i is rows [i B/a, (i+1) B/a); the sums are divided
+            # by accum_steps, as JAX's scan carry.
+            loss, moe = None, {}
+            for i, (x, y) in enumerate(zip(inputs.chunk(accum), targets.chunk(accum))):
+                mb_loss, mb_moe = self.objective(x, y, step, microbatch=i)
+                mb_loss.backward()
+                loss = mb_loss.detach() if loss is None else loss + mb_loss.detach()
+                for k, v in mb_moe.items():
+                    moe[k] = v.detach() if k not in moe else moe[k] + v.detach()
+            torch._foreach_div_([p.grad for p in params], accum)
+            loss = loss / accum
+            moe = {k: v / accum for k, v in moe.items()}
         grad_norm = _global_norm([p.grad for p in params])
         self.optimizer.step()
         self.step += 1

@@ -97,7 +97,8 @@ SERVE_FLAGS = [*LM_FLAGS, "--requests", "6", "--rate", "50", "--prompt-len", "3"
 
 @pytest.mark.parametrize("entry", ["make_generator", "ServingEngine", "serve_cli",
                                    "lm_cli --generate", "lm_cli --generate (MoE)",
-                                   "lm_cli --fused-xent"])
+                                   "lm_cli --fused-xent", "lm_cli --remat --accum-steps",
+                                   "lm_cli --beam", "lm_cli --speculative-k"])
 def test_inference_entry_points_without_gpu_raise(entry):
     _no_gpu()
     model = TransformerLM(**TINY_LM)
@@ -112,6 +113,15 @@ def test_inference_entry_points_without_gpu_raise(entry):
              "--generate", "4", "--seq-len", "16", "--num-seqs", "8"]),
         "lm_cli --fused-xent": lambda: lm_cli.main([*LM_FLAGS, "--fused-xent", "--steps", "1",
                                                     "--seq-len", "16", "--num-seqs", "8"]),
+        "lm_cli --remat --accum-steps": lambda: lm_cli.main(
+            [*LM_FLAGS, "--remat", "--accum-steps", "2", "--dropout-rate", "0.1",
+             "--scan-layers", "--steps", "1", "--seq-len", "16", "--num-seqs", "8"]),
+        "lm_cli --beam": lambda: lm_cli.main([*LM_FLAGS, "--steps", "0", "--generate", "4",
+                                              "--beam", "2", "--seq-len", "16",
+                                              "--num-seqs", "8"]),
+        "lm_cli --speculative-k": lambda: lm_cli.main(
+            [*LM_FLAGS, "--steps", "0", "--generate", "4", "--speculative-k", "2",
+             "--temperature", "0", "--seq-len", "16", "--num-seqs", "8"]),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()
@@ -214,8 +224,13 @@ def test_serve_cli_unported_flags_exit(argv, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", ["--beam", "--speculative-k"])
 def test_lm_cli_unported_decoders_exit(flag):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        lm_cli.main([*LM_FLAGS, "--generate", "4", flag, "2", "--device", "cpu"])
+    """Both decoders run now (``test_torch_port_lm_options.py``); each
+    still exits where the JAX CLI does: ``--beam`` with a sampling
+    temperature, ``--speculative-k`` with the int8 decode paths."""
+    extra, match = {"--beam": (["--temperature", "0.5"], "--beam is deterministic"),
+                    "--speculative-k": (["--int8-decode", "head"], "int8 decode")}[flag]
+    with pytest.raises(SystemExit, match=match):
+        lm_cli.main([*LM_FLAGS, "--generate", "4", flag, "2", *extra, "--device", "cpu"])
 
 
 @pytest.mark.parametrize("option", ["guard", "tracer", "mesh", "snapshot", "resume",

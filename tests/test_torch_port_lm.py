@@ -162,7 +162,10 @@ def test_cli_without_gpu_raises():
         LMTrainer(LMConfig(**SMALL))
 
 
-@pytest.mark.parametrize("flag", [["--moe-expert-parallel"], ["--generate", "8", "--beam", "2"]])
+# --beam runs now (test_torch_port_lm_options.py); expert parallelism with
+# experts is still refused.
+@pytest.mark.parametrize("flag", [["--moe-expert-parallel"],
+                                  ["--moe-experts", "4", "--moe-expert-parallel"]])
 def test_cli_flags_of_later_slices_say_not_yet_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported"):
         lm_cli.main([*CLI_SMALL, *flag])
@@ -171,7 +174,8 @@ def test_cli_flags_of_later_slices_say_not_yet_ported(flag):
 @pytest.mark.parametrize(
     "flag",
     # lion and the cosine schedules run now; the JAX CLI's choices end there.
-    [["--data-parallel", "2"], ["--zero1"], ["--remat"], ["--optimizer", "adagrad"],
+    # --remat is a flag now; --seq-parallel is not.
+    [["--data-parallel", "2"], ["--zero1"], ["--seq-parallel", "2"], ["--optimizer", "adagrad"],
      ["--lr-schedule", "step"]],
 )
 def test_cli_rejects_flags_it_does_not_have(flag):
@@ -182,12 +186,18 @@ def test_cli_rejects_flags_it_does_not_have(flag):
 
 @pytest.mark.parametrize(
     "override",
-    [dict(remat=True), dict(moe_experts=4, moe_expert_parallel=True), dict(seq_parallel=2),
-     dict(zero1=True), dict(accum_steps=2), dict(grad_compress="int8"),
-     dict(dropout_rate=0.1)],
+    # remat, accum_steps and dropout_rate train now
+    # (test_torch_port_lm_options.py): in their places the tensor and data
+    # axes, still refused, and an accum_steps that does not divide the
+    # batch, which JAX refuses with ValueError.
+    [dict(tensor_parallel=2), dict(moe_experts=4, moe_expert_parallel=True),
+     dict(seq_parallel=2), dict(zero1=True), dict(accum_steps=3), dict(grad_compress="int8"),
+     dict(data_parallel=2)],
 )
 def test_config_options_of_later_slices_raise(override):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    error, match = ((ValueError, "accum_steps") if "accum_steps" in override
+                    else (NotImplementedError, "not yet ported"))
+    with pytest.raises(error, match=match):
         LMTrainer(LMConfig(**SMALL, device="cpu", **override)).init()
 
 

@@ -160,9 +160,19 @@ def test_init_distributions_follow_flax_defaults():
 @pytest.mark.parametrize(
     "option",
     # MoE's ragged_dot grouped matmul is not ported (the kernels are).
-    [dict(num_experts=4, moe_dispatch="dropless", moe_gmm_impl="ragged"), dict(remat=True), dict(scan_layers=True), dict(dropout_rate=0.1),
-     dict(tensor_axis_size=2), dict(seq_axis_size=2)],
+    # remat, scan_layers and dropout build now (test_torch_port_lm_options.py,
+    # test_torch_port_scan_layers.py): in their places what JAX refuses with
+    # ValueError (an unknown remat policy, scan_layers with MoE) and the
+    # two axes together.
+    [dict(num_experts=4, moe_dispatch="dropless", moe_gmm_impl="ragged"),
+     dict(remat=True, remat_policy="everything"), dict(scan_layers=True, num_experts=4),
+     dict(seq_axis_size=2, tensor_axis_size=2), dict(tensor_axis_size=2), dict(seq_axis_size=2)],
 )
 def test_later_options_raise(option):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    error, match = NotImplementedError, "not yet ported"
+    if "remat_policy" in option:
+        error, match = ValueError, "remat_policy"
+    elif option.get("scan_layers"):
+        error, match = ValueError, "scan_layers does not compose"
+    with pytest.raises(error, match=match):
         TransformerLM(**SMALL, **option)
