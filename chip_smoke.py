@@ -227,7 +227,24 @@ no result):
     steps, exact launch counts), greedy and at ``--temperature 0.8``:
     target calls, accept rate, tokens/s against plain greedy on the same
     weights and the tokens that agree with it; the target as its own
-    draft in fp32 equal to plain greedy, every round accepting all 4.
+    draft in fp32 equal to plain greedy, every round accepting all 4;
+27. the LM across ranks through ``lm_cli`` on NCCL at a world of one
+    (``--num-processes 1``): GPT-2-small at full width (bf16, flash,
+    ``fused_xent``, batch 16 x T 1024), 4 steps and one eval batch each,
+    AdamW as the yardstick, ``--zero1`` and ``--fsdp`` alone and with
+    ``--sync-overlap bucket``, AdamW and ``--zero1`` with the clip and
+    ``warmup_cosine``, sgd plain and ``--sync-overlap bucket`` (one
+    fused-SGD launch a bucket a step), ``--grad-compress int8`` (AdamW),
+    sgd ``--sync-overlap bucket+int8`` and ``--zero1 --grad-compress int8
+    --sync-overlap bucket+int8``, and the MoE LM (dropless) with AdamW and
+    under ``--fsdp``: every collective counted against the schedule of the
+    port's own bucket count (copies at a world of one), every launch
+    exact, step ms and peak memory beside the yardstick's, and losses and
+    parameters after 3 steps bitwise the yardstick's where the arithmetic
+    is the same, else within a stated bound; then ``profile_lm_phases``
+    on the all-reduce path, its sync segment present and traced. NCCL
+    refuses two ranks on one card, so world > 1 rests on the Gloo tests
+    (``tests/test_torch_port_lm_dp4.py``, ``..._zero_lm.py``).
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -298,7 +315,14 @@ OVERLOAD_RPS = 3 * SERVE_TRACE["rate_rps"]
 OVERLOAD_FLAGS = ["--deadline-s", "30", "--max-queue-depth", "16", "--shed-policy", "degrade"]
 CHAOS_REQUESTS = 16
 SERVE_CHAOS = "40:decode_nan,90:engine_crash"
-SLOW_CHAOS, SLOW_STEP_TIMEOUT_S = "60:slow_step", 0.15  # abort at 0.45 s, the stall 0.5 s
+# The hung step: the watchdog's ladder (warn, dump, abort) climbs a rung
+# each section past the timeout, so the stall (0.5 s) aborts by 0.3 s; a
+# false abort needs a fault-free step past 0.3 s or three past 0.1 s on one
+# engine. Admission steps of the 16-request trace take 100-350 ms (a
+# rebuilt engine's first step re-admits every request), so the hung step
+# runs on the trace's first HUNG_REQUESTS requests (fault-free steps
+# <= 150 ms, at most two past 0.1 s an engine).
+SLOW_CHAOS, SLOW_STEP_TIMEOUT_S, HUNG_REQUESTS = "60:slow_step", 0.1, 4
 SERVE_RUNS: dict = {}  # the serving phase's untraced run, for the tracer's cost
 # Paged attention: (B, Hq, Hkv, D, page_size, pages a slot[, pos,
 # pages_per_slot]); without pos, ragged depths with slot 0 at depth 0. The
@@ -1198,12 +1222,12 @@ SYNC_BN_RTOL = 1e-3  # SyncBN vs per-replica losses over 3 steps, TF32 off
 
 
 @contextlib.contextmanager
-def counted_collectives():
-    """Calls of ``COLLECTIVES`` in the block, counted at ``torch.distributed``."""
+def counted_collectives(names: tuple[str, ...] = COLLECTIVES):
+    """Calls of ``names`` in the block, counted at ``torch.distributed``."""
     import torch.distributed as dist
 
-    counts = dict.fromkeys(COLLECTIVES, 0)
-    saved = {name: getattr(dist, name) for name in COLLECTIVES}
+    counts = dict.fromkeys(names, 0)
+    saved = {name: getattr(dist, name) for name in names}
 
     def wrap(name):
         def call(*args, **kw):
@@ -1211,7 +1235,7 @@ def counted_collectives():
             return saved[name](*args, **kw)
         return call
 
-    with patched(dist, **{name: wrap(name) for name in COLLECTIVES}):
+    with patched(dist, **{name: wrap(name) for name in names}):
         yield counts
 
 
@@ -2716,7 +2740,7 @@ def overload_phase() -> None:
                                    "expired": len(expired), "launches": counts}}))
 
 
-def chaos_serve_run(qmodel, extra: list[str]) -> dict:
+def chaos_serve_run(qmodel, extra: list[str], requests: int = CHAOS_REQUESTS) -> dict:
     """``serve_cli`` on the pool-pressure geometry (int8 KV pages and the
     int8 head of ``qmodel``, handed in for ``build_model``) with ``extra``
     flags: its summary, records, launches, the streams by submission order,
@@ -2747,9 +2771,18 @@ def chaos_serve_run(qmodel, extra: list[str]) -> dict:
         faults.append((time.monotonic(), idx, kind))
         real_inject(self, idx, kind)
 
-    argv = [*serve_argv(num_pages=PRESSURE_PAGES), "--requests", str(CHAOS_REQUESTS),
+    argv = [*serve_argv(num_pages=PRESSURE_PAGES), "--requests", str(requests),
             "--quant-kv", *extra]
     buf = io.StringIO()
+    step_s: list[float] = []  # every engine step's host wall time, watched or not
+    real_step = S.ServingEngine.step
+
+    def timed_step(self):
+        t0 = time.perf_counter()
+        try:
+            return real_step(self)
+        finally:
+            step_s.append(time.perf_counter() - t0)
 
     def run():
         with contextlib.redirect_stdout(buf):
@@ -2757,7 +2790,7 @@ def chaos_serve_run(qmodel, extra: list[str]) -> dict:
 
     with patched(serve_cli, build_model=lambda args: qmodel), \
             patched(S, run_poisson=poisson, run_serve_with_recovery=recovery), \
-            patched(CH.ChaosMonkey, _inject=inject):
+            patched(CH.ChaosMonkey, _inject=inject), patched(S.ServingEngine, step=timed_step):
         t0 = time.perf_counter()
         rc, counts = counted(run)
         wall = time.perf_counter() - t0
@@ -2779,9 +2812,9 @@ def chaos_serve_run(qmodel, extra: list[str]) -> dict:
                            "first_replayed_token_ms": (back[0] - t_fault) * 1e3 if back else None,
                            "last_replayed_token_ms": (back[-1] - t_fault) * 1e3 if back else None,
                            "replayed_requests": len(back)})
-    if rc != 0 or s["requests"] != CHAOS_REQUESTS or len(streams) != CHAOS_REQUESTS:
+    if rc != 0 or s["requests"] != requests or len(streams) != requests:
         raise RuntimeError(f"serving under failure {extra}: rc {rc}, {s}")
-    if s["completed"] + s["recovered"] != CHAOS_REQUESTS:
+    if s["completed"] + s["recovered"] != requests:
         raise RuntimeError(f"serving under failure {extra}: statuses {s}")
     layers = DECODE_WIDTH["num_layers"]
     decode_tc = QT.tc_route(torch.bfloat16, SERVE_GEOMETRY["num_slots"],
@@ -2795,14 +2828,16 @@ def chaos_serve_run(qmodel, extra: list[str]) -> dict:
                              "int8_matmul_tc"):
         raise RuntimeError(f"serving under failure {extra}: launches {counts}, expected {want}")
     return {"summary": s, "records": records, "launches": counts, "streams": streams,
-            "recoveries": recoveries, "faults": faults, "wall_s": wall}
+            "recoveries": recoveries, "faults": faults, "wall_s": wall, "step_s": step_s}
 
 
 def serving_failure_phase() -> dict:
     """(c) The pool-pressure geometry, 16 requests of the trace, greedy,
     through ``serve_cli``: a fault-free run, then ``--chaos 40:decode_nan,
-    90:engine_crash`` and a ``slow_step`` under ``--step-timeout-s`` (the
-    watchdog's abort), both with ``--recompute decode``: restarts equal
+    90:engine_crash`` and, on the first HUNG_REQUESTS requests beside their
+    own fault-free run, a ``slow_step`` under ``--step-timeout-s`` (the
+    watchdog's abort; every step's host time printed), both with
+    ``--recompute decode``: restarts equal
     the faults that fired and every stream is the fault-free run's token
     for token (no fed-back token mismatched). Then the chaos run with the
     JAX engine's one-pass re-prefill (``--recompute prefill``), whose
@@ -2816,13 +2851,15 @@ def serving_failure_phase() -> dict:
     if base["summary"]["preemptions"] <= 0:
         raise RuntimeError(f"pool-pressure run without preemptions: {base['summary']}")
     out = {"card": card, "fault_free": {k: base[k] for k in ("summary", "launches", "wall_s")}}
-    runs = (("chaos", decode + ["--chaos", SERVE_CHAOS], 2, "DecodeNanError"),
+    bases = {CHAOS_REQUESTS: base, HUNG_REQUESTS: chaos_serve_run(qmodel, decode, HUNG_REQUESTS)}
+    runs = (("chaos", decode + ["--chaos", SERVE_CHAOS], 2, "DecodeNanError", CHAOS_REQUESTS),
             ("hung step", decode + ["--chaos", SLOW_CHAOS, "--step-timeout-s",
-                                    str(SLOW_STEP_TIMEOUT_S)], 1, "HungStepError"),
+                                    str(SLOW_STEP_TIMEOUT_S)], 1, "HungStepError", HUNG_REQUESTS),
             ("chaos, recompute prefill", ["--recompute", "prefill", "--chaos", SERVE_CHAOS], 2,
-             "DecodeNanError"))
-    for label, flags, faults, failure in runs:
-        r = chaos_serve_run(qmodel, flags)
+             "DecodeNanError", CHAOS_REQUESTS))
+    for label, flags, faults, failure, requests in runs:
+        base = bases[requests]
+        r = chaos_serve_run(qmodel, flags, requests)
         s = r["summary"]
         events = [e for e in r["records"] if e.get("kind") == "event"]
         names = [e["event"] for e in events]
@@ -2840,7 +2877,7 @@ def serving_failure_phase() -> dict:
             raise RuntimeError(f"serving under failure ({label}): {same} of {total} tokens "
                                f"agree with the fault-free run, {s['replay_mismatches']} "
                                f"fed-back tokens mismatched")
-        print(f"serving under failure, {label} ({card}): {CHAOS_REQUESTS} requests, "
+        print(f"serving under failure, {label} ({card}): {requests} requests, "
               f"{s['restarts']} restarts for {faults} faults, statuses completed "
               f"{s['completed']} recovered {s['recovered']}; {same} of {total} greedy tokens "
               f"agree with the fault-free run" + (" (identical)" if identical else "")
@@ -2848,9 +2885,22 @@ def serving_failure_phase() -> dict:
               f"preemptions, {s['tokens_per_sec']} tokens/s (fault-free "
               f"{base['summary']['tokens_per_sec']}); recoveries " + json.dumps(r["recoveries"])
               + f"; launches {r['launches']}")
+        if label == "hung step":
+            # The stalled step is the slowest; the others are fault-free:
+            # a false abort needs one past 3 x the timeout, or three past it
+            # on one engine.
+            steps = sorted(r["step_s"], reverse=True)
+            stall, rest = steps[0], steps[1:]
+            over = sum(t > SLOW_STEP_TIMEOUT_S for t in rest)
+            print(f"serving under failure, hung step: the stalled step took {stall * 1e3:.1f} "
+                  f"ms; the slowest of the other {len(rest)} steps "
+                  f"{(rest[0] if rest else 0.0) * 1e3:.1f} ms, {over} past the "
+                  f"{SLOW_STEP_TIMEOUT_S * 1e3:.0f} ms timeout (abort at "
+                  f"{3 * SLOW_STEP_TIMEOUT_S * 1e3:.0f} ms, the stall 500 ms); the fault-free "
+                  f"base run's slowest step {max(base['step_s']) * 1e3:.1f} ms")
         out[label] = {"summary": s, "recoveries": r["recoveries"], "agree": same,
                       "total": total, "identical": identical, "launches": r["launches"],
-                      "wall_s": r["wall_s"]}
+                      "wall_s": r["wall_s"], "slowest_step_s": max(r["step_s"])}
     print(json.dumps({"serving_under_failure": out}))
     del qmodel
     torch.cuda.empty_cache()
@@ -4825,6 +4875,252 @@ def speculative_phase() -> dict:
     print(json.dumps({"speculative": out}))
     return out
 
+# ----------------------------------------------------------- the LM across ranks
+RANK_STEPS, RANK_SNAPSHOT = 4, 3  # steps a run; parameters compared after this many
+RANK_LR = 1e-3
+RANK_COLLECTIVES = ("reduce_scatter_tensor", "all_gather_into_tensor", "all_reduce",
+                    "all_to_all_single", "all_gather")
+RANK_INT8_LOSS_RTOL = 0.02  # the int8 wire's short-run bar (tests' INT8_TOL)
+RANK_MODES = {  # label: (flags, yardstick label or None, MoE model)
+    "adamw": ((), None, False),
+    "zero1": (("--zero1",), "adamw", False),
+    "zero1 overlap": (("--zero1", "--sync-overlap", "bucket"), "adamw", False),
+    "fsdp": (("--fsdp",), "adamw", False),
+    "fsdp overlap": (("--fsdp", "--sync-overlap", "bucket"), "adamw", False),
+    "adamw clip warmup_cosine": (("--grad-clip-norm", "1.0", "--lr-schedule", "warmup_cosine",
+                                  "--warmup-steps", "1"), None, False),
+    "zero1 clip warmup_cosine": (("--zero1", "--grad-clip-norm", "1.0", "--lr-schedule",
+                                  "warmup_cosine", "--warmup-steps", "1"),
+                                 "adamw clip warmup_cosine", False),
+    "sgd": (("--optimizer", "sgd"), None, False),
+    "sgd overlap": (("--optimizer", "sgd", "--sync-overlap", "bucket"), "sgd", False),
+    "int8": (("--grad-compress", "int8"), "adamw", False),
+    "sgd int8 overlap": (("--optimizer", "sgd", "--grad-compress", "int8", "--sync-overlap",
+                          "bucket+int8"), "sgd", False),
+    "zero1 int8 overlap": (("--zero1", "--grad-compress", "int8", "--sync-overlap",
+                            "bucket+int8"), "adamw", False),
+    "moe adamw": ((), None, True),
+    "moe fsdp": (("--fsdp",), "moe adamw", True),
+}
+
+
+def rank_argv(flags: tuple[str, ...], moe: bool) -> list[str]:
+    """``lm_cli`` flags of a phase-27 run: RANK_STEPS steps and one held-out
+    eval batch, NCCL at a world of one."""
+    if moe:
+        argv = moe_train_argv("dropless", RANK_STEPS)
+    else:
+        argv = [arg for key, value in LM_WIDTH.items()
+                for arg in (f"--{key.replace('_', '-')}", str(value))]
+        argv += ["--global-batch-size", "16", "--use-rope", "--attention-impl", "flash",
+                 "--fused-xent", "--compute-dtype", "bfloat16", "--optimizer", "adamw",
+                 "--steps", str(RANK_STEPS), "--num-seqs", str(16 * (RANK_STEPS + 1)),
+                 "--eval-frac", "0.2", "--json", "--device", "cuda"]
+    return argv + ["--lr", str(RANK_LR), "--num-processes", "1", *flags]
+
+
+@contextlib.contextmanager
+def timed_lm_trainers():
+    """Patch the port's LMTrainer: each instance ``fit`` runs on is
+    recorded with CUDA events around every ``train_step`` and a copy of
+    its optimizer's parameters (flat) after RANK_SNAPSHOT steps."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train import lm as L
+
+    runs: list[dict] = []
+    fit, train_step = L.LMTrainer.fit, L.LMTrainer.train_step
+
+    def recording_fit(self, *args, **kwargs):
+        runs.append({"trainer": self, "events": [], "snapshot": None})
+        return fit(self, *args, **kwargs)
+
+    def timed_step(self, x, y, *args, **kwargs):
+        run = runs[-1]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        m = train_step(self, x, y, *args, **kwargs)
+        ev[1].record()
+        run["events"].append(ev)
+        if len(run["events"]) == RANK_SNAPSHOT:
+            run["snapshot"] = [p.detach().reshape(-1).clone() for p in self.optimizer.params]
+        return m
+
+    with patched(L.LMTrainer, fit=recording_fit, train_step=timed_step):
+        yield runs
+
+
+def fused_sgd_launches(numels: list[int]) -> int:
+    """Launches of one ``fused_sgd_multi_`` call over tensors of
+    ``numels`` elements: the C entry's packing (``csrc/fused_sgd.cu``: up
+    to 64 segments and 640 chunks of 32K elements a launch)."""
+    chunk, max_segs, max_blocks = 32768, 64, 640
+    launches = segs = blocks = 0
+    for n in numels:
+        left = -(-n // chunk)
+        while left:
+            if segs == max_segs or blocks == max_blocks:
+                launches, segs, blocks = launches + 1, 0, 0
+            take = min(left, max_blocks - blocks)
+            segs, blocks, left = segs + 1, blocks + take, left - take
+    return launches + (blocks > 0)
+
+
+def rank_expectations(tr, label: str, flags: tuple[str, ...], moe: bool) -> tuple[dict, dict]:
+    """(collective calls, kernel launches) a run of ``label`` must make at a
+    world of one: the port's zero1/fsdp collective schedules (the JAX
+    ``*_collective_schedule`` shape) of its own unit count, as copies;
+    per-tensor all-reduces on the plain path (bucketed only above one
+    rank), a bucket's on the overlapped one; one all-reduce a step and an
+    eval batch for the world-mean metrics, one more a step for the clip's
+    norm; the int8 wire's quantize round trip runs without its collectives
+    at one rank (``sync._int8_allreduce_flat`` returns there), zero1's
+    int8 lane keeps its delta all-gathers."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import zero as Z
+
+    s, e = RANK_STEPS, 1
+    leaves = len(tr.optimizer.params)
+    zero1, fsdp = "--zero1" in flags, "--fsdp" in flags
+    overlap, int8 = "--sync-overlap" in flags, "int8" in flags
+    units = tr.overlap.num_buckets if tr.overlap is not None else leaves
+    coll = dict.fromkeys(RANK_COLLECTIVES, 0)
+    coll["all_reduce"] = s + e + (s if (zero1 or fsdp) and "--grad-clip-norm" in flags else 0)
+    if zero1 and int8:
+        coll["all_gather_into_tensor"] = units * s
+    elif zero1 or fsdp:
+        sched = Z.zero1_collective_schedule(units, 2)  # a world above one's shape
+        coll["reduce_scatter_tensor"] = sched["reduce_scatter"] * s
+        coll["all_gather_into_tensor"] = sched["all_gather"] * (s + (e if fsdp else 0))
+    elif overlap and not int8:
+        coll["all_reduce"] += units * s
+    elif not int8:
+        coll["all_reduce"] += leaves * s
+    layers = (MOE_WIDTH if moe else LM_WIDTH)["num_layers"]
+    launches = {"flash_fwd_tc": layers * (s + e), "flash_dq_tc": layers * s,
+                "flash_dkv_tc": layers * s}
+    if moe:
+        launches.update({"gmm_fused_tc": layers * (s + 2 * e), "gmm_fused_z_tc": layers * s,
+                         "gmm_gmm_tc": 2 * layers * s, "gmm_tgmm_tc": 2 * layers * s,
+                         "gmm_split": layers * s, "gmm_colsum": 2 * layers * s})
+    else:
+        launches.update({"fused_xent_fwd": s, "fused_xent_bwd": s})
+    if overlap and not (zero1 or fsdp):  # one call a bucket: a launch, two past 640 chunks
+        launches["fused_sgd"] = s * sum(
+            fused_sgd_launches([tr.optimizer.params[i].numel() for i in members])
+            for members in tr.overlap.members)
+    return coll, launches
+
+
+def lm_ranks_phase() -> dict:
+    """Phase 27: the LM across ranks on the card, at a world of one on NCCL
+    (NCCL refuses two ranks on one card, so world > 1 rests on the Gloo
+    tests against JAX). Each of RANK_MODES through ``lm_cli``: its
+    collectives and launches exact (``rank_expectations``), its step ms
+    (CUDA events, the steps after the first) and peak memory above what
+    was allocated before it beside its yardstick's, and its losses and
+    parameters after RANK_SNAPSHOT steps against the yardstick's: bitwise
+    where the arithmetic is the same (zero1, fsdp, their overlapped lanes
+    and the clip: the sharded rules are the replicated optimizer's
+    multi-tensor ops on rows; sgd overlapped: the fused-SGD kernel rounds
+    as the plain update; fsdp's MoE), else (the int8 wire) losses within
+    RANK_INT8_LOSS_RTOL and parameters within 2 lr a step. Then
+    ``profile_lm_phases`` on the all-reduce path in a process group of
+    one: its sync segment present and on the device clock."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch import lm_cli
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs import phases as P
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import mesh
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+
+    card = card_line()
+    out: dict = {"card": card}
+    keep: dict = {}
+    for label, (flags, yard, moe) in RANK_MODES.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with timed_lm_trainers() as runs, counted_collectives(RANK_COLLECTIVES) as coll:
+            summary, all_counts = counted(lambda: run_cli(rank_argv(flags, moe),
+                                                          main=lm_cli.main))
+        peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+        launches = kernel_detail()
+        if all_counts["fused_sgd"]:
+            launches["fused_sgd"] = all_counts["fused_sgd"]
+        (run,) = runs
+        tr = run["trainer"]
+        want_coll, want_launches = rank_expectations(tr, label, flags, moe)
+        if dict(coll) != want_coll or launches != want_launches or others(
+                all_counts, "flash", "fused_xent", "fused_sgd", "gmm_fused"):
+            raise RuntimeError(f"LM ranks {label}: collectives {dict(coll)} (expected "
+                               f"{want_coll}), launches {launches} (expected {want_launches}), "
+                               f"all {all_counts}")
+        if summary["mesh"]["data"] != 1 or summary["steps_run"] != RANK_STEPS or not (
+                summary["finite"] and math.isfinite(summary["eval"]["loss"])):
+            raise RuntimeError(f"LM ranks {label}: {summary}")
+        times = [a.elapsed_time(b) for a, b in run["events"][1:]]
+        ms = statistics.median(times)
+        losses = [float(v) for v in tr.history["loss"]]
+        rec = {"ms_per_step": ms, "peak_memory_gb": peak, "losses": losses,
+               "collectives": dict(coll), "launches": launches}
+        line = (f"LM ranks {label} ({card}): {ms:.3f} ms a step (median of steps 2-"
+                f"{RANK_STEPS}), peak memory {peak:.3f} GB")
+        if yard is not None:
+            y = keep[yard]
+            line += (f" (yardstick {yard}: {y['ms_per_step']:.3f} ms, "
+                     f"{y['peak_memory_gb']:.3f} GB)")
+            snap, ysnap = run["snapshot"], y["snapshot"]
+            gap = max(float((a.double() - b.double()).abs().max())
+                      for a, b in zip(snap, ysnap, strict=True))
+            same = gap == 0.0 and losses[:RANK_SNAPSHOT] == y["losses"][:RANK_SNAPSHOT]
+            loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses[:RANK_SNAPSHOT],
+                                                                 y["losses"][:RANK_SNAPSHOT]))
+            rec.update(bitwise=same, param_gap=gap, loss_gap=loss_gap)
+            if "int8" in label:
+                bound = 2 * RANK_LR * RANK_SNAPSHOT
+                ok = loss_gap <= RANK_INT8_LOSS_RTOL and gap <= bound
+                line += (f"; after {RANK_SNAPSHOT} steps vs {yard}: losses within "
+                         f"{loss_gap:.3e} (bound {RANK_INT8_LOSS_RTOL}), parameters within "
+                         f"{gap:.3e} (bound {bound})")
+            else:
+                ok = same
+                line += f"; after {RANK_SNAPSHOT} steps bitwise {yard}'s: {same} (gap {gap})"
+            if not ok:
+                raise RuntimeError(line)
+        line += (f"; collectives {dict(coll)}; launches {launches}; losses {losses}")
+        print(line)
+        out[label] = rec
+        keep[label] = {**rec, "snapshot": run["snapshot"]}
+        if yard is None and not any(m[1] == label for m in RANK_MODES.values()):
+            keep.pop(label)
+        del runs, run, tr
+        torch.cuda.empty_cache()
+    del keep
+    torch.cuda.empty_cache()
+    z, f = out["zero1"]["peak_memory_gb"], out["fsdp"]["peak_memory_gb"]
+    print(f"LM ranks peak memory a rank ({card}): adamw {out['adamw']['peak_memory_gb']:.3f} "
+          f"GB, zero1 {z:.3f} GB, fsdp {f:.3f} GB (fsdp - zero1 {f - z:+.3f} GB)")
+
+    mesh.initialize(None, 1, 0, device=torch.device("cuda", 0))
+    try:
+        tr = LMTrainer(lm_config(fused_xent=True))
+        tr.init()
+        x, y = tr.split_batch(synthetic_tokens(16, LM_WIDTH["seq_len"], LM_WIDTH["vocab_size"],
+                                               seed=0))
+        segs = P.build_lm_segments(tr)
+        report = P.profile_lm_phases(tr, x, y)
+        sync = report.phase("grad_sync")
+        print(report.table())
+        if (segs.sync is None or not report.parity_ok or sync.clock != "device"
+                or not sync.device_ms > 0 or report.n_chips != 1):
+            raise RuntimeError(f"profile_lm_phases in a process group of one: sync "
+                               f"{sync}, parity {report.parity_ok}")
+        out["profile_lm_phases_world1"] = report.records()
+        print(json.dumps({"profile_lm_phases_world1": report.records()}))
+        del tr, segs, x, y
+    finally:
+        mesh.shutdown()
+        torch.cuda.empty_cache()
+    print(json.dumps({"lm_ranks": out}))
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4957,6 +5253,8 @@ def main() -> int:
     speculative = speculative_phase()
     for rec in int8_records:
         rec["launches_beam"] = beam_int8["tc" if rec["name"].endswith("_tc") else "ffma"]
+    # The LM across ranks (NCCL at a world of one).
+    lm_ranks = lm_ranks_phase()
     for rec in records:
         key = {"gmm_fused_tc": "gmm_fused_tc", "gmm_fused_with_z_tc": "gmm_fused_z_tc",
                "gmm_tc": "gmm_gmm_tc", "tgmm_tc": "gmm_tgmm_tc", "split": "gmm_split",
@@ -4976,6 +5274,10 @@ def main() -> int:
                 if label != "card" and key in r["launches"]}
         if spec:
             rec["launches_speculative"] = spec
+        ranks = {label: r["launches"][key] for label, r in lm_ranks.items()
+                 if isinstance(r, dict) and key in r.get("launches", {})}
+        if ranks:
+            rec["launches_lm_ranks"] = ranks
 
     print(json.dumps({"kernels": records}))
     print(card_line())

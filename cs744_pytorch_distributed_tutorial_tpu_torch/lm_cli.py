@@ -52,6 +52,24 @@ restarts from the newest recoverable state after a NaN or a hang:
         --checkpoint-dir /tmp/ck --checkpoint-every 20 --metrics-dir /tmp/m \
         --max-restarts 1 --profile-dir /tmp/trace
 
+Across ranks, one process a rank (``--coordinator host:port
+--num-processes N --process-id R``, as the CIFAR CLI's; NCCL between
+cards, Gloo with ``--device cpu``), with ``--data-parallel N`` and the
+JAX CLI's wire flags (``--grad-compress int8``, ``--sync-bucket-mb``,
+``--sync-overlap bucket|bucket+int8``) and sharded optimizers
+(``--zero1``, ``--fsdp``):
+
+    for r in 0 1 2 3; do
+      python -m cs744_pytorch_distributed_tutorial_tpu_torch.lm_cli ... \
+          --data-parallel 4 --zero1 --coordinator localhost:29517 \
+          --num-processes 4 --process-id $r --device cpu &
+    done
+
+Every rank trains, evaluates and joins the gathers of ``--fsdp``'s
+weights for generation (the draft's too); rank 0 alone decodes and
+prints. ``--num-processes 1`` (or any of those options) runs the wire on
+a process group of one.
+
 The flags are the JAX package's (``lm_cli.py``), with its names and
 defaults, for the options the port runs, plus ``--device`` (``cuda``,
 the default, or ``cpu``), ``--generate-batch`` (prompts are the
@@ -131,6 +149,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="grouped-matmul backend for --moe-dispatch dropless: auto and pallas "
                         "take the CUDA kernels (ragged is not yet ported)")
     p.add_argument("--moe-expert-parallel", action="store_true", help="not yet ported")
+    # mesh
+    p.add_argument("--data-parallel", type=int, default=1)
     # optimization
     p.add_argument("--global-batch-size", type=int, default=8)
     p.add_argument("--seq-len", type=int, default=256)
@@ -144,6 +164,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="linear warmup from 0 over this many steps")
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--grad-clip-norm", type=float, default=None)
+    p.add_argument("--grad-compress", choices=["none", "int8"], default="none",
+                   help="compress the data-parallel gradient sync: int8 bucket quantization "
+                        "with error feedback (~3.9x fewer gradient bytes; pure-DP layouts only)")
+    p.add_argument("--sync-bucket-mb", type=float, default=4.0,
+                   help="bucket size (MiB) for the compressed sync's coalesced buffers")
+    p.add_argument("--sync-overlap", choices=["off", "bucket", "bucket+int8"], default="off",
+                   help="overlapped gradient sync (parallel/overlap.py, parallel/zero.py): "
+                        "reverse-layer-order buckets, per-bucket collective + per-bucket "
+                        "optimizer apply. Pure DP needs --optimizer sgd with constant lr; "
+                        "--zero1/--fsdp admit any registry optimizer and schedule (per-bucket "
+                        "scatter -> chunk apply -> gather). 'bucket+int8' overlaps the int8+EF "
+                        "wire (--grad-compress int8; pure DP or --zero1)")
     p.add_argument("--label-smoothing", type=float, default=0.0)
     p.add_argument("--dropout-rate", type=float, default=0.0,
                    help="residual dropout on each block's sublayer outputs; masks are keyed "
@@ -151,6 +183,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-halt-on-nonfinite", dest="halt_on_nonfinite",
                    action="store_false", default=True)
     p.add_argument("--accum-steps", type=int, default=1)
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: shard the optimizer moments over the data axis (optimizer "
+                        "memory / data_parallel); composes with --grad-clip-norm and all "
+                        "--optimizer rules (adamw/lion/sgd); no expert parallelism")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3/FSDP: params AND optimizer moments persist as data-axis-sharded "
+                        "chunks, gathered just-in-time per step (3x-params state / "
+                        "data_parallel); same compositions and restrictions as --zero1")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--metrics-dir", default=None,
@@ -219,6 +259,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "target)")
     p.add_argument("--json", action="store_true")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    # rendezvous, as the CIFAR CLI's (master/part2a/part2a.py:80-85)
+    p.add_argument("--coordinator", dest="coordinator_address", default=None,
+                   help="rendezvous address host:port (the --master-ip analog)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="the --num-nodes analog: world size (= --data-parallel)")
+    p.add_argument("--process-id", type=int, default=None, help="the --rank analog")
     return p
 
 
@@ -259,8 +305,9 @@ def _check_decoders(args) -> None:
 
 def _speculative(args, trainer, tokens, model, prompt):
     """Train the ``--draft-layers`` draft as the target was trained (its
-    configuration but the depth), then decode speculatively; returns
-    ``(tokens, timing, stats)``."""
+    configuration but the depth; every rank), then decode speculatively
+    (rank 0; the others return None); returns ``(tokens, timing,
+    stats)``."""
     import torch
 
     from cs744_pytorch_distributed_tutorial_tpu_torch.infer import make_speculative_generator
@@ -272,7 +319,10 @@ def _speculative(args, trainer, tokens, model, prompt):
 
     draft_tr = LMTrainer(trainer.cfg.replace(num_layers=args.draft_layers))
     draft_tr.fit(tokens, args.steps)
-    spec = make_speculative_generator(model, draft_tr.decode_model(),
+    draft = draft_tr.decode_model()  # under fsdp a gather every rank joins
+    if trainer.rank != 0:
+        return None, None, None
+    spec = make_speculative_generator(model, draft,
                                       max_new_tokens=args.generate, k=args.speculative_k,
                                       temperature=args.temperature, return_stats=True,
                                       device=args.device)
@@ -299,7 +349,9 @@ def _speculative(args, trainer, tokens, model, prompt):
 def _generate(args, trainer, tokens):
     """Decode ``--generate`` tokens with the trainer's weights (sampling,
     ``--beam`` or ``--speculative-k``); prints the first row and returns
-    ``(sample, generation record)``."""
+    ``(sample, generation record)``. Every rank builds the decode copy
+    (under fsdp its weights are gathered, a collective); rank 0 alone
+    decodes, the others return ``(None, None)``."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.infer import (
         make_beam_searcher,
         make_generator,
@@ -321,7 +373,11 @@ def _generate(args, trainer, tokens):
     extra: dict = {}
     if args.speculative_k > 0:
         out, timing, stats = _speculative(args, trainer, tokens, model, prompt)
+        if out is None:
+            return None, None
         extra = {"decoder": "speculative", **stats}
+    elif trainer.rank != 0:
+        return None, None
     elif args.beam > 0:
         search = make_beam_searcher(model, beam_size=args.beam, max_new_tokens=args.generate,
                                     device=args.device)
@@ -372,7 +428,7 @@ def main(argv: list[str] | None = None) -> int:
         byte_corpus,
         synthetic_tokens,
     )
-    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMConfig, LMTrainer
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMConfig, check_config
 
     if args.text_file:
         vocab = BYTE_VOCAB
@@ -430,11 +486,42 @@ def main(argv: list[str] | None = None) -> int:
         profile_dir=args.profile_dir,
         profile_start_step=args.profile_start_step,
         profile_num_steps=args.profile_num_steps,
+        data_parallel=args.data_parallel,
+        grad_compress=args.grad_compress,
+        sync_bucket_mb=args.sync_bucket_mb,
+        sync_overlap=args.sync_overlap,
+        zero1=args.zero1,
+        fsdp=args.fsdp,
         device=args.device,
     )
+    check_config(cfg)  # the JAX rejections, before any process group
     eval_tokens, tokens = _split_eval(args.eval_frac, tokens, cfg.global_batch_size)
 
+    from cs744_pytorch_distributed_tutorial_tpu_torch.config import resolve_device
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import mesh
+
+    world_size = args.num_processes or 1
+    rank = args.process_id or 0
+    # A world of one needs no process group unless the wire is asked for.
+    if (args.num_processes is not None or world_size > 1 or args.data_parallel > 1
+            or args.zero1 or args.fsdp or args.grad_compress != "none"
+            or args.sync_overlap != "off"):
+        if args.data_parallel != world_size:
+            raise SystemExit(f"--data-parallel {args.data_parallel} must equal the world size "
+                             f"(--num-processes {world_size}): one process a rank")
+        mesh.initialize(args.coordinator_address, world_size, rank,
+                        device=mesh.rank_device(resolve_device(args.device), rank))
+    try:
+        return _run(args, cfg, vocab, tokens, eval_tokens)
+    finally:
+        mesh.shutdown()
+
+
+def _run(args, cfg, vocab, tokens, eval_tokens) -> int:
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+
     trainer = LMTrainer(cfg)
+    lead = trainer.rank == 0
     restarts = 0
     if args.max_restarts > 0:
         from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import run_with_recovery
@@ -444,29 +531,30 @@ def main(argv: list[str] | None = None) -> int:
             backoff_jitter=args.restart_jitter, jitter_seed=args.seed, fit_args=(tokens,),
             fit_kwargs={"steps": args.steps},
         )
-        if restarts:
+        if restarts and lead:
             print(f"recovered after {restarts} restart(s)")
     else:
         _, _, losses = trainer.fit(tokens, steps=args.steps)
     moe = ({key: trainer.history[key] for key in ("moe_aux", "moe_drop", "moe_load_entropy")}
            if args.moe_experts > 0 and losses else None)
     for i, loss in enumerate(losses):
-        if i % args.log_every == 0 or i == len(losses) - 1:
+        if lead and (i % args.log_every == 0 or i == len(losses) - 1):
             print(f"{i} loss:  {loss:f}")
     eval_metrics = None
     if eval_tokens is not None:
         eval_metrics = trainer.evaluate(eval_tokens)
-        print(f"eval loss:  {eval_metrics['loss']:f}  "
-              f"perplexity:  {eval_metrics['perplexity']:f}")
+        if lead:
+            print(f"eval loss:  {eval_metrics['loss']:f}  "
+                  f"perplexity:  {eval_metrics['perplexity']:f}")
 
     sample, generation = None, None
     if args.generate > 0:
         sample, generation = _generate(args, trainer, tokens)
 
-    if args.json:
+    if args.json and lead:
         print(json.dumps({
             "vocab_size": vocab,
-            "mesh": {"data": 1, "seq": 1, "tensor": 1},
+            "mesh": {"data": trainer.world_size, "seq": 1, "tensor": 1},
             "steps": args.steps,
             "first_loss": _json_loss(losses[0]) if losses else None,
             "final_loss": _json_loss(losses[-1]) if losses else None,

@@ -59,7 +59,13 @@ zero-padded ``[n, ceil(size / n)]`` layout. The flat order is each
 framework's own (HWIO against OIHW), so a JAX ``[n, chunk]`` leaf maps
 to the port's rows through the full tensor: ``zero_rows_from_jax`` and
 ``jax_rows_from_zero`` (per leaf ``shard_row`` and ``unshard_rows``,
-which the Trainer's FSDP ``load_state_dict`` uses too).
+which the Trainer's FSDP ``load_state_dict`` uses too). With ``arch="lm"``
+they take the LM's trees (Dense kernels ``[in, out]`` against ``Linear``
+``[out, in]``: the rows hold other elements on each side), and
+``lm_zero_state_from_jax`` / ``jax_lm_zero_state`` carry a whole ZeRO
+state of the LM trainer: ``mu`` and ``nu`` (``mu`` alone for lion and
+sgd), fsdp's parameter rows and ``count``, between the JAX trainer's
+``[dp, chunk]`` leaves and each rank's rows by parameter name.
 """
 
 from __future__ import annotations
@@ -354,7 +360,10 @@ def zero_rows_from_jax(rows_params: Mapping, like_params: Mapping, arch: str, ra
     full = _map_leaves(rows_params, like_params,
                        lambda rows, like: _np(unshard_rows(rows, _np(like).shape)))
     n = _np(next(_flatten(rows_params))[1]).shape[0]
-    sd = state_dict_from_jax({"params": full}, arch, image_size)
+    if arch == "lm":
+        sd = lm_params_from_jax(full)
+    else:
+        sd = state_dict_from_jax({"params": full}, arch, image_size)
     return {k: shard_row(sd[k], rank, n) for k in sd if _is_param(k)}
 
 
@@ -367,11 +376,44 @@ def jax_rows_from_zero(rows_by_rank: Sequence[Mapping[str, Any]], shapes: Mappin
     sd: dict[str, Any] = {}
     for name, shape in shapes.items():
         sd[name] = unshard_rows(torch.stack([_tensor(r[name]) for r in rows_by_rank]), shape)
+        if arch == "lm":
+            continue
         if name.endswith("bias"):  # BatchNorm statistics the conversion reads, unused here
             for stat in ("running_mean", "running_var"):
                 sd.setdefault(name[: -len("bias")] + stat, torch.zeros(shape[0]))
-    params = jax_from_state_dict(sd, arch, image_size)["params"]
+    if arch == "lm":
+        params = jax_lm_params_from_state_dict(sd)
+    else:
+        params = jax_from_state_dict(sd, arch, image_size)["params"]
     return _map_leaves(params, params, lambda x, _: _np(_shard_flat(_tensor(x), n)))
+
+
+def lm_zero_state_from_jax(opt_state: Mapping, params_like: Mapping, rank: int,
+                           fsdp_params: Mapping | None = None) -> dict:
+    """The JAX LM trainer's ZeRO state (``{"mu", ["nu",] "count"}`` of
+    ``[dp, chunk]`` leaves; fsdp's ``[dp, chunk]`` parameters) -> rank
+    ``rank``'s rows by parameter name: ``{"mu": {...}, ["nu": {...},]
+    "count": int[, "params": {...}]}``. ``params_like`` gives each leaf's
+    full shape."""
+    out: dict[str, Any] = {name: zero_rows_from_jax(opt_state[name], params_like, "lm", rank)
+                           for name in ("mu", "nu") if name in opt_state}
+    out["count"] = int(_np(opt_state["count"]))
+    if fsdp_params is not None:
+        out["params"] = zero_rows_from_jax(fsdp_params, params_like, "lm", rank)
+    return out
+
+
+def jax_lm_zero_state(states_by_rank: Sequence[Mapping], shapes: Mapping[str, Sequence]) -> dict:
+    """The reverse: every rank's ``lm_zero_state_from_jax`` dict (rank
+    order) and the parameters' shapes by name -> the JAX trainer's
+    ``{"mu", ["nu",] "count"}`` of ``[dp, chunk]`` leaves (and, where the
+    dicts hold ``params``, fsdp's parameter rows under ``"params"``)."""
+    first = states_by_rank[0]
+    out: dict[str, Any] = {
+        name: jax_rows_from_zero([st[name] for st in states_by_rank], shapes, "lm")
+        for name in ("mu", "nu", "params") if name in first}
+    out["count"] = np.int32(first["count"])
+    return out
 
 
 def _is_param(key: str) -> bool:

@@ -702,12 +702,14 @@ def build_cifar_segments(trainer: Any) -> CifarSegments:
 class LMSegments:
     """The segments of one ``LMTrainer`` step (pure data-parallel layouts
     only, as in JAX: seq and tensor collectives live inside the forward).
-    The port's LM runs on one device, so there is no sync program
-    (``sync`` is None): JAX's pmean over axes of size 1. Under dropout the
-    segments draw the masks of the trainer's step (``objective``'s key),
-    as the fused step does, and JAX's segments at that step."""
-
-    sync = None
+    ``sync`` is the data-parallel reduction the step runs (JAX
+    ``obs/phases.py``'s LM carving): the all-reduce mean, the int8 wire
+    with this rank's residuals, or under ``sync_overlap`` each
+    reverse-order bucket's; at a world of one it runs as copies. It is
+    None only without a process group, where the step has no sync. Under
+    dropout the segments draw the masks of the trainer's step
+    (``objective``'s key), as the fused step does, and JAX's segments at
+    that step. The losses the segments return are the world's means."""
 
     def __init__(self, trainer: Any):
         cfg = trainer.cfg
@@ -717,7 +719,8 @@ class LMSegments:
             raise ValueError(
                 "LM phase segmentation does not support zero1/fsdp: the data-parallel "
                 "reduction is fused into the sharded update (and for fsdp it is the "
-                "backward of the parameter all-gather)"
+                "backward of the parameter all-gather). Time those schedules with the CIFAR "
+                "engine's zero1 segments, or from a profile_dir trace"
             )
         if (cfg.seq_parallel > 1 or cfg.tensor_parallel > 1 or cfg.moe_expert_parallel):
             raise ValueError(
@@ -729,26 +732,79 @@ class LMSegments:
         if trainer.model is None:
             raise ValueError("LM phase segmentation needs an initialized trainer (init())")
         self.trainer = trainer
+        self.compress = trainer._compress
+        self.overlap = trainer._overlap
+        self.sync = self._sync if trainer._synced else None
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """The engine's loss (``LMTrainer.objective``), its graph dropped."""
         return self.trainer.objective(x, y)[0].detach()
 
     def grads(self, x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, list]:
+        """(the world's mean loss, this rank's local gradients)."""
         params = self.trainer.optimizer.params
         for p in params:
             p.grad = None
         loss, _ = self.trainer.objective(x, y)
         loss.backward()
-        return loss.detach(), [p.grad for p in params]
+        return self.trainer.world_mean({"loss": loss.detach()})["loss"], [p.grad for p in params]
 
     @torch.no_grad()
-    def opt(self, grads: list) -> list:
-        """The optimizer's update from ``grads`` (the trainer's step
-        without its norms)."""
+    def _sync(self, grads: list) -> list:
+        """The gradient sync alone: in place for the fused schedule (its
+        gradients returned), each reverse-order bucket's synced buffer for
+        the overlapped one; the int8 wire's residuals go to the trainer's
+        error feedback, as in the step."""
+        from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import buckets as B
+        from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
+            sync_bucket,
+            sync_bucket_compressed,
+            sync_grads,
+            sync_grads_compressed,
+        )
+
         tr = self.trainer
+        ef, n = tr._ef, tr.world_size
+        if not self.overlap:
+            if self.compress:
+                sync_grads_compressed(grads, ef, "int8_allreduce", n,
+                                      bucket_bytes=tr._bucket_bytes)
+            else:
+                sync_grads(grads, "allreduce", n, tr._bucket_bytes)
+            return grads
+        layout = tr.overlap.layout
+        out = []
+        for b, members in enumerate(B.bucket_members(layout)):
+            gbuf = B.flatten_bucket(grads, layout, b, members)
+            if self.compress:
+                synced, resid = sync_bucket_compressed(
+                    gbuf, B.flatten_bucket(ef, layout, b, members), "allreduce", n)
+                for i in members:
+                    ef[i].copy_(B.leaf_view(resid, layout, layout.slots[i]))
+            else:
+                synced = sync_bucket(gbuf, "allreduce", n)
+            out.append(synced)
+        return out
+
+    @torch.no_grad()
+    def opt(self, synced: list) -> list:
+        """The update alone from ``sync``'s output (or the local gradients
+        where there is no sync): the trainer's optimizer, or the
+        overlapped schedule's fused SGD a bucket."""
+        from cs744_pytorch_distributed_tutorial_tpu_torch.ops.fused_sgd import fused_sgd_multi_
+        from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import buckets as B
+
+        tr, cfg = self.trainer, self.trainer.cfg
         opt = tr.optimizer
-        opt.tx.apply(opt.params, opt.momentum, grads)
+        if not self.overlap:
+            opt.tx.apply(opt.params, opt.momentum, synced)
+        else:
+            layout = tr.overlap.layout
+            for b, members in enumerate(B.bucket_members(layout)):
+                fused_sgd_multi_(
+                    [opt.params[i] for i in members], [opt.momentum[i] for i in members],
+                    [B.leaf_view(synced[b], layout, layout.slots[i]) for i in members],
+                    lr=cfg.learning_rate, mu=cfg.momentum, wd=cfg.weight_decay)
         tr.step += 1
         return opt.params
 
@@ -757,7 +813,7 @@ class LMSegments:
 
     def segmented_step(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         loss, g = self.grads(x, y)
-        self.opt(g)
+        self.opt(g if self.sync is None else self.sync(g))
         return loss
 
 
@@ -1024,12 +1080,18 @@ def profile_lm_phases(
 ) -> PhaseReport:
     """The LM counterpart of :func:`profile_phases`, on an initialized
     ``LMTrainer`` and a batch ``(x, y)`` of its ``split_batch``."""
-    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import sync_wire_bytes
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
+        lm_strategy,
+        sync_wire_bytes,
+    )
 
     segs = build_lm_segments(trainer)
+    cfg = trainer.cfg
     params = trainer.optimizer.params
-    comm_bytes = float(sync_wire_bytes(params, "allreduce", trainer.cfg.data_parallel))
+    comm_bytes = float(sync_wire_bytes(params, lm_strategy(False, False, cfg.grad_compress),
+                                       trainer.world_size, cfg.grad_compress,
+                                       bucket_bytes=trainer._bucket_bytes, overlap=segs.overlap))
     return _profile(segs, params, x, y, iters=iters, top=top,
-                    compute_dtype=trainer.cfg.compute_dtype, comm_bytes=comm_bytes,
-                    device=trainer.device, n_chips=trainer.cfg.data_parallel,
-                    batch=trainer.cfg.global_batch_size, global_mean=float)
+                    compute_dtype=cfg.compute_dtype, comm_bytes=comm_bytes,
+                    device=trainer.device, n_chips=trainer.world_size,
+                    batch=cfg.global_batch_size, global_mean=float)

@@ -118,6 +118,14 @@ def ring_all_reduce_mean(x: torch.Tensor, world_size: int) -> torch.Tensor:
     return ring_all_reduce(x, world_size) / world_size
 
 
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """The world's sum of ``x`` (a copy; JAX's ``lax.psum``): the sharded
+    clip's squared sums and the trainers' metric means."""
+    y = x.clone()
+    dist.all_reduce(y)
+    return y
+
+
 def reduce_scatter_sum(rows: torch.Tensor) -> torch.Tensor:
     """Row ``rank`` of the world's sum of an ``[n, cols]`` matrix: one
     ``reduce_scatter_tensor`` (JAX's ``lax.psum_scatter`` over the

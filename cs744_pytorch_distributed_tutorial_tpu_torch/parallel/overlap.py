@@ -39,6 +39,16 @@ The parameters change only in ``finish``, after autograd is done with
 them. FSDP's lane is its gather in the reverse layout
 (``FsdpSGD(overlap=True)``): each bucket's reduce-scatter is the
 backward of its all-gather, issued as autograd reaches it.
+
+The LM trainer takes the same lanes: pure data parallelism through
+``OverlappedSGD`` (sgd at a constant lr, as JAX admits it: one fused-SGD
+launch a bucket), its ZeRO-1 rules through ``OverlappedZero1LM`` (the
+step scalars hoisted once a step, each bucket's chunk rule and delta
+all-gather in ``finish``) and FSDP through ``FsdpAdam(overlap=True)``'s
+reverse gather. Each parameter's hook fires once a backward, whatever
+its uses: autograd sums a tensor's gradients before it accumulates them
+(tied embeddings, ``scan_layers``' one stacked tensor a layer stack);
+remat's recompute produces no parameter gradient of its own.
 """
 
 from __future__ import annotations
@@ -55,7 +65,7 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
     sync_bucket,
     sync_bucket_compressed,
 )
-from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import Zero1SGD
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import Zero1Adam, Zero1SGD
 
 #: ``--sync-overlap`` modes: ``bucket`` overlaps the float wire
 #: (allreduce, ring), ``bucket+int8`` the int8 wire with error feedback.
@@ -208,5 +218,40 @@ class OverlappedZero1(OverlappedSGD):
             if resid is not None:
                 for i in members:
                     self.ef[i].copy_(B.leaf_view(resid, self.layout, self.layout.slots[i]))
+        self._pending = [None] * self.num_buckets
+        self._prefix = None
+
+
+class OverlappedZero1LM(OverlappedZero1):
+    """The LM's sharded rules on the overlapped lane (the JAX
+    ``Zero1Adam._apply_overlapped``): ``zero`` (a ``Zero1Adam`` or a
+    subclass, built with ``overlap=True``) over its replicated
+    ``params``. The hooks issue each complete bucket's reduce-scatter
+    (with ``ef``, its int8 all-reduce) in layout order; ``finish`` takes
+    the step scalars once (the schedule's lr, the bias corrections), then
+    each bucket's chunk rule and its delta all-gather, and counts the
+    update. The rule is elementwise, so the float path equals the fused
+    ``apply``'s where the backend sums each element alike."""
+
+    def __init__(self, zero: Zero1Adam, ef: Sequence[torch.Tensor] | None = None):
+        self.params, self.momentum = zero.params, zero.momentum
+        self.ef = None if ef is None else list(ef)
+        self.zero = zero
+        self._install(zero.layout(self.params))
+
+    @torch.no_grad()
+    def finish(self) -> None:
+        self._disarm()
+        scalars = self.zero.step_scalars()
+        for b, members in enumerate(self.members):
+            g_mine, resid = self._pending[b]
+            slots = [self.layout.slots[i] for i in members]
+            self.zero.update_bucket(self.params, self.layout, members,
+                                    [g_mine[s.offset : s.offset + s.size] for s in slots],
+                                    scalars)
+            if resid is not None:
+                for i, slot in zip(members, slots):
+                    self.ef[i].copy_(B.leaf_view(resid, self.layout, slot))
+        self.zero.count += 1
         self._pending = [None] * self.num_buckets
         self._prefix = None

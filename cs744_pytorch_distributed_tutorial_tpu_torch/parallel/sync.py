@@ -266,6 +266,17 @@ def sync_grads_compressed(
         e.copy_(u)
 
 
+def lm_strategy(zero1: bool, fsdp: bool, grad_compress: str = "none") -> str:
+    """The LM trainer's data-parallel wire as the JAX ``LMTrainer.fit``
+    names it for ``sync_wire_bytes``: ``fsdp``, ``zero1`` (priced as
+    ``zero1_int8`` under int8), ``int8_allreduce``, or ``allreduce``."""
+    if fsdp:
+        return "fsdp"
+    if zero1:
+        return "zero1"
+    return "int8_allreduce" if grad_compress == "int8" else "allreduce"
+
+
 def sync_wire_bytes(
     params, name: str, world_size: int, grad_compress: str = "none", *,
     quant_chunk: int = QUANT_CHUNK, bucket_bytes: int | None = None, overlap: bool = False,

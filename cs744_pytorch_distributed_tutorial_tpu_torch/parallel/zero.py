@@ -1,8 +1,10 @@
 """ZeRO-1 and FSDP: optimizer state (and, under FSDP, the parameters)
 sharded over the data-parallel ranks.
 
-Port of the JAX package's ``parallel/zero.py`` (``Zero1SGD``,
-``FsdpSGD`` and their helpers). The reference keeps a full optimizer
+Port of the JAX package's ``parallel/zero.py``: the CIFAR Trainer's
+``Zero1SGD`` and ``FsdpSGD``, and the LM trainer's rules ``Zero1Adam``,
+``Zero1Lion``, ``Zero1SgdLM``, ``FsdpAdam``, ``FsdpLion`` and
+``FsdpSgdLM`` (``LM_RULES``), with their helpers. The reference keeps a full optimizer
 replica on every rank (plain SGD over a full model copy,
 ``master/part2a/part2a.py:127-128``); these remove that redundancy.
 
@@ -82,6 +84,19 @@ def _gather_bucketed_flat(shards: Sequence[torch.Tensor], shapes: Sequence, worl
         for i in members:
             out[i] = B.leaf_view(full, layout, layout.slots[i])
     return out
+
+
+def _scatter_rows(gbuf: torch.Tensor, ebuf: torch.Tensor | None, world_size: int,
+                  rank: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """This rank's row of the world's mean of an ``[n, cols]`` bucket, and,
+    on the int8 wire (``ebuf``, the bucket's residuals), the new ``[n,
+    cols]`` residuals: the quantized all-reduce of ``g + ef``, whose row
+    this rank keeps."""
+    if ebuf is None:
+        return true_div(C.reduce_scatter_sum(gbuf), world_size), None
+    mean, resid = _int8_allreduce_flat(gbuf.reshape(-1).float() + ebuf.reshape(-1).float(),
+                                       world_size)
+    return mean.view(gbuf.shape)[rank].to(gbuf.dtype), resid.view(gbuf.shape)
 
 
 def zero1_collective_schedule(units: int, axis_size: int) -> dict[str, int]:
@@ -174,15 +189,7 @@ class Zero1SGD:
 
     def scatter_bucket(self, gbuf: torch.Tensor, ebuf: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """This rank's row of the world's mean of an ``[n, cols]`` bucket,
-        and, on the int8 wire (``ebuf``, the bucket's residuals), the new
-        ``[n, cols]`` residuals: the quantized all-reduce of ``g + ef``,
-        whose row this rank keeps."""
-        s = self.world_size
-        if ebuf is None:
-            return true_div(C.reduce_scatter_sum(gbuf), s), None
-        mean, resid = _int8_allreduce_flat(gbuf.reshape(-1).float() + ebuf.reshape(-1).float(), s)
-        return mean.view(gbuf.shape)[self.rank].to(gbuf.dtype), resid.view(gbuf.shape)
+        return _scatter_rows(gbuf, ebuf, self.world_size, self.rank)
 
     def update_bucket(self, params: Sequence[torch.Tensor], momenta: Sequence[torch.Tensor],
                       layout: B.BucketLayout, members: Sequence[int], g_mine: torch.Tensor) -> None:
@@ -228,3 +235,247 @@ class FsdpSGD(Zero1SGD):
         """One step from the shards' gradient sums (``[chunk]`` each)."""
         for sh, m, g in zip(shards, momenta, grad_chunks, strict=True):
             sh.add_(self._sgd_chunk_update(sh, m, true_div(g, self.world_size)))
+
+
+# ------------------------------------------------------------- the LM's rules
+def _rules():
+    """``train/state.py``, whose multi-tensor rule arithmetic the LM's
+    sharded rules run on rows (imported on use: ``train`` imports this
+    module)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train import state
+
+    return state
+
+
+class Zero1Adam:
+    """ZeRO-1 AdamW for the LM trainer (the JAX package's ``Zero1Adam``):
+    both moments live only as this rank's ``[chunk]`` rows of each
+    parameter's ``[n, chunk]`` layout, so optimizer memory drops from 2x
+    the parameters to 2x / n a rank (GPT-2-medium's fp32 moments are about
+    2.8 GB replicated).
+
+    Bound to its parameters at construction (``params``: the replicated
+    parameters, or fsdp's rows), it keeps ``moments`` (``MOMENTS`` order,
+    one ``[chunk]`` row a parameter each) and ``count``. ``apply`` takes
+    the LOCAL gradients: one reduce-scatter of each tensor's (or each
+    bucket's) ``[n, chunk]`` rows gives this rank's rows of the world's
+    sum, divided into the mean; the chunk rule updates them and one
+    all-gather of the parameter deltas restores the replicated
+    parameters. Per tensor when ``bucket_bytes`` is 0 or the world is one,
+    else a bucket at a time on ``buckets.bucket_layout(rows=n)`` (reversed
+    under ``overlap``, which ``overlap.OverlappedZero1LM`` drives from
+    gradient hooks). The JAX package runs the fused path per leaf and
+    buckets only its overlapped one; the rule is elementwise, so the
+    buckets change which collective carries an element, not its value.
+
+    The step scalars are hoisted once a step (``step_scalars``: the
+    schedule's lr at the count before this update, the bias corrections
+    at the count after, as optax). ``clip_norm`` is optax's
+    ``clip_by_global_norm`` on the mean's rows with the exact global norm:
+    each rank's sum of squares over its rows, then one all-reduce.
+
+    The chunk rules are ``train/state.py``'s multi-tensor arithmetic run
+    on rows (``adamw_updates``, ``lion_updates``, ``sgd_deltas``,
+    ``decayed_deltas``), so at a world of one, where a row is the whole
+    flat tensor, an update is the replicated ``Optimizer``'s bit for bit.
+    Two things differ from it at a world above one: the mean is the
+    reduce-scatter's sum in the backend's order divided by n (the
+    replicated path divides first, then all-reduces), and the clip's norm
+    sums rows over ranks (another order than the tensors' sums).
+    Against JAX the ``nu`` update rounds ``(1 - b2) * (g * g)`` as optax
+    does where JAX's ``Zero1Adam`` rounds ``((1 - b2) * g) * g``.
+
+    The sequence axis, the tensor axis and expert-sharded leaves (JAX's
+    ``seq_size``, ``shard_axes``, ``_data_sharded``, ``_expert_mean``)
+    are not ported (``ROADMAP.md`` A6)."""
+
+    MOMENTS: tuple[str, ...] = ("mu", "nu")
+    #: ``params`` are this rank's rows already (fsdp), not whole tensors.
+    ROWS = False
+
+    def __init__(self, params: Sequence[torch.Tensor], schedule, b1: float, weight_decay: float,
+                 world_size: int, *, clip_norm: float | None = None,
+                 bucket_bytes: int | None = None, overlap: bool = False,
+                 seq_size: int = 1, shard_axes: dict | None = None):
+        if seq_size > 1 or any(n > 1 for n in (shard_axes or {}).values()):
+            raise NotImplementedError(
+                "sharded optimizers over a sequence or tensor axis are not yet ported "
+                "(ROADMAP A6)")
+        if clip_norm is not None and clip_norm <= 0:
+            raise ValueError(f"clip_norm must be > 0, got {clip_norm}")
+        if overlap and clip_norm is not None:
+            raise ValueError(
+                "sync_overlap with a sharded optimizer admits pure data parallelism only: "
+                "seq/tensor/expert sharding and grad_clip_norm need cross-chunk joins that "
+                "defeat the per-bucket schedule"
+            )
+        self.schedule, self.b1, self.weight_decay = schedule, b1, weight_decay
+        self.world_size = world_size
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.clip_norm = clip_norm
+        self.bucket_bytes = B.DEFAULT_BUCKET_BYTES if bucket_bytes is None else int(bucket_bytes)
+        self.overlap = bool(overlap)
+        self.params = list(params)
+        self.count = 0
+        size = (lambda p: p.numel()) if self.ROWS else (
+            lambda p: chunk_size(p.numel(), world_size))
+        self.moments = {name: [p.new_zeros(size(p), dtype=torch.float32) for p in self.params]
+                        for name in self.MOMENTS}
+
+    @property
+    def momentum(self) -> list[torch.Tensor]:
+        """The first moment's rows (the trainers' ``momentum``)."""
+        return self.moments["mu"]
+
+    @property
+    def bucketed(self) -> bool:
+        return bool(self.bucket_bytes) and self.world_size > 1
+
+    def layout(self, params: Sequence) -> B.BucketLayout:
+        return B.bucket_layout(params, self.bucket_bytes, rows=self.world_size,
+                               reverse=self.overlap)
+
+    def step_scalars(self) -> tuple[float, int]:
+        """(lr, incremented count) of the coming update."""
+        return float(self.schedule(self.count)), self.count + 1
+
+    def _deltas(self, p_rows: list, idx: Sequence[int], g_rows: list,
+                scalars: tuple[float, int]) -> list[torch.Tensor]:
+        """The rule on rows: ``p_rows``/``g_rows`` are the parameters'
+        and the mean's rows of parameters ``idx``; their moments move in
+        place; returns the parameter deltas."""
+        lr, count = scalars
+        mu = [self.moments["mu"][i] for i in idx]
+        updates = _rules().adamw_updates(mu, [self.moments["nu"][i] for i in idx], g_rows, count,
+                                         self.b1)
+        return _rules().decayed_deltas(p_rows, updates, lr, self.weight_decay)
+
+    def _clip(self, g_rows: list[torch.Tensor]) -> list[torch.Tensor]:
+        """``clip_by_global_norm`` on every parameter's rows of the mean
+        (in parameter order): the global norm from each rank's sum of
+        squares, one all-reduce."""
+        if self.clip_norm is None:
+            return g_rows
+        total = C.all_reduce_sum(_rules().squared_sum(g_rows))
+        return _rules().clip_by_norm(g_rows, total.sqrt(), self.clip_norm)
+
+    def scatter_bucket(self, gbuf: torch.Tensor, ebuf: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        return _scatter_rows(gbuf, ebuf, self.world_size, self.rank)
+
+    def update_bucket(self, params: Sequence[torch.Tensor], layout: B.BucketLayout,
+                      members: Sequence[int], g_rows: Sequence[torch.Tensor],
+                      scalars: tuple[float, int]) -> None:
+        """A bucket's rule on the rows of ``members`` (``g_rows``, theirs
+        of the mean), then one all-gather of their deltas, added to the
+        replicated parameters."""
+        p_rows = [_shard_flat(params[i].detach(), self.world_size)[self.rank] for i in members]
+        deltas = self._deltas(p_rows, members, list(g_rows), scalars)
+        delta_buf = C.all_gather_flat(torch.cat(deltas))
+        for i in members:
+            params[i].add_(B.leaf_view(delta_buf, layout, layout.slots[i]))
+
+    @torch.no_grad()
+    def apply(self, grads: Sequence[torch.Tensor]) -> None:
+        """One ZeRO-1 step from this rank's LOCAL gradients of ``params``."""
+        s, params = self.world_size, self.params
+        scalars = self.step_scalars()
+        if self.bucketed:
+            layout = self.layout(grads)
+            members = B.bucket_members(layout)
+            g_rows: list = [None] * len(params)
+            for b, m in enumerate(members):
+                g_mine, _ = self.scatter_bucket(B.flatten_bucket(grads, layout, b, m))
+                for i in m:
+                    slot = layout.slots[i]
+                    g_rows[i] = g_mine[slot.offset : slot.offset + slot.size]
+            g_rows = self._clip(g_rows)
+            for m in members:
+                self.update_bucket(params, layout, m, [g_rows[i] for i in m], scalars)
+        else:
+            g_rows = self._clip([true_div(C.reduce_scatter_sum(_shard_flat(g, s)), s)
+                                 for g in grads])
+            p_rows = [_shard_flat(p.detach(), s)[self.rank] for p in params]
+            deltas = self._deltas(p_rows, range(len(params)), g_rows, scalars)
+            for p, d in zip(params, deltas, strict=True):
+                p.add_(_unshard(C.all_gather_flat(d), p.shape))
+        self.count += 1
+
+
+class Zero1Lion(Zero1Adam):
+    """ZeRO-1 Lion (the JAX ``Zero1Lion``): one sharded moment, optax.lion's
+    rule on the rows (``train/state.py::lion_updates``)."""
+
+    MOMENTS = ("mu",)
+
+    def _deltas(self, p_rows, idx, g_rows, scalars):
+        lr, _ = scalars
+        updates = _rules().lion_updates([self.moments["mu"][i] for i in idx], g_rows, self.b1)
+        return _rules().decayed_deltas(p_rows, updates, lr, self.weight_decay)
+
+
+class Zero1SgdLM(Zero1Adam):
+    """ZeRO-1 SGD(momentum, weight decay) for the LM (the JAX
+    ``Zero1SgdLM``): the decay folds into the gradient before the trace
+    (``train/state.py::sgd_deltas``)."""
+
+    MOMENTS = ("mu",)
+
+    def _deltas(self, p_rows, idx, g_rows, scalars):
+        lr, _ = scalars
+        return _rules().sgd_deltas(p_rows, [self.moments["mu"][i] for i in idx], g_rows, lr,
+                                   self.b1, self.weight_decay)
+
+
+class FsdpAdam(Zero1Adam):
+    """ZeRO-3/FSDP AdamW for the LM (the JAX ``FsdpAdam``): the parameters
+    persist only as this rank's rows too (3x the parameters / n a rank
+    with both moments). ``params`` are the rows (``shard_params``); a
+    step gathers the full tensors before the forward (``gather_params``:
+    one all-gather a tensor, or a bucket with ``bucket_bytes`` at a world
+    above one, reversed under ``overlap``) and differentiating through the
+    gather leaves each row's ``grad`` the world's sum of its rows (the
+    gather's backward is a reduce-scatter). ``apply`` divides into the
+    mean and runs the rule on the rows in place; nothing is gathered
+    after the update. The gathered tensors live until the backward is
+    done with them, as in JAX, whose residuals keep them."""
+
+    ROWS = True
+
+    def gather_params(self, shapes: Sequence) -> list[torch.Tensor]:
+        """The full parameters from ``params`` (differentiable);
+        ``shapes`` holds each one's ``(shape, dtype)``."""
+        if not self.bucketed:
+            return _gather_flat(self.params, shapes)
+        return _gather_bucketed_flat(self.params, shapes, self.world_size, self.bucket_bytes,
+                                     reverse=self.overlap)
+
+    @staticmethod
+    def shard_params(params: Sequence[torch.Tensor], world_size: int) -> list[torch.Tensor]:
+        """This rank's rows of each parameter, as new leaf tensors."""
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        return [_shard_flat(p.detach(), world_size)[rank].clone().requires_grad_()
+                for p in params]
+
+    @torch.no_grad()
+    def apply(self, grad_sums: Sequence[torch.Tensor]) -> None:
+        """One step from the rows' gradient sums (``[chunk]`` each)."""
+        scalars = self.step_scalars()
+        g_rows = self._clip([true_div(g, self.world_size) for g in grad_sums])
+        deltas = self._deltas(self.params, range(len(self.params)), g_rows, scalars)
+        torch._foreach_add_(self.params, deltas)
+        self.count += 1
+
+
+class FsdpLion(FsdpAdam, Zero1Lion):
+    """FSDP with Lion's rule (the JAX ``FsdpLion``)."""
+
+
+class FsdpSgdLM(FsdpAdam, Zero1SgdLM):
+    """FSDP with torch-SGD's rule (the JAX ``FsdpSgdLM``)."""
+
+
+#: optimizer name -> (ZeRO-1 class, FSDP class), as the JAX LM picks them.
+LM_RULES = {"adamw": (Zero1Adam, FsdpAdam), "lion": (Zero1Lion, FsdpLion),
+            "sgd": (Zero1SgdLM, FsdpSgdLM)}
+

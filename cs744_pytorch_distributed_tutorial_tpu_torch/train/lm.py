@@ -1,5 +1,6 @@
-"""LM training engine on one device, ported from the JAX package's
-``train/lm.py`` at a data, sequence and tensor axis of size 1.
+"""LM training engine, ported from the JAX package's ``train/lm.py``:
+one process a data-parallel rank, at a sequence and tensor axis of size
+1.
 
 A step: the model's forward on [B, T] token ids (``models/
 transformer.py``; bf16 compute when ``compute_dtype="bfloat16"``, by
@@ -46,8 +47,9 @@ pending/certify gate; the metric stream and run manifest
 step exempt), a profiler window (``profile_dir``, steps
 ``[profile_start_step, + profile_num_steps)``) and the non-finite halt.
 ``capture_state``/``restore_state`` carry the parameters, the
-optimizer's moments and count, and the step, copied into the live
-tensors.
+optimizer's moments and count, the int8 wire's residuals and the step
+(a rank's rows of them under zero1 and fsdp; the checkpoint keeps a file
+a rank), copied into the live tensors; another world size raises.
 
 For generation and serving, ``decode_model`` and
 ``quantized_decode_model`` build a decode copy of the model (dense
@@ -55,11 +57,38 @@ attention for the prompt pass, the float weights already in the compute
 dtype, int8 projections and/or an int8 KV cache on request, no remat,
 the unrolled layout) from the trainer's weights or from a
 ``state_dict``; ``quantize_for_decode`` makes the int8 ``state_dict``
-and ``gather_for_decode`` gives the unrolled weights (one device holds
-them whole).
+and ``gather_for_decode`` gives the unrolled weights (under fsdp
+all-gathered from the ranks' rows, a collective every rank joins).
 
-Options of later slices (the parallel layouts, the gradient wire,
-ZeRO/FSDP) raise ``NotImplementedError``.
+Across ranks (``data_parallel``: the process group's world, one rank a
+card, NCCL between cards and Gloo on the CPU, ``parallel/mesh.py::
+initialize``; without a process group the world is one), as the JAX
+trainer on its data axis:
+
+- rank r trains on rows ``[r B/n, (r+1) B/n)`` of each global batch
+  (``split_batch``), ``accum_steps`` splitting its own rows; ``loss``
+  and the MoE statistics are the world's means; dropout keys carry the
+  rank (rank 0's key is the one-device key, so a world of one draws the
+  masks it always drew);
+- the plain path all-reduces the mean gradient (a bucket at a time,
+  ``sync_bucket_mb``) before the replicated optimizer;
+  ``grad_compress="int8"`` sends it over the int8 wire with a residual a
+  rank (``sync_grads_compressed``); ``sync_overlap="bucket"`` (sgd at a
+  constant lr) or ``"bucket+int8"`` fires each reverse-order bucket from
+  gradient hooks and applies the fused SGD a bucket (``OverlappedSGD``);
+- ``zero1`` hands the local gradients to ``parallel/zero.py``'s sharded
+  rule of the optimizer (``Zero1Adam``/``Zero1Lion``/``Zero1SgdLM``:
+  reduce-scatter, the rule on this rank's rows, an all-gather of the
+  deltas; overlapped through ``OverlappedZero1LM``); ``fsdp`` keeps only
+  this rank's rows of the parameters (``FsdpAdam`` & co.), gathers them
+  for each forward (``functional_call``; the module's own parameters are
+  empty) and its gather's backward reduce-scatters the gradients.
+  ``grad_norm``/``param_norm`` are left out under both, as in JAX.
+
+Every JAX rejection of these options is raised, with its exception type,
+before a process group is needed. The sequence and tensor axes and
+expert parallelism (``seq_parallel``, ``tensor_parallel``,
+``moe_expert_parallel``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -72,6 +101,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.func import functional_call
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.config import resolve_device, resolve_dtype
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import (
@@ -85,11 +117,25 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.ops.fused_xent import fused_cr
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import (
     quantize_lm_params,
     resolve_quant_modules,
+    true_div,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as C
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import rank_device, world
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.overlap import (
+    OVERLAP_MODES,
+    OverlappedSGD,
+    OverlappedZero1LM,
+)
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
+    sync_grads,
+    sync_grads_compressed,
+)
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import LM_RULES, _unshard
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.engine import _smoothed_xent
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import (
     check_recipe,
     make_lm_optimizer,
+    make_schedule,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import NonFiniteLossError
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.memstore import ReplicatedSnapshot
@@ -175,15 +221,23 @@ class LMConfig:
     profile_start_step: int = 2
     profile_num_steps: int = 3
 
-    # Options of later slices, accepted only at their "off" value.
+    # Data parallelism: the process group's world size (1 without one).
     data_parallel: int = 1
+    # The gradient wire: "int8" quantizes the data-parallel sync with
+    # error feedback; sync_bucket_mb sizes its buckets (0: one collective
+    # a tensor where the path allows); sync_overlap "bucket"/"bucket+int8"
+    # fires each reverse-order bucket from the backward.
+    grad_compress: str = "none"
+    sync_bucket_mb: float = 4.0
+    sync_overlap: str = "off"
+    # ZeRO-1 (moments as this rank's rows) and FSDP (parameters too).
+    zero1: bool = False
+    fsdp: bool = False
+
+    # Options of later slices, accepted only at their "off" value.
     seq_parallel: int = 1
     tensor_parallel: int = 1
     moe_expert_parallel: bool = False
-    grad_compress: str = "none"
-    sync_overlap: str = "off"
-    zero1: bool = False
-    fsdp: bool = False
 
     # "cuda" (default) or "cpu".
     device: str = "cuda"
@@ -192,34 +246,95 @@ class LMConfig:
         return dataclasses.replace(self, **kw)
 
 
-_LATER_FIELDS = (
-    "data_parallel", "seq_parallel", "tensor_parallel", "moe_expert_parallel", "grad_compress",
-    "sync_overlap", "zero1", "fsdp",
-)
+_LATER_FIELDS = ("seq_parallel", "tensor_parallel", "moe_expert_parallel")
 
 
-def _check_config(cfg: LMConfig) -> None:
+def check_config(cfg: LMConfig) -> None:
+    """Every check that needs no process group: the later slices' options,
+    then the JAX ``LMTrainer``'s own (its ``train/lm.py:415-506,567-571``)."""
     off = LMConfig()
     for name in _LATER_FIELDS:
         if getattr(cfg, name) != getattr(off, name):
             raise NotImplementedError(f"{name}={getattr(cfg, name)!r} is not yet ported")
+    if cfg.data_parallel < 1:
+        raise ValueError(f"data_parallel must be >= 1, got {cfg.data_parallel}")
+    if cfg.global_batch_size % cfg.data_parallel:
+        raise ValueError(f"global batch {cfg.global_batch_size} not divisible by data axis "
+                         f"{cfg.data_parallel}")
     if cfg.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(
             f"unknown attention_impl {cfg.attention_impl!r}; choose from {ATTENTION_IMPLS}"
         )
     if cfg.seq_len > cfg.max_seq_len:
         raise ValueError(f"seq_len {cfg.seq_len} exceeds max_seq_len {cfg.max_seq_len}")
+    local_batch = cfg.global_batch_size // cfg.data_parallel
+    if cfg.accum_steps < 1 or local_batch % cfg.accum_steps:
+        raise ValueError(f"accum_steps {cfg.accum_steps} must divide the per-device batch shard "
+                         f"({local_batch} sequences)")
+    _check_wire(cfg)
     if not 0.0 <= cfg.label_smoothing < 1.0:
         raise ValueError(f"label_smoothing must be in [0, 1), got {cfg.label_smoothing}")
-    if cfg.accum_steps < 1 or cfg.global_batch_size % cfg.accum_steps:
-        raise ValueError(f"accum_steps {cfg.accum_steps} must divide the per-device batch shard "
-                         f"({cfg.global_batch_size} sequences)")
     if cfg.remat:
         resolve_remat_policy(cfg.remat_policy)
     check_recipe(cfg)
     if cfg.label_smoothing and cfg.fused_xent:
         raise ValueError("label_smoothing is incompatible with fused_xent: the fused kernel "
                          "computes plain CE")
+    if cfg.zero1 and cfg.fsdp:
+        raise ValueError("zero1 and fsdp are mutually exclusive (fsdp subsumes zero1's moment "
+                         "sharding and additionally shards params)")
+    if (cfg.zero1 or cfg.fsdp) and cfg.sync_overlap != "off" and cfg.grad_clip_norm is not None:
+        raise ValueError(
+            "sync_overlap with a sharded optimizer admits pure data parallelism only: "
+            "seq/tensor/expert sharding and grad_clip_norm need cross-chunk joins that "
+            "defeat the per-bucket schedule"
+        )
+
+
+def _check_wire(cfg: LMConfig) -> None:
+    """The JAX ``LMTrainer``'s checks of the gradient wire, in its order
+    and with its messages."""
+    if cfg.grad_compress not in ("none", "int8"):
+        raise ValueError(f"unknown grad_compress {cfg.grad_compress!r}; choose 'none' or 'int8'")
+    compress = cfg.grad_compress == "int8"
+    if compress and cfg.fsdp:
+        raise ValueError(
+            "grad_compress='int8' cannot ride fsdp: its gradient reduction IS the backward "
+            "of the param all-gather, so there is no separate grad-sync pass to quantize; "
+            "for a quantized sharded-optimizer wire use zero1 with "
+            "sync_overlap='bucket+int8'"
+        )
+    if compress and cfg.zero1 and cfg.sync_overlap != "bucket+int8":
+        raise ValueError(
+            "grad_compress='int8' under zero1 quantizes on the overlapped schedule's bucket "
+            "boundaries (Zero1Adam's overlapped lane): arm it with "
+            "sync_overlap='bucket+int8' (the fused zero1 path has no separate grad-sync pass "
+            "to compress)"
+        )
+    if cfg.sync_bucket_mb < 0:
+        raise ValueError(f"sync_bucket_mb must be >= 0, got {cfg.sync_bucket_mb}")
+    if cfg.sync_overlap not in OVERLAP_MODES:
+        raise ValueError(f"unknown sync_overlap {cfg.sync_overlap!r}; choose from "
+                         f"{OVERLAP_MODES}")
+    if cfg.sync_overlap == "off":
+        return
+    if not (cfg.zero1 or cfg.fsdp) and (
+            cfg.optimizer != "sgd" or cfg.lr_schedule != "constant" or cfg.warmup_steps
+            or cfg.grad_clip_norm is not None):
+        raise ValueError(
+            "pure-DP sync_overlap requires the reference's fixed-LR SGD recipe "
+            "(optimizer='sgd', lr_schedule='constant', warmup_steps=0, grad_clip_norm=None): "
+            "the per-bucket apply is the flat torch-SGD update, and a clip or schedule would "
+            "reintroduce the tree-wide barrier the overlap removes. zero1/fsdp overlap admits "
+            "any registry optimizer and LR schedule (the sharded optimizers apply their chunk "
+            "rules per bucket)"
+        )
+    if cfg.sync_overlap == "bucket" and compress:
+        raise ValueError("sync_overlap='bucket' overlaps the float wire; with "
+                         "grad_compress='int8' use sync_overlap='bucket+int8'")
+    if cfg.sync_overlap == "bucket+int8" and not compress:
+        raise ValueError("sync_overlap='bucket+int8' overlaps the int8+EF wire; set "
+                         "grad_compress='int8'")
 
 
 def _global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
@@ -228,28 +343,53 @@ def _global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 
 
 class LMTrainer:
-    """``TransformerLM`` training on one device: ``init``, ``split_batch``,
-    ``train_step``, ``eval_step``, ``evaluate`` and ``fit``. ``memstore``
-    is the in-memory snapshot tier; without one, ``cfg.snapshot_every``
-    builds it."""
+    """``TransformerLM`` training on this rank's device: ``init``,
+    ``split_batch``, ``train_step``, ``eval_step``, ``evaluate`` and
+    ``fit``. The process group, when there is one, is initialized before
+    the trainer is built; its world size must be ``cfg.data_parallel``.
+    ``memstore`` is the in-memory snapshot tier; without one,
+    ``cfg.snapshot_every`` builds it."""
 
     def __init__(self, cfg: LMConfig, memstore: ReplicatedSnapshot | None = None):
-        _check_config(cfg)
+        check_config(cfg)
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.world_size, self.rank = world()
+        if cfg.data_parallel != self.world_size:
+            raise ValueError(
+                f"data_parallel={cfg.data_parallel} but the process group has world size "
+                f"{self.world_size}; launch one process per rank"
+            )
+        self._zero = cfg.zero1 or cfg.fsdp
+        self._compress = cfg.grad_compress == "int8"
+        self._overlap = cfg.sync_overlap != "off"
+        # The data-parallel wire runs whenever there is a process group,
+        # at a world of one too (its collectives are copies there).
+        self._synced = dist.is_initialized()
+        if (self._zero or self._compress or self._overlap) and not self._synced:
+            raise ValueError(
+                "zero1/fsdp/grad_compress/sync_overlap communicate through "
+                "torch.distributed: initialize a process group first "
+                "(parallel.mesh.initialize), a world of one included"
+            )
+        self._bucket_bytes = int(cfg.sync_bucket_mb * 2**20)
+        self.device = rank_device(resolve_device(cfg.device), self.rank)
         self.dtype = resolve_dtype(cfg.compute_dtype)
         if memstore is None and cfg.snapshot_every:
             memstore = ReplicatedSnapshot(max_to_keep=cfg.snapshot_keep)
         self.memstore = memstore
         self.model: TransformerLM | None = None
         self.optimizer = None
+        self.overlap = None
+        self._ef: list[torch.Tensor] = []
         self.step = 0
 
     def init(self, seed: int | None = None, state_dict: dict | None = None):
         """Build the model (parameters from ``seed``, default
         ``cfg.seed``, or copies of ``state_dict``'s, in this
         configuration's layout: stacked under ``scan_layers``) and its
-        optimizer; returns ``(model, optimizer)``."""
+        optimizer; returns ``(model, optimizer)``. Under fsdp the
+        optimizer's ``params`` are this rank's rows and the model's own
+        parameters are empty."""
         cfg = self.cfg
         kw = dict(self._model_kw(), attention_impl=cfg.attention_impl)
         if state_dict is None:
@@ -261,9 +401,49 @@ class LMTrainer:
             self.model.load_state_dict(
                 {k: v.detach().to(self.device, copy=True) for k, v in state_dict.items()},
                 assign=True)
-        self.optimizer = make_lm_optimizer(self.cfg, list(self.model.parameters()))
+        params = list(self.model.parameters())
+        if self.overlap is not None:
+            self.overlap.remove_hooks()
+        self.overlap = None
+        self._ef = ([torch.zeros_like(p, dtype=torch.float32) for p in params]
+                    if self._compress else [])
+        if self._zero:
+            self.optimizer = self._sharded_rule(params)
+        else:
+            self.optimizer = make_lm_optimizer(cfg, params)
+            if self._overlap:
+                self.overlap = OverlappedSGD(
+                    params, self.optimizer.momentum, self._ef or None, name="allreduce",
+                    world_size=self.world_size, lr=cfg.learning_rate, mu=cfg.momentum,
+                    wd=cfg.weight_decay, bucket_bytes=self._bucket_bytes)
         self.step = 0
         return self.model, self.optimizer
+
+    def _sharded_rule(self, params: list[torch.Tensor]):
+        """zero1's or fsdp's rule of ``cfg.optimizer`` over ``params``;
+        under fsdp the module's parameters are swapped for empty
+        placeholders and the rule keeps this rank's rows."""
+        cfg = self.cfg
+        z1_cls, fsdp_cls = LM_RULES[cfg.optimizer]
+        if cfg.fsdp:
+            self._param_names = [name for name, _ in self.model.named_parameters()]
+            self._param_shapes = [(tuple(p.shape), p.dtype) for p in params]
+            params = fsdp_cls.shard_params(params, self.world_size)
+            for name in self._param_names:
+                module_name, _, attr = name.rpartition(".")
+                setattr(self.model.get_submodule(module_name), attr,
+                        nn.Parameter(torch.empty(0, device=self.device), requires_grad=False))
+        rule = (fsdp_cls if cfg.fsdp else z1_cls)(
+            params, make_schedule(cfg), cfg.momentum, cfg.weight_decay, self.world_size,
+            clip_norm=cfg.grad_clip_norm, bucket_bytes=self._bucket_bytes, overlap=self._overlap)
+        if cfg.zero1 and self._overlap:
+            self.overlap = OverlappedZero1LM(rule, self._ef or None)
+        return rule
+
+    def _full_params(self) -> dict[str, torch.Tensor]:
+        """fsdp: every parameter gathered from the ranks' rows, by name
+        (differentiable: the gather's backward reduce-scatters)."""
+        return dict(zip(self._param_names, self.optimizer.gather_params(self._param_shapes)))
 
     def _model_kw(self) -> dict:
         cfg = self.cfg
@@ -282,13 +462,24 @@ class LMTrainer:
     def gather_for_decode(self, params: dict | None = None) -> dict:
         """The full weights for a decode copy, in the unrolled layout:
         ``params``, or the trainer's model's ``state_dict`` (built by
-        ``init()`` if there is none yet), unstacked if stacked. One device
-        holds them whole, so nothing is gathered."""
+        ``init()`` if there is none yet), unstacked if stacked. Under fsdp
+        the ranks' rows are all-gathered into the whole tensors (the JAX
+        ``unshard_host``): a collective every rank joins."""
         if params is None:
             if self.model is None:
                 self.init()
-            params = self.model.state_dict()
+            params = self.state_dict()
         return unstack_block_params(params) if is_stacked(params) else params
+
+    @torch.no_grad()
+    def state_dict(self) -> dict[str, torch.Tensor]:
+        """The model's full ``state_dict`` (under fsdp gathered from the
+        ranks' rows, which every rank must join)."""
+        if not self.cfg.fsdp:
+            return self.model.state_dict()
+        return {name: _unshard(C.all_gather_flat(row), shape).clone()
+                for name, row, (shape, _) in zip(self._param_names, self.optimizer.params,
+                                                  self._param_shapes, strict=True)}
 
     def _decode_copy(self, params: dict, **options) -> TransformerLM:
         """A ``TransformerLM`` with dense attention for the prompt pass, no
@@ -347,19 +538,38 @@ class LMTrainer:
         return quantize_lm_params(params, resolve_quant_modules(modules))
 
     def split_batch(self, tokens) -> tuple[torch.Tensor, torch.Tensor]:
-        """[B, seq_len + 1] tokens -> (inputs [:, :-1], targets [:, 1:]) as
-        int64 tensors on the device."""
-        tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
-        tokens = tokens.to(self.device, non_blocking=True)
+        """A global batch [B, seq_len + 1] of tokens -> this rank's rows
+        ``[r B/n, (r+1) B/n)`` as (inputs [:, :-1], targets [:, 1:]),
+        int64 tensors on the device (the JAX ``shard_batch``)."""
+        tokens = np.asarray(tokens)
+        per = len(tokens) // self.world_size
+        tokens = tokens[self.rank * per : (self.rank + 1) * per]
+        tokens = torch.as_tensor(tokens, dtype=torch.int64).to(self.device, non_blocking=True)
         return tokens[:, :-1], tokens[:, 1:]
+
+    def _logits(self, inputs: torch.Tensor, dropout: tuple[int, ...] | None = None):
+        if self.cfg.fsdp:
+            return functional_call(self.model, self._full_params(), (inputs,),
+                                   {"dropout": dropout})
+        return self.model(inputs, dropout=dropout)
 
     def _loss(self, inputs: torch.Tensor, targets: torch.Tensor, smoothing: float,
               fused: bool = False, dropout: tuple[int, ...] | None = None):
-        logits = self.model(inputs, dropout=dropout)
+        logits = self._logits(inputs, dropout)
         v = logits.shape[-1]
         if fused:
             return fused_cross_entropy(logits.reshape(-1, v), targets.reshape(-1)).mean()
         return _smoothed_xent(logits.reshape(-1, v), targets.reshape(-1), smoothing)
+
+    def world_mean(self, values: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """Each 0-d value's mean over the ranks (JAX's ``pmean``: the sum,
+        one all-reduce for them all, divided by n); the values as they are
+        without a process group."""
+        if not self._synced or not values:
+            return values
+        total = C.all_reduce_sum(torch.stack([v.float() for v in values.values()]))
+        mean = true_div(total, self.world_size)
+        return dict(zip(values, mean.unbind()))
 
     def _moe_stats(self) -> dict[str, torch.Tensor]:
         """The MoE layers' statistics of the last forward made with grad:
@@ -380,11 +590,15 @@ class LMTrainer:
         the MoE statistics of its forward (empty for a dense model), read
         right after the forward (a remat recompute in the backward sets
         them again). Dropout, when on, is keyed by (seed, ``step``,
-        default ``self.step``, ``microbatch``)."""
+        default ``self.step``, ``microbatch``), and by the rank above rank
+        0, so each rank draws its own masks (JAX folds the data index into
+        its key) while rank 0 keeps the one-device key."""
         cfg = self.cfg
         key = None
         if cfg.dropout_rate > 0.0:
             key = (cfg.seed, self.step if step is None else step, microbatch)
+            if self.rank:
+                key += (self.rank,)
         loss = self._loss(inputs, targets, cfg.label_smoothing, fused=cfg.fused_xent, dropout=key)
         moe = self._moe_stats() if cfg.moe_experts > 0 else {}
         if moe:
@@ -393,78 +607,134 @@ class LMTrainer:
 
     def train_step(self, inputs: torch.Tensor, targets: torch.Tensor,
                    step: int | None = None) -> dict[str, torch.Tensor]:
-        """One update on a batch; ``step`` keys the dropout masks (default
-        ``self.step``; inert at ``dropout_rate`` 0)."""
-        params = list(self.model.parameters())
+        """One update on this rank's rows of a batch; ``step`` keys the
+        dropout masks (default ``self.step``; inert at ``dropout_rate``
+        0). The metrics are the world's means."""
+        cfg = self.cfg
+        params = self.optimizer.params
         for p in params:
             p.grad = None
         step = self.step if step is None else step
-        accum = self.cfg.accum_steps
-        if accum == 1:
-            loss, moe = self.objective(inputs, targets, step)
-            loss.backward()
-        else:
-            # Microbatch i is rows [i B/a, (i+1) B/a); the sums are divided
-            # by accum_steps, as JAX's scan carry.
-            loss, moe = None, {}
-            for i, (x, y) in enumerate(zip(inputs.chunk(accum), targets.chunk(accum))):
-                mb_loss, mb_moe = self.objective(x, y, step, microbatch=i)
-                mb_loss.backward()
-                loss = mb_loss.detach() if loss is None else loss + mb_loss.detach()
-                for k, v in mb_moe.items():
-                    moe[k] = v.detach() if k not in moe else moe[k] + v.detach()
-            torch._foreach_div_([p.grad for p in params], accum)
+        accum = cfg.accum_steps
+        loss, moe = None, {}
+        # Microbatch i is rows [i b/a, (i+1) b/a) of this rank's b; the
+        # gradients accumulate in ``grad`` and the sums are divided by
+        # accum_steps, as JAX's scan carry. The overlapped lane arms the
+        # last microbatch's backward with the earlier ones' sum.
+        for i, (x, y) in enumerate(zip(inputs.chunk(accum), targets.chunk(accum))):
+            if self.overlap is not None and i == accum - 1:
+                prefix = None
+                if accum > 1:
+                    prefix = [p.grad for p in params]
+                    for p in params:
+                        p.grad = None
+                self.overlap.begin(prefix, accum)
+            mb_loss, mb_moe = self.objective(x, y, step, microbatch=i)
+            mb_loss.backward()
+            loss = mb_loss.detach() if loss is None else loss + mb_loss.detach()
+            for k, v in mb_moe.items():
+                moe[k] = v.detach() if k not in moe else moe[k] + v.detach()
+        if accum > 1:
+            if self.overlap is None:
+                torch._foreach_div_([p.grad for p in params], accum)
             loss = loss / accum
             moe = {k: v / accum for k, v in moe.items()}
-        grad_norm = _global_norm([p.grad for p in params])
-        self.optimizer.step()
+        self._update(params)
         self.step += 1
-        with torch.no_grad():
-            param_norm = _global_norm(params)
-        return {"loss": loss.detach(), "grad_norm": grad_norm, "param_norm": param_norm,
-                **{k: v.detach() for k, v in moe.items()}}
+        metrics = self.world_mean({"loss": loss, **moe})
+        if not self._zero:  # zero1/fsdp never form the synced gradients
+            with torch.no_grad():
+                metrics["grad_norm"] = _global_norm([p.grad for p in params])
+                metrics["param_norm"] = _global_norm(params)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def _update(self, params: list[torch.Tensor]) -> None:
+        """The data-parallel sync and the update (the JAX step's paths):
+        the overlapped lane's buckets; zero1's and fsdp's sharded rules
+        (the local gradients, or the rows' sums); the int8 wire with this
+        rank's residuals, or the all-reduce mean, before the replicated
+        optimizer. Without a process group, the optimizer alone."""
+        grads = [p.grad for p in params]
+        if self.overlap is not None:
+            self.overlap.finish()
+            return
+        if self._zero:
+            self.optimizer.apply(grads)
+            return
+        if self._compress:
+            sync_grads_compressed(grads, self._ef, "int8_allreduce", self.world_size,
+                                  bucket_bytes=self._bucket_bytes)
+        elif self._synced:
+            sync_grads(grads, "allreduce", self.world_size, self._bucket_bytes)
+        self.optimizer.step()
+
+    def _opt_state(self) -> tuple[list, list, int]:
+        """(first moments, second moments or [], update count): the
+        replicated optimizer's or this rank's rows of the sharded rule's."""
+        opt = self.optimizer
+        if self._zero:
+            return opt.momentum, opt.moments.get("nu", []), opt.count
+        return opt.momentum, opt.tx.nu, opt.tx.count
 
     @torch.no_grad()
     def capture_state(self, *, clone: bool = False) -> dict[str, Any]:
         """Everything a bitwise resume needs (the checkpoint's and the
-        snapshot's content): the step, the parameters, the optimizer's
-        first moments (``momentum``), AdamW's second moments and the
-        update count. ``clone`` copies the tensors on their device."""
+        snapshot's content, a file a rank): the step, the world size, the
+        optimizer's parameters (under fsdp this rank's rows), its first
+        moments (``momentum``), AdamW's second moments, the update count
+        (zero1's and fsdp's moments are this rank's rows) and the int8
+        wire's residuals. ``clone`` copies the tensors on their device."""
         take = (lambda t: t.detach().clone()) if clone else (lambda t: t.detach())
-        opt = self.optimizer
+        mu, nu, count = self._opt_state()
         return {
             "step": int(self.step),
-            "world_size": 1,
-            "params": [take(p) for p in opt.params],
-            "momentum": [take(m) for m in opt.momentum],
-            "opt_nu": [take(v) for v in opt.tx.nu],
-            "opt_count": int(opt.tx.count),
+            "world_size": self.world_size,
+            "params": [take(p) for p in self.optimizer.params],
+            "momentum": [take(m) for m in mu],
+            "opt_nu": [take(v) for v in nu],
+            "opt_count": int(count),
+            "ef": [take(e) for e in self._ef],
         }
 
     @torch.no_grad()
     def restore_state(self, state: dict[str, Any]) -> None:
-        """Load ``capture_state``'s dict by copying into the live tensors."""
-        opt = self.optimizer
-        for key, live in (("params", opt.params), ("momentum", opt.momentum),
-                          ("opt_nu", opt.tx.nu)):
-            saved = state[key]
+        """Load ``capture_state``'s dict by copying into the live tensors
+        (the overlapped lanes and fsdp's gathers hold references to
+        them). A state saved by another world size raises."""
+        if state.get("world_size", 1) != self.world_size:
+            raise ValueError(
+                f"state saved by a world of {state['world_size']} ranks cannot load into a "
+                f"world of {self.world_size}: restoring onto another world size needs the "
+                "elastic restore (the JAX package's utils/checkpoint.py adapt), which the "
+                "port does not have yet"
+            )
+        mu, nu, _ = self._opt_state()
+        for key, live in (("params", self.optimizer.params), ("momentum", mu), ("opt_nu", nu),
+                          ("ef", self._ef)):
+            saved = state.get(key, [])
             if len(live) != len(saved) or any(a.shape != b.shape for a, b in zip(live, saved)):
                 raise ValueError(f"saved {key} do not match this trainer's configuration")
             for dst, src in zip(live, saved):
                 dst.copy_(src)
-        opt.tx.count = int(state["opt_count"])
+        if self._zero:
+            self.optimizer.count = int(state["opt_count"])
+        else:
+            self.optimizer.tx.count = int(state["opt_count"])
         self.step = int(state["step"])
 
     @torch.no_grad()
     def eval_step(self, inputs: torch.Tensor, targets: torch.Tensor) -> dict[str, torch.Tensor]:
         """Plain mean cross-entropy (no label smoothing, and not the fused
-        kernel, as the JAX ``local_eval``)."""
-        return {"loss": self._loss(inputs, targets, 0.0)}
+        kernel, as the JAX ``local_eval``) on this rank's rows, meaned over
+        the ranks; under fsdp on parameters gathered for the call."""
+        return self.world_mean({"loss": self._loss(inputs, targets, 0.0)})
 
     def evaluate(self, tokens) -> dict[str, float]:
         """Mean next-token cross-entropy and perplexity over ``tokens``
-        [N, seq_len + 1], in batches of ``global_batch_size``; a ragged
-        tail is dropped."""
+        [N, seq_len + 1], in global batches of ``global_batch_size`` (each
+        rank its rows, the ranks' means averaged); a ragged tail is
+        dropped."""
         b = self.cfg.global_batch_size
         n_batches = len(tokens) // b
         if n_batches == 0:
@@ -477,24 +747,32 @@ class LMTrainer:
         return {"loss": mean_loss, "perplexity": math.exp(mean_loss)}
 
     def _telemetry(self) -> tuple[Any, int]:
-        """The run's Telemetry (manifest written) and its analytic
-        data-parallel wire bytes a step (0 on one device)."""
+        """The run's Telemetry (manifest written) and the data-parallel
+        wire bytes a step of its layout (``parallel/sync.py::lm_strategy``;
+        0 at a world of one)."""
         from cs744_pytorch_distributed_tutorial_tpu_torch.obs.flops import (
             transformer_train_flops_per_token,
         )
         from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import Telemetry
-        from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import sync_wire_bytes
+        from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
+            lm_strategy,
+            sync_wire_bytes,
+        )
 
         cfg = self.cfg
-        n_params = sum(p.numel() for p in self.optimizer.params)
-        wire_bytes = sync_wire_bytes(self.optimizer.params, "allreduce", cfg.data_parallel,
-                                     cfg.grad_compress)
+        shapes = (self._param_shapes if cfg.fsdp
+                  else [(tuple(p.shape), p.dtype) for p in self.optimizer.params])
+        n_params = sum(math.prod(shape) for shape, _ in shapes)
+        wire_bytes = sync_wire_bytes(shapes, lm_strategy(cfg.zero1, cfg.fsdp, cfg.grad_compress),
+                                     self.world_size, cfg.grad_compress,
+                                     bucket_bytes=self._bucket_bytes, overlap=self._overlap)
         on_card = self.device.type == "cuda"
         telemetry = Telemetry(
             cfg.metrics_dir, every=cfg.metrics_every, run="lm",
             flops_per_step=(transformer_train_flops_per_token(n_params)
                             * cfg.global_batch_size * cfg.seq_len),
-            n_chips=1, device_kind=torch.cuda.get_device_name(self.device) if on_card else "cpu",
+            n_chips=self.world_size,
+            device_kind=torch.cuda.get_device_name(self.device) if on_card else "cpu",
             device=self.device,
         )
         telemetry.write_manifest(config=cfg, n_params=n_params, grad_sync_bytes_per_step=wire_bytes)
@@ -520,7 +798,6 @@ class LMTrainer:
             HbmHighWater,
             StragglerMonitor,
         )
-        from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import make_schedule
         from cs744_pytorch_distributed_tutorial_tpu_torch.utils import profiling
         from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import Checkpointer
         from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import StepWatchdog

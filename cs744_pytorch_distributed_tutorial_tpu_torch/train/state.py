@@ -116,10 +116,21 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> list[
     norm * max_norm``. Chosen on the device, without a host sync. Not
     ``torch.nn.utils.clip_grad_norm_``, whose ``max_norm / (norm + 1e-6)``
     is another function."""
+    return clip_by_norm(grads, squared_sum(grads).sqrt(), max_norm)
+
+
+def squared_sum(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The sum of every element's square in fp32, tensor by tensor in
+    order (0-d, on the tensors' device)."""
     total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
     for g in grads:
         total = total + g.float().square().sum()
-    norm = total.sqrt()
+    return total
+
+
+def clip_by_norm(grads: Sequence[torch.Tensor], norm: torch.Tensor,
+                 max_norm: float) -> list[torch.Tensor]:
+    """``clip_by_global_norm``'s choice for a given global ``norm`` (0-d)."""
     keep = norm < max_norm
     return [torch.where(keep, g, g / norm.to(g.dtype) * max_norm) for g in grads]
 
@@ -192,36 +203,75 @@ class Optimizer:
             self._lion(params, momentum, grads, lr)
         self.count += 1
 
-    def _moment(self, m: list, x: list, decay: float) -> None:
-        """``m = (1 - decay) * x + decay * m`` in place (optax's
-        ``update_moment``)."""
-        t = torch._foreach_mul(x, 1.0 - decay)
-        torch._foreach_mul_(m, decay)
-        torch._foreach_add_(m, t)
-
     def _decay_and_step(self, params: list, updates: list, lr: float) -> None:
         """``u + wd * p``, then ``p + (-lr) * u``, each rounded."""
-        torch._foreach_add_(updates, torch._foreach_mul(params, self.weight_decay))
-        torch._foreach_mul_(updates, -lr)
-        torch._foreach_add_(params, updates)
+        torch._foreach_add_(params, decayed_deltas(params, updates, lr, self.weight_decay))
 
     def _adamw(self, params: list, mu: list, grads: list, lr: float) -> None:
-        self._moment(mu, grads, self.b1)
-        self._moment(self.nu, torch._foreach_mul(grads, grads), ADAM_B2)
-        count = self.count + 1
-        bc1 = float(_f32(1) - _f32(self.b1) ** count)
-        bc2 = float(_f32(1) - _f32(ADAM_B2) ** count)
-        mu_hat = torch._foreach_div(mu, bc1)
-        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
-        torch._foreach_add_(denom, ADAM_EPS)
-        self._decay_and_step(params, torch._foreach_div(mu_hat, denom), lr)
+        updates = adamw_updates(mu, self.nu, grads, self.count + 1, self.b1)
+        self._decay_and_step(params, updates, lr)
 
     def _lion(self, params: list, mu: list, grads: list, lr: float) -> None:
-        mixed = torch._foreach_mul(grads, 1.0 - self.b1)
-        torch._foreach_add_(mixed, torch._foreach_mul(mu, self.b1))
-        updates = torch._foreach_sign(mixed)
-        self._moment(mu, grads, LION_B2)
-        self._decay_and_step(params, updates, lr)
+        self._decay_and_step(params, lion_updates(mu, grads, self.b1), lr)
+
+
+# The rules' arithmetic on lists of tensors, shared by ``Optimizer`` and
+# the sharded rules of ``parallel/zero.py`` (which run them on this
+# rank's rows): the same multi-tensor ops in the same order, so a rule
+# gives the same bits on a whole tensor and on a row that holds it.
+def _moment(m: list, x: list, decay: float) -> None:
+    """``m = (1 - decay) * x + decay * m`` in place (optax's
+    ``update_moment``)."""
+    t = torch._foreach_mul(x, 1.0 - decay)
+    torch._foreach_mul_(m, decay)
+    torch._foreach_add_(m, t)
+
+
+def adam_bias_corrections(b1: float, count: int) -> tuple[float, float]:
+    """optax's ``1 - b ** count`` for both moments at the incremented
+    ``count``, in float32."""
+    return (float(_f32(1) - _f32(b1) ** count), float(_f32(1) - _f32(ADAM_B2) ** count))
+
+
+def adamw_updates(mu: list, nu: list, grads: list, count: int, b1: float) -> list:
+    """AdamW's moments updated in place and its updates ``mu_hat /
+    (sqrt(nu_hat) + eps)`` before the decay, at the incremented ``count``."""
+    _moment(mu, grads, b1)
+    _moment(nu, torch._foreach_mul(grads, grads), ADAM_B2)
+    bc1, bc2 = adam_bias_corrections(b1, count)
+    mu_hat = torch._foreach_div(mu, bc1)
+    denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+    torch._foreach_add_(denom, ADAM_EPS)
+    return torch._foreach_div(mu_hat, denom)
+
+
+def lion_updates(mu: list, grads: list, b1: float) -> list:
+    """Lion's ``sign((1 - b1) g + b1 m)``; then ``m`` moves to ``b2 m +
+    (1 - b2) g`` in place."""
+    mixed = torch._foreach_mul(grads, 1.0 - b1)
+    torch._foreach_add_(mixed, torch._foreach_mul(mu, b1))
+    updates = torch._foreach_sign(mixed)
+    _moment(mu, grads, LION_B2)
+    return updates
+
+
+def sgd_deltas(params: list, mu: list, grads: list, lr: float, b1: float,
+               weight_decay: float) -> list:
+    """torch-SGD's step: ``g + wd p``, then the trace ``mu m + that`` in
+    place, and the deltas ``-lr m`` (``fused_sgd_plain``'s arithmetic:
+    ``p + (-lr m)`` is ``p - lr m``)."""
+    g_eff = torch._foreach_add(grads, torch._foreach_mul(params, weight_decay))
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, g_eff)
+    return torch._foreach_mul(mu, -lr)
+
+
+def decayed_deltas(params: list, updates: list, lr: float, weight_decay: float) -> list:
+    """``(u + wd * p) * (-lr)`` in place of ``updates``: the parameter
+    deltas of the decoupled-decay rules, each operation rounded."""
+    torch._foreach_add_(updates, torch._foreach_mul(params, weight_decay))
+    torch._foreach_mul_(updates, -lr)
+    return updates
 
 
 def check_recipe(cfg: TrainConfig) -> None:

@@ -174,9 +174,10 @@ def test_cli_flags_of_later_slices_say_not_yet_ported(flag):
 @pytest.mark.parametrize(
     "flag",
     # lion and the cosine schedules run now; the JAX CLI's choices end there.
-    # --remat is a flag now; --seq-parallel is not.
-    [["--data-parallel", "2"], ["--zero1"], ["--seq-parallel", "2"], ["--optimizer", "adagrad"],
-     ["--lr-schedule", "step"]],
+    # --remat, --data-parallel and --zero1 are flags now; the sequence,
+    # tensor and pipeline axes are not.
+    [["--tensor-parallel", "2"], ["--pipeline-parallel", "2"], ["--seq-parallel", "2"],
+     ["--optimizer", "adagrad"], ["--lr-schedule", "step"]],
 )
 def test_cli_rejects_flags_it_does_not_have(flag):
     with pytest.raises(SystemExit) as exc:
@@ -187,12 +188,14 @@ def test_cli_rejects_flags_it_does_not_have(flag):
 @pytest.mark.parametrize(
     "override",
     # remat, accum_steps and dropout_rate train now
-    # (test_torch_port_lm_options.py): in their places the tensor and data
-    # axes, still refused, and an accum_steps that does not divide the
-    # batch, which JAX refuses with ValueError.
+    # (test_torch_port_lm_options.py), and so do data_parallel, zero1 and
+    # grad_compress (test_torch_port_lm_dp4.py, test_torch_port_zero_lm.py):
+    # in their places the sequence, tensor and expert axes, still refused,
+    # and an accum_steps that does not divide the batch, which JAX refuses
+    # with ValueError.
     [dict(tensor_parallel=2), dict(moe_experts=4, moe_expert_parallel=True),
-     dict(seq_parallel=2), dict(zero1=True), dict(accum_steps=3), dict(grad_compress="int8"),
-     dict(data_parallel=2)],
+     dict(seq_parallel=2), dict(seq_parallel=2, tensor_parallel=2), dict(accum_steps=3),
+     dict(moe_expert_parallel=True), dict(tensor_parallel=4, zero1=True)],
 )
 def test_config_options_of_later_slices_raise(override):
     error, match = ((ValueError, "accum_steps") if "accum_steps" in override
