@@ -244,7 +244,26 @@ no result):
     is the same, else within a stated bound; then ``profile_lm_phases``
     on the all-reduce path, its sync segment present and traced. NCCL
     refuses two ranks on one card, so world > 1 rests on the Gloo tests
-    (``tests/test_torch_port_lm_dp4.py``, ``..._zero_lm.py``).
+    (``tests/test_torch_port_lm_dp4.py``, ``..._zero_lm.py``);
+28. the sequence axis's hops on the card (``seq_tensor_phase``): at
+    GPT-2-small's heads (12, D 64, bf16, B 2) a 4,096-token sequence cut
+    into n = 4 positions of 1,024, the ring flash attention's hop
+    functions (``parallel/ring_attention.py``: ``rfa_merge``, ``rfa_dq``,
+    ``rfa_dkv``, every position in the order a ring delivers its blocks)
+    on the flash kernels, causal and not: each output and gradient
+    against the same hops on the plain versions (the flash phase's bound,
+    2e-2 x max|plain|) and against the flash kernels over the whole
+    sequence (a bound from the hops' bf16 roundings, stated beside it);
+    the tensor-core launches n(n+1)/2 = 10 (causal) or n^2 = 16 of each
+    kernel, none masked, none on FFMA; Ulysses's inner calls (4 head
+    groups of 3 heads over the whole sequence) likewise; the ring's
+    summed device ms forward and backward beside the whole-sequence
+    kernels' and their bounds. The trainer across these axes runs only
+    on the Gloo tests (``tests/test_torch_port_lm_axes4.py``): NCCL
+    refuses two ranks on one card.
+
+Each phase prints its wall seconds as it ends, and the line before the
+kernels JSON gives the whole run's and each phase's.
 
 The last lines are the kernels JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -316,13 +335,14 @@ OVERLOAD_FLAGS = ["--deadline-s", "30", "--max-queue-depth", "16", "--shed-polic
 CHAOS_REQUESTS = 16
 SERVE_CHAOS = "40:decode_nan,90:engine_crash"
 # The hung step: the watchdog's ladder (warn, dump, abort) climbs a rung
-# each section past the timeout, so the stall (0.5 s) aborts by 0.3 s; a
-# false abort needs a fault-free step past 0.3 s or three past 0.1 s on one
+# each section past the timeout, so the stall (1.2 s) aborts by 0.9 s; a
+# false abort needs a fault-free step past 0.9 s or three past 0.3 s on one
 # engine. Admission steps of the 16-request trace take 100-350 ms (a
 # rebuilt engine's first step re-admits every request), so the hung step
-# runs on the trace's first HUNG_REQUESTS requests (fault-free steps
-# <= 150 ms, at most two past 0.1 s an engine).
-SLOW_CHAOS, SLOW_STEP_TIMEOUT_S, HUNG_REQUESTS = "60:slow_step", 0.1, 4
+# runs on the trace's first HUNG_REQUESTS requests, whose fault-free steps
+# still reach 150-240 ms, three of them past 0.1 s in one run: too close
+# to a 0.1 s timeout, far from 0.3 s.
+SLOW_CHAOS, SLOW_STEP_TIMEOUT_S, SLOW_STALL_S, HUNG_REQUESTS = "60:slow_step", 0.3, 1.2, 4
 SERVE_RUNS: dict = {}  # the serving phase's untraced run, for the tracer's cost
 # Paged attention: (B, Hq, Hkv, D, page_size, pages a slot[, pos,
 # pages_per_slot]); without pos, ragged depths with slot 0 at depth 0. The
@@ -557,6 +577,35 @@ def run_cli(argv: list[str], main=None) -> dict:
     if rc != 0:
         raise RuntimeError(f"cli.main returned {rc}")
     return json.loads(text.strip().splitlines()[-1])
+
+
+#: Wall seconds of each phase that ``main`` calls (``clock_phases``).
+PHASE_SECONDS: dict[str, float] = {}
+_phase_depth = [0]
+
+
+def clock_phases() -> None:
+    """Wrap every ``*_phase`` function of this script so that each call
+    prints its wall seconds as it ends; the calls ``main`` makes (not
+    those one phase makes of another) add theirs to ``PHASE_SECONDS``."""
+    for name, fn in list(globals().items()):
+        if name.endswith("_phase") and callable(fn):
+            globals()[name] = _clocked(name, fn)
+
+
+def _clocked(name: str, fn):
+    def run(*args, **kwargs):
+        t = time.perf_counter()
+        _phase_depth[0] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _phase_depth[0] -= 1
+            sec = time.perf_counter() - t
+            if _phase_depth[0] == 0:
+                PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + sec
+            print(f"phase {name}: {sec:.1f} s", flush=True)
+    return run
 
 
 def randn(gen: torch.Generator, *shape, dtype=torch.float32) -> torch.Tensor:
@@ -2773,6 +2822,12 @@ def chaos_serve_run(qmodel, extra: list[str], requests: int = CHAOS_REQUESTS) ->
 
     argv = [*serve_argv(num_pages=PRESSURE_PAGES), "--requests", str(requests),
             "--quant-kv", *extra]
+
+    class Schedule(CH.FaultSchedule):  # a slow_step stalls SLOW_STALL_S
+        def __init__(self, faults):
+            super().__init__({idx: {"kind": kind, "stall_s": SLOW_STALL_S}
+                              if kind == "slow_step" else kind for idx, kind in faults.items()})
+
     buf = io.StringIO()
     step_s: list[float] = []  # every engine step's host wall time, watched or not
     real_step = S.ServingEngine.step
@@ -2790,7 +2845,8 @@ def chaos_serve_run(qmodel, extra: list[str], requests: int = CHAOS_REQUESTS) ->
 
     with patched(serve_cli, build_model=lambda args: qmodel), \
             patched(S, run_poisson=poisson, run_serve_with_recovery=recovery), \
-            patched(CH.ChaosMonkey, _inject=inject), patched(S.ServingEngine, step=timed_step):
+            patched(CH.ChaosMonkey, _inject=inject), patched(CH, FaultSchedule=Schedule), \
+            patched(S.ServingEngine, step=timed_step):
         t0 = time.perf_counter()
         rc, counts = counted(run)
         wall = time.perf_counter() - t0
@@ -2835,7 +2891,8 @@ def serving_failure_phase() -> dict:
     """(c) The pool-pressure geometry, 16 requests of the trace, greedy,
     through ``serve_cli``: a fault-free run, then ``--chaos 40:decode_nan,
     90:engine_crash`` and, on the first HUNG_REQUESTS requests beside their
-    own fault-free run, a ``slow_step`` under ``--step-timeout-s`` (the
+    own fault-free run, a ``slow_step`` (a ``SLOW_STALL_S`` stall) under
+    ``--step-timeout-s`` (the
     watchdog's abort; every step's host time printed), both with
     ``--recompute decode``: restarts equal
     the faults that fired and every stream is the fault-free run's token
@@ -2896,8 +2953,9 @@ def serving_failure_phase() -> dict:
                   f"ms; the slowest of the other {len(rest)} steps "
                   f"{(rest[0] if rest else 0.0) * 1e3:.1f} ms, {over} past the "
                   f"{SLOW_STEP_TIMEOUT_S * 1e3:.0f} ms timeout (abort at "
-                  f"{3 * SLOW_STEP_TIMEOUT_S * 1e3:.0f} ms, the stall 500 ms); the fault-free "
-                  f"base run's slowest step {max(base['step_s']) * 1e3:.1f} ms")
+                  f"{3 * SLOW_STEP_TIMEOUT_S * 1e3:.0f} ms, the stall {SLOW_STALL_S * 1e3:.0f} "
+                  f"ms); the fault-free base run's slowest step "
+                  f"{max(base['step_s']) * 1e3:.1f} ms")
         out[label] = {"summary": s, "recoveries": r["recoveries"], "agree": same,
                       "total": total, "identical": identical, "launches": r["launches"],
                       "wall_s": r["wall_s"], "slowest_step_s": max(r["step_s"])}
@@ -5122,6 +5180,193 @@ def lm_ranks_phase() -> dict:
     return out
 
 
+# ------------------------------------------------- the sequence axis's hops
+SEQ_SHAPE = (2, 4096, 12, 64)  # B, T, H, D: GPT-2-small's heads, a 4,096-token sequence
+SEQ_RANKS = 4
+BF16_HALF_ULP = 2.0 ** -9  # bf16's rounding error, relative
+
+
+def _flash_work(shape: tuple, causal: bool, kernel: str) -> tuple[float, float]:
+    """(FLOPs, bytes) of one flash kernel call on [B, T, H, D] bf16, as
+    the flash phase counts them."""
+    b, t, h, d = shape
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    products, tensors, rows = {"fwd": (2, 4, 1), "dq": (3, 5, 2), "dkv": (4, 6, 2)}[kernel]
+    return 2.0 * products * pairs * d, tensors * 2.0 * b * t * h * d + rows * 4.0 * b * h * t
+
+
+def seq_tensor_phase(dev: torch.device) -> dict:
+    """Phase 28: the ring flash attention's hop functions and Ulysses's
+    inner calls on the flash kernels at a 4,096-token sequence on n = 4
+    positions (no process group: the blocks go round in a ring's order in
+    one process), against their plain versions and the whole-sequence
+    kernels; launches by route, device ms beside the bounds."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as C
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import ring_attention as R
+
+    t0 = time.perf_counter()
+    card = card_line()
+    n = SEQ_RANKS
+    gen = torch.Generator(device=dev).manual_seed(28)
+    q, k, v, g = (randn(gen, *SEQ_SHAPE, dtype=torch.bfloat16) for _ in range(4))
+    bw, _ = card_rates(torch.cuda.get_device_name(0))
+    out: dict = {"card": card, "launches": {}}
+
+    def launches() -> dict:
+        return {f"{kern}_{route}": A.launch_count(kern, route=route)
+                for kern in A.KERNELS for route in A.ROUTES}
+
+    def err(got, want) -> tuple[float, float]:
+        got, want = got.detach().float(), want.detach().float()
+        return float((got - want).abs().max()), float(want.abs().max())
+
+    for causal in (True, False):
+        label = "causal" if causal else "full"
+        each = n * (n + 1) // 2 if causal else n * n
+        A.reset_launch_count()
+        C.hops.clear()
+        ring_out, lse, grads = R.simulate_ring_flash(q, k, v, n, causal, g=g)
+        torch.cuda.synchronize()
+        got = launches()
+        want_launches = {key: (each if key.endswith("_tc") else 0) for key in got}
+        if got != want_launches or C.hops["seq"] != 2 * n - 1:
+            raise RuntimeError(f"seq_tensor {label}: launches {got} (expected {want_launches}), "
+                               f"hops {C.hops['seq']} (expected {2 * n - 1})")
+        out["launches"][f"ring_flash_{label}"] = got
+        with plain_flash():
+            p_out, p_lse, p_grads = R.simulate_ring_flash(q, k, v, n, causal, g=g)
+        # The whole sequence through the kernels, with the whole row statistics.
+        w_out, w_lse = A.flash_forward_lse(q, k, v, causal)
+        w_delta = A.flash_delta(w_out, g)
+        w_dq = A.flash_dq(q, k, v, g, w_lse, w_delta, causal)
+        w_dk, w_dv = A.flash_dkv(q, k, v, g, w_lse, w_delta, causal)
+        torch.cuda.synchronize()
+        rec: dict = {"plain": {}, "whole": {}}
+        for name, got_t, plain_t, whole_t in (
+                ("out", ring_out, p_out, w_out), ("dq", grads[0], p_grads[0], w_dq),
+                ("dk", grads[1], p_grads[1], w_dk), ("dv", grads[2], p_grads[2], w_dv)):
+            e, scale = err(got_t, plain_t)
+            bound = FLASH_TOL[torch.bfloat16] * scale
+            if not (math.isfinite(e) and e <= bound):
+                raise RuntimeError(f"seq_tensor {label} {name}: hops on the kernels vs on the "
+                                   f"plain versions {e} > {bound}")
+            rec["plain"][name] = {"max_abs_err": e, "bound": bound, "share": e / bound}
+            # Against the whole sequence: the ring rounds each hop's output
+            # (the forward's to v.dtype before the merge; each hop's dq, dk,
+            # dv to bf16 before the fp32 sums) and its result once more;
+            # the whole-sequence kernel rounds once. A rounding is at most
+            # half a bf16 ulp of its value. A forward hop's output is a
+            # convex mix of V rows, so at most max|v|; a backward hop's is
+            # taken as at most n times the whole sequence's largest
+            # gradient. The bound is (hops + 2) half-ulps of that scale.
+            e, scale = err(got_t, whole_t)
+            if name == "out":
+                scale, hops = max(scale, float(v.float().abs().max())), 1
+            else:
+                scale, hops = n * scale, n
+            bound = (hops + 2) * BF16_HALF_ULP * scale
+            if not (math.isfinite(e) and e <= bound):
+                raise RuntimeError(f"seq_tensor {label} {name}: the ring vs the whole-sequence "
+                                   f"kernels {e} > {bound}")
+            rec["whole"][name] = {"max_abs_err": e, "bound": bound, "share": e / bound}
+        e_lse = float((lse - w_lse).abs().max())
+        if not e_lse <= 1e-3:
+            raise RuntimeError(f"seq_tensor {label}: the ring's lse vs the whole's {e_lse}")
+        rec["lse_max_abs_err"] = e_lse
+
+        # Device time: the ring's kernels a pass (forward; backward alone,
+        # from the forward's saved output and lse) beside the whole
+        # sequence's, and each beside its bound.
+        qs, ks, vs, gs = (list(x.chunk(n, dim=1)) for x in (q, k, v, g))
+        outs, lses = list(ring_out.chunk(n, dim=1)), list(lse.chunk(n, dim=1))
+
+        def ring_fwd():
+            return R.simulate([R._rfa_forward_steps(qs[i], ks[i], vs[i], i, n, causal)
+                               for i in range(n)])
+
+        def ring_bwd():
+            return R.simulate([R._rfa_backward_steps(qs[i], ks[i], vs[i], outs[i].contiguous(),
+                                                     lses[i].contiguous(), gs[i].contiguous(), i,
+                                                     n, causal) for i in range(n)])
+
+        def whole_fwd():
+            return A.flash_forward_lse(q, k, v, causal)
+
+        def whole_bwd():
+            return A.flash_dq(q, k, v, g, w_lse, w_delta, causal), A.flash_dkv(
+                q, k, v, g, w_lse, w_delta, causal)
+
+        blk = (SEQ_SHAPE[0], SEQ_SHAPE[1] // n, *SEQ_SHAPE[2:])
+        timing = {}
+        for key, fn, kernels, ring in (("ring_fwd", ring_fwd, ("fwd",), True),
+                                       ("ring_bwd", ring_bwd, ("dq", "dkv"), True),
+                                       ("whole_fwd", whole_fwd, ("fwd",), False),
+                                       ("whole_bwd", whole_bwd, ("dq", "dkv"), False)):
+            flop = nbytes = 0.0
+            for kern in kernels:
+                if ring:  # n diagonal hops (causal or not), the others unmasked
+                    for diag, count in ((causal, n), (False, each - n)):
+                        f, b_ = _flash_work(blk, diag, kern)
+                        flop, nbytes = flop + count * f, nbytes + count * b_
+                else:
+                    f, b_ = _flash_work(SEQ_SHAPE, causal, kern)
+                    flop, nbytes = flop + f, nbytes + b_
+            bytes_ms, ops_ms = nbytes / bw * 1e3, flop / BF16_FLOPS * 1e3
+            timing[key] = {
+                "kernel_device_ms": device_busy_ms(fn, reps=5, match="flash_"),
+                "all_device_ms": device_busy_ms(fn, reps=5),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "gflop": flop / 1e9, "mbytes": nbytes / 1e6,
+            }
+        rec["timing"] = timing
+        out[f"ring_flash_{label}"] = rec
+        print(f"seq_tensor ring_flash {label} at B{SEQ_SHAPE[0]} T{SEQ_SHAPE[1]} H{SEQ_SHAPE[2]} "
+              f"D{SEQ_SHAPE[3]} bf16 on {n} positions ({card}): launches {got}, hops "
+              f"{2 * n - 1}; vs plain hops {rec['plain']}; vs the whole sequence "
+              f"{rec['whole']}; lse {e_lse}; device ms {timing}")
+        del ring_out, lse, grads, p_out, p_lse, p_grads, w_out, w_lse, w_dq, w_dk, w_dv
+
+    # Ulysses's inner calls: 4 head groups of 3 heads over the whole sequence.
+    for causal in (True, False):
+        label = "causal" if causal else "full"
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        A.reset_launch_count()
+        u_out = R.simulate_ulysses(qg, kg, vg, n, causal, "flash")
+        u_grads = torch.autograd.grad(u_out, (qg, kg, vg), g)
+        torch.cuda.synchronize()
+        got = launches()
+        want_launches = {key: (n if key.endswith("_tc") else 0) for key in got}
+        if got != want_launches:
+            raise RuntimeError(f"seq_tensor ulysses {label}: launches {got} (expected "
+                               f"{want_launches})")
+        out["launches"][f"ulysses_flash_{label}"] = got
+        with plain_flash():
+            p_out = R.simulate_ulysses(qg, kg, vg, n, causal, "flash")
+            p_grads = torch.autograd.grad(p_out, (qg, kg, vg), g)
+        w_out = A.flash_attention(qg, kg, vg, causal)
+        w_grads = torch.autograd.grad(w_out, (qg, kg, vg), g)
+        rec = {}
+        for name, a, b_, w in (("out", u_out, p_out, w_out),
+                               *zip(("dq", "dk", "dv"), u_grads, p_grads, w_grads)):
+            e, scale = err(a, b_)
+            bound = FLASH_TOL[torch.bfloat16] * scale
+            if not (math.isfinite(e) and e <= bound):
+                raise RuntimeError(f"seq_tensor ulysses {label} {name}: {e} > {bound}")
+            rec[name] = {"max_abs_err": e, "bound": bound, "share": e / bound,
+                         "bitwise_whole_sequence": bool(torch.equal(a, w))}
+        out[f"ulysses_flash_{label}"] = rec
+        print(f"seq_tensor ulysses_flash {label} ({n} head groups of {SEQ_SHAPE[2] // n} heads, "
+              f"{card}): launches {got}; vs plain {rec}")
+        del qg, kg, vg, u_out, u_grads, p_out, p_grads, w_out, w_grads
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"seq_tensor phase: {out['seconds']:.1f} s")
+    print(json.dumps({"seq_tensor": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5136,6 +5381,8 @@ def main() -> int:
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import paged_attention as PA
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
 
+    t_start = time.perf_counter()
+    clock_phases()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     # Stated, not inherited: fp32 convolutions in TF32 (cuDNN's default),
@@ -5255,6 +5502,8 @@ def main() -> int:
         rec["launches_beam"] = beam_int8["tc" if rec["name"].endswith("_tc") else "ffma"]
     # The LM across ranks (NCCL at a world of one).
     lm_ranks = lm_ranks_phase()
+    # The sequence axis's hops on the flash kernels.
+    seq_tensor = seq_tensor_phase(dev)
     for rec in records:
         key = {"gmm_fused_tc": "gmm_fused_tc", "gmm_fused_with_z_tc": "gmm_fused_z_tc",
                "gmm_tc": "gmm_gmm_tc", "tgmm_tc": "gmm_tgmm_tc", "split": "gmm_split",
@@ -5278,7 +5527,13 @@ def main() -> int:
                  if isinstance(r, dict) and key in r.get("launches", {})}
         if ranks:
             rec["launches_lm_ranks"] = ranks
+        if rec["name"] in ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc"):
+            kern = rec["name"][len("flash_"):-len("_tc")]
+            rec["launches_seq_tensor"] = {label: n[f"{kern}_tc"]
+                                          for label, n in seq_tensor["launches"].items()}
 
+    print(f"wall {time.perf_counter() - t_start:.1f} s, of which the phases' (s): "
+          + json.dumps({name: round(sec, 1) for name, sec in PHASE_SECONDS.items()}))
     print(json.dumps({"kernels": records}))
     print(card_line())
     print(json.dumps({

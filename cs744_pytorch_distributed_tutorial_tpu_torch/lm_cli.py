@@ -65,6 +65,13 @@ JAX CLI's wire flags (``--grad-compress int8``, ``--sync-bucket-mb``,
           --num-processes 4 --process-id $r --device cpu &
     done
 
+and the JAX CLI's sequence, tensor and expert axes (``--seq-parallel S``
+with ``--attention-impl ring|ring_flash|ulysses|ulysses_flash``,
+``--tensor-parallel T``, ``--moe-expert-parallel``): the world is
+``data x seq x tensor`` processes, e.g. ``--data-parallel 2
+--seq-parallel 2 --attention-impl ulysses_flash`` or ``--tensor-parallel
+4 --zero1`` on 4 ranks.
+
 Every rank trains, evaluates and joins the gathers of ``--fsdp``'s
 weights for generation (the draft's too); rank 0 alone decodes and
 prints. ``--num-processes 1`` (or any of those options) runs the wire on
@@ -77,8 +84,9 @@ leading training sequences' prefixes; the JAX CLI takes one) and the
 JAX CIFAR CLI's ``--step-timeout-s``, ``--profile-dir``,
 ``--profile-start-step`` and ``--profile-num-steps`` for the LMConfig
 fields of those names (their defaults are LMConfig's). Other
-flags of the JAX CLI are not accepted; ``--moe-expert-parallel`` exits
-with "not yet ported". The JAX CLI's refusals of ``--beam`` and
+flags of the JAX CLI (the pipeline axis's) are not accepted;
+``--moe-gmm-impl ragged`` with dropless exits with "not yet ported". The
+JAX CLI's refusals of ``--beam`` and
 ``--speculative-k`` combinations are made before training. The stdout
 lines and the ``--json`` summary keys are the JAX CLI's, plus
 ``generation`` (batch, times and every row's tokens; the decoder, and
@@ -118,8 +126,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--d-ff", type=int, default=1024)
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--attention-impl", default="ring", choices=list(ATTENTION_IMPLS),
-                   help="dense, or flash (the CUDA kernels); on one device ring/ulysses "
-                        "run dense and ring_flash/ulysses_flash run flash")
+                   help="dense, or flash (the CUDA kernels); across --seq-parallel ranks "
+                        "ring, ring_flash (the flash kernels a hop), ulysses or "
+                        "ulysses_flash; on one sequence shard ring/ulysses run dense and "
+                        "ring_flash/ulysses_flash run flash")
     p.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--remat", action="store_true")
     p.add_argument("--remat-policy", default="none", choices=["none", "dots"],
@@ -148,9 +158,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--moe-gmm-impl", choices=("auto", "ragged", "pallas"), default="auto",
                    help="grouped-matmul backend for --moe-dispatch dropless: auto and pallas "
                         "take the CUDA kernels (ragged is not yet ported)")
-    p.add_argument("--moe-expert-parallel", action="store_true", help="not yet ported")
+    p.add_argument("--moe-expert-parallel", action="store_true",
+                   help="split the experts over the data axis (the capacity slots' "
+                        "all-to-all; scatter or einsum dispatch)")
     # mesh
     p.add_argument("--data-parallel", type=int, default=1)
+    p.add_argument("--seq-parallel", type=int, default=1,
+                   help="split each sequence over this many ranks (ring or Ulysses attention)")
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="split heads and d_ff over this many ranks (Megatron)")
     # optimization
     p.add_argument("--global-batch-size", type=int, default=8)
     p.add_argument("--seq-len", type=int, default=256)
@@ -419,8 +435,9 @@ def _generate(args, trainer, tokens):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.moe_expert_parallel:
-        raise SystemExit("--moe-expert-parallel is not yet ported to the PyTorch/CUDA package")
+    if args.moe_experts > 0 and args.moe_dispatch == "dropless" and args.moe_gmm_impl == "ragged":
+        raise SystemExit("--moe-gmm-impl ragged (lax.ragged_dot) is not yet ported to the "
+                         "PyTorch/CUDA package; auto and pallas take the CUDA kernels")
     _check_decoders(args)
 
     from cs744_pytorch_distributed_tutorial_tpu_torch.data import (
@@ -461,6 +478,7 @@ def main(argv: list[str] | None = None) -> int:
         moe_groups=args.moe_groups,
         moe_dispatch=args.moe_dispatch,
         moe_gmm_impl=args.moe_gmm_impl,
+        moe_expert_parallel=args.moe_expert_parallel,
         global_batch_size=args.global_batch_size,
         seq_len=args.seq_len,
         learning_rate=args.lr,
@@ -487,6 +505,8 @@ def main(argv: list[str] | None = None) -> int:
         profile_start_step=args.profile_start_step,
         profile_num_steps=args.profile_num_steps,
         data_parallel=args.data_parallel,
+        seq_parallel=args.seq_parallel,
+        tensor_parallel=args.tensor_parallel,
         grad_compress=args.grad_compress,
         sync_bucket_mb=args.sync_bucket_mb,
         sync_overlap=args.sync_overlap,
@@ -502,13 +522,16 @@ def main(argv: list[str] | None = None) -> int:
 
     world_size = args.num_processes or 1
     rank = args.process_id or 0
+    layout = args.data_parallel * args.seq_parallel * args.tensor_parallel
     # A world of one needs no process group unless the wire is asked for.
-    if (args.num_processes is not None or world_size > 1 or args.data_parallel > 1
+    if (args.num_processes is not None or world_size > 1 or layout > 1
             or args.zero1 or args.fsdp or args.grad_compress != "none"
             or args.sync_overlap != "off"):
-        if args.data_parallel != world_size:
-            raise SystemExit(f"--data-parallel {args.data_parallel} must equal the world size "
-                             f"(--num-processes {world_size}): one process a rank")
+        if layout != world_size:
+            raise SystemExit(f"--data-parallel {args.data_parallel} x --seq-parallel "
+                             f"{args.seq_parallel} x --tensor-parallel {args.tensor_parallel} "
+                             f"must equal the world size (--num-processes {world_size}): one "
+                             "process a rank")
         mesh.initialize(args.coordinator_address, world_size, rank,
                         device=mesh.rank_device(resolve_device(args.device), rank))
     try:
@@ -554,7 +577,7 @@ def _run(args, cfg, vocab, tokens, eval_tokens) -> int:
     if args.json and lead:
         print(json.dumps({
             "vocab_size": vocab,
-            "mesh": {"data": trainer.world_size, "seq": 1, "tensor": 1},
+            "mesh": dict(trainer.mesh.sizes),
             "steps": args.steps,
             "first_loss": _json_loss(losses[0]) if losses else None,
             "final_loss": _json_loss(losses[-1]) if losses else None,

@@ -66,6 +66,13 @@ they take the LM's trees (Dense kernels ``[in, out]`` against ``Linear``
 state of the LM trainer: ``mu`` and ``nu`` (``mu`` alone for lion and
 sgd), fsdp's parameter rows and ``count``, between the JAX trainer's
 ``[dp, chunk]`` leaves and each rank's rows by parameter name.
+
+The LM across the sequence, tensor and expert axes: ``lm_shard_from_jax``
+gives a rank's ``state_dict`` from the JAX global tree (each tensor- or
+expert-split parameter cut to the slice at the rank's coordinates,
+``models/transformer.py::lm_param_specs``), and ``lm_unshard`` /
+``jax_lm_params_from_shards`` join the ranks' slices back into the global
+``state_dict`` / tree.
 """
 
 from __future__ import annotations
@@ -76,6 +83,10 @@ import numpy as np
 import torch
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.models import MODEL_CFGS
+from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import (
+    lm_param_specs,
+    shard_tensor,
+)
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.vgg import feature_map_size
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import _shard_flat, _unshard
 
@@ -418,3 +429,47 @@ def jax_lm_zero_state(states_by_rank: Sequence[Mapping], shapes: Mapping[str, Se
 
 def _is_param(key: str) -> bool:
     return not key.endswith(("running_mean", "running_var", "num_batches_tracked"))
+
+
+# ------------------------------------------------ the LM's model-shard slices
+def _lm_specs(state_dict: Mapping, sizes: Mapping[str, int]) -> dict:
+    return lm_param_specs(state_dict, "tensor" if sizes.get("tensor", 1) > 1 else None,
+                          "data" if sizes.get("expert", 1) > 1 else None)
+
+
+def lm_shard_from_jax(params: Mapping[str, Any], coords: Mapping[str, int],
+                      sizes: Mapping[str, int]) -> dict[str, torch.Tensor]:
+    """A flax ``TransformerLM`` global ``params`` tree -> the ``state_dict``
+    of the rank at ``coords`` (``{"data", "seq", "tensor"}``) on a mesh of
+    ``sizes`` (the same keys, plus ``"expert"`` > 1 when the experts split
+    over the data axis): each split parameter's slice at the rank's
+    tensor (or, for an expert, data) coordinate."""
+    sd = lm_params_from_jax(params)
+    specs = _lm_specs(sd, sizes)
+    return {k: shard_tensor(v, specs[k], coords, sizes).clone() for k, v in sd.items()}
+
+
+def lm_unshard(shards: Sequence[tuple[Mapping[str, int], Mapping[str, Any]]],
+               sizes: Mapping[str, int]) -> dict[str, torch.Tensor]:
+    """Every rank's ``(coords, state_dict)`` -> the global ``state_dict``:
+    a split parameter's slices joined along its split dimension in
+    coordinate order (any rank's copy of a replicated one)."""
+    first = shards[0][1]
+    specs = _lm_specs(first, sizes)
+    out = {}
+    for name, spec in specs.items():
+        split = [(dim, axis) for dim, axis in enumerate(spec) if axis is not None]
+        if not split:
+            out[name] = _tensor(first[name])
+            continue
+        (dim, axis), = split
+        by_coord = {c[axis]: sd[name] for c, sd in shards}
+        out[name] = torch.cat([_tensor(by_coord[i]) for i in sorted(by_coord)], dim=dim)
+    return out
+
+
+def jax_lm_params_from_shards(shards: Sequence[tuple[Mapping[str, int], Mapping[str, Any]]],
+                              sizes: Mapping[str, int]) -> dict:
+    """The reverse of ``lm_shard_from_jax``: the ranks' slices -> the flax
+    global ``params`` tree."""
+    return jax_lm_params_from_state_dict(lm_unshard(shards, sizes))

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN, the JAX package's ``models/moe.py::MoEFFN`` on
-one device (no ``expert_axis``).
+"""Mixture-of-Experts FFN, the JAX package's ``models/moe.py::MoEFFN``,
+on one device or expert-parallel over a mesh axis (``expert_axis``).
 
 Called on ``x [B, T, d]`` in the compute dtype; returns the combined
 expert outputs [B, T, d] (the caller adds them to the residual stream;
@@ -46,6 +46,17 @@ a dropped route rides the residual alone).
 - **Experts** ``w_in [E, d, F]``, ``b_in [E, F]``, ``w_out [E, F, d]``,
   ``b_out [E, d]``: the kernels read ``[E, K, N]`` as it is; the biases
   stay fp32, since the kernel adds an fp32 bias.
+- **Expert parallelism** (``expert_axis`` of ``expert_axis_size`` > 1
+  ranks, the trainer's data axis, on ``mesh``): the parameters are drawn
+  at the global [E, ...] shapes and the model keeps this rank's ``E / n``
+  experts (``TransformerLM`` cuts them); the router stays whole. Each
+  rank routes its own tokens into the [E, G*C, d] slot blocks, one tiled
+  all-to-all (``parallel/collectives.py::AllToAll``, split dim 0, concat
+  dim 1) hands every rank the slots of its experts from all ranks, the
+  batched FFN runs on its local experts, and the inverse all-to-all
+  sends the outputs home; autograd's transposes route the gradients, so
+  an expert's gradient is the sum over its data row. ``dropless`` raises
+  under expert parallelism, as in JAX.
 
 The layer owns its init (``reset_parameters``) and its decode cast
 (``cast_for_decode_``: only ``w_in``/``w_out`` move to the compute
@@ -57,9 +68,8 @@ counts E as a receptive field, so its fan_in is E * d (std 0.015625 for
 ``(8, 512, 1024)``, not 512**-0.5); ``reset_parameters`` draws from the
 same truncated normal.
 
-``expert_axis`` (expert parallelism) and ``gmm_impl="ragged"`` are not
-ported yet; ``auto`` and ``pallas`` take the CUDA kernels on CUDA tensors
-and their plain versions on CPU tensors.
+``gmm_impl="ragged"`` is not ported yet; ``auto`` and ``pallas`` take the
+CUDA kernels on CUDA tensors and their plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ from torch import nn
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.vgg import _lecun_normal_
 from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import expert_load_entropy
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.gmm import grouped_matmul_fused
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.collectives import AllToAll
 
 DISPATCH_IMPLS = ("einsum", "scatter", "dropless")
 GMM_IMPLS = ("auto", "ragged", "pallas")
@@ -83,7 +94,7 @@ class MoEFFN(nn.Module):
     def __init__(self, d_model: int, num_experts: int, d_ff: int, *, top_k: int = 2,
                  capacity_factor: float = CAPACITY_FACTOR, num_groups: int = NUM_GROUPS,
                  dispatch_impl: str = "scatter", gmm_impl: str = "auto",
-                 expert_axis: str | None = None):
+                 expert_axis: str | None = None, expert_axis_size: int = 1, mesh=None):
         super().__init__()
         e, k = num_experts, top_k
         if k < 1 or k > e:
@@ -92,13 +103,11 @@ class MoEFFN(nn.Module):
             raise ValueError(f"unknown dispatch_impl {dispatch_impl!r}; "
                              "choose 'einsum', 'scatter' or 'dropless'")
         dropless = dispatch_impl == "dropless"
-        if dropless and expert_axis is not None:
+        ep = expert_axis is not None and expert_axis_size > 1
+        if dropless and (ep or expert_axis is not None):
             raise ValueError(
                 "dispatch_impl='dropless' does not compose with expert_axis: EP's "
                 "all_to_all needs static per-destination counts (capacity slots)")
-        if expert_axis is not None:
-            raise NotImplementedError(
-                f"MoE expert_axis={expert_axis!r} (expert parallelism) is not yet ported")
         if dropless and (capacity_factor != CAPACITY_FACTOR or num_groups != NUM_GROUPS):
             raise ValueError(
                 "dispatch_impl='dropless' ignores capacity_factor and num_groups (got "
@@ -106,12 +115,19 @@ class MoEFFN(nn.Module):
                 f"at the defaults ({CAPACITY_FACTOR}, {NUM_GROUPS})")
         if num_groups < 0:
             raise ValueError(f"num_groups must be >= 0, got {num_groups}")
+        if e % (expert_axis_size if ep else 1):
+            raise ValueError(f"num_experts {e} not divisible by expert axis {expert_axis_size}")
+        if ep and mesh is None:
+            raise ValueError(f"expert_axis={expert_axis!r} of size {expert_axis_size} needs a "
+                             "parallel.mesh.Mesh (mesh=)")
         if gmm_impl not in GMM_IMPLS:
             raise ValueError(f"unknown gmm_impl {gmm_impl!r}; choose from {GMM_IMPLS}")
         if dropless and gmm_impl == "ragged":
             raise NotImplementedError("MoE gmm_impl='ragged' (lax.ragged_dot) is not yet "
                                       "ported; 'auto' and 'pallas' take the CUDA kernels")
         self.num_experts, self.top_k, self.d_ff = e, k, d_ff
+        self.expert_axis = expert_axis if ep else None
+        self.mesh = mesh
         self.dispatch_impl = dispatch_impl
         self.capacity_factor, self.num_groups = capacity_factor, num_groups
         self.router = nn.Linear(d_model, e, bias=False)
@@ -250,9 +266,15 @@ class MoEFFN(nn.Module):
             expert_in = torch.einsum("gnec,gnd->egcd", dispatch.to(dtype), xg).reshape(
                 e, g * cap, d)
 
+        if self.expert_axis is not None:
+            # Experts -> tokens: this rank gets its experts' slots from all
+            # ranks, [E_local, n*G*C, d].
+            expert_in = AllToAll.apply(expert_in, self.mesh, self.expert_axis, 0, 1)
         h = torch.bmm(expert_in, self.w_in.to(dtype)) + self.b_in[:, None, :].to(dtype)
         h = F.gelu(h, approximate="tanh")
         out = torch.bmm(h, self.w_out.to(dtype)) + self.b_out[:, None, :].to(dtype)
+        if self.expert_axis is not None:  # back to [E, G*C, d], this rank's tokens' slots
+            out = AllToAll.apply(out, self.mesh, self.expert_axis, 1, 0)
         out = out.reshape(e, g, cap, d)
 
         if self.dispatch_impl == "scatter":

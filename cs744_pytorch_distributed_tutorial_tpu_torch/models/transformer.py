@@ -62,7 +62,28 @@ Training options, as the JAX model's:
   mode. ``stack_block_params`` / ``unstack_block_params`` convert the
   ``state_dict`` between the two layouts. MoE raises ``ValueError``.
 
-Sequence and tensor axes raise ``NotImplementedError``.
+Across ranks (the JAX model's ``seq_axis``/``tensor_axis``/
+``expert_axis``), on a ``parallel/mesh.py::Mesh`` given as ``mesh``:
+
+- ``seq_axis_size > 1``: this rank holds its ``T / n`` positions of the
+  sequence; positions (learned or RoPE) start at ``axis_index(seq) * T /
+  n``; attention is ``ring``, ``ring_flash``, ``ulysses`` or
+  ``ulysses_flash`` (``parallel/ring_attention.py``, K/V at kv width),
+  and ``dense``/``flash`` raise, as JAX's. Only ``train`` mode.
+- ``tensor_axis_size > 1`` (Megatron): each rank holds its contiguous
+  slice of the query and KV heads and of ``d_ff``; q/k/v, ``mlp_in`` and
+  ``mlp_gate`` are column-parallel (``Linear.weight`` split along dim 0),
+  ``attn_out`` and ``mlp_out`` row-parallel (dim 1), behind
+  ``parallel/tensor.py``'s f/g boundaries, and ``mlp_out_bias`` is added
+  after the sum. ``attn_bias`` raises. The decode modes raise "not yet
+  ported" (tensor-parallel decode).
+- ``expert_axis_size > 1`` (the data axis): each rank keeps its ``E / n``
+  experts (``models/moe.py``).
+
+The parameters are drawn at the global shapes and then cut to this
+rank's slices (``lm_param_specs``: which dimension of which parameter
+each axis splits), so every layout holds slices of the same global
+model.
 """
 
 from __future__ import annotations
@@ -92,14 +113,27 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import (
     decode_attention_quant,
     quantize_kv,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    SEQ_AXIS,
+    TENSOR_AXIS,
+)
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.ring_attention import (
     decode_attention,
     dense_attention,
     repeat_kv,
+    ring_attention,
+    ring_flash_attention,
+    ulysses_attention,
+)
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.tensor import (
+    copy_to_tp_region,
+    reduce_from_tp_region,
 )
 
 ATTENTION_IMPLS = ("dense", "flash", "ring", "ring_flash", "ulysses", "ulysses_flash")
 FLASH_IMPLS = ("flash", "ring_flash", "ulysses_flash")
+SEQ_IMPLS = ("ring", "ring_flash", "ulysses", "ulysses_flash")
 NORM_IMPLS = ("layernorm", "rmsnorm")
 MLP_IMPLS = ("gelu", "swiglu")
 ROPE_BASE = 10000.0  # the JAX model's rope_base default
@@ -252,16 +286,33 @@ class Attention(nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, *, num_kv_heads: int | None = None,
                  impl: str = "dense", rope: bool = False, attn_bias: bool = False,
-                 quant_modules: tuple = ()):
+                 quant_modules: tuple = (), seq_size: int = 1, tensor_size: int = 1,
+                 mesh=None):
         super().__init__()
         if impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention impl {impl!r}; choose from {ATTENTION_IMPLS}")
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by num_heads {num_heads}")
+        if tensor_size > 1 and num_heads % tensor_size:
+            raise ValueError(f"num_heads {num_heads} not divisible by tensor axis {tensor_size}")
         kv = num_heads if num_kv_heads is None else num_kv_heads
         if kv < 1 or num_heads % kv:
             raise ValueError(f"num_kv_heads {kv} must be >= 1 and divide num_heads {num_heads}")
+        if tensor_size > 1 and kv % tensor_size:
+            raise ValueError(f"num_kv_heads {kv} not divisible by tensor axis {tensor_size}")
+        if attn_bias and tensor_size > 1:
+            raise ValueError(
+                "attn_bias does not compose with a tensor axis (the row-parallel attn_out bias "
+                f"would be summed {tensor_size}x by the sublayer psum)")
+        if seq_size > 1 and impl not in SEQ_IMPLS:
+            raise ValueError(
+                f"impl={impl!r} cannot run on a sequence-sharded axis (no communication to see "
+                "the full sequence); use 'ring', 'ulysses', or 'ulysses_flash', or set "
+                "seq_axis=None")
         self.num_heads, self.kv_heads = num_heads, kv
+        # This rank's heads: all of them, or its slice of the tensor axis.
+        self.heads_local, self.kv_local = num_heads // tensor_size, kv // tensor_size
+        self.seq_size, self.tensor_size, self.mesh = seq_size, tensor_size, mesh
         self.head_dim = d_model // num_heads
         self.impl, self.rope = impl, rope
         hd = self.head_dim
@@ -275,12 +326,23 @@ class Attention(nn.Module):
                 paged_impl: str = "gather") -> torch.Tensor:
         b, t, d_model = x.shape
         hd = self.head_dim
-        q = _dense(self.q, x, dtype).reshape(b, t, self.num_heads, hd)
-        k = _dense(self.k, x, dtype).reshape(b, t, self.kv_heads, hd)
-        v = _dense(self.v, x, dtype).reshape(b, t, self.kv_heads, hd)
+        tp = self.tensor_size > 1
+        if tp:
+            if mode != "train":
+                raise NotImplementedError(
+                    "tensor-parallel decode (the tensor axis in a decode mode) is not yet ported")
+            x = copy_to_tp_region(x, self.mesh, TENSOR_AXIS)
+        q = _dense(self.q, x, dtype).reshape(b, t, self.heads_local, hd)
+        k = _dense(self.k, x, dtype).reshape(b, t, self.kv_local, hd)
+        v = _dense(self.v, x, dtype).reshape(b, t, self.kv_local, hd)
         if self.rope:
-            positions = _positions(t, pos if mode in ("decode", "paged_decode") else None,
-                                   x.device)
+            # Global positions: the cache position when decoding, this
+            # rank's offset on a sequence-sharded axis.
+            if mode in ("decode", "paged_decode"):
+                offset = pos
+            else:
+                offset = self.mesh.axis_index(SEQ_AXIS) * t if self.seq_size > 1 else None
+            positions = _positions(t, offset, x.device)
             q = apply_rope(q, positions)
             k = apply_rope(k, positions)
         if mode == "decode":
@@ -306,14 +368,28 @@ class Attention(nn.Module):
                 # The prompt's rows go to the cache; attention is the causal
                 # pass over the fresh full-precision k/v.
                 kv.put((slice(None), slice(0, t)), k, v)
-            rep = self.num_heads // self.kv_heads
-            k, v = repeat_kv(k, rep), repeat_kv(v, rep)
-            if self.impl in FLASH_IMPLS:
-                out = flash_attention(q, k, v, causal=True)
+            if self.seq_size > 1:
+                # K/V go between the ranks at kv width.
+                out = self._sequence_parallel(q, k, v)
             else:
-                out = dense_attention(q, k, v, causal=True)
-        out = out.reshape(b, t, self.num_heads * hd).to(dtype)
-        return _dense(self.attn_out, out, dtype)
+                rep = self.heads_local // self.kv_local
+                k, v = repeat_kv(k, rep), repeat_kv(v, rep)
+                if self.impl in FLASH_IMPLS:
+                    out = flash_attention(q, k, v, causal=True)
+                else:
+                    out = dense_attention(q, k, v, causal=True)
+        out = out.reshape(b, t, self.heads_local * hd).to(dtype)
+        out = _dense(self.attn_out, out, dtype)
+        return reduce_from_tp_region(out, self.mesh, TENSOR_AXIS) if tp else out
+
+    def _sequence_parallel(self, q, k, v):
+        mesh = self.mesh
+        if self.impl == "ring":
+            return ring_attention(q, k, v, mesh, SEQ_AXIS, causal=True)
+        if self.impl == "ring_flash":
+            return ring_flash_attention(q, k, v, mesh, SEQ_AXIS, causal=True)
+        return ulysses_attention(q, k, v, mesh, SEQ_AXIS, causal=True,
+                                 inner="flash" if self.impl == "ulysses_flash" else "dense")
 
 
 class Block(nn.Module):
@@ -321,6 +397,11 @@ class Block(nn.Module):
                  mlp: str = "gelu", quant_modules: tuple = (), moe: dict | None = None,
                  dropout_rate: float = 0.0, **attn_kw):
         super().__init__()
+        tensor_size = attn_kw.get("tensor_size", 1)
+        # The MoE path does not split d_ff over the tensor axis (the experts
+        # compute replicated), so only the dense FFN must divide.
+        if tensor_size > 1 and moe is None and d_ff % tensor_size:
+            raise ValueError(f"d_ff {d_ff} not divisible by tensor axis {tensor_size}")
         if mlp not in MLP_IMPLS:
             raise ValueError(f"unknown mlp {mlp!r}; choose from {MLP_IMPLS}")
         if moe is not None and mlp != "gelu":
@@ -328,11 +409,12 @@ class Block(nn.Module):
                 f"mlp={mlp!r} does not compose with MoE (num_experts={moe['num_experts']}): "
                 "the routed MoEFFN replaces the dense MLP; drop --mlp swiglu or the experts")
         self.mlp, self.dropout_rate = mlp, dropout_rate
+        self.tensor_size, self.mesh = tensor_size, attn_kw.get("mesh")
         self.ln1 = Norm(d_model, norm)
         self.attn = Attention(d_model, num_heads, quant_modules=quant_modules, **attn_kw)
         self.ln2 = Norm(d_model, norm)
         if moe is not None:
-            self.moe = MoEFFN(d_model, d_ff=d_ff, **moe)
+            self.moe = MoEFFN(d_model, d_ff=d_ff, **moe, mesh=self.mesh)
             return
         self.moe = None
         self.mlp_in = _linear(d_model, d_ff, True, "mlp_in" in quant_modules)
@@ -353,14 +435,19 @@ class Block(nn.Module):
         h = self.ln2(x, dtype)
         if self.moe is not None:
             return x + self.moe(h, dtype)
+        tp = self.tensor_size > 1
+        if tp:  # column-parallel in, row-parallel out
+            h = copy_to_tp_region(h, self.mesh, TENSOR_AXIS)
         up = _dense(self.mlp_in, h, dtype)
         if self.mlp == "swiglu":
             h = F.silu(_dense(self.mlp_gate, h, dtype)) * up
         else:
             h = F.gelu(up, approximate="tanh")
         h = _dense(self.mlp_out, h, dtype)
-        if drop:
+        if drop:  # on the partial sums: the masks are the same on every tensor rank
             h = dropout(h, self.dropout_rate, (*drop_key, 1))
+        if tp:
+            h = reduce_from_tp_region(h, self.mesh, TENSOR_AXIS)
         return x + h + self.mlp_out_bias.to(dtype)
 
 
@@ -373,9 +460,48 @@ def _modules_outside_moe(module: nn.Module):
             yield from _modules_outside_moe(child)
 
 
-# Options of the JAX model that later slices port: name -> the value
-# that means "off".
-_NOT_YET_PORTED = {"seq_axis_size": 1, "tensor_axis_size": 1}
+def lm_param_specs(shapes: dict, tensor_axis: str | None = TENSOR_AXIS,
+                   expert_axis: str | None = None) -> dict[str, tuple]:
+    """Which dimension of each parameter an axis splits (the JAX
+    ``lm_param_specs`` on the port's names): ``shapes`` maps a
+    ``state_dict`` name to its tensor; the result maps it to a
+    tuple of one axis name or None a dimension. ``Linear.weight`` is
+    ``[out, in]`` where a flax kernel is ``[in, out]``: column-parallel
+    q/k/v/``mlp_gate``/``mlp_in`` split dim 0 (and ``mlp_in``'s bias),
+    row-parallel ``attn_out``/``mlp_out`` dim 1; the MoE experts
+    (``moe.{w_in,b_in,w_out,b_out}``) split their expert dim over
+    ``expert_axis``. The stacked (``scan_layers``) layout shifts every
+    dim by one; everything else is replicated."""
+    specs = {}
+    for name, value in shapes.items():
+        parts = name.split(".")
+        module, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
+        off = 1 if parts[0] == "blocks" and not parts[1].isdigit() else 0
+        spec = [None] * value.dim()
+        if module == "moe" and leaf in _EXPERT_LEAVES:
+            if expert_axis is not None:
+                spec[off] = expert_axis
+        elif tensor_axis is not None and leaf in ("weight", "bias"):
+            if module in ("q", "k", "v", "mlp_gate", "mlp_in"):
+                spec[off] = tensor_axis
+            elif module in ("attn_out", "mlp_out") and leaf == "weight":
+                spec[off + 1] = tensor_axis
+        specs[name] = tuple(spec)
+    return specs
+
+
+_EXPERT_LEAVES = ("w_in", "b_in", "w_out", "b_out")
+
+
+def shard_tensor(x: torch.Tensor, spec: tuple, coords: dict, sizes: dict) -> torch.Tensor:
+    """This rank's slice of a global tensor: each dimension ``spec``
+    names an axis of is cut into that axis's size and the slice at this
+    rank's coordinate kept."""
+    for dim, axis in enumerate(spec):
+        if axis is not None and sizes[axis] > 1:
+            n = x.shape[dim] // sizes[axis]
+            x = x.narrow(dim, coords[axis] * n, n)
+    return x
 
 
 def _stack_blocks(blocks: nn.ModuleList) -> "Block":
@@ -456,13 +582,12 @@ class TransformerLM(nn.Module):
                  moe_capacity_factor: float = 1.25, moe_num_groups: int = 1,
                  moe_dispatch: str = "scatter", moe_gmm_impl: str = "auto",
                  remat: bool = False, remat_policy: str = "none", scan_layers: bool = False,
-                 dropout_rate: float = 0.0, generator: torch.Generator | None = None, **later):
+                 dropout_rate: float = 0.0, generator: torch.Generator | None = None,
+                 seq_axis_size: int = 1, tensor_axis_size: int = 1, expert_axis_size: int = 1,
+                 mesh=None):
         super().__init__()
-        for name, value in later.items():
-            if name not in _NOT_YET_PORTED:
-                raise TypeError(f"TransformerLM got an unexpected option {name!r}")
-            if value != _NOT_YET_PORTED[name]:
-                raise NotImplementedError(f"{name}={value!r} is not yet ported")
+        sizes = {SEQ_AXIS: seq_axis_size, TENSOR_AXIS: tensor_axis_size,
+                 DATA_AXIS: expert_axis_size}
         unknown = set(quant_modules) - QUANT_MODULES
         if unknown:
             raise ValueError(f"unknown quant modules {sorted(unknown)}")
@@ -480,15 +605,19 @@ class TransformerLM(nn.Module):
         self.quant_kv_cache = quant_kv_cache
         self.tok_embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = None if use_rope else nn.Embedding(max_seq_len, d_model)
+        self.mesh, self.seq_size = mesh, seq_axis_size
         moe = None
         if num_experts > 0:
             moe = dict(num_experts=num_experts, top_k=moe_top_k,
                        capacity_factor=moe_capacity_factor, num_groups=moe_num_groups,
-                       dispatch_impl=moe_dispatch, gmm_impl=moe_gmm_impl)
+                       dispatch_impl=moe_dispatch, gmm_impl=moe_gmm_impl,
+                       expert_axis=DATA_AXIS if expert_axis_size > 1 else None,
+                       expert_axis_size=expert_axis_size)
         self.blocks = nn.ModuleList(
             Block(d_model, num_heads, d_ff, norm=norm, mlp=mlp, num_kv_heads=num_kv_heads,
                   impl=attention_impl, rope=use_rope, attn_bias=attn_bias, quant_modules=quant,
-                  moe=moe, dropout_rate=dropout_rate)
+                  moe=moe, dropout_rate=dropout_rate, seq_size=seq_axis_size,
+                  tensor_size=tensor_axis_size, mesh=mesh)
             for _ in range(num_layers)
         )
         self.ln_f = Norm(d_model, norm)
@@ -497,6 +626,24 @@ class TransformerLM(nn.Module):
         self.reset_parameters(generator)
         if scan_layers:
             self.blocks = _stack_blocks(self.blocks)
+        self.param_specs = lm_param_specs(
+            dict(self.named_parameters()), TENSOR_AXIS if tensor_axis_size > 1 else None,
+            DATA_AXIS if expert_axis_size > 1 else None)
+        if any(n > 1 for n in sizes.values()):
+            if mesh is None:
+                raise ValueError(f"axes {sizes} need a parallel.mesh.Mesh (mesh=)")
+            self._shard(mesh.coords, sizes)
+
+    @torch.no_grad()
+    def _shard(self, coords: dict, sizes: dict) -> None:
+        """Cut every split parameter (drawn at its global shape) to this
+        rank's slice."""
+        for name, p in list(self.named_parameters()):
+            spec = self.param_specs[name]
+            if any(a is not None for a in spec):
+                owner, _, leaf = name.rpartition(".")
+                local = shard_tensor(p.detach(), spec, coords, sizes).clone()
+                setattr(self.get_submodule(owner), leaf, nn.Parameter(local))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -608,9 +755,14 @@ class TransformerLM(nn.Module):
             raise ValueError(f"decode at {decode_pos} + {t} tokens overruns the cache")
         if mode in ("train", "prefill") and t > self.max_seq_len:
             raise ValueError(f"sequence of {t} tokens exceeds max_seq_len {self.max_seq_len}")
+        if mode != "train" and self.seq_size > 1:
+            raise ValueError(f"cached prefill/decode requires an unsharded sequence axis; got "
+                             f"seq_axis='seq' (size {self.seq_size})")
         x = F.embedding(tokens, self.tok_embed.weight).to(dtype)
         if self.pos_embed is not None:
-            positions = _positions(t, decode_pos, tokens.device)
+            # A sequence-sharded block starts at this rank's offset.
+            offset = (self.mesh.axis_index(SEQ_AXIS) * t if self.seq_size > 1 else decode_pos)
+            positions = _positions(t, offset, tokens.device)
             x = x + F.embedding(positions, self.pos_embed.weight).to(dtype)
         # Remat in train mode only, and only where a backward will follow.
         remat = self.remat and mode == "train" and torch.is_grad_enabled()

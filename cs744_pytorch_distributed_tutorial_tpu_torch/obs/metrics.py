@@ -37,6 +37,8 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.obs.sinks import (
     RingSink,
     rank_zero,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.collectives import reduce_by_axes
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import Mesh, world
 
 __all__ = ["Telemetry", "expert_load_entropy", "tree_l2_norm", "tree_sq_norm"]
 
@@ -44,22 +46,29 @@ METRICS_NAME = "metrics.jsonl"
 
 
 @torch.no_grad()
-def tree_sq_norm(tensors: Sequence[torch.Tensor], sharded: bool = False) -> torch.Tensor:
-    """Sum of squares over ``tensors`` in fp32, a 0-d tensor on their
-    device. ``sharded``: the tensors are this rank's shards (zero1's and
-    fsdp's rows), so the sum is all-reduced over the process group into
-    the global one, the same on every rank."""
-    total = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
-    for t in tensors:
-        total = total + t.float().square().sum()
-    if sharded and dist.is_initialized():
-        dist.all_reduce(total)
-    return total
+def tree_sq_norm(tensors: Sequence[torch.Tensor], axes: Sequence[tuple[str, ...]] | None = None,
+                 mesh: Any = None) -> torch.Tensor:
+    """Sum of squares over ``tensors`` in fp32 (each tensor's from its
+    norm, one multi-tensor launch for them all), a 0-d tensor on their
+    device, the same on every rank. ``axes`` (one tuple a tensor, of
+    ``parallel/mesh.py``'s axis names): the axes over which the tensor is
+    this rank's piece (a split parameter's ``spec_axes``; a sharded
+    optimizer's rows add the data axis), so its squared sum is summed
+    over them (JAX's psum a leaf) and a split tensor counts all its pieces,
+    a replicated one once; one all-reduce for the tensors of each set of
+    axes. ``mesh`` defaults to the process group as one data axis."""
+    sq = torch.stack(torch._foreach_norm(list(tensors), 2, dtype=torch.float32)).square()
+    if axes is not None:
+        sq = torch.stack(reduce_by_axes(list(sq.unbind()), axes,
+                                        mesh if mesh is not None else Mesh.get(world()[0]),
+                                        mean=False))
+    return sq.sum()
 
 
-def tree_l2_norm(tensors: Sequence[torch.Tensor], sharded: bool = False) -> torch.Tensor:
+def tree_l2_norm(tensors: Sequence[torch.Tensor], axes: Sequence[tuple[str, ...]] | None = None,
+                 mesh: Any = None) -> torch.Tensor:
     """Global L2 norm of ``tensors`` (see :func:`tree_sq_norm`)."""
-    return tree_sq_norm(tensors, sharded).sqrt()
+    return tree_sq_norm(tensors, axes, mesh).sqrt()
 
 
 def expert_load_entropy(load: torch.Tensor) -> torch.Tensor:

@@ -165,9 +165,19 @@ def flash_dkv_plain(q, k, v, do, lse, delta, causal: bool):
 
 def flash_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(do * out) as [B*H, T, 1] fp32, plain PyTorch on
-    every device (O(T*D), no [T, T] shape)."""
-    b, t, h, _ = out.shape
-    delta = (g.float() * out.float()).sum(dim=-1)  # [B, T, H]
+    every device (O(T*D), no [T, T] shape). On the CPU the row sums
+    accumulate one element at a time by fused multiply-add, the order of
+    the plain dq's and dk/dv's ``do . v`` products (and of XLA's): where a
+    row attends to one key only, ``out`` is that key's value and ``dp -
+    delta`` is then exactly 0, as in JAX."""
+    b, t, h, d = out.shape
+    g, out = g.float(), out.float()
+    if out.device.type == "cpu":
+        delta = torch.zeros((b, t, h), dtype=torch.float32)
+        for i in range(d):
+            delta = torch.addcmul(delta, g[..., i], out[..., i])
+    else:
+        delta = (g * out).sum(dim=-1)  # [B, T, H]
     return delta.permute(0, 2, 1).reshape(b * h, t, 1)
 
 

@@ -10,6 +10,7 @@ the tutorial teaches. A process group must be initialized.
 
 from __future__ import annotations
 
+import collections
 from typing import Sequence
 
 import torch
@@ -118,46 +119,50 @@ def ring_all_reduce_mean(x: torch.Tensor, world_size: int) -> torch.Tensor:
     return ring_all_reduce(x, world_size) / world_size
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The world's sum of ``x`` (a copy; JAX's ``lax.psum``): the sharded
-    clip's squared sums and the trainers' metric means."""
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (default: the world; a copy, JAX's
+    ``lax.psum``): the sharded clip's squared sums and the trainers'
+    metric means."""
     y = x.clone()
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=group)
     return y
 
 
-def reduce_scatter_sum(rows: torch.Tensor) -> torch.Tensor:
-    """Row ``rank`` of the world's sum of an ``[n, cols]`` matrix: one
-    ``reduce_scatter_tensor`` (JAX's ``lax.psum_scatter`` over the
-    leading axis)."""
+def reduce_scatter_sum(rows: torch.Tensor, group=None) -> torch.Tensor:
+    """Row ``rank`` (in ``group``, default the world) of the group's sum
+    of an ``[n, cols]`` matrix: one ``reduce_scatter_tensor`` (JAX's
+    ``lax.psum_scatter`` over the leading axis)."""
     out = rows.new_empty(rows.shape[1:])
-    dist.reduce_scatter_tensor(out, rows.reshape(-1))  # flat: gloo splits dim 0
+    dist.reduce_scatter_tensor(out, rows.reshape(-1), group=group)  # flat: gloo splits dim 0
     return out
 
 
-def all_gather_flat(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's flat ``[cols]`` buffer stacked ``[n, cols]`` in rank
-    order: one ``all_gather_into_tensor`` (JAX's ``lax.all_gather``)."""
-    n = dist.get_world_size()
+def all_gather_flat(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's (of ``group``, default the world) flat ``[cols]``
+    buffer stacked ``[n, cols]`` in rank order: one
+    ``all_gather_into_tensor`` (JAX's ``lax.all_gather``)."""
+    n = dist.get_world_size(group)
     out = x.new_empty(n * x.numel())  # flat: gloo stacks along dim 0
-    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1))
+    dist.all_gather_into_tensor(out, x.contiguous().reshape(-1), group=group)
     return out.view(n, *x.shape)
 
 
 class GatherRows(torch.autograd.Function):
-    """``all_gather_flat`` whose backward reduce-scatters the cotangent's
+    """``all_gather_flat`` over ``group`` (None: the world) whose backward
+    reduce-scatters the cotangent's
     sum: the AD transpose of ``all_gather`` that JAX's FSDP relies on
     (its ``parallel/zero.py::FsdpSGD``), written out. The gradient a
     shard receives is the world's sum for its row, issued the moment
     autograd reaches this node."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        return all_gather_flat(x)
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return all_gather_flat(x, group)
 
     @staticmethod
-    def backward(ctx, ct: torch.Tensor) -> torch.Tensor:
-        return reduce_scatter_sum(ct)
+    def backward(ctx, ct: torch.Tensor):
+        return reduce_scatter_sum(ct, ctx.group), None
 
 
 class AllReduceMean(torch.autograd.Function):
@@ -177,3 +182,136 @@ class AllReduceMean(torch.autograd.Function):
         y = ct.clone()
         dist.all_reduce(y)
         return y / dist.get_world_size()
+
+
+# --------------------------------------------------- collectives on mesh axes
+# The sequence, tensor and expert axes' collectives (``parallel/mesh.py::
+# Mesh``): each runs on the group of this rank's line along its axes and is
+# the identity on a line of one rank. The autograd Functions' backwards are
+# JAX's transposes.
+hops: collections.Counter = collections.Counter()  # ring permutes by axis
+
+
+class _AxisReduce(torch.autograd.Function):
+    """The sum (or mean) over a line of ranks; its backward is the same
+    reduction of the cotangent (JAX's transpose of psum and of pmean)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, mean: bool):
+        ctx.args = (mesh, axes, mean)
+        return _reduce(x, mesh, axes, mean)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _reduce(ct, *ctx.args), None, None, None
+
+
+def _reduce(x: torch.Tensor, mesh, axes, mean: bool) -> torch.Tensor:
+    y = all_reduce_sum(x.contiguous(), mesh.group(*axes))
+    if not mean:
+        return y
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import true_div
+
+    return true_div(y, mesh.size(*axes))
+
+
+def axis_sum(x: torch.Tensor, mesh, *axes: str) -> torch.Tensor:
+    """``lax.psum`` over ``axes``: the sum over this rank's line (``x``
+    itself on a line of one rank); differentiable."""
+    return x if mesh.size(*axes) == 1 else _AxisReduce.apply(x, mesh, axes, False)
+
+
+def axis_mean(x: torch.Tensor, mesh, *axes: str) -> torch.Tensor:
+    """``lax.pmean`` over ``axes``: the line's sum divided by its size;
+    differentiable."""
+    return x if mesh.size(*axes) == 1 else _AxisReduce.apply(x, mesh, axes, True)
+
+
+def reduce_by_axes(tensors: Sequence[torch.Tensor], axes: Sequence[tuple[str, ...]], mesh,
+                   mean: bool = True) -> list[torch.Tensor]:
+    """Each tensor averaged (``mean``) or summed over its own set of axes
+    (an empty set, or a line of one rank: as it is), one all-reduce for
+    the tensors of each set of axes, flattened and concatenated."""
+    out = list(tensors)
+    by_axes: dict[tuple[str, ...], list[int]] = {}
+    for i, ax in enumerate(axes):
+        if ax and mesh.size(*ax) > 1:
+            by_axes.setdefault(tuple(ax), []).append(i)
+    for ax, idx in by_axes.items():
+        flat = torch.cat([out[i].reshape(-1) for i in idx])
+        flat = _reduce(flat, mesh, ax, mean)
+        for i, part in zip(idx, flat.split([out[i].numel() for i in idx])):
+            out[i] = part.view(out[i].shape)
+    return out
+
+
+class _Transfer:
+    """Tensors on their way: ``wait()`` returns them once received."""
+
+    def __init__(self, reqs, tensors):
+        self.reqs, self.tensors = reqs, tensors
+
+    def wait(self) -> list[torch.Tensor]:
+        for req in self.reqs:
+            req.wait()
+        return self.tensors
+
+
+def start_permute(tensors: Sequence[torch.Tensor], mesh, axis: str, shift: int = 1) -> _Transfer:
+    """One hop along ``axis`` (``lax.ppermute`` by ``shift``): each tensor
+    goes to the rank ``shift`` ahead and its like comes from the rank
+    ``shift`` behind, into fresh buffers; returns at once with the
+    transfer under way (one ``batch_isend_irecv``)."""
+    hops[axis] += 1
+    tensors = [t.contiguous() for t in tensors]
+    if mesh.size(axis) == 1:
+        return _Transfer([], tensors)
+    recv = [torch.empty_like(t) for t in tensors]
+    group = mesh.group(axis)
+    dst, src = mesh.peer(axis, shift), mesh.peer(axis, -shift)
+    ops = [dist.P2POp(dist.isend, t, dst, group) for t in tensors]
+    ops += [dist.P2POp(dist.irecv, t, src, group) for t in recv]
+    return _Transfer(dist.batch_isend_irecv(ops), recv)
+
+
+class RingPermute(torch.autograd.Function):
+    """``lax.ppermute`` one step up ``axis``, differentiable: the backward
+    sends the cotangents one step down (ppermute's transpose)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis: str, *tensors):
+        ctx.mesh, ctx.axis = mesh, axis
+        return tuple(start_permute(tensors, mesh, axis, 1).wait())
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None, None, *start_permute(cts, ctx.mesh, ctx.axis, -1).wait())
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """JAX's tiled ``lax.all_to_all``: chunk i of ``split_axis`` goes to the
+    rank at index i of ``axis`` and the chunks received concatenate along
+    ``concat_axis`` in rank order. ``all_to_all_single`` splits dim 0, so
+    the chunks are stacked on a new leading dim around it."""
+    n = mesh.size(axis)
+    if n == 1:
+        return x
+    send = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=mesh.group(axis))
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+class AllToAll(torch.autograd.Function):
+    """``all_to_all``, differentiable: the backward is the exchange with
+    the split and concat axes swapped (all_to_all's transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis: str, split_axis: int, concat_axis: int):
+        ctx.args = (mesh, axis, split_axis, concat_axis)
+        return all_to_all(x, mesh, axis, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, ct):
+        mesh, axis, split_axis, concat_axis = ctx.args
+        return all_to_all(ct, mesh, axis, concat_axis, split_axis), None, None, None, None

@@ -9,6 +9,7 @@ one card, ``cuda:<rank mod visible cards>``.
 
 from __future__ import annotations
 
+import math
 import socket
 
 import torch
@@ -69,3 +70,114 @@ def world() -> tuple[int, int]:
     if dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
+
+
+# ------------------------------------------------------------ the LM's mesh
+DATA_AXIS, SEQ_AXIS, TENSOR_AXIS = "data", "seq", "tensor"
+AXES = (DATA_AXIS, SEQ_AXIS, TENSOR_AXIS)
+
+
+def mesh_coords(rank: int, sizes: dict[str, int]) -> dict[str, int]:
+    """Rank ``rank``'s coordinates on a (data, seq, tensor) mesh of
+    ``sizes``, data outermost: the position the JAX ``make_mesh`` gives
+    device ``rank`` (its devices reshaped row-major to the axes' shape)."""
+    coords = {}
+    for axis in reversed(AXES):
+        coords[axis] = rank % sizes[axis]
+        rank //= sizes[axis]
+    return {axis: coords[axis] for axis in AXES}
+
+
+class Mesh:
+    """The LM trainer's (data, seq, tensor) layout over the process group:
+    the world is ``data * seq * tensor`` ranks and rank r sits at
+    ``mesh_coords(r)``. Every line of ranks that differ only along a set
+    of axes (every set, every line) gets its ``torch.distributed`` group,
+    created by every rank in one order; a line of the whole world is the
+    default group (``None``). Without a process group the mesh is one
+    rank and its groups are never used."""
+
+    _cache: dict = {}
+
+    def __init__(self, data: int = 1, seq: int = 1, tensor: int = 1):
+        self.sizes = {DATA_AXIS: data, SEQ_AXIS: seq, TENSOR_AXIS: tensor}
+        n, self.rank = world()
+        if data * seq * tensor != n:
+            raise ValueError(f"mesh data={data} x seq={seq} x tensor={tensor} needs "
+                             f"{data * seq * tensor} ranks, the process group has {n}")
+        self.world_size = n
+        self.coords = mesh_coords(self.rank, self.sizes)
+        self._groups: dict[tuple[str, ...], object] = {}
+        if n == 1:
+            return
+        made: dict[tuple[int, ...], object] = {}
+        for subset in _subsets():
+            for line in self._lines(subset):
+                if line not in made:
+                    made[line] = None if len(line) == n else dist.new_group(list(line))
+            self._groups[subset] = made[self.ranks(*subset)]
+
+    @classmethod
+    def get(cls, data: int = 1, seq: int = 1, tensor: int = 1) -> "Mesh":
+        """The mesh of these sizes over the current process group, built
+        once per group (its groups are collective to create); a new
+        process group gets new meshes."""
+        group = dist.group.WORLD if dist.is_initialized() else None
+        cached = cls._cache.get((data, seq, tensor))
+        if cached is None or cached[0] is not group:
+            cached = cls._cache[(data, seq, tensor)] = (group, cls(data, seq, tensor))
+        return cached[1]
+
+    def _lines(self, subset: tuple[str, ...]):
+        """Every line of ``subset``'s axes, as ascending tuples of ranks."""
+        lines: dict[tuple, list[int]] = {}
+        for r in range(self.world_size):
+            c = mesh_coords(r, self.sizes)
+            lines.setdefault(tuple(c[a] for a in AXES if a not in subset), []).append(r)
+        return [tuple(v) for _, v in sorted(lines.items())]
+
+    def size(self, *axes: str) -> int:
+        return math.prod(self.sizes[a] for a in axes)
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (JAX's ``lax.axis_index``)."""
+        return self.coords[axis]
+
+    def ranks(self, *axes: str) -> tuple[int, ...]:
+        """The global ranks of this rank's line along ``axes``, ascending
+        (row-major over those axes' coordinates)."""
+        return tuple(r for r in range(self.world_size)
+                     if all(mesh_coords(r, self.sizes)[a] == self.coords[a]
+                            for a in AXES if a not in axes))
+
+    def group(self, *axes: str):
+        """The process group of this rank's line along ``axes`` (``None``,
+        the default group, when that line is the world)."""
+        return self._groups.get(_canonical(axes))
+
+    def peer(self, axis: str, shift: int) -> int:
+        """The global rank ``shift`` steps along ``axis`` (cyclic)."""
+        c = dict(self.coords)
+        c[axis] = (c[axis] + shift) % self.sizes[axis]
+        return self.rank_of(c)
+
+    def rank_of(self, coords: dict[str, int]) -> int:
+        r = 0
+        for axis in AXES:
+            r = r * self.sizes[axis] + coords[axis]
+        return r
+
+
+def spec_axes(spec) -> tuple[str, ...]:
+    """The axes a parameter's spec (the axis name or None of each
+    dimension) splits it over, each once."""
+    return tuple(dict.fromkeys(a for a in spec if a is not None))
+
+
+def _canonical(axes) -> tuple[str, ...]:
+    return tuple(a for a in AXES if a in axes)
+
+
+def _subsets():
+    """Every non-empty set of AXES, in a fixed order."""
+    return [tuple(a for i, a in enumerate(AXES) if mask >> i & 1) for mask in range(1, 8)]

@@ -46,6 +46,12 @@ import torch.nn.functional as F
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import true_div
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import buckets as B
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as C
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    SEQ_AXIS,
+    TENSOR_AXIS,
+    Mesh,
+)
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import _int8_allreduce_flat
 
 
@@ -64,10 +70,13 @@ def _unshard(rows: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return rows.reshape(-1)[: math.prod(shape)].view(tuple(shape))
 
 
-def _gather_flat(shards: Sequence[torch.Tensor], shapes: Sequence) -> list[torch.Tensor]:
-    """Each rank's ``[chunk]`` shards -> the full tensors, one all-gather
-    a tensor (differentiable: the backward reduce-scatters)."""
-    return [_unshard(C.GatherRows.apply(sh), shape) for sh, (shape, _) in zip(shards, shapes)]
+def _gather_flat(shards: Sequence[torch.Tensor], shapes: Sequence,
+                 group=None) -> list[torch.Tensor]:
+    """Each rank's (of ``group``, None the world) ``[chunk]`` shards -> the
+    full tensors, one all-gather a tensor (differentiable: the backward
+    reduce-scatters)."""
+    return [_unshard(C.GatherRows.apply(sh, group), shape)
+            for sh, (shape, _) in zip(shards, shapes)]
 
 
 def _gather_bucketed_flat(shards: Sequence[torch.Tensor], shapes: Sequence, world_size: int,
@@ -80,7 +89,7 @@ def _gather_bucketed_flat(shards: Sequence[torch.Tensor], shapes: Sequence, worl
     layout = B.bucket_layout(shapes, bucket_bytes, rows=world_size, reverse=reverse)
     out: list[torch.Tensor | None] = [None] * len(shapes)
     for members in B.bucket_members(layout):
-        full = C.GatherRows.apply(torch.cat([shards[i] for i in members]))
+        full = C.GatherRows.apply(torch.cat([shards[i] for i in members]), None)
         for i in members:
             out[i] = B.leaf_view(full, layout, layout.slots[i])
     return out
@@ -272,7 +281,7 @@ class Zero1Adam:
     schedule's lr at the count before this update, the bias corrections
     at the count after, as optax). ``clip_norm`` is optax's
     ``clip_by_global_norm`` on the mean's rows with the exact global norm:
-    each rank's sum of squares over its rows, then one all-reduce.
+    each row's sum of squares, summed over the ranks.
 
     The chunk rules are ``train/state.py``'s multi-tensor arithmetic run
     on rows (``adamw_updates``, ``lion_updates``, ``sgd_deltas``,
@@ -285,9 +294,22 @@ class Zero1Adam:
     Against JAX the ``nu`` update rounds ``(1 - b2) * (g * g)`` as optax
     does where JAX's ``Zero1Adam`` rounds ``((1 - b2) * g) * g``.
 
-    The sequence axis, the tensor axis and expert-sharded leaves (JAX's
-    ``seq_size``, ``shard_axes``, ``_data_sharded``, ``_expert_mean``)
-    are not ported (``ROADMAP.md`` A6)."""
+    On its ``mesh`` (``parallel/mesh.py::Mesh``, by default the process
+    group's world as one data axis; ``world_size`` is the data axis's size
+    and the rows are cut along that axis) with the
+    parameters' ``specs`` (``models/transformer.py::lm_param_specs``), the
+    JAX rule's model-shard branches: a tensor-split parameter's rows are
+    its local slice's, cut per (data, tensor) coordinate; after the
+    data-axis reduce-scatter every row is averaged over the sequence axis
+    and, unless the tensor axis splits it, over the tensor axis (one
+    all-reduce for each such set of axes); an expert-split parameter (its
+    spec names the data axis, JAX's ``_data_sharded``) keeps its local
+    tensor whole, its moments whole, no collective of the data axis: its
+    gradient is already the sum over its data row, divided here by n and
+    averaged over the other axes (``_expert_mean``); the clip sums each
+    row's squares over the tensor axis for the parameters it splits, and
+    over the data axis. Such layouts go a tensor at a
+    time, as JAX's fused path; ``overlap`` refuses them, as JAX does."""
 
     MOMENTS: tuple[str, ...] = ("mu", "nu")
     #: ``params`` are this rank's rows already (fsdp), not whole tensors.
@@ -295,15 +317,16 @@ class Zero1Adam:
 
     def __init__(self, params: Sequence[torch.Tensor], schedule, b1: float, weight_decay: float,
                  world_size: int, *, clip_norm: float | None = None,
-                 bucket_bytes: int | None = None, overlap: bool = False,
-                 seq_size: int = 1, shard_axes: dict | None = None):
-        if seq_size > 1 or any(n > 1 for n in (shard_axes or {}).values()):
-            raise NotImplementedError(
-                "sharded optimizers over a sequence or tensor axis are not yet ported "
-                "(ROADMAP A6)")
+                 bucket_bytes: int | None = None, overlap: bool = False, mesh=None,
+                 specs: Sequence[tuple] | None = None):
+        self.params = list(params)
+        self.mesh = mesh = mesh if mesh is not None else Mesh.get(world_size)
+        self.specs = [tuple(sp) for sp in specs] if specs is not None else [()] * len(self.params)
+        self.expert = [DATA_AXIS in sp for sp in self.specs]
+        self.model_sharded = mesh.size(SEQ_AXIS, TENSOR_AXIS) > 1 or any(self.expert)
         if clip_norm is not None and clip_norm <= 0:
             raise ValueError(f"clip_norm must be > 0, got {clip_norm}")
-        if overlap and clip_norm is not None:
+        if overlap and (clip_norm is not None or self.model_sharded):
             raise ValueError(
                 "sync_overlap with a sharded optimizer admits pure data parallelism only: "
                 "seq/tensor/expert sharding and grad_clip_norm need cross-chunk joins that "
@@ -311,16 +334,18 @@ class Zero1Adam:
             )
         self.schedule, self.b1, self.weight_decay = schedule, b1, weight_decay
         self.world_size = world_size
-        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.rank, self.group = mesh.axis_index(DATA_AXIS), mesh.group(DATA_AXIS)
         self.clip_norm = clip_norm
         self.bucket_bytes = B.DEFAULT_BUCKET_BYTES if bucket_bytes is None else int(bucket_bytes)
         self.overlap = bool(overlap)
-        self.params = list(params)
         self.count = 0
-        size = (lambda p: p.numel()) if self.ROWS else (
-            lambda p: chunk_size(p.numel(), world_size))
-        self.moments = {name: [p.new_zeros(size(p), dtype=torch.float32) for p in self.params]
-                        for name in self.MOMENTS}
+
+        def size(i, p):
+            whole = self.ROWS or self.expert[i]
+            return p.numel() if whole else chunk_size(p.numel(), world_size)
+
+        self.moments = {name: [p.new_zeros(size(i, p), dtype=torch.float32)
+                               for i, p in enumerate(self.params)] for name in self.MOMENTS}
 
     @property
     def momentum(self) -> list[torch.Tensor]:
@@ -329,7 +354,7 @@ class Zero1Adam:
 
     @property
     def bucketed(self) -> bool:
-        return bool(self.bucket_bytes) and self.world_size > 1
+        return bool(self.bucket_bytes) and self.world_size > 1 and not self.model_sharded
 
     def layout(self, params: Sequence) -> B.BucketLayout:
         return B.bucket_layout(params, self.bucket_bytes, rows=self.world_size,
@@ -350,14 +375,29 @@ class Zero1Adam:
                                          self.b1)
         return _rules().decayed_deltas(p_rows, updates, lr, self.weight_decay)
 
+    def _axis_means(self, rows: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Each parameter's rows of the data axis's mean averaged over the
+        sequence axis and, unless the tensor axis splits the parameter,
+        over the tensor axis (JAX's pmeans on the chunk: the seq replicas'
+        gradients differ, the tensor replicas' agree)."""
+        return C.reduce_by_axes(rows, [tuple(a for a in (SEQ_AXIS, TENSOR_AXIS) if a not in spec)
+                                       for spec in self.specs], self.mesh)
+
     def _clip(self, g_rows: list[torch.Tensor]) -> list[torch.Tensor]:
         """``clip_by_global_norm`` on every parameter's rows of the mean
-        (in parameter order): the global norm from each rank's sum of
-        squares, one all-reduce."""
+        (in parameter order) with the global norm: each row's squares,
+        summed over the tensor axis where it splits the parameter (a row
+        it does not split is the same on each of its ranks and counts
+        once), then over the data axis in one all-reduce, issued at a
+        world of one too, as the rows' reduce-scatters are."""
         if self.clip_norm is None:
             return g_rows
-        total = C.all_reduce_sum(_rules().squared_sum(g_rows))
-        return _rules().clip_by_norm(g_rows, total.sqrt(), self.clip_norm)
+        from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import tree_sq_norm
+
+        local = tree_sq_norm(g_rows, [(TENSOR_AXIS,) if TENSOR_AXIS in spec else ()
+                                      for spec in self.specs], self.mesh)
+        norm = C.all_reduce_sum(local, self.group).sqrt()
+        return _rules().clip_by_norm(g_rows, norm, self.clip_norm)
 
     def scatter_bucket(self, gbuf: torch.Tensor, ebuf: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -374,6 +414,15 @@ class Zero1Adam:
         delta_buf = C.all_gather_flat(torch.cat(deltas))
         for i in members:
             params[i].add_(B.leaf_view(delta_buf, layout, layout.slots[i]))
+
+    def _mean_row(self, i: int, g: torch.Tensor) -> torch.Tensor:
+        """Parameter ``i``'s rows of the data axis's mean gradient: the
+        reduce-scatter of its ``[n, chunk]`` rows divided by n, or for an
+        expert-split parameter its local gradient divided by n."""
+        s = self.world_size
+        if self.expert[i]:
+            return true_div(g.float().reshape(-1), s)
+        return true_div(C.reduce_scatter_sum(_shard_flat(g, s), self.group), s)
 
     @torch.no_grad()
     def apply(self, grads: Sequence[torch.Tensor]) -> None:
@@ -393,12 +442,16 @@ class Zero1Adam:
             for m in members:
                 self.update_bucket(params, layout, m, [g_rows[i] for i in m], scalars)
         else:
-            g_rows = self._clip([true_div(C.reduce_scatter_sum(_shard_flat(g, s)), s)
-                                 for g in grads])
-            p_rows = [_shard_flat(p.detach(), s)[self.rank] for p in params]
+            g_rows = self._clip(self._axis_means(
+                [self._mean_row(i, g) for i, g in enumerate(grads)]))
+            p_rows = [p.detach().reshape(-1) if self.expert[i]
+                      else _shard_flat(p.detach(), s)[self.rank] for i, p in enumerate(params)]
             deltas = self._deltas(p_rows, range(len(params)), g_rows, scalars)
-            for p, d in zip(params, deltas, strict=True):
-                p.add_(_unshard(C.all_gather_flat(d), p.shape))
+            for i, (p, d) in enumerate(zip(params, deltas, strict=True)):
+                if self.expert[i]:
+                    p.add_(d.view(p.shape))
+                else:
+                    p.add_(_unshard(C.all_gather_flat(d, self.group), p.shape))
         self.count += 1
 
 
@@ -438,32 +491,46 @@ class FsdpAdam(Zero1Adam):
     gather's backward is a reduce-scatter). ``apply`` divides into the
     mean and runs the rule on the rows in place; nothing is gathered
     after the update. The gathered tensors live until the backward is
-    done with them, as in JAX, whose residuals keep them."""
+    done with them, as in JAX, whose residuals keep them.
+
+    On a mesh the rows are of this rank's tensor slice and the gather
+    runs on the data axis; an expert-split parameter stays whole (its
+    ``grad`` is its local gradient, ``_expert_mean``)."""
 
     ROWS = True
 
     def gather_params(self, shapes: Sequence) -> list[torch.Tensor]:
-        """The full parameters from ``params`` (differentiable);
-        ``shapes`` holds each one's ``(shape, dtype)``."""
-        if not self.bucketed:
-            return _gather_flat(self.params, shapes)
-        return _gather_bucketed_flat(self.params, shapes, self.world_size, self.bucket_bytes,
-                                     reverse=self.overlap)
+        """This rank's parameters from ``params`` (differentiable):
+        the whole tensors, or on a mesh its tensor slices, an expert-split
+        one as it is; ``shapes`` holds each one's ``(shape, dtype)``."""
+        if self.bucketed:
+            return _gather_bucketed_flat(self.params, shapes, self.world_size,
+                                         self.bucket_bytes, reverse=self.overlap)
+        return [p if self.expert[i] else _gather_flat([p], [shapes[i]], self.group)[0]
+                for i, p in enumerate(self.params)]
 
     @staticmethod
-    def shard_params(params: Sequence[torch.Tensor], world_size: int) -> list[torch.Tensor]:
-        """This rank's rows of each parameter, as new leaf tensors."""
-        rank = dist.get_rank() if dist.is_initialized() else 0
-        return [_shard_flat(p.detach(), world_size)[rank].clone().requires_grad_()
-                for p in params]
+    def shard_params(params: Sequence[torch.Tensor], world_size: int, mesh=None,
+                     specs: Sequence[tuple] | None = None) -> list[torch.Tensor]:
+        """This rank's rows of each parameter, as new leaf tensors (an
+        expert-split one whole); the rows cut along the data axis of
+        ``mesh`` (by default the process group's world)."""
+        rank = (mesh if mesh is not None else Mesh.get(world_size)).axis_index(DATA_AXIS)
+        specs = specs if specs is not None else [()] * len(params)
+        return [(p.detach() if DATA_AXIS in spec else _shard_flat(p.detach(), world_size)[rank])
+                .clone().requires_grad_() for p, spec in zip(params, specs, strict=True)]
 
     @torch.no_grad()
     def apply(self, grad_sums: Sequence[torch.Tensor]) -> None:
-        """One step from the rows' gradient sums (``[chunk]`` each)."""
+        """One step from the rows' gradient sums (``[chunk]`` each; an
+        expert-split parameter's local gradient)."""
         scalars = self.step_scalars()
-        g_rows = self._clip([true_div(g, self.world_size) for g in grad_sums])
-        deltas = self._deltas(self.params, range(len(self.params)), g_rows, scalars)
-        torch._foreach_add_(self.params, deltas)
+        g_rows = self._clip(self._axis_means(
+            [true_div(g.float().reshape(-1) if self.expert[i] else g, self.world_size)
+             for i, g in enumerate(grad_sums)]))
+        rows = [p.reshape(-1) for p in self.params]
+        deltas = self._deltas(rows, range(len(self.params)), g_rows, scalars)
+        torch._foreach_add_(rows, deltas)
         self.count += 1
 
 

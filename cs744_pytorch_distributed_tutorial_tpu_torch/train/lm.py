@@ -1,6 +1,5 @@
 """LM training engine, ported from the JAX package's ``train/lm.py``:
-one process a data-parallel rank, at a sequence and tensor axis of size
-1.
+one process a rank of a (data, seq, tensor) mesh.
 
 A step: the model's forward on [B, T] token ids (``models/
 transformer.py``; bf16 compute when ``compute_dtype="bfloat16"``, by
@@ -85,10 +84,38 @@ trainer on its data axis:
   empty) and its gather's backward reduce-scatters the gradients.
   ``grad_norm``/``param_norm`` are left out under both, as in JAX.
 
+The sequence and tensor axes and expert parallelism (the JAX
+trainer's ``seq_parallel``, ``tensor_parallel``, ``moe_expert_parallel``)
+lay the world out as ``data x seq x tensor`` ranks, data outermost
+(``parallel/mesh.py::Mesh``: rank r at the JAX mesh's coordinates of
+device r, a process group a line of each set of axes):
+
+- the model is this rank's slice of the global one (``models/
+  transformer.py``): its T / seq positions of each row through ring,
+  ring-flash or Ulysses attention, its heads and ``d_ff`` slice of the
+  tensor axis (Megatron), its ``E / data`` experts (the capacity slots'
+  all-to-all over the data axis); ``split_batch`` takes the rank's rows
+  by its data index and its columns by its seq index, the targets
+  shifted before the cut;
+- ``loss`` and the MoE statistics are the means over the ranks;
+  dropout keys carry the data and seq indices, never the tensor index
+  (the MLP's dropout applies to the row-parallel partial sums, so the
+  tensor ranks must draw the same masks);
+- without zero1/fsdp the gradients sync by spec (JAX's ``sync_grad``):
+  an expert-split one is summed over seq and divided by data x seq, then
+  averaged over tensor; any other is averaged over data and seq, and
+  over tensor unless the tensor axis splits it; one all-reduce for each
+  set of axes. With a tensor axis or experts the clip is the sharded one
+  (``train/state.py::clip_by_global_norm_sharded``) and ``grad_norm``/
+  ``param_norm`` sum each split tensor's squares over its axes;
+- zero1/fsdp take the sharded rules' model-shard branches
+  (``parallel/zero.py``, on the data axis's group);
+- ``state_dict()`` gathers the global tensors (a collective every rank
+  joins); ``capture_state`` records the layout and a restore into
+  another ``tensor_parallel`` raises (layout-pinned, as JAX).
+
 Every JAX rejection of these options is raised, with its exception type,
-before a process group is needed. The sequence and tensor axes and
-expert parallelism (``seq_parallel``, ``tensor_parallel``,
-``moe_expert_parallel``) raise ``NotImplementedError``.
+before a process group is needed.
 """
 
 from __future__ import annotations
@@ -111,8 +138,10 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import (
     TransformerLM,
     is_stacked,
     resolve_remat_policy,
+    shard_tensor,
     unstack_block_params,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import tree_l2_norm
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.fused_xent import fused_cross_entropy
 from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import (
     quantize_lm_params,
@@ -120,7 +149,15 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.ops.quant import (
     true_div,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as C
-from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import rank_device, world
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    SEQ_AXIS,
+    TENSOR_AXIS,
+    Mesh,
+    rank_device,
+    spec_axes,
+    world,
+)
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.overlap import (
     OVERLAP_MODES,
     OverlappedSGD,
@@ -134,6 +171,7 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import LM_RULES,
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.engine import _smoothed_xent
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import (
     check_recipe,
+    clip_by_global_norm_sharded,
     make_lm_optimizer,
     make_schedule,
 )
@@ -154,7 +192,7 @@ class LMConfig:
     d_model: int = 128
     d_ff: int = 512
     max_seq_len: int = 2048
-    attention_impl: str = "ring"  # ring | ulysses | ulysses_flash | dense | flash
+    attention_impl: str = "ring"  # ring | ring_flash | ulysses | ulysses_flash | dense | flash
     compute_dtype: str = "float32"
     tie_embeddings: bool = False
     norm: str = "layernorm"
@@ -234,7 +272,8 @@ class LMConfig:
     zero1: bool = False
     fsdp: bool = False
 
-    # Options of later slices, accepted only at their "off" value.
+    # The sequence and tensor axes (the world is data x seq x tensor
+    # ranks), and the MoE experts split over the data axis.
     seq_parallel: int = 1
     tensor_parallel: int = 1
     moe_expert_parallel: bool = False
@@ -246,31 +285,60 @@ class LMConfig:
         return dataclasses.replace(self, **kw)
 
 
-_LATER_FIELDS = ("seq_parallel", "tensor_parallel", "moe_expert_parallel")
+def expert_parallel(cfg: LMConfig) -> bool:
+    """Whether the experts split over the data axis (JAX: asked for, with
+    experts, on a data axis above one)."""
+    return bool(cfg.moe_expert_parallel and cfg.moe_experts > 0 and cfg.data_parallel > 1)
+
+
+def model_sharded(cfg: LMConfig) -> bool:
+    """Whether the layout is more than pure data parallelism."""
+    return cfg.seq_parallel > 1 or cfg.tensor_parallel > 1 or expert_parallel(cfg)
 
 
 def check_config(cfg: LMConfig) -> None:
-    """Every check that needs no process group: the later slices' options,
-    then the JAX ``LMTrainer``'s own (its ``train/lm.py:415-506,567-571``)."""
-    off = LMConfig()
-    for name in _LATER_FIELDS:
-        if getattr(cfg, name) != getattr(off, name):
-            raise NotImplementedError(f"{name}={getattr(cfg, name)!r} is not yet ported")
-    if cfg.data_parallel < 1:
-        raise ValueError(f"data_parallel must be >= 1, got {cfg.data_parallel}")
+    """Every check that needs no process group: the JAX ``LMTrainer``'s
+    (its ``train/lm.py:352-480,567-571``), in its order."""
+    for name in ("data_parallel", "seq_parallel", "tensor_parallel"):
+        if getattr(cfg, name) < 1:
+            raise ValueError(f"{name} must be >= 1, got {getattr(cfg, name)}")
+    seq, tensor = cfg.seq_parallel, cfg.tensor_parallel
     if cfg.global_batch_size % cfg.data_parallel:
         raise ValueError(f"global batch {cfg.global_batch_size} not divisible by data axis "
                          f"{cfg.data_parallel}")
+    if cfg.seq_len % seq:
+        raise ValueError(f"seq_len {cfg.seq_len} not divisible by seq axis {seq}")
     if cfg.attention_impl not in ATTENTION_IMPLS:
         raise ValueError(
             f"unknown attention_impl {cfg.attention_impl!r}; choose from {ATTENTION_IMPLS}"
         )
     if cfg.seq_len > cfg.max_seq_len:
         raise ValueError(f"seq_len {cfg.seq_len} exceeds max_seq_len {cfg.max_seq_len}")
+    if cfg.attention_impl in ("dense", "flash") and seq > 1:
+        raise ValueError(
+            f"attention_impl={cfg.attention_impl!r} is incompatible with seq_parallel > 1 (a "
+            "sequence-sharded block cannot attend to the full sequence without "
+            "communication); use 'ring', 'ulysses', or 'ulysses_flash'")
+    if cfg.num_heads % tensor:
+        raise ValueError(f"num_heads {cfg.num_heads} not divisible by tensor axis {tensor}")
+    if cfg.d_ff % tensor:
+        raise ValueError(f"d_ff {cfg.d_ff} not divisible by tensor axis {tensor}")
+    heads_local = cfg.num_heads // tensor
+    if cfg.attention_impl in ("ulysses", "ulysses_flash") and heads_local % seq:
+        raise ValueError(f"ulysses needs per-tensor-shard heads ({heads_local}) divisible by "
+                         f"the seq axis ({seq})")
     local_batch = cfg.global_batch_size // cfg.data_parallel
     if cfg.accum_steps < 1 or local_batch % cfg.accum_steps:
         raise ValueError(f"accum_steps {cfg.accum_steps} must divide the per-device batch shard "
                          f"({local_batch} sequences)")
+    if expert_parallel(cfg) and cfg.moe_experts % cfg.data_parallel:
+        raise ValueError(f"moe_experts {cfg.moe_experts} not divisible by the data axis "
+                         f"({cfg.data_parallel}) for expert parallelism")
+    if expert_parallel(cfg) and cfg.moe_dispatch == "dropless":
+        raise ValueError(
+            "moe_dispatch='dropless' does not compose with moe_expert_parallel: EP's "
+            "all_to_all needs static per-destination counts (capacity slots); use "
+            "moe_dispatch='scatter' for expert-parallel layouts")
     _check_wire(cfg)
     if not 0.0 <= cfg.label_smoothing < 1.0:
         raise ValueError(f"label_smoothing must be in [0, 1), got {cfg.label_smoothing}")
@@ -304,6 +372,11 @@ def _check_wire(cfg: LMConfig) -> None:
             "for a quantized sharded-optimizer wire use zero1 with "
             "sync_overlap='bucket+int8'"
         )
+    if compress and model_sharded(cfg):
+        raise ValueError(
+            "grad_compress='int8' requires a data-parallel layout (tensor_parallel == "
+            "seq_parallel == 1, no expert parallelism): the quantized bucket all-reduce models "
+            "the plain data-axis gradient reduction, not locally-sharded grads")
     if compress and cfg.zero1 and cfg.sync_overlap != "bucket+int8":
         raise ValueError(
             "grad_compress='int8' under zero1 quantizes on the overlapped schedule's bucket "
@@ -318,6 +391,11 @@ def _check_wire(cfg: LMConfig) -> None:
                          f"{OVERLAP_MODES}")
     if cfg.sync_overlap == "off":
         return
+    if model_sharded(cfg):
+        raise ValueError(
+            "sync_overlap requires a data-parallel layout (tensor_parallel == seq_parallel == "
+            "1, no expert parallelism): seq/tensor/expert sharding needs cross-chunk joins "
+            "(psums over other axes) that defeat the per-bucket schedule")
     if not (cfg.zero1 or cfg.fsdp) and (
             cfg.optimizer != "sgd" or cfg.lr_schedule != "constant" or cfg.warmup_steps
             or cfg.grad_clip_norm is not None):
@@ -337,16 +415,12 @@ def _check_wire(cfg: LMConfig) -> None:
                          "grad_compress='int8'")
 
 
-def _global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every element's square, in fp32."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
-
-
 class LMTrainer:
     """``TransformerLM`` training on this rank's device: ``init``,
     ``split_batch``, ``train_step``, ``eval_step``, ``evaluate`` and
     ``fit``. The process group, when there is one, is initialized before
-    the trainer is built; its world size must be ``cfg.data_parallel``.
+    the trainer is built; its world size must be ``data_parallel *
+    seq_parallel * tensor_parallel``.
     ``memstore`` is the in-memory snapshot tier; without one,
     ``cfg.snapshot_every`` builds it."""
 
@@ -354,11 +428,17 @@ class LMTrainer:
         check_config(cfg)
         self.cfg = cfg
         self.world_size, self.rank = world()
-        if cfg.data_parallel != self.world_size:
+        layout = cfg.data_parallel * cfg.seq_parallel * cfg.tensor_parallel
+        if layout != self.world_size:
             raise ValueError(
-                f"data_parallel={cfg.data_parallel} but the process group has world size "
+                f"data_parallel={cfg.data_parallel} x seq_parallel={cfg.seq_parallel} x "
+                f"tensor_parallel={cfg.tensor_parallel} but the process group has world size "
                 f"{self.world_size}; launch one process per rank"
             )
+        self.mesh = Mesh.get(cfg.data_parallel, cfg.seq_parallel, cfg.tensor_parallel)
+        self.expert_parallel = expert_parallel(cfg)
+        # Beyond pure data parallelism the sync goes by spec.
+        self._sharded = model_sharded(cfg)
         self._zero = cfg.zero1 or cfg.fsdp
         self._compress = cfg.grad_compress == "int8"
         self._overlap = cfg.sync_overlap != "off"
@@ -391,16 +471,22 @@ class LMTrainer:
         optimizer's ``params`` are this rank's rows and the model's own
         parameters are empty."""
         cfg = self.cfg
-        kw = dict(self._model_kw(), attention_impl=cfg.attention_impl)
+        kw = dict(self._model_kw(), attention_impl=cfg.attention_impl,
+                  seq_axis_size=cfg.seq_parallel, tensor_axis_size=cfg.tensor_parallel,
+                  expert_axis_size=cfg.data_parallel if self.expert_parallel else 1,
+                  mesh=self.mesh)
         if state_dict is None:
             gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
             self.model = TransformerLM(**kw, generator=gen).to(self.device)
-        else:  # no init drawn: the weights are the given ones
+        else:  # no init drawn: the weights are this rank's slices of the given ones
             with torch.device("meta"):
                 self.model = TransformerLM(**kw)
+            specs, m = self.model.param_specs, self.mesh
             self.model.load_state_dict(
-                {k: v.detach().to(self.device, copy=True) for k, v in state_dict.items()},
-                assign=True)
+                {k: shard_tensor(v.detach(), specs[k], m.coords, m.sizes).to(self.device,
+                                                                            copy=True)
+                 for k, v in state_dict.items()}, assign=True)
+        self._specs = [self.model.param_specs[n] for n, _ in self.model.named_parameters()]
         params = list(self.model.parameters())
         if self.overlap is not None:
             self.overlap.remove_hooks()
@@ -410,7 +496,9 @@ class LMTrainer:
         if self._zero:
             self.optimizer = self._sharded_rule(params)
         else:
-            self.optimizer = make_lm_optimizer(cfg, params)
+            # The sharded clip runs before the optimizer, which then clips nothing.
+            self.optimizer = make_lm_optimizer(
+                cfg.replace(grad_clip_norm=None) if self._sharded_clip else cfg, params)
             if self._overlap:
                 self.overlap = OverlappedSGD(
                     params, self.optimizer.momentum, self._ef or None, name="allreduce",
@@ -428,14 +516,15 @@ class LMTrainer:
         if cfg.fsdp:
             self._param_names = [name for name, _ in self.model.named_parameters()]
             self._param_shapes = [(tuple(p.shape), p.dtype) for p in params]
-            params = fsdp_cls.shard_params(params, self.world_size)
+            params = fsdp_cls.shard_params(params, cfg.data_parallel, self.mesh, self._specs)
             for name in self._param_names:
                 module_name, _, attr = name.rpartition(".")
                 setattr(self.model.get_submodule(module_name), attr,
                         nn.Parameter(torch.empty(0, device=self.device), requires_grad=False))
         rule = (fsdp_cls if cfg.fsdp else z1_cls)(
-            params, make_schedule(cfg), cfg.momentum, cfg.weight_decay, self.world_size,
-            clip_norm=cfg.grad_clip_norm, bucket_bytes=self._bucket_bytes, overlap=self._overlap)
+            params, make_schedule(cfg), cfg.momentum, cfg.weight_decay, cfg.data_parallel,
+            clip_norm=cfg.grad_clip_norm, bucket_bytes=self._bucket_bytes, overlap=self._overlap,
+            mesh=self.mesh, specs=self._specs)
         if cfg.zero1 and self._overlap:
             self.overlap = OverlappedZero1LM(rule, self._ef or None)
         return rule
@@ -473,13 +562,29 @@ class LMTrainer:
 
     @torch.no_grad()
     def state_dict(self) -> dict[str, torch.Tensor]:
-        """The model's full ``state_dict`` (under fsdp gathered from the
-        ranks' rows, which every rank must join)."""
+        """The model's full ``state_dict``: under fsdp gathered from the
+        ranks' rows, and each tensor- or expert-split tensor from its
+        slices (collectives every rank must join)."""
         if not self.cfg.fsdp:
-            return self.model.state_dict()
-        return {name: _unshard(C.all_gather_flat(row), shape).clone()
-                for name, row, (shape, _) in zip(self._param_names, self.optimizer.params,
-                                                  self._param_shapes, strict=True)}
+            local = self.model.state_dict()
+        else:
+            group = self.mesh.group(DATA_AXIS)
+            local = {name: row.detach().clone() if DATA_AXIS in spec
+                     else _unshard(C.all_gather_flat(row, group), shape).clone()
+                     for name, row, (shape, _), spec in zip(
+                         self._param_names, self.optimizer.params, self._param_shapes,
+                         self._specs, strict=True)}
+        return {name: self._unsplit(value, self.model.param_specs[name])
+                for name, value in local.items()}
+
+    def _unsplit(self, x: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """The global tensor from this rank's slice: an all-gather over each
+        axis the spec names, the slices joined in coordinate order."""
+        for dim, axis in enumerate(spec):
+            if axis is not None and self.mesh.size(axis) > 1:
+                parts = C.all_gather_flat(x.contiguous(), self.mesh.group(axis))
+                x = torch.cat([part.view(x.shape) for part in parts.unbind(0)], dim=dim)
+        return x
 
     def _decode_copy(self, params: dict, **options) -> TransformerLM:
         """A ``TransformerLM`` with dense attention for the prompt pass, no
@@ -538,14 +643,22 @@ class LMTrainer:
         return quantize_lm_params(params, resolve_quant_modules(modules))
 
     def split_batch(self, tokens) -> tuple[torch.Tensor, torch.Tensor]:
-        """A global batch [B, seq_len + 1] of tokens -> this rank's rows
-        ``[r B/n, (r+1) B/n)`` as (inputs [:, :-1], targets [:, 1:]),
-        int64 tensors on the device (the JAX ``shard_batch``)."""
+        """A global batch [B, seq_len + 1] of tokens -> (inputs [:, :-1],
+        targets [:, 1:]) of this rank's rows ``[d B/n, (d+1) B/n)`` (d its
+        data index) and, on a seq axis of s ranks, its columns ``[j T/s,
+        (j+1) T/s)`` (j its seq index): int64 tensors on the device (the
+        JAX ``shard_batch``; the targets are shifted before the cut, so a
+        block's last label is its true next token)."""
         tokens = np.asarray(tokens)
-        per = len(tokens) // self.world_size
-        tokens = tokens[self.rank * per : (self.rank + 1) * per]
-        tokens = torch.as_tensor(tokens, dtype=torch.int64).to(self.device, non_blocking=True)
-        return tokens[:, :-1], tokens[:, 1:]
+        per = len(tokens) // self.cfg.data_parallel
+        d = self.mesh.axis_index(DATA_AXIS)
+        tokens = torch.as_tensor(tokens[d * per : (d + 1) * per], dtype=torch.int64)
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        cols = inputs.shape[1] // self.cfg.seq_parallel
+        j = self.mesh.axis_index(SEQ_AXIS)
+        inputs, targets = (x[:, j * cols : (j + 1) * cols].contiguous() for x in (inputs, targets))
+        return (inputs.to(self.device, non_blocking=True),
+                targets.to(self.device, non_blocking=True))
 
     def _logits(self, inputs: torch.Tensor, dropout: tuple[int, ...] | None = None):
         if self.cfg.fsdp:
@@ -590,15 +703,18 @@ class LMTrainer:
         the MoE statistics of its forward (empty for a dense model), read
         right after the forward (a remat recompute in the backward sets
         them again). Dropout, when on, is keyed by (seed, ``step``,
-        default ``self.step``, ``microbatch``), and by the rank above rank
-        0, so each rank draws its own masks (JAX folds the data index into
-        its key) while rank 0 keeps the one-device key."""
+        default ``self.step``, ``microbatch``), then by this rank's data
+        index (and its seq index on a seq axis) where either is above 0,
+        so the data and seq ranks draw their own masks (JAX folds both
+        indices into its key) while the tensor ranks draw the same ones
+        and data and seq index 0 keeps the one-device key."""
         cfg = self.cfg
         key = None
         if cfg.dropout_rate > 0.0:
             key = (cfg.seed, self.step if step is None else step, microbatch)
-            if self.rank:
-                key += (self.rank,)
+            d, j = self.mesh.axis_index(DATA_AXIS), self.mesh.axis_index(SEQ_AXIS)
+            if d or j:
+                key += (d,) if cfg.seq_parallel == 1 else (d, j)
         loss = self._loss(inputs, targets, cfg.label_smoothing, fused=cfg.fused_xent, dropout=key)
         moe = self._moe_stats() if cfg.moe_experts > 0 else {}
         if moe:
@@ -644,8 +760,10 @@ class LMTrainer:
         metrics = self.world_mean({"loss": loss, **moe})
         if not self._zero:  # zero1/fsdp never form the synced gradients
             with torch.no_grad():
-                metrics["grad_norm"] = _global_norm([p.grad for p in params])
-                metrics["param_norm"] = _global_norm(params)
+                # Split tensors' squares summed over their axes.
+                axes = [spec_axes(spec) for spec in self._specs]
+                metrics["grad_norm"] = tree_l2_norm([p.grad for p in params], axes, self.mesh)
+                metrics["param_norm"] = tree_l2_norm(params, axes, self.mesh)
         return {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
@@ -665,9 +783,38 @@ class LMTrainer:
         if self._compress:
             sync_grads_compressed(grads, self._ef, "int8_allreduce", self.world_size,
                                   bucket_bytes=self._bucket_bytes)
+        elif self._sharded:
+            self._sync_by_spec(grads)
+            if self._sharded_clip:  # the metrics read the unclipped gradients, as JAX's
+                opt = self.optimizer
+                opt.tx.apply(params, opt.momentum, clip_by_global_norm_sharded(
+                    grads, self.cfg.grad_clip_norm, self._specs, self.mesh))
+                return
         elif self._synced:
             sync_grads(grads, "allreduce", self.world_size, self._bucket_bytes)
         self.optimizer.step()
+
+    @property
+    def _sharded_clip(self) -> bool:
+        """JAX chains the spec-aware clip before the optimizer when a
+        tensor axis or the experts split gradients."""
+        return self.cfg.grad_clip_norm is not None and (
+            self.cfg.tensor_parallel > 1 or self.expert_parallel)
+
+    def _sync_by_spec(self, grads: list[torch.Tensor]) -> None:
+        """JAX's ``sync_grad`` a gradient at a time, in place: an
+        expert-split gradient (its spec names the data axis; the
+        all-to-all's backward summed it over its data row) summed over seq
+        and divided by data x seq, then averaged over tensor; any other
+        averaged over data and seq, and over tensor unless that axis splits
+        it. The gradients of one set of axes go in one all-reduce."""
+        axes = [(SEQ_AXIS, TENSOR_AXIS) if DATA_AXIS in spec
+                else (DATA_AXIS, SEQ_AXIS) if TENSOR_AXIS in spec
+                else (DATA_AXIS, SEQ_AXIS, TENSOR_AXIS) for spec in self._specs]
+        synced = C.reduce_by_axes(grads, axes, self.mesh)
+        for i, (g, spec) in enumerate(zip(grads, self._specs, strict=True)):
+            g.copy_(true_div(synced[i], self.cfg.data_parallel) if DATA_AXIS in spec
+                    else synced[i])
 
     def _opt_state(self) -> tuple[list, list, int]:
         """(first moments, second moments or [], update count): the
@@ -690,6 +837,7 @@ class LMTrainer:
         return {
             "step": int(self.step),
             "world_size": self.world_size,
+            "layout": [self.cfg.data_parallel, self.cfg.seq_parallel, self.cfg.tensor_parallel],
             "params": [take(p) for p in self.optimizer.params],
             "momentum": [take(m) for m in mu],
             "opt_nu": [take(v) for v in nu],
@@ -701,7 +849,15 @@ class LMTrainer:
     def restore_state(self, state: dict[str, Any]) -> None:
         """Load ``capture_state``'s dict by copying into the live tensors
         (the overlapped lanes and fsdp's gathers hold references to
-        them). A state saved by another world size raises."""
+        them). A state saved by another world size, or another
+        ``tensor_parallel`` (the tensor slices are layout-pinned, as in
+        JAX), raises."""
+        saved_tp = state.get("layout", [0, 0, 1])[2]
+        if saved_tp != self.cfg.tensor_parallel:
+            raise ValueError(
+                f"state saved at tensor_parallel={saved_tp} cannot load into tensor_parallel="
+                f"{self.cfg.tensor_parallel}: tensor_parallel is layout-pinned and must match "
+                "the save")
         if state.get("world_size", 1) != self.world_size:
             raise ValueError(
                 f"state saved by a world of {state['world_size']} ranks cannot load into a "
@@ -762,9 +918,12 @@ class LMTrainer:
         cfg = self.cfg
         shapes = (self._param_shapes if cfg.fsdp
                   else [(tuple(p.shape), p.dtype) for p in self.optimizer.params])
+        # The model's global shapes: each split dimension times its axis.
+        shapes = [(tuple(n * (self.mesh.size(a) if a else 1) for n, a in zip(shape, spec)), dt)
+                  for (shape, dt), spec in zip(shapes, self._specs, strict=True)]
         n_params = sum(math.prod(shape) for shape, _ in shapes)
         wire_bytes = sync_wire_bytes(shapes, lm_strategy(cfg.zero1, cfg.fsdp, cfg.grad_compress),
-                                     self.world_size, cfg.grad_compress,
+                                     cfg.data_parallel, cfg.grad_compress,
                                      bucket_bytes=self._bucket_bytes, overlap=self._overlap)
         on_card = self.device.type == "cuda"
         telemetry = Telemetry(

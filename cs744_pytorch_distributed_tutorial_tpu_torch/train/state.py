@@ -29,6 +29,7 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.ops.fused_sgd import (
     FusedSGD,
     fused_sgd_plain,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import spec_axes
 
 OPTIMIZERS = ("sgd", "adamw", "lion")
 LR_SCHEDULES = ("constant", "cosine", "warmup_cosine")
@@ -116,16 +117,25 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> list[
     norm * max_norm``. Chosen on the device, without a host sync. Not
     ``torch.nn.utils.clip_grad_norm_``, whose ``max_norm / (norm + 1e-6)``
     is another function."""
-    return clip_by_norm(grads, squared_sum(grads).sqrt(), max_norm)
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import tree_l2_norm
+
+    return clip_by_norm(grads, tree_l2_norm(grads), max_norm)
 
 
-def squared_sum(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The sum of every element's square in fp32, tensor by tensor in
-    order (0-d, on the tensors' device)."""
-    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-    for g in grads:
-        total = total + g.float().square().sum()
-    return total
+def clip_by_global_norm_sharded(grads: Sequence[torch.Tensor], max_norm: float,
+                                specs: Sequence[tuple], mesh) -> list[torch.Tensor]:
+    """``clip_by_global_norm`` over tensor- or expert-split gradients (the
+    JAX ``clip_by_global_norm_sharded``): each gradient's squared sum is
+    summed over the axes its spec names (``obs/metrics.py::
+    tree_sq_norm``), so the norm is the global gradient's on every rank,
+    replicated gradients (the same on every rank after the sync) counted
+    once; then optax's choice, ``g / norm * max_norm`` above the bound."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import tree_l2_norm
+
+    if max_norm <= 0:
+        raise ValueError(f"max_norm must be > 0, got {max_norm}")
+    return clip_by_norm(grads, tree_l2_norm(grads, [spec_axes(s) for s in specs], mesh),
+                        max_norm)
 
 
 def clip_by_norm(grads: Sequence[torch.Tensor], norm: torch.Tensor,

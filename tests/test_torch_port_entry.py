@@ -54,6 +54,8 @@ RUN_LOOP_MODULES = [
     "obs/phases.py", "obs/__main__.py", "ops/_cost.py",
     # the serving tracer, guard and chaos monkey
     "obs/serve_trace.py", "serve/guard.py", "utils/chaos.py",
+    # the sequence, tensor and expert axes
+    "parallel/tensor.py",
 ]
 
 

@@ -162,10 +162,13 @@ def test_cli_without_gpu_raises():
         LMTrainer(LMConfig(**SMALL))
 
 
-# --beam runs now (test_torch_port_lm_options.py); expert parallelism with
-# experts is still refused.
-@pytest.mark.parametrize("flag", [["--moe-expert-parallel"],
-                                  ["--moe-experts", "4", "--moe-expert-parallel"]])
+# --beam runs now (test_torch_port_lm_options.py), and so does expert
+# parallelism (test_torch_port_lm_axes4.py); the dropless MoE's ragged_dot
+# backend is still refused.
+@pytest.mark.parametrize("flag", [
+    ["--moe-experts", "4", "--moe-dispatch", "dropless", "--moe-gmm-impl", "ragged"],
+    ["--moe-experts", "4", "--moe-dispatch", "dropless", "--moe-gmm-impl", "ragged",
+     "--compute-dtype", "bfloat16"]])
 def test_cli_flags_of_later_slices_say_not_yet_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported"):
         lm_cli.main([*CLI_SMALL, *flag])
@@ -174,9 +177,9 @@ def test_cli_flags_of_later_slices_say_not_yet_ported(flag):
 @pytest.mark.parametrize(
     "flag",
     # lion and the cosine schedules run now; the JAX CLI's choices end there.
-    # --remat, --data-parallel and --zero1 are flags now; the sequence,
-    # tensor and pipeline axes are not.
-    [["--tensor-parallel", "2"], ["--pipeline-parallel", "2"], ["--seq-parallel", "2"],
+    # --remat, --data-parallel, --zero1, --seq-parallel and --tensor-parallel
+    # are flags now; the pipeline axis's are not.
+    [["--num-microbatches", "2"], ["--pipeline-parallel", "2"], ["--pipeline-schedule", "1f1b"],
      ["--optimizer", "adagrad"], ["--lr-schedule", "step"]],
 )
 def test_cli_rejects_flags_it_does_not_have(flag):
@@ -189,18 +192,25 @@ def test_cli_rejects_flags_it_does_not_have(flag):
     "override",
     # remat, accum_steps and dropout_rate train now
     # (test_torch_port_lm_options.py), and so do data_parallel, zero1 and
-    # grad_compress (test_torch_port_lm_dp4.py, test_torch_port_zero_lm.py):
-    # in their places the sequence, tensor and expert axes, still refused,
-    # and an accum_steps that does not divide the batch, which JAX refuses
-    # with ValueError.
-    [dict(tensor_parallel=2), dict(moe_experts=4, moe_expert_parallel=True),
-     dict(seq_parallel=2), dict(seq_parallel=2, tensor_parallel=2), dict(accum_steps=3),
-     dict(moe_expert_parallel=True), dict(tensor_parallel=4, zero1=True)],
+    # grad_compress (test_torch_port_lm_dp4.py, test_torch_port_zero_lm.py)
+    # and the sequence, tensor and expert axes (test_torch_port_lm_axes4.py):
+    # in their places what JAX refuses of them with ValueError, before any
+    # process group, and an accum_steps that does not divide the batch.
+    [dict(tensor_parallel=3),
+     dict(moe_experts=3, moe_expert_parallel=True, data_parallel=2),
+     dict(seq_parallel=2, attention_impl="dense"), dict(seq_parallel=3), dict(accum_steps=3),
+     dict(moe_experts=4, moe_dispatch="dropless", moe_expert_parallel=True, data_parallel=2),
+     dict(tensor_parallel=2, grad_compress="int8")],
 )
 def test_config_options_of_later_slices_raise(override):
-    error, match = ((ValueError, "accum_steps") if "accum_steps" in override
-                    else (NotImplementedError, "not yet ported"))
-    with pytest.raises(error, match=match):
+    match = {"tensor_parallel": "not divisible by tensor axis",
+             "moe_experts": "not divisible by the data axis", "attention_impl": "incompatible",
+             "seq_parallel": "not divisible by seq axis", "accum_steps": "accum_steps",
+             "moe_dispatch": "does not compose with moe_expert_parallel",
+             "grad_compress": "requires a data-parallel layout"}
+    key = next(k for k in ("grad_compress", "moe_dispatch", "attention_impl", "moe_experts",
+                           "tensor_parallel", "seq_parallel", "accum_steps") if k in override)
+    with pytest.raises(ValueError, match=match[key]):
         LMTrainer(LMConfig(**SMALL, device="cpu", **override)).init()
 
 

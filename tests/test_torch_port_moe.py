@@ -245,7 +245,7 @@ def _build(**kw):
 @pytest.mark.parametrize(
     "make,err,match",
     [(_build(moe_dispatch="scatter", moe_num_groups=-1), ValueError, "num_groups must be >= 0"),
-     (lambda: MoEFFN(8, 4, 16, dispatch_impl="scatter", expert_axis="data"),
+     (lambda: MoEFFN(8, 4, 16, dispatch_impl="dropless", gmm_impl="ragged"),
       NotImplementedError, "not yet ported"),
      (_build(moe_dispatch="sparse"), ValueError, "unknown dispatch_impl"),
      (_build(moe_capacity_factor=2.0), ValueError, "ignores capacity_factor"),
@@ -280,5 +280,8 @@ def test_lm_cli_generates_from_moe_on_cpu(capsys, dtype):
 
 
 def test_lm_cli_moe_expert_parallel_is_not_yet_ported():
-    with pytest.raises(SystemExit, match="not yet ported"):
-        lm_cli.main([*MOE_FLAGS, "--moe-expert-parallel"])
+    """Expert parallelism is ported (``test_torch_port_lm_axes4.py``); the
+    CLI refuses it with dropless as JAX does, before any process group."""
+    with pytest.raises(ValueError, match="does not compose with moe_expert_parallel"):
+        lm_cli.main([*MOE_FLAGS, "--moe-expert-parallel", "--data-parallel", "2",
+                     "--global-batch-size", "4"])

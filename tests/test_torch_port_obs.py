@@ -279,7 +279,7 @@ def _worker(rank: int, port: int, out_dir: str) -> None:
                               metrics_dir=os.path.join(out_dir, name), **kw)
             Trainer(cfg).fit(dataset=ds)
         tr = Trainer(TrainConfig(**TINY, num_devices=2, device="cpu", sync="fsdp"))
-        sharded = float(tree_l2_norm(tr.params, sharded=True))
+        sharded = float(tree_l2_norm(tr.params, [("data",)] * len(tr.params)))
         full = float(tree_l2_norm(list(tr.state_dict()[n] for n in tr._param_names)))
         torch.save({"sharded": sharded, "full": full}, os.path.join(out_dir, f"norm{rank}.pt"))
     finally:

@@ -161,12 +161,15 @@ def test_init_distributions_follow_flax_defaults():
     "option",
     # MoE's ragged_dot grouped matmul is not ported (the kernels are).
     # remat, scan_layers and dropout build now (test_torch_port_lm_options.py,
-    # test_torch_port_scan_layers.py): in their places what JAX refuses with
-    # ValueError (an unknown remat policy, scan_layers with MoE) and the
-    # two axes together.
+    # test_torch_port_scan_layers.py), and so do the sequence and tensor
+    # axes (test_torch_port_lm_axes4.py): in their places what JAX refuses
+    # with ValueError (an unknown remat policy, scan_layers with MoE,
+    # attn_bias with a tensor axis, heads that do not divide over it, dense
+    # attention on a sequence-sharded axis).
     [dict(num_experts=4, moe_dispatch="dropless", moe_gmm_impl="ragged"),
      dict(remat=True, remat_policy="everything"), dict(scan_layers=True, num_experts=4),
-     dict(seq_axis_size=2, tensor_axis_size=2), dict(tensor_axis_size=2), dict(seq_axis_size=2)],
+     dict(tensor_axis_size=2, attn_bias=True), dict(tensor_axis_size=3),
+     dict(seq_axis_size=2, attention_impl="dense")],
 )
 def test_later_options_raise(option):
     error, match = NotImplementedError, "not yet ported"
@@ -174,5 +177,11 @@ def test_later_options_raise(option):
         error, match = ValueError, "remat_policy"
     elif option.get("scan_layers"):
         error, match = ValueError, "scan_layers does not compose"
+    elif option.get("attn_bias"):
+        error, match = ValueError, "attn_bias does not compose with a tensor axis"
+    elif "tensor_axis_size" in option:
+        error, match = ValueError, "not divisible by tensor axis"
+    elif "seq_axis_size" in option:
+        error, match = ValueError, "cannot run on a sequence-sharded axis"
     with pytest.raises(error, match=match):
         TransformerLM(**SMALL, **option)
