@@ -260,7 +260,24 @@ no result):
     summed device ms forward and backward beside the whole-sequence
     kernels' and their bounds. The trainer across these axes runs only
     on the Gloo tests (``tests/test_torch_port_lm_axes4.py``): NCCL
-    refuses two ranks on one card.
+    refuses two ranks on one card;
+29. tensor-parallel decode and serving (``tp_serving_phase``): GPT-2-small's
+    decode width (12 layers, d 768, 12 heads over 4 KV heads, bf16, RoPE)
+    at tensor 4, four rank processes of ``scripts/tp_serve_ranks.py`` on
+    this card joined through shared memory (``HostMemoryGroup``: NCCL
+    refuses two ranks on one card; Gloo's TCP costs 6.6-13.7 ms a sum on
+    this host), each with its ``LMTrainer.tp_decode_model()`` slices: the
+    first 16 requests
+    of the serving trace submitted at once on 16 slots, 513 pages of 16,
+    with bf16 pools and then int8 pools, then greedy ``make_generator``
+    (batch 4, prompt 64, 32 new) and beam search (2 x 4 beams, 16 new);
+    meanwhile this process runs the same on one rank with the whole
+    weights. Each rank's pools [513, 16, 1, 64], its paged launches 2 x 12
+    a decode step and no call of the plain version, the four ranks'
+    tokens and logits identical, the first decode step's logits within
+    ``TP_LOGIT_BOUND`` x max|logit| of the one rank's; the greedy tokens'
+    agreement with the one rank's reported. The scripts/tp_serve_cards.sh
+    run serves the same across 4 cards over NCCL.
 
 Each phase prints its wall seconds as it ends, and the line before the
 kernels JSON gives the whole run's and each phase's.
@@ -346,12 +363,14 @@ SLOW_CHAOS, SLOW_STEP_TIMEOUT_S, SLOW_STALL_S, HUNG_REQUESTS = "60:slow_step", 0
 SERVE_RUNS: dict = {}  # the serving phase's untraced run, for the tracer's cost
 # Paged attention: (B, Hq, Hkv, D, page_size, pages a slot[, pos,
 # pages_per_slot]); without pos, ragged depths with slot 0 at depth 0. The
-# serving shape first; then the key spans' edge cases: depth 0
+# serving shape first, then a rank's share of it at tensor 4 (3 q heads
+# over its 1 KV head, phase 29's); then the key spans' edge cases: depth 0
 # everywhere, depths on and beside the 64-key span boundaries, a page of 24
 # (no divisor of the span), a table narrowed to 5 of its 8 pages, groups 1
 # and 16, D 32 and 128.
 PAGED_SERVE = (16, 12, 4, 64, 16, 32)
-PAGED_CASES = [PAGED_SERVE, (5, 2, 2, 128, 8, 7),
+PAGED_TP_SERVE = (16, 3, 1, 64, 16, 32)
+PAGED_CASES = [PAGED_SERVE, PAGED_TP_SERVE, (5, 2, 2, 128, 8, 7),
                (4, 12, 4, 64, 16, 32, [0, 0, 0, 0], None),
                (6, 12, 4, 64, 16, 32, [63, 64, 65, 127, 128, 129], None),
                (3, 4, 2, 64, 24, 8, [47, 100, 191], None),
@@ -4359,7 +4378,8 @@ def cifar_phases_phase() -> dict:
             summary = next(r for r in records if r["kind"] == "phase_summary")
             print(stderr.getvalue(), end="")
             print(json.dumps({"phase_breakdown": label, "records": records}))
-            if rc != 0 or not summary["parity_ok"] or summary["fused_clock"] != "device":
+            if (rc != 0 or not summary["parity_ok"]
+                    or summary["fused_clock"] not in P.DEVICE_CLOCKS):
                 raise RuntimeError(f"--phase-breakdown {label}: rc {rc}, {summary}")
             if label == "auto":
                 rep = subprocess.run([sys.executable, "-m",
@@ -4384,7 +4404,7 @@ def cifar_phases_phase() -> dict:
             report = P.profile_phases(tr, x, y)
             print(report.table())
             print(json.dumps({"profile_phases_resnet18_fp32_fast_conv": report.records()}))
-            if not report.parity_ok or report.fused_clock != "device":
+            if not report.parity_ok or report.fused_clock not in P.DEVICE_CLOCKS:
                 raise RuntimeError("profile_phases on ResNet-18 fp32 fast_conv: parity "
                                    f"{report.parity_ok}, clock {report.fused_clock}")
             total, rows = device_op_breakdown(tr.train_step, x, y, iters=3, top=12)
@@ -4460,7 +4480,7 @@ def lm_phases_phase() -> dict:
         print(report.table())
         print(json.dumps({f"profile_lm_phases_{label}": report.records(), "wall_s": wall,
                           "launches": launches}))
-        if not report.parity_ok or report.fused_clock != "device":
+        if not report.parity_ok or report.fused_clock not in P.DEVICE_CLOCKS:
             raise RuntimeError(f"profile_lm_phases {label}: parity {report.parity_ok}, clock "
                                f"{report.fused_clock}")
         out[label] = {"records": report.records(), "launches": launches}
@@ -5166,7 +5186,7 @@ def lm_ranks_phase() -> dict:
         report = P.profile_lm_phases(tr, x, y)
         sync = report.phase("grad_sync")
         print(report.table())
-        if (segs.sync is None or not report.parity_ok or sync.clock != "device"
+        if (segs.sync is None or not report.parity_ok or sync.clock not in P.DEVICE_CLOCKS
                 or not sync.device_ms > 0 or report.n_chips != 1):
             raise RuntimeError(f"profile_lm_phases in a process group of one: sync "
                                f"{sync}, parity {report.parity_ok}")
@@ -5367,6 +5387,171 @@ def seq_tensor_phase(dev: torch.device) -> dict:
     return out
 
 
+TP_RANKS = 4
+# Phase 29's bound on the first decode step's logits, the tensor ranks
+# against one rank on the whole weights: max |difference| <= this x
+# max|logit|. The ranks round each partial product of attn_out and mlp_out
+# to bf16 and sum the four in bf16, where one rank rounds once: about one
+# bf16 ulp (2^-8 relative) a sublayer, 24 sublayers in a random walk, on
+# the residual stream the head reads; 5e-2 holds that with room, and a
+# wrong head or slice gives O(1).
+TP_LOGIT_BOUND = 5e-2
+TP_SCRIPT = "scripts/tp_serve_ranks.py"
+
+
+def _load_script(path: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1][:-3], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _agreement(got: list, want: list) -> dict:
+    """How far two lists of token streams agree: the share of equal tokens
+    and each stream's first differing index (None where equal)."""
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    total = sum(len(w) for w in want)
+    first = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+             for g, w in zip(got, want)]
+    diverged = [i for i in first if i is not None]
+    return {"equal_tokens": same, "tokens": total, "share": same / total,
+            "streams_diverged": len(diverged), "streams": len(want),
+            "first_divergence": min(diverged) if diverged else None}
+
+
+def tp_serving_phase() -> dict:
+    """Phase 29: tensor-parallel decode and serving at GPT-2-small's decode
+    width, tensor 4: four rank processes (``scripts/tp_serve_ranks.py
+    --mode smoke``) on this card, each with its own slices and pools,
+    joined through shared memory (NCCL refuses two ranks on one card),
+    while this process runs the same on one rank with the whole weights. Each rank's pools
+    [513, 16, 1, 64], its paged launches exact and no plain call, the ranks'
+    tokens identical, the first decode step's logits within
+    ``TP_LOGIT_BOUND`` of the one rank's, the greedy agreement reported."""
+    import os
+    import shutil
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import free_port
+
+    t0 = time.perf_counter()
+    card = card_line()
+    root = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(root, TP_SCRIPT)
+    TS = _load_script(script)
+    out = os.path.join(root, "build", "tp_serving")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    port = free_port()
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w") for r in range(TP_RANKS)]
+    procs = [subprocess.Popen([sys.executable, script, "--mode", "smoke", "--rank", str(r),
+                               "--world", str(TP_RANKS), "--port", str(port), "--out", out],
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(TP_RANKS)]
+    try:  # the ranks run while this process runs the one-rank reference
+        ref = TS.reference()
+        t_ref = time.perf_counter() - t0
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(rcs):
+        tails = [open(os.path.join(out, f"rank{r}.log")).read()[-3000:] for r in range(TP_RANKS)]
+        raise RuntimeError(f"tp_serving: rank exit codes {rcs}\n" + "\n".join(tails))
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(TP_RANKS)]
+    layers = TS.DECODE_WIDTH["num_layers"]
+    kv = TS.DECODE_WIDTH["num_kv_heads"] // TP_RANKS
+    head_dim = TS.DECODE_WIDTH["d_model"] // TS.DECODE_WIDTH["num_heads"]
+    pages, ps = TS.SERVE_GEOMETRY["num_pages"], TS.SERVE_GEOMETRY["page_size"]
+    rec: dict = {"card": card, "launches": {}, "runs": {},
+                 "rank_build_seconds": [res["build_seconds"] for res in ranks],
+                 "one_rank_build_seconds": ref["build_seconds"],
+                 "sum_ms": [res["sum_ms"] for res in ranks]}
+    failures = []
+    for run in ("bfloat16", "int8"):
+        for r, res in enumerate(ranks):
+            got = res[run]
+            steps = got["stats"]["decode_steps_all"]
+            want = 2 * layers * steps  # the spans and the merge, a layer a step
+            if got["launches"] != want or got["plain_calls"] != 0:
+                failures.append(f"{run} rank {r}: paged launches {got['launches']}, plain calls "
+                                f"{got['plain_calls']}; expected {want} ({steps} steps)")
+            scale_shape = [pages, ps, kv] if run == "int8" else None
+            if (got["pool_shape"] != [pages, ps, kv, head_dim]
+                    or got["pool_dtype"] != f"torch.{run}" or got["scale_shape"] != scale_shape
+                    or not got["pools_contiguous"]):
+                failures.append(f"{run} rank {r}: pools {got['pool_shape']} {got['pool_dtype']} "
+                                f"scales {got['scale_shape']}")
+            if got["streams"] != ranks[0][run]["streams"]:
+                failures.append(f"{run}: rank {r}'s tokens differ from rank 0's")
+            if not torch.equal(got["first_logits"], ranks[0][run]["first_logits"]):
+                failures.append(f"{run}: rank {r}'s logits differ from rank 0's")
+        # The first decode step's logits on the slots both engines fed the
+        # same token (a bf16 near-tie at a prefill can pick another first
+        # token, and that slot's logits then answer another input).
+        mine, one = ranks[0][run], ref[run]
+        fed = [i for i, (a, b) in enumerate(zip(mine["streams"], one["streams"])) if a[0] == b[0]]
+        diff = (mine["first_logits"] - one["first_logits"])[fed]
+        err = float(diff.abs().max()) if fed else math.inf
+        scale = float(one["first_logits"][fed].abs().max()) if fed else 0.0
+        if not (math.isfinite(err) and err <= TP_LOGIT_BOUND * scale):
+            failures.append(f"{run}: first decode step's logits {err} from one rank's > "
+                            f"{TP_LOGIT_BOUND} x {scale} (slots {fed})")
+        rec["launches"][run] = [res[run]["launches"] for res in ranks]
+        rec["runs"][run] = {
+            "decode_steps": mine["stats"]["decode_steps_all"],
+            "logits_slots_compared": len(fed), "logits_max_abs_err": err,
+            "logits_bound": TP_LOGIT_BOUND * scale,
+            "logits_share": err / (TP_LOGIT_BOUND * scale) if scale else None,
+            "greedy_vs_one_rank": _agreement(mine["streams"], one["streams"]),
+            "one_rank_decode_steps": one["stats"]["decode_steps_all"],
+            "decode_ms_per_step": mine["stats"]["decode_ms_per_step"],
+            "one_rank_decode_ms_per_step": one["stats"]["decode_ms_per_step"],
+            "seconds": [res[run]["seconds"] for res in ranks], "one_rank_seconds": one["seconds"],
+        }
+    for key in ("generate", "beam", "beam_scores"):
+        for r, res in enumerate(ranks):
+            if not torch.equal(res[key], ranks[0][key]):
+                failures.append(f"{key}: rank {r} differs from rank 0")
+    beam_err = float((ranks[0]["beam_scores"] - ref["beam_scores"]).abs().max())
+    rec["generate"] = {"greedy_vs_one_rank": _agreement(ranks[0]["generate"].tolist(),
+                                                        ref["generate"].tolist()),
+                       "timing": ranks[0]["generate_timing"],
+                       "one_rank_timing": ref["generate_timing"]}
+    rec["beam"] = {"tokens_vs_one_rank": _agreement(ranks[0]["beam"].tolist(),
+                                                    ref["beam"].tolist()),
+                   "scores_max_abs_diff": beam_err, "timing": ranks[0]["beam_timing"],
+                   "one_rank_timing": ref["beam_timing"]}
+    rec["decoder_seconds"] = [res["seconds"] for res in ranks]
+    rec["one_rank_seconds"] = t_ref
+    rec["seconds"] = time.perf_counter() - t0
+    for run, r in rec["runs"].items():
+        print(f"tp_serving {run} pools at tensor {TP_RANKS} ({card}): {r['decode_steps']} decode "
+              f"steps, paged launches a rank {rec['launches'][run]} (2 x {layers} a step); "
+              f"first decode step's logits {r['logits_max_abs_err']:.5g} from one rank's on "
+              f"{r['logits_slots_compared']} slots ({r['logits_share']} of the bound); greedy vs "
+              f"one rank {r['greedy_vs_one_rank']}; host ms a decode step "
+              f"{r['decode_ms_per_step']:.3f} (one rank {r['one_rank_decode_ms_per_step']:.3f}); "
+              f"run seconds {r['seconds']} (one rank {r['one_rank_seconds']:.1f})")
+    print(f"tp_serving generate (batch {TS.GEN['batch']}, prompt {TS.GEN['prompt']}, "
+          f"{TS.GEN['new']} new) and beam ({TS.BEAM['batch']} x {TS.BEAM['beams']} beams, "
+          f"{TS.BEAM['new']} new) at tensor {TP_RANKS}: {rec['generate']}; {rec['beam']}; "
+          f"seconds {rec['decoder_seconds']}")
+    print(f"tp_serving phase: {rec['seconds']:.1f} s (ranks' model builds "
+          f"{rec['rank_build_seconds']} s; a sum of [16, 1, 768] bf16 over the 4 ranks "
+          f"{rec['sum_ms']} ms of host; the one-rank reference {t_ref:.1f} s beside the ranks)")
+    print(json.dumps({"tp_serving": rec}))
+    if failures:
+        raise RuntimeError("tp_serving: " + "; ".join(failures))
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5504,6 +5689,9 @@ def main() -> int:
     lm_ranks = lm_ranks_phase()
     # The sequence axis's hops on the flash kernels.
     seq_tensor = seq_tensor_phase(dev)
+    # Tensor-parallel decode and serving: four ranks' paged kernels on
+    # their own KV heads.
+    paged_record["launches_tp_serving"] = tp_serving_phase()["launches"]
     for rec in records:
         key = {"gmm_fused_tc": "gmm_fused_tc", "gmm_fused_with_z_tc": "gmm_fused_z_tc",
                "gmm_tc": "gmm_gmm_tc", "tgmm_tc": "gmm_tgmm_tc", "split": "gmm_split",

@@ -16,8 +16,12 @@ it. Candidates are ranked by a stable descending sort, so equal scores
 go to the lower index, as ``lax.top_k`` and ``argmax`` break ties: beam
 1 is greedy decoding, token for token.
 
-The tensor-parallel path (``mesh=``, ``param_specs=``) is not ported
-yet.
+The tensor-parallel path (``mesh=``, ``param_specs=``) is
+``infer/generate.py``'s: an ``LMTrainer.tp_decode_model()`` on every
+rank of the mesh, each rank's cache at its ``Hkv / T`` heads (reordered
+as above), the logits and so every top-k choice the same on the tensor
+ranks, the prompt's rows split over the data axis and the tokens and
+scores gathered back to the global [B, ...] on every rank.
 """
 
 from __future__ import annotations
@@ -29,9 +33,13 @@ import numpy as np
 import torch
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.infer.generate import (
+    check_decode_mesh,
     check_decode_model,
+    data_rows,
     model_device,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as C
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import DATA_AXIS
 
 _NEG = -1e30
 
@@ -53,14 +61,16 @@ def make_beam_searcher(model: Any, *, beam_size: int, max_new_tokens: int,
     to and including the first EOS; 0.0 ranks by raw log-prob) and its raw
     accumulated log-prob. ``search.timing`` holds the last call's
     ``prefill_s``, ``decode_s`` and ``decode_steps`` on the host clock
-    after a device synchronise."""
-    if mesh is not None or param_specs is not None:
-        raise NotImplementedError("tensor-parallel beam search (mesh=) is not yet ported")
-    check_decode_model(model, "beam search")
+    after a device synchronise. With ``mesh`` and ``param_specs``, the
+    tensor-parallel path (the module docstring): every rank calls
+    ``search`` with the same global prompt."""
+    check_decode_model(model, "beam search", allow_tensor=mesh is not None)
     if beam_size < 1:
         raise ValueError(f"beam_size must be >= 1, got {beam_size}")
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if mesh is not None:
+        check_decode_mesh(model, mesh, param_specs)
     dev = model_device(model, device)
     K = beam_size
 
@@ -72,6 +82,8 @@ def make_beam_searcher(model: Any, *, beam_size: int, max_new_tokens: int,
     def search(prompt) -> tuple[torch.Tensor, torch.Tensor]:
         prompt = torch.as_tensor(np.asarray(prompt) if not torch.is_tensor(prompt) else prompt,
                                  dtype=torch.long, device=dev)
+        if mesh is not None:
+            prompt = data_rows(prompt, mesh)
         b, t0 = prompt.shape
         if t0 + max_new_tokens > model.max_seq_len:
             raise ValueError(f"prompt ({t0}) + max_new_tokens ({max_new_tokens}) exceeds "
@@ -138,6 +150,9 @@ def make_beam_searcher(model: Any, *, beam_size: int, max_new_tokens: int,
         best = torch.argmax(norm, dim=-1)  # [B]
         best_seq = torch.gather(seqs, 1, best[:, None, None].expand(b, 1, max_new_tokens))[:, 0]
         best_score = torch.gather(scores, 1, best[:, None])[:, 0]
+        if mesh is not None:
+            best_seq = C.axis_gather_rows(best_seq, mesh, DATA_AXIS)
+            best_score = C.axis_gather_rows(best_score, mesh, DATA_AXIS)
         sync()
         search.timing = {"prefill_s": t_prefill - t_start,
                          "decode_s": time.perf_counter() - t_prefill,

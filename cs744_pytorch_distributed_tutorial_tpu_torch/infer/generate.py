@@ -19,7 +19,19 @@ uniforms from a ``torch.Generator``, and the serving engine from
 ``stream_uniforms``, a counter-based hash keyed by (seed, request,
 token index) that gives the same numbers on every device.
 
-The tensor-parallel path (``mesh=``) is not ported yet.
+The tensor-parallel path (``mesh=``, ``param_specs=``; JAX's
+``_shard_map_decode``): the model is an ``LMTrainer.tp_decode_model()``,
+this rank's slices of the weights on a ``parallel/mesh.py::Mesh``, every
+rank runs the loop, and each projects and caches only its ``H / T``
+query and ``Hkv / T`` KV heads; the two sums a layer keep the logits,
+and so every decision, the same on the tensor ranks. The prompt's rows
+split over the data axis (replicated over the others) and every rank
+returns the global [B, N] tokens (an all-gather over data). A sampled
+row draws from a generator seeded from (the caller's generator, the
+rank's data coordinate), JAX's ``fold_in``: tensor ranks draw the same
+numbers, data shards different ones. ``param_specs`` must be the
+model's (``LMTrainer.param_specs``): the port's modules carry their
+slices, so it is checked, not used.
 """
 
 from __future__ import annotations
@@ -31,16 +43,77 @@ import numpy as np
 import torch
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.config import resolve_device
+from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import _key_seed
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as C
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS
 
 _NEG = -1e30  # the mask value: exp() underflows to exactly 0.0, no NaNs
 _M32 = 0xFFFFFFFF
 
 
-def check_decode_model(model: Any, what: str) -> None:
+def check_decode_model(model: Any, what: str, allow_tensor: bool = False) -> None:
     """A decode model is a ``TransformerLM`` (``init_cache``, the decode
-    modes); the port has no sequence or tensor axis to refuse."""
+    modes) with no sequence axis: the KV cache holds the whole sequence.
+    A tensor axis is allowed only on the mesh path (``allow_tensor``,
+    ``mesh=`` given to the decoders): each rank then caches its heads and
+    the sums a layer keep the logits the same on every tensor rank. The
+    JAX ``check_decode_model``, its messages too."""
     if not hasattr(model, "init_cache"):
         raise TypeError(f"{what} needs a TransformerLM, got {type(model).__name__}")
+    if getattr(model, "seq_size", 1) > 1:
+        raise ValueError(
+            f"{what} needs a model with seq_axis=None; construct a decode "
+            "copy of the model (same dims) — trained params drop in directly"
+        )
+    if getattr(model, "tensor_size", 1) > 1 and not allow_tensor:
+        raise ValueError(
+            f"{what} with a tensor-parallel model needs the shard_map path: "
+            "pass mesh= and param_specs= (see LMTrainer.tp_decode_model), or "
+            "construct a decode copy with tensor_axis=None from gathered "
+            "full params"
+        )
+
+
+def check_decode_mesh(model: Any, mesh: Any, param_specs: Any) -> None:
+    """The mesh path's checks (JAX ``_shard_map_decode``'s, with its
+    messages): ``param_specs`` given and the model's, and a mesh that
+    carries the model's tensor axis, laid out as the model's."""
+    if param_specs is None:
+        raise ValueError("the shard_map decode path needs param_specs")
+    tensor = getattr(model, "tensor_size", 1)
+    sizes = dict(getattr(mesh, "sizes", {}))
+    if tensor == 1 or sizes.get(TENSOR_AXIS) != tensor:
+        axis = TENSOR_AXIS if tensor > 1 else None
+        raise ValueError(f"mesh {sizes} does not carry the model's tensor axis {axis!r}")
+    if sizes != model.mesh.sizes:
+        raise ValueError(f"mesh {sizes} is not the model's mesh {model.mesh.sizes}")
+    if param_specs != model.param_specs:
+        raise ValueError("param_specs are not the model's slices: pass the LMTrainer.param_specs "
+                         "of the trainer whose tp_decode_model() this is")
+
+
+def data_rows(x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """This rank's rows of a global batch on the mesh path: the batch cut
+    over the data axis (JAX's ``PartitionSpec(data)``), the whole of it on
+    a data axis of one."""
+    n = mesh.size(DATA_AXIS)
+    if x.shape[0] % n:
+        raise ValueError(f"batch {x.shape[0]} not divisible by the data axis ({n})")
+    b, i = x.shape[0] // n, mesh.axis_index(DATA_AXIS)
+    return x[i * b:(i + 1) * b]
+
+
+def shard_generator(gen: torch.Generator, mesh: Any, device: torch.device) -> torch.Generator:
+    """A generator for this rank's data shard: seeded from one draw of
+    ``gen`` (the same on every rank) and the rank's data coordinate (JAX's
+    ``fold_in(key, axis_index(data))``), so tensor ranks draw the same
+    numbers and data shards different ones; ``gen`` itself on a data axis
+    of one."""
+    if mesh.size(DATA_AXIS) == 1:
+        return gen
+    seed = int(torch.randint(0, 2**62, (1,), generator=gen, device=gen.device))
+    return torch.Generator(device=device).manual_seed(
+        _key_seed((seed, mesh.axis_index(DATA_AXIS))))
 
 
 def model_device(model: torch.nn.Module, device: str | torch.device) -> torch.device:
@@ -112,19 +185,21 @@ def make_generator(model: Any, *, max_new_tokens: int, temperature: float = 1.0,
                    top_k: int | None = None, top_p: float | None = None,
                    eos_id: int | None = None, pad_id: int = 0,
                    generator: torch.Generator | None = None, device: str = "cuda",
-                   mesh: Any = None):
+                   mesh: Any = None, param_specs: Any = None):
     """``generate(prompt [B, T0], generator=None) -> [B, max_new_tokens]``
     int64 token ids on the model's device, for a ``TransformerLM`` on
     ``device`` (``cuda``, or ``cpu`` when asked). Sampled tokens draw
     their uniforms from ``generator`` (a per-call one overrides it;
     default seed 0 on the device). ``generate.timing`` holds the last
     call's ``prefill_s``, ``decode_s`` and ``decode_steps``, on the host
-    clock after a device synchronise."""
-    if mesh is not None:
-        raise NotImplementedError("tensor-parallel decode (mesh=) is not yet ported")
-    check_decode_model(model, "generation")
+    clock after a device synchronise. With ``mesh`` and ``param_specs``
+    the model is a ``tp_decode_model()`` and every rank of the mesh calls
+    ``generate`` with the same global prompt (the module docstring)."""
+    check_decode_model(model, "generation", allow_tensor=mesh is not None)
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if mesh is not None:
+        check_decode_mesh(model, mesh, param_specs)
     dev = model_device(model, device)
     default_gen = generator
 
@@ -145,6 +220,11 @@ def make_generator(model: Any, *, max_new_tokens: int, temperature: float = 1.0,
         gen = generator or default_gen
         if gen is None and temperature != 0.0:
             gen = torch.Generator(device=dev).manual_seed(0)
+        if mesh is not None:
+            prompt = data_rows(prompt, mesh)
+            b = prompt.shape[0]
+            if gen is not None:
+                gen = shard_generator(gen, mesh, dev)
         t_start = time.perf_counter()
         cache = model.init_cache(b, device=dev)
         logits = model(prompt, "prefill", cache=cache)[:, -1]
@@ -163,6 +243,8 @@ def make_generator(model: Any, *, max_new_tokens: int, temperature: float = 1.0,
             out[:, i] = tok
             if i + 1 < max_new_tokens:
                 logits = model(tok[:, None], "decode", decode_pos=t0 + i, cache=cache)[:, 0]
+        if mesh is not None:
+            out = C.axis_gather_rows(out, mesh, DATA_AXIS)
         sync()
         generate.timing = {"prefill_s": t_prefill - t_start,
                            "decode_s": time.perf_counter() - t_prefill,

@@ -75,8 +75,11 @@ Across ranks (the JAX model's ``seq_axis``/``tensor_axis``/
   ``mlp_gate`` are column-parallel (``Linear.weight`` split along dim 0),
   ``attn_out`` and ``mlp_out`` row-parallel (dim 1), behind
   ``parallel/tensor.py``'s f/g boundaries, and ``mlp_out_bias`` is added
-  after the sum. ``attn_bias`` raises. The decode modes raise "not yet
-  ported" (tensor-parallel decode).
+  after the sum. ``attn_bias`` raises. The decode modes run on this
+  rank's heads too (the JAX model's tensor-parallel decode): the dense
+  cache and the page pools hold this rank's ``Hkv / T`` KV heads, the
+  paged kernel attends over them, and the two sums a layer keep the
+  residual stream, and so the logits, the same on every tensor rank.
 - ``expert_axis_size > 1`` (the data axis): each rank keeps its ``E / n``
   experts (``models/moe.py``).
 
@@ -328,9 +331,6 @@ class Attention(nn.Module):
         hd = self.head_dim
         tp = self.tensor_size > 1
         if tp:
-            if mode != "train":
-                raise NotImplementedError(
-                    "tensor-parallel decode (the tensor axis in a decode mode) is not yet ported")
             x = copy_to_tp_region(x, self.mesh, TENSOR_AXIS)
         q = _dense(self.q, x, dtype).reshape(b, t, self.heads_local, hd)
         k = _dense(self.k, x, dtype).reshape(b, t, self.kv_local, hd)
@@ -605,7 +605,7 @@ class TransformerLM(nn.Module):
         self.quant_kv_cache = quant_kv_cache
         self.tok_embed = nn.Embedding(vocab_size, d_model)
         self.pos_embed = None if use_rope else nn.Embedding(max_seq_len, d_model)
-        self.mesh, self.seq_size = mesh, seq_axis_size
+        self.mesh, self.seq_size, self.tensor_size = mesh, seq_axis_size, tensor_axis_size
         moe = None
         if num_experts > 0:
             moe = dict(num_experts=num_experts, top_k=moe_top_k,
@@ -681,28 +681,40 @@ class TransformerLM(nn.Module):
         return self
 
     def _kv(self, n0: int, n1: int, device) -> list[KVCache]:
+        """A ``KVCache`` a layer of [n0, n1, kv_local, D] rows: this rank's
+        KV heads (all of them without a tensor axis). Under ``scan_layers``
+        each tensor is one contiguous stack [num_layers, n0, n1, ...] and a
+        layer's cache holds views of its slice, as the JAX stacked
+        collections; the views are contiguous too."""
         attn = (self.blocks if self.scan_layers else self.blocks[0]).attn
-        shape = (n0, n1, attn.kv_heads, attn.head_dim)
+        shape = (n0, n1, attn.kv_local, attn.head_dim)
         device = self.tok_embed.weight.device if device is None else device
         dtype = torch.int8 if self.quant_kv_cache else self.dtype
-        caches = []
-        for _ in range(self.num_layers):
-            c = KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                        torch.zeros(shape, dtype=dtype, device=device))
-            if self.quant_kv_cache:
-                c.key_scale = torch.ones(shape[:3], device=device)
-                c.value_scale = torch.ones(shape[:3], device=device)
-            caches.append(c)
-        return caches
+
+        def alloc(shape, dtype, fill):  # a tensor a layer, or layer views of one stack
+            if self.scan_layers:
+                stack = torch.full((self.num_layers, *shape), fill, dtype=dtype, device=device)
+                return list(stack.unbind(0))
+            return [torch.full(shape, fill, dtype=dtype, device=device)
+                    for _ in range(self.num_layers)]
+
+        keys, values = alloc(shape, dtype, 0), alloc(shape, dtype, 0)
+        if not self.quant_kv_cache:
+            return [KVCache(k, v) for k, v in zip(keys, values)]
+        scales = alloc(shape[:3], torch.float32, 1), alloc(shape[:3], torch.float32, 1)
+        return [KVCache(*t) for t in zip(keys, values, *scales)]
 
     def init_cache(self, batch: int, length: int | None = None, device=None) -> list[KVCache]:
         """A dense cache a layer for modes ``prefill``/``decode``: [batch,
-        length (default max_seq_len), Hkv, D] rows, zero (scales one)."""
+        length (default max_seq_len), Hkv, D] rows (this rank's Hkv / T
+        under a tensor axis), zero (scales one)."""
         return self._kv(batch, self.max_seq_len if length is None else length, device)
 
     def init_pages(self, num_pages: int, page_size: int, device=None) -> list[KVCache]:
         """Page pools a layer for mode ``paged_decode``: [num_pages,
-        page_size, Hkv, D], zero (scales one)."""
+        page_size, Hkv, D] (this rank's Hkv / T under a tensor axis), zero
+        (scales one), each allocated whole, so the paged kernel reads it
+        in place."""
         return self._kv(num_pages, page_size, device)
 
     def _layers(self):

@@ -56,6 +56,7 @@ import collections
 import contextlib
 import dataclasses
 import os
+import sys
 import time
 from typing import Any, Callable, Iterator
 
@@ -71,6 +72,7 @@ __all__ = [
     "PARITY_ATOL",
     "PARITY_LOSS_RTOL",
     "PHASE_NAMES",
+    "DEVICE_CLOCKS",
     "DeviceProfile",
     "capture_device_profile",
     "segment_costs",
@@ -102,14 +104,17 @@ PHASE_NAMES = ("forward", "backward", "grad_sync", "optimizer")
 DEFAULT_RIDGE_FLOPS_PER_BYTE = 240.0
 
 # Seconds of idle time inside a card's trace on each side of the timed
-# calls, one a trace attempt; after the last an empty trace is an error
-# (the profiler now and then returns one without device events). The
-# profiler keeps only the device events whose timestamps, mapped to the
-# host clock, fall inside its window, and late in a long process that
-# mapping drifts by milliseconds: enough to lose every event of a trace a
-# few ms long that ends at its last kernel.
+# calls, one a trace attempt (the profiler now and then returns a trace
+# without device events). The profiler keeps only the device events
+# whose timestamps, mapped to the host clock, fall inside its window, and
+# late in a long process it loses some or all of a short trace's events.
+# When every attempt comes back empty, CUDA events time the calls.
 _TRACE_PADS_S = (0.1, 0.5, 2.0)
 _TRACE_ATTEMPTS = len(_TRACE_PADS_S)
+
+# The clocks that time work on a card: the trace's device events, or CUDA
+# events on the current stream when the traces held none.
+DEVICE_CLOCKS = ("device", "events")
 
 
 # ---------------------------------------------------------------------------
@@ -141,19 +146,23 @@ def _fence(device: torch.device) -> None:
 @dataclasses.dataclass
 class DeviceProfile:
     """One timed region: device time (the interval union of the trace's
-    device events), fenced host wall time, and the top op rows, all per
-    iteration."""
+    device events, or the CUDA events' span when the traces held none),
+    fenced host wall time, and the top op rows, all per iteration."""
 
     device_ms: float  # 0.0 when the trace has no device lanes (CPU)
     wall_ms: float
     op_rows: list  # [(ms_per_iter, op_name), ...] descending
     iters: int
+    from_events: bool = False  # device_ms from CUDA events, op_rows empty
 
     @property
     def clock(self) -> str:
         """Which clock ``best_ms`` reports: ``"device"`` when the trace
-        yielded device lanes, else the fenced ``"wall"`` clock."""
-        return "device" if self.device_ms > 0.0 else "wall"
+        yielded device lanes, ``"events"`` when CUDA events timed the
+        calls instead, else the fenced ``"wall"`` clock."""
+        if self.device_ms <= 0.0:
+            return "wall"
+        return "events" if self.from_events else "device"
 
     def best_ms(self) -> float:
         return self.device_ms if self.device_ms > 0.0 else self.wall_ms
@@ -200,6 +209,19 @@ def _parse_events(events: list, iters: int, top: int) -> tuple[float, list]:
     return total_us / iters / 1e3, rows[:top]
 
 
+def _events_ms(fn: Callable, args: tuple, iters: int, device: torch.device) -> float:
+    """Device ms a call of ``fn(*args)``: the span between two CUDA events
+    on the device's current stream around ``iters`` calls, fenced."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    stream = torch.cuda.current_stream(device)
+    start.record(stream)
+    for _ in range(iters):
+        fn(*args)
+    end.record(stream)
+    _fence(device)
+    return start.elapsed_time(end) / iters
+
+
 def capture_device_profile(
     fn: Callable,
     *args: Any,
@@ -218,8 +240,11 @@ def capture_device_profile(
     is 0.0 and the clock ``"wall"``. On a card the timed calls sit
     between two idle pads inside the trace (``_TRACE_PADS_S``), and a
     trace with no device event is retaken up to ``_TRACE_ATTEMPTS`` times
-    with a longer pad (the profiler now and then returns one empty) and
-    then raises: there is no fallback to the wall clock."""
+    with a longer pad (the profiler now and then returns one empty); each
+    empty trace is reported on stderr. When all come back empty, CUDA
+    events time ``iters`` more calls: the clock is ``"events"``, the span
+    on the current stream (idle gaps between launches included), and
+    there are no op rows. The wall clock never stands in for a card's."""
     from torch.profiler import ProfilerActivity, profile
 
     if iters < 1:
@@ -241,11 +266,14 @@ def capture_device_profile(
         events = _device_events(prof) if on_card else []
         if events or not on_card:
             break
+        print(f"capture_device_profile: trace {attempt + 1} of {_TRACE_ATTEMPTS} on {device} "
+              f"(pads {pad_s} s) holds no device event", file=sys.stderr, flush=True)
     else:
-        raise RuntimeError(
-            f"torch.profiler recorded no device activity for work on {device} in "
-            f"{_TRACE_ATTEMPTS} traces"
-        )
+        device_ms = _events_ms(fn, args, iters, device)
+        print(f"capture_device_profile: timed with CUDA events instead: {device_ms:.4f} ms a "
+              f"call on {device} (wall {wall_ms:.4f} ms)", file=sys.stderr, flush=True)
+        return DeviceProfile(device_ms=device_ms, wall_ms=wall_ms, op_rows=[], iters=iters,
+                             from_events=True)
     if trace_dir is not None:
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir, f"phases_{time.time_ns()}.json"))
@@ -446,7 +474,7 @@ def render_phase_table(records: list[dict[str, Any]]) -> str:
     cols = ("phase", "ms", "clock", "flops", "bytes", "comm B", "MFU", "roofline")
     rows = [cols]
     for r in phases:
-        ms = r.get("device_ms") if r.get("clock") == "device" else r.get("wall_ms")
+        ms = r.get("device_ms") if r.get("clock") in DEVICE_CLOCKS else r.get("wall_ms")
         rows.append(
             (
                 str(r.get("phase")),
@@ -884,6 +912,7 @@ def _derived_backward(
         wall_ms=wall_ms,
         op_rows=[],
         iters=grads_prof.iters,
+        from_events=grads_prof.from_events or fwd_prof.from_events,
     )
     return _phase_stat("backward", prof, costs, device_kind)
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import collections
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -315,3 +316,26 @@ class AllToAll(torch.autograd.Function):
     def backward(ctx, ct):
         mesh, axis, split_axis, concat_axis = ctx.args
         return all_to_all(ct, mesh, axis, concat_axis, split_axis), None, None, None, None
+
+
+def axis_gather_rows(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Every rank's ``x`` [b, ...] along ``axis`` joined [n * b, ...] in
+    coordinate order (the global array of rows that JAX's ``shard_map``
+    returns for an output split over ``axis``): one all-gather; ``x``
+    itself on a line of one rank."""
+    n = mesh.size(axis)
+    if n == 1:
+        return x
+    return all_gather_flat(x, mesh.group(axis)).reshape(n * x.shape[0], *x.shape[1:])
+
+
+def broadcast_host(x: np.ndarray, mesh) -> np.ndarray:
+    """Global rank 0's copy of the host array ``x`` on every rank of
+    ``mesh`` (a new array; ``x`` is left as it is), one broadcast over
+    the mesh's host group: how the ranks of a tensor-parallel serving
+    engine take rank 0's clock readings and tokens."""
+    if mesh.world_size == 1:
+        return x
+    t = torch.from_numpy(np.array(x, copy=True))
+    dist.broadcast(t, src=0, group=mesh.host_group())
+    return t.numpy()

@@ -108,6 +108,7 @@ class Mesh:
         self.world_size = n
         self.coords = mesh_coords(self.rank, self.sizes)
         self._groups: dict[tuple[str, ...], object] = {}
+        self._host_group = None
         if n == 1:
             return
         made: dict[tuple[int, ...], object] = {}
@@ -154,6 +155,18 @@ class Mesh:
         """The process group of this rank's line along ``axes`` (``None``,
         the default group, when that line is the world)."""
         return self._groups.get(_canonical(axes))
+
+    def host_group(self):
+        """The whole world's group for host (CPU) tensors: the default
+        group, unless it is NCCL's (card tensors only); then a Gloo group
+        over every rank, made at the first call (a collective: every rank
+        makes that call at the same point, as the serving engine's
+        constructor does)."""
+        if self.world_size == 1 or dist.get_backend() != "nccl":
+            return None
+        if self._host_group is None:
+            self._host_group = dist.new_group(backend="gloo")
+        return self._host_group
 
     def peer(self, axis: str, shift: int) -> int:
         """The global rank ``shift`` steps along ``axis`` (cyclic)."""

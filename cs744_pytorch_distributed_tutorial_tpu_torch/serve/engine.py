@@ -45,11 +45,37 @@ Host-side options, as in the JAX engine: ``tracer``
 engine's own clock stamps), ``guard`` (``serve/guard.py::ServeGuard``:
 admission control at ``submit``, deadline expiry at the top of
 ``step``), ``snapshot``/``resume`` (kill and replay through recompute)
-and ``make_flight_recorder``. ``mesh`` is not ported yet.
+and ``make_flight_recorder``.
+
+Tensor-parallel serving (``mesh=``, ``param_specs=``, the JAX engine's
+``shard_map`` path): the model is an ``LMTrainer.tp_decode_model()`` and
+every rank of the mesh builds the engine with the same arguments and
+drives it with the same calls (one process a rank). Each rank allocates
+its own contiguous pools of its ``Hkv / T`` KV heads (``init_pages``),
+runs every prefill and decode step on its heads (the paged kernel on
+its pools) and takes part in the two sums a layer; the page table,
+positions and tokens are the same on every rank. JAX runs one
+controller; here each rank runs the host loop, so every host decision
+must come out the same on every rank or a sum would wait for a step
+another rank never takes. The engine's state and the tokens come out
+the same on every rank by themselves: the logits are the same bits on
+every tensor rank (each sum is reduced once and replicated) and
+sampling is keyed by (seed, request, token index). What reads a clock
+does not, so each rank keeps its own clock for its stamps, and every
+decision taken on a clock reading is global rank 0's, taken over by the
+others through ``agree`` (one broadcast over the mesh's host group)
+where it is made: the guard's deadline expiries at the top of
+``step()``, the Poisson replay's arrivals in each pass of its loop, and
+the watchdog's verdict after a step under ``run_serve_with_recovery``.
+Nothing else in the engine is a collective on the host. Only global
+rank 0 writes the sink, so the records (serving records, the tracer's
+windows, the flight recorder's dumps) are written once, on rank 0's
+clock, and equal a mesh-free engine's on that clock.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -57,14 +83,17 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.infer.generate import (
+    check_decode_mesh,
     check_decode_model,
     model_device,
     sample_tokens,
     stream_uniforms,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import PAGED_IMPLS
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as C
 from cs744_pytorch_distributed_tutorial_tpu_torch.serve.pool import PagePool
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import DecodeNanError
 
@@ -191,15 +220,18 @@ class ServingEngine:
     Drive it with ``submit()`` and ``step()`` (one admission and decode
     iteration; returns the requests completed in it) or ``run()`` (until
     drained); ``serve/loadgen.py`` adds Poisson replay on the wall clock.
+    A ``tp_decode_model()`` serves with ``mesh`` and ``param_specs``
+    (the module docstring).
     """
 
     def __init__(self, model: Any, cfg: ServeConfig, *, device: str = "cuda", sink: Any = None,
                  clock: Callable[[], float] = time.monotonic,
                  on_token: Callable[[Request, int], None] | None = None,
-                 tracer: Any = None, guard: Any = None, mesh: Any = None) -> None:
+                 tracer: Any = None, guard: Any = None, mesh: Any = None,
+                 param_specs: Any = None) -> None:
+        check_decode_model(model, "serving", allow_tensor=mesh is not None)
         if mesh is not None:
-            raise NotImplementedError("ServingEngine mesh= is not yet ported")
-        check_decode_model(model, "serving")
+            check_decode_mesh(model, mesh, param_specs)
         if cfg.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {cfg.num_slots}")
         if cfg.max_pages_per_slot < 1:
@@ -216,7 +248,14 @@ class ServingEngine:
         self.device = model_device(model, device)
         impl = cfg.paged_attention_impl
         self.paged_attention_impl = "kernel" if impl == "auto" else impl
-        self.model, self.cfg = model, cfg
+        self.model, self.cfg, self.mesh = model, cfg, mesh
+        # Under a mesh of more than one rank: rank 0's decisions on every
+        # rank (agree), rank 0 alone writing records.
+        self._shared = mesh is not None and mesh.world_size > 1
+        if self._shared:
+            self._check_same_on_every_rank(tracer, guard)
+            if mesh.rank != 0:
+                sink = None
         self.sink, self.clock, self.on_token = sink, clock, on_token
         self.tracer, self.guard = tracer, guard
         self.max_seq_len = model.max_seq_len
@@ -262,6 +301,30 @@ class ServingEngine:
         self.prefills_all = 0
         self.profiled_decode_steps = 0
         self.profiled_prefills = 0
+
+    # ------------------------------------------------------- the ranks
+    def _check_same_on_every_rank(self, tracer: Any, guard: Any) -> None:
+        """Every rank must take the same host path (the module docstring):
+        the geometry, the policy and whether a tracer and a guard ride
+        along (a guard agrees on its expiries each step) must agree over
+        the mesh."""
+        mine = (dataclasses.asdict(self.cfg), tracer is not None,
+                None if guard is None else dataclasses.asdict(guard.cfg))
+        every = [None] * self.mesh.world_size
+        dist.all_gather_object(every, mine, group=self.mesh.host_group())
+        if any(other != every[0] for other in every):
+            raise ValueError("the ranks of a tensor-parallel engine must build it alike (config, "
+                             f"tracer, guard); got {every}")
+
+    def agree(self, value):
+        """Global rank 0's ``value`` of a decision taken on a clock
+        reading (a number, or an array of the same shape on every rank),
+        ``value`` itself without a mesh: the module docstring lists the
+        callers. Every rank calls it at the same point of the loop."""
+        if not self._shared:
+            return value
+        out = C.broadcast_host(np.asarray(value), self.mesh)
+        return out.item() if out.ndim == 0 else out
 
     # ------------------------------------------------------------ model
     @staticmethod

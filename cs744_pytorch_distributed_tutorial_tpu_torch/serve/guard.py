@@ -32,10 +32,13 @@ import traceback
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+import numpy as np
+
 from cs744_pytorch_distributed_tutorial_tpu_torch.serve.engine import Request
 from cs744_pytorch_distributed_tutorial_tpu_torch.serve.loadgen import (
     _emit_summary,
     _summarize,
+    arrived,
     warm_up,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import (
@@ -57,6 +60,9 @@ __all__ = [
     "EngineCrashError",
     "HungStepError",
 ]
+
+# An expiry's reason by code (``ServeGuard.expire`` agrees on the codes).
+_EXPIRY = (None, "deadline", "queue_wait")
 
 
 @dataclass
@@ -137,20 +143,23 @@ class ServeGuard:
         """Sweep the queue and the slots against their budgets; each expiry
         ends ``timed_out``."""
         now = engine.clock()
-        expired = [(r, self._expiry_reason(r, now, queued=True)) for r in engine._queue]
-        for req, reason in expired:
+        queued = list(engine._queue)
+        live = [(i, s.req) for i, s in enumerate(engine._slots) if s is not None]
+        reasons = ([self._expiry_reason(r, now, queued=True) for r in queued]
+                   + [self._expiry_reason(r, now, queued=False) for _, r in live])
+        if reasons:  # under a mesh, what rank 0's clock expires
+            codes = engine.agree(np.asarray([_EXPIRY.index(x) for x in reasons], np.int8))
+            reasons = [_EXPIRY[c] for c in codes]
+        for req, reason in zip(queued, reasons):
             if reason is None:
                 continue
             engine._queue.remove(req)
             self.timed_out += 1
             engine._expire_request(req, slot=None, reason=reason)
-        for i, slot in enumerate(engine._slots):
-            if slot is None:
-                continue
-            reason = self._expiry_reason(slot.req, now, queued=False)
+        for (i, req), reason in zip(live, reasons[len(queued):]):
             if reason is not None:
                 self.timed_out += 1
-                engine._expire_request(slot.req, slot=i, reason=reason)
+                engine._expire_request(req, slot=i, reason=reason)
 
     @staticmethod
     def _expiry_reason(req: Request, now: float, *, queued: bool) -> str | None:
@@ -258,7 +267,8 @@ def run_serve_with_recovery(
     try:
         while i < n or engine.busy:
             now = engine.clock() - t0
-            while i < n and arrivals[i] <= now:
+            due = arrived(engine, arrivals, i, now)
+            while i < due:
                 engine.submit(Request(prompt=workload.prompts[i],
                                       max_new_tokens=int(workload.max_new_tokens[i]),
                                       arrival_time=t0 + float(arrivals[i])))
@@ -273,7 +283,8 @@ def run_serve_with_recovery(
                         engine.step()
                 else:
                     engine.step()
-                if hung["flag"]:
+                # Under a mesh every rank restarts on rank 0's watchdog.
+                if wd is not None and engine.agree(hung["flag"]):
                     hung["flag"] = False
                     raise HungStepError(elapsed_s=step_timeout_s or 0.0)
             except ServeFailure as e:

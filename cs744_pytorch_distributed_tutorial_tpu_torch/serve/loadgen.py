@@ -171,6 +171,15 @@ def warm_up(engine: ServingEngine, workload: Workload) -> None:
         engine.tracer.reset(engine.clock())
 
 
+def arrived(engine: ServingEngine, arrivals: np.ndarray, i: int, now: float) -> int:
+    """One past the last of ``arrivals`` from ``i`` on that are due at
+    ``now`` (offsets on the replay's clock); under a mesh, global rank 0's
+    count (the arrivals are a decision on its clock)."""
+    while i < len(arrivals) and arrivals[i] <= now:
+        i += 1
+    return engine.agree(i)
+
+
 def run_poisson(engine: ServingEngine, workload: Workload, *, sink: Any = None,
                 warmup: bool = True, watchdog: Any = None) -> dict[str, Any]:
     """Replay ``workload`` open-loop against the engine on the wall clock;
@@ -187,7 +196,8 @@ def run_poisson(engine: ServingEngine, workload: Workload, *, sink: Any = None,
     submitted: list[Request] = []
     while i < n or engine.busy:
         now = clock() - t0
-        while i < n and workload.arrivals[i] <= now:
+        due = arrived(engine, workload.arrivals, i, now)
+        while i < due:
             submitted.append(engine.submit(Request(
                 prompt=workload.prompts[i], max_new_tokens=int(workload.max_new_tokens[i]),
                 arrival_time=t0 + float(workload.arrivals[i]))))

@@ -58,6 +58,10 @@ the unrolled layout) from the trainer's weights or from a
 ``state_dict``; ``quantize_for_decode`` makes the int8 ``state_dict``
 and ``gather_for_decode`` gives the unrolled weights (under fsdp
 all-gathered from the ranks' rows, a collective every rank joins).
+``tp_decode_model`` keeps the tensor axis instead: its decode copy holds
+this rank's slices, with no gather, for the mesh path of
+``infer/generate.py``, ``infer/beam.py`` and ``serve/engine.py``
+(``mesh=trainer.mesh, param_specs=trainer.param_specs``).
 
 Across ranks (``data_parallel``: the process group's world, one rank a
 card, NCCL between cards and Gloo on the CPU, ``parallel/mesh.py::
@@ -611,6 +615,53 @@ class LMTrainer:
             out = generate(prompt)
         """
         return self._decode_copy(self.gather_for_decode(params), quant_kv_cache=kv_cache)
+
+    @property
+    def param_specs(self) -> dict[str, tuple]:
+        """Which dimension of each parameter each axis splits (the JAX
+        trainer's ``param_specs``): the model's ``lm_param_specs``, by
+        ``state_dict`` name. Builds the model (``init()``) if there is none
+        yet."""
+        if self.model is None:
+            self.init()
+        return self.model.param_specs
+
+    def tp_decode_model(self, *, kv_cache: bool = False) -> TransformerLM:
+        """The tensor-parallel decode copy (JAX ``tp_decode_model``): the
+        trainer's layout with no sequence axis (the KV cache holds the whole
+        sequence), the tensor axis kept, dense attention, no remat, the
+        ``scan_layers`` layout kept; it holds copies of this rank's slices
+        of the weights (no gather) in the compute dtype, so each rank
+        projects and caches only its heads. ``kv_cache=True`` stores the
+        KV cache and page pools int8 (their scales split over the heads
+        too). Every rank builds its own and runs the decoder on it::
+
+            generate = make_generator(trainer.tp_decode_model(), max_new_tokens=32,
+                                      temperature=0.0, mesh=trainer.mesh,
+                                      param_specs=trainer.param_specs)
+            out = generate(prompt)  # the same [B, 32] on every rank
+        """
+        if self.expert_parallel:
+            raise ValueError(
+                "tp_decode_model does not support expert parallelism; "
+                "decode EP models from gathered params (decode_model)"
+            )
+        if self.cfg.fsdp:
+            raise ValueError(
+                "tp_decode_model does not apply to fsdp-chunked params "
+                "(they are flat [dp(, tp), chunk] shards, not the "
+                "tensor-sharded layout this model expects); use "
+                "gather_for_decode + decode_model"
+            )
+        if self.model is None:
+            self.init()
+        kw = dict(self._model_kw(), remat=False, tensor_axis_size=self.cfg.tensor_parallel,
+                  mesh=self.mesh)
+        with torch.device("meta"):
+            model = TransformerLM(**kw, attention_impl="dense", quant_kv_cache=kv_cache)
+        model.load_state_dict({k: v.detach().to(self.device, copy=True)
+                               for k, v in self.model.state_dict().items()}, assign=True)
+        return model.cast_for_decode_()
 
     def quantized_decode_model(self, modules: str = "head", kv_cache: bool = False,
                                params: dict | None = None) -> TransformerLM:

@@ -82,7 +82,9 @@ def device_op_breakdown(fn, *args, iters: int = 3, top: int = 20, trace_dir: str
     descending; ``total_ms`` is their interval union per iteration (NCCL's
     stream and the compute stream overlap). One warm-up call runs outside
     the trace; ``torch.cuda.synchronize()`` fences the timed calls. On the
-    CPU there are no device lanes: ``(0.0, [])``.
+    CPU there are no device lanes: ``(0.0, [])``. When the profiler's
+    traces of work on a card hold no device event, ``total_ms`` is the
+    CUDA events' span and there are no rows.
 
     A shim over ``obs.phases.capture_device_profile``: the phase profiler
     and this breakdown share one warm-up, fence and trace-parsing path."""

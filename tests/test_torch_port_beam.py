@@ -168,8 +168,11 @@ def test_guard_rails(port_model):
         make_beam_searcher(port_model, beam_size=2, max_new_tokens=0, device="cpu")
     with pytest.raises(ValueError, match="exceeds max_seq_len"):
         make_beam_searcher(port_model, beam_size=2, max_new_tokens=30, device="cpu")(_prompt(8))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="the shard_map decode path needs param_specs"):
         make_beam_searcher(port_model, beam_size=2, max_new_tokens=4, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="does not carry the model's tensor axis None"):
+        make_beam_searcher(port_model, beam_size=2, max_new_tokens=4, device="cpu", mesh=object(),
+                           param_specs=port_model.param_specs)
     with pytest.raises(TypeError, match="TransformerLM"):
         make_beam_searcher(object(), beam_size=2, max_new_tokens=4, device="cpu")
     if not torch.cuda.is_available():

@@ -238,20 +238,26 @@ def test_lm_cli_unported_decoders_exit(flag):
 @pytest.mark.parametrize("option", ["guard", "tracer", "mesh", "snapshot", "resume",
                                     "make_flight_recorder", "generator_mesh"])
 def test_unported_serving_options_raise(option):
-    """``mesh`` (the engine's and the generator's) is still not ported and
-    raises; the guard, the tracer, snapshot/resume and the flight
-    recorder, once raises too, now serve on the CPU."""
+    """Every option once refused now serves on the CPU. ``mesh`` (the
+    engine's and the generator's) is the tensor-parallel path
+    (``tests/test_torch_port_tp_decode.py``); on a model without a tensor
+    axis it raises JAX's refusals: ``param_specs`` missing, then a mesh
+    that does not carry the model's tensor axis."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.obs.serve_trace import ServeTracer
     from cs744_pytorch_distributed_tutorial_tpu_torch.serve import Request, ServeGuard
 
     model = TransformerLM(**TINY_LM)
     cfg = ServeConfig(num_slots=2, page_size=4, num_pages=9, max_pages_per_slot=4)
     if option in ("mesh", "generator_mesh"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        def build(**kw):
             if option == "mesh":
-                ServingEngine(model, cfg, device="cpu", mesh=object())
-            else:
-                make_generator(model, max_new_tokens=2, device="cpu", mesh=object())
+                return ServingEngine(model, cfg, device="cpu", **kw)
+            return make_generator(model, max_new_tokens=2, device="cpu", **kw)
+
+        with pytest.raises(ValueError, match="the shard_map decode path needs param_specs"):
+            build(mesh=object())
+        with pytest.raises(ValueError, match="does not carry the model's tensor axis None"):
+            build(mesh=object(), param_specs=model.param_specs)
         return
     kw = {"guard": ServeGuard(), "tracer": ServeTracer(2)}.get(option)
     engine = ServingEngine(model, cfg, device="cpu", **({option: kw} if kw else {}))

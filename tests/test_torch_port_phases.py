@@ -491,6 +491,46 @@ def test_capture_device_profile_and_breakdown_on_cpu(tmp_path):
         P.capture_device_profile(lambda: None, iters=0)
 
 
+def test_capture_device_profile_times_with_events_when_traces_are_empty(monkeypatch, capsys):
+    """On a card, traces without device events are retaken; when every one
+    is empty, CUDA events time the calls (clock "events", no op rows), and
+    the reports read that time as a card's. The card's hooks are stubbed."""
+    calls, timed = [], []
+    monkeypatch.setattr(P, "_device_of", lambda *trees: torch.device("cuda", 0))
+    monkeypatch.setattr(P, "_fence", lambda device: None)
+    monkeypatch.setattr(P, "_device_events", lambda prof: [])
+    monkeypatch.setattr(P, "_TRACE_PADS_S", (0.0, 0.0, 0.0))
+
+    def events_ms(fn, args, iters, device):
+        timed.append((iters, device))
+        for _ in range(iters):
+            fn(*args)
+        return 1.5
+
+    monkeypatch.setattr(P, "_events_ms", events_ms)
+    prof = P.capture_device_profile(lambda t: calls.append(1) or t + 1, torch.ones(4), iters=2)
+    # One warm-up, 2 calls in each of the 3 traces, 2 under the events.
+    assert len(calls) == 1 + 2 * P._TRACE_ATTEMPTS + 2
+    assert timed == [(2, torch.device("cuda", 0))]
+    assert (prof.device_ms, prof.op_rows, prof.iters, prof.from_events) == (1.5, [], 2, True)
+    assert prof.clock == "events" and prof.best_ms() == 1.5 and prof.clock in P.DEVICE_CLOCKS
+    err = capsys.readouterr().err
+    assert err.count("holds no device event") == P._TRACE_ATTEMPTS
+    assert "timed with CUDA events instead: 1.5000 ms" in err
+
+    traced = P.DeviceProfile(device_ms=4.0, wall_ms=5.0, op_rows=[], iters=2)
+    assert traced.clock == "device"
+    backward = P._derived_backward(prof, traced, {"flops": 2.0, "bytes_accessed": 2.0},
+                                   {"flops": 1.0, "bytes_accessed": 1.0}, "cpu")
+    assert backward.clock == "wall"  # 1.5 - 4.0 clamps to 0: no device time left
+    backward = P._derived_backward(traced, prof, {"flops": 2.0, "bytes_accessed": 2.0},
+                                   {"flops": 1.0, "bytes_accessed": 1.0}, "cpu")
+    assert (backward.clock, backward.device_ms) == ("events", 2.5)
+    table = P.render_phase_table([{"kind": "phase", "phase": "optimizer", "device_ms": 1.5,
+                                   "wall_ms": 9.0, "clock": "events"}])
+    assert "1.5" in table and "9.0" not in table
+
+
 def test_obs_report_renders_the_bench_records(tmp_path, capsys):
     from cs744_pytorch_distributed_tutorial_tpu_torch.obs.__main__ import main
 
