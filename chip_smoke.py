@@ -63,7 +63,8 @@ no result):
    within 1e-3 of the per-replica path (TF32 off);
 8. flash attention: the forward, dq and dk/dv kernels against their
    plain versions (the LM path's shape B16 T1024 H12 D64 causal, a
-   non-causal and ragged shapes, fp32 and bf16): fp32 inputs on the FFMA
+   non-causal and ragged shapes, the ViT path's [1024, 65, 3, 64],
+   [512, 65, 6, 64] and [1024, 17, 3, 128] not causal; fp32 and bf16): fp32 inputs on the FFMA
    kernels, bf16 ones on the tensor-core kernels (bitwise repeatable) and
    again on the FFMA route, each call's route shown by its launches; then
    their times at the path's shape in bf16 (each kernel's two routes in
@@ -119,8 +120,9 @@ no result):
 15. serving through ``serve_cli``: the same model, 16 slots over a
     513-page pool of 16 rows (32 pages a slot), 64 Poisson requests at 64
     rps, prompts and outputs 64-256 tokens, the paged kernels (12 calls a
-    decode step, two launches a call); the same trace through the kernel and gather engines
-    (the share of greedy tokens that agree); a pool-pressure run (97
+    decode step, two launches a call); 16 requests of that distribution
+    through the kernel and gather engines (the share of greedy tokens that
+    agree); a pool-pressure run (97
     pages, int8 KV pages and the int8 head) that must preempt; and a
     profile of 20 decode steps;
 16. the fused grouped matmul (dropless MoE's expert FFN) against its plain
@@ -218,8 +220,8 @@ no result):
     against the baseline, dropout with remat against dropout alone
     (first-step gradients); each run's step ms and peak memory;
 25. beam search at GPT-2-small width (4 KV heads, bf16), batch 2, 4 beams,
-    a 64-token prompt, 64 new tokens: beam 1 bitwise greedy, the score
-    against a teacher-forced re-score, 64 int8 launches under the int8
+    a 64-token prompt, 32 new tokens: beam 1 bitwise greedy, the score
+    against a teacher-forced re-score, 32 int8 launches under the int8
     head, ms a beam step on the host and the device beside greedy
     decoding of the same 8 rows;
 26. speculative decoding through ``lm_cli`` (``--speculative-k 4
@@ -277,7 +279,24 @@ no result):
     tokens and logits identical, the first decode step's logits within
     ``TP_LOGIT_BOUND`` x max|logit| of the one rank's; the greedy tokens'
     agreement with the one rank's reported. The scripts/tp_serve_cards.sh
-    run serves the same across 4 cards over NCCL.
+    run serves the same across 4 cards over NCCL;
+30. the ViT family through the CIFAR ``Trainer`` (``vit_phase``; the JAX
+    bench's runs, ``benchmarks/bench_vit_moe.py``): vit_tiny at batch 1024,
+    vit_small at 512 and vit_wide_p8 at 1024, bf16, ``vit_attention=
+    "flash"``, ``sync="ring"`` on NCCL at a world of one, synthetic CIFAR,
+    3 warm-up and 10 timed steps: one tensor-core flash forward, dq and
+    dk/dv a layer a step (T 65 and 17, not causal; head_dim 64 and 128),
+    nothing on FFMA, no plain call; the losses finite and falling; ms a
+    step, samples/s and MFU beside the card; then ``cli.main`` on
+    vit_tiny ``--dropout 0.1`` (dense) for 8 steps. The flash phase (8)
+    holds the kernels against their plain versions at these shapes;
+31. the grouped matmul past 64 experts (``gmm_groups_phase``): at
+    Qwen3-30B-A3B's MoE widths (d 2048, expert d_ff 768, 4,096 tokens x
+    top-8) in bf16 on the tensor cores, and in fp32 on FFMA at a reduced
+    size, at E 65, 128 and 256 with some experts empty, the forward (with
+    and without ``z``), ``gmm``, ``tgmm`` and ``colsum`` against their
+    plain versions, each call's launches exact and no host
+    synchronisation; the forward's and dlhs's times at E 128.
 
 Each phase prints its wall seconds as it ends, and the line before the
 kernels JSON gives the whole run's and each phase's.
@@ -319,8 +338,11 @@ ROUTED_PER_SHAPE = 3
 
 # Flash attention: (B, T, H, D, causal). The LM path's shape first.
 FLASH_PATH = (16, 1024, 12, 64, True)
+# The ViT path's shapes, not causal: vit_tiny's and vit_small's 65 tokens
+# (64 patches and the class token), vit_wide_p8's 17 at head_dim 128.
+VIT_FLASH_CASES = [(1024, 65, 3, 64, False), (512, 65, 6, 64, False), (1024, 17, 3, 128, False)]
 FLASH_CASES = [FLASH_PATH, (4, 512, 12, 64, False), (1, 200, 3, 64, True),
-               (2, 77, 2, 128, True)]
+               (2, 77, 2, 128, True), *VIT_FLASH_CASES]
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # x max|plain|
 FLASH_LSE_TOL = 1e-5
 FLASH_REPLACES = {"fwd": 47, "dq": 177, "dkv": 222}
@@ -347,6 +369,10 @@ SERVE_TRACE = dict(num_requests=64, rate_rps=64.0, prompt_len=(64, 256), output_
 # The serving tracer, guard and failure phases: overload at 3x the trace's
 # rate under deadlines, a bounded queue and degrade; decode faults and a
 # hung step on the pool-pressure geometry, its trace cut to 16 requests.
+# The kernel-vs-gather engine comparison serves a trace of this many
+# requests (of SERVE_TRACE's distribution), cut from 64 to keep the whole
+# script inside its time limit on a loaded host.
+SERVE_COMPARE_REQUESTS = 16
 OVERLOAD_RPS = 3 * SERVE_TRACE["rate_rps"]
 OVERLOAD_FLAGS = ["--deadline-s", "30", "--max-queue-depth", "16", "--shed-policy", "degrade"]
 CHAOS_REQUESTS = 16
@@ -2501,8 +2527,9 @@ def decode_model(**kw):
 
 
 def serving_checks_phase() -> None:
-    """Kernel vs gather engines on the trace; the pool-pressure run; a
-    profile of 20 decode steps."""
+    """Kernel vs gather engines on a trace of ``SERVE_COMPARE_REQUESTS``;
+    the pool-pressure run on the serving trace; a profile of 20 decode
+    steps."""
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
     from cs744_pytorch_distributed_tutorial_tpu_torch.serve import (
         ServeConfig,
@@ -2512,15 +2539,18 @@ def serving_checks_phase() -> None:
     )
 
     trace = make_poisson_workload(vocab_size=DECODE_WIDTH["vocab_size"], **SERVE_TRACE)
+    compare = make_poisson_workload(vocab_size=DECODE_WIDTH["vocab_size"],
+                                    **{**SERVE_TRACE, "num_requests": SERVE_COMPARE_REQUESTS})
     model = decode_model()
-    kernel_out, ks = serve_tokens(model, "kernel", trace, SERVE_GEOMETRY)
-    gather_out, gs = serve_tokens(model, "gather", trace, SERVE_GEOMETRY)
+    kernel_out, ks = serve_tokens(model, "kernel", compare, SERVE_GEOMETRY)
+    gather_out, gs = serve_tokens(model, "gather", compare, SERVE_GEOMETRY)
     same = sum(a == b for k, g in zip(kernel_out, gather_out) for a, b in zip(k, g))
     total = sum(len(k) for k in kernel_out)
     first = [next((i for i, (a, b) in enumerate(zip(k, g)) if a != b), None)
              for k, g in zip(kernel_out, gather_out)]
     diverged = [i for i in first if i is not None]
-    print(f"serving kernel vs gather engine (trace submitted at once): {same} of {total} greedy "
+    print(f"serving kernel vs gather engine ({SERVE_COMPARE_REQUESTS} requests submitted at "
+          f"once): {same} of {total} greedy "
           f"tokens agree ({100 * same / total:.2f} %); {len(diverged)} of {len(first)} requests "
           f"diverge, the first at output index {min(diverged) if diverged else None}; decode "
           f"ms a step (host wall): kernel {ks['decode_ms_per_step']:.3f}, gather "
@@ -4663,7 +4693,7 @@ OPT_RUNS = {  # label: LMConfig overrides on the main path's config
     "scan_layers": dict(scan_layers=True), "accum_2": dict(accum_steps=2),
     "dropout_0.1": dict(dropout_rate=0.1), "dropout_0.1_remat": dict(dropout_rate=0.1, remat=True),
 }
-BEAM_BATCH, BEAM_K, BEAM_PROMPT, BEAM_NEW = 2, 4, 64, 64
+BEAM_BATCH, BEAM_K, BEAM_PROMPT, BEAM_NEW = 2, 4, 64, 32  # 32 new: the time limit
 BEAM_SCORE_RTOL = 1e-3  # |beam score - teacher-forced re-score| / |re-score|, bf16
 SPEC_K, SPEC_NEW, SPEC_STEPS, SPEC_PROMPT = 4, 128, 24, 64
 
@@ -5552,6 +5582,247 @@ def tp_serving_phase() -> dict:
     return rec
 
 
+# The ViT family on the CIFAR trainer: the JAX bench's runs
+# (benchmarks/bench_vit_moe.py:96-106,124-129,337): bf16, flash, sync ring
+# at a world of one, one batch of synthetic CIFAR trained on again and again,
+# with the JAX bench's ViT training recipe (its vit_descends, :151-164: AdamW
+# at lr 1e-3; the default SGD at lr 0.1 makes the loss climb).
+VIT_RECIPE = dict(optimizer="adamw", learning_rate=1e-3)
+VIT_RUNS = (("vit_tiny", 1024), ("vit_small", 512), ("vit_wide_p8", 1024))
+VIT_DIMS = {"vit_tiny": ((192, 6, 768), 4), "vit_small": ((384, 8, 1536), 4),
+            "vit_wide_p8": ((384, 6, 1536), 8)}  # (d, layers, d_ff), patch
+VIT_WARMUP, VIT_TIMED_STEPS = 3, 10
+VIT_CLI_STEPS = 8  # vit_tiny --dropout 0.1, dense, batch 256
+
+
+def vit_flops_per_sample(d: int, layers: int, d_ff: int, n_tokens: int) -> float:
+    """Training FLOPs a sample as benchmarks/bench_vit_moe.py:79-84 counts
+    them: 3x the forward's q/k/v/o projections, MLP and full (not causal)
+    attention products; the patch embedding and the head left out."""
+    per_layer = n_tokens * (4 * d * d + 2 * d * d_ff) + 2 * n_tokens**2 * d
+    return 3.0 * 2.0 * layers * per_layer
+
+
+def vit_phase() -> dict:
+    """The three ViTs through the CIFAR ``Trainer`` (``VIT_RUNS``,
+    ``VIT_RECIPE``): warm-up
+    steps, then ``VIT_TIMED_STEPS`` timed by CUDA events, every launch count
+    zeroed just before and read just after: one tensor-core flash forward,
+    dq and dk/dv a layer a step, no FFMA launch, no call of a plain flash
+    version, no other kernel; the losses finite and falling; ms a step,
+    samples/s and MFU (``vit_flops_per_sample`` over the dense BF16 peak);
+    then a profile of 3 more steps: the device time a step by kernel and
+    the flash kernels' share of it.
+    Then ``vit_tiny --dropout 0.1`` (dense, no kernel) through ``cli.main``
+    for ``VIT_CLI_STEPS`` steps."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.config import TrainConfig
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_cifar10
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import mesh
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train import Trainer
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    plain_calls = [0]
+
+    def spy(fn):
+        def call(*args, **kw):
+            plain_calls[0] += 1
+            return fn(*args, **kw)
+        return call
+
+    out: dict = {"launches": {}}
+    steps = VIT_WARMUP + VIT_TIMED_STEPS
+    mesh.initialize(None, 1, 0, device=dev)
+    try:
+        for model, batch in VIT_RUNS:
+            (d, layers, d_ff), patch = VIT_DIMS[model]
+            tr = Trainer(TrainConfig(model=model, sync="ring", num_devices=1,
+                                     global_batch_size=batch, compute_dtype="bfloat16",
+                                     synthetic_data=True, vit_attention="flash", device="cuda",
+                                     **VIT_RECIPE))
+            ds = synthetic_cifar10(batch, 16, seed=0)
+            x = torch.from_numpy(ds.train_images).to(dev)
+            y = torch.from_numpy(ds.train_labels.astype("int64")).to(dev)
+
+            def run():
+                losses = []
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                for i in range(steps):
+                    if i == VIT_WARMUP:
+                        start.record()
+                    losses.append(tr.train_step(x, y))
+                end.record()
+                end.synchronize()
+                return [float(v) for v in losses], start.elapsed_time(end) / VIT_TIMED_STEPS
+
+            plain_calls[0] = 0
+            with patched(A, flash_forward_lse_plain=spy(A.flash_forward_lse_plain),
+                         flash_dq_plain=spy(A.flash_dq_plain),
+                         flash_dkv_plain=spy(A.flash_dkv_plain)):
+                (losses, ms), counts = counted(run)
+            flash = flash_counts()
+            want = {k: (layers * steps if k.endswith("_tc") else 0) for k in flash}
+            if flash != want or others(counts, "flash") or plain_calls[0]:
+                raise RuntimeError(f"ViT {model}: flash launches {flash} (expected {want}), "
+                                   f"other kernels {others(counts, 'flash')}, plain flash calls "
+                                   f"{plain_calls[0]}")
+            tail = statistics.mean(losses[-3:])
+            if not (all(math.isfinite(v) for v in losses) and tail < losses[0]):
+                raise RuntimeError(f"ViT {model}: losses {losses} not finite or not falling")
+            n_tokens = (32 // patch) ** 2 + 1
+            flops = vit_flops_per_sample(d, layers, d_ff, n_tokens)
+            sps = batch / (ms / 1e3)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            by_kernel = kernel_breakdown(lambda: tr.train_step(x, y), reps=3)
+            busy = sum(by_kernel.values())
+            flash_ms = sum(v for k, v in by_kernel.items() if "flash" in k)
+            out[model] = {"batch": batch, "ms_per_step": ms, "samples_per_s": sps,
+                          "mfu": sps * flops / BF16_FLOPS, "flops_per_sample": flops,
+                          "tokens": n_tokens, "loss_first": losses[0], "loss_last3": tail,
+                          "peak_memory_gb": peak, "device_busy_ms": busy,
+                          "flash_ms": flash_ms, "flash_share": flash_ms / busy if busy else None,
+                          "top_kernels_ms": dict(sorted(by_kernel.items(),
+                                                        key=lambda kv: -kv[1])[:8])}
+            out["launches"][model] = flash
+            print(f"ViT {model} batch {batch} (T {n_tokens}, flash, bf16, ring): {ms:.3f} ms/step, "
+                  f"{sps:.1f} samples/s, MFU {100 * out[model]['mfu']:.2f} % of "
+                  f"{BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 ({flops / 1e9:.4f} GFLOP/sample) on "
+                  f"{card}; losses {losses[0]:.4f} -> {tail:.4f} (mean of the last 3); flash "
+                  f"launches {flash}, no plain call; a step's kernels {busy:.3f} ms on the "
+                  f"device, the flash kernels {flash_ms:.3f} ms of it "
+                  + (f"({100 * flash_ms / busy:.1f} %)" if busy else "(no device trace)")
+                  + f"; top kernels {json.dumps(out[model]['top_kernels_ms'])}")
+            del tr, x, y
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    finally:
+        mesh.shutdown()
+
+    argv = ["--part", "1", "--model", "vit_tiny", "--dropout", "0.1", "--synthetic-data",
+            "--synthetic-train-size", str(256 * VIT_CLI_STEPS), "--synthetic-test-size", "256",
+            "--global-batch-size", "256", "--log-every", "4", "--json"]
+    summary, counts = counted(lambda: run_cli(argv))
+    if (summary["steps"] != VIT_CLI_STEPS or not math.isfinite(summary["final_train_loss"])
+            or others(counts)):
+        raise RuntimeError(f"vit_tiny --dropout 0.1: {summary}, launches {others(counts)}")
+    out["cli_dropout"] = summary
+    print(f"cli vit_tiny --dropout 0.1 (dense): {summary['steps']} steps, final loss "
+          f"{summary['final_train_loss']:.4f}, eval accuracy {summary['final_eval_accuracy']}")
+    return out
+
+
+# The grouped matmul past 64 experts at Qwen3-30B-A3B's published MoE widths
+# (its config.json: hidden_size 2048, moe_intermediate_size 768,
+# num_experts 128, num_experts_per_tok 8): 4,096 tokens x top-8 routes, bf16
+# on the tensor cores, at E 65, 128 (Qwen3's) and 256 (DeepSeek-V3's); the
+# FFMA route in fp32 at a reduced size. Every GROUPS_EMPTY_EVERY-th expert
+# gets no route.
+GROUPS_WIDTH = dict(d=2048, f=768, tokens=4096, top_k=8)
+GROUPS_FFMA_WIDTH = dict(d=256, f=96, tokens=512, top_k=8)
+GROUPS_EXPERTS = (65, 128, 256)
+GROUPS_EMPTY_EVERY = 16
+GROUPS_TIMED_E = 128
+
+
+def gmm_groups_phase(dev: torch.device) -> dict:
+    """Every grouped-matmul kernel past 64 experts against its plain
+    version: the forward with gelu and ``z`` (w_in) and without (w_out),
+    ``gmm`` of an fp32 dout against w_in read transposed (dlhs), ``tgmm``
+    (drhs) and ``colsum`` (dbias), at each of ``GROUPS_EXPERTS``, group
+    sizes from a top-8 draw of a random router with some experts empty:
+    bf16 on the tensor cores at ``GROUPS_WIDTH``, fp32 on the FFMA kernels
+    at ``GROUPS_FFMA_WIDTH``; each call under host synchronisation made an
+    error, its launches exact; fp32 outputs within 1e-5 x max|plain|, bf16
+    within one ulp of each plain value plus 1e-5 x max|plain| (the gmm
+    backward phase's limits). Then the forward and dlhs times at E
+    ``GROUPS_TIMED_E`` on the tensor cores. Returns, by kernel, the largest
+    share of the limit and those times."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.models.moe import MoEFFN
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst: dict = {}
+
+    def check(name, got, want, label):
+        diff = (got.float() - want.float()).abs()
+        top = float(want.float().abs().max())
+        if want.dtype == torch.float32:
+            share = float(diff.max()) / (1e-5 * top)
+        else:
+            share = float((diff / (2**-7 * want.float().abs() + 1e-5 * top)).max())
+        if got.dtype != want.dtype or got.shape != want.shape or not (
+                math.isfinite(share) and share <= 1.0):
+            raise RuntimeError(f"{name} disagrees with its plain version at {label}: max abs err "
+                               f"{float(diff.max())}, {share} of the limit")
+        worst[name] = max(worst.get(name, 0.0), share)
+
+    def via(launches: dict, fn):
+        G.reset_launch_count()
+        res = quiet(fn)
+        got = {k: G.launch_count(k) for k in G.KERNELS if G.launch_count(k)}
+        if got != launches:
+            raise RuntimeError(f"grouped matmul past 64 groups: launches {got}, expected "
+                               f"{launches}")
+        return res
+
+    def draw(e, d, f, tokens, top_k, dtype):
+        x = randn(gen, tokens, d)
+        logits = x @ (randn(gen, d, e) / d**0.5)
+        logits[:, ::GROUPS_EMPTY_EVERY] = -math.inf
+        _, sizes, tok_ids = MoEFFN.group_by_expert(logits.topk(top_k, dim=-1).indices, e)
+        lhs = x[tok_ids].to(dtype)
+        w_in = (randn(gen, e, d, f) / d**0.5).to(dtype)
+        w_out = (randn(gen, e, f, d) / f**0.5).to(dtype)
+        b_in, b_out = 0.1 * randn(gen, e, f), 0.1 * randn(gen, e, d)
+        return lhs, w_in, w_out, b_in, b_out, sizes
+
+    times = {}
+    for route, width, dtype in (("tc", GROUPS_WIDTH, torch.bfloat16),
+                                ("ffma", GROUPS_FFMA_WIDTH, torch.float32)):
+        sfx = "_tc" if route == "tc" else ""
+        for e in GROUPS_EXPERTS:
+            lhs, w_in, w_out, b_in, b_out, sizes = draw(e, **width, dtype=dtype)
+            label = f"{route} E {e} {list(lhs.shape)}"
+            empty = int((sizes == 0).sum())
+            (h, z) = via({"fused_z" + sfx: 1},
+                         lambda: G._fused(lhs, w_in, b_in, sizes, "gelu", None, True))
+            want_h, want_z = G.grouped_matmul_fused_plain(lhs, w_in, b_in, sizes,
+                                                          activation="gelu", with_z=True)
+            check("fused_z" + sfx, h, want_h, label)
+            check("fused_z" + sfx, z, want_z, label)
+            y = via({"fused" + sfx: 1}, lambda: G.grouped_matmul_fused(h, w_out, b_out, sizes))
+            check("fused" + sfx, y, G.grouped_matmul_fused_plain(h, w_out, b_out, sizes), label)
+            del want_h, want_z, y, z
+            dz = randn(gen, lhs.shape[0], w_in.shape[2])
+            pieces = {"gmm_tc": 1, "split": 1} if route == "tc" else {"gmm": 1}
+            dlhs = via(pieces, lambda: G.gmm(dz, w_in, sizes, trans_rhs=True))
+            check("gmm" + sfx, dlhs, G.grouped_matmul_plain(dz, w_in, sizes, trans_rhs=True),
+                  label)
+            del dlhs
+            tgmm_launch = {"tgmm_tc": 1, "split": 1} if route == "tc" else {"tgmm": 1}
+            drhs = via(tgmm_launch, lambda: G.tgmm(lhs, dz, sizes))
+            check("tgmm" + sfx, drhs, G.tgmm_plain(lhs, dz, sizes), label)
+            del drhs
+            dbias = via({"colsum": 1}, lambda: G.segment_sum_rows(dz, sizes))
+            check("colsum", dbias, G.segment_sum_rows_plain(dz, sizes), label)
+            print(f"gmm groups {label}: {empty} empty experts, largest group "
+                  f"{int(sizes.max())}; forward (z), forward, gmm, tgmm and colsum agree with "
+                  f"their plain versions")
+            if route == "tc" and e == GROUPS_TIMED_E:
+                times["fused_tc"] = median_ms(
+                    lambda: G.grouped_matmul_fused(lhs, w_in, b_in, sizes, activation="gelu"))
+                times["gmm_tc"] = median_ms(lambda: G.gmm(dz, w_in, sizes, trans_rhs=True))
+                print(f"gmm groups E {e} times on {card_line()}: forward (gelu) "
+                      f"{times['fused_tc']:.4f} ms, dlhs gmm_tc (3 pieces, split included) "
+                      f"{times['gmm_tc']:.4f} ms")
+            del lhs, w_in, w_out, dz, h
+            torch.cuda.empty_cache()
+    print("gmm groups, largest share of the limit by kernel: "
+          + json.dumps({k: round(v, 4) for k, v in worst.items()}))
+    return {"share": worst, "ms_e128": times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5692,6 +5963,22 @@ def main() -> int:
     # Tensor-parallel decode and serving: four ranks' paged kernels on
     # their own KV heads.
     paged_record["launches_tp_serving"] = tp_serving_phase()["launches"]
+    # The ViT family on the CIFAR trainer (flash at T 65 and 17), and the
+    # grouped matmul past 64 experts.
+    vit = vit_phase()
+    groups = gmm_groups_phase(dev)
+    gmm_keys = {"gmm_fused": "fused", "gmm_fused_tc": "fused_tc", "gmm_fused_with_z": "fused_z",
+                "gmm_fused_with_z_tc": "fused_z_tc", "gmm": "gmm", "gmm_tc": "gmm_tc",
+                "tgmm": "tgmm", "tgmm_tc": "tgmm_tc", "colsum": "colsum"}
+    for rec in records:
+        if rec["name"] in ("flash_fwd_tc", "flash_dq_tc", "flash_dkv_tc"):
+            kern = rec["name"][len("flash_"):]
+            rec["launches_vit_path"] = {model: n[kern] for model, n in vit["launches"].items()}
+        key = gmm_keys.get(rec["name"])
+        if key in groups["share"]:
+            rec["share_of_limit_e65_128_256"] = groups["share"][key]
+        if key in groups["ms_e128"]:
+            rec["ms_e128"] = groups["ms_e128"][key]
     for rec in records:
         key = {"gmm_fused_tc": "gmm_fused_tc", "gmm_fused_with_z_tc": "gmm_fused_z_tc",
                "gmm_tc": "gmm_gmm_tc", "tgmm_tc": "gmm_tgmm_tc", "split": "gmm_split",

@@ -14,6 +14,8 @@
         --checkpoint-every 50 --metrics-dir metrics --max-restarts 1
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 1 --checkpoint-dir ckpt \\
         --eval-only --json
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.cli --part 1 --model vit_tiny \\
+        --dropout 0.1
 
 The flags are the JAX package's (``cli.py``) for the options the port
 runs. A run of several ranks starts one process per rank, as the
@@ -72,6 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sync-bn", action="store_true", default=None,
                    help="cross-replica BatchNorm statistics (default: the "
                         "reference's per-replica BN)")
+    p.add_argument("--dropout", dest="dropout_rate", type=float, default=None,
+                   help="dropout rate (ViT family)")
     p.add_argument("--num-devices", type=int, default=None,
                    help="data-parallel world size")
     p.add_argument("--global-batch-size", type=int, default=None)
@@ -177,6 +181,7 @@ _ARG_TO_FIELD = {
     "image_size": "image_size",
     "num_classes": "num_classes",
     "sync_bn": "sync_bn",
+    "dropout_rate": "dropout_rate",
     "num_devices": "num_devices",
     "global_batch_size": "global_batch_size",
     "epochs": "epochs",

@@ -61,6 +61,9 @@ class TrainConfig:
     # Cross-replica BatchNorm statistics (models/batchnorm.py); False is
     # the reference's per-replica BatchNorm.
     sync_bn: bool = False
+    # Dropout for the models that have it (the ViT family), in [0, 1); the
+    # conv models follow the reference and have none.
+    dropout_rate: float = 0.0
     data_root: str = "./data"
     synthetic_data: bool | None = None  # None = auto (synthetic if no local CIFAR-10)
     synthetic_train_size: int = 50_000
@@ -107,6 +110,11 @@ class TrainConfig:
     # Route the wide stride-1 3x3 ResNet convs' weight gradient through
     # the CUDA wgrad kernel (ops/fused_conv.py); ResNet models only.
     fast_conv: bool = False
+
+    # The ViT family's attention: None (the model's default, "dense"),
+    # "dense" or "flash" (the CUDA kernels of ops/flash_attention.py); the
+    # conv families have no attention and refuse it.
+    vit_attention: str | None = None
 
     # Input-pipeline prefetch depth: batches a producer thread stages
     # ahead, their host-to-device copies on a side stream from pinned

@@ -24,9 +24,11 @@
 // sequential grid axis and carry sums in VMEM between visits. Here blocks run
 // in parallel and carry nothing between them:
 //
-// - gmm_fused and gmm: a block owns one output tile. It reads the E + 1 group
-//   offsets from the device, then visits only the groups that overlap its
-//   rows, in order, each visit masking lhs rows of other groups to zero and
+// - gmm_fused and gmm: a block owns one output tile. Each warp finds the
+//   groups that overlap its rows from group_sizes in device memory
+//   (groups.cuh: 32 sizes a step, so any number of groups is taken, and no
+//   table of them is kept), and the block visits them in order, each visit
+//   masking lhs rows of other groups to zero and
 //   reading that group's rhs[e] slab into the same fp32 sums. Each row gets
 //   exactly its own group's products (the masked rows add exact zeros), so the
 //   epilogue adds the row's own group's bias. A tile straddling b boundaries
@@ -83,12 +85,12 @@
 #include <stdint.h>
 
 #include "activation.cuh"
+#include "groups.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kDepth = 32;  // K (gmm) or rows (tgmm) per step
-constexpr int kMaxGroups = 64;
 constexpr int kColLanes = 8;  // colsum: row lanes a block
 constexpr int kColWidth = kThreads / kColLanes;  // colsum: columns a block
 
@@ -126,7 +128,6 @@ gmm_fused_kernel(const In* __restrict__ lhs, const W* __restrict__ rhs,
   static_assert((BM / TM) * (BN / TN) == kThreads, "one output tile per block");
   constexpr int NX = BN / TN;  // threads along N
   constexpr int WS = kTransW ? BN + 1 : BN;  // row stride of the rhs tile
-  __shared__ int ends[kMaxGroups];  // end row of each group, clamped; ends[E-1] = M
   __shared__ int row_group[BM];
   __shared__ float xs[kDepth][BM + 4];  // lhs slice, transposed
   __shared__ float ws[kDepth][WS];      // rhs[e] slice
@@ -134,33 +135,19 @@ gmm_fused_kernel(const In* __restrict__ lhs, const W* __restrict__ rhs,
   const int tx = tid % NX, ty = tid / NX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
-  if (tid == 0) {
-    int64_t acc = 0;
-    for (int e = 0; e < E; ++e) {
-      acc += group_sizes[e];
-      ends[e] = (int)(acc < M ? acc : M);
-    }
-    ends[E - 1] = M;
-  }
-  __syncthreads();
-  if (kBias && tid < BM) {
-    int g = 0;
-    while (g < E - 1 && ends[g] <= m0 + tid) ++g;
-    row_group[tid] = g;
-  }
-  __syncthreads();
-
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int e = 0; e < E; ++e) {
-    const int start = e ? ends[e - 1] : 0;
-    const int lo = start > m0 ? start : m0;
-    const int hi = ends[e] < m0 + BM ? ends[e] : m0 + BM;
-    if (lo >= hi) continue;  // the same for every thread of the block
+  // Every warp walks the groups that meet the tile's rows, in order: the
+  // same visits for every thread of the block. (Listing them in shared
+  // memory first, as gmm_tc.cu does, measured slower here.)
+  int e, lo, hi;
+  for (groups::GroupWalk walk(group_sizes, E, M, m0, m0 + BM); walk.next(&e, &lo, &hi);) {
+    if (kBias)
+      for (int r = lo - m0 + tid; r < hi - m0; r += kThreads) row_group[r] = e;
     const W* w = rhs + (int64_t)e * K * N;
     for (int k0 = 0; k0 < K; k0 += kDepth) {
       for (int i = tid; i < BM * kDepth; i += kThreads) {
@@ -197,6 +184,7 @@ gmm_fused_kernel(const In* __restrict__ lhs, const W* __restrict__ rhs,
       __syncthreads();
     }
   }
+  if (kBias) __syncthreads();  // row_group is whole (a K of 0 runs no step)
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -346,7 +334,7 @@ colsum_kernel(const float* __restrict__ dout, const int* __restrict__ group_size
 }
 
 bool bad_shape(int64_t M, int64_t K, int64_t N, int64_t E) {
-  return E < 1 || E > kMaxGroups || K < 0 || M > 65535LL * 64 || M >= (1LL << 31) ||
+  return E < 1 || K < 0 || M > 65535LL * 64 || M >= (1LL << 31) ||
          K >= (1LL << 31) || N >= (1LL << 31);
 }
 

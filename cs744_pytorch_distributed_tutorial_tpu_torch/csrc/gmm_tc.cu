@@ -57,7 +57,9 @@
 // swizzle), and the ring fills 192 KB (6 stages for one piece, 3 for three).
 //
 // - gmm_tc and gmm_fused_tc (one mainloop): a block owns a 128 x 128 output
-//   tile. It visits every group that overlaps its rows, in order, each visit
+//   tile. It visits every group that overlaps its rows, in order (listed in
+//   shared memory by the block's first warp from group_sizes in device
+//   memory, 32 sizes a step: groups.cuh; any number of groups), each visit
 //   a full pass over K with that group's rhs[e] into a fresh sum, and stores
 //   only that group's rows: each row is written once, from exactly its own
 //   group's products (a tile that straddles b boundaries pays b extra
@@ -127,6 +129,7 @@
 #include <type_traits>
 
 #include "activation.cuh"
+#include "groups.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -134,7 +137,6 @@ namespace {
 using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxGroups = 64;
 constexpr int kThreads = 384;             // a producer and two consumer warpgroups
 constexpr int kTile = 128;                // output tile rows and columns
 constexpr int kChunk = 64;                // contraction a stage: one 128-byte row
@@ -181,20 +183,21 @@ __device__ __forceinline__ void gmm_tc_mainloop(const CUtensorMap* map_a, const 
   constexpr int kStages = kRing / kStage;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
-  __shared__ int ends[kMaxGroups];  // end row of each group, clamped; ends[E-1] = M
+  __shared__ int visit_e[kTile], visit_lo[kTile], visit_hi[kTile];  // the groups that meet the tile
+  __shared__ int visits;
   uint8_t* ring = ring_base(smem_raw);
   const int tid = threadIdx.x, wg = tid / 128;
   const int n0 = blockIdx.x * kTile, m0 = blockIdx.y * kTile;
+  const int row_hi = m0 + kTile < M ? m0 + kTile : M;
   const int nk = (K + kChunk - 1) / kChunk;
 
-  if (tid == 0) {
-    int64_t acc = 0;
-    for (int e = 0; e < E; ++e) {
-      acc += group_sizes[e];
-      ends[e] = static_cast<int>(acc < M ? acc : M);
+  if (tid < 32) {  // the first warp lists the groups that meet the tile's rows
+    const int n = groups::list_groups(group_sizes, E, M, m0, row_hi, visit_e, visit_lo,
+                                      visit_hi, kTile);
+    if (tid == 0) {
+      visits = n;
+      init_ring<kStages>(full, empty);
     }
-    ends[E - 1] = M;
-    init_ring<kStages>(full, empty);
   }
   __syncthreads();
 
@@ -202,14 +205,14 @@ __device__ __forceinline__ void gmm_tc_mainloop(const CUtensorMap* map_a, const 
     if (tid == 0) {
       int s = 0;
       uint32_t ph = 0;
-      for (int e = 0; e < E; ++e) {
-        const int lo = max(e ? ends[e - 1] : 0, m0), hi = min(ends[e], m0 + kTile);
-        if (lo >= hi) continue;
+      for (int v = 0; v < visits; ++v) {
+        const int e = visit_e[v];
         for (int kc = 0; kc < nk; ++kc) {
           mbar_wait(&empty[s], ph ^ 1);
           uint8_t* st = ring + s * kStage;
           mbar_expect_tx(&full[s], kStage);
-          for (int p = 0; p < P; ++p) tma_load(st + p * kA, map_a, &full[s], kc * kChunk, m0, p);
+          for (int p = 0; p < P; ++p)
+            tma_load(st + p * kA, map_a, &full[s], kc * kChunk, m0, p);
           uint8_t* b = st + P * kA;
           if (kBMN) {  // rhs [E, K, N]: two boxes of 64 columns, 64 rows of K
             tma_load(b, map_b, &full[s], n0, kc * kChunk, e);
@@ -230,9 +233,8 @@ __device__ __forceinline__ void gmm_tc_mainloop(const CUtensorMap* map_a, const 
   for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.f;
   int s = 0;
   uint32_t ph = 0;
-  for (int e = 0; e < E; ++e) {
-    const int lo = max(e ? ends[e - 1] : 0, m0), hi = min(ends[e], m0 + kTile);
-    if (lo >= hi) continue;
+  for (int v = 0; v < visits; ++v) {
+    const int e = visit_e[v], lo = visit_lo[v], hi = visit_hi[v];
 #pragma unroll
     for (int i = 0; i < 64; ++i) sum[i] = 0.f;
     for (int kc = 0; kc < nk; ++kc) {
@@ -492,7 +494,7 @@ extern "C" int gmm_tc(const void* a, const void* rhs, const void* group_sizes, v
                       int64_t M, int64_t K, int64_t N, int64_t E, int64_t pieces,
                       int64_t rhs_mn_major, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (E < 1 || E > kMaxGroups || K <= 0 || K % 8 || N % 8 || M > kMaxRows || N > kMaxRows ||
+  if (E < 1 || K <= 0 || K % 8 || N % 8 || M > kMaxRows || N > kMaxRows ||
       K > kMaxRows || (pieces != 1 && pieces != 3) || (rhs_mn_major && pieces != 1) ||
       (M + kTile - 1) / kTile > 65535 || misaligned(a) || misaligned(rhs))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -527,7 +529,7 @@ extern "C" int gmm_fused_tc(const void* lhs, const void* rhs, const void* bias,
                             const void* group_sizes, void* out, void* z, int64_t M, int64_t K,
                             int64_t N, int64_t E, int64_t gelu, int64_t out_bf16, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (E < 1 || E > kMaxGroups || K <= 0 || K % 8 || N % 8 || M > kMaxRows || N > kMaxRows ||
+  if (E < 1 || K <= 0 || K % 8 || N % 8 || M > kMaxRows || N > kMaxRows ||
       K > kMaxRows || (M + kTile - 1) / kTile > 65535 || (z && !gelu) || misaligned(lhs) ||
       misaligned(rhs))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -561,7 +563,7 @@ extern "C" int gmm_fused_tc(const void* lhs, const void* rhs, const void* bias,
 extern "C" int tgmm_tc(const void* lhs, const void* b, const void* group_sizes, void* out,
                        int64_t M, int64_t K, int64_t N, int64_t E, int64_t pieces, void* stream) {
   if (K <= 0 || N <= 0) return 0;
-  if (E < 1 || E > kMaxGroups || M <= 0 || K % 8 || N % 8 || M > kMaxRows || N > kMaxRows ||
+  if (E < 1 || M <= 0 || K % 8 || N % 8 || M > kMaxRows || N > kMaxRows ||
       (K + kTile - 1) / kTile > 65535 || (pieces != 1 && pieces != 3) || misaligned(lhs) ||
       misaligned(b))
     return static_cast<int>(cudaErrorInvalidValue);

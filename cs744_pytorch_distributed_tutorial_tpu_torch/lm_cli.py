@@ -84,8 +84,7 @@ leading training sequences' prefixes; the JAX CLI takes one) and the
 JAX CIFAR CLI's ``--step-timeout-s``, ``--profile-dir``,
 ``--profile-start-step`` and ``--profile-num-steps`` for the LMConfig
 fields of those names (their defaults are LMConfig's). Other
-flags of the JAX CLI (the pipeline axis's) are not accepted;
-``--moe-gmm-impl ragged`` with dropless exits with "not yet ported". The
+flags of the JAX CLI (the pipeline axis's) are not accepted. The
 JAX CLI's refusals of ``--beam`` and
 ``--speculative-k`` combinations are made before training. The stdout
 lines and the ``--json`` summary keys are the JAX CLI's, plus
@@ -157,7 +156,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "capacity: the grouped-matmul kernels)")
     p.add_argument("--moe-gmm-impl", choices=("auto", "ragged", "pallas"), default="auto",
                    help="grouped-matmul backend for --moe-dispatch dropless: auto and pallas "
-                        "take the CUDA kernels (ragged is not yet ported)")
+                        "take the CUDA kernels, ragged the plain ragged_dot product")
     p.add_argument("--moe-expert-parallel", action="store_true",
                    help="split the experts over the data axis (the capacity slots' "
                         "all-to-all; scatter or einsum dispatch)")
@@ -435,9 +434,6 @@ def _generate(args, trainer, tokens):
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.moe_experts > 0 and args.moe_dispatch == "dropless" and args.moe_gmm_impl == "ragged":
-        raise SystemExit("--moe-gmm-impl ragged (lax.ragged_dot) is not yet ported to the "
-                         "PyTorch/CUDA package; auto and pallas take the CUDA kernels")
     _check_decoders(args)
 
     from cs744_pytorch_distributed_tutorial_tpu_torch.data import (

@@ -1,8 +1,7 @@
 """Model zoo and registry.
 
-The VGG table, ``tiny_cnn`` (the small net the fast tests run) and
-ResNet-18/34/50. The ViT family of the JAX package's registry raises
-"not yet ported".
+The VGG table, ``tiny_cnn`` (the small net the fast tests run),
+ResNet-18/34/50 and the ViT family: the JAX package's registry.
 """
 
 from __future__ import annotations
@@ -25,6 +24,12 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.models.vgg import (
     vgg16,
     vgg19,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.models.vit import (
+    ViT,
+    vit_small,
+    vit_tiny,
+    vit_wide_p8,
+)
 
 # The JAX package's TinyCNN (models/__init__.py:56-80): conv8+BN+ReLU+pool,
 # conv16+BN+ReLU+pool, dense — a VGG with this two-entry table.
@@ -46,15 +51,13 @@ MODEL_REGISTRY: dict[str, Callable[..., nn.Module]] = {
     "resnet34": resnet34,
     "resnet50": resnet50,
     "tiny_cnn": tiny_cnn,
+    "vit_tiny": vit_tiny,
+    "vit_small": vit_small,
+    "vit_wide_p8": vit_wide_p8,
 }
-
-# In the JAX package's registry, still to port.
-_NOT_YET_PORTED = ("vit_tiny", "vit_small", "vit_wide_p8")
 
 
 def get_model(name: str, **kw: Any) -> nn.Module:
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(f"model {name!r} is not yet ported")
     try:
         factory = MODEL_REGISTRY[name]
     except KeyError:
@@ -71,6 +74,7 @@ __all__ = [
     "TINY_CNN_CFG",
     "VGG",
     "VGG_CFGS",
+    "ViT",
     "get_model",
     "resnet18",
     "resnet34",
@@ -80,4 +84,7 @@ __all__ = [
     "vgg13",
     "vgg16",
     "vgg19",
+    "vit_small",
+    "vit_tiny",
+    "vit_wide_p8",
 ]

@@ -35,6 +35,10 @@ block class name comes from ``arch``; the number of blocks and which
 have a projection (``Conv_2`` in a BasicBlock, ``Conv_3`` in a
 bottleneck) come from the tree, so cut-down stage tables convert too.
 
+The ViT (``models/vit.py``, ``vit_state_dict_from_jax`` and its inverse):
+``patch_embed`` a conv (HWIO <-> OIHW), ``cls_token`` and ``pos_embed``
+as they are, and its blocks, ``ln_f`` and ``head`` by the LM's rules below.
+
 The transformer LM (``models/transformer.py``), flax ``params`` only:
 
     flax                                  port state_dict
@@ -342,6 +346,37 @@ def jax_lm_params_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
             node[name] = _np(value)
         else:
             raise ValueError(f"unexpected LM state_dict key {key!r}")
+    return params
+
+
+# The ViT's own parameters, outside the blocks, ``ln_f`` and ``head`` (which
+# take the LM's rules).
+_VIT_AS_IS = ("cls_token", "pos_embed")
+
+
+def vit_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A flax ``ViT`` ``params`` tree -> the port ViT's ``state_dict``:
+    ``patch_embed`` (kernel HWIO [p, p, 3, d] -> OIHW [d, 3, p, p], and its
+    bias), ``cls_token`` [1, 1, d] and ``pos_embed`` [1, n + 1, d] as they
+    are; ``block_i``, ``ln_f`` and ``head`` by the LM's rules
+    (``lm_params_from_jax``)."""
+    out = {"patch_embed.weight": _conv_to_torch(params["patch_embed"]["kernel"]),
+           "patch_embed.bias": _tensor(params["patch_embed"]["bias"])}
+    out.update({name: _tensor(params[name]) for name in _VIT_AS_IS})
+    rest = {k: v for k, v in params.items() if k not in ("patch_embed", *_VIT_AS_IS)}
+    out.update(lm_params_from_jax(rest))
+    return out
+
+
+def jax_vit_params_from_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """The reverse: the port ViT's ``state_dict`` -> a flax ``params`` tree
+    of numpy arrays."""
+    params = {"patch_embed": {"kernel": _conv_to_jax(state_dict["patch_embed.weight"]),
+                              "bias": _np(state_dict["patch_embed.bias"])}}
+    params.update({name: _np(state_dict[name]) for name in _VIT_AS_IS})
+    rest = {k: v for k, v in state_dict.items()
+            if not k.startswith("patch_embed.") and k not in _VIT_AS_IS}
+    params.update(jax_lm_params_from_state_dict(rest))
     return params
 
 

@@ -68,8 +68,12 @@ counts E as a receptive field, so its fan_in is E * d (std 0.015625 for
 ``(8, 512, 1024)``, not 512**-0.5); ``reset_parameters`` draws from the
 same truncated normal.
 
-``gmm_impl="ragged"`` is not ported yet; ``auto`` and ``pallas`` take the
-CUDA kernels on CUDA tensors and their plain versions on CPU tensors.
+``gmm_impl``: ``auto`` and ``pallas`` take the fused grouped matmuls
+(the CUDA kernels on CUDA tensors, their plain versions on CPU tensors);
+``ragged`` is the JAX ``lax.ragged_dot`` path (``ops/gmm.py::ragged_dot``,
+a plain product on either device, which reads the group offsets on the
+host): each product rounded to the compute dtype, then the bias and the
+gelu in it. Any number of experts runs on either path.
 """
 
 from __future__ import annotations
@@ -80,7 +84,10 @@ from torch import nn
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.vgg import _lecun_normal_
 from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import expert_load_entropy
-from cs744_pytorch_distributed_tutorial_tpu_torch.ops.gmm import grouped_matmul_fused
+from cs744_pytorch_distributed_tutorial_tpu_torch.ops.gmm import (
+    grouped_matmul,
+    grouped_matmul_fused,
+)
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.collectives import AllToAll
 
 DISPATCH_IMPLS = ("einsum", "scatter", "dropless")
@@ -122,13 +129,10 @@ class MoEFFN(nn.Module):
                              "parallel.mesh.Mesh (mesh=)")
         if gmm_impl not in GMM_IMPLS:
             raise ValueError(f"unknown gmm_impl {gmm_impl!r}; choose from {GMM_IMPLS}")
-        if dropless and gmm_impl == "ragged":
-            raise NotImplementedError("MoE gmm_impl='ragged' (lax.ragged_dot) is not yet "
-                                      "ported; 'auto' and 'pallas' take the CUDA kernels")
         self.num_experts, self.top_k, self.d_ff = e, k, d_ff
         self.expert_axis = expert_axis if ep else None
         self.mesh = mesh
-        self.dispatch_impl = dispatch_impl
+        self.dispatch_impl, self.gmm_impl = dispatch_impl, gmm_impl
         self.capacity_factor, self.num_groups = capacity_factor, num_groups
         self.router = nn.Linear(d_model, e, bias=False)
         self.w_in = nn.Parameter(torch.empty(e, d_model, d_ff))
@@ -223,9 +227,18 @@ class MoEFFN(nn.Module):
         n, d = tokens.shape
         order, group_sizes, tok_ids = self.group_by_expert(topk_idx, self.num_experts)
         xs = tokens[tok_ids].to(dtype)
-        h = grouped_matmul_fused(xs, self.w_in.to(dtype), self.b_in, group_sizes,
-                                 activation="gelu")
-        out = grouped_matmul_fused(h, self.w_out.to(dtype), self.b_out, group_sizes)
+        if self.gmm_impl == "ragged":
+            # XLA's ragged_dot, rounded to the compute dtype before the bias
+            # and the gelu, which run in it (JAX's unfused path).
+            sorted_e = topk_idx.reshape(-1)[order]
+            h = grouped_matmul(xs, self.w_in.to(dtype), group_sizes, impl="ragged")
+            h = F.gelu(h + self.b_in[sorted_e].to(h.dtype), approximate="tanh")
+            out = grouped_matmul(h.to(dtype), self.w_out.to(dtype), group_sizes, impl="ragged")
+            out = out + self.b_out[sorted_e].to(out.dtype)
+        else:
+            h = grouped_matmul_fused(xs, self.w_in.to(dtype), self.b_in, group_sizes,
+                                     activation="gelu")
+            out = grouped_matmul_fused(h, self.w_out.to(dtype), self.b_out, group_sizes)
         gate_flat = topk_gate.reshape(-1)[order].to(out.dtype)
         # With top-2 each token row receives two addends onto zero, and
         # a + b rounds the same in either order, so index_add_'s atomics

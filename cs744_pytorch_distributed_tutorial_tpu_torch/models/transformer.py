@@ -285,13 +285,20 @@ class Norm(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head causal self-attention over [B, T, d_model]."""
+    """Multi-head self-attention over [B, T, d_model]: causal (the LM's),
+    or with ``causal=False`` every position attending to every one (the
+    ViT's encoder blocks), in ``train`` mode on an unsharded sequence
+    only."""
 
     def __init__(self, d_model: int, num_heads: int, *, num_kv_heads: int | None = None,
                  impl: str = "dense", rope: bool = False, attn_bias: bool = False,
                  quant_modules: tuple = (), seq_size: int = 1, tensor_size: int = 1,
-                 mesh=None):
+                 mesh=None, causal: bool = True):
         super().__init__()
+        if not causal and seq_size > 1:
+            raise ValueError(
+                f"causal=False runs on an unsharded sequence only (seq axis of size {seq_size}): "
+                "the ring and Ulysses paths of the port are causal")
         if impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention impl {impl!r}; choose from {ATTENTION_IMPLS}")
         if d_model % num_heads:
@@ -317,7 +324,7 @@ class Attention(nn.Module):
         self.heads_local, self.kv_local = num_heads // tensor_size, kv // tensor_size
         self.seq_size, self.tensor_size, self.mesh = seq_size, tensor_size, mesh
         self.head_dim = d_model // num_heads
-        self.impl, self.rope = impl, rope
+        self.impl, self.rope, self.causal = impl, rope, causal
         hd = self.head_dim
         self.q = _linear(d_model, num_heads * hd, attn_bias, "q" in quant_modules)
         self.k = _linear(d_model, kv * hd, attn_bias, "k" in quant_modules)
@@ -328,6 +335,10 @@ class Attention(nn.Module):
                 kv: KVCache | None = None, page_table: torch.Tensor | None = None,
                 paged_impl: str = "gather") -> torch.Tensor:
         b, t, d_model = x.shape
+        if not self.causal and (mode != "train" or kv is not None):
+            raise ValueError(
+                f"causal=False attention has no decode modes and no KV cache (mode={mode!r}): "
+                "a cached row sees only the rows before it")
         hd = self.head_dim
         tp = self.tensor_size > 1
         if tp:
@@ -375,9 +386,9 @@ class Attention(nn.Module):
                 rep = self.heads_local // self.kv_local
                 k, v = repeat_kv(k, rep), repeat_kv(v, rep)
                 if self.impl in FLASH_IMPLS:
-                    out = flash_attention(q, k, v, causal=True)
+                    out = flash_attention(q, k, v, causal=self.causal)
                 else:
-                    out = dense_attention(q, k, v, causal=True)
+                    out = dense_attention(q, k, v, causal=self.causal)
         out = out.reshape(b, t, self.heads_local * hd).to(dtype)
         out = _dense(self.attn_out, out, dtype)
         return reduce_from_tp_region(out, self.mesh, TENSOR_AXIS) if tp else out

@@ -75,6 +75,7 @@ __all__ = [
     "DEVICE_CLOCKS",
     "DeviceProfile",
     "capture_device_profile",
+    "world_agree",
     "segment_costs",
     "roofline_classify",
     "PhaseStat",
@@ -228,6 +229,7 @@ def capture_device_profile(
     iters: int = 3,
     top: int = 20,
     trace_dir: str | None = None,
+    agree: Callable[[bool], bool] | None = None,
 ) -> DeviceProfile:
     """Run ``fn(*args)`` ``iters`` times under ``torch.profiler`` (CPU and,
     for work on a card, CUDA activity) after one warm-up call outside the
@@ -244,7 +246,16 @@ def capture_device_profile(
     empty trace is reported on stderr. When all come back empty, CUDA
     events time ``iters`` more calls: the clock is ``"events"``, the span
     on the current stream (idle gaps between launches included), and
-    there are no op rows. The wall clock never stands in for a card's."""
+    there are no op rows. The wall clock never stands in for a card's.
+
+    ``agree`` takes the decision to retake out of one rank's hands: given
+    whether this rank's trace holds device events, it returns whether
+    every rank's does (``world_agree``, a MIN all-reduce over the process
+    group). A caller whose ``fn`` issues collectives on several ranks
+    passes it, so all retake together, fall back to the events together,
+    or stop together; a rank that went on alone would run ``fn``'s
+    collectives while the others wait in theirs. Without it (a caller on
+    one rank, even under an initialized group) the trace decides."""
     from torch.profiler import ProfilerActivity, profile
 
     if iters < 1:
@@ -264,10 +275,11 @@ def capture_device_profile(
             wall_ms = (time.perf_counter() - t0) * 1e3 / iters
             time.sleep(pad_s)
         events = _device_events(prof) if on_card else []
-        if events or not on_card:
+        if not on_card or (agree(bool(events)) if agree is not None else events):
             break
+        what = "another rank's trace holds" if events else "holds"
         print(f"capture_device_profile: trace {attempt + 1} of {_TRACE_ATTEMPTS} on {device} "
-              f"(pads {pad_s} s) holds no device event", file=sys.stderr, flush=True)
+              f"(pads {pad_s} s) {what} no device event", file=sys.stderr, flush=True)
     else:
         device_ms = _events_ms(fn, args, iters, device)
         print(f"capture_device_profile: timed with CUDA events instead: {device_ms:.4f} ms a "
@@ -602,8 +614,9 @@ class CifarSegments:
 
     def _loss(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """The engine's exact loss (``Trainer.train_step``): augmentation
-        from the trainer's generator, autocast, label smoothing; on the
-        bare module, outside DDP, so backward leaves the gradients local."""
+        from the trainer's generator, autocast (the ViT casts itself), the
+        ViT's dropout under the step's key, label smoothing; on the bare
+        module, outside DDP, so backward leaves the gradients local."""
         from cs744_pytorch_distributed_tutorial_tpu_torch.data.augment import (
             augment_train_batch,
             eval_batch,
@@ -613,8 +626,9 @@ class CifarSegments:
         tr, cfg = self.trainer, self.trainer.cfg
         x = augment_train_batch(tr.augment_gen, x) if cfg.augment else eval_batch(x)
         tr.model.train()
+        key = tr._dropout_key(0)
         with tr._autocast():
-            logits = tr.model(x)
+            logits = tr.model(x) if key is None else tr.model(x, dropout=key)
         return _smoothed_xent(logits.float(), y, cfg.label_smoothing)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -1012,6 +1026,12 @@ def _world_reduce(value: float, op) -> float:
     return float(t)
 
 
+def world_agree(flag: bool) -> bool:
+    """Whether ``flag`` holds on every rank of the process group: a MIN
+    all-reduce, as ``_world_reduce``; every rank must call it."""
+    return _world_reduce(float(flag), dist.ReduceOp.MIN) == 1.0
+
+
 def _profile(segs: Any, params: list[torch.Tensor], x: Any, y: Any, *, iters: int, top: int,
              compute_dtype: str, comm_bytes: float, device: torch.device, n_chips: int,
              batch: int, global_mean: Callable[[torch.Tensor], float]) -> PhaseReport:
@@ -1019,7 +1039,10 @@ def _profile(segs: Any, params: list[torch.Tensor], x: Any, y: Any, *, iters: in
     each one, the trainer restored after each."""
     trainer = segs.trainer
     rtol, atol, loss_rtol = _parity_tols(compute_dtype)
-    cap = lambda fn, *a: capture_device_profile(fn, *a, iters=iters, top=top)  # noqa: E731
+    # Every rank times the segments' collectives together: one decision a
+    # trace for all of them.
+    cap = lambda fn, *a: capture_device_profile(  # noqa: E731
+        fn, *a, iters=iters, top=top, agree=world_agree)
 
     def timed(fn, *args) -> tuple[DeviceProfile, dict]:
         costs = segment_costs(fn, *args)

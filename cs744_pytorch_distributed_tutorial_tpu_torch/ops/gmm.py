@@ -2,7 +2,7 @@
 kernels' wrappers, their plain PyTorch versions, and the autograd
 Functions that join them.
 
-Port of the JAX package's ``ops/gmm.py``, with its Pallas path
+Port of the JAX package's ``ops/gmm.py``: its Pallas path
 (``impl="pallas"``)::
 
     grouped_matmul_fused:  out[r] = act(lhs[r] @ rhs[g(r)] + bias[g(r)])
@@ -16,7 +16,11 @@ the TPU wrapper's padding does). The products are summed in fp32; the
 fused form adds the bias and applies the gelu (tanh form,
 ``jax.nn.gelu``'s default) in fp32 and rounds once to ``out_dtype``
 (default lhs's dtype), as the TPU kernel ``_gmm_fused_kernel`` does.
-``grouped_matmul`` rounds its fp32 result to lhs's dtype.
+``grouped_matmul`` rounds its fp32 result to lhs's dtype. Any number of
+groups E >= 1 is taken: the kernels find each row's group from
+``group_sizes`` in device memory, with no table of all the groups. Its ragged
+path (``impl="ragged"``, XLA's ``lax.ragged_dot``) is ``ragged_dot``, a
+plain PyTorch product with no kernel behind it (see there).
 
 The backward is the JAX ``_gmm_bwd_core``, with its rounding points:
 ``dout`` cast to fp32 (on the gelu path ``dz = dout * gelu'(z)`` in fp32,
@@ -78,7 +82,6 @@ KERNELS = ("fused", "fused_z", "fused_tc", "fused_z_tc", "gmm", "tgmm", "colsum"
            "tgmm_tc", "split")
 ACTIVATIONS = ("none", "gelu")
 IMPLS = ("pallas", "ragged")
-MAX_GROUPS = 64  # the kernels keep the group offsets in shared memory
 # The fewest rows of a forward that take the tensor cores. A prefill (4,096
 # routed rows at batch 16) and a training step (32,768) do, and so does a
 # decode step (32 rows over 8 experts): chip_smoke.py's paired runs of both
@@ -104,36 +107,41 @@ def reset_launch_count() -> None:
     _launches.clear()
 
 
+def bind(lib: ctypes.CDLL, tc: ctypes.CDLL) -> dict:
+    """The C entry points of a build of ``gmm.cu`` (``lib``) and of
+    ``gmm_tc.cu`` (``tc``) by kernel name (``fused`` for ``gmm_fused``),
+    their argument types set."""
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    # lhs, rhs, bias, group_sizes, out, z, M, K, N, E, gelu, in_bf16, out_bf16, stream
+    lib.gmm_fused.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, p]
+    # lhs, rhs, group_sizes, out, M, K, N, E, lhs_bf16, rhs_bf16, trans_rhs, stream
+    lib.gmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, i64, p]
+    # lhs, dout, group_sizes, out, M, K, N, E, lhs_bf16, stream
+    lib.tgmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, p]
+    # dout, group_sizes, out, M, N, E, stream
+    lib.colsum.argtypes = [p, p, p, i64, i64, i64, p]
+    # a, rhs, group_sizes, out, M, K, N, E, pieces, rhs_mn_major, stream
+    tc.gmm_tc.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, p]
+    # lhs, b, group_sizes, out, M, K, N, E, pieces, stream
+    tc.tgmm_tc.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, p]
+    # x, out, n, stream
+    tc.split_bf16.argtypes = [p, p, i64, p]
+    # lhs, rhs, bias, group_sizes, out, z, M, K, N, E, gelu, out_bf16, stream
+    tc.gmm_fused_tc.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, p]
+    fns = {"fused": lib.gmm_fused, "gmm": lib.gmm, "tgmm": lib.tgmm, "colsum": lib.colsum,
+           "fused_tc": tc.gmm_fused_tc, "gmm_tc": tc.gmm_tc, "tgmm_tc": tc.tgmm_tc,
+           "split": tc.split_bf16}
+    for fn in fns.values():
+        fn.restype = ctypes.c_int
+    return fns
+
+
 def load_kernel():
     """Build (first call) and load the kernels of ``SOURCES``; returns
-    their C entry points by kernel name (``fused`` for ``gmm_fused``)."""
+    their C entry points by kernel name (``bind``)."""
     global _kernel_fns
     if _kernel_fns is None:
-        lib = load_library(SOURCE)
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
-        # lhs, rhs, bias, group_sizes, out, z, M, K, N, E, gelu, in_bf16, out_bf16, stream
-        lib.gmm_fused.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, i64, p]
-        # lhs, rhs, group_sizes, out, M, K, N, E, lhs_bf16, rhs_bf16, trans_rhs, stream
-        lib.gmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, i64, p]
-        # lhs, dout, group_sizes, out, M, K, N, E, lhs_bf16, stream
-        lib.tgmm.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, p]
-        # dout, group_sizes, out, M, N, E, stream
-        lib.colsum.argtypes = [p, p, p, i64, i64, i64, p]
-        tc = load_library(TC_SOURCE)
-        # a, rhs, group_sizes, out, M, K, N, E, pieces, rhs_mn_major, stream
-        tc.gmm_tc.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, i64, p]
-        # lhs, b, group_sizes, out, M, K, N, E, pieces, stream
-        tc.tgmm_tc.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, p]
-        # x, out, n, stream
-        tc.split_bf16.argtypes = [p, p, i64, p]
-        # lhs, rhs, bias, group_sizes, out, z, M, K, N, E, gelu, out_bf16, stream
-        tc.gmm_fused_tc.argtypes = [p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, p]
-        fns = {"fused": lib.gmm_fused, "gmm": lib.gmm, "tgmm": lib.tgmm, "colsum": lib.colsum,
-               "fused_tc": tc.gmm_fused_tc, "gmm_tc": tc.gmm_tc, "tgmm_tc": tc.tgmm_tc,
-               "split": tc.split_bf16}
-        for fn in fns.values():
-            fn.restype = ctypes.c_int
-        _kernel_fns = fns
+        _kernel_fns = bind(load_library(SOURCE), load_library(TC_SOURCE))
     return _kernel_fns
 
 
@@ -272,16 +280,14 @@ def _aligned(*tensors: torch.Tensor) -> bool:
 # ------------------------------------------------------------------ wrappers
 def _check_groups(group_sizes: torch.Tensor, num_groups: int | None,
                   *tensors: torch.Tensor) -> None:
-    """group_sizes [E] integers (E = num_groups when given), 1 <= E <=
-    MAX_GROUPS, on one device with ``tensors``."""
+    """group_sizes [E] integers (E = num_groups when given), E >= 1, on one
+    device with ``tensors``."""
     if group_sizes.dim() != 1 or num_groups not in (None, group_sizes.shape[0]):
         raise ValueError(f"group_sizes {tuple(group_sizes.shape)} != [num_groups {num_groups}]")
     if group_sizes.dtype.is_floating_point or group_sizes.dtype == torch.bool:
         raise TypeError(f"group_sizes must be integers, got {group_sizes.dtype}")
-    num_groups = group_sizes.shape[0]
-    if not 1 <= num_groups <= MAX_GROUPS:
-        raise ValueError(f"grouped_matmul takes 1 to {MAX_GROUPS} groups, got {num_groups} "
-                         "(the CUDA kernels keep the group offsets in shared memory)")
+    if group_sizes.shape[0] < 1:
+        raise ValueError("grouped_matmul needs at least one group")
     devices = {t.device for t in (group_sizes, *tensors)}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
@@ -561,16 +567,43 @@ def grouped_matmul_fused(lhs: torch.Tensor, rhs: torch.Tensor, bias: torch.Tenso
                                      torch.is_grad_enabled())
 
 
+def ragged_dot(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """XLA's ``lax.ragged_dot`` (the JAX ``grouped_matmul(impl="ragged")``)
+    in plain PyTorch: ``lhs[r] @ rhs[g(r)]`` [M, N], each group's product
+    summed in fp32 and rounded to lhs's dtype, so a bias or a gelu after it
+    sees the rounded value, as on JAX's CPU path. Unlike ``impl="pallas"``,
+    the rows from ``sum(group_sizes)`` to M are zeros (ragged_dot's), and
+    a group running past M is cut there. Differentiable in lhs and rhs
+    through autograd.
+
+    A loop over the groups, whose row offsets it reads on the host: on a
+    card each call synchronises with the host once. XLA computes
+    ragged_dot with no Pallas kernel, and so this is no port of one: rows
+    11-13's kernels stay behind ``impl="pallas"``."""
+    _check_operands(lhs, rhs)
+    _check_groups(group_sizes, rhs.shape[0], lhs, rhs)
+    m, n = lhs.shape[0], rhs.shape[2]
+    ends = torch.cumsum(group_sizes.long(), 0).clamp(0, m).tolist()
+    parts, lo = [], 0
+    for g, end in enumerate(ends):
+        if end > lo:
+            parts.append((lhs[lo:end].float() @ rhs[g].float()).to(lhs.dtype))
+            lo = end
+    if lo < m:
+        parts.append(lhs.new_zeros((m - lo, n)))
+    return torch.cat(parts) if parts else lhs.new_zeros((0, n))
+
+
 def grouped_matmul(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
                    impl: str = "pallas") -> torch.Tensor:
     """``lhs[r] @ rhs[g(r)]`` [M, N] summed in fp32 and rounded to lhs's
-    dtype (the JAX ``grouped_matmul(impl="pallas")``), differentiable in
-    lhs and rhs. ``impl="ragged"`` (``lax.ragged_dot``) is not ported."""
+    dtype (the JAX ``grouped_matmul``), differentiable in lhs and rhs:
+    ``impl="pallas"`` through the CUDA kernels (their plain versions for
+    CPU tensors), ``impl="ragged"`` through ``ragged_dot``."""
     if impl not in IMPLS:
         raise ValueError(f"unknown grouped_matmul impl {impl!r}")
     if impl == "ragged":
-        raise NotImplementedError("grouped_matmul impl='ragged' (lax.ragged_dot) is not yet "
-                                  "ported; impl='pallas' takes the CUDA kernels")
+        return ragged_dot(lhs, rhs, group_sizes)
     _check_operands(lhs, rhs)
     _check_groups(group_sizes, rhs.shape[0], lhs, rhs)
     return _GroupedMatmul.apply(lhs, rhs, group_sizes).to(lhs.dtype)

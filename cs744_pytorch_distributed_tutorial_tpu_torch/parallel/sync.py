@@ -180,6 +180,13 @@ SYNC_STRATEGIES: dict[str, SyncFn] = {
     "fsdp": _none,
 }
 
+#: The JAX package's strategies whose outputs its replication checker
+#: cannot prove replicated (its ``shard_map`` then runs unchecked). The
+#: port has no such checker; its Trainer keeps the JAX rule that the flash
+#: ViT runs only under these (or ``none``), to refuse what JAX refuses.
+UNCHECKED_REPLICATION = frozenset(
+    {"p2p_star", "ring", "gather_scatter", "zero1", "fsdp", "int8_allreduce", "int8_ring"})
+
 #: Strategies whose collective is an elementwise mean over flat data,
 #: which the bucketed path may coalesce.
 _BUCKETED = ("allreduce", "ring")

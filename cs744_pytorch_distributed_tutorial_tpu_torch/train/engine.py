@@ -102,6 +102,7 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.overlap import (
     OverlappedZero1,
 )
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
+    UNCHECKED_REPLICATION,
     get_sync,
     sync_grads,
     sync_grads_compressed,
@@ -198,6 +199,8 @@ class Trainer:
             raise ValueError(
                 f"sync_bn applies to BatchNorm models only; {cfg.model!r} has no BN layers"
             )
+        self._vit = cfg.model.startswith("vit")
+        vit_kw = self._vit_options(cfg)
         self._zero1, self._fsdp = cfg.sync == "zero1", cfg.sync == "fsdp"
         if (self._zero1 or self._fsdp) and cfg.fused_optimizer:
             raise ValueError(
@@ -241,7 +244,7 @@ class Trainer:
         else:
             self.tx = make_optimizer(cfg)
 
-        model_kw: dict[str, Any] = {"sync_bn": cfg.sync_bn}
+        model_kw: dict[str, Any] = {} if self._vit else {"sync_bn": cfg.sync_bn}
         if cfg.model.startswith("resnet"):
             use_imagenet_stem = (
                 cfg.image_size > 64
@@ -255,6 +258,7 @@ class Trainer:
             )
         else:
             model_kw["image_size"] = cfg.image_size
+        model_kw.update(vit_kw)
         gen = torch.Generator().manual_seed(cfg.seed)
         self.model = get_model(
             cfg.model, num_classes=cfg.num_classes, generator=gen, **model_kw
@@ -296,6 +300,48 @@ class Trainer:
         # Batches fit's loaders assembled with the native gather.
         self.native_batches = 0
 
+    def _vit_options(self, cfg: TrainConfig) -> dict[str, Any]:
+        """The JAX Trainer's rules for ``dropout_rate`` and ``vit_attention``
+        (its ``engine.py:173-207``), and the ViT's own model options: its
+        compute dtype (the family casts explicitly, without autocast), its
+        dropout rate and its attention."""
+        if not 0.0 <= cfg.dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate must be in [0, 1), got {cfg.dropout_rate}")
+        kw: dict[str, Any] = {"dtype": resolve_dtype(cfg.compute_dtype)} if self._vit else {}
+        if cfg.dropout_rate:
+            if not self._vit:
+                raise ValueError(
+                    f"dropout_rate applies to the ViT family; {cfg.model!r} follows the "
+                    "reference (no dropout)")
+            kw["dropout_rate"] = cfg.dropout_rate
+        if cfg.vit_attention is not None:
+            if not self._vit:
+                raise ValueError(
+                    f"vit_attention applies to the ViT family; {cfg.model!r} has no attention")
+            if cfg.vit_attention not in ("dense", "flash"):
+                raise ValueError(
+                    f"vit_attention must be 'dense' or 'flash', got {cfg.vit_attention!r}")
+            if cfg.vit_attention == "flash" and cfg.sync not in UNCHECKED_REPLICATION | {"none"}:
+                # The JAX package's limit (its shard_map's replication check
+                # cannot see through the Pallas kernel), kept so that the
+                # port refuses what JAX refuses.
+                raise ValueError(
+                    "vit_attention='flash' requires an explicit-sync strategy "
+                    f"{sorted(UNCHECKED_REPLICATION)} or 'none' (got sync={cfg.sync!r}: its "
+                    "replication analysis cannot see through the Pallas kernel)")
+            kw["attention_impl"] = cfg.vit_attention
+        return kw
+
+    def _dropout_key(self, microbatch: int) -> tuple[int, ...] | None:
+        """The ViT's dropout key of this step's ``microbatch``: (seed, step,
+        microbatch), then this rank above rank 0 (each data rank draws its
+        own masks; rank 0 keeps the one-device key, as the LM's). None
+        without dropout."""
+        if not (self._vit and self.cfg.dropout_rate > 0.0):
+            return None
+        key = (self.cfg.seed, int(self.state.step), microbatch)
+        return key + (self.rank,) if self.rank else key
+
     def _shard_model(self) -> None:
         """FSDP: keep this rank's rows of each parameter (``self.params``)
         and release the module's own tensors; forward and backward take
@@ -314,10 +360,11 @@ class Trainer:
         full = self.tx.gather_params(self.params, self._param_shapes)
         return dict(zip(self._param_names, full))
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _forward(self, x: torch.Tensor, drop_key: tuple[int, ...] | None = None) -> torch.Tensor:
+        kw = {} if drop_key is None else {"dropout": drop_key}
         if self._fsdp:
-            return functional_call(self.model, self._full_params(), (x,))
-        return self.forward_module(x)
+            return functional_call(self.model, self._full_params(), (x,), kw)
+        return self.forward_module(x, **kw)
 
     def state_dict(self) -> dict[str, torch.Tensor]:
         """The model's full state dict; under FSDP its parameters are
@@ -418,7 +465,8 @@ class Trainer:
             )
 
     def _autocast(self):
-        if self.compute_dtype == torch.float32:
+        # The ViT casts to its compute dtype itself, as the LM does.
+        if self.compute_dtype == torch.float32 or self._vit:
             return contextlib.nullcontext()
         return torch.autocast(self.device.type, dtype=self.compute_dtype)
 
@@ -446,7 +494,7 @@ class Trainer:
             if self.overlap is not None and last:
                 self.overlap.begin(g_sum, accum)
             with self._autocast():
-                logits = self._forward(xm)
+                logits = self._forward(xm, self._dropout_key(k))
             loss = _smoothed_xent(logits.float(), ym, cfg.label_smoothing)
             for p in self.params:
                 p.grad = None

@@ -344,7 +344,7 @@ def test_multi_rank_part_needs_a_coordinator():
         (dict(lr_schedule="cosine"), ValueError),  # no total_steps
         (dict(grad_clip_norm=-1.0), ValueError),  # must be > 0
         (dict(sync="fsdp", debug_sync_check=True), ValueError),  # no replicated state
-        (dict(model="vit_tiny"), NotImplementedError),
+        (dict(model="vit_tiny", dropout_rate=1.0), ValueError),  # rate in [0, 1)
         (dict(model="vgg11", fast_conv=True), ValueError),  # no ResNet 3x3 convs
         (dict(sync="zero1", fused_optimizer=True), ValueError),  # its own update
         (dict(sync="allreduce"), ValueError),  # no process group

@@ -245,25 +245,46 @@ def test_z_is_written_only_on_the_differentiated_gelu_path(monkeypatch, activati
     assert seen == [grad and activation == "gelu"]
 
 
-@pytest.mark.parametrize(
-    "call",
-    [lambda e: G.gmm(torch.zeros(8, 4), torch.zeros(e, 6, 4), torch.zeros(e).long(),
-                     trans_rhs=True),
-     lambda e: G.tgmm(torch.zeros(8, 4), torch.zeros(8, 6), torch.zeros(e).long()),
-     lambda e: G.segment_sum_rows(torch.zeros(8, 6), torch.zeros(e).long()),
-     lambda e: G.grouped_matmul(torch.zeros(8, 4), torch.zeros(e, 4, 6),
-                                torch.zeros(e).long())],
-    ids=["gmm", "tgmm", "segment_sum_rows", "grouped_matmul"],
-)
-def test_new_entry_points_state_the_group_limit(call):
-    with pytest.raises(ValueError, match=f"1 to {G.MAX_GROUPS} groups, got {G.MAX_GROUPS + 1}"):
-        call(G.MAX_GROUPS + 1)
+def _e65():
+    """8 rows over 65 groups (three of them non-empty), float64 numpy
+    inputs, and each row's group."""
+    rng = np.random.default_rng(65)
+    sizes = np.zeros(65, np.int64)
+    sizes[[3, 40, 64]] = [3, 2, 3]
+    lhs, rhs, dout = (rng.standard_normal(shape) for shape in ((8, 4), (65, 4, 6), (8, 6)))
+    return lhs, rhs, dout, sizes, np.repeat(np.arange(65), sizes)
+
+
+@pytest.mark.parametrize("name", ["gmm", "tgmm", "segment_sum_rows", "grouped_matmul"])
+def test_new_entry_points_state_the_group_limit(name):
+    """No limit on the number of groups remains: each entry point computes
+    at 65 groups (the old limit plus one) and agrees with a float64 sum
+    within 1e-5 (``test_torch_port_gmm_groups.py`` holds them against JAX
+    at 65 and 128 groups)."""
+    lhs, rhs, dout, sizes, group = _e65()
+    t = lambda a: torch.from_numpy(a).float()  # noqa: E731
+    gs = torch.from_numpy(sizes)
+    if name == "gmm":  # dout @ rhs[g]^T, rhs read transposed
+        got = G.gmm(t(dout), t(rhs), gs, trans_rhs=True)
+        want = np.einsum("rn,rkn->rk", dout, rhs[group])
+    elif name == "tgmm":
+        got = G.tgmm(t(lhs), t(dout), gs)
+        want = np.zeros((65, 4, 6))
+        np.add.at(want, group, lhs[:, :, None] * dout[:, None, :])
+    elif name == "segment_sum_rows":
+        got = G.segment_sum_rows(t(dout), gs)
+        want = np.zeros((65, 6))
+        np.add.at(want, group, dout)
+    else:
+        got = G.grouped_matmul(t(lhs), t(rhs), gs)
+        want = np.einsum("rk,rkn->rn", lhs, rhs[group])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize(
     "call,err,match",
-    [(lambda: G.grouped_matmul(torch.zeros(8, 4), torch.zeros(2, 4, 6), torch.tensor([3, 5]),
-                               impl="ragged"), NotImplementedError, "not yet ported"),
+    [(lambda: G.grouped_matmul(torch.zeros(8, 4), torch.zeros(2, 5, 6), torch.tensor([3, 5]),
+                               impl="ragged"), ValueError, "grouped_matmul shapes"),
      (lambda: G.grouped_matmul(torch.zeros(8, 4), torch.zeros(2, 4, 6), torch.tensor([3, 5]),
                                impl="dense"), ValueError, "unknown grouped_matmul impl"),
      (lambda: G.gmm(torch.zeros(8, 4).half(), torch.zeros(2, 6, 4), torch.tensor([3, 5]),
@@ -303,8 +324,8 @@ def test_grouped_matmul_fused_rejects(change, err):
         rhs = rhs.bfloat16()
     elif change == "float_sizes":
         gs = gs.float()
-    elif change == "too_many_groups":
-        rhs, bias, gs = torch.zeros(65, 4, 6), torch.zeros(65, 6), torch.zeros(65).long()
+    elif change == "too_many_groups":  # more group sizes than rhs has groups
+        gs = torch.zeros(65).long()
     with pytest.raises(err):
         G.grouped_matmul_fused(lhs, rhs, bias, gs, **kw)
 

@@ -245,8 +245,8 @@ def _build(**kw):
 @pytest.mark.parametrize(
     "make,err,match",
     [(_build(moe_dispatch="scatter", moe_num_groups=-1), ValueError, "num_groups must be >= 0"),
-     (lambda: MoEFFN(8, 4, 16, dispatch_impl="dropless", gmm_impl="ragged"),
-      NotImplementedError, "not yet ported"),
+     (lambda: MoEFFN(8, 4, 16, dispatch_impl="dropless", gmm_impl="ragged",
+                     expert_axis="data"), ValueError, "does not compose with expert_axis"),
      (_build(moe_dispatch="sparse"), ValueError, "unknown dispatch_impl"),
      (_build(moe_capacity_factor=2.0), ValueError, "ignores capacity_factor"),
      (_build(moe_num_groups=4), ValueError, "ignores capacity_factor"),
@@ -254,7 +254,7 @@ def _build(**kw):
      (_build(moe_top_k=5), ValueError, "top_k 5 must be in"),
      (_build(moe_top_k=0), ValueError, "top_k 0 must be in"),
      (_build(mlp="swiglu"), ValueError, "does not compose with MoE"),
-     (_build(moe_gmm_impl="ragged"), NotImplementedError, "not yet ported"),
+     (_build(moe_gmm_impl="sparse"), ValueError, "unknown gmm_impl"),
      (lambda: MoEFFN(8, 4, 16, dispatch_impl="dropless", expert_axis="data"), ValueError,
       "does not compose with expert_axis")],
 )

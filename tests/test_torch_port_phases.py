@@ -23,6 +23,13 @@
   1e-6, at most one element in 10,000 beyond 1e-5: Adam's first step is
   lr times a gradient's sign, which flips for a gradient at fp32
   rounding level).
+- One retake decision for all ranks: on 2 Gloo ranks with the card's
+  hooks stubbed and only rank 1's traces empty, ``capture_device_profile``
+  under ``world_agree`` retakes and falls back to CUDA events on both
+  ranks together (``fn`` an all-reduce; the test's own timeout bounds it),
+  and ``_profile`` passes that agreement; the ViT (no batch statistics)
+  segments compose to its fused step exactly, dense under DDP and flash
+  under ring with dropout.
 - ``segment_costs`` counts a product's FLOPs and bytes and adds a
   kernel's reported costs; ``capture_device_profile`` and
   ``device_op_breakdown`` on the CPU (no device lanes: the wall clock);
@@ -554,5 +561,127 @@ def test_obs_report_renders_the_bench_records(tmp_path, capsys):
         main(["fleet-report", str(tmp_path)])
 
 
+# ------------------------------------------------------------ one retake decision
+def _c1_worker(rank: int, port: int, out_path: str) -> None:
+    """Rank ``rank`` of 2 Gloo ranks timing ``fn`` (an all-reduce) with the
+    card's hooks stubbed: rank 0's traces hold device events, rank 1's are
+    all empty. With the world's agreement both retake together and both
+    fall back to the events together; without it, rank 0 would stop after
+    its first trace while rank 1 retakes, and rank 1's collectives would
+    wait for ever."""
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    try:
+        event = types.SimpleNamespace(name="k", device_index=0, time_range=types.SimpleNamespace(
+            start=0.0, elapsed_us=lambda: 5.0))
+        traces = []
+        P._device_of = lambda *trees: torch.device("cuda", 0)
+        P._fence = lambda device: None
+        P._TRACE_PADS_S = (0.0, 0.0, 0.0)
+        P._device_events = lambda prof: traces.append(1) or ([event] if rank == 0 else [])
+
+        def events_ms(fn, args, iters, device):
+            for _ in range(iters):
+                fn(*args)
+            return 2.5
+
+        P._events_ms = events_ms
+        calls = []
+
+        def fn(t):
+            calls.append(1)
+            dist.all_reduce(t)
+            return t
+
+        prof = P.capture_device_profile(fn, torch.ones(4), iters=2, agree=P.world_agree)
+        with open(out_path, "w") as f:
+            json.dump({"clock": prof.clock, "device_ms": prof.device_ms, "traces": len(traces),
+                       "calls": len(calls)}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_every_rank_takes_one_retake_decision(tmp_path):
+    """C1: two Gloo ranks, only rank 1's traces empty, ``fn`` an
+    all-reduce. Both ranks finish under this test's own timeout, on the
+    same clock after the same number of traces and calls."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "c1", str(r), str(port),
+                               str(tmp_path / f"c1_{r}.json")], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=60)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    res = [json.loads((tmp_path / f"c1_{r}.json").read_text()) for r in range(2)]
+    assert res[0] == res[1], res
+    # Three traces, then the events: one warm-up, 2 calls a trace, 2 timed.
+    assert res[0] == {"clock": "events", "device_ms": 2.5, "traces": P._TRACE_ATTEMPTS,
+                      "calls": 1 + 2 * P._TRACE_ATTEMPTS + 2}
+    assert "another rank's trace holds no device event" in logs[0]
+    assert logs[1].count("holds no device event") == P._TRACE_ATTEMPTS
+
+
+def test_profile_passes_the_world_agreement(monkeypatch):
+    """``_profile`` hands every capture the world's agreement; the other
+    callers (one rank under a group) pass none and decide alone."""
+    seen = []
+    real = P.capture_device_profile
+
+    def spy(fn, *args, **kw):
+        seen.append(kw.get("agree"))
+        return real(fn, *args, **kw)
+
+    monkeypatch.setattr(P, "capture_device_profile", spy)
+    x, y = _batch(0, 1)
+    P.profile_phases(_trainer(1, sync="none"), x, y, iters=1)
+    assert seen and all(a is P.world_agree for a in seen)
+    assert P.world_agree(True) and not P.world_agree(False)  # no group: this rank alone
+
+
+# ------------------------------------------------------------ the ViT
+@pytest.fixture
+def narrow_vit(monkeypatch):
+    from cs744_pytorch_distributed_tutorial_tpu_torch import models as PM
+    from cs744_pytorch_distributed_tutorial_tpu_torch.models.vit import ViT
+
+    narrow = dict(d_model=32, num_layers=2, num_heads=2, d_ff=64)
+    monkeypatch.setitem(PM.MODEL_REGISTRY, "vit_tiny", lambda **kw: ViT(**{**narrow, **kw}))
+
+
+@pytest.mark.parametrize("overrides", [dict(sync="auto"),
+                                       dict(sync="ring", vit_attention="flash",
+                                            dropout_rate=0.1)],
+                         ids=["auto-dense", "ring-flash-dropout"])
+def test_vit_segments_equal_fused(gloo_world_of_one, narrow_vit, overrides):
+    """A model without batch statistics: the ViT, dense under DDP (the
+    bench's ``--phase-breakdown --model vit_tiny`` default), and flash
+    under ring with dropout (the segments draw the step's masks): the
+    segmented step is the fused step exactly, and ``profile_phases``
+    restores the trainer."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.config import TrainConfig
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train import Trainer
+
+    def vit():
+        return Trainer(TrainConfig(**{**TINY, "model": "vit_tiny"}, num_devices=1, **overrides))
+
+    x, y = _batch(0, 1)
+    tr = vit()
+    assert not list(tr.model.buffers())
+    res = _parity(tr, x, y)
+    _assert_parity(res)
+    assert res["gap"] == 0.0 and res["loss_fused"] == res["loss_segmented"]
+    prof = _profile_case(vit(), x, y)
+    assert prof["parity_ok"] and prof["restored"]
+
+
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1] == "c1":
+        _c1_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

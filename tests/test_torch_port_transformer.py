@@ -159,20 +159,20 @@ def test_init_distributions_follow_flax_defaults():
 
 @pytest.mark.parametrize(
     "option",
-    # MoE's ragged_dot grouped matmul is not ported (the kernels are).
-    # remat, scan_layers and dropout build now (test_torch_port_lm_options.py,
+    # MoE's ragged_dot grouped matmul runs now (test_torch_port_gmm_groups.py):
+    # in its place an unknown gmm_impl. remat, scan_layers and dropout build now (test_torch_port_lm_options.py,
     # test_torch_port_scan_layers.py), and so do the sequence and tensor
     # axes (test_torch_port_lm_axes4.py): in their places what JAX refuses
     # with ValueError (an unknown remat policy, scan_layers with MoE,
     # attn_bias with a tensor axis, heads that do not divide over it, dense
     # attention on a sequence-sharded axis).
-    [dict(num_experts=4, moe_dispatch="dropless", moe_gmm_impl="ragged"),
+    [dict(num_experts=4, moe_dispatch="dropless", moe_gmm_impl="sparse"),
      dict(remat=True, remat_policy="everything"), dict(scan_layers=True, num_experts=4),
      dict(tensor_axis_size=2, attn_bias=True), dict(tensor_axis_size=3),
      dict(seq_axis_size=2, attention_impl="dense")],
 )
 def test_later_options_raise(option):
-    error, match = NotImplementedError, "not yet ported"
+    error, match = ValueError, "unknown gmm_impl"
     if "remat_policy" in option:
         error, match = ValueError, "remat_policy"
     elif option.get("scan_layers"):
