@@ -123,8 +123,8 @@ no result):
     decode step, two launches a call); 16 requests of that distribution
     through the kernel and gather engines (the share of greedy tokens that
     agree); a pool-pressure run (97
-    pages, int8 KV pages and the int8 head) that must preempt; and a
-    profile of 20 decode steps;
+    pages, int8 KV pages and the int8 head; 24 requests of the
+    distribution) that must preempt; and a profile of 20 decode steps;
 16. the fused grouped matmul (dropless MoE's expert FFN) against its plain
     version at the MoE path's prefill (M 4096) and decode (M 32) shapes,
     with group sizes from a real router's top-2 on random tokens, and at
@@ -204,11 +204,11 @@ no result):
     ``fused_xent``) and on the MoE LM ``moe_e8_top2_dropless_pallas``,
     each with ``parity_ok`` and each segment's flash, fused
     cross-entropy and grouped-matmul launches in one call exact;
-23. the LM run loop through ``lm_cli`` on GPT-2-small, 40 steps:
-    checkpoints every 20, the metric stream, a profiler window whose
+23. the LM run loop through ``lm_cli`` on GPT-2-small, 20 steps:
+    checkpoints every 10, the metric stream, a profiler window whose
     trace holds the flash kernels, the watchdog; again with a NaN at step
-    30 and ``--max-restarts 1`` (disk tier) and with ``--snapshot-every
-    20`` (memory tier, no file read), both bitwise equal to the first run
+    15 and ``--max-restarts 1`` (disk tier) and with ``--snapshot-every
+    10`` (memory tier, no file read), both bitwise equal to the first run
     in every parameter and AdamW moment, every launch count exact; a
     checkpoint's blocking, durable, read and copy-back times (1.95 GB);
 24. the LM training options on GPT-2-small at full width (bf16, flash,
@@ -296,7 +296,21 @@ no result):
     size, at E 65, 128 and 256 with some experts empty, the forward (with
     and without ``z``), ``gmm``, ``tgmm`` and ``colsum`` against their
     plain versions, each call's launches exact and no host
-    synchronisation; the forward's and dlhs's times at E 128.
+    synchronisation; the forward's and dlhs's times at E 128;
+32. training that survives losing a rank (``elastic_phase``): the port's
+    ``launch`` with 4 CPU workers (Gloo) on the card's host, the
+    coordinator SIGKILLed at step 3 and rank 2 a 100 ms straggler (two
+    generations, rank 1 re-elected, ``fleet_check`` clean, rank 2 named,
+    the losses an uninterrupted 3-worker run's at rtol 1e-6; the seconds
+    to the survivors' exits and to the first resumed step); ResNet-18
+    written by 4 CPU ranks and the LM (GPT-2-small's width, 2 layers,
+    zero1) by 3, each restored on the card at a world of one through
+    ``elastic_state`` (every file read; BatchNorm buffers, parameters,
+    momentum and the re-chunked AdamW rows checked bit for bit) and
+    trained 10 and 4 steps through the fused SGD, tensor-core wgrad,
+    flash and fused cross-entropy kernels (launches exact), the losses
+    within a bound set from the CPU states' largest difference
+    (``ELASTIC_GAIN``) of the same steps from a world-1-written state.
 
 Each phase prints its wall seconds as it ends, and the line before the
 kernels JSON gives the whole run's and each phase's.
@@ -363,19 +377,21 @@ DECODE_WIDTH = dict(num_layers=12, d_model=768, num_heads=12, num_kv_heads=4, d_
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 16, 128, 128
 SERVE_GEOMETRY = dict(num_slots=16, page_size=16, num_pages=513, max_pages_per_slot=32)
 PRESSURE_PAGES = 97  # 96 allocatable pages for 16 slots of up to 32 pages
+PRESSURE_REQUESTS = 24  # the pool-pressure run's trace, cut for the script's time limit
 PROFILE_PROMPT, PROFILE_BUDGET = 128, 64
 SERVE_TRACE = dict(num_requests=64, rate_rps=64.0, prompt_len=(64, 256), output_len=(64, 256),
                    seed=0)
 # The serving tracer, guard and failure phases: overload at 3x the trace's
 # rate under deadlines, a bounded queue and degrade; decode faults and a
-# hung step on the pool-pressure geometry, its trace cut to 16 requests.
+# hung step on the pool-pressure geometry, its trace cut to CHAOS_REQUESTS.
 # The kernel-vs-gather engine comparison serves a trace of this many
 # requests (of SERVE_TRACE's distribution), cut from 64 to keep the whole
 # script inside its time limit on a loaded host.
 SERVE_COMPARE_REQUESTS = 16
 OVERLOAD_RPS = 3 * SERVE_TRACE["rate_rps"]
 OVERLOAD_FLAGS = ["--deadline-s", "30", "--max-queue-depth", "16", "--shed-policy", "degrade"]
-CHAOS_REQUESTS = 16
+# 217 pages of work for 96 (it preempts), outputs up to 193 (past both faults)
+CHAOS_REQUESTS = 12
 SERVE_CHAOS = "40:decode_nan,90:engine_crash"
 # The hung step: the watchdog's ladder (warn, dump, abort) climbs a rung
 # each section past the timeout, so the stall (1.2 s) aborts by 0.9 s; a
@@ -2538,7 +2554,8 @@ def serving_checks_phase() -> None:
         run_poisson,
     )
 
-    trace = make_poisson_workload(vocab_size=DECODE_WIDTH["vocab_size"], **SERVE_TRACE)
+    trace = make_poisson_workload(vocab_size=DECODE_WIDTH["vocab_size"],
+                                  **{**SERVE_TRACE, "num_requests": PRESSURE_REQUESTS})
     compare = make_poisson_workload(vocab_size=DECODE_WIDTH["vocab_size"],
                                     **{**SERVE_TRACE, "num_requests": SERVE_COMPARE_REQUESTS})
     model = decode_model()
@@ -2564,7 +2581,7 @@ def serving_checks_phase() -> None:
     eng = ServingEngine(qmodel, cfg, device="cuda")
     s, counts = counted(lambda: run_poisson(eng, trace))
     layers = DECODE_WIDTH["num_layers"]
-    n = SERVE_TRACE["num_requests"]
+    n = PRESSURE_REQUESTS
     if s["completed"] != n or s["preemptions"] <= 0:
         raise RuntimeError(f"pool-pressure run: {s}")
     # The int8 head: a prefill's padded prompt (64 rows and up) on the tensor
@@ -2937,7 +2954,7 @@ def chaos_serve_run(qmodel, extra: list[str], requests: int = CHAOS_REQUESTS) ->
 
 
 def serving_failure_phase() -> dict:
-    """(c) The pool-pressure geometry, 16 requests of the trace, greedy,
+    """(c) The pool-pressure geometry, CHAOS_REQUESTS requests, greedy,
     through ``serve_cli``: a fault-free run, then ``--chaos 40:decode_nan,
     90:engine_crash`` and, on the first HUNG_REQUESTS requests beside their
     own fault-free run, a ``slow_step`` (a ``SLOW_STALL_S`` stall) under
@@ -4330,7 +4347,7 @@ def run_loop_phase() -> dict:
 
 
 # ----------------------------------------------------------- phase profiler
-LM_LOOP_STEPS, LM_LOOP_EVERY, LM_LOOP_NAN_CALL = 40, 20, 30  # the NaN restores step 20
+LM_LOOP_STEPS, LM_LOOP_EVERY, LM_LOOP_NAN_CALL = 20, 10, 15  # the NaN restores step 10
 PHASE_BREAKDOWNS = {  # label: bench.py flags (each with its defaults otherwise)
     "auto": (),
     "allreduce_bucket": ("--sync", "allreduce", "--sync-overlap", "bucket"),
@@ -4559,11 +4576,12 @@ def lm_states_equal(a: dict, b: dict) -> tuple[bool, float]:
 
 def lm_run_loop_phase() -> dict:
     """Phase 23: the LM trainer's run loop through ``lm_cli`` on
-    GPT-2-small at full width (bf16, flash, ``--fused-xent``), 40 steps:
-    checkpoints every 20, the metric stream, a profiler window over steps
-    2-4 whose trace holds the flash kernels, the watchdog at 300 s; again
-    with a NaN injected once at step 30 and ``--max-restarts 1`` (restored
-    from the disk checkpoint of step 20), and with ``--snapshot-every 20``
+    GPT-2-small at full width (bf16, flash, ``--fused-xent``),
+    ``LM_LOOP_STEPS`` steps: a checkpoint every ``LM_LOOP_EVERY``, the
+    metric stream, a profiler window over steps 2-4 whose trace holds the
+    flash kernels, the watchdog at 300 s; again with a NaN injected once at
+    call ``LM_LOOP_NAN_CALL`` and ``--max-restarts 1`` (restored from the
+    disk checkpoint before it), and with ``--snapshot-every LM_LOOP_EVERY``
     and no checkpoint directory (restored from host RAM, no file read):
     both bitwise equal to the first run in every parameter and moment;
     then a checkpoint's blocking, durable, read and copy-back costs for
@@ -4609,7 +4627,7 @@ def lm_run_loop_phase() -> dict:
             (tr,) = trainers
             states[label] = to_host(tr.capture_state())
             # Train calls: every step, and on a recovered run the replay from
-            # step 20; one eval forward certifies the final state.
+            # the restored step; one eval forward certifies the final state.
             calls = steps + (0 if nan_call is None else nan_call - LM_LOOP_EVERY)
             want = {"flash_fwd_tc": layers * (calls + 1), "flash_dq_tc": layers * calls,
                     "flash_dkv_tc": layers * calls, "fused_xent_fwd": calls,
@@ -5823,6 +5841,352 @@ def gmm_groups_phase(dev: torch.device) -> dict:
     return {"share": worst, "ms_e128": times}
 
 
+# ------------------------------------------- phase 32: training that survives
+# losing a rank. Part 1, the supervisor on the card's host (CPU workers,
+# Gloo): the coordinator killed at step 3, rank 2 a 100 ms straggler.
+ELASTIC_DEMO = ("--steps", "6", "--kill", "3:0", "--slow", "2:100",
+                "--collective-deadline-s", "6")
+# Part 2: ResNet-18 written by 4 CPU ranks (part 2b, --sync-bn, fp32, no
+# augmentation, global batch 16, 2 steps), restored on the card at a
+# world of one and trained 10 steps at batch 256, --fast-conv
+# --fused-optimizer.
+ELASTIC_RESNET_WRITE = ("--part", "2b", "--model", "resnet18", "--sync-bn", "--no-augment",
+                        "--synthetic-data", "--synthetic-train-size", "32",
+                        "--synthetic-test-size", "16", "--global-batch-size", "16",
+                        "--epochs", "1", "--device", "cpu")
+ELASTIC_RESNET_RANKS, ELASTIC_RESNET_BATCH, ELASTIC_RESNET_STEPS = 4, 256, 10
+# Part 3: GPT-2-small's width at 2 layers, AdamW, zero1: one step at T 128
+# written by 3 CPU ranks (3 rows: the padding is not trivial), re-chunked
+# onto the card (3 -> 1) and trained 4 steps at 16 x T 1024, bf16, flash,
+# the fused cross-entropy.
+ELASTIC_LM_LAYERS, ELASTIC_LM_RANKS = 2, 3
+ELASTIC_LM_WRITE = ("--num-layers", str(ELASTIC_LM_LAYERS), "--d-model", "768",
+                    "--num-heads", "12", "--d-ff", "3072", "--vocab-size", "50304",
+                    "--max-seq-len", "1024", "--seq-len", "128", "--use-rope",
+                    "--attention-impl", "dense", "--optimizer", "adamw", "--zero1",
+                    "--global-batch-size", "3", "--steps", "1", "--num-seqs", "3",
+                    "--eval-frac", "0", "--device", "cpu")
+ELASTIC_LM_BATCH, ELASTIC_LM_STEPS = 16, 4
+# The card's losses from the other world's state against those from the
+# world-1-written one: within ELASTIC_GAIN x the two CPU states' largest
+# difference (parameters and optimizer state: the tensors a training loss
+# depends on), and no tighter than 4x the card's own repeat gap (the
+# world-1 state restored twice) or ELASTIC_REL_FLOOR x the largest loss
+# (TF32 convolutions and bf16 LM steps round at ~1e-3 of their inputs).
+# On an H100 the gaps measured 0.03x (ResNet-18) and 0.15x (the LM) the
+# CPU states' difference; a restore that mixed up rows or dropped the
+# momentum moves the loss by far more.
+ELASTIC_GAIN, ELASTIC_REL_FLOOR = 10.0, 1e-4
+
+
+def _elastic_cpu_jobs(root, repo: str) -> dict:
+    """Start every CPU process of phase 32 at once: the two launcher runs
+    (the kill and an uninterrupted run at 3 workers), the ResNet writers
+    (4 ranks and a world of one) and the LM writers (3 ranks and a world
+    of one). Returns name -> (Popen, log path)."""
+    import os
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import free_port
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=repo)
+    procs: dict = {}
+
+    def start(name, argv, threads):
+        log = root / f"{name}.log"
+        procs[name] = (subprocess.Popen([sys.executable, "-m", *argv], stdout=open(log, "w"),
+                                        stderr=subprocess.STDOUT, cwd=repo,
+                                        env=dict(env, OMP_NUM_THREADS=str(threads))), log)
+
+    pkg = "cs744_pytorch_distributed_tutorial_tpu_torch"
+    start("lm_world1", [f"{pkg}.lm_cli", *ELASTIC_LM_WRITE, "--data-parallel", "1",
+                        "--checkpoint-dir", str(root / "lm1")], 2)
+    port = free_port()
+    for r in range(ELASTIC_LM_RANKS):
+        start(f"lm_rank{r}", [f"{pkg}.lm_cli", *ELASTIC_LM_WRITE,
+                              "--data-parallel", str(ELASTIC_LM_RANKS),
+                              "--checkpoint-dir", str(root / "lm3"),
+                              "--coordinator", f"localhost:{port}",
+                              "--num-processes", str(ELASTIC_LM_RANKS), "--process-id", str(r)], 1)
+    start("kill", [f"{pkg}.launch", "--platform", "cpu", "--nprocs", "4",
+                   "--store", str(root / "kill"), *ELASTIC_DEMO], 1)
+    start("clean", [f"{pkg}.launch", "--platform", "cpu", "--nprocs", "3",
+                    "--store", str(root / "clean"), "--steps", ELASTIC_DEMO[1]], 1)
+    start("resnet_world1", [f"{pkg}.cli", *ELASTIC_RESNET_WRITE, "--num-devices", "1",
+                            "--checkpoint-dir", str(root / "rn1")], 1)
+    port = free_port()
+    for r in range(ELASTIC_RESNET_RANKS):
+        start(f"resnet_rank{r}", [f"{pkg}.cli", *ELASTIC_RESNET_WRITE,
+                                  "--num-devices", str(ELASTIC_RESNET_RANKS),
+                                  "--checkpoint-dir", str(root / "rn4"),
+                                  "--coordinator", f"localhost:{port}",
+                                  "--num-processes", str(ELASTIC_RESNET_RANKS),
+                                  "--process-id", str(r)], 1)
+    return procs
+
+
+def _elastic_wait(procs: dict, names, timeout_s: float) -> float:
+    """Wait for the named CPU processes; raise with a log's tail on a
+    failure. Returns the seconds waited."""
+    t0 = time.perf_counter()
+    for name in names:
+        proc, log = procs[name]
+        try:
+            rc = proc.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            rc = None
+        if rc != 0:
+            for other, _ in procs.values():
+                if other.poll() is None:
+                    other.kill()
+            tail = "".join(open(log, encoding="utf-8", errors="replace").readlines()[-25:])
+            raise RuntimeError(f"elastic: CPU process {name} ended {rc}:\n{tail}")
+    return time.perf_counter() - t0
+
+
+def _state_gap(a: dict, b: dict, keys) -> dict:
+    """The largest absolute difference between two states' tensors, by
+    collection."""
+    gaps = {}
+    for key in keys:
+        va, vb = a[key], b[key]
+        pairs = zip(va.values(), vb.values()) if isinstance(va, dict) else zip(va, vb)
+        gaps[key] = max((float((x.float() - y.float()).abs().max())
+                         for x, y in pairs if x.is_floating_point()), default=0.0)
+    return gaps
+
+
+def _elastic_card_runs(ckdirs: dict, build, steps, check, detail) -> dict:
+    """For each checkpoint directory: a fresh trainer (``build()``),
+    ``Checkpointer.restore_latest(adapt=trainer.elastic_state)``, the
+    restored state checked (``check``), then ``steps(trainer)``'s losses.
+    The first directory's run is counted (every launch count zeroed just
+    before it and read after, ``detail()`` the counts by kernel and
+    route); the world-1 directory runs twice (the card's repeat gap)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import Checkpointer
+
+    def run(ckdir, label):
+        tr = build()
+        ck = Checkpointer(str(ckdir))
+        t0 = time.perf_counter()
+        state = ck.restore_latest(adapt=tr.elastic_state)
+        restore_ms[label] = (time.perf_counter() - t0) * 1e3
+        read = ck.last_read
+        ck.close()
+        tr.restore_state(state)
+        check(label, tr, state, read)
+        return steps(tr), state
+
+    restore_ms: dict = {}
+    (other, other_state), counts = counted(lambda: run(ckdirs["other"], "other"))
+    launches = detail()
+    ref, ref_state = run(ckdirs["world1"], "world1")
+    again, _ = run(ckdirs["world1"], "world1")
+    return {"other": other, "world1": ref, "again": again, "counts": counts,
+            "launches": launches, "other_state": other_state, "world1_state": ref_state,
+            "restore_ms": restore_ms}
+
+
+def _elastic_bound(label: str, runs: dict, gaps: dict) -> dict:
+    cpu_gap = max(gaps.values())
+    noise = max(abs(a - b) for a, b in zip(runs["world1"], runs["again"]))
+    gap = max(abs(a - b) for a, b in zip(runs["other"], runs["world1"]))
+    terms = {"gain x cpu gap": ELASTIC_GAIN * cpu_gap, "4 x repeat gap": 4 * noise,
+             "rel floor": ELASTIC_REL_FLOOR * max(abs(v) for v in runs["world1"])}
+    bound = max(terms.values())
+    finite = all(math.isfinite(v) for v in runs["other"] + runs["world1"])
+    print(f"elastic {label}: restore (every rank file read, re-cut, host tensors) "
+          f"{runs['restore_ms']['other']:.1f} ms, the world-1 state's "
+          f"{runs['restore_ms']['world1']:.1f} ms")
+    print(f"elastic {label}: losses from the other world's state {runs['other']}, from the "
+          f"world-1 state {runs['world1']} (again {runs['again']}); CPU states' largest "
+          f"difference {json.dumps(gaps)}, card repeat gap {noise:.3e}; loss gap {gap:.3e} = "
+          f"{gap / bound:.4f} of the bound {bound:.3e} ({max(terms, key=terms.get)}; "
+          f"{json.dumps(terms)})")
+    if not finite or gap > bound:
+        raise RuntimeError(f"elastic {label}: loss gap {gap} over the bound {bound}")
+    return {"losses": runs["other"], "reference": runs["world1"], "cpu_state_gap": gaps,
+            "restore_ms": runs["restore_ms"],
+            "repeat_gap": noise, "loss_gap": gap, "bound": bound, "bound_terms": terms,
+            "share": gap / bound}
+
+
+def elastic_phase() -> dict:
+    """Phase 32: training that survives losing a rank, in three parts, the
+    CPU processes of all three started together first.
+
+    1. The port's ``launch`` on the card's host: 4 Gloo CPU workers, the
+       coordinator SIGKILLed at step 3, rank 2 stalled 100 ms a step; exit
+       0, two generations, generation 1's coordinator global rank 1,
+       ``fleet_check`` clean, rank 2 the straggler the skew report names
+       most, the stitched losses equal an uninterrupted 3-worker run's at
+       rtol 1e-6; the seconds from the kill to the last survivor's exit
+       and to generation 1's first step (``scripts/elastic_report.py``).
+    2. ResNet-18 written by 4 CPU ranks restores on the card at a world of
+       one (every rank file read; the BatchNorm buffers rank 0's bit for
+       bit; parameters and momentum every file's) and trains
+       ``ELASTIC_RESNET_STEPS`` steps at batch 256 with the fused SGD and
+       the tensor-core wgrad (launches exact), its losses within the bound
+       of the same steps from a world-1-written state.
+    3. The LM (GPT-2-small's width, 2 layers, zero1) written by 3 CPU ranks
+       restores on the card: AdamW's ``m`` and ``v`` the three files' rows
+       concatenated, the padding dropped, bit for bit; 4 steps at 16 x
+       T 1024, bf16, flash and the fused cross-entropy (launches exact),
+       within the bound of the world-1-written state's."""
+    import os
+    import pathlib
+    import tempfile
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.config import TrainConfig
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import (
+        synthetic_cifar10,
+        synthetic_tokens,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_xent as FX
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import mesh
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train import Trainer
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+    from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import RankStates
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    report = _load_script(os.path.join(repo, "scripts", "elastic_report.py"))
+    root = pathlib.Path(tempfile.mkdtemp(prefix="elastic_"))
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    out: dict = {"card": card}
+    procs = _elastic_cpu_jobs(root, repo)
+    mesh.initialize(None, 1, 0, device=dev)  # NCCL, a world of one
+    try:
+        # ---- part 2: ResNet-18 from 4 ranks onto the card
+        ds = synthetic_cifar10(ELASTIC_RESNET_BATCH * ELASTIC_RESNET_STEPS, 16, seed=32)
+        xs = torch.from_numpy(ds.train_images).to(dev).split(ELASTIC_RESNET_BATCH)
+        ys = torch.from_numpy(ds.train_labels.astype("int64")).to(dev).split(
+            ELASTIC_RESNET_BATCH)
+        out["resnet_writers_s"] = _elastic_wait(
+            procs, ["resnet_world1", *(f"resnet_rank{r}" for r in range(ELASTIC_RESNET_RANKS))],
+            120)
+        files = RankStates([str(root / "rn4" / "step_2" / f"rank{r}.pt")
+                            for r in range(ELASTIC_RESNET_RANKS)])
+
+        def resnet_check(label, tr, state, read):
+            if label != "other":
+                return
+            if read != list(range(ELASTIC_RESNET_RANKS)):
+                raise RuntimeError(f"elastic ResNet-18: read rank files {read}")
+            for name, buf in tr.model.named_buffers():
+                if not torch.equal(buf.cpu(), files[0]["buffers"][name]):
+                    raise RuntimeError(f"elastic ResNet-18: buffer {name} is not rank 0's")
+            for r in range(ELASTIC_RESNET_RANKS):
+                for key, live in (("params", tr.state.params), ("momentum", tr.state.momentum)):
+                    if not all(torch.equal(a.cpu(), b) for a, b in zip(live, files[r][key],
+                                                                       strict=True)):
+                        raise RuntimeError(f"elastic ResNet-18: {key} differ from rank {r}'s")
+
+        def resnet_steps(tr):
+            return [float(tr.train_step(x, y)) for x, y in zip(xs, ys)]
+
+        cfg = TrainConfig(model="resnet18", sync="allreduce", sync_bn=True, augment=False,
+                          num_devices=1, global_batch_size=ELASTIC_RESNET_BATCH,
+                          fast_conv=True, fused_optimizer=True, synthetic_data=True,
+                          device="cuda")
+        runs = _elastic_card_runs(
+            {"other": root / "rn4", "world1": root / "rn1"}, lambda: Trainer(cfg),
+            resnet_steps, resnet_check, lambda: {"conv3x3_wgrad_s1_tc": C.launch_count(
+                stride=1, route="tc"), "conv3x3_wgrad": C.launch_count()})
+        counts = {"fused_sgd": runs["counts"]["fused_sgd"], **runs["launches"]}
+        n = RESNET18_ROUTED * ELASTIC_RESNET_STEPS
+        want = {"fused_sgd": ELASTIC_RESNET_STEPS, "conv3x3_wgrad_s1_tc": n, "conv3x3_wgrad": n}
+        if counts != want or others(runs["counts"], "fused_sgd", "conv3x3_wgrad"):
+            raise RuntimeError(f"elastic ResNet-18: launches {runs['counts']} / {counts}, "
+                               f"expected {want}")
+        counts.pop("conv3x3_wgrad")
+        cpu_gap = _state_gap(files[0], RankStates([str(root / "rn1" / "step_2" / "rank0.pt")])[0],
+                             ("params", "momentum"))
+        out["resnet"] = dict(_elastic_bound("ResNet-18 4 -> 1", runs, cpu_gap), launches=counts)
+
+        # ---- part 3: the LM's zero1 rows from 3 ranks onto the card
+        toks = synthetic_tokens(ELASTIC_LM_BATCH * ELASTIC_LM_STEPS, LM_WIDTH["seq_len"],
+                                LM_WIDTH["vocab_size"], seed=33)
+        out["lm_writers_s"] = _elastic_wait(
+            procs, ["lm_world1", *(f"lm_rank{r}" for r in range(ELASTIC_LM_RANKS))], 150)
+        lm_files = RankStates([str(root / "lm3" / "step_1" / f"rank{r}.pt")
+                               for r in range(ELASTIC_LM_RANKS)])
+
+        def lm_check(label, tr, state, read):
+            if label != "other":
+                return
+            if read != list(range(ELASTIC_LM_RANKS)):
+                raise RuntimeError(f"elastic LM: read rank files {read}")
+            for key in ("momentum", "opt_nu"):
+                for i, p in enumerate(state["params"]):
+                    rows = torch.cat([lm_files[r][key][i] for r in range(ELASTIC_LM_RANKS)])
+                    pad = rows[p.numel():]
+                    if not (torch.equal(state[key][i], rows[:p.numel()]) and not pad.any()):
+                        raise RuntimeError(f"elastic LM: {key} {i} is not the rows "
+                                           "concatenated, the padding dropped")
+            if state["opt_count"] != 1 or state["step"] != 1:
+                raise RuntimeError(f"elastic LM: restored step {state['step']}, count "
+                                   f"{state['opt_count']}")
+
+        def lm_steps(tr):
+            return [float(tr.train_step(*tr.split_batch(
+                toks[i * ELASTIC_LM_BATCH:(i + 1) * ELASTIC_LM_BATCH]))["loss"])
+                for i in range(ELASTIC_LM_STEPS)]
+
+        def lm_build():
+            tr = LMTrainer(lm_config(num_layers=ELASTIC_LM_LAYERS, zero1=True, fused_xent=True,
+                                     global_batch_size=ELASTIC_LM_BATCH))
+            tr.init()
+            return tr
+
+        lm_runs = _elastic_card_runs(
+            {"other": root / "lm3", "world1": root / "lm1"}, lm_build, lm_steps, lm_check,
+            lambda: {**{f"flash_{k}": v for k, v in flash_counts().items()},
+                     **{f"fused_xent_{k}": FX.launch_count(k, torch.float32)
+                        for k in FX.KERNELS}})
+        n = ELASTIC_LM_LAYERS * ELASTIC_LM_STEPS
+        want = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_fwd_tc": n,
+                "flash_dq_tc": n, "flash_dkv_tc": n, "fused_xent_fwd": ELASTIC_LM_STEPS,
+                "fused_xent_bwd": ELASTIC_LM_STEPS}
+        if (lm_runs["launches"] != want or others(lm_runs["counts"], "flash", "fused_xent")
+                or lm_runs["counts"]["fused_xent"] != 2 * ELASTIC_LM_STEPS):
+            raise RuntimeError(f"elastic LM: launches {lm_runs['counts']} / "
+                               f"{lm_runs['launches']}, expected {want}")
+        lm_gap = _state_gap(lm_runs["other_state"], lm_runs["world1_state"],
+                            ("params", "momentum", "opt_nu"))
+        out["lm"] = dict(_elastic_bound("LM 3 -> 1", lm_runs, lm_gap),
+                         launches={k: v for k, v in lm_runs["launches"].items() if v})
+    finally:
+        mesh.shutdown()
+
+    # ---- part 1: the supervisor
+    out["launch_wait_s"] = _elastic_wait(procs, ["kill", "clean"], 120)
+    rep = report.summarize(str(root / "kill"), str(root / "clean"))
+    (incident,) = rep["incidents"]
+    checks = {
+        "generations": rep["generations"] == [0, 1],
+        "coordinator": rep["coordinators"].get(1) == 1,
+        "fleet_check": rep["fleet_check"] == [],
+        "straggler": rep["straggler"] == 2,
+        "steps": rep["same_steps_as_clean"],
+        "losses": rep["max_rel_gap_vs_clean"] is not None and rep["max_rel_gap_vs_clean"] <= 1e-6,
+        "dead": incident["dead"] == [0] and incident["death_reasons"] == ["sigkill"],
+    }
+    out["launch"] = {k: rep[k] for k in ("generations", "coordinators", "stragglers",
+                                         "max_skew_ms", "max_rel_gap_vs_clean")}
+    out["launch"]["incident"] = {k: v for k, v in incident.items() if k != "survivors"}
+    out["launch"]["survivors"] = {r: (s["ended_by"], s["s_after_kill"])
+                                  for r, s in incident["survivors"].items()}
+    print(f"elastic launch (CPU workers on {card}): " + json.dumps(out["launch"]))
+    print(f"elastic launch: {incident['s_kill_to_last_survivor_exit']} s from the kill to the "
+          f"last survivor's exit, {incident['s_kill_to_first_resumed_step']} s to generation "
+          f"1's first step")
+    if not all(checks.values()):
+        raise RuntimeError(f"elastic launch: failed checks "
+                           f"{[k for k, ok in checks.items() if not ok]}: {json.dumps(rep)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5967,6 +6331,10 @@ def main() -> int:
     # grouped matmul past 64 experts.
     vit = vit_phase()
     groups = gmm_groups_phase(dev)
+    # Training that survives losing a rank: the supervisor on the host,
+    # then ResNet-18 and the LM restored on the card from other worlds.
+    elastic = elastic_phase()
+    elastic_launches = {**elastic["resnet"]["launches"], **elastic["lm"]["launches"]}
     gmm_keys = {"gmm_fused": "fused", "gmm_fused_tc": "fused_tc", "gmm_fused_with_z": "fused_z",
                 "gmm_fused_with_z_tc": "fused_z_tc", "gmm": "gmm", "gmm_tc": "gmm_tc",
                 "tgmm": "tgmm", "tgmm_tc": "tgmm_tc", "colsum": "colsum"}
@@ -6006,6 +6374,8 @@ def main() -> int:
             kern = rec["name"][len("flash_"):-len("_tc")]
             rec["launches_seq_tensor"] = {label: n[f"{kern}_tc"]
                                           for label, n in seq_tensor["launches"].items()}
+        if rec["name"] in elastic_launches:
+            rec["launches_elastic"] = elastic_launches[rec["name"]]
 
     print(f"wall {time.perf_counter() - t_start:.1f} s, of which the phases' (s): "
           + json.dumps({name: round(sec, 1) for name, sec in PHASE_SECONDS.items()}))

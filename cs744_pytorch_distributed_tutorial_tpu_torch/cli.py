@@ -23,7 +23,14 @@ reference does (``--master-ip``/``--num-nodes``/``--rank`` at
 ``master/part2a/part2a.py:136-143``): ``--coordinator host:port``,
 ``--num-processes`` (the world size) and ``--process-id`` (the rank).
 A world of one needs no coordinator. ``--device`` picks ``cuda``
-(default; one card per rank, NCCL) or ``cpu`` (Gloo).
+(default; one card per rank, NCCL) or ``cpu`` (Gloo). ``--distributed``
+reads torchrun's environment instead (``init_method="env://"``: the
+JAX package's ``jax.distributed.initialize()``; the card is
+``cuda:LOCAL_RANK``). Under the elastic launcher (``launch.py``) the
+coordinates arrive in the ``GRAFT_ELASTIC_*`` environment and the worker
+attaches through ``parallel/multihost.py::attach`` (heartbeats, the
+process group, the identity labels), unless ``--coordinator`` or
+``--distributed`` is given.
 """
 
 from __future__ import annotations
@@ -161,6 +168,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the --num-nodes analog: world size")
     p.add_argument("--process-id", type=int, default=None,
                    help="the --rank analog")
+    p.add_argument("--distributed", action="store_true",
+                   help="rendezvous from torchrun's environment (init_method='env://': "
+                        "MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE; the card is "
+                        "cuda:LOCAL_RANK)")
     p.add_argument("--device", choices=["cuda", "cpu"], default=None,
                    help="cuda (default, NCCL between ranks) or cpu (Gloo)")
     p.add_argument("--eval-only", action="store_true",
@@ -242,21 +253,38 @@ def main(argv: list[str] | None = None) -> int:
     cfg = config_from_args(args)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
+    import torch
     import torch.distributed as dist
 
     from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import mesh
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.multihost import (
+        attach,
+        env_context,
+    )
     from cs744_pytorch_distributed_tutorial_tpu_torch.train import Trainer
 
     device = resolve_device(cfg.device)
-    world_size, rank = cfg.world_size, cfg.process_id or 0
+    # Under the elastic supervisor: its coordinates, heartbeats and labels.
+    elastic_ctx = (env_context() if cfg.coordinator_address is None and not args.distributed
+                   else None)
+    if args.distributed:
+        world_size, rank = mesh.initialize_from_env(device)
+        if device.type == "cuda":
+            cfg = cfg.replace(device=f"cuda:{torch.cuda.current_device()}")
+    elif elastic_ctx is not None:
+        world_size, rank = elastic_ctx.num_processes, elastic_ctx.process_id
+    else:
+        world_size, rank = cfg.world_size, cfg.process_id or 0
     if cfg.num_devices is not None and world_size != cfg.num_devices:
         raise ValueError(
             f"--num-processes {world_size} disagrees with --num-devices "
             f"{cfg.num_devices}; one process drives one device"
         )
+    if elastic_ctx is not None:
+        attach(elastic_ctx, mesh.rank_device(device, rank))
     # part1 at a world of one needs no process group; every other
     # strategy communicates through one, even alone.
-    if cfg.sync != "none" or world_size > 1:
+    elif not args.distributed and (cfg.sync != "none" or world_size > 1):
         mesh.initialize(
             cfg.coordinator_address,
             world_size,

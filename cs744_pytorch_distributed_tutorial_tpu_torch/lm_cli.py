@@ -515,21 +515,35 @@ def main(argv: list[str] | None = None) -> int:
 
     from cs744_pytorch_distributed_tutorial_tpu_torch.config import resolve_device
     from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import mesh
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.multihost import (
+        attach,
+        env_context,
+    )
 
-    world_size = args.num_processes or 1
-    rank = args.process_id or 0
+    # Under the elastic supervisor (launch.py) the coordinates arrive in
+    # the GRAFT_ELASTIC_* environment: attach (the process group, the
+    # heartbeats, the identity labels) instead of the flags.
+    elastic_ctx = env_context()
+    if elastic_ctx is not None:
+        world_size, rank = elastic_ctx.num_processes, elastic_ctx.process_id
+    else:
+        world_size = args.num_processes or 1
+        rank = args.process_id or 0
     layout = args.data_parallel * args.seq_parallel * args.tensor_parallel
     # A world of one needs no process group unless the wire is asked for.
-    if (args.num_processes is not None or world_size > 1 or layout > 1
-            or args.zero1 or args.fsdp or args.grad_compress != "none"
+    if (elastic_ctx is not None or args.num_processes is not None or world_size > 1
+            or layout > 1 or args.zero1 or args.fsdp or args.grad_compress != "none"
             or args.sync_overlap != "off"):
         if layout != world_size:
             raise SystemExit(f"--data-parallel {args.data_parallel} x --seq-parallel "
                              f"{args.seq_parallel} x --tensor-parallel {args.tensor_parallel} "
                              f"must equal the world size (--num-processes {world_size}): one "
                              "process a rank")
-        mesh.initialize(args.coordinator_address, world_size, rank,
-                        device=mesh.rank_device(resolve_device(args.device), rank))
+        device = mesh.rank_device(resolve_device(args.device), rank)
+        if elastic_ctx is not None:
+            attach(elastic_ctx, device)
+        else:
+            mesh.initialize(args.coordinator_address, world_size, rank, device=device)
     try:
         return _run(args, cfg, vocab, tokens, eval_tokens)
     finally:

@@ -8,7 +8,9 @@ traced and costed, with ``sync_exposed_ms``), whose records
 ``python -m cs744_pytorch_distributed_tutorial_tpu_torch.obs report``
 renders, and the serving tracer (``serve_trace.py``: spans, SLO windows
 and the device attribution of the serving programs; ``obs
-serve-report``). The JAX package's fleet view is not ported yet.
+serve-report``), and the fleet view of a multi-process run
+(``fleet.py``: the ranks' clocks aligned, collective skew, the incident
+audit; ``obs fleet-report``).
 """
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.obs import flops

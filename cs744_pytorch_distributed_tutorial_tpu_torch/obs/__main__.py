@@ -2,6 +2,8 @@
 
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.obs report <metrics_dir>
     python -m cs744_pytorch_distributed_tutorial_tpu_torch.obs serve-report <trace_dir> --check
+    python -m cs744_pytorch_distributed_tutorial_tpu_torch.obs fleet-report <store_dir> \
+        [--check] [--no-artifacts]
 
 ``report`` reads a metrics dir (or a metrics.jsonl / phase_report.json
 directly), keeps the phase profiler's ``kind="phase"`` and
@@ -10,9 +12,14 @@ directly), keeps the phase profiler's ``kind="phase"`` and
 machine the records landed on. ``serve-report`` summarizes a trace dir
 that ``serve_cli --trace-dir`` wrote (or a bare ``serve_spans.jsonl``);
 with ``--check`` it exits 1 on orphan, unclosed or overlapping spans or
-on TTFT drift (``obs/serve_trace.py::check_spans``, ``reconcile``). The
-JAX package's ``fleet-report`` (the multi-process timeline) exits "not
-yet ported".
+on TTFT drift (``obs/serve_trace.py::check_spans``, ``reconcile``).
+``fleet-report`` merges what a multi-process elastic run left in its
+rendezvous store (``launch.py --store``: stamp and metrics streams,
+``events.jsonl``, heartbeat, death-note and world files) into one
+clock-aligned view (``obs/fleet.py``): it prints the report (generations,
+incidents, collective skew), writes ``fleet_trace.json`` and
+``fleet_report.json`` into the store, and with ``--check`` exits 1 on an
+incident-consistency problem.
 """
 
 from __future__ import annotations
@@ -27,11 +34,6 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.obs.phases import (
     phase_records_from_stream,
     render_phase_table,
 )
-
-_NOT_YET_PORTED = {
-    "fleet-report": "fleet-report needs the fleet view (obs/fleet.py)",
-}
-
 
 def _load_stream(path: str) -> list[dict]:
     """metrics dir, JSONL stream, or a phase_report.json array."""
@@ -81,12 +83,45 @@ def main(argv: list[str] | None = None) -> int:
     srv.add_argument("--check", action="store_true",
                      help="exit 1 on orphan/unclosed/overlapping spans or TTFT "
                           "reconciliation drift")
-    for cmd in _NOT_YET_PORTED:
-        unported = sub.add_parser(cmd, help="not yet ported")
-        unported.add_argument("args", nargs=argparse.REMAINDER)
+    flt = sub.add_parser("fleet-report",
+                         help="merge a multi-process run dir into one timeline + audit")
+    flt.add_argument("path", help="rendezvous store dir (launch.py --store)")
+    flt.add_argument("--check", action="store_true",
+                     help="exit 1 on incident-consistency problems (unpaired deaths, "
+                          "orphan generations, seal-crossing spans)")
+    flt.add_argument("--no-artifacts", action="store_true",
+                     help="print the report only; skip writing fleet_trace.json / "
+                          "fleet_report.json")
     args = p.parse_args(argv)
-    if args.cmd in _NOT_YET_PORTED:
-        raise SystemExit(f"obs: {_NOT_YET_PORTED[args.cmd]}, which is not yet ported")
+
+    if args.cmd == "fleet-report":
+        from cs744_pytorch_distributed_tutorial_tpu_torch.obs.fleet import (
+            ClockAligner,
+            collective_skew,
+            fleet_check,
+            load_fleet_dir,
+            render_fleet_report,
+            write_fleet_artifacts,
+        )
+
+        if args.no_artifacts:
+            data = load_fleet_dir(args.path)
+            aligner = ClockAligner(data.barrier_stamps)
+            skew = collective_skew(data, aligner)
+            problems = fleet_check(data, aligner)
+            print(render_fleet_report(data, skew, problems, aligner))
+        else:
+            result = write_fleet_artifacts(args.path)
+            problems = result["problems"]
+            print(result["text"])
+            print(f"fleet-report: wrote {result['trace']}")
+        if args.check:
+            if problems:
+                for prob in problems:
+                    print(f"fleet check: {prob}", file=sys.stderr)
+                return 1
+            print("fleet check: OK")
+        return 0
 
     if args.cmd == "serve-report":
         from cs744_pytorch_distributed_tutorial_tpu_torch.obs.serve_trace import (

@@ -26,7 +26,6 @@ import time
 from typing import Any, Iterable, Sequence
 
 import torch
-import torch.distributed as dist
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.obs import flops as _flops
 from cs744_pytorch_distributed_tutorial_tpu_torch.obs import run_manifest as _run_manifest
@@ -97,8 +96,13 @@ def speculative_accept_rate(new_tokens: int, target_calls: int, k: int) -> float
 
 
 def _labels() -> dict[str, int]:
-    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
-    return {"process_id": rank, "generation": 0, "global_rank": rank}
+    """This process's identity stamps (``parallel/multihost.py::
+    runtime_labels``: the supervisor's generation and global rank under
+    an elastic launch, else the process group's rank)."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.multihost import runtime_labels
+
+    labels = runtime_labels()
+    return {k: labels[k] for k in ("process_id", "generation", "global_rank")}
 
 
 class Telemetry:

@@ -16,11 +16,30 @@ import torch
 import torch.distributed as dist
 
 
+_LOOPBACK = ("localhost", "127.0.0.1", "::1")
+_joined: dict[str, str] = {}  # the host of the last rendezvous this process joined
+
+
 def free_port() -> int:
-    """A free TCP port on localhost, for single-host rendezvous."""
+    """A TCP port free on every local address, for a rendezvous this host
+    serves: the TCP store listens on all of them, so a port free only on
+    the loopback (an outgoing connection may hold it on another address)
+    fails its listen with EADDRINUSE."""
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
+        s.bind(("", 0))
         return s.getsockname()[1]
+
+
+def coordinator_host() -> str:
+    """The address other ranks reach this host at, for a rendezvous it
+    hosts: ``localhost`` when the last process group this process joined
+    met on the loopback (one host), else this host's resolved address."""
+    if _joined.get("host", "localhost") in _LOOPBACK:
+        return "localhost"
+    try:
+        return socket.gethostbyname(socket.gethostname())
+    except OSError:
+        return socket.gethostname()
 
 
 def rank_device(device: torch.device, rank: int) -> torch.device:
@@ -52,12 +71,41 @@ def initialize(
             )
         master_addr = f"localhost:{free_port()}"
     url = master_addr if "://" in master_addr else f"tcp://{master_addr}"
+    _joined["host"] = url.split("://", 1)[1].rsplit(":", 1)[0].strip("[]")
     if device.type == "cuda":
         torch.cuda.set_device(device)
         backend = "nccl"
     else:
         backend = "gloo"
     dist.init_process_group(backend, init_method=url, world_size=world_size, rank=rank)
+
+
+def initialize_from_env(device: torch.device) -> tuple[int, int]:
+    """Join the process group that torchrun's environment describes
+    (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``, and
+    ``LOCAL_RANK`` for the card): ``init_method="env://"``, the
+    counterpart of the JAX package's ``jax.distributed.initialize()``
+    with no arguments. A ``cuda`` device without an index becomes
+    ``cuda:LOCAL_RANK``; NCCL for a card, Gloo for the CPU. Returns
+    (world size, rank)."""
+    import os
+
+    if dist.is_initialized():
+        raise RuntimeError("a torch.distributed process group is already initialized")
+    missing = [k for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+               if not os.environ.get(k)]
+    if missing:
+        raise ValueError(f"--distributed reads torchrun's environment; {missing} not set")
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    _joined["host"] = os.environ["MASTER_ADDR"]
+    dist.init_process_group(backend, init_method="env://")
+    return dist.get_world_size(), dist.get_rank()
 
 
 def shutdown() -> None:

@@ -32,6 +32,12 @@ across frameworks leaf by leaf.
 
 At a world of one the collectives run all the same (copies); the JAX
 schedule counts them as none.
+
+The elastic re-chunk (``rechunk_elastic``, ``local_chunk_shapes``,
+``chunk_local_sizes``, ``make_elastic_adapt``; the JAX package's, keyed by
+``state_dict`` names) carries the LM's rows across data sizes: the old
+rows concatenated, the padding dropped, re-padded into the new world's
+chunks (``LMTrainer.elastic_state``).
 """
 
 from __future__ import annotations
@@ -106,6 +112,115 @@ def _scatter_rows(gbuf: torch.Tensor, ebuf: torch.Tensor | None, world_size: int
     mean, resid = _int8_allreduce_flat(gbuf.reshape(-1).float() + ebuf.reshape(-1).float(),
                                        world_size)
     return mean.view(gbuf.shape)[rank].to(gbuf.dtype), resid.view(gbuf.shape)
+
+
+# ------------------------------------------------------- the elastic re-chunk
+def _spec_dim(spec, axis: str | None) -> int | None:
+    """The dimension ``spec`` (an axis name or None a dimension) splits
+    over ``axis``; None when it does not (replicated over that axis)."""
+    if spec is None or axis is None:
+        return None
+    for i, entry in enumerate(spec):
+        if entry == axis or (isinstance(entry, (tuple, list)) and axis in entry):
+            return i
+    return None
+
+
+def rechunk_elastic(saved, like, local_size: int):
+    """The JAX package's mesh-elastic re-chunk of flat ZeRO state:
+    ``[dp_old, *mid, chunk_old]`` -> ``[dp_new, *mid, chunk_new]`` (the
+    shape of ``like``). For each middle (model-shard) coordinate the
+    dp_old rows are concatenated, the zero padding is dropped at
+    ``local_size`` (that coordinate's true flat length) and the result is
+    re-padded into dp_new rows. The middle dims are layout-pinned (the
+    model-parallel axes must match the save), and the saved chunking must
+    be ``ceil(local_size / dp_old)``: anything else means the model
+    changed since the save. ``saved`` is a tensor or a numpy array; the
+    result is of its kind, its values copied bit for bit."""
+    import numpy as np
+
+    as_numpy = isinstance(saved, np.ndarray)
+    src = torch.from_numpy(np.ascontiguousarray(saved)) if as_numpy else saved
+    like_shape = tuple(like.shape)
+    if tuple(src.shape[1:-1]) != like_shape[1:-1]:
+        raise ValueError(
+            "ZeRO resume cannot re-chunk across model-shard axes "
+            f"(saved middle dims {tuple(src.shape[1:-1])}, now {like_shape[1:-1]})"
+        )
+    if src.shape[-1] != -(-local_size // src.shape[0]):
+        raise ValueError(
+            f"saved chunking [dp={src.shape[0]}, chunk={src.shape[-1]}] "
+            f"is inconsistent with the current leaf's local size "
+            f"{local_size} (expected chunk "
+            f"{-(-local_size // src.shape[0])}) — the model shape "
+            "changed since the save; only data_parallel may differ"
+        )
+    mid = math.prod(src.shape[1:-1])
+    s3 = src.reshape(src.shape[0], mid, src.shape[-1])
+    dp_new, c_new = like_shape[0], like_shape[-1]
+    out = src.new_zeros((dp_new, mid, c_new))
+    for t in range(mid):
+        flat = s3[:, t, :].reshape(-1)[:local_size]
+        out[:, t, :] = F.pad(flat, (0, dp_new * c_new - local_size)).view(dp_new, c_new)
+    out = out.reshape(like_shape)
+    return out.numpy() if as_numpy else out
+
+
+def local_chunk_shapes(param_shapes: dict, specs: dict, shard_axes: dict) -> dict:
+    """Each parameter's LOCAL shape by name: its global shape with every
+    dimension that a present ``shard_axes`` axis splits divided by that
+    axis's size (the JAX ``local_chunk_shapes``, keyed by ``state_dict``
+    names)."""
+    out = {}
+    for name, shape in param_shapes.items():
+        dims = list(shape)
+        for axis, size in shard_axes.items():
+            k = _spec_dim(specs.get(name), axis)
+            if k is not None:
+                dims[k] //= size
+        out[name] = tuple(dims)
+    return out
+
+
+def chunk_local_sizes(param_shapes: dict, specs: dict, shard_axes: dict,
+                      exclude_axis: str | None = None) -> dict:
+    """The unpadded local flat size of each parameter by name, the length
+    its ``[n, chunk]`` rows were cut from: its element count divided by
+    the sizes of the ``shard_axes`` its spec names. A parameter whose spec
+    names ``exclude_axis`` (an expert-parallel one, split over the data
+    axis itself) is left out: its state is natural-shaped, not rows, and
+    restores across data sizes by plain re-sharding (the JAX
+    ``chunk_local_sizes``)."""
+    return {
+        name: math.prod(shape) // math.prod(
+            n for a, n in shard_axes.items() if _spec_dim(specs.get(name), a) is not None)
+        for name, shape in param_shapes.items()
+        if _spec_dim(specs.get(name), exclude_axis) is None
+    }
+
+
+def make_elastic_adapt(local_sizes: dict, prefixes: tuple = ("momentum/", "opt_nu/")):
+    """The per-leaf ``adapt(path_key, saved, like)`` of the elastic restore
+    (``utils/checkpoint.py::adapt_host_leaf``): a leaf under one of
+    ``prefixes`` (the row-chunked collections: the moments, and fsdp's
+    ``params/``) whose parameter has a local size re-chunks across data
+    sizes through ``rechunk_elastic``; every other leaf gets None and
+    falls through to the default slice/tile (the JAX
+    ``make_elastic_adapt``, its keys the port's ``<collection>/<name>``)."""
+
+    def adapt(path_key: str, saved, like):
+        for prefix in prefixes:
+            if path_key.startswith(prefix):
+                suffix = path_key[len(prefix):]
+                break
+        else:
+            return None
+        local_size = local_sizes.get(suffix)
+        if local_size is None or saved.ndim != len(like.shape):
+            return None
+        return rechunk_elastic(saved, like, local_size)
+
+    return adapt
 
 
 def zero1_collective_schedule(units: int, axis_size: int) -> dict[str, int]:

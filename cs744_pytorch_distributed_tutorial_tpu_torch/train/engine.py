@@ -48,7 +48,9 @@ end (``utils/debug.py``).
 ``fit`` wraps the epoch loop in the JAX engine's run loop: batches
 prefetched a producer thread ahead (``data/prefetch.py``), two recovery
 tiers (disk checkpoints, ``utils/checkpoint.py``; host-RAM snapshots,
-``utils/memstore.py``) with mid-epoch resume, a step watchdog and a
+``utils/memstore.py``) with mid-epoch resume (from another world size
+through ``elastic_state``: the JAX package's elastic restore), a step
+watchdog and a
 non-finite-loss halt (``utils/failure.py``), the metric stream and run
 manifest (``obs/metrics.py``), the flight recorder (``obs/flight.py``)
 and a profiler window (``utils/profiling.py``).
@@ -61,7 +63,7 @@ import logging
 import math
 import os
 import time
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -122,7 +124,12 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.utils.debug import (
     DivergenceMonitor,
     tree_checksum,
 )
-from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import Checkpointer, to_host
+from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import (
+    Checkpointer,
+    adapt_host_leaf,
+    agreed,
+    to_host,
+)
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import (
     NonFiniteLossError,
     StepWatchdog,
@@ -565,17 +572,85 @@ class Trainer:
             "augment_gen": self.augment_gen.get_state(),
         }
 
+    def replicated_keys(self) -> tuple[str, ...]:
+        """The ``capture_state`` collections every rank holds alike (the
+        in-memory snapshot gathers the others)."""
+        keys = ["opt_nu"]
+        if not self._fsdp:
+            keys.append("params")
+        if not (self._zero1 or self._fsdp):
+            keys.append("momentum")
+        return tuple(keys)
+
+    @torch.no_grad()
+    def elastic_state(self, states: Sequence[dict[str, Any]]) -> dict[str, Any]:
+        """This rank's state built from every rank's saved one (a
+        checkpoint's ``RankStates`` or a snapshot's entry), the
+        ``adapt`` of ``Checkpointer.restore_latest`` and
+        ``ReplicatedSnapshot.restore_latest``. Saved by this world, it is
+        this rank's own. Saved by another, the JAX package's elastic
+        restore of the CIFAR ``TrainState`` (``utils/checkpoint.py::
+        adapt_host_leaf`` with no ``adapt`` hook, as the JAX engine passes
+        none): replicated parameters, momentum and second moments come
+        from any rank once every rank's agree; the per-replica BatchNorm
+        buffers and error feedback (JAX's leading ``[num_devices]`` axis)
+        are sliced when shrinking and tiled cyclically when growing (new
+        rank r takes old rank r mod n); zero1's and fsdp's flat rows
+        cannot be re-cut and raise JAX's ``ValueError``. JAX draws each
+        device's augmentation from (seed, step, device), a pure function
+        of the step; the port's per-rank generator is stateful, so after
+        a world change it is seeded afresh from (seed, rank, step)."""
+        n = len(states)
+        if n == self.world_size:
+            return states[self.rank]
+        first = states[0]
+        step = agreed("step", [st["step"] for st in states])
+        world, rank = self.world_size, self.rank
+
+        def per_rank(key: str, values: list[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+            return adapt_host_leaf(key, torch.stack(values), (world, *like.shape))[rank]
+
+        def collection(key: str, live: list[torch.Tensor], rows: bool) -> list[torch.Tensor]:
+            if len(first[key]) != len(live):
+                raise ValueError(f"saved {key} do not match this trainer's configuration")
+            if rows:  # the flat [n, chunk] rows: no hook re-cuts them, as in JAX
+                return [per_rank(f"{key}/{i}", [st[key][i] for st in states], t)
+                        for i, t in enumerate(live)]
+            return [agreed(f"{key}/{i}", [st[key][i] for st in states])
+                    for i in range(len(live))]
+
+        opt = self.tx if isinstance(self.tx, Optimizer) else None
+        params = collection("params", self.state.params, self._fsdp)
+        buffers = {name: per_rank(f"buffers/{name}", [st["buffers"][name] for st in states], b)
+                   for name, b in self.model.named_buffers()}
+        momentum = collection("momentum", self.state.momentum, self._zero1 or self._fsdp)
+        ef = [per_rank(f"ef/{i}", [st["ef"][i] for st in states], e)
+              for i, e in enumerate(self.state.ef)]
+        seed = int(np.random.SeedSequence([self.cfg.seed, rank, step]).generate_state(1)[0])
+        return {
+            "step": step,
+            "world_size": world,
+            "params": params,
+            "momentum": momentum,
+            "ef": ef,
+            "buffers": buffers,
+            "opt_count": agreed("opt_count", [st["opt_count"] for st in states]),
+            "opt_nu": collection("opt_nu", [] if opt is None else opt.nu, False),
+            "augment_gen": torch.Generator().manual_seed(seed).get_state(),
+        }
+
     @torch.no_grad()
     def restore_state(self, state: dict[str, Any]) -> None:
         """Load ``capture_state``'s dict by copying into the live tensors:
         DDP, the overlapped schedules and fsdp's shards hold references
-        to them, so they are never rebound."""
+        to them, so they are never rebound. A state of another world size
+        raises: ``elastic_state`` re-cuts it from every rank's first."""
         if state["world_size"] != self.world_size:
             raise ValueError(
                 f"state saved by a world of {state['world_size']} ranks cannot load "
-                f"into a world of {self.world_size}: restoring onto another world "
-                "size needs the elastic restore (the JAX package's "
-                "utils/checkpoint.py adapt), which the port does not have yet"
+                f"into a world of {self.world_size} as it is: build this rank's state "
+                "with elastic_state from every rank's saved state "
+                "(Checkpointer.restore_latest(adapt=trainer.elastic_state))"
             )
         groups = [(self.state.params, state["params"]), (self.state.momentum, state["momentum"]),
                   (self.state.ef, state["ef"])]
@@ -669,9 +744,9 @@ class Trainer:
         disk_step = ckpt.latest_step() if ckpt is not None else None
         restored = source = None
         if mem_step is not None and (disk_step is None or disk_step <= mem_step):
-            restored, source = mem.restore_latest(), "memory"
+            restored, source = mem.restore_latest(adapt=self.elastic_state), "memory"
         elif disk_step is not None:
-            restored, source = ckpt.restore_latest(), "disk"
+            restored, source = ckpt.restore_latest(adapt=self.elastic_state), "disk"
         steps_per_epoch = len(train_loader)
         if restored is not None:
             self.restore_state(restored)
@@ -729,7 +804,7 @@ class Trainer:
             if to_disk:
                 guarded_save(pstate)
             if to_mem:
-                mem.save(pstate)
+                mem.save(pstate, shared=self.replicated_keys())
             pending = None
 
         compile_pending = True  # the first step builds the kernels: not watched
@@ -843,7 +918,7 @@ class Trainer:
                             if checkpoint_due:
                                 guarded_save(self.capture_state())
                             if snapshot_due:
-                                mem.save(self.capture_state())
+                                mem.save(self.capture_state(), shared=self.replicated_keys())
                 if self.sync_monitor is not None:
                     bad = self.sync_monitor.divergent_steps()
                     telemetry.emit_event(
@@ -870,7 +945,7 @@ class Trainer:
             if ckpt is not None:
                 guarded_save(self.capture_state(), force=True)
             if mem is not None:
-                mem.save(self.capture_state())
+                mem.save(self.capture_state(), shared=self.replicated_keys())
             if (cfg.profile_dir and cfg.profile_num_steps
                     and steps_done <= cfg.profile_start_step):
                 log.warning(
@@ -907,7 +982,7 @@ class Trainer:
         if cfg.checkpoint_dir:
             ckpt = Checkpointer(cfg.checkpoint_dir)
             try:
-                restored = ckpt.restore_latest()
+                restored = ckpt.restore_latest(adapt=self.elastic_state)
             finally:
                 ckpt.close()
             if restored is None:

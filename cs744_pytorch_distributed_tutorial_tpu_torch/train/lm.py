@@ -48,7 +48,9 @@ step exempt), a profiler window (``profile_dir``, steps
 ``capture_state``/``restore_state`` carry the parameters, the
 optimizer's moments and count, the int8 wire's residuals and the step
 (a rank's rows of them under zero1 and fsdp; the checkpoint keeps a file
-a rank), copied into the live tensors; another world size raises.
+a rank), copied into the live tensors; ``elastic_state`` re-cuts every
+rank's saved state for another ``data_parallel`` or ``seq_parallel``
+(the JAX package's elastic restore; ``tensor_parallel`` is pinned).
 
 For generation and serving, ``decode_model`` and
 ``quantized_decode_model`` build a decode copy of the model (dense
@@ -128,7 +130,7 @@ import contextlib
 import dataclasses
 import math
 import time
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -171,7 +173,12 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
     sync_grads,
     sync_grads_compressed,
 )
-from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import LM_RULES, _unshard
+from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import (
+    LM_RULES,
+    _unshard,
+    chunk_local_sizes,
+    make_elastic_adapt,
+)
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.engine import _smoothed_xent
 from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import (
     check_recipe,
@@ -179,6 +186,7 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.train.state import (
     make_lm_optimizer,
     make_schedule,
 )
+from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import adapt_host_leaf, agreed
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import NonFiniteLossError
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.memstore import ReplicatedSnapshot
 
@@ -896,25 +904,141 @@ class LMTrainer:
             "ef": [take(e) for e in self._ef],
         }
 
-    @torch.no_grad()
-    def restore_state(self, state: dict[str, Any]) -> None:
-        """Load ``capture_state``'s dict by copying into the live tensors
-        (the overlapped lanes and fsdp's gathers hold references to
-        them). A state saved by another world size, or another
-        ``tensor_parallel`` (the tensor slices are layout-pinned, as in
-        JAX), raises."""
+    def _check_tensor_pinned(self, state: dict[str, Any]) -> None:
         saved_tp = state.get("layout", [0, 0, 1])[2]
         if saved_tp != self.cfg.tensor_parallel:
             raise ValueError(
                 f"state saved at tensor_parallel={saved_tp} cannot load into tensor_parallel="
                 f"{self.cfg.tensor_parallel}: tensor_parallel is layout-pinned and must match "
                 "the save")
-        if state.get("world_size", 1) != self.world_size:
+
+    def replicated_keys(self) -> tuple[str, ...]:
+        """The ``capture_state`` collections every rank holds alike (the
+        in-memory snapshot gathers the others): under pure data
+        parallelism, the parameters unless fsdp cuts them into rows and
+        the moments unless zero1 or fsdp does."""
+        if self._sharded:
+            return ()
+        keys = [] if self.cfg.fsdp else ["params"]
+        if not self._zero:
+            keys += ["momentum", "opt_nu"]
+        return tuple(keys)
+
+    @torch.no_grad()
+    def elastic_state(self, states: Sequence[dict[str, Any]]) -> dict[str, Any]:
+        """This rank's state built from every rank's saved one (a
+        checkpoint's ``RankStates`` or a snapshot's entry), the ``adapt``
+        of ``Checkpointer.restore_latest`` and
+        ``ReplicatedSnapshot.restore_latest``; call it after ``init()``.
+        Saved by this layout, it is this rank's own. Saved at another
+        ``data_parallel`` or ``seq_parallel``, the JAX package's elastic
+        restore of the ``LMState``: ``tensor_parallel`` is layout-pinned
+        (another one raises); the flat ZeRO rows (zero1's and fsdp's
+        moments, fsdp's parameters) are stacked into JAX's ``[dp, (tp,)
+        chunk]`` leaves from the old ranks of each data coordinate and
+        re-chunked by ``parallel/zero.py::make_elastic_adapt``;
+        expert-parallel tensors (split over the data axis) re-shard whole
+        experts across the new data axis; every other tensor is taken,
+        for this rank's tensor coordinate, from any rank once they agree;
+        the int8 wire's residuals are per replica (sliced or tiled
+        cyclically); the step and the update count are the ranks' one
+        value."""
+        cfg = self.cfg
+        first = states[0]
+        self._check_tensor_pinned(first)
+        layout = [cfg.data_parallel, cfg.seq_parallel, cfg.tensor_parallel]
+        old = list(first.get("layout", [len(states), 1, 1]))
+        if len(states) == self.world_size and old == layout:
+            return states[self.rank]
+        d_old, s_old, t_old = old
+        if d_old * s_old * t_old != len(states):
+            raise ValueError(f"saved layout {old} does not match its {len(states)} rank states")
+
+        def at(d: int, t: int, s: int = 0) -> dict:
+            return states[(d * s_old + s) * t_old + t]
+
+        coords = self.mesh.coords
+        d_new, t_me = coords[DATA_AXIS], coords[TENSOR_AXIS]
+        names = [n for n, _ in self.model.named_parameters()]
+        local = ([shape for shape, _ in self._param_shapes] if cfg.fsdp
+                 else [tuple(p.shape) for p in self.optimizer.params])
+        specs = dict(zip(names, self._specs, strict=True))
+        sizes = self.mesh.sizes
+
+        def global_shape(name: str, shape: tuple) -> tuple:
+            return tuple(n * sizes[a] if a in (DATA_AXIS, TENSOR_AXIS) else n
+                         for n, a in zip(shape, specs[name] + (None,) * len(shape)))
+
+        adapt = None
+        if self._zero:
+            adapt = make_elastic_adapt(
+                chunk_local_sizes({n: global_shape(n, sh) for n, sh in zip(names, local)},
+                                  specs, {TENSOR_AXIS: cfg.tensor_parallel},
+                                  exclude_axis=DATA_AXIS),
+                prefixes=("momentum/", "opt_nu/") + (("params/",) if cfg.fsdp else ()))
+
+        def replicas(key: str, i: int, d: int, t: int) -> torch.Tensor:
+            """Old rank (d, ., t)'s tensor, equal on every seq coordinate."""
+            return agreed(f"{key}/{names[i]}", [at(d, t, s)[key][i] for s in range(s_old)])
+
+        def leaf(key: str, i: int, live: torch.Tensor) -> torch.Tensor:
+            name, spec = names[i], specs[names[i]]
+            rows = key != "params" and self._zero or key == "params" and cfg.fsdp
+            if DATA_AXIS in spec:  # expert-split: whole experts re-shard over data
+                k = spec.index(DATA_AXIS)
+                shape = list(local[i])  # the old ranks' slices: E / d_old experts
+                shape[k] = shape[k] * cfg.data_parallel // d_old
+                full = torch.cat([replicas(key, i, d, t_me).reshape(shape)
+                                  for d in range(d_old)], dim=k)
+                return full.chunk(cfg.data_parallel, dim=k)[d_new].reshape(live.shape).clone()
+            if rows:
+                tensor_split = TENSOR_AXIS in spec
+                ts = range(t_old) if tensor_split else [t_me]
+                saved = torch.stack([torch.stack([replicas(key, i, d, t) for t in ts])
+                                     for d in range(d_old)])
+                like = (cfg.data_parallel, t_old, live.numel()) if tensor_split else (
+                    cfg.data_parallel, 1, live.numel())
+                out = adapt_host_leaf(f"{key}/{name}", saved if tensor_split else saved[:, 0],
+                                      like if tensor_split else (like[0], like[2]), adapt)
+                return (out[d_new, t_me] if tensor_split else out[d_new]).reshape(live.shape)
+            return agreed(f"{key}/{name}", [at(d, t_me, s)[key][i]
+                                            for d in range(d_old) for s in range(s_old)])
+
+        mu, nu, _ = self._opt_state()
+        out: dict[str, Any] = {
+            "step": agreed("step", [st["step"] for st in states]),
+            "world_size": self.world_size,
+            "layout": layout,
+            "opt_count": agreed("opt_count", [st["opt_count"] for st in states]),
+        }
+        for key, live in (("params", self.optimizer.params), ("momentum", mu), ("opt_nu", nu)):
+            if len(first.get(key, [])) != len(live):
+                raise ValueError(f"saved {key} do not match this trainer's configuration")
+            out[key] = [leaf(key, i, t) for i, t in enumerate(live)]
+        # The int8 wire's residuals: per replica (pure data parallelism).
+        out["ef"] = [adapt_host_leaf(f"ef/{i}", torch.stack([at(d, 0)["ef"][i]
+                                                             for d in range(d_old)]),
+                                     (cfg.data_parallel, *e.shape))[d_new]
+                     for i, e in enumerate(self._ef)]
+        return out
+
+    @torch.no_grad()
+    def restore_state(self, state: dict[str, Any]) -> None:
+        """Load ``capture_state``'s dict by copying into the live tensors
+        (the overlapped lanes and fsdp's gathers hold references to
+        them). A state saved by another layout raises (``elastic_state``
+        re-cuts it from every rank's first), and so does one of another
+        ``tensor_parallel`` (the tensor slices are layout-pinned, as in
+        JAX)."""
+        self._check_tensor_pinned(state)
+        layout = [self.cfg.data_parallel, self.cfg.seq_parallel, self.cfg.tensor_parallel]
+        if (state.get("world_size", 1) != self.world_size
+                or list(state.get("layout", layout)) != layout):
             raise ValueError(
-                f"state saved by a world of {state['world_size']} ranks cannot load into a "
-                f"world of {self.world_size}: restoring onto another world size needs the "
-                "elastic restore (the JAX package's utils/checkpoint.py adapt), which the "
-                "port does not have yet"
+                f"state saved by a world of {state['world_size']} ranks (layout "
+                f"{state.get('layout')}) cannot load into layout {layout} as it is: build this "
+                "rank's state with elastic_state from every rank's saved state "
+                "(Checkpointer.restore_latest(adapt=trainer.elastic_state))"
             )
         mu, nu, _ = self._opt_state()
         for key, live in (("params", self.optimizer.params), ("momentum", mu), ("opt_nu", nu),
@@ -1020,9 +1144,9 @@ class LMTrainer:
         disk_step = ckpt.latest_step() if ckpt is not None else None
         restored = source = None
         if mem_step is not None and (disk_step is None or disk_step <= mem_step):
-            restored, source = mem.restore_latest(), "memory"
+            restored, source = mem.restore_latest(adapt=self.elastic_state), "memory"
         elif disk_step is not None:
-            restored, source = ckpt.restore_latest(), "disk"
+            restored, source = ckpt.restore_latest(adapt=self.elastic_state), "disk"
         if restored is not None:
             self.restore_state(restored)
         start_step = self.step
@@ -1105,7 +1229,7 @@ class LMTrainer:
                     if to_disk:
                         ckpt.save(pstate)
                     if to_mem:
-                        mem.save(pstate)
+                        mem.save(pstate, shared=self.replicated_keys())
                     pending = None
                 losses.append(loss)
                 fields = {key: float(value) for key, value in m.items() if key != "loss"}
@@ -1128,7 +1252,7 @@ class LMTrainer:
                         if ckpt_due:
                             ckpt.save(self.capture_state())
                         if snap_due:
-                            mem.save(self.capture_state())
+                            mem.save(self.capture_state(), shared=self.replicated_keys())
             if ckpt is not None or mem is not None:
                 if cfg.halt_on_nonfinite and steps > start_step:
                     # Certify the final parameters with one eval forward
@@ -1139,7 +1263,7 @@ class LMTrainer:
                 if ckpt is not None:
                     ckpt.save(self.capture_state(), force=True)
                 if mem is not None:
-                    mem.save(self.capture_state())
+                    mem.save(self.capture_state(), shared=self.replicated_keys())
         except BaseException as e:
             flight.dump("exception", error=repr(e), step=step)
             raise

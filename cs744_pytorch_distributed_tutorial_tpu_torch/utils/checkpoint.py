@@ -22,9 +22,19 @@ bitwise resume needs).
   thread first (and, with more than one rank, then meet at a barrier),
   so each answers for what is durable.
 
-A checkpoint restores onto the world size that wrote it; another world
-raises ``ValueError`` (the JAX package's elastic restore, which re-cuts
-state for another world, is not ported).
+The restore is elastic, as the JAX package's: a checkpoint written by a
+world of N ranks restores into a world of M. The JAX package saves one
+global tree and resizes its leaves; here each rank's file holds only its
+own part, so ``restore_latest(adapt=...)`` hands the trainer's
+``elastic_state`` every rank's state (``RankStates``: a file is read when
+it is first needed) and the trainer builds this rank's state under the
+JAX package's leaf rules (``adapt_host_leaf``): replicated tensors from
+any file, once the files agree; per-replica state (BatchNorm buffers,
+error feedback) sliced when shrinking and tiled cyclically when growing;
+the flat ZeRO rows re-chunked through an ``adapt`` hook
+(``parallel/zero.py::make_elastic_adapt``), or refused as JAX refuses
+them where the trainer passes none. The in-memory tier
+(``utils/memstore.py``) restores through the same hook.
 """
 
 from __future__ import annotations
@@ -34,13 +44,14 @@ import re
 import shutil
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any
+from typing import Any, Callable, Sequence
 
 import torch
 import torch.distributed as dist
 
 _STEP_DIR = re.compile(r"^step_(\d+)$")
 _RANK_FILE = re.compile(r"^rank(\d+)\.pt$")
+_TMP_DIR = re.compile(r"^step_(\d+)\.tmp\.g(\d+)$")
 COMMIT_TIMEOUT_S = 600.0
 
 
@@ -60,6 +71,76 @@ def _group() -> tuple[int, int]:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
     return 1, 0
+
+
+def _generation() -> int:
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.multihost import runtime_labels
+
+    return runtime_labels()["generation"]
+
+
+def adapt_host_leaf(key: str, saved: torch.Tensor, like_shape: Sequence[int],
+                    adapt: Callable | None = None) -> torch.Tensor:
+    """Resize one saved leaf to ``like_shape`` (the JAX package's
+    ``adapt_host_leaf``). A leaf of that shape passes through untouched.
+    Otherwise ``adapt(key, saved, like)`` is asked first (the ZeRO
+    trainers re-chunk their flat rows there), then the default
+    world-size rule: the leading axis is sliced down or tiled cyclically
+    up; any other mismatch raises. In the port a leaf's leading axis is
+    the rank: the trainers stack the ranks' per-replica tensors (or
+    their ZeRO rows) into ``[world, ...]`` before calling this."""
+    like_shape = tuple(like_shape)
+    if tuple(saved.shape) == like_shape:
+        return saved
+    if adapt is not None:
+        out = adapt(key, saved, torch.empty(like_shape, device="meta"))
+        if out is not None:
+            return out
+    if tuple(saved.shape[1:]) != like_shape[1:] or saved.ndim == 0:
+        raise ValueError(
+            f"cannot adapt checkpoint leaf of shape {tuple(saved.shape)} to "
+            f"{like_shape}: only the leading (world-size) axis may differ"
+        )
+    n = like_shape[0]
+    if saved.shape[0] >= n:
+        return saved[:n]
+    reps = -(-n // saved.shape[0])
+    return saved.repeat((reps,) + (1,) * (saved.ndim - 1))[:n]
+
+
+def agreed(key: str, values: Sequence[Any]) -> Any:
+    """The one value every rank saved for a replicated leaf (a tensor, or
+    a scalar such as the step); ``ValueError`` when two ranks' values
+    differ, bit for bit."""
+    first = values[0]
+    for v in values[1:]:
+        same = (torch.equal(v, first) if isinstance(first, torch.Tensor)
+                else v == first)
+        if not same:
+            raise ValueError(f"the ranks' saved {key!r} differ: it is not replicated")
+    return first
+
+
+class RankStates(Sequence):
+    """Every rank's saved state of one checkpoint step, in rank order; a
+    file is read when its state is first asked for (``read`` holds the
+    ranks read so far), so a rank reads only the files its new state
+    needs."""
+
+    def __init__(self, paths: Sequence[str]):
+        self._paths = list(paths)
+        self._states: dict[int, dict] = {}
+        self.read: set[int] = set()
+
+    def __len__(self) -> int:
+        return len(self._paths)
+
+    def __getitem__(self, r: int) -> dict:
+        r = range(len(self))[r]
+        if r not in self._states:
+            self._states[r] = torch.load(self._paths[r], map_location="cpu", weights_only=True)
+            self.read.add(r)
+        return self._states[r]
 
 
 class Checkpointer:
@@ -83,6 +164,7 @@ class Checkpointer:
         os.makedirs(self.directory, exist_ok=True)
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="checkpoint")
         self._pending: list[Future] = []
+        self.last_read: list[int] = []  # the rank files the last restore read
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step}")
@@ -105,7 +187,11 @@ class Checkpointer:
         final = self._step_dir(step)
         if os.path.isdir(final):
             return  # this step is committed already
-        tmp = final + ".tmp"
+        # The generation in the name keeps a step that an earlier
+        # generation (another world) left half-written apart from this
+        # one's: its files never count toward this commit.
+        generation = _generation()
+        tmp = f"{final}.tmp.g{generation}"
         os.makedirs(tmp, exist_ok=True)
         part = os.path.join(tmp, f"rank{self.rank}.pt.part")
         torch.save(host, part)
@@ -124,6 +210,10 @@ class Checkpointer:
         os.replace(tmp, final)
         for old in self._steps()[: -self.max_to_keep]:
             shutil.rmtree(self._step_dir(old), ignore_errors=True)
+        for name in os.listdir(self.directory):  # earlier generations' leftovers
+            m = _TMP_DIR.match(name)
+            if m and int(m.group(2)) < generation:
+                shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
 
     def _fence(self) -> None:
         """Wait for this rank's writes (raising their errors), then for
@@ -144,24 +234,35 @@ class Checkpointer:
         steps = self._steps()
         return steps[-1] if steps else None
 
-    def restore_latest(self) -> dict | None:
+    def restore_latest(self, adapt: Callable[[Sequence[dict]], dict] | None = None
+                       ) -> dict | None:
         """This rank's state from the newest checkpoint (tensors on the
-        host), or None when the directory holds none."""
+        host), or None when the directory holds none. ``adapt`` (a
+        trainer's ``elastic_state``) builds it from every rank's state
+        (``RankStates``), which re-cuts a checkpoint of another world;
+        without it, this rank's own file is read and a checkpoint of
+        another world raises. ``last_read`` lists the rank files read."""
         step = self.latest_step()
         if step is None:
             return None
         d = self._step_dir(step)
         ranks = sorted(int(m.group(1)) for name in os.listdir(d) if (m := _RANK_FILE.match(name)))
-        if len(ranks) != self.world_size:
-            raise ValueError(
-                f"checkpoint {d} was written by a world of {len(ranks)} ranks; this "
-                f"world has {self.world_size}. Restoring onto another world size needs "
-                "the elastic restore (the JAX package's utils/checkpoint.py adapt), "
-                "which the port does not have yet"
-            )
+        if ranks != list(range(len(ranks))):
+            raise ValueError(f"checkpoint {d} holds rank files {ranks}: not one a rank")
+        states = RankStates([os.path.join(d, f"rank{r}.pt") for r in ranks])
+        if adapt is None:
+            if len(ranks) != self.world_size:
+                raise ValueError(
+                    f"checkpoint {d} was written by a world of {len(ranks)} ranks; this "
+                    f"world has {self.world_size}: restore it with the trainer's "
+                    "elastic_state as adapt, which re-cuts it for this world"
+                )
+            state = states[self.rank]
+        else:
+            state = adapt(states)
         Checkpointer.total_restores += 1
-        return torch.load(os.path.join(d, f"rank{self.rank}.pt"), map_location="cpu",
-                          weights_only=True)
+        self.last_read = sorted(states.read)
+        return state
 
     def close(self) -> None:
         self._fence()

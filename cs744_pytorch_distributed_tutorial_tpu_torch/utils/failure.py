@@ -35,7 +35,6 @@ import traceback as _traceback
 from typing import Any, Callable
 
 import numpy as np
-import torch.distributed as dist
 
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.logging import get_logger
 
@@ -57,9 +56,9 @@ class DeviceLossError(TrainingFailure):
     """A device (or its host) dropped out of the world mid-run.
 
     Retrying on the same process group cannot succeed: the survivors must
-    form a new one (the JAX package's ``parallel/elastic.py``, not ported
-    yet). ``lost`` carries the dead device ids; ``run_with_recovery``
-    hands them to its ``remesh`` callback."""
+    form a new one (``parallel/elastic.py::default_remesh``). One rank
+    drives one device, so ``lost`` carries the lost global ranks;
+    ``run_with_recovery`` hands them to its ``remesh`` callback."""
 
     def __init__(self, step: int, lost=()):
         lost = tuple(lost)
@@ -344,11 +343,14 @@ class StepWatchdog:
 
 def _identity_fields() -> dict[str, int]:
     """``process_id``/``generation`` stamps for event records, so a
-    multi-process recovery timeline is attributable per rank: the rank
-    in the ``torch.distributed`` group (0 without one); generation 0, as
-    the port restarts within one process group."""
-    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
-    return {"process_id": rank, "generation": 0}
+    multi-process recovery timeline is attributable per rank: resolved
+    through ``parallel/multihost.py::runtime_labels`` (explicit labels set
+    at each rendezvous, then the supervisor's environment, then the
+    process group), so they follow a re-exec into a new generation."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.multihost import runtime_labels
+
+    labels = runtime_labels()
+    return {"process_id": labels["process_id"], "generation": labels["generation"]}
 
 
 def emit_event(target: Any, event: str, **fields: Any) -> None:
@@ -419,9 +421,10 @@ def run_with_recovery(
     A ``DeviceLossError`` escalates past retry: when ``remesh`` is
     given, it is called as ``remesh(trainer, failure)`` and must return
     a NEW trainer on the surviving world (carrying the memstore over).
-    Without ``remesh`` (the default: the elastic restore is not ported)
-    the device loss restarts on the same group and will typically fail
-    again until ``max_restarts`` gives up.
+    Without ``remesh`` (the default) the device loss restarts on the same
+    group and will typically fail again until ``max_restarts`` gives up;
+    ``parallel/elastic.py::default_remesh`` re-forms the group over the
+    survivors and rebuilds the trainer there.
 
     Every transition emits a ``kind:"event"`` record on ``telemetry``
     (a ``Telemetry`` or raw obs sink): ``recovery_restart`` per attempt

@@ -27,11 +27,26 @@ def _rank_and_world() -> tuple[int, int]:
 class _RankPrefixFilter(logging.Filter):
     """Stamp each record with the current ``[proc i/n]`` prefix. It is
     computed a record at a time, not when the handler is made: loggers
-    are made at import, before the process group exists."""
+    are made at import, before the process group exists, and a survivor
+    that was ``[proc 2/4]`` in generation 0 may be ``[proc 1/3]`` after a
+    re-mesh or a re-exec. Resolution is
+    ``parallel/multihost.py::runtime_labels`` (explicit labels set at each
+    rendezvous, then the supervisor's environment, then the process
+    group); generations after the first carry a ``gN`` suffix."""
 
     def filter(self, record: logging.LogRecord) -> bool:
-        rank, world = _rank_and_world()
-        record.rank_prefix = f"[proc {rank}/{world}] " if world > 1 else ""
+        try:
+            from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.multihost import (
+                runtime_labels,
+            )
+
+            labels = runtime_labels()
+            n, gen = labels["process_count"], labels["generation"]
+            suffix = f" g{gen}" if gen > 0 else ""
+            record.rank_prefix = (
+                f"[proc {labels['process_id']}/{n}{suffix}] " if n > 1 else "")
+        except Exception:  # logging must never fail on label resolution
+            record.rank_prefix = ""
         return True
 
 

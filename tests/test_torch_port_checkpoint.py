@@ -13,6 +13,7 @@ warmup_cosine and the clip, the fused optimizer, the int8 wire's error
 feedback (a Gloo group of one), and zero1 and fsdp on 2 Gloo ranks.
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -26,7 +27,7 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.config import TrainConfig
 from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_cifar10
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import free_port
 from cs744_pytorch_distributed_tutorial_tpu_torch.train import Trainer
-from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import Checkpointer
+from cs744_pytorch_distributed_tutorial_tpu_torch.utils.checkpoint import Checkpointer, to_host
 from cs744_pytorch_distributed_tutorial_tpu_torch.utils.failure import (
     NonFiniteLossError,
     run_with_recovery,
@@ -119,14 +120,20 @@ def test_mid_epoch_resume_is_bitwise(case, ds, tmp_path):
         assert runs["clean"]["opt_count"] == 8 and runs["clean"]["opt_nu"]
 
 
-@pytest.fixture
-def gloo_world_of_one():
+@contextlib.contextmanager
+def _world_of_one():
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{free_port()}",
                             world_size=1, rank=0)
     try:
         yield
     finally:
         dist.destroy_process_group()
+
+
+@pytest.fixture
+def gloo_world_of_one():
+    with _world_of_one():
+        yield
 
 
 def test_mid_epoch_resume_is_bitwise_int8_wire(ds, tmp_path, gloo_world_of_one):
@@ -169,7 +176,9 @@ def _worker(rank: int, port: int, out_dir: str) -> None:
 
 def test_sharded_resume_is_bitwise_on_two_ranks(tmp_path):
     """zero1 and fsdp on 2 Gloo ranks: each rank's shards resume bitwise
-    from either tier; then a world of one refuses their checkpoint."""
+    from either tier. A world of one re-cuts neither checkpoint, as the
+    JAX CIFAR engine (no adapt hook: its default rule meets [2, c2]
+    against [1, c1]) cannot: the elastic restore raises JAX's error."""
     port = free_port()
     env = dict(os.environ, PYTHONPATH=REPO)
     procs = [subprocess.Popen([sys.executable, __file__, str(r), str(port), str(tmp_path)],
@@ -182,12 +191,19 @@ def test_sharded_resume_is_bitwise_on_two_ranks(tmp_path):
             assert res[f"{name}/step"] == 8
             assert res[f"{name}/disk"] == "ok", (r, name, res[f"{name}/disk"])
             assert res[f"{name}/memory"] == "ok", (r, name, res[f"{name}/memory"])
-    ckpt = Checkpointer(str(tmp_path / "zero1" / "ckpt"))
-    try:
-        with pytest.raises(ValueError, match="world of 2 ranks.*elastic restore"):
-            ckpt.restore_latest()
-    finally:
-        ckpt.close()
+    with _world_of_one():
+        for name, kw in SHARDED.items():
+            one = Trainer(TrainConfig(**{**BASE, "num_devices": 1, "global_batch_size": 16,
+                                         "augment": True, **kw}))
+            ckpt = Checkpointer(str(tmp_path / name / "ckpt"))
+            try:
+                with pytest.raises(ValueError,
+                                   match="only the leading .world-size. axis may differ"):
+                    ckpt.restore_latest(adapt=one.elastic_state)
+                with pytest.raises(ValueError, match="world of 2 ranks.*elastic_state as adapt"):
+                    ckpt.restore_latest()
+            finally:
+                ckpt.close()
 
 
 # ------------------------------------------------------- the JAX contracts
@@ -249,10 +265,33 @@ def test_evaluate_only_restores_and_matches(tmp_path):
 
 
 def test_state_from_another_world_size_raises():
+    """A state saved by a world of 4 loads only through the elastic
+    restore: ``restore_state`` of one rank's state raises, while
+    ``elastic_state`` over the 4 ranks' states restores it at a world of
+    one (replicated tensors from any rank, rank 0's BatchNorm buffers,
+    the augmentation generator seeded afresh from (seed, rank, step))."""
     tr = Trainer(TrainConfig(**BASE))
-    state = dict(tr.capture_state(), world_size=4)
-    with pytest.raises(ValueError, match="world of 4 ranks.*elastic restore"):
-        tr.restore_state(state)
+    tr.state.step = 3
+    base = to_host(tr.capture_state())
+    states = []
+    for r in range(4):
+        st = dict(base, world_size=4)
+        st["buffers"] = {k: v + r for k, v in base["buffers"].items()}
+        states.append(st)
+    with pytest.raises(ValueError, match="world of 4 ranks.*elastic_state"):
+        tr.restore_state(states[1])
+    restored = tr.elastic_state(states)
+    assert restored["world_size"] == 1 and restored["step"] == 3
+    for k, v in restored["buffers"].items():
+        assert torch.equal(v, states[0]["buffers"][k])
+    tr.restore_state(restored)
+    assert tr.state.step == 3
+    seed = int(np.random.SeedSequence([tr.cfg.seed, 0, 3]).generate_state(1)[0])
+    assert torch.equal(tr.augment_gen.get_state(),
+                       torch.Generator().manual_seed(seed).get_state())
+    states[2]["params"] = [p + 1 for p in states[2]["params"]]
+    with pytest.raises(ValueError, match="not replicated"):
+        tr.elastic_state(states)
 
 
 if __name__ == "__main__":

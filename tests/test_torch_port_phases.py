@@ -554,11 +554,20 @@ def test_obs_report_renders_the_bench_records(tmp_path, capsys):
     (stream / "metrics.jsonl").write_text(json.dumps({"kind": "step"}) + "\n")
     assert main(["report", str(stream)]) == 1
     # serve-report is ported (tests/test_torch_port_serve_trace.py): a dir
-    # without serve_spans.jsonl is no trace; fleet-report is not ported.
+    # without serve_spans.jsonl is no trace. fleet-report is ported
+    # (tests/test_torch_port_fleet.py): an empty store reports nothing and
+    # audits clean, and a store that does not exist fails, as JAX's.
+    from cs744_pytorch_distributed_tutorial_tpu.obs.__main__ import main as jax_main
+
     with pytest.raises(FileNotFoundError, match="serve_spans.jsonl"):
         main(["serve-report", str(tmp_path)])
-    with pytest.raises(SystemExit, match="not yet ported"):
-        main(["fleet-report", str(tmp_path)])
+    for fn, side in ((main, "port"), (jax_main, "jax")):
+        empty = tmp_path / f"empty_store_{side}"
+        empty.mkdir()
+        assert fn(["fleet-report", str(empty), "--check", "--no-artifacts"]) == 0
+        assert "no stamped steps found" in capsys.readouterr().out
+        with pytest.raises(FileNotFoundError, match="not a directory"):
+            fn(["fleet-report", str(tmp_path / f"no_store_{side}"), "--check"])
 
 
 # ------------------------------------------------------------ one retake decision

@@ -422,8 +422,10 @@ def test_chaos_slow_step_stalls_via_injectable_sleep(tiny):
 def test_fault_schedule_rejects_unknown_kinds():
     with pytest.raises(ValueError, match="fault kind must be one of"):
         FaultSchedule({3: "meteor"})
-    with pytest.raises(ValueError, match="fault kind must be one of"):
-        FaultSchedule({3: "nan"})  # a training kind: the training monkey is not ported
+    # The training kinds share the schedule (as in JAX); a kill needs its target.
+    assert FaultSchedule({3: "nan"}).pop(3) == {"kind": "nan"}
+    with pytest.raises(ValueError, match="process_kill at call 3 needs a target"):
+        FaultSchedule({3: "process_kill"})
     schedule = FaultSchedule({3: "decode_nan", 5: {"kind": "slow_step", "stall_s": 0.1}})
     assert len(schedule) == 2 and schedule.pop(5) == {"kind": "slow_step", "stall_s": 0.1}
     assert schedule.pop(5) is None and len(schedule) == 1
