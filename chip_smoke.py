@@ -310,7 +310,22 @@ no result):
     trained 10 and 4 steps through the fused SGD, tensor-core wgrad,
     flash and fused cross-entropy kernels (launches exact), the losses
     within a bound set from the CPU states' largest difference
-    (``ELASTIC_GAIN``) of the same steps from a world-1-written state.
+    (``ELASTIC_GAIN``) of the same steps from a world-1-written state;
+33. the pipe axis (``pipeline_phase``): GPT-2-small at full width (RoPE,
+    bf16, flash, AdamW) on 4 pipeline stages run in lockstep in this
+    process (``parallel/pipeline.py::simulate_train_step``), 4
+    microbatches of 2 sequences, 2 steps each on GPipe, 1F1B with the
+    distributed tail and the interleaved schedule (V 3), from the weights
+    of a pipe-1 ``LMTrainer`` trained on the same batches: every step's
+    loss within ``PIPE_LOSS_RTOL`` (2e-2) of its, the flash launches
+    exact on the tensor cores (96 forwards, dq and dk/dv; 192 forwards
+    under 1F1B's recompute), none on FFMA, no plain call, the hops the
+    schedule's (14, 14, 30 a step); each schedule's and the pipe-1 step
+    timed (events and kernels); the MoE LM (dropless) on 2 stages, one
+    GPipe step, its grouped-matmul launches exact; and a GPT-2-small
+    state dict with HF's key names (drawn from a seed) converted by
+    ``models/hf_interop.py``: one bf16 forward on the flash kernels
+    within ``HF_LOGIT_TOL`` x max|logit| of the plain path.
 
 Each phase prints its wall seconds as it ends, and the line before the
 kernels JSON gives the whole run's and each phase's.
@@ -6187,6 +6202,211 @@ def elastic_phase() -> dict:
     return out
 
 
+# -------------------------------------------------------- phase 33: the pipe axis
+PIPE_STAGES, PIPE_MICROBATCHES, PIPE_MB_SEQS, PIPE_STEPS = 4, 4, 2, 2
+PIPE_SCHEDULES = {"gpipe": {}, "1f1b": {}, "interleaved": {"num_virtual_stages": 3}}
+# |pipe-4 loss - pipe-1 loss| / pipe-1 loss at each step, bf16: the flash
+# phase's bf16 bound (FLASH_TOL), stated before the first run.
+PIPE_LOSS_RTOL = 2e-2
+# The MoE LM's grouped matmuls on the pipeline path: 2 stages, 2
+# microbatches of 4 x 512, one GPipe step.
+PIPE_MOE_STAGES, PIPE_MOE_MICROBATCHES, PIPE_MOE_BATCH = 2, 2, 8
+HF_VOCAB = 50257  # GPT-2's own vocabulary
+HF_LOGIT_TOL = 2e-2  # max |kernel - plain| / max |plain| of the logits, bf16
+
+
+def _pipe_hops(schedule: str, v: int) -> int:
+    """The pipe-axis hops a step: one a tick each way."""
+    s, m = PIPE_STAGES, PIPE_MICROBATCHES
+    return 2 * ((v * m if schedule == "interleaved" else m) + s - 1)
+
+
+def gpt2_hf_state_dict(gen: torch.Generator) -> dict:
+    """A GPT-2-small state dict with ``transformers``' key names (tied
+    ``lm_head.weight``), N(0, 0.02) weights, unit norm scales and zero
+    biases drawn from ``gen``: what ``GPT2LMHeadModel(GPT2Config())``
+    holds, without the package."""
+    d, layers, ff, n_pos = 768, 12, 3072, 1024
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=gen.device) * 0.02  # noqa
+    sd = {"transformer.wte.weight": randn(HF_VOCAB, d), "transformer.wpe.weight": randn(n_pos, d)}
+    for i in range(layers):
+        pre = f"transformer.h.{i}"
+        sd.update({
+            f"{pre}.ln_1.weight": torch.ones(d, device=gen.device),
+            f"{pre}.ln_1.bias": torch.zeros(d, device=gen.device),
+            f"{pre}.attn.c_attn.weight": randn(d, 3 * d), f"{pre}.attn.c_attn.bias": randn(3 * d),
+            f"{pre}.attn.c_proj.weight": randn(d, d), f"{pre}.attn.c_proj.bias": randn(d),
+            f"{pre}.ln_2.weight": torch.ones(d, device=gen.device),
+            f"{pre}.ln_2.bias": torch.zeros(d, device=gen.device),
+            f"{pre}.mlp.c_fc.weight": randn(d, ff), f"{pre}.mlp.c_fc.bias": randn(ff),
+            f"{pre}.mlp.c_proj.weight": randn(ff, d), f"{pre}.mlp.c_proj.bias": randn(d),
+        })
+    sd["transformer.ln_f.weight"] = torch.ones(d, device=gen.device)
+    sd["transformer.ln_f.bias"] = torch.zeros(d, device=gen.device)
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    return sd
+
+
+def pipeline_phase() -> dict:
+    """Phase 33: GPT-2-small at full width (bf16, RoPE, flash, AdamW) on
+    four pipeline stages run in lockstep in this process
+    (``parallel/pipeline.py::simulate_train_step``), 4 microbatches of 2
+    sequences, 2 steps on each schedule (GPipe, 1F1B with the distributed
+    tail, interleaved V 3), from the weights of a pipe-1 ``LMTrainer``
+    that trains the same 2 batches: each step's loss within
+    ``PIPE_LOSS_RTOL`` of the pipe-1 one, the flash launches exact on the
+    tensor cores (48 forwards, dq and dk/dv a step; 1F1B's recompute 48
+    forwards more), none on FFMA, no plain call, the hops the schedule's;
+    each schedule's step and the pipe-1 step timed (CUDA events and the
+    profiler's kernel time). The MoE LM (dropless) on 2 stages, one GPipe
+    step: its grouped-matmul launches exact. Then a GPT-2-small state
+    dict with HF's key names through ``models/hf_interop.py``: one bf16
+    forward on the flash kernels against the same model's plain path."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.data import synthetic_tokens
+    from cs744_pytorch_distributed_tutorial_tpu_torch.models import hf_interop as H
+    from cs744_pytorch_distributed_tutorial_tpu_torch.models.transformer import TransformerLM
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as Coll
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import pipeline as PP
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
+
+    card = card_line()
+    layers = LM_WIDTH["num_layers"]
+    batch = PIPE_MICROBATCHES * PIPE_MB_SEQS
+    toks = synthetic_tokens(batch * PIPE_STEPS, LM_WIDTH["seq_len"], LM_WIDTH["vocab_size"],
+                            seed=23)
+    plain_calls = [0]
+
+    def spy(fn):
+        def call(*args, **kw):
+            plain_calls[0] += 1
+            return fn(*args, **kw)
+        return call
+
+    def timed(step) -> tuple[float, float | None]:
+        """(CUDA-event ms of one more step, the profiler's kernel ms a step)."""
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), device_busy_ms(step, reps=1)
+
+    ref = LMTrainer(lm_config(global_batch_size=batch))
+    ref.init(seed=0)
+    logical = PP.from_transformer_lm_params(
+        {k: v.detach().clone() for k, v in ref.model.state_dict().items()}, layers)
+    batches = [ref.split_batch(toks[s * batch:(s + 1) * batch]) for s in range(PIPE_STEPS)]
+    want = [float(ref.train_step(*batches[s])["loss"]) for s in range(PIPE_STEPS)]
+    ref_ms = timed(lambda: ref.train_step(*batches[0]))
+    out: dict = {"card": card, "pipe1_losses": want, "pipe1_step_ms": ref_ms[0],
+                 "pipe1_busy_ms": ref_ms[1], "launches": {}, "schedules": {}}
+    del ref
+    torch.cuda.empty_cache()
+    for schedule, kw in PIPE_SCHEDULES.items():
+        cfg = PP.PipelineLMConfig(**LM_WIDTH, pipeline_parallel=PIPE_STAGES,
+                                  num_microbatches=PIPE_MICROBATCHES, global_batch_size=batch,
+                                  schedule=schedule, attention_impl="flash", use_rope=True,
+                                  compute_dtype="bfloat16", optimizer="adamw", device="cuda",
+                                  **kw)
+        stages = [PP.PipelineLMTrainer(cfg, stage=i) for i in range(PIPE_STAGES)]
+        for tr in stages:
+            tr.init(params=logical)
+
+        def run():
+            Coll.hops.clear()
+            return [float(PP.simulate_train_step(stages, *batches[s])["loss"])
+                    for s in range(PIPE_STEPS)]
+
+        plain_calls[0] = 0
+        with patched(A, flash_forward_lse_plain=spy(A.flash_forward_lse_plain),
+                     flash_dq_plain=spy(A.flash_dq_plain), flash_dkv_plain=spy(A.flash_dkv_plain)):
+            losses, counts = counted(run)
+        hops = Coll.hops["pipe"]
+        flash = flash_counts()
+        fwd = layers * PIPE_MICROBATCHES * PIPE_STEPS
+        want_flash = {"fwd": 0, "dq": 0, "dkv": 0, "fwd_tc": fwd * (2 if schedule == "1f1b" else 1),
+                      "dq_tc": fwd, "dkv_tc": fwd}
+        v = kw.get("num_virtual_stages", 1)
+        if flash != want_flash or others(counts, "flash") or plain_calls[0] or (
+                hops != _pipe_hops(schedule, v) * PIPE_STEPS):
+            raise RuntimeError(f"pipeline {schedule}: flash launches {flash} (expected "
+                               f"{want_flash}), other kernels {others(counts, 'flash')}, plain "
+                               f"flash calls {plain_calls[0]}, hops {hops} (expected "
+                               f"{_pipe_hops(schedule, v) * PIPE_STEPS})")
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        if not all(math.isfinite(x) for x in losses) or max(gaps) > PIPE_LOSS_RTOL:
+            raise RuntimeError(f"pipeline {schedule}: losses {losses} against pipe-1 {want} "
+                               f"(relative gaps {gaps}, bound {PIPE_LOSS_RTOL})")
+        ms = timed(lambda: PP.simulate_train_step(stages, *batches[0]))
+        out["launches"][schedule] = flash
+        out["schedules"][schedule] = {"losses": losses, "relative_gaps": gaps, "step_ms": ms[0],
+                                      "busy_ms": ms[1], "hops_a_step": hops // PIPE_STEPS,
+                                      "dist_tail": stages[0]._dist_tail}
+        print(f"pipeline {schedule} (4 stages in one process, M {PIPE_MICROBATCHES}"
+              f"{f', V {v}' if v > 1 else ''}): losses {losses} vs pipe-1 {want} (relative "
+              f"{gaps}, bound {PIPE_LOSS_RTOL}); flash launches {flash}, no plain call; hops "
+              f"{hops // PIPE_STEPS} a step; step {ms[0]:.1f} ms (events), kernels {ms[1]} ms, "
+              f"pipe-1 step {ref_ms[0]:.1f} ms / kernels {ref_ms[1]} ms; {card}")
+        del stages
+        torch.cuda.empty_cache()
+
+    # The MoE LM (dropless): the grouped matmuls on the pipeline path.
+    moe_cfg = PP.PipelineLMConfig(
+        **MOE_WIDTH, seq_len=MOE_WIDTH["max_seq_len"], pipeline_parallel=PIPE_MOE_STAGES,
+        num_microbatches=PIPE_MOE_MICROBATCHES, global_batch_size=PIPE_MOE_BATCH,
+        attention_impl="flash", use_rope=True, compute_dtype="bfloat16", moe_experts=MOE_EXPERTS,
+        moe_top_k=MOE_TOP_K, moe_dispatch="dropless", device="cuda")
+    moe_stages = [PP.PipelineLMTrainer(moe_cfg, stage=i) for i in range(PIPE_MOE_STAGES)]
+    params = moe_stages[0].init_params(0)
+    for tr in moe_stages:
+        tr.init(params=params)
+    moe_toks = synthetic_tokens(PIPE_MOE_BATCH, MOE_WIDTH["max_seq_len"], MOE_WIDTH["vocab_size"],
+                                seed=29)
+    moe_loss, counts = counted(lambda: float(PP.simulate_train_step(
+        moe_stages, *moe_stages[0].split_batch(moe_toks))["loss"]))
+    gmm = {k: G.launch_count(k) for k in G.KERNELS}
+    units = MOE_WIDTH["num_layers"] * PIPE_MOE_MICROBATCHES
+    want_gmm = {"fused": 0, "fused_z": 0, "fused_tc": units, "fused_z_tc": units, "gmm": 0,
+                "tgmm": 0, "colsum": 2 * units, "gmm_tc": 2 * units, "tgmm_tc": 2 * units,
+                "split": units}
+    if gmm != want_gmm or others(counts, "gmm_fused", "flash") or not math.isfinite(moe_loss):
+        raise RuntimeError(f"pipeline MoE: grouped-matmul launches {gmm} (expected {want_gmm}), "
+                           f"all {counts}, loss {moe_loss}")
+    out["moe"] = {"loss": moe_loss, "launches": gmm}
+    print(f"pipeline MoE (dropless, 2 stages, GPipe, M {PIPE_MOE_MICROBATCHES}): loss {moe_loss}, "
+          f"grouped-matmul launches {gmm}")
+    del moe_stages
+    torch.cuda.empty_cache()
+
+    # HF's GPT-2 key names through hf_interop, one forward.
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    sd = gpt2_hf_state_dict(gen)
+    cfg = H.gpt2_model_config(sd)
+    with torch.device("meta"):
+        model = TransformerLM(**dict(cfg, attention_impl="flash", dtype="bfloat16"))
+    model.load_state_dict(H.lm_state_dict_from_hf_gpt2(sd), assign=True)
+    model = model.to("cuda")
+    tokens = torch.randint(0, HF_VOCAB, (2, cfg["max_seq_len"]), generator=gen, device="cuda")
+    with torch.no_grad():
+        logits, counts = counted(lambda: model(tokens))
+        with plain_flash():
+            plain = model(tokens)
+    flash = flash_counts()
+    err = float((logits - plain).abs().max() / plain.abs().max())
+    if flash["fwd_tc"] != 12 or flash["fwd"] or others(counts, "flash") or not (
+            torch.isfinite(logits).all() and err <= HF_LOGIT_TOL):
+        raise RuntimeError(f"HF GPT-2 import: flash launches {flash}, other {counts}, logit "
+                           f"error {err} (bound {HF_LOGIT_TOL})")
+    out["hf_gpt2"] = {"logit_err": err, "config": {k: v for k, v in cfg.items()
+                                                   if k != "attention_impl"}}
+    print(f"HF GPT-2-small import (hf_interop, {len(sd)} tensors, tied, eps 1e-5, biases): "
+          f"logits [2, 1024, {HF_VOCAB}] on the flash kernels vs the plain path, max error "
+          f"{err:.3e} x max|plain| (bound {HF_LOGIT_TOL}); flash launches {flash}; {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6335,6 +6555,8 @@ def main() -> int:
     # then ResNet-18 and the LM restored on the card from other worlds.
     elastic = elastic_phase()
     elastic_launches = {**elastic["resnet"]["launches"], **elastic["lm"]["launches"]}
+    # The pipe axis: GPT-2-small on four simulated stages, each schedule.
+    pipeline = pipeline_phase()
     gmm_keys = {"gmm_fused": "fused", "gmm_fused_tc": "fused_tc", "gmm_fused_with_z": "fused_z",
                 "gmm_fused_with_z_tc": "fused_z_tc", "gmm": "gmm", "gmm_tc": "gmm_tc",
                 "tgmm": "tgmm", "tgmm_tc": "tgmm_tc", "colsum": "colsum"}
@@ -6376,6 +6598,13 @@ def main() -> int:
                                           for label, n in seq_tensor["launches"].items()}
         if rec["name"] in elastic_launches:
             rec["launches_elastic"] = elastic_launches[rec["name"]]
+        if rec["name"].startswith("flash_"):
+            kern = rec["name"][len("flash_"):]
+            rec["launches_pipeline"] = {sched: n[kern] for sched, n in
+                                        pipeline["launches"].items()}
+        moe_key = {**gmm_keys, "split": "split"}.get(rec["name"])
+        if moe_key in pipeline["moe"]["launches"]:
+            rec["launches_pipeline_moe"] = pipeline["moe"]["launches"][moe_key]
 
     print(f"wall {time.perf_counter() - t_start:.1f} s, of which the phases' (s): "
           + json.dumps({name: round(sec, 1) for name, sec in PHASE_SECONDS.items()}))

@@ -77,14 +77,26 @@ weights for generation (the draft's too); rank 0 alone decodes and
 prints. ``--num-processes 1`` (or any of those options) runs the wire on
 a process group of one.
 
+``--pipeline-parallel S`` (with ``--pipeline-schedule gpipe|1f1b|
+interleaved``, ``--num-microbatches``, ``--num-virtual-stages``) takes
+the JAX CLI's pipeline route: the world is ``data x pipe x seq x
+tensor`` processes (``parallel/pipeline.py::PipelineLMTrainer``), every
+JAX refusal of a flag the schedules cannot express is made first, and
+the ``--json`` summary has the JAX route's keys:
+
+    for r in 0 1 2 3; do
+      python -m cs744_pytorch_distributed_tutorial_tpu_torch.lm_cli ... \
+          --pipeline-parallel 4 --pipeline-schedule 1f1b --num-microbatches 4 \
+          --coordinator localhost:29517 --num-processes 4 --process-id $r --device cpu &
+    done
+
 The flags are the JAX package's (``lm_cli.py``), with its names and
 defaults, for the options the port runs, plus ``--device`` (``cuda``,
 the default, or ``cpu``), ``--generate-batch`` (prompts are the
 leading training sequences' prefixes; the JAX CLI takes one) and the
 JAX CIFAR CLI's ``--step-timeout-s``, ``--profile-dir``,
 ``--profile-start-step`` and ``--profile-num-steps`` for the LMConfig
-fields of those names (their defaults are LMConfig's). Other
-flags of the JAX CLI (the pipeline axis's) are not accepted. The
+fields of those names (their defaults are LMConfig's). The
 JAX CLI's refusals of ``--beam`` and
 ``--speculative-k`` combinations are made before training. The stdout
 lines and the ``--json`` summary keys are the JAX CLI's, plus
@@ -166,6 +178,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="split each sequence over this many ranks (ring or Ulysses attention)")
     p.add_argument("--tensor-parallel", type=int, default=1,
                    help="split heads and d_ff over this many ranks (Megatron)")
+    p.add_argument("--pipeline-parallel", type=int, default=1,
+                   help="stage the block stack over a pipe axis of this many ranks "
+                        "(parallel/pipeline.py::PipelineLMTrainer; composes with the data, "
+                        "seq and tensor axes, rope/GQA/flash/remat, MoE, the optimizer "
+                        "registry, --zero1/--fsdp, checkpointing and eval)")
+    p.add_argument("--pipeline-schedule", default="gpipe",
+                   choices=["gpipe", "1f1b", "interleaved"],
+                   help="gpipe: the forward's ticks replayed in reverse; 1f1b: the "
+                        "hand-scheduled backward with one stashed input a microbatch in "
+                        "flight; interleaved: virtual stages cutting the bubble by "
+                        "1/num-virtual-stages")
+    p.add_argument("--num-virtual-stages", type=int, default=None,
+                   help="model chunks a stage for --pipeline-schedule interleaved (default 2); "
+                        "rejected on other schedules")
+    p.add_argument("--num-microbatches", type=int, default=2)
     # optimization
     p.add_argument("--global-batch-size", type=int, default=8)
     p.add_argument("--seq-len", type=int, default=256)
@@ -451,6 +478,17 @@ def main(argv: list[str] | None = None) -> int:
         vocab = args.vocab_size
         tokens = synthetic_tokens(args.num_seqs, args.seq_len, vocab, seed=args.seed)
 
+    # The pipeline route, before LMConfig's checks (the JAX CLI's order).
+    if args.pipeline_parallel <= 1 and args.num_virtual_stages is not None:
+        raise SystemExit("--num-virtual-stages requires --pipeline-parallel > 1 (virtual "
+                         "stages interleave over the pipe axis)")
+    if args.pipeline_parallel > 1:
+        if args.scan_layers:
+            raise SystemExit("--scan-layers is the shard_map engine's compile lever; the "
+                             "pipeline engine already runs stacked stages (drop --scan-layers "
+                             "or --pipeline-parallel)")
+        return _run_pipeline(args, tokens, vocab)
+
     cfg = LMConfig(
         vocab_size=vocab,
         num_layers=args.num_layers,
@@ -550,6 +588,131 @@ def main(argv: list[str] | None = None) -> int:
         mesh.shutdown()
 
 
+#: The JAX CLI's refusals on the pipeline route (flag, value, default,
+#: why), then the port's own flags the pipeline engine does not run.
+_PIPELINE_REFUSALS = (
+    ("--generate", "generate", 0, "decode runs on the shard_map engine (export params instead)"),
+    ("--beam", "beam", 0, "decode runs on the shard_map engine"),
+    ("--accum-steps", "accum_steps", 1, "microbatching IS the pipeline's accumulation"),
+    ("--label-smoothing", "label_smoothing", 0.0, "the pipeline tail computes plain CE"),
+    ("--fused-xent", "fused_xent", False, "the pipeline tail computes plain CE"),
+    ("--tie-embeddings", "tie_embeddings", False,
+     "the tied embedding would live in two 1F1B param groups"),
+    ("--grad-compress", "grad_compress", "none",
+     "stage grads cross the pipe axis per 1F1B group, not as one flat data-parallel bucket "
+     "sync"),
+    ("--sync-overlap", "sync_overlap", "off",
+     "the overlapped bucket schedule models the shard_map engines' pure data-parallel sync, "
+     "not per-stage pipeline grads"),
+    ("--metrics-dir", "metrics_dir", None,
+     "PipelineLMConfig has no telemetry fields; the obs/ sinks wire through the shard_map "
+     "engines only"),
+    ("--metrics-every", "metrics_every", None, "PipelineLMConfig has no telemetry fields"),
+    ("--speculative-k", "speculative_k", 0, "decode runs on the shard_map engine"),
+    ("--snapshot-every", "snapshot_every", 0,
+     "PipelineLMConfig has no in-memory snapshot tier"),
+    ("--max-restarts", "max_restarts", 0, "PipelineLMConfig has no restart supervisor"),
+    ("--step-timeout-s", "step_timeout_s", None, "PipelineLMConfig has no step watchdog"),
+    ("--profile-dir", "profile_dir", None, "PipelineLMConfig has no profiler window"),
+)
+
+
+def _run_pipeline(args, tokens, vocab: int) -> int:
+    """The pipeline-parallel route (``--pipeline-parallel > 1``, the JAX
+    CLI's ``_run_pipeline``): the LM's blocks staged over a (data, pipe,
+    seq, tensor) mesh (``parallel/pipeline.py``), one process a rank, with
+    every JAX refusal of a flag the schedules cannot express made first."""
+    for flag, attr, default, why in _PIPELINE_REFUSALS:
+        if getattr(args, attr) != default:
+            raise SystemExit(f"{flag} does not compose with --pipeline-parallel ({why})")
+    if args.num_virtual_stages is not None and args.pipeline_schedule != "interleaved":
+        raise SystemExit("--num-virtual-stages only applies to --pipeline-schedule interleaved "
+                         f"(got schedule={args.pipeline_schedule!r})")
+    num_virtual = 2 if args.num_virtual_stages is None else args.num_virtual_stages
+    if args.seq_parallel > 1:
+        attn = args.attention_impl
+        if attn not in ("ring", "ring_flash", "ulysses", "ulysses_flash"):
+            raise SystemExit(f"--attention-impl {attn} does not compose with --seq-parallel "
+                             "(use ring|ring_flash|ulysses|ulysses_flash)")
+    else:
+        # "ring", the parser's default, runs dense on one sequence shard.
+        attn = "dense" if args.attention_impl == "ring" else args.attention_impl
+        if attn not in ("dense", "flash"):
+            raise SystemExit(
+                f"--attention-impl {args.attention_impl} does not compose with "
+                "--pipeline-parallel without --seq-parallel (the pipeline engine supports "
+                "dense|flash per full-sequence stage)")
+    from cs744_pytorch_distributed_tutorial_tpu_torch.config import resolve_device
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import mesh
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.pipeline import (
+        PipelineLMConfig,
+        PipelineLMTrainer,
+        check_pipeline_config,
+    )
+
+    cfg = PipelineLMConfig(
+        vocab_size=vocab, num_layers=args.num_layers, num_heads=args.num_heads,
+        d_model=args.d_model, d_ff=args.d_ff, max_seq_len=args.max_seq_len,
+        compute_dtype=args.compute_dtype, use_rope=args.use_rope, norm=args.norm, mlp=args.mlp,
+        num_kv_heads=args.num_kv_heads, moe_experts=args.moe_experts,
+        moe_top_k=args.moe_top_k, moe_groups=args.moe_groups, moe_dispatch=args.moe_dispatch,
+        moe_gmm_impl=args.moe_gmm_impl, moe_expert_parallel=args.moe_expert_parallel,
+        data_parallel=args.data_parallel, pipeline_parallel=args.pipeline_parallel,
+        tensor_parallel=args.tensor_parallel, seq_parallel=args.seq_parallel,
+        num_microbatches=args.num_microbatches, schedule=args.pipeline_schedule,
+        num_virtual_stages=num_virtual, attention_impl=attn, remat=args.remat,
+        remat_policy=args.remat_policy, global_batch_size=args.global_batch_size,
+        seq_len=args.seq_len, learning_rate=args.lr, seed=args.seed,
+        dropout_rate=args.dropout_rate, optimizer=args.optimizer,
+        lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps, total_steps=args.steps,
+        weight_decay=args.weight_decay, grad_clip_norm=args.grad_clip_norm, zero1=args.zero1,
+        fsdp=args.fsdp, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, halt_on_nonfinite=args.halt_on_nonfinite,
+        device=args.device)
+    check_pipeline_config(cfg)  # the JAX refusals, before any process group
+    eval_tokens, tokens = _split_eval(args.eval_frac, tokens, cfg.global_batch_size)
+    world_size = args.num_processes or 1
+    rank = args.process_id or 0
+    layout = cfg.data_parallel * cfg.pipeline_parallel * cfg.seq_parallel * cfg.tensor_parallel
+    if layout != world_size:
+        raise SystemExit(f"--data-parallel {cfg.data_parallel} x --pipeline-parallel "
+                         f"{cfg.pipeline_parallel} x --seq-parallel {cfg.seq_parallel} x "
+                         f"--tensor-parallel {cfg.tensor_parallel} must equal the world size "
+                         f"(--num-processes {world_size}): one process a rank")
+    device = mesh.rank_device(resolve_device(args.device), rank)
+    mesh.initialize(args.coordinator_address, world_size, rank, device=device)
+    try:
+        trainer = PipelineLMTrainer(cfg)
+        _, _, losses = trainer.fit(tokens, steps=args.steps)
+        lead = trainer.rank == 0
+        for i, loss in enumerate(losses):
+            if lead and (i % args.log_every == 0 or i == len(losses) - 1):
+                print(f"{i} loss:  {loss:f}")
+        eval_metrics = None
+        if eval_tokens is not None:
+            eval_metrics = trainer.evaluate(eval_tokens)
+            if lead:
+                print(f"eval loss:  {eval_metrics['loss']:f}  "
+                      f"perplexity:  {eval_metrics['perplexity']:f}")
+        if args.json and lead:
+            print(json.dumps({
+                "engine": "pipeline",
+                "schedule": cfg.schedule,
+                "pipeline_parallel": cfg.pipeline_parallel,
+                "data_parallel": cfg.data_parallel,
+                "tensor_parallel": cfg.tensor_parallel,
+                "seq_parallel": cfg.seq_parallel,
+                "num_microbatches": cfg.num_microbatches,
+                "final_loss": _json_loss(losses[-1]) if losses else None,
+                "finite": bool(math.isfinite(losses[-1])) if losses else None,
+                "steps_run": len(losses),
+                "eval": eval_metrics,
+            }))
+    finally:
+        mesh.shutdown()
+    return 0
+
+
 def _run(args, cfg, vocab, tokens, eval_tokens) -> int:
     from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMTrainer
 
@@ -587,7 +750,7 @@ def _run(args, cfg, vocab, tokens, eval_tokens) -> int:
     if args.json and lead:
         print(json.dumps({
             "vocab_size": vocab,
-            "mesh": dict(trainer.mesh.sizes),
+            "mesh": {axis: n for axis, n in trainer.mesh.sizes.items() if axis != "pipe"},
             "steps": args.steps,
             "first_loss": _json_loss(losses[0]) if losses else None,
             "final_loss": _json_loss(losses[-1]) if losses else None,

@@ -1,7 +1,9 @@
 """Model zoo and registry.
 
 The VGG table, ``tiny_cnn`` (the small net the fast tests run),
-ResNet-18/34/50 and the ViT family: the JAX package's registry.
+ResNet-18/34/50 and the ViT family: the JAX package's registry; and the
+HuggingFace GPT-2/Llama checkpoint import (``hf_interop``), exported as
+the JAX package exports it.
 """
 
 from __future__ import annotations
@@ -10,6 +12,14 @@ from typing import Any, Callable
 
 from torch import nn
 
+from cs744_pytorch_distributed_tutorial_tpu_torch.models.hf_interop import (
+    gpt2_model_config,
+    llama_model_config,
+    lm_params_from_hf_gpt2,
+    lm_params_from_hf_llama,
+    lm_state_dict_from_hf_gpt2,
+    lm_state_dict_from_hf_llama,
+)
 from cs744_pytorch_distributed_tutorial_tpu_torch.models.resnet import (
     ResNet,
     resnet18,
@@ -76,6 +86,12 @@ __all__ = [
     "VGG_CFGS",
     "ViT",
     "get_model",
+    "gpt2_model_config",
+    "llama_model_config",
+    "lm_params_from_hf_gpt2",
+    "lm_params_from_hf_llama",
+    "lm_state_dict_from_hf_gpt2",
+    "lm_state_dict_from_hf_llama",
     "resnet18",
     "resnet34",
     "resnet50",

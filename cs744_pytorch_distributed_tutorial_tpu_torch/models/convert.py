@@ -71,6 +71,16 @@ state of the LM trainer: ``mu`` and ``nu`` (``mu`` alone for lion and
 sgd), fsdp's parameter rows and ``count``, between the JAX trainer's
 ``[dp, chunk]`` leaves and each rank's rows by parameter name.
 
+The pipeline trainer's tree (``parallel/pipeline.py``): the JAX
+``PipelineLMTrainer``'s ``{embed, pos, blocks, ln_f_scale, ln_f_bias,
+head}`` with ``blocks`` the flax ``Block`` parameters stacked over the
+layers (storage order) <-> the port's ``embed``, ``pos``, ``ln_f_scale``,
+``ln_f_bias``, ``head`` as they are and ``blocks.<Block parameter>``
+stacked, by the LM's block rules (``pipeline_params_from_jax``,
+``jax_pipeline_params_from_torch``); its ZeRO rows, the JAX ``[dp, S(,
+T), chunk]`` leaves chunked per (pipe[, tensor]) coordinate, to a rank's
+rows (``pipeline_zero_rows_from_jax``).
+
 The LM across the sequence, tensor and expert axes: ``lm_shard_from_jax``
 gives a rank's ``state_dict`` from the JAX global tree (each tensor- or
 expert-split parameter cut to the slice at the rank's coordinates,
@@ -508,3 +518,50 @@ def jax_lm_params_from_shards(shards: Sequence[tuple[Mapping[str, int], Mapping[
     """The reverse of ``lm_shard_from_jax``: the ranks' slices -> the flax
     global ``params`` tree."""
     return jax_lm_params_from_state_dict(lm_unshard(shards, sizes))
+
+
+# ------------------------------------------------------ the pipeline's tree
+_PIPELINE_AS_IS = ("embed", "pos", "ln_f_scale", "ln_f_bias", "head")
+
+
+def pipeline_params_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The JAX ``PipelineLMTrainer``'s params tree -> the port trainer's
+    (``parallel/pipeline.py``): ``blocks`` by the LM's rules (stacked:
+    ``blocks.<name>``, kernels transposed), the rest as they are."""
+    out = lm_params_from_jax({"blocks": params["blocks"]})
+    out.update({k: _tensor(params[k]) for k in _PIPELINE_AS_IS if k in params})
+    return out
+
+
+def jax_pipeline_params_from_torch(state: Mapping[str, Any]) -> dict:
+    """The reverse: the port pipeline trainer's tree -> the JAX one, numpy
+    arrays."""
+    out = jax_lm_params_from_state_dict({k: v for k, v in state.items()
+                                         if k.startswith("blocks.")})
+    out.update({k: _np(state[k]) for k in _PIPELINE_AS_IS if k in state})
+    return out
+
+
+def pipeline_zero_rows_from_jax(rows_params: Mapping, local_like: Mapping,
+                                coords: Mapping[str, int]) -> dict[str, torch.Tensor]:
+    """The JAX pipeline trainer's ZeRO leaves (``[dp, S(, T), chunk]`` for a
+    block tensor, ``[dp(, T), chunk]`` for the head, ``[dp, chunk]`` for a
+    replicated one; ``local_like`` gives each leaf's LOCAL shape at a
+    (pipe, tensor) coordinate, the JAX ``local_chunk_shapes``) -> the rows
+    of the rank at ``coords`` (``{"data", "pipe", "tensor"}``) in the
+    port's layout, by parameter name: the coordinate's local tensor is
+    rebuilt from its dp rows, converted, and cut into the port's rows."""
+    n = _np(next(_flatten(rows_params))[1]).shape[0]
+
+    def local(axes):
+        def fn(rows, like):
+            rows = _np(rows)
+            index = tuple(coords[a] for a in axes[:rows.ndim - 2])
+            return _np(unshard_rows(rows[(slice(None), *index)], _np(like).shape))
+        return fn
+
+    full = {k: (_map_leaves(v, local_like[k], local(("pipe", "tensor"))) if k == "blocks"
+                else local(("tensor",) if k == "head" else ())(v, local_like[k]))
+            for k, v in rows_params.items()}
+    sd = pipeline_params_from_jax(full)
+    return {k: shard_row(v, coords["data"], n) for k, v in sd.items()}

@@ -3,9 +3,10 @@ package's ``models/transformer.py``.
 
 Same blocks, parameter layout and numerics as the flax model at a
 sequence and tensor axis of size 1: separate q/k/v/attn_out projections
-(optional biases), causal attention, RoPE (rotate-half, base 10000) or a
-learned position table, GQA through ``repeat_kv``, LayerNorm or RMSNorm
-(eps 1e-6, flax's default),
+(optional biases), causal attention, RoPE (rotate-half, base
+``rope_base``, 10000 by default) or a learned position table, GQA
+through ``repeat_kv``, LayerNorm or RMSNorm (eps ``norm_eps``, 1e-6 by
+default, flax's),
 a gelu (tanh approximation, flax's default) or swiglu MLP whose output
 bias is a separate parameter added after the residual sum, and fp32
 logits from an untied ``lm_head`` or the tied embedding.
@@ -232,16 +233,17 @@ def _positions(t: int, pos, device) -> torch.Tensor:
     return rows + pos
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               base: float = ROPE_BASE) -> torch.Tensor:
     """Rotary position embedding on [B, T, H, D] (D even): dimension i
-    pairs with i + D/2, rotated by ``positions * ROPE_BASE**(-i/(D/2))``,
+    pairs with i + D/2, rotated by ``positions * base**(-i/(D/2))``,
     in fp32, cast back to ``x.dtype``. ``positions`` is [T], shared by
     the batch, or [B, T] (per-slot depths)."""
     d = x.shape[-1]
     if d % 2:
         raise ValueError(f"RoPE needs an even head_dim, got {d}")
     half = d // 2
-    freqs = ROPE_BASE ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    freqs = base ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
     angles = positions.to(torch.float32)[..., None] * freqs  # [(B,) T, half]
     sin = torch.sin(angles)[..., None, :]
     cos = torch.cos(angles)[..., None, :]
@@ -264,23 +266,23 @@ def _dense(layer: nn.Module, x: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
 
 
 class Norm(nn.Module):
-    """flax ``nn.LayerNorm``/``nn.RMSNorm``: statistics and scaling in
-    fp32, the result in the compute dtype."""
+    """flax ``nn.LayerNorm``/``nn.RMSNorm`` (epsilon ``eps``): statistics
+    and scaling in fp32, the result in the compute dtype."""
 
-    def __init__(self, features: int, kind: str = "layernorm"):
+    def __init__(self, features: int, kind: str = "layernorm", eps: float = NORM_EPS):
         super().__init__()
         if kind not in NORM_IMPLS:
             raise ValueError(f"unknown norm {kind!r}; choose from {NORM_IMPLS}")
-        self.kind = kind
+        self.kind, self.eps = kind, eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features)) if kind == "layernorm" else None
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         xf = x.float()
         if self.kind == "layernorm":
-            y = F.layer_norm(xf, xf.shape[-1:], self.weight, self.bias, NORM_EPS)
+            y = F.layer_norm(xf, xf.shape[-1:], self.weight, self.bias, self.eps)
         else:
-            y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + NORM_EPS) * self.weight
+            y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + self.eps) * self.weight
         return y.to(dtype)
 
 
@@ -293,7 +295,7 @@ class Attention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, *, num_kv_heads: int | None = None,
                  impl: str = "dense", rope: bool = False, attn_bias: bool = False,
                  quant_modules: tuple = (), seq_size: int = 1, tensor_size: int = 1,
-                 mesh=None, causal: bool = True):
+                 mesh=None, causal: bool = True, rope_base: float = ROPE_BASE):
         super().__init__()
         if not causal and seq_size > 1:
             raise ValueError(
@@ -324,7 +326,7 @@ class Attention(nn.Module):
         self.heads_local, self.kv_local = num_heads // tensor_size, kv // tensor_size
         self.seq_size, self.tensor_size, self.mesh = seq_size, tensor_size, mesh
         self.head_dim = d_model // num_heads
-        self.impl, self.rope, self.causal = impl, rope, causal
+        self.impl, self.rope, self.causal, self.rope_base = impl, rope, causal, rope_base
         hd = self.head_dim
         self.q = _linear(d_model, num_heads * hd, attn_bias, "q" in quant_modules)
         self.k = _linear(d_model, kv * hd, attn_bias, "k" in quant_modules)
@@ -354,8 +356,8 @@ class Attention(nn.Module):
             else:
                 offset = self.mesh.axis_index(SEQ_AXIS) * t if self.seq_size > 1 else None
             positions = _positions(t, offset, x.device)
-            q = apply_rope(q, positions)
-            k = apply_rope(k, positions)
+            q = apply_rope(q, positions, self.rope_base)
+            k = apply_rope(k, positions, self.rope_base)
         if mode == "decode":
             # t tokens at positions pos..pos+t-1 over the whole cache, each
             # row masked to its own prefix; the cache stays at KV width.
@@ -406,7 +408,7 @@ class Attention(nn.Module):
 class Block(nn.Module):
     def __init__(self, d_model: int, num_heads: int, d_ff: int, *, norm: str = "layernorm",
                  mlp: str = "gelu", quant_modules: tuple = (), moe: dict | None = None,
-                 dropout_rate: float = 0.0, **attn_kw):
+                 dropout_rate: float = 0.0, norm_eps: float = NORM_EPS, **attn_kw):
         super().__init__()
         tensor_size = attn_kw.get("tensor_size", 1)
         # The MoE path does not split d_ff over the tensor axis (the experts
@@ -421,9 +423,9 @@ class Block(nn.Module):
                 "the routed MoEFFN replaces the dense MLP; drop --mlp swiglu or the experts")
         self.mlp, self.dropout_rate = mlp, dropout_rate
         self.tensor_size, self.mesh = tensor_size, attn_kw.get("mesh")
-        self.ln1 = Norm(d_model, norm)
+        self.ln1 = Norm(d_model, norm, norm_eps)
         self.attn = Attention(d_model, num_heads, quant_modules=quant_modules, **attn_kw)
-        self.ln2 = Norm(d_model, norm)
+        self.ln2 = Norm(d_model, norm, norm_eps)
         if moe is not None:
             self.moe = MoEFFN(d_model, d_ff=d_ff, **moe, mesh=self.mesh)
             return
@@ -595,7 +597,7 @@ class TransformerLM(nn.Module):
                  remat: bool = False, remat_policy: str = "none", scan_layers: bool = False,
                  dropout_rate: float = 0.0, generator: torch.Generator | None = None,
                  seq_axis_size: int = 1, tensor_axis_size: int = 1, expert_axis_size: int = 1,
-                 mesh=None):
+                 mesh=None, norm_eps: float = NORM_EPS, rope_base: float = ROPE_BASE):
         super().__init__()
         sizes = {SEQ_AXIS: seq_axis_size, TENSOR_AXIS: tensor_axis_size,
                  DATA_AXIS: expert_axis_size}
@@ -628,10 +630,11 @@ class TransformerLM(nn.Module):
             Block(d_model, num_heads, d_ff, norm=norm, mlp=mlp, num_kv_heads=num_kv_heads,
                   impl=attention_impl, rope=use_rope, attn_bias=attn_bias, quant_modules=quant,
                   moe=moe, dropout_rate=dropout_rate, seq_size=seq_axis_size,
-                  tensor_size=tensor_axis_size, mesh=mesh)
+                  tensor_size=tensor_axis_size, mesh=mesh, norm_eps=norm_eps,
+                  rope_base=rope_base)
             for _ in range(num_layers)
         )
-        self.ln_f = Norm(d_model, norm)
+        self.ln_f = Norm(d_model, norm, norm_eps)
         self.lm_head = (None if tie_embeddings
                         else _linear(d_model, vocab_size, False, "lm_head" in quant))
         self.reset_parameters(generator)

@@ -121,38 +121,47 @@ def world() -> tuple[int, int]:
 
 
 # ------------------------------------------------------------ the LM's mesh
-DATA_AXIS, SEQ_AXIS, TENSOR_AXIS = "data", "seq", "tensor"
-AXES = (DATA_AXIS, SEQ_AXIS, TENSOR_AXIS)
+DATA_AXIS, PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS = "data", "pipe", "seq", "tensor"
+# The JAX pipeline engine's axis order (data, pipe, then seq and tensor);
+# a mesh whose pipe axis is 1 puts every rank where the (data, seq,
+# tensor) mesh does.
+AXES = (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS)
 
 
 def mesh_coords(rank: int, sizes: dict[str, int]) -> dict[str, int]:
-    """Rank ``rank``'s coordinates on a (data, seq, tensor) mesh of
-    ``sizes``, data outermost: the position the JAX ``make_mesh`` gives
-    device ``rank`` (its devices reshaped row-major to the axes' shape)."""
+    """Rank ``rank``'s coordinates on a (data, pipe, seq, tensor) mesh of
+    ``sizes`` (an axis left out has size 1), data outermost: the position
+    the JAX ``make_mesh`` gives device ``rank`` (its devices reshaped
+    row-major to the axes' shape)."""
     coords = {}
     for axis in reversed(AXES):
-        coords[axis] = rank % sizes[axis]
-        rank //= sizes[axis]
+        n = sizes.get(axis, 1)
+        coords[axis] = rank % n
+        rank //= n
     return {axis: coords[axis] for axis in AXES}
 
 
 class Mesh:
-    """The LM trainer's (data, seq, tensor) layout over the process group:
-    the world is ``data * seq * tensor`` ranks and rank r sits at
-    ``mesh_coords(r)``. Every line of ranks that differ only along a set
-    of axes (every set, every line) gets its ``torch.distributed`` group,
-    created by every rank in one order; a line of the whole world is the
-    default group (``None``). Without a process group the mesh is one
-    rank and its groups are never used."""
+    """The LM trainers' (data, pipe, seq, tensor) layout over the process
+    group: the world is ``data * pipe * seq * tensor`` ranks and rank r
+    sits at ``mesh_coords(r)``. Every line of ranks that differ only
+    along a set of axes (every set, every line) gets its
+    ``torch.distributed`` group, created by every rank in one order (a
+    line already made for another set is shared); a line of the whole
+    world is the default group (``None``). Without a process group the
+    mesh is one rank and its groups are never used."""
 
     _cache: dict = {}
 
-    def __init__(self, data: int = 1, seq: int = 1, tensor: int = 1):
-        self.sizes = {DATA_AXIS: data, SEQ_AXIS: seq, TENSOR_AXIS: tensor}
+    def __init__(self, data: int = 1, seq: int = 1, tensor: int = 1, pipe: int = 1):
+        self.sizes = {DATA_AXIS: data, PIPE_AXIS: pipe, SEQ_AXIS: seq, TENSOR_AXIS: tensor}
         n, self.rank = world()
-        if data * seq * tensor != n:
-            raise ValueError(f"mesh data={data} x seq={seq} x tensor={tensor} needs "
-                             f"{data * seq * tensor} ranks, the process group has {n}")
+        if data * pipe * seq * tensor != n:
+            layout = f"data={data} x seq={seq} x tensor={tensor}"
+            if pipe > 1:
+                layout = f"data={data} x pipe={pipe} x seq={seq} x tensor={tensor}"
+            raise ValueError(f"mesh {layout} needs {data * pipe * seq * tensor} ranks, the "
+                             f"process group has {n}")
         self.world_size = n
         self.coords = mesh_coords(self.rank, self.sizes)
         self._groups: dict[tuple[str, ...], object] = {}
@@ -167,14 +176,15 @@ class Mesh:
             self._groups[subset] = made[self.ranks(*subset)]
 
     @classmethod
-    def get(cls, data: int = 1, seq: int = 1, tensor: int = 1) -> "Mesh":
+    def get(cls, data: int = 1, seq: int = 1, tensor: int = 1, pipe: int = 1) -> "Mesh":
         """The mesh of these sizes over the current process group, built
         once per group (its groups are collective to create); a new
         process group gets new meshes."""
         group = dist.group.WORLD if dist.is_initialized() else None
-        cached = cls._cache.get((data, seq, tensor))
+        key = (data, seq, tensor, pipe)
+        cached = cls._cache.get(key)
         if cached is None or cached[0] is not group:
-            cached = cls._cache[(data, seq, tensor)] = (group, cls(data, seq, tensor))
+            cached = cls._cache[key] = (group, cls(data, seq, tensor, pipe))
         return cached[1]
 
     def _lines(self, subset: tuple[str, ...]):
@@ -241,4 +251,5 @@ def _canonical(axes) -> tuple[str, ...]:
 
 def _subsets():
     """Every non-empty set of AXES, in a fixed order."""
-    return [tuple(a for i, a in enumerate(AXES) if mask >> i & 1) for mask in range(1, 8)]
+    return [tuple(a for i, a in enumerate(AXES) if mask >> i & 1)
+            for mask in range(1, 1 << len(AXES))]

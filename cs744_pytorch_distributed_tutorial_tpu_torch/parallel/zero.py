@@ -54,6 +54,7 @@ from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import buckets as B
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import collectives as C
 from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    PIPE_AXIS,
     SEQ_AXIS,
     TENSOR_AXIS,
     Mesh,
@@ -413,17 +414,18 @@ class Zero1Adam:
     group's world as one data axis; ``world_size`` is the data axis's size
     and the rows are cut along that axis) with the
     parameters' ``specs`` (``models/transformer.py::lm_param_specs``), the
-    JAX rule's model-shard branches: a tensor-split parameter's rows are
-    its local slice's, cut per (data, tensor) coordinate; after the
+    JAX rule's model-shard branches: a pipe- or tensor-split parameter's
+    rows are its local slice's, cut per (data, pipe, tensor) coordinate
+    (the pipeline trainer's ``[dp, S(, T), chunk]`` layout); after the
     data-axis reduce-scatter every row is averaged over the sequence axis
-    and, unless the tensor axis splits it, over the tensor axis (one
+    and, unless the pipe or tensor axis splits it, over that axis (one
     all-reduce for each such set of axes); an expert-split parameter (its
     spec names the data axis, JAX's ``_data_sharded``) keeps its local
     tensor whole, its moments whole, no collective of the data axis: its
     gradient is already the sum over its data row, divided here by n and
     averaged over the other axes (``_expert_mean``); the clip sums each
-    row's squares over the tensor axis for the parameters it splits, and
-    over the data axis. Such layouts go a tensor at a
+    row's squares over the pipe and tensor axes for the parameters they
+    split, and over the data axis. Such layouts go a tensor at a
     time, as JAX's fused path; ``overlap`` refuses them, as JAX does."""
 
     MOMENTS: tuple[str, ...] = ("mu", "nu")
@@ -438,7 +440,7 @@ class Zero1Adam:
         self.mesh = mesh = mesh if mesh is not None else Mesh.get(world_size)
         self.specs = [tuple(sp) for sp in specs] if specs is not None else [()] * len(self.params)
         self.expert = [DATA_AXIS in sp for sp in self.specs]
-        self.model_sharded = mesh.size(SEQ_AXIS, TENSOR_AXIS) > 1 or any(self.expert)
+        self.model_sharded = mesh.size(PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS) > 1 or any(self.expert)
         if clip_norm is not None and clip_norm <= 0:
             raise ValueError(f"clip_norm must be > 0, got {clip_norm}")
         if overlap and (clip_norm is not None or self.model_sharded):
@@ -492,24 +494,25 @@ class Zero1Adam:
 
     def _axis_means(self, rows: list[torch.Tensor]) -> list[torch.Tensor]:
         """Each parameter's rows of the data axis's mean averaged over the
-        sequence axis and, unless the tensor axis splits the parameter,
-        over the tensor axis (JAX's pmeans on the chunk: the seq replicas'
-        gradients differ, the tensor replicas' agree)."""
-        return C.reduce_by_axes(rows, [tuple(a for a in (SEQ_AXIS, TENSOR_AXIS) if a not in spec)
+        sequence axis and, unless the pipe or tensor axis splits the
+        parameter, over that axis (JAX's pmeans on the chunk: the seq
+        replicas' gradients differ, the pipe and tensor replicas' agree)."""
+        return C.reduce_by_axes(rows, [tuple(a for a in (PIPE_AXIS, SEQ_AXIS, TENSOR_AXIS)
+                                             if a not in spec)
                                        for spec in self.specs], self.mesh)
 
     def _clip(self, g_rows: list[torch.Tensor]) -> list[torch.Tensor]:
         """``clip_by_global_norm`` on every parameter's rows of the mean
         (in parameter order) with the global norm: each row's squares,
-        summed over the tensor axis where it splits the parameter (a row
-        it does not split is the same on each of its ranks and counts
-        once), then over the data axis in one all-reduce, issued at a
-        world of one too, as the rows' reduce-scatters are."""
+        summed over the pipe and tensor axes where they split the
+        parameter (a row they do not split is the same on each of its
+        ranks and counts once), then over the data axis in one all-reduce,
+        issued at a world of one too, as the rows' reduce-scatters are."""
         if self.clip_norm is None:
             return g_rows
         from cs744_pytorch_distributed_tutorial_tpu_torch.obs.metrics import tree_sq_norm
 
-        local = tree_sq_norm(g_rows, [(TENSOR_AXIS,) if TENSOR_AXIS in spec else ()
+        local = tree_sq_norm(g_rows, [tuple(a for a in (PIPE_AXIS, TENSOR_AXIS) if a in spec)
                                       for spec in self.specs], self.mesh)
         norm = C.all_reduce_sum(local, self.group).sqrt()
         return _rules().clip_by_norm(g_rows, norm, self.clip_norm)

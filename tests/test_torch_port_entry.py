@@ -56,6 +56,8 @@ RUN_LOOP_MODULES = [
     "obs/serve_trace.py", "serve/guard.py", "utils/chaos.py",
     # the sequence, tensor and expert axes
     "parallel/tensor.py",
+    # the pipe axis and the HuggingFace checkpoint import
+    "parallel/pipeline.py", "models/hf_interop.py",
 ]
 
 

@@ -179,10 +179,11 @@ def test_cli_flags_of_later_slices_say_not_yet_ported(flag, capsys):
 @pytest.mark.parametrize(
     "flag",
     # lion and the cosine schedules run now; the JAX CLI's choices end there.
-    # --remat, --data-parallel, --zero1, --seq-parallel and --tensor-parallel
-    # are flags now; the pipeline axis's are not.
-    [["--num-microbatches", "2"], ["--pipeline-parallel", "2"], ["--pipeline-schedule", "1f1b"],
-     ["--optimizer", "adagrad"], ["--lr-schedule", "step"]],
+    # --remat, --data-parallel, --zero1, --seq-parallel, --tensor-parallel and
+    # the pipeline axis's flags are flags now (test_torch_port_pipeline.py);
+    # these are choices neither CLI has.
+    [["--pipeline-schedule", "zero_bubble"], ["--remat-policy", "offload"],
+     ["--moe-gmm-impl", "triton"], ["--optimizer", "adagrad"], ["--lr-schedule", "step"]],
 )
 def test_cli_rejects_flags_it_does_not_have(flag):
     with pytest.raises(SystemExit) as exc:
