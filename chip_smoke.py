@@ -325,7 +325,20 @@ no result):
     GPipe step, its grouped-matmul launches exact; and a GPT-2-small
     state dict with HF's key names (drawn from a seed) converted by
     ``models/hf_interop.py``: one bf16 forward on the flash kernels
-    within ``HF_LOGIT_TOL`` x max|logit| of the plain path.
+    within ``HF_LOGIT_TOL`` x max|logit| of the plain path;
+34. the analysis package (``analysis_phase``): the port's linter over its
+    package (exit 0 against ``analysis/graftlint_baseline.json``), then
+    each of the nine registered trace entries built on the card (NCCL, a
+    world of one), one step recorded under the dispatch mode and audited
+    by TA001-TA010: no finding, the memory ledger within the card's
+    section of ``analysis/memory_budget.json``, and the kernel paths at
+    the main path's widths (the four CIFAR entries: ResNet-18 at batch
+    256 with ``RESNET18_ROUTED`` tensor-core wgrads, ``cifar`` one
+    fused-SGD launch too and ``cifar-overlap`` one a bucket; the three LM
+    entries: GPT-2-small at 8 x 1024 in bf16, flash on the tensor cores
+    and one fused cross-entropy forward and backward, ``lm-overlap``'s
+    SGD a fused launch a bucket; ``lm-serve-paged``: GPT-2-small decode through
+    the paged kernel, ``lm-serve`` none).
 
 Each phase prints its wall seconds as it ends, and the line before the
 kernels JSON gives the whole run's and each phase's.
@@ -6407,6 +6420,139 @@ def pipeline_phase() -> dict:
     return out
 
 
+# Phase 34: the analysis package. The port's linter over its package, then
+# the trace and memory audits of one recorded step of each of the nine
+# registered entries at the main path's widths (the CIFAR entries at
+# ResNet-18 through the wgrad kernels, cifar with fused SGD; the LM
+# entries at GPT-2-small through flash and fused_xent; lm-serve-paged at
+# GPT-2-small through the paged kernel), gated against the card's section
+# of analysis/memory_budget.json, which
+#   python -m cs744_pytorch_distributed_tutorial_tpu_torch.analysis memory \
+#       --device cuda --write-budget --budget <copy of the file>
+# writes on the card.
+ANALYSIS_ENTRIES = ("cifar", "cifar-int8", "cifar-overlap", "cifar-overlap-zero1",
+                    "lm", "lm-overlap", "lm-overlap-fsdp", "lm-serve", "lm-serve-paged")
+
+
+def _analysis_launches() -> dict:
+    """The kernels' launch counts by the names of the kernels line."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_sgd as K
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_xent as FX
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import paged_attention as PA
+
+    out = {"fused_sgd": K.launch_count(), "paged_attention": PA.launch_count()}
+    for stride in (1, 2):
+        for route in ("ffma", "tc"):
+            out[f"conv3x3_wgrad_s{stride}" + ("_tc" if route == "tc" else "")] = C.launch_count(
+                stride, route=route)
+    for kern in ("fwd", "dq", "dkv"):
+        out[f"flash_{kern}"] = A.launch_count(kern, route="ffma")
+        out[f"flash_{kern}_tc"] = A.launch_count(kern, route="tc")
+    for kern in ("fwd", "bwd"):
+        out[f"fused_xent_{kern}"] = FX.launch_count(kern)
+    return {k: n for k, n in out.items() if n}
+
+
+def analysis_phase() -> dict:
+    """The linter (exit 0 against the port's baseline), then each entry
+    built on the card, its step recorded once and audited by every TA
+    rule (``audits.run_audits`` with the trace and memory audits of one
+    recording): findings, schedule, memory ledger and the kernels'
+    launches printed a line an entry. Raises on any finding, on a kernel
+    path that launched the wrong kernels, and (TA007) on a ledger past the
+    card's section of ``analysis/memory_budget.json``."""
+    import gc
+
+    import torch.distributed as dist
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.analysis.cli import main as lint_main
+    from cs744_pytorch_distributed_tutorial_tpu_torch.analysis.trace import audits as TA
+    from cs744_pytorch_distributed_tutorial_tpu_torch.analysis.trace import memory as TM
+    from cs744_pytorch_distributed_tutorial_tpu_torch.analysis.trace.registry import (
+        get_entrypoints,
+        load_builtin_entrypoints,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel import mesh
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = lint_main([])
+    print(buf.getvalue(), end="")
+    if rc != 0:
+        raise RuntimeError(f"graftlint exited {rc} on the port's package")
+    lint_s = time.perf_counter() - t0
+    section = TM.device_section("cuda")
+    budget = TM.load_budget(TM.DEFAULT_BUDGET, section)
+
+    def audit(entry) -> tuple[list, dict]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        step = entry.build("cuda")
+        build_s = time.perf_counter() - t
+        for mod in kernel_modules().values():
+            mod.reset_launch_count()
+        run = TA.record_step(step)
+        launches = _analysis_launches()
+        findings, summary = TA.audit_run(entry, step, run, None, "cuda")
+        mem, ledger = TM.audit_memory_run(entry, step, run, None, budget)
+        row = {
+            "entry": entry.name, "schedule": summary["schedule"],
+            "wire_bytes": summary["recorded_wire_bytes"], "ops": summary["ops"],
+            "step_s": round(summary["step_seconds"], 3), "build_s": round(build_s, 2),
+            "launches": launches,
+            "ledger": {k: ledger[k] for k in ("argument_bytes", "output_bytes", "temp_bytes",
+                                              "alias_bytes", "total_bytes", "cuda_peak_bytes")},
+            "ta001_opaque_kernels": summary["ta001_opaque_kernels"],
+            **{k: summary[k] for k in ("model", "layers", "d_model", "global_batch_size",
+                                       "num_slots") if k in summary},
+        }
+        print("analysis " + json.dumps(row), flush=True)
+        return findings + mem, row
+
+    created = not dist.is_initialized()
+    load_builtin_entrypoints()
+    try:
+        findings, suppressed, rows, _, errors = TA.run_audits(
+            get_entrypoints(list(ANALYSIS_ENTRIES)), audit=audit)
+    finally:
+        if created:
+            mesh.shutdown()
+    if findings or errors:
+        raise RuntimeError(f"analysis: findings {[f.text() for f in findings]}, errors {errors}")
+    rows = {row["entry"]: row for row in rows}
+    def wgrads(n: dict) -> bool:  # ResNet-18's routed wgrads, all on the tensor cores
+        return (n.get("conv3x3_wgrad_s1_tc") == RESNET18_ROUTED
+                and not n.get("conv3x3_wgrad_s1") and not n.get("conv3x3_wgrad_s2"))
+
+    def lm(n: dict) -> bool:  # flash on the tensor cores, one fused cross-entropy
+        return (all(n.get(f"flash_{k}_tc", 0) > 0 for k in ("fwd", "dq", "dkv"))
+                and not any(n.get(f"flash_{k}") for k in ("fwd", "dq", "dkv"))
+                and n.get("fused_xent_fwd") == 1 and n.get("fused_xent_bwd") == 1)
+
+    expect = {  # the kernel paths the entries run on the card; the
+        # overlapped SGD updates a bucket at a time on the fused kernel
+        "cifar": lambda n: wgrads(n) and n.get("fused_sgd") == 1,
+        "cifar-overlap": lambda n: wgrads(n) and n.get("fused_sgd", 0) > 1,
+        **dict.fromkeys(("cifar-int8", "cifar-overlap-zero1"),
+                        lambda n: wgrads(n) and not n.get("fused_sgd")),
+        **dict.fromkeys(("lm", "lm-overlap-fsdp"), lambda n: lm(n) and not n.get("fused_sgd")),
+        "lm-overlap": lambda n: lm(n) and n.get("fused_sgd", 0) > 1,
+        "lm-serve": lambda n: not n.get("paged_attention"),
+        "lm-serve-paged": lambda n: n.get("paged_attention", 0) > 0,
+    }
+    for name, ok in expect.items():
+        if not ok(rows[name]["launches"]):
+            raise RuntimeError(f"analysis: {name} launched {rows[name]['launches']}")
+    seconds = time.perf_counter() - t0
+    print(f"analysis: lint {lint_s:.1f} s, {len(rows)} entries audited, 0 findings "
+          f"({suppressed} suppressed at their registration), {seconds:.1f} s")
+    return {"lint_s": lint_s, "section": section, "entries": rows, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6557,6 +6703,9 @@ def main() -> int:
     elastic_launches = {**elastic["resnet"]["launches"], **elastic["lm"]["launches"]}
     # The pipe axis: GPT-2-small on four simulated stages, each schedule.
     pipeline = pipeline_phase()
+    # The analysis package: the linter, and one recorded step of each
+    # registered entry audited (TA001-TA010) on the card.
+    analysis = analysis_phase()
     gmm_keys = {"gmm_fused": "fused", "gmm_fused_tc": "fused_tc", "gmm_fused_with_z": "fused_z",
                 "gmm_fused_with_z_tc": "fused_z_tc", "gmm": "gmm", "gmm_tc": "gmm_tc",
                 "tgmm": "tgmm", "tgmm_tc": "tgmm_tc", "colsum": "colsum"}
@@ -6602,6 +6751,10 @@ def main() -> int:
             kern = rec["name"][len("flash_"):]
             rec["launches_pipeline"] = {sched: n[kern] for sched, n in
                                         pipeline["launches"].items()}
+        audited = {entry: row["launches"][rec["name"]]
+                   for entry, row in analysis["entries"].items() if rec["name"] in row["launches"]}
+        if audited:
+            rec["launches_analysis"] = audited
         moe_key = {**gmm_keys, "split": "split"}.get(rec["name"])
         if moe_key in pipeline["moe"]["launches"]:
             rec["launches_pipeline_moe"] = pipeline["moe"]["launches"][moe_key]

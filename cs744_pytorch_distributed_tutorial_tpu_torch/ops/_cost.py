@@ -10,14 +10,17 @@ column: the bytes a launch must move (each input read once, each output
 written once) and the FLOPs of its matrix products (2 a multiply-add), the
 same quantity ``FlopCounterMode`` counts for PyTorch's own products; the
 elementwise and reduction kernels (the cross-entropy, the SGD update, the
-bf16 split, the bias column sums) add bytes only.
+bf16 split, the bias column sums) add bytes only. Each report also names
+the launch's operands, the tensors whose pointers the kernel was given,
+for a recording that sees no read inside the kernel
+(``analysis/trace/dispatch.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Iterator
+from typing import Any, Iterator, Sequence
 
 
 @dataclasses.dataclass
@@ -47,8 +50,17 @@ def active() -> bool:
     return bool(_active)
 
 
-def add(flops: float, nbytes: float) -> None:
-    """A call's FLOPs and bytes, into every active counter."""
+def pointers(args: Sequence[Any]) -> tuple[list[Any], tuple[Any, ...]]:
+    """A launch's arguments with each tensor among them replaced by its
+    data pointer, and those tensors: its C arguments and its operands."""
+    tensors = tuple(a for a in args if hasattr(a, "data_ptr"))
+    return [a.data_ptr() if hasattr(a, "data_ptr") else a for a in args], tensors
+
+
+def add(flops: float, nbytes: float, operands: Sequence[Any] = ()) -> None:
+    """A call's FLOPs and bytes, into every active counter. ``operands``,
+    the tensors the launch reads or writes, are for a recording's hook
+    and count nothing here."""
     for costs in _active:
         costs.flops += flops
         costs.bytes_accessed += nbytes

@@ -255,9 +255,10 @@ def _rowstat(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return x.reshape(b * h, t).float().contiguous()
 
 
-def _launch(kernel: str, fn_args: list, q: torch.Tensor, strides, causal: bool,
+def _launch(kernel: str, operands: list, q: torch.Tensor, strides, causal: bool,
             route: str) -> None:
     b, t, h, d = q.shape
+    fn_args, operands = _cost.pointers(operands)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if route == "tc":
         err = load_kernel()[f"{kernel}_tc"](*fn_args, strides, b, t, h, d, int(causal), stream)
@@ -273,7 +274,7 @@ def _launch(kernel: str, fn_args: list, q: torch.Tensor, strides, causal: bool,
     products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel]
     tensors, stats = {"fwd": (4, 1), "dq": (5, 2), "dkv": (6, 2)}[kernel]
     _cost.add(2.0 * products * b * h * t * t * d * (0.5 if causal else 1.0),
-              tensors * n * q.element_size() + 4.0 * stats * rows)
+              tensors * n * q.element_size() + 4.0 * stats * rows, operands)
     if err:
         raise RuntimeError(f"flash attention {kernel} ({route}) launch failed: CUDA error {err}")
 
@@ -294,8 +295,7 @@ def flash_forward_lse(q, k, v, causal: bool = False):
     b, t, h, _ = q.shape
     out = torch.empty(q.shape, dtype=v.dtype, device=q.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
-    _launch("fwd", [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr()], q, strides, causal, route)
+    _launch("fwd", [q, k, v, out, lse], q, strides, causal, route)
     return out, lse.unsqueeze(-1)
 
 
@@ -308,8 +308,7 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool):
     (q, k, v, do), strides = _cuda_args(q, k, v, do)
     lse, delta = _rowstat(lse, q), _rowstat(delta, q)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("dq", [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr()], q, strides, causal, route)
+    _launch("dq", [q, k, v, do, lse, delta, dq], q, strides, causal, route)
     return dq
 
 
@@ -323,9 +322,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool):
     lse, delta = _rowstat(lse, q), _rowstat(delta, q)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    _launch("dkv", [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr()],
-            q, strides, causal, route)
+    _launch("dkv", [q, k, v, do, lse, delta, dk, dv], q, strides, causal, route)
     return dk, dv
 
 

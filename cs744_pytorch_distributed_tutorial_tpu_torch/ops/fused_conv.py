@@ -249,7 +249,9 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor, stride: int = 1) -> torch.Te
     # The 9 taps' products over every output pixel; x and g read once, the
     # fp32 [K, C, 3, 3] result written once.
     _cost.add(2.0 * b * ho * wo * c * k * 9,
-              x.numel() * x.element_size() + g.numel() * g.element_size() + 36.0 * k * c)
+              x.numel() * x.element_size() + g.numel() * g.element_size() + 36.0 * k * c,
+              operands=[t for t in (x, g, out, work, *((xp, gp) if route == "tc" else ()))
+                        if t is not None])
     if err:
         raise RuntimeError(f"conv3x3_wgrad {route} launch failed: CUDA error {err}")
     return out

@@ -141,7 +141,8 @@ def fused_sgd_multi_(
     err = kernel(table.ctypes.data, len(params), lr, mu, wd, stream, ctypes.byref(launches))
     _launches += launches.value
     # p, m and g read and p, m written, fp32; no matrix product.
-    _cost.add(0.0, 20.0 * sum(p.numel() for p in params))
+    _cost.add(0.0, 20.0 * sum(p.numel() for p in params),
+              operands=(*params, *moms, *grads))
     if err:
         raise RuntimeError(f"fused_sgd_multi_f32 launch failed: CUDA error {err}")
 

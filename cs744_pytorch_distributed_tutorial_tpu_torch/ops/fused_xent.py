@@ -124,15 +124,16 @@ def _check(logits: torch.Tensor, labels: torch.Tensor) -> None:
         raise ValueError("fused_cross_entropy needs V >= 1")
 
 
-def _launch(kernel: str, args: list, logits: torch.Tensor) -> None:
+def _launch(kernel: str, operands: list, logits: torch.Tensor) -> None:
     n, v = logits.shape
+    args, operands = _cost.pointers(operands)
     stream = torch.cuda.current_stream(logits.device).cuda_stream
     err = load_kernel()[kernel](*args, n, v, int(logits.dtype == torch.bfloat16), stream)
     _launches[(kernel, logits.dtype)] += 1
     # The logits read once (and, backward, their gradient written once),
     # the int64 labels and two fp32 row vectors; no matrix product.
     passes = 1 if kernel == "fwd" else 2
-    _cost.add(0.0, passes * n * v * logits.element_size() + 16.0 * n)
+    _cost.add(0.0, passes * n * v * logits.element_size() + 16.0 * n, operands)
     if err:
         raise RuntimeError(f"fused_xent {kernel} launch failed: CUDA error {err}")
 
@@ -148,8 +149,7 @@ def fused_xent_fwd(logits: torch.Tensor, labels: torch.Tensor):
     loss = torch.empty(n, dtype=torch.float32, device=logits.device)
     lse = torch.empty(n, dtype=torch.float32, device=logits.device)
     if n:
-        _launch("fwd", [logits.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr()],
-                logits)
+        _launch("fwd", [logits, labels, loss, lse], logits)
     return loss, lse
 
 
@@ -169,8 +169,7 @@ def fused_xent_bwd(logits: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor
     lse, g = lse.float().contiguous(), g.float().contiguous()
     d = torch.empty_like(logits)
     if n:
-        _launch("bwd", [logits.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                        d.data_ptr()], logits)
+        _launch("bwd", [logits, labels, lse, g, d], logits)
     return d
 
 

@@ -317,12 +317,14 @@ def _check(lhs, rhs, bias, group_sizes, activation, out_dtype) -> None:
 
 def _launch(kernel: str, name: str, lhs_dtype: torch.dtype, device, *args,
             cost: tuple[float, float]) -> None:
-    """``cost``: the call's (FLOPs of its products, bytes read and
-    written once), for ``_cost``."""
+    """``args``: the kernel's, a tensor for each pointer; ``cost``: the
+    call's (FLOPs of its products, bytes read and written once), for
+    ``_cost``."""
     stream = torch.cuda.current_stream(device).cuda_stream
+    args, operands = _cost.pointers(args)
     err = load_kernel()[kernel](*args, stream)
     _launches[(name, lhs_dtype)] += 1
-    _cost.add(*cost)
+    _cost.add(*cost, operands)
     if err:
         raise RuntimeError(f"gmm {name} launch failed: CUDA error {err}")
 
@@ -350,8 +352,7 @@ def _fused(lhs, rhs, bias, group_sizes, activation, out_dtype, with_z):
     if not (m and n):
         return out, z
     name = "fused_z" if with_z else "fused"
-    ptrs = (lhs.data_ptr(), rhs.data_ptr(), bias.data_ptr(), gs.data_ptr(), out.data_ptr(),
-            z.data_ptr() if with_z else None, m, k, n, e, int(activation == "gelu"))
+    ptrs = (lhs, rhs, bias, gs, out, z, m, k, n, e, int(activation == "gelu"))
     out_bf16 = int(out_dtype == torch.bfloat16)
     cost = (2.0 * m * k * n, _nbytes(lhs, rhs, bias, gs) + (1 + with_z) * _nbytes(out))
     if fused_tc_route(lhs.dtype, (m, k, n), _aligned(lhs, rhs)):
@@ -392,8 +393,8 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
     pieces = tc_pieces(lhs.dtype, rhs.dtype, (m, k, n), _aligned(lhs, rhs))
     if pieces:
         a = lhs if pieces == 1 else (split if split is not None else split_bf16(lhs))
-        _launch("gmm_tc", "gmm_tc", lhs.dtype, lhs.device, a.data_ptr(), rhs.data_ptr(),
-                gs.data_ptr(), out.data_ptr(), m, k, n, e, pieces, int(not trans_rhs),
+        _launch("gmm_tc", "gmm_tc", lhs.dtype, lhs.device, a, rhs, gs, out,
+                m, k, n, e, pieces, int(not trans_rhs),
                 cost=(2.0 * m * k * n, _nbytes(lhs, rhs, gs, out)))
     else:
         _gmm_ffma(lhs.float() if trans_rhs else lhs, rhs, gs, out, trans_rhs)
@@ -404,8 +405,8 @@ def _gmm_ffma(lhs, rhs, gs, out, trans_rhs: bool) -> None:
     """The FFMA ``gmm`` kernel into ``out`` (contiguous CUDA tensors, gs
     int32; under ``trans_rhs`` an fp32 lhs)."""
     (m, k), e, n = lhs.shape, rhs.shape[0], out.shape[1]
-    _launch("gmm", "gmm", lhs.dtype, lhs.device, lhs.data_ptr(), rhs.data_ptr(), gs.data_ptr(),
-            out.data_ptr(), m, k, n, e, int(lhs.dtype == torch.bfloat16),
+    _launch("gmm", "gmm", lhs.dtype, lhs.device, lhs, rhs, gs, out, m, k, n,
+            e, int(lhs.dtype == torch.bfloat16),
             int(rhs.dtype == torch.bfloat16), int(trans_rhs),
             cost=(2.0 * m * k * n, _nbytes(lhs, rhs, gs, out)))
 
@@ -433,8 +434,8 @@ def tgmm(lhs: torch.Tensor, dout: torch.Tensor, group_sizes: torch.Tensor, *,
     pieces = tc_pieces(dout.dtype, lhs.dtype, (m, k, n), _aligned(lhs, dout))
     if pieces:
         b = dout if pieces == 1 else (split if split is not None else split_bf16(dout))
-        _launch("tgmm_tc", "tgmm_tc", lhs.dtype, lhs.device, lhs.data_ptr(), b.data_ptr(),
-                gs.data_ptr(), out.data_ptr(), m, k, n, e, pieces,
+        _launch("tgmm_tc", "tgmm_tc", lhs.dtype, lhs.device, lhs, b, gs, out,
+                m, k, n, e, pieces,
                 cost=(2.0 * m * k * n, _nbytes(lhs, dout, gs, out)))
     else:
         _tgmm_ffma(lhs, dout.float(), gs, out)
@@ -445,8 +446,8 @@ def _tgmm_ffma(lhs, dout, gs, out) -> None:
     """The FFMA ``tgmm`` kernel into ``out`` (contiguous CUDA tensors, an
     fp32 dout, gs int32)."""
     (m, k), n, e = lhs.shape, dout.shape[1], gs.shape[0]
-    _launch("tgmm", "tgmm", lhs.dtype, lhs.device, lhs.data_ptr(), dout.data_ptr(),
-            gs.data_ptr(), out.data_ptr(), m, k, n, e, int(lhs.dtype == torch.bfloat16),
+    _launch("tgmm", "tgmm", lhs.dtype, lhs.device, lhs, dout, gs, out,
+            m, k, n, e, int(lhs.dtype == torch.bfloat16),
             cost=(2.0 * m * k * n, _nbytes(lhs, dout, gs, out)))
 
 
@@ -461,7 +462,7 @@ def split_bf16(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
     if x.numel():
-        _launch("split", "split", x.dtype, x.device, x.data_ptr(), out.data_ptr(), x.numel(),
+        _launch("split", "split", x.dtype, x.device, x, out, x.numel(),
                 cost=(0.0, _nbytes(x, out)))
     return out
 
@@ -488,8 +489,8 @@ def segment_sum_rows(dout: torch.Tensor, group_sizes: torch.Tensor) -> torch.Ten
     (m, n), e = dout.shape, group_sizes.shape[0]
     out = torch.empty((e, n), dtype=torch.float32, device=dout.device)
     if n:
-        _launch("colsum", "colsum", dout.dtype, dout.device, dout.data_ptr(), gs.data_ptr(),
-                out.data_ptr(), m, n, e, cost=(0.0, _nbytes(dout, gs, out)))
+        _launch("colsum", "colsum", dout.dtype, dout.device, dout, gs,
+                out, m, n, e, cost=(0.0, _nbytes(dout, gs, out)))
     return out
 
 

@@ -250,5 +250,7 @@ def paged_attention(q: torch.Tensor, key_pages: torch.Tensor, value_pages: torch
         raise RuntimeError(f"paged attention launch failed: CUDA error {err}")
     if _cost.active():
         _cost.add(*paged_attention_cost(q, key_pages, table, pos32, quant=quant,
-                                        pages_per_slot=n_pages))
+                                        pages_per_slot=n_pages),
+                  operands=[t for t in (q, key_pages, value_pages, ks, vs, table, pos32, out, ws)
+                            if t is not None])
     return out

@@ -202,7 +202,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
         _launches[(x.dtype, route)] += 1
         if err:
             raise RuntimeError(f"int8_matmul launch failed ({route}): CUDA error {err}")
-        _cost.add(*int8_matmul_cost(m, k, n, x.dtype))
+        _cost.add(*int8_matmul_cost(m, k, n, x.dtype), operands=(x2, q, scale, out))
     return out.reshape(*lead, n)
 
 

@@ -302,3 +302,92 @@ def sync_wire_bytes(
         strategy = name
     return B.sync_bytes_per_step(params, strategy, world_size, quant_chunk=quant_chunk,
                                  bucket_bytes=bucket_bytes, reverse=overlap)
+
+
+# ----------------------------------------------------- schedule contracts
+def sync_units(
+    params,
+    name: str,
+    axis_size: int,
+    *,
+    bucket_bytes: int | None = DEFAULT_BUCKET_BYTES,
+    grad_compress: str = "none",
+    overlap: bool = False,
+) -> int:
+    """How many sync UNITS one pass over ``params`` (a parameter list or
+    ``(shape, dtype)`` pairs) issues collectives for: buckets where the
+    strategy coalesces (``allreduce``/``ring`` with bucketing on, every
+    int8 path, bucketed zero1/fsdp), tensors everywhere else — the JAX
+    package's ``sync.py::sync_units`` rule for rule, on this package's
+    layouts. ``overlap=True`` counts the overlapped schedule's
+    reverse-order buckets. The unit count ``expected_collective_schedule``
+    scales by."""
+    leaves = len(params)
+    if axis_size <= 1 or name == "none":
+        return leaves
+    # zero1/fsdp resolve FIRST: their units follow the rows=axis_size
+    # chunk layout even when the int8 wire rides on top.
+    if name in ("zero1", "fsdp"):
+        if bucket_bytes:
+            return len(B.bucket_layout(params, bucket_bytes, rows=axis_size,
+                                       reverse=overlap).bucket_cols)
+        return leaves
+    if grad_compress == "int8" or name in ("int8_allreduce", "int8_ring"):
+        return len(B.bucket_layout(params, bucket_bytes or DEFAULT_BUCKET_BYTES, rows=0,
+                                   reverse=overlap).bucket_cols)
+    if (bucket_bytes or overlap) and name in _BUCKETED:
+        rows = axis_size if name == "ring" else 0
+        return len(B.bucket_layout(params, bucket_bytes or DEFAULT_BUCKET_BYTES, rows=rows,
+                                   reverse=overlap).bucket_cols)
+    return leaves
+
+
+def expected_collective_schedule(
+    name: str,
+    axis_size: int,
+    units: int,
+    *,
+    grad_compress: str = "none",
+    syncs_per_step: int = 1,
+) -> dict[str, int] | None:
+    """The gradient-collective contract of one train step (the JAX
+    package's ``sync.py::expected_collective_schedule``): JAX collective
+    class -> count, for ``units`` sync units synced ``syncs_per_step``
+    times. The trace audit (TA003) holds a recorded step to exactly this
+    multiset of non-trivial collectives, the c10d ops mapped to JAX's
+    classes as ``analysis/trace/dispatch.py`` sets out.
+
+    Counts per unit, ``n = axis_size``: ``allreduce``/``auto`` 1 psum;
+    ``ring``/``p2p_star`` 2(n-1) ppermutes; ``gather_scatter`` 1
+    all_gather; ``int8_allreduce`` 2 all_to_alls + 2 all_gathers;
+    ``int8_ring`` 4(n-1) ppermutes; ``zero1``/``fsdp`` a reduce_scatter
+    and an all_gather (``zero.py``; zero1 on the int8 wire 2 all_to_alls
+    + 3 all_gathers); ``none`` or a world of one nothing. None for an
+    unknown name."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.zero import (
+        fsdp_collective_schedule,
+        zero1_collective_schedule,
+        zero1_int8_collective_schedule,
+    )
+
+    n = int(axis_size)
+    u = int(units) * int(syncs_per_step)
+    if name == "none" or n <= 1:
+        return {}
+    if name == "zero1" and grad_compress == "int8":
+        return zero1_int8_collective_schedule(u, n)
+    if grad_compress == "int8" or name in ("int8_allreduce", "int8_ring"):
+        if name in ("ring", "int8_ring"):
+            return {"ppermute": 4 * (n - 1) * u}
+        return {"all_to_all": 2 * u, "all_gather": 2 * u}
+    if name in ("allreduce", "auto"):
+        return {"psum": u}
+    if name in ("ring", "p2p_star"):
+        return {"ppermute": 2 * (n - 1) * u}
+    if name == "gather_scatter":
+        return {"all_gather": u}
+    if name == "zero1":
+        return zero1_collective_schedule(u, n)
+    if name == "fsdp":
+        return fsdp_collective_schedule(u, n)
+    return None

@@ -905,3 +905,86 @@ class ServingEngine:
             "prefills_all": self.prefills_all,
             "paged_attention_impl": self.paged_attention_impl,
         }
+
+
+# ----------------------------------------------------------- graftcheck
+#: The serving entries on a card: GPT-2-small decode with 4 KV heads in
+#: bf16 over the serving phase's page geometry.
+CARD_SERVE = dict(
+    model=dict(num_layers=12, d_model=768, num_heads=12, num_kv_heads=4, d_ff=3072,
+               vocab_size=50304, max_seq_len=1024, compute_dtype="bfloat16"),
+    serve=dict(num_slots=16, page_size=16, num_pages=513, max_pages_per_slot=32),
+)
+
+
+def make_serve_trace_entry(device: str = "cuda", _impl: str = "gather", **overrides):
+    """A graftcheck ``TracedStep`` around the engine's real decode step
+    (``ServingEngine._decode_step``, the JAX ``make_serve_trace_entry``):
+    a tiny paged transformer, the live argument shapes, and the KV page
+    pools as the state the step writes in place. ``lm-serve`` runs the
+    gather reference, ``lm-serve-paged`` the paged-attention kernel
+    (on the CPU its wrapper runs its plain version). ``overrides`` are
+    ``LMConfig`` fields of the model; on a card the entries take
+    ``CARD_SERVE``'s width and geometry."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.analysis.trace.registry import (
+        TracedStep,
+        ensure_process_group,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.config import resolve_device
+    from cs744_pytorch_distributed_tutorial_tpu_torch.train.lm import LMConfig, LMTrainer
+
+    ensure_process_group(resolve_device(device))
+    on_card = device.startswith("cuda")
+    kw: dict[str, Any] = (dict(CARD_SERVE["model"]) if on_card else dict(
+        vocab_size=64, num_layers=2, num_heads=2, d_model=32, d_ff=64, max_seq_len=64))
+    kw.update(use_rope=True, seq_len=8, device=device, attention_impl="dense")
+    kw.update(overrides)
+    model = LMTrainer(LMConfig(**kw)).decode_model()
+    geometry = (CARD_SERVE["serve"] if on_card else
+                dict(num_slots=4, page_size=4, num_pages=17, max_pages_per_slot=8))
+    cfg = ServeConfig(**geometry, paged_attention_impl=_impl)
+    eng = ServingEngine(model, cfg, device=device)
+    b, p = cfg.num_slots, cfg.max_pages_per_slot
+    step_args = (np.zeros(b, np.int32), np.zeros(b, np.int32), np.ones(b, np.int32),
+                 np.arange(b, dtype=np.int32), np.zeros(b, np.int32), np.zeros((b, p), np.int32))
+
+    def state() -> dict[str, list[torch.Tensor]]:
+        return {"pages": [t for c in eng._pages for t in (c.key, c.value, c.key_scale,
+                                                          c.value_scale) if t is not None]}
+
+    return TracedStep(
+        name="lm-serve" if _impl == "gather" else "lm-serve-paged",
+        fn=lambda: eng._decode_step(*step_args),
+        state=state,
+        args={"weights": [*model.parameters(), *model.buffers()],
+              "step_inputs": [eng._host_in, eng._dev_in]},
+        axis_sizes={},
+        sync=None,
+        compute_dtype=kw.get("compute_dtype", "float32"),
+        check_donation=True,
+        detail={"num_slots": cfg.num_slots, "page_size": cfg.page_size,
+                "num_pages": cfg.num_pages, "paged_attention_impl": eng.paged_attention_impl,
+                "num_layers": kw["num_layers"], "d_model": kw["d_model"]},
+    )
+
+
+def make_paged_serve_trace_entry(device: str = "cuda", **overrides):
+    """``lm-serve`` with the paged-attention kernel in the decode step
+    (``paged_attention_impl="kernel"``): TA005 confirms no dead dense
+    gather rides along (the kernel's operands are what its launches name;
+    the launches are in the report), and
+    TA002 that the pools are still written in place."""
+    return make_serve_trace_entry(device, _impl="kernel", **overrides)
+
+
+def _register_serve_trace_entries() -> None:
+    from cs744_pytorch_distributed_tutorial_tpu_torch.analysis.trace.registry import (
+        register_entrypoint,
+    )
+
+    # graftlint: disable=TA001 -- the gather reference computes decode attention's
+    # QK and PV products on fp32 copies of the bf16 pages (bf16 operands with
+    # fp32 accumulation, JAX's preferred_element_type=f32 scores): a cost of the
+    # reference path, not of the kernel path that lm-serve-paged audits clean
+    register_entrypoint("lm-serve", make_serve_trace_entry, tags=("lm", "serve"))
+    register_entrypoint("lm-serve-paged", make_paged_serve_trace_entry, tags=("lm", "serve"))

@@ -1049,3 +1049,135 @@ class Trainer:
             "count": int(count),
             "accuracy": correct / max(count, 1),
         }
+
+
+# ------------------------------------------------------------------ graftcheck
+#: The CIFAR entries on a card: the main path at full width, ResNet-18
+#: through the wgrad kernels (``cifar`` adds the fused-SGD kernel, which
+#: the other entries' options refuse).
+CARD_CIFAR = dict(model="resnet18", fast_conv=True, global_batch_size=256)
+
+
+def _card_cifar(device: str, **options) -> dict[str, Any]:
+    """An entry's options, at ``CARD_CIFAR``'s width on a card."""
+    return {**CARD_CIFAR, **options} if device.startswith("cuda") else options
+
+
+def make_trace_entry(device: str = "cuda", **overrides):
+    """A graftcheck ``TracedStep`` around this engine's REAL
+    ``Trainer.train_step`` (the JAX engine's ``make_trace_entry``): a tiny
+    model on the process group that exists (or a world of one) with one
+    synthetic batch, the state the step updates in place, and the JAX
+    package's collective-schedule contract (``sync_units``,
+    ``expected_collective_schedule``) and wire-byte accounting for TA003
+    to hold the recording to. ``overrides`` are ``TrainConfig`` fields —
+    the audit tests sweep ``sync=`` through every strategy with exactly
+    this function."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.analysis.trace.registry import (
+        TracedStep,
+        ensure_process_group,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
+        expected_collective_schedule,
+        sync_units,
+    )
+
+    ensure_process_group(resolve_device(device))
+    n, rank = world()
+    kw: dict[str, Any] = dict(
+        model="tiny_cnn", num_devices=n, global_batch_size=8 * n, synthetic_data=True,
+        synthetic_train_size=8 * n, synthetic_test_size=8 * n, sync="allreduce",
+        device=device,
+    )
+    kw.update(overrides)
+    kw["synthetic_train_size"] = max(kw["synthetic_train_size"], kw["global_batch_size"])
+    cfg = TrainConfig(**kw)
+    trainer = Trainer(cfg)
+    ds = _load_dataset(cfg)
+    per = cfg.global_batch_size // n
+    rows = slice(rank * per, (rank + 1) * per)
+    x = torch.from_numpy(np.ascontiguousarray(ds.train_images[rows])).to(trainer.device)
+    y = torch.from_numpy(ds.train_labels[rows].astype(np.int64)).to(trainer.device)
+
+    shapes = (trainer._param_shapes if trainer._fsdp
+              else [(tuple(p.shape), p.dtype) for p in trainer.params])
+    syncs_per_step = (1 if (trainer._compress or trainer._zero1
+                            or (trainer._overlap and not trainer._fsdp))
+                      else cfg.accum_steps)
+    # DDP's reducer (auto) is an all-reduce a bucket, as the JAX engine's
+    # explicit-sync rerouting of auto/none.
+    effective = "allreduce" if cfg.sync in ("auto", "none") else cfg.sync
+    units = sync_units(shapes, effective, n, bucket_bytes=trainer._bucket_bytes,
+                       grad_compress=cfg.grad_compress, overlap=trainer._overlap)
+    schedule = expected_collective_schedule(effective, n, units,
+                                            grad_compress=cfg.grad_compress,
+                                            syncs_per_step=syncs_per_step)
+    wire_bytes = syncs_per_step * sync_wire_bytes(
+        shapes, cfg.sync, n, cfg.grad_compress, bucket_bytes=trainer._bucket_bytes,
+        overlap=trainer._overlap)
+
+    def state() -> dict[str, list[torch.Tensor]]:
+        return {
+            "params": list(trainer.params),
+            "momentum": list(trainer.state.momentum),
+            "ef": list(trainer.state.ef),
+            "buffers": [b for b in trainer.model.buffers()],
+        }
+
+    # TA008's contract: zero1 keeps momentum rows, fsdp parameter rows too.
+    sharded = {}
+    if trainer._zero1 or trainer._fsdp:
+        sharded["momentum"] = shapes
+    if trainer._fsdp:
+        sharded["params"] = shapes
+    return TracedStep(
+        name="cifar",
+        fn=lambda: trainer.train_step(x, y),
+        state=state,
+        args={"images": [x], "labels": [y]},
+        axis_sizes={"data": n},
+        sync=cfg.sync,
+        grad_compress=cfg.grad_compress,
+        compute_dtype=cfg.compute_dtype,
+        expected_schedule=schedule,
+        expected_wire_bytes=float(wire_bytes),
+        check_donation=True,
+        sharded_state=sharded,
+        detail={"model": cfg.model, "accum_steps": cfg.accum_steps,
+                "sync_overlap": cfg.sync_overlap, "global_batch_size": cfg.global_batch_size,
+                "fast_conv": cfg.fast_conv, "fused_optimizer": cfg.fused_optimizer},
+    )
+
+
+def _cifar_entry(device: str = "cuda"):
+    # On a card, the fused-SGD kernel too.
+    fused = {"fused_optimizer": True} if device.startswith("cuda") else {}
+    return make_trace_entry(device, **_card_cifar(device, **fused))
+
+
+def _cifar_int8_entry(device: str = "cuda"):
+    return make_trace_entry(device, **_card_cifar(device, sync="int8_allreduce"))
+
+
+def _cifar_overlap_entry(device: str = "cuda"):
+    # The overlapped schedule's contract: the fused bucketed allreduce's
+    # classes and bytes, placed per reverse-order bucket.
+    return make_trace_entry(device, **_card_cifar(device, sync_overlap="bucket"))
+
+
+def _cifar_overlap_zero1_entry(device: str = "cuda"):
+    # Overlapped reduce-scatter schedule: per-bucket reduce-scatter ->
+    # per-shard SGD -> per-bucket delta all-gather.
+    return make_trace_entry(device, **_card_cifar(device, sync="zero1", sync_overlap="bucket"))
+
+
+def _register_trace_entries() -> None:
+    from cs744_pytorch_distributed_tutorial_tpu_torch.analysis.trace.registry import (
+        register_entrypoint,
+    )
+
+    register_entrypoint("cifar", _cifar_entry, tags=("cifar",))
+    register_entrypoint("cifar-int8", _cifar_int8_entry, tags=("cifar", "int8"))
+    register_entrypoint("cifar-overlap", _cifar_overlap_entry, tags=("cifar", "overlap"))
+    register_entrypoint(
+        "cifar-overlap-zero1", _cifar_overlap_zero1_entry, tags=("cifar", "overlap", "zero1"))

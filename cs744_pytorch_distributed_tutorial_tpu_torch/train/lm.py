@@ -1276,3 +1276,123 @@ class LMTrainer:
                 ckpt.close()
             telemetry.close()
         return model, optimizer, losses
+
+
+# ------------------------------------------------------------------ graftcheck
+#: The LM entries on a card: GPT-2-small through the flash and fused
+#: cross-entropy kernels, in bf16 (the main path's LM at full width).
+CARD_LM = dict(vocab_size=50304, num_layers=12, num_heads=12, d_model=768, d_ff=3072,
+               max_seq_len=1024, seq_len=1024, global_batch_size=8, attention_impl="flash",
+               fused_xent=True, compute_dtype="bfloat16", use_rope=False)
+
+
+def make_lm_trace_entry(device: str = "cuda", **overrides):
+    """A graftcheck ``TracedStep`` around the LM engine's real
+    ``LMTrainer.train_step`` (the JAX ``make_lm_trace_entry``): a tiny
+    transformer over the process group that exists (or a world of one) as
+    pure data parallelism, the state the step updates in place, and the
+    data-parallel wire's contract and the same byte accounting ``fit``
+    writes to telemetry. ``overrides`` are ``LMConfig`` fields.
+
+    The port's uncompressed data-parallel sync is bucketed (the all-reduce
+    mean and the zero1/fsdp rules alike, ``sync_bucket_mb``), where the
+    JAX LM syncs a tensor at a time: the contract is JAX's
+    ``expected_collective_schedule`` over ``sync_units`` with this
+    trainer's bucket size."""
+    from cs744_pytorch_distributed_tutorial_tpu_torch.analysis.trace.registry import (
+        TracedStep,
+        ensure_process_group,
+    )
+    from cs744_pytorch_distributed_tutorial_tpu_torch.parallel.sync import (
+        expected_collective_schedule,
+        lm_strategy,
+        sync_units,
+        sync_wire_bytes,
+    )
+
+    ensure_process_group(resolve_device(device))
+    n = dist.get_world_size()
+    kw: dict[str, Any] = dict(
+        vocab_size=64, num_layers=2, num_heads=2, d_model=32, d_ff=64, max_seq_len=16,
+        seq_len=16, global_batch_size=2 * n, data_parallel=n, seq_parallel=1,
+        attention_impl="dense", device=device,
+    )
+    kw.update(overrides)
+    cfg = LMConfig(**kw)
+    trainer = LMTrainer(cfg)
+    trainer.init()
+    rng = np.random.default_rng(cfg.seed)
+    tokens = rng.integers(0, cfg.vocab_size, (cfg.global_batch_size, cfg.seq_len + 1))
+    x, y = trainer.split_batch(tokens)
+
+    shapes = (trainer._param_shapes if cfg.fsdp
+              else [(tuple(p.shape), p.dtype) for p in trainer.optimizer.params])
+    strategy = lm_strategy(cfg.zero1, cfg.fsdp, cfg.grad_compress)
+    units = sync_units(shapes, strategy, n, bucket_bytes=trainer._bucket_bytes,
+                       grad_compress=cfg.grad_compress, overlap=trainer._overlap)
+    schedule = expected_collective_schedule(strategy, n, units, grad_compress=cfg.grad_compress)
+    wire_bytes = sync_wire_bytes(shapes, strategy, n, cfg.grad_compress,
+                                 bucket_bytes=trainer._bucket_bytes, overlap=trainer._overlap)
+
+    def state() -> dict[str, list[torch.Tensor]]:
+        mu, nu, _ = trainer._opt_state()
+        return {"params": list(trainer.optimizer.params), "mu": list(mu), "nu": list(nu),
+                "ef": list(trainer._ef)}
+
+    # TA008's contract: fsdp keeps parameter and moment rows, zero1 moment rows.
+    sharded = {}
+    if cfg.zero1 or cfg.fsdp:
+        sharded = {"mu": shapes, **({"nu": shapes} if cfg.optimizer != "sgd" else {})}
+    if cfg.fsdp:
+        sharded["params"] = shapes
+    return TracedStep(
+        name="lm",
+        fn=lambda: trainer.train_step(x, y),
+        state=state,
+        args={"inputs": [x], "targets": [y], "buffers": list(trainer.model.buffers())},
+        axis_sizes={"data": n},
+        sync=strategy,
+        grad_compress=cfg.grad_compress,
+        compute_dtype=cfg.compute_dtype,
+        expected_schedule=schedule,
+        expected_wire_bytes=float(wire_bytes),
+        check_donation=True,
+        sharded_state=sharded,
+        detail={"layers": cfg.num_layers, "d_model": cfg.d_model, "dp": n,
+                "sync_overlap": cfg.sync_overlap, "attention_impl": cfg.attention_impl,
+                "fused_xent": cfg.fused_xent, "seq_len": cfg.seq_len,
+                "global_batch_size": cfg.global_batch_size},
+    )
+
+
+def _card_lm(device: str, **options) -> dict[str, Any]:
+    """An entry's options, at ``CARD_LM``'s width on a card."""
+    return {**CARD_LM, **options} if device.startswith("cuda") else options
+
+
+def _lm_entry(device: str = "cuda"):
+    return make_lm_trace_entry(device, **_card_lm(device))
+
+
+def _lm_overlap_entry(device: str = "cuda"):
+    # The pure-DP overlapped schedule needs the fixed-LR SGD recipe.
+    return make_lm_trace_entry(device, **_card_lm(device, optimizer="sgd",
+                                                  sync_overlap="bucket"))
+
+
+def _lm_overlap_fsdp_entry(device: str = "cuda"):
+    # Overlapped reduce-scatter schedule under fsdp: the forward gathers
+    # parameters per reverse-order bucket, the gather's backward scatters
+    # the gradients per bucket, and the sharded AdamW applies by rows.
+    return make_lm_trace_entry(device, **_card_lm(device, fsdp=True, sync_overlap="bucket"))
+
+
+def _register_lm_trace_entries() -> None:
+    from cs744_pytorch_distributed_tutorial_tpu_torch.analysis.trace.registry import (
+        register_entrypoint,
+    )
+
+    register_entrypoint("lm", _lm_entry, tags=("lm",))
+    register_entrypoint("lm-overlap", _lm_overlap_entry, tags=("lm", "overlap"))
+    register_entrypoint("lm-overlap-fsdp", _lm_overlap_fsdp_entry,
+                        tags=("lm", "overlap", "fsdp"))

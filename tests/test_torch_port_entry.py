@@ -58,6 +58,12 @@ RUN_LOOP_MODULES = [
     "parallel/tensor.py",
     # the pipe axis and the HuggingFace checkpoint import
     "parallel/pipeline.py", "models/hf_interop.py",
+    # the analysis package: graftlint, graftrank, the trace and memory audits
+    "analysis/__init__.py", "analysis/__main__.py", "analysis/cli.py", "analysis/context.py",
+    "analysis/core.py", "analysis/engine.py", "analysis/fix.py", "analysis/rank.py",
+    "analysis/rules.py", "analysis/trace/__init__.py", "analysis/trace/audits.py",
+    "analysis/trace/cli.py", "analysis/trace/dispatch.py", "analysis/trace/memory.py",
+    "analysis/trace/registry.py",
 ]
 
 
