@@ -338,7 +338,17 @@ no result):
     entries: GPT-2-small at 8 x 1024 in bf16, flash on the tensor cores
     and one fused cross-entropy forward and backward, ``lm-overlap``'s
     SGD a fused launch a bucket; ``lm-serve-paged``: GPT-2-small decode through
-    the paged kernel, ``lm-serve`` none).
+    the paged kernel, ``lm-serve`` none);
+35. the H-pair-packed 3x3 conv forward (``conv_fwd_hpair_phase``; the TPU
+    probe ``benchmarks/probe_fwd_hpair.py``): the kernel against its plain
+    version at the probe's [4096, 32, 32, 64] bf16 and at B 3 and H 2,
+    with ``pack_weights`` of a seeded HWIO weight and with a seeded random
+    ``w_packed`` (2 bf16 ulps + 1e-5 x max|plain| an element, at most 0.1 %
+    of elements differing), a refused C's ``ValueError``, the kernel against
+    cuDNN's bf16 conv (the probe's 5e-2), every call's launch counted; its
+    time, the plain version's and cuDNN's ``F.conv2d`` on the same x (a
+    channels-last view) beside both bounds; then the probe's entry point,
+    ``python -m ...ops.conv_fwd_hpair``'s ``main``, its launches counted.
 
 Each phase prints its wall seconds as it ends, and the line before the
 kernels JSON gives the whole run's and each phase's.
@@ -629,9 +639,10 @@ def kernel_modules():
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import gmm as G
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import paged_attention as PA
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import quant as QT
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import conv_fwd_hpair as HP
 
     return {"fused_sgd": K, "conv3x3_wgrad": C, "flash": A, "paged_attention": PA,
-            "int8_matmul": QT, "fused_xent": FX, "gmm_fused": G}
+            "int8_matmul": QT, "fused_xent": FX, "gmm_fused": G, "conv3x3_fwd_hpair": HP}
 
 
 def others(counts: dict, *allowed: str) -> dict:
@@ -6553,12 +6564,149 @@ def analysis_phase() -> dict:
     return {"lint_s": lint_s, "section": section, "entries": rows, "seconds": seconds}
 
 
+# Phase 35: the H-pair-packed 3x3 conv forward (the TPU probe
+# benchmarks/probe_fwd_hpair.py), at the probe's shape and at ragged ones,
+# then its entry point. No training, serving or LM path launches it.
+HPAIR_SHAPE = (4096, 32, 32, 64)
+HPAIR_RAGGED = [(3, 32, 32, 64), (3, 2, 32, 64)]  # no tile divides B 3; H 2: a tile past H
+
+
+def conv_fwd_hpair_phase(dev: torch.device) -> dict:
+    """The kernel against its plain version (``agreement``: 2 bf16 ulps +
+    1e-5 x max|plain| an element, at most 0.1 % differing) with
+    ``pack_weights`` of a seeded HWIO weight and with a seeded random
+    ``w_packed`` at ``HPAIR_SHAPE`` and at ``HPAIR_RAGGED``; a refused
+    shape's ``ValueError``; the kernel against cuDNN's bf16 conv (the
+    probe's 5e-2 check); each call's launch counted. Then the times at
+    ``HPAIR_SHAPE`` (kernel, plain, cuDNN) beside the bounds, and the
+    probe's entry point (``main``) as the path, its launches counted.
+    Returns the kernels line's record."""
+    import torch.nn.functional as F
+
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _build
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import conv_fwd_hpair as H
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's product in fp32
+    gen = torch.Generator(device=dev).manual_seed(35)
+    worst = {"share": 0.0, "differing": 0.0, "max_abs_err": 0.0}
+    H.reset_launch_count()
+    calls = 0
+    for shape in (HPAIR_SHAPE, *HPAIR_RAGGED):
+        x = randn(gen, *shape, dtype=torch.bfloat16)
+        for label, wp in (("pack_weights", H.pack_weights(0.1 * randn(gen, 3, 3, 64, 64))),
+                          ("random", (0.1 * randn(gen, 768, 128)).to(torch.bfloat16))):
+            got = H.conv3x3_fwd_hpair(x, wp)
+            calls += 1
+            a = H.agreement(got, H.conv3x3_fwd_hpair_plain(x, wp))
+            print(f"conv3x3_fwd_hpair {list(shape)} {label}: {json.dumps(a)}")
+            if not a["ok"] or not math.isfinite(a["share"]):
+                raise RuntimeError(f"conv3x3_fwd_hpair disagrees with its plain version at "
+                                   f"{list(shape)} ({label}): {a}")
+            for k in worst:
+                worst[k] = max(worst[k], a[k])
+            del got
+    try:
+        H.conv3x3_fwd_hpair(torch.zeros((2, 8, 32, 32), dtype=torch.bfloat16, device=dev),
+                            torch.zeros((384, 64), dtype=torch.bfloat16, device=dev))
+        raise RuntimeError("conv3x3_fwd_hpair took C = 32, which its kernel does not cover")
+    except ValueError as e:
+        print(f"conv3x3_fwd_hpair refuses C = 32: {e}")
+
+    x = randn(gen, *HPAIR_SHAPE, dtype=torch.bfloat16)
+    wk = 0.1 * randn(gen, 3, 3, 64, 64)
+    wp = H.pack_weights(wk)
+    w_oihw = H.hwio_to_oihw(wk).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    x_nchw = x.permute(0, 3, 1, 2)  # channels-last view: cuDNN reads x as stored
+
+    def library():
+        return F.conv2d(x_nchw, w_oihw, padding=1).permute(0, 2, 3, 1)
+
+    got, ref = H.conv3x3_fwd_hpair(x, wp), library()
+    calls += 1
+    err = float((got.float() - ref.float()).abs().max())
+    rel = err / float(ref.float().abs().max())
+    print(f"conv3x3_fwd_hpair against cuDNN's bf16 conv: max abs err {err}, rel {rel} (the "
+          f"probe's limit {H.PROBE_REL_LIMIT}); agreement {json.dumps(H.agreement(got, ref))}")
+    if not rel < H.PROBE_REL_LIMIT:
+        raise RuntimeError(f"conv3x3_fwd_hpair: numerics mismatch against cuDNN (rel {rel})")
+    torch.cuda.synchronize()
+    if H.launch_count() != calls:
+        raise RuntimeError(f"conv3x3_fwd_hpair: {H.launch_count()} launches for {calls} calls")
+    del got, ref
+
+    t = {
+        "ms": median_ms(lambda: H.conv3x3_fwd_hpair(x, wp)),
+        "device_ms": device_busy_ms(lambda: H.conv3x3_fwd_hpair(x, wp)),
+        "library_ms": median_ms(library),
+        "library_device_ms": device_busy_ms(library),
+        "plain_ms": median_ms(lambda: H.conv3x3_fwd_hpair_plain(x, wp), reps=5, warmup=1),
+        "plain_device_ms": device_busy_ms(lambda: H.conv3x3_fwd_hpair_plain(x, wp), reps=3),
+    }
+    t["ms_second"] = median_ms(lambda: H.conv3x3_fwd_hpair(x, wp))  # kernel, cuDNN, kernel
+    bounds = H.bounds_ms(tuple(x.shape))  # H100 SXM peaks, from this run's shape
+    bound, lib_bound = bounds["bound_ms"], bounds["library_bound_ms"]
+    print(f"conv3x3_fwd_hpair {list(HPAIR_SHAPE)} on {card_line()}: kernel {t['ms']:.4f} ms, again "
+          f"after cuDNN {t['ms_second']:.4f} (device {t['device_ms']} ms), bound {bound:.4f} ms "
+          f"({bounds['bound_by']}): {100 * bound / t['ms']:.1f} % of it; cuDNN bf16 conv2d "
+          f"{t['library_ms']:.4f} ms (device {t['library_device_ms']} ms), its own bound "
+          f"{lib_bound:.4f} ms ({bounds['library_bound_by']}): "
+          f"{100 * lib_bound / t['library_ms']:.1f} %; "
+          f"kernel / cuDNN {t['ms'] / t['library_ms']:.3f}; plain {t['plain_ms']:.4f} ms (device "
+          f"{t['plain_device_ms']} ms)")
+
+    # The path: the probe's entry point, as a user runs it.
+    H.reset_launch_count()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = H.main([])
+    torch.cuda.synchronize()
+    text = buf.getvalue()
+    print(text, end="")
+    probe = json.loads(text.strip().splitlines()[-1])
+    launches = H.launch_count()
+    if rc != 0 or launches != probe["calls"] or launches < 1:
+        raise RuntimeError(f"conv_fwd_hpair.main: rc {rc}, {launches} launches for "
+                           f"{probe['calls']} calls")
+    ptxas = _build.ptxas_report(H.SOURCE)
+    print(f"conv_fwd_hpair phase: {time.perf_counter() - t0:.1f} s")
+    return {
+        "name": "conv3x3_fwd_hpair",
+        "route": "cuda",
+        "source": "cs744_pytorch_distributed_tutorial_tpu_torch/csrc/" + H.SOURCE,
+        "replaces": "benchmarks/probe_fwd_hpair.py:50",
+        "tpu_kernel": "benchmarks/probe_fwd_hpair.py::_fwd_kernel (pallas_call :116)",
+        "launches": launches,
+        "max_abs_err": worst["max_abs_err"],
+        "share_of_limit": worst["share"],
+        "share_differing": worst["differing"],
+        "ms": t["ms"],
+        "ms_second": t["ms_second"],
+        "device_ms": t["device_ms"],
+        "plain_ms": t["plain_ms"],
+        "plain_device_ms": t["plain_device_ms"],
+        "bound_ms": bound,
+        "bound_by": bounds["bound_by"],
+        "bound_share": bound / t["ms"],
+        "library_ms": t["library_ms"],
+        "library_device_ms": t["library_device_ms"],
+        "library": "F.conv2d (cuDNN, bf16, channels-last view of x)",
+        "library_bound_ms": lib_bound,
+        "library_bound_share": lib_bound / t["library_ms"],
+        "cudnn_rel_err": rel,
+        "probe": {k: probe[k] for k in ("rel_err", "kernel_ms", "library_ms", "calls")},
+        "ptxas": ptxas,
+        "work": f"one call at {list(HPAIR_SHAPE)} (the probe's shape)",
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import _build
+    from cs744_pytorch_distributed_tutorial_tpu_torch.ops import conv_fwd_hpair as HP
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import flash_attention as A
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_conv as C
     from cs744_pytorch_distributed_tutorial_tpu_torch.ops import fused_sgd as K
@@ -6583,14 +6731,14 @@ def main() -> int:
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     t0 = time.perf_counter()
-    modules = (K, C, A, PA, QT, FX, G)
+    modules = (K, C, A, PA, QT, FX, G, HP)
     sources = [src for module in modules for src in getattr(module, "SOURCES", (module.SOURCE,))]
     _build.build_all(sources)
     for module in modules:
         module.load_kernel()
     print("built " + ", ".join(f"{s} in {_build.build_seconds[s]:.2f} s" for s in sources)
           + f", in parallel (wall {time.perf_counter() - t0:.2f} s)")
-    for src in (A.TC_SOURCE, QT.TC_SOURCE, G.TC_SOURCE, C.TC_SOURCE):  # tensor-core kernels
+    for src in (A.TC_SOURCE, QT.TC_SOURCE, G.TC_SOURCE, C.TC_SOURCE, HP.SOURCE):  # tensor cores
         for kernel, usage in _build.ptxas_report(src).items():
             print(f"ptxas {src}: {kernel}: {usage['registers']} registers, "
                   f"{usage['spill_stores']} bytes spill stores, {usage['spill_loads']} bytes "
@@ -6706,6 +6854,9 @@ def main() -> int:
     # The analysis package: the linter, and one recorded step of each
     # registered entry audited (TA001-TA010) on the card.
     analysis = analysis_phase()
+    # The H-pair-packed conv forward (the TPU probe's kernel) and its
+    # entry point, off every training, serving and LM path.
+    records.append(conv_fwd_hpair_phase(dev))
     gmm_keys = {"gmm_fused": "fused", "gmm_fused_tc": "fused_tc", "gmm_fused_with_z": "fused_z",
                 "gmm_fused_with_z_tc": "fused_z_tc", "gmm": "gmm", "gmm_tc": "gmm_tc",
                 "tgmm": "tgmm", "tgmm_tc": "tgmm_tc", "colsum": "colsum"}

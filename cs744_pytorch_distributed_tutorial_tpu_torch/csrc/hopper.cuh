@@ -1,5 +1,6 @@
 // Hopper primitives shared by the tensor-core kernels (gmm_tc.cu,
-// flash_attention_tc.cu): mbarriers, TMA loads, wgmma descriptors and
+// flash_attention_tc.cu, fused_conv_tc.cu, int8_matmul_tc.cu,
+// conv_fwd_hpair.cu): mbarriers, TMA loads, wgmma descriptors and
 // instructions, and the host-side lookup of cuTensorMapEncodeTiled.
 //
 // Every shared-memory operand is 128-byte swizzled: a row of 64 bf16 (128
@@ -74,6 +75,17 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// One box of a 5-D tensor map into shared memory, completed on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
       : "memory");
 }
 
